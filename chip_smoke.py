@@ -19,8 +19,23 @@ Phases (any failure exits non-zero and prints no result line):
      PATH_TOL) and frame times;
   4. held-out PSNR on the textured fixture (bench.py:149-170 protocol)
      against the JAX package's value for the same protocol;
-  5. one {"kernels": [...]} line, one {"frames": ...} line, and last
-     {"ok": true, "device": {...}}.
+  5. the interactive segmentation frame (bench.py's product loop): the
+     asset with a seeded SAM feature head and SAM's full decoder
+     (`SamConfig()`, seeded bf16 weights), one 3D point at the origin,
+     512^2 through `InteractiveSession.step` at (32, 16) and (128, 64, 32),
+     launch counters set to 0 just before a frame and read just after,
+     finite depth / samvit [32, 32, 256] / mask logits;
+  6. the render options on the same frames: `flatten_kernel` (flatten3_nt
+     launches, pixels identical to the default) and `packed_epilogue` on
+     the RGB frame (within 1e-6 of the default), each path driven with the
+     counters set to 0; flatten3_nt and the packed variants of ray_level0,
+     ray_level and run_tmlp_composite held against their plain versions at
+     those frames' shapes and at ragged ones;
+  7. mask mIoU of assets/serving_student_mask through the port's fast path
+     (bench.py:173-225 protocol) against the JAX package's value;
+  8. interactive frame times (bench.py:_drive protocol), pipelined and sync;
+  9. one {"kernels": [...]} line, one {"frames": ...} line, one
+     {"interactive": ...} line, and last {"ok": true, "device": {...}}.
 Needs no network; builds into build/kernels/.
 """
 
@@ -42,6 +57,14 @@ JAX_PSNR_32_16_BF16 = 21.203517998498757
 #: the same at the full (128, 64, 32) hierarchy
 JAX_PSNR_FULL_BF16 = 21.39814067011814
 PSNR_TOL_DB = 0.2
+#: Held-out mask mIoU of assets/serving_student_mask through the JAX
+#: package's XLA path on the CPU, bf16 params, (32, 16), bench.py:173-225
+#: protocol; from `JAX_PLATFORMS=cpu python port_tools/jax_miou_reference.py`.
+JAX_MIOU_32_16_BF16 = 0.9080225199611455
+MIOU_TOL = 0.005
+#: packed epilogue against the default frame (the JAX suite's bound,
+#: tests/test_ray_kernels.py:197-226)
+PACKED_TOL = 1e-6
 RAY_TOL = 1e-5
 #: bf16 MLP kernels against their plain versions: the JAX suite's bf16
 #: bound, |d| <= 0.05 + 0.05 |ref| element by element
@@ -76,6 +99,12 @@ SERVE_POSE = [[1, 0, 0, 0], [0, 1, 0, 0], [0, 0, 1, 2.0], [0, 0, 0, 1]]
 SIZE = 512
 HIERARCHIES = {"32,16": (32, 16), "128,64,32": (128, 64, 32)}
 KERNELS = ("ray_level0", "ray_level", "run_tmlp", "run_tmlp_composite")
+#: launches per interactive frame (RGB render + 32^2 feature render) of
+#: ray_level0 / ray_level / run_tmlp / run_tmlp_composite / flatten3_nt
+INTERACTIVE_LAUNCHES = {"32,16": [2, 2, 3, 1, 0],
+                        "128,64,32": [2, 4, 5, 1, 0]}
+#: flatten3_nt launches per interactive frame under flatten_kernel
+FLATTEN_LAUNCHES = {"32,16": 4, "128,64,32": 6}
 SOURCES = {
     "ray_level0": ("sanerf_tpu_torch/csrc/ray_kernels.cu",
                    "sanerf_tpu/ops/ray_kernels.py:275"),
@@ -85,6 +114,10 @@ SOURCES = {
                  "sanerf_tpu/ops/fused_mlp_t.py:1077"),
     "run_tmlp_composite": ("sanerf_tpu_torch/csrc/fused_mlp_t.cu",
                            "sanerf_tpu/ops/fused_mlp_t.py:885"),
+    "flatten3_nt": ("sanerf_tpu_torch/csrc/ray_kernels.cu",
+                    "sanerf_tpu/ops/ray_kernels.py:247"),
+    "packed_epilogue": ("sanerf_tpu_torch/csrc/fused_mlp_t.cu",
+                        "sanerf_tpu/ops/fused_mlp_t.py:757"),
 }
 
 
@@ -168,12 +201,14 @@ def main():
     # -- 2. kernels against their plain versions ---------------------------
     kern_fn = {"ray_level0": rk.ray_level0, "ray_level": rk.ray_level,
                "run_tmlp": fm.run_tmlp,
-               "run_tmlp_composite": fm.run_tmlp_composite}
+               "run_tmlp_composite": fm.run_tmlp_composite,
+               "flatten3_nt": rk.flatten3_nt}
     plain_fn = {
         "ray_level0": rk.ray_level0_plain,
         "ray_level": rk.ray_level_plain,
         "run_tmlp": lambda x, tm, transposed: fm.run_tmlp_plain(x, tm),
         "run_tmlp_composite": fm.run_tmlp_composite_plain,
+        "flatten3_nt": rk.flatten3_nt_plain,
     }
     # first call of each kernel in one frame per hierarchy: (args, kwargs)
     seen = {}
@@ -357,14 +392,30 @@ def main():
         return a.elapsed_time(b) / reps
 
     def bound(name, a, k):
-        """(ms, bound_by): each input read once and each output written
-        once over HBM, against the operations at their type's peak: the
-        ray kernels' float32 ramp sums, the MLPs' bf16 tensor-core MACs
+        """(ms, bound_by) of one launch: the larger of its byte time and its
+        operation time (bound_parts)."""
+        return bound_of([bound_parts(name, a, k)])
+
+    def bound_of(parts):
+        """(ms, bound_by) of launches run in series: their byte times and
+        their operation times each summed, then the larger."""
+        t_b, t_o = sum(p[0] for p in parts), sum(p[1] for p in parts)
+        return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+    def bound_parts(name, a, k):
+        """(byte ms, operation ms): each input read once and each output
+        written once over HBM, and the operations at their type's peak:
+        the ray kernels' float32 ramp sums, the MLPs' bf16 tensor-core MACs
         (the float32 encode and CP taps, on other units, are left out)."""
+        if name == "flatten3_nt":
+            # a copy: each float read once and written once
+            return 2 * a[0].numel() * 4 / HBM_BPS * 1e3, 0.0
         if name in ("ray_level0", "ray_level"):
             N = a[0].shape[0]
             T = a[1] if name == "ray_level0" else a[3]
             nbytes = N * 32 + N * (6 * T + 1) * 4
+            if k.get("pack_q"):
+                nbytes += N * 2 * T * 4  # the packed ts / dl rows
             ops, peak = 0.0, F32_FLOPS
             if name == "ray_level":
                 T0 = a[1].shape[1]
@@ -381,7 +432,7 @@ def main():
             if name == "run_tmlp":
                 nbytes = P * 12 + P * tm.kout * 4
             else:
-                N = a[1].shape[0]
+                N = P // (a[1].shape[1] if a[1].dim() == 2 else k["T"])
                 # x3, dl, ts per point; rays8 per ray; gsum, depth, wsum, rgb
                 nbytes = P * 20 + N * 32 + N * (tm.kout + 5) * 4
                 view = k.get("view")
@@ -391,8 +442,7 @@ def main():
                     ops += 2.0 * vm * N
             nbytes += tm.table_bytes + sum(w.numel() * w.element_size()
                                            for w in tm.ws)
-        t_b, t_o = nbytes / HBM_BPS * 1e3, ops / peak * 1e3
-        return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+        return nbytes / HBM_BPS * 1e3, ops / peak * 1e3
 
     timing = {n: {} for n in KERNELS}
     for (h, name), (a, k) in seen.items():
@@ -449,6 +499,17 @@ def main():
         check(abs(psnr[h] - ref) <= PSNR_TOL_DB,
               f"{h}: PSNR {psnr[h]:.3f} dB vs JAX {ref:.3f} dB")
 
+    inter = interactive_phases(
+        torch, np, dev, card, fields, renderer, rk, fm, compare, cuda_ms,
+        bound, bound_parts, bound_of,
+        lambda steps, **kw: model_at(steps, **kw), rays_o, rays_d, nets,
+        params, to_f32)
+    rows += inter.pop("rows")
+    for row in rows[:len(KERNELS)]:
+        row["launches_interactive_per_frame"] = {
+            h: v[KERNELS.index(row["name"])]
+            for h, v in inter["launches_per_frame"].items()}
+
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({
         "frames": {"size": SIZE, "param_dtype": "bfloat16",
@@ -459,9 +520,330 @@ def main():
                    "psnr_db": psnr,
                    "jax_psnr_db_bf16_cpu": jax_psnr,
                    "card": card}}), flush=True)
+    print(json.dumps({"interactive": inter}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def interactive_phases(torch, np, dev, card, fields, renderer, rk, fm,
+                       compare, cuda_ms, bound, bound_parts, bound_of,
+                       model_at, rays_o, rays_d, nets, params, to_f32):
+    """Phases 5-8: the interactive frame, the render options, mask mIoU and
+    frame times. -> the {"interactive": ...} record, with the kernel rows of
+    flatten3_nt and the packed epilogue under "rows"."""
+    import dataclasses
+
+    from sanerf_tpu_torch.apps import frame_pipeline as fp
+    from sanerf_tpu_torch.apps.interactive import InteractiveSession
+    from sanerf_tpu_torch.data.synthetic import SyntheticSphereDataset
+    from sanerf_tpu_torch.models.asset import load_asset, load_mask_asset
+    from sanerf_tpu_torch.models.sam import predictor as sam_mod
+    from sanerf_tpu_torch.train.metrics import MeanIoUMeter
+
+    asset = os.path.join(ROOT, "assets", "serving_student")
+    pose = np.asarray(SERVE_POSE, np.float32)
+    counters = [rk.ray_level0, rk.ray_level, fm.run_tmlp,
+                fm.run_tmlp_composite, rk.flatten3_nt]
+    packed_counters = [rk.ray_level0, rk.ray_level, fm.run_tmlp_composite]
+
+    def zero():
+        for c in counters:
+            c.launches = 0
+        for c in packed_counters:
+            c.packed_launches = 0
+
+    # -- 5. the interactive frame ------------------------------------------
+    mcs, rcs, ps32 = load_asset(asset, device=dev, with_sam=True, seed=0)
+    ps = fields.cast_params(ps32, torch.bfloat16)
+    sam_cfg = sam_mod.SamConfig()
+    sam_params = fields.cast_params(sam_mod.init_params(
+        sam_cfg, torch.Generator().manual_seed(1), dev))
+
+    def session(steps, **rc_kw):
+        model = fields.make_model(mcs, dataclasses.replace(
+            rcs, num_steps=steps, max_ray_batch=SIZE * SIZE, **rc_kw))
+        return InteractiveSession(
+            None, model, ps, sam_mod.SamPredictor(sam_cfg, sam_params,
+                                                  device=dev),
+            H=SIZE, W=SIZE, device=dev)
+
+    def warm(s):
+        """bench.py:_drive: a frame, one point at the origin, a frame."""
+        s.step(pose)
+        if not s.points_3d:
+            s.points_3d.append(np.zeros(3, np.float32))
+        s.step(pose)
+
+    def counted_frame(s):
+        """One sync frame with the counters set to 0 just before; -> (the
+        frame, launches per counter, packed launches, samvit, mask
+        logits)."""
+        got = {}
+        dfused, dec = fp.decode_fused, sam_mod.decode
+
+        def spy_fused(cfg, p, feats, *a, **k):
+            got.setdefault("samvit", feats)
+            return dfused(cfg, p, feats, *a, **k)
+
+        def spy_dec(*a, **k):
+            out = dec(*a, **k)
+            got.setdefault("logits", out[0])
+            return out
+
+        fp.decode_fused, sam_mod.decode = spy_fused, spy_dec
+        try:
+            torch.cuda.synchronize()
+            zero()
+            r = s.step(pose, pipelined=False)
+            torch.cuda.synchronize()
+        finally:
+            fp.decode_fused, sam_mod.decode = dfused, dec
+        return (r, [c.launches for c in counters],
+                [c.packed_launches for c in packed_counters],
+                got.get("samvit"), got.get("logits"))
+
+    sessions = {h: session(st) for h, st in HIERARCHIES.items()}
+    per_frame, frames = {}, {}
+    for h, s in sessions.items():
+        warm(s)
+        r, n, _, samvit, logits = counted_frame(s)
+        per_frame[h], frames[h] = n, r
+        check(n == INTERACTIVE_LAUNCHES[h],
+              f"{h}: interactive frame launches {n}, expected "
+              f"{INTERACTIVE_LAUNCHES[h]} (ray_level0, ray_level, run_tmlp, "
+              f"run_tmlp_composite, flatten3_nt)")
+        check(r.rgb_u8.shape == (SIZE, SIZE, 3), f"{h}: frame shape")
+        check(bool(torch.isfinite(r.depth).all()), f"{h}: depth not finite")
+        check(samvit is not None
+              and tuple(samvit.shape) == (s.h, s.w, mcs.sam_feat_dim),
+              f"{h}: samvit {None if samvit is None else samvit.shape}")
+        check(bool(torch.isfinite(samvit).all()), f"{h}: samvit not finite")
+        check(logits is not None and bool(torch.isfinite(logits).all()),
+              f"{h}: mask logits not finite")
+        check(r.mask is not None and tuple(r.mask.shape) == (SIZE, SIZE),
+              f"{h}: mask missing or misshapen")
+        check(len(s.points_3d) == 1, f"{h}: the click memory")
+    log(f"interactive launches per frame {per_frame}")
+
+    # -- 6. the render options -----------------------------------------------
+    seen = {}
+
+    def spy(mod, name, fn, key, when):
+        def wrapped(*a, **k):
+            if when(a, k):
+                seen.setdefault(key, (a, k))
+            return fn(*a, **k)
+        setattr(mod, name, wrapped)
+
+    flat_launches = {}
+    for h, st in HIERARCHIES.items():
+        s = session(st, flatten_kernel=True)
+        warm(s)
+        spy(renderer, "flatten3_nt", rk.flatten3_nt, (h, "flatten3_nt"),
+            lambda a, k: True)
+        try:
+            r, n, _, _, _ = counted_frame(s)
+        finally:
+            renderer.flatten3_nt = rk.flatten3_nt
+        flat_launches[h] = n[4]
+        check(n[4] == FLATTEN_LAUNCHES[h],
+              f"{h}: flatten3_nt launches {n[4]}, expected "
+              f"{FLATTEN_LAUNCHES[h]}")
+        check(np.array_equal(r.rgb_u8, frames[h].rgb_u8)
+              and torch.equal(r.depth, frames[h].depth),
+              f"{h}: the flatten_kernel frame differs from the default")
+        del s
+    packed_launches, packed_err = {}, {}
+    for h, st in HIERARCHIES.items():
+        ref = renderer.render_frame(model_at(st), params, rays_o, rays_d,
+                                    chunk=SIZE * SIZE, nets=nets)
+        spy(renderer, "ray_level", rk.ray_level, (h, "packed/ray_level"),
+            lambda a, k: k.get("pack_q", 0) > 0)
+        spy(fields, "run_tmlp_composite", fm.run_tmlp_composite,
+            (h, "packed/run_tmlp_composite"),
+            lambda a, k: k.get("pack_q", 1) > 1)
+        try:
+            torch.cuda.synchronize()
+            zero()
+            got = renderer.render_frame(
+                model_at(st, packed_epilogue=True), params, rays_o, rays_d,
+                chunk=SIZE * SIZE, nets=nets)
+            torch.cuda.synchronize()
+            packed_launches[h] = [c.packed_launches for c in packed_counters]
+        finally:
+            renderer.ray_level = rk.ray_level
+            fields.run_tmlp_composite = fm.run_tmlp_composite
+        check(packed_launches[h] == [0, 1, 1],
+              f"{h}: packed launches {packed_launches[h]} (ray_level0, "
+              f"ray_level, run_tmlp_composite), expected [0, 1, 1]")
+        packed_err[h] = {}
+        for k in ("image", "depth", "weights_sum"):
+            d = (got[k] - ref[k]).abs()
+            packed_err[h][k] = float(d.max())
+            check(bool((d <= PACKED_TOL + PACKED_TOL * ref[k].abs()).all()),
+                  f"{h}: packed epilogue {k} off the default by "
+                  f"{float(d.max()):.3g}")
+        del got, ref
+    log(f"flatten launches {flat_launches}, packed launches "
+        f"{packed_launches}, packed vs default {packed_err}")
+
+    # kernels against their plain versions at those frames' shapes ...
+    errs = {"flatten3_nt": 0.0, "packed_epilogue": 0.0}
+    for (h, key), (a, k) in seen.items():
+        name = key.split("/")[-1]
+        if name == "flatten3_nt":
+            errs[name] = max(errs[name],
+                             compare(name, a, k, 0.0, flips=False)[0])
+            continue
+        tol = RAY_TOL if name == "ray_level" else MLP_TOL
+        e, _ = compare(name, a, k, tol, flips=name != "ray_level")
+        errs["packed_epilogue"] = max(errs["packed_epilogue"], e)
+        if name == "ray_level":
+            out = rk.ray_level(*a, **k)
+            torch.cuda.synchronize()
+            check(torch.equal(out[4].reshape(out[1].shape), out[1])
+                  and torch.equal(out[5].reshape(out[2].shape), out[2]),
+                  f"{h}: packed ts/dl rows are not the flat ts/dl")
+            del out
+        else:
+            compare(name, *to_f32(a, k), MLP_F32_TOL[name], flips=False)
+    # ... and at ragged ones (N = 1000: not a multiple of the warps' rays)
+    g = torch.Generator(device=dev).manual_seed(7)
+    r8 = seen[("32,16", "packed/ray_level")][0][0][:1000].contiguous()
+    for N_, T_ in ((997, 7), (1000, 16)):
+        x3 = torch.randn(3, N_, T_, generator=g, device=dev)
+        compare("flatten3_nt", (x3,), {}, 0.0, flips=False)
+    w0 = torch.rand(1000, 32, generator=g, device=dev)
+    b0 = rk.ray_level0(r8, 32, True)[0]
+    for q in (8, 4):
+        e0, _ = compare("ray_level0", (r8, 16, True), {"pack_q": q}, RAY_TOL,
+                        flips=False)
+        e1, _ = compare("ray_level", (r8, w0, b0, 16, True), {"pack_q": q},
+                        RAY_TOL, flips=False)
+        o0 = rk.ray_level0(r8, 16, True, pack_q=q)
+        check(torch.equal(o0[4].reshape(1000, 16), o0[1])
+              and torch.equal(o0[5].reshape(1000, 16), o0[2]),
+              "ragged: packed ray_level0 rows are not the flat ts/dl")
+        T_ = 128 // q
+        xT = torch.rand(3, 1000 * T_, generator=g, device=dev) * 4 - 2
+        dl = torch.rand(1000, T_, generator=g, device=dev) * 0.1
+        ts = torch.cumsum(dl, 1) + 0.5
+        pk = lambda v: v.reshape(1000 // q, q * T_, 1)  # noqa: E731
+        kw = {"opaque": True, "view": nets.view, "rays8": r8, "pack_q": q,
+              "T": T_}
+        e2, _ = compare("run_tmlp_composite", (xT, pk(dl), pk(ts),
+                                               nets.field), kw, MLP_TOL,
+                        flips=True)
+        flat = fm.run_tmlp_composite(xT, dl, ts, nets.field, opaque=True,
+                                     view=nets.view, rays8=r8)
+        pkd = fm.run_tmlp_composite(xT, pk(dl), pk(ts), nets.field, **kw)
+        torch.cuda.synchronize()
+        for x, y in zip(pkd, flat):
+            check(bool(((x - y).abs() <= PACKED_TOL
+                        + PACKED_TOL * y.abs()).all()),
+                  "ragged: packed composite off the unpacked one")
+        errs["packed_epilogue"] = max(errs["packed_epilogue"], e0, e1, e2)
+        del o0, flat, pkd
+    log(f"flatten / packed kernels vs plain: {errs}")
+
+    # -- 7. mask mIoU ----------------------------------------------------------
+    mcm, rcm, pm32 = load_mask_asset(asset, device=dev)
+    pm = fields.cast_params(pm32, torch.bfloat16)
+    mmodel = fields.make_model(mcm, dataclasses.replace(
+        rcm, num_steps=(32, 16), max_ray_batch=128 * 128))
+    check(renderer.uses_kernels(mmodel), "mIoU: the fast path is off")
+    ds = SyntheticSphereDataset(H=128, W=128, n_views=8, radius=1.8,
+                                scene="textured", training=False)
+    meter = MeanIoUMeter()
+    for idx in range(len(ds)):
+        fr = ds.frame(idx)
+        out = renderer.render_staged(
+            mmodel, pm, torch.as_tensor(fr["rays_o"], device=dev),
+            torch.as_tensor(fr["rays_d"], device=dev), return_mask=True,
+            cam_near_far=torch.as_tensor(fr["cam_near_far"], device=dev))
+        logits = out["instance_mask_logits"]
+        check(bool(torch.isfinite(logits).all()), f"mIoU frame {idx}")
+        meter.update(logits.argmax(-1).cpu().numpy(), fr["masks"])
+    miou = meter.measure()
+    check(abs(miou - JAX_MIOU_32_16_BF16) <= MIOU_TOL,
+          f"mask mIoU {miou:.4f} vs JAX {JAX_MIOU_32_16_BF16:.4f}")
+    log(f"mask mIoU {miou}")
+
+    # -- 8. frame times (bench.py:_drive) --------------------------------------
+    def drive(s, n, sync):
+        ts_ = []
+        for _ in range(n):
+            t = time.perf_counter()
+            s.step(pose, pipelined=not sync)
+            ts_.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(ts_), ts_
+
+    times = {}
+    for h, s in sessions.items():
+        drive(s, 3, False)  # refill the pipeline
+        pipelined = drive(s, 7, False)
+        sync = drive(s, 5, True)
+        times[h] = {"pipelined_ms": pipelined[0], "sync_ms": sync[0],
+                    "pipelined_runs": pipelined[1], "sync_runs": sync[1]}
+    log(f"interactive frame times {times}")
+
+    # -- kernel rows of this slice -------------------------------------------
+    a, k = seen[("32,16", "flatten3_nt")]
+    x3 = a[0]
+    fl_b = bound("flatten3_nt", a, k)
+    rows = [{
+        "name": "flatten3_nt", "route": "cuda",
+        "source": SOURCES["flatten3_nt"][0],
+        "replaces": SOURCES["flatten3_nt"][1],
+        "launches": sum(flat_launches.values()),
+        "launches_per_frame": flat_launches,
+        "max_abs_err": errs["flatten3_nt"], "tol": 0.0,
+        "tol_kind": "bit for bit",
+        "ms": cuda_ms(lambda: rk.flatten3_nt(x3), reps=20),
+        "plain_ms": cuda_ms(lambda: rk.flatten3_nt_plain(x3), reps=20),
+        "bound_ms": fl_b[0], "bound_by": fl_b[1],
+        "library_ms": cuda_ms(lambda: x3.reshape(3, -1).clone(), reps=20),
+        "shapes_of": "32,16 interactive frame, first launch",
+        "shape": list(x3.shape)}]
+    pk_ms = pk_plain = 0.0
+    pk_parts = []
+    for key, name, fn, plain in (
+            ("packed/ray_level", "ray_level", rk.ray_level,
+             rk.ray_level_plain),
+            ("packed/run_tmlp_composite", "run_tmlp_composite",
+             fm.run_tmlp_composite, fm.run_tmlp_composite_plain)):
+        a, k = seen[("32,16", key)]
+        pk_ms += cuda_ms(lambda: fn(*a, **k), reps=10)
+        pk_plain += cuda_ms(lambda: plain(*a, **k), reps=2)
+        pk_parts.append(bound_parts(name, a, k))
+        torch.cuda.empty_cache()
+    rows.append({
+        "name": "packed_epilogue", "route": "cuda",
+        "source": SOURCES["packed_epilogue"][0],
+        "also_source": "sanerf_tpu_torch/csrc/ray_kernels.cu",
+        "replaces": SOURCES["packed_epilogue"][1],
+        "also_replaces": "sanerf_tpu/ops/ray_kernels.py:131",
+        "launches": sum(sum(v) for v in packed_launches.values()),
+        "launches_per_frame": packed_launches,
+        "launches_of": "ray_level0, ray_level, run_tmlp_composite with "
+                       "pack_q",
+        "max_abs_err": errs["packed_epilogue"], "tol": MLP_TOL,
+        "tol_kind": "as ray_level (1e-5) and run_tmlp_composite (bf16); "
+                    f"frame within {PACKED_TOL} of the default",
+        "ms": pk_ms, "plain_ms": pk_plain,
+        "bound_ms": bound_of(pk_parts)[0], "bound_by": bound_of(pk_parts)[1],
+        "library_ms": None,
+        "shapes_of": "32,16 RGB frame: packed ray_level + packed composite",
+        "frame_max_abs_err_vs_default": packed_err})
+    return {"size": SIZE, "param_dtype": "bfloat16",
+            "sam": "SamConfig() decoder, seeded random bf16 weights",
+            "frame_ms": times, "launches_per_frame": per_frame,
+            "flatten_launches_per_frame": flat_launches,
+            "packed_launches_per_frame": packed_launches,
+            "packed_vs_default_max_abs_err": packed_err,
+            "mask_miou": miou, "jax_mask_miou_bf16_cpu": JAX_MIOU_32_16_BF16,
+            "card": card, "rows": rows}
 
 
 if __name__ == "__main__":

@@ -4,7 +4,8 @@
 // (reached by run_tmlp :481; body _encode_and_chain :549, _ad_encode :108,
 // _grid_blocks :323, _cp_level :235) and :885 _run_tmlp_composite (reached
 // by run_tmlp_composite :978; kernel _tmlp_composite_kernel :707, view
-// epilogue :835-874). Plain PyTorch versions of the same functions:
+// epilogue :835-874, packed epilogue pack_q > 1 :757-796). Plain PyTorch
+// versions of the same functions:
 // sanerf_tpu_torch/ops/fused_mlp_t.py (forward_plain, *_plain).
 //
 // Bound on an H100: the field chain of the serving asset is 50,944 MAC per
@@ -34,6 +35,11 @@
 // optional opaque last sample, a warp scan for the exclusive transmittance
 // sum of the finite optical depths, NaN weights -> 0, per-ray sums, then the
 // SH (degree <= 4) + view MLP head on one lane per output and the sigmoid.
+// With pack_q > 1 the composite reads dl and ts through the packed layout
+// of the ray kernels, [N/q, q*T, 1] with ray n in slot n % q of row n / q
+// (the TPU fills 128-lane rows with q rays; the per-ray warp epilogue here
+// has no lanes to fill, so the option computes the same function from the
+// packed operands at the same cost).
 // Built with -fmad=false so the encode and the epilogue round like the
 // PyTorch versions.
 
@@ -457,12 +463,19 @@ __device__ __forceinline__ float sh_component(int k, float x, float y,
   }
 }
 
+// offset of ray n's first sample in dl / ts: rows of Ts, or with pack_q > 1
+// the packed rows of q * Ts (slot n % q of row n / q)
+__device__ __forceinline__ long ray_offset(long n, int Ts, int pack_q) {
+  return (n / pack_q) * ((long)pack_q * Ts) + (n % pack_q) * Ts;
+}
+
 template <typename T>
 __global__ void __launch_bounds__(WARPS * 32)
 composite_kernel(Net net, View view, Plan pl, const float* __restrict__ x3,
                  const float* __restrict__ dl, const float* __restrict__ ts,
-                 const float* __restrict__ rays8, int N, int Ts, int opaque,
-                 float* __restrict__ gsum, float* __restrict__ depth,
+                 const float* __restrict__ rays8, int N, int Ts, int pack_q,
+                 int opaque, float* __restrict__ gsum,
+                 float* __restrict__ depth,
                  float* __restrict__ wsum, float* __restrict__ rgb) {
   extern __shared__ __align__(16) unsigned char smem[];
   WarpBufs wb;
@@ -501,6 +514,7 @@ composite_kernel(Net net, View view, Plan pl, const float* __restrict__ x3,
       const float* ob = wb.outb + r * Ts * pl.ldo;
       float* wts = wb.wts + r * Ts;
       float* tsb = wb.tsb + r * Ts;
+      const long roff = ray_offset(n, Ts, pack_q);
       float carry = 0.0f;
       for (int t0 = 0; t0 < Ts; t0 += 32) {
         const int t = t0 + lane;
@@ -509,10 +523,10 @@ composite_kernel(Net net, View view, Plan pl, const float* __restrict__ x3,
         if (valid) {
           const float s = ob[t * pl.ldo] - 1.0f;
           const float sigma = fmaxf(s, 0.0f) + log1pf(expf(-fabsf(s)));
-          ds = dl[n * Ts + t] * sigma;
+          ds = dl[roff + t] * sigma;
           const float ds_a = (opaque && t == Ts - 1) ? __int_as_float(0x7f800000) : ds;
           alpha = 1.0f - expf(-ds_a);
-          tsb[t] = ts[n * Ts + t];
+          tsb[t] = ts[roff + t];
         }
         float incl = ds;
         for (int off = 1; off < 32; off <<= 1) {
@@ -654,10 +668,11 @@ int launch_tmlp(Net net, const float* x3, long np, float* out, int out_rows,
 template <typename T>
 int launch_composite(Net net, View view, const float* x3, const float* dl,
                      const float* ts, const float* rays8, int N, int Ts,
-                     int opaque, float* gsum, float* depth, float* wsum,
-                     float* rgb, cudaStream_t stream) {
+                     int pack_q, int opaque, float* gsum, float* depth,
+                     float* wsum, float* rgb, cudaStream_t stream) {
   const int M = Ts > TILE ? Ts : TILE;
   if (M % TILE || M % Ts || M > 128) return (int)cudaErrorInvalidValue;
+  if (pack_q < 1 || N % pack_q) return (int)cudaErrorInvalidValue;
   if (net.layer[net.n_layers - 1].kout != TILE) return (int)cudaErrorInvalidValue;
   if (view.H > 32 || view.sh_dim > 16) return (int)cudaErrorInvalidValue;
   Plan pl;
@@ -666,7 +681,8 @@ int launch_composite(Net net, View view, const float* x3, const float* dl,
   const long n_steps = ((long)N * Ts + M - 1) / M;
   const int grid = grid_size(composite_kernel<T>, pl.total, n_steps);
   composite_kernel<T><<<grid, WARPS * 32, pl.total, stream>>>(
-      net, view, pl, x3, dl, ts, rays8, N, Ts, opaque, gsum, depth, wsum, rgb);
+      net, view, pl, x3, dl, ts, rays8, N, Ts, pack_q, opaque, gsum, depth,
+      wsum, rgb);
   return (int)cudaGetLastError();
 }
 
@@ -692,8 +708,8 @@ extern "C" int tmlp_composite_launch(
     const void* cp, int cpR, int cpK, float cps, float cpo, const void* scp,
     int sR, int sK, float ss, float so, const void* vw, int v_elems,
     const int* vdesc, const float* x3, const float* dl, const float* ts,
-    const float* rays8, int N, int Ts, int opaque, float* gsum, float* depth,
-    float* wsum, float* rgb, void* stream) {
+    const float* rays8, int N, int Ts, int pack_q, int opaque, float* gsum,
+    float* depth, float* wsum, float* rgb, void* stream) {
   Net net = make_net(desc, w, w_elems, enc_scale, cp, cpR, cpK, cps, cpo, scp,
                      sR, sK, ss, so);
   if (net.n_layers < 1 || net.n_layers > MAX_LAYERS) return -1;
@@ -705,9 +721,9 @@ extern "C" int tmlp_composite_launch(
     view.degree = vdesc[3];
   }
   return bf16 ? launch_composite<__nv_bfloat16>(
-                    net, view, x3, dl, ts, rays8, N, Ts, opaque, gsum, depth,
-                    wsum, rgb, (cudaStream_t)stream)
+                    net, view, x3, dl, ts, rays8, N, Ts, pack_q, opaque, gsum,
+                    depth, wsum, rgb, (cudaStream_t)stream)
               : launch_composite<float>(net, view, x3, dl, ts, rays8, N, Ts,
-                                        opaque, gsum, depth, wsum, rgb,
-                                        (cudaStream_t)stream);
+                                        pack_q, opaque, gsum, depth, wsum,
+                                        rgb, (cudaStream_t)stream);
 }

@@ -1,9 +1,11 @@
 // Per-level ray geometry for the NeRF renderer, Hopper (sm_90a).
 //
 // Replaces the TPU kernels sanerf_tpu/ops/ray_kernels.py:275 ray_level0
-// (_ray0_kernel :145, _level_body :109, _contract_planes :47) and :310
-// ray_level (_ray_kernel :167, _resample :73). Plain PyTorch versions of the
-// same functions: sanerf_tpu_torch/ops/ray_kernels.py (*_plain).
+// (_ray0_kernel :145, _level_body :109, _contract_planes :47), :310
+// ray_level (_ray_kernel :167, _resample :73) with their pack_q outputs
+// (_pack_rows / _store_packed :131-142), and :247 flatten3_nt
+// (_flatten_kernel :230). Plain PyTorch versions of the same functions:
+// sanerf_tpu_torch/ops/ray_kernels.py (*_plain).
 //
 // Bound on an H100: memory. Per ray, level 0 reads 32 B of ray and writes
 // bins, ts, dl and three coordinate planes: (T+1 + 2T + 3T) floats; at
@@ -22,8 +24,21 @@
 // and the [3, N, T] planes is contiguous across the warp. The contraction
 // keeps the 1e-12 clamps and the x-over-y-over-z tie-break. Built with
 // -fmad=false so products and sums round like the separate PyTorch ops.
+//
+// pack_q > 0 (the packed-epilogue feed): the kernel also writes ts and dl as
+// [N/q, q*T, 1] rows, ray n in slot n % q of row n / q. On a row-major GPU
+// tensor those rows are the same bytes as [N, T] (the TPU packs q rays into
+// one 128-lane row; Hopper has no lanes to fill), so the two extra outputs
+// cost 8 B per sample of writes and nothing else.
+//
+// flatten3_nt: [3, N, T] -> [3, N*T]. Row-major, the two layouts are the same
+// bytes, so the kernel is a copy: a grid-stride loop of 16-byte loads and
+// stores (scalar when a pointer is not 16-byte aligned). Bound by bytes:
+// 2 x 12 B per sample, ~30 us for the 4.19 M final samples of a 512^2 frame
+// at (32, 16) at 3.35 TB/s.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -69,8 +84,15 @@ __device__ __forceinline__ void emit_samples(const Ray& r, const float* rb,
                                              int contract, int lane,
                                              float* __restrict__ ts,
                                              float* __restrict__ dl,
-                                             float* __restrict__ x3) {
+                                             float* __restrict__ x3,
+                                             int pack_q,
+                                             float* __restrict__ ts_p,
+                                             float* __restrict__ dl_p) {
   const size_t plane = (size_t)N * T;
+  // packed row offset of ray n: slot n % q of row n / q
+  const size_t prow = pack_q ? (size_t)(n / pack_q) * pack_q * T +
+                                   (size_t)(n % pack_q) * T
+                             : 0;
   for (int t = lane; t < T; t += 32) {
     const float r0 = rb[t], r1 = rb[t + 1];
     const float tv = 0.5f * (r1 + r0);
@@ -82,6 +104,10 @@ __device__ __forceinline__ void emit_samples(const Ray& r, const float* rb,
     x3[i] = x;
     x3[plane + i] = y;
     x3[2 * plane + i] = z;
+    if (pack_q) {
+      ts_p[prow + t] = tv;
+      dl_p[prow + t] = r1 - r0;
+    }
   }
 }
 
@@ -90,7 +116,8 @@ ray_level0_kernel(const float* __restrict__ rays8,
                   const float* __restrict__ jitter, int N, int T,
                   int contract, float* __restrict__ bins,
                   float* __restrict__ ts, float* __restrict__ dl,
-                  float* __restrict__ x3) {
+                  float* __restrict__ x3, int pack_q,
+                  float* __restrict__ ts_p, float* __restrict__ dl_p) {
   __shared__ float s_rb[WARPS][MAXE];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float* rb = s_rb[warp];
@@ -104,7 +131,8 @@ ray_level0_kernel(const float* __restrict__ rays8,
       rb[j] = metric_edge(r, b);
     }
     __syncwarp();
-    emit_samples(r, rb, n, N, T, contract, lane, ts, dl, x3);
+    emit_samples(r, rb, n, N, T, contract, lane, ts, dl, x3, pack_q, ts_p,
+                 dl_p);
     __syncwarp();
   }
 }
@@ -116,7 +144,8 @@ ray_level_kernel(const float* __restrict__ rays8,
                  const float* __restrict__ jitter, int N, int T0, int T,
                  int contract, int uniform_prev, float* __restrict__ bins,
                  float* __restrict__ ts, float* __restrict__ dl,
-                 float* __restrict__ x3) {
+                 float* __restrict__ x3, int pack_q,
+                 float* __restrict__ ts_p, float* __restrict__ dl_p) {
   __shared__ float s_pdf[WARPS][MAXE];
   __shared__ float s_cdf[WARPS][MAXE];
   __shared__ float s_rc[WARPS][MAXE];
@@ -174,9 +203,32 @@ ray_level_kernel(const float* __restrict__ rays8,
       rb[j] = metric_edge(r, b);
     }
     __syncwarp();
-    emit_samples(r, rb, n, N, T, contract, lane, ts, dl, x3);
+    emit_samples(r, rb, n, N, T, contract, lane, ts, dl, x3, pack_q, ts_p,
+                 dl_p);
     __syncwarp();
   }
+}
+
+__global__ void __launch_bounds__(256)
+flatten3_kernel(const float* __restrict__ x, float* __restrict__ out, long n,
+                int vec) {
+  const long stride = (long)gridDim.x * blockDim.x;
+  const long tid = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  long done = 0;
+  if (vec) {
+    const long n4 = n / 4;
+    const float4* x4 = reinterpret_cast<const float4*>(x);
+    float4* o4 = reinterpret_cast<float4*>(out);
+    for (long i = tid; i < n4; i += stride) o4[i] = __ldg(x4 + i);
+    done = n4 * 4;
+  }
+  for (long i = done + tid; i < n; i += stride) out[i] = x[i];
+}
+
+bool pack_ok(int N, int pack_q, const float* ts_p, const float* dl_p) {
+  if (pack_q < 0) return false;
+  if (pack_q == 0) return true;
+  return N % pack_q == 0 && ts_p && dl_p;
 }
 
 int grid_for(int N) {
@@ -188,11 +240,12 @@ int grid_for(int N) {
 
 extern "C" int ray_level0_launch(const float* rays8, const float* jitter,
                                  int N, int T, int contract, float* bins,
-                                 float* ts, float* dl, float* x3,
-                                 void* stream) {
-  if (T < 1 || T + 1 > MAXE) return (int)cudaErrorInvalidValue;
+                                 float* ts, float* dl, float* x3, int pack_q,
+                                 float* ts_p, float* dl_p, void* stream) {
+  if (T < 1 || T + 1 > MAXE || !pack_ok(N, pack_q, ts_p, dl_p))
+    return (int)cudaErrorInvalidValue;
   ray_level0_kernel<<<grid_for(N), WARPS * 32, 0, (cudaStream_t)stream>>>(
-      rays8, jitter, N, T, contract, bins, ts, dl, x3);
+      rays8, jitter, N, T, contract, bins, ts, dl, x3, pack_q, ts_p, dl_p);
   return (int)cudaGetLastError();
 }
 
@@ -200,11 +253,26 @@ extern "C" int ray_level_launch(const float* rays8, const float* w_prev,
                                 const float* bins_prev, const float* jitter,
                                 int N, int T0, int T, int contract,
                                 int uniform_prev, float* bins, float* ts,
-                                float* dl, float* x3, void* stream) {
-  if (T < 1 || T + 1 > MAXE || T0 < 1 || T0 + 1 > MAXE)
+                                float* dl, float* x3, int pack_q, float* ts_p,
+                                float* dl_p, void* stream) {
+  if (T < 1 || T + 1 > MAXE || T0 < 1 || T0 + 1 > MAXE ||
+      !pack_ok(N, pack_q, ts_p, dl_p))
     return (int)cudaErrorInvalidValue;
   ray_level_kernel<<<grid_for(N), WARPS * 32, 0, (cudaStream_t)stream>>>(
       rays8, w_prev, bins_prev, jitter, N, T0, T, contract, uniform_prev,
-      bins, ts, dl, x3);
+      bins, ts, dl, x3, pack_q, ts_p, dl_p);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int flatten3_launch(const float* x3, long n, float* out,
+                               void* stream) {
+  if (n < 0) return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  const int vec = ((uintptr_t)x3 % 16 == 0) && ((uintptr_t)out % 16 == 0);
+  const long work = vec ? (n + 3) / 4 : n;
+  long blocks = (work + 255) / 256;
+  if (blocks > 132 * 16) blocks = 132 * 16;
+  flatten3_kernel<<<(int)blocks, 256, 0, (cudaStream_t)stream>>>(x3, out, n,
+                                                                vec);
   return (int)cudaGetLastError();
 }

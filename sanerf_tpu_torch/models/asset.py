@@ -5,10 +5,22 @@ The JAX checkpoints and serving assets are flat npz files whose keys are
 flatten_tree), weights stored [in, out]. `params_from_jax` turns such a
 dict into the port's parameter tree; the tests use it to give both
 frameworks identical weights.
+
+Three ways to load the shipped asset:
+  - `load_asset(path)`: the RGB field as shipped;
+  - `load_asset(path, with_sam=True)`: the interactive frame's model, the
+    asset plus a SAM feature head (`with_sam`, `sam_use_view_direction`)
+    drawn from a seeded generator, as bench.py serves it (the asset ships
+    no SAM head);
+  - `load_mask_asset(path)`: the asset with the mask head of
+    `<path>_mask.npz` overlaid (`with_mask`, `n_inst` of `<path>_mask.json`),
+    the model the mask mIoU is scored on.
+Each fails on any key of the files it reads that the model does not map.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 from typing import Dict, Optional, Tuple
@@ -18,11 +30,25 @@ import torch
 
 from sanerf_tpu_torch.config import ModelConfig, RenderConfig, config_from_dict
 from sanerf_tpu_torch.device import resolve_device
-from sanerf_tpu_torch.models.fields import NerfModel, Params, make_model
+from sanerf_tpu_torch.models.fields import (NerfModel, Params, init_params,
+                                            make_model)
 
-_LAYER = re.compile(r"^(grid_mlp|view_mlp)/(\d+)/w$")
+_LAYER = re.compile(
+    r"^(grid_mlp|view_mlp|s_field_mlp|m_field_mlp|mask_mlp)/(\d+)/w$")
+_BIASED = re.compile(r"^(samvit_mlp)/(\d+)/(w|b)$")
 _PROP = re.compile(r"^prop/(\d+)/mlp/(\d+)/w$")
+_NORM = re.compile(r"^samvit_norm/(w|b)$")
 _TABLES = ("cp_lines", "sigma_cp_lines")
+
+
+def _mlp_shapes(out, name, d_in, d_out, d_hidden, n_layers, skip=(),
+                bias=False):
+    for l in range(n_layers):
+        i = d_in if l == 0 else (d_hidden + d_in if l in skip else d_hidden)
+        o = d_out if l == n_layers - 1 else d_hidden
+        out[f"{name}/{l}/w"] = (i, o)
+        if bias:
+            out[f"{name}/{l}/b"] = (o,)
 
 
 def expected_shapes(model: NerfModel) -> Dict[str, Tuple[int, ...]]:
@@ -46,6 +72,18 @@ def expected_shapes(model: NerfModel) -> Dict[str, Tuple[int, ...]]:
         out["cp_lines"] = (3, c.mlp_cp_res, c.mlp_cp_rank)
     if c.mlp_sigma_cp_rank > 0:
         out["sigma_cp_lines"] = (3, c.mlp_sigma_cp_res, c.mlp_sigma_cp_rank)
+    if c.with_sam:
+        _mlp_shapes(out, "s_field_mlp", model.grid_out_dim, model.s_feat_dim,
+                    c.mlp_sam_width, c.mlp_sam_depth)
+        _mlp_shapes(out, "samvit_mlp", model.samvit_in_dim, c.sam_feat_dim,
+                    c.samvit_mlp_hidden, c.samvit_mlp_layers,
+                    c.samvit_skip_layers, bias=True)
+        out["samvit_norm/w"] = out["samvit_norm/b"] = (c.sam_feat_dim,)
+    if c.with_mask:
+        _mlp_shapes(out, "m_field_mlp", model.grid_out_dim, model.m_feat_dim,
+                    c.mlp_mask_width, c.mlp_mask_depth)
+        _mlp_shapes(out, "mask_mlp", model.m_feat_dim + c.geom_feat_dim,
+                    model.mask_out_dim(), 256, 3)
     return out
 
 
@@ -58,7 +96,7 @@ def params_from_jax(flat: Dict[str, np.ndarray],
     does not map; with `model`, also on a shape mismatch or a missing key."""
     dev = torch.device("cpu") if device is None else resolve_device(device)
     shapes = expected_shapes(model) if model is not None else None
-    layers: Dict[Tuple[str, int], Dict[int, torch.Tensor]] = {}
+    layers: Dict[Tuple[str, int], Dict[int, Dict[str, torch.Tensor]]] = {}
     params: Params = {}
     unmapped = []
     for key, v in flat.items():
@@ -69,12 +107,19 @@ def params_from_jax(flat: Dict[str, np.ndarray],
             unmapped.append(key)
             continue
         t = torch.tensor(np.asarray(v, np.float32), device=dev)
-        m, mp = _LAYER.match(path), _PROP.match(path)
+        m, mb, mp = _LAYER.match(path), _BIASED.match(path), _PROP.match(path)
+        mn = _NORM.match(path)
         if m:
-            layers.setdefault((m.group(1), -1), {})[int(m.group(2))] = t
+            layers.setdefault((m.group(1), -1), {}).setdefault(
+                int(m.group(2)), {})["w"] = t
+        elif mb:
+            layers.setdefault((mb.group(1), -1), {}).setdefault(
+                int(mb.group(2)), {})[mb.group(3)] = t
         elif mp:
-            layers.setdefault(("prop", int(mp.group(1))), {})[
-                int(mp.group(2))] = t
+            layers.setdefault(("prop", int(mp.group(1))), {}).setdefault(
+                int(mp.group(2)), {})["w"] = t
+        elif mn:
+            params.setdefault("samvit_norm", {})[mn.group(1)] = t
         elif path in _TABLES:
             params[path] = t
         else:
@@ -92,7 +137,9 @@ def params_from_jax(flat: Dict[str, np.ndarray],
         if sorted(by_idx) != list(range(len(by_idx))):
             raise ValueError(f"{name}: layer indices {sorted(by_idx)} "
                              f"are not contiguous")
-        seq = [{"w": by_idx[l]} for l in range(len(by_idx))]
+        seq = [by_idx[l] for l in range(len(by_idx))]
+        if any("w" not in p for p in seq):
+            raise ValueError(f"{name}: a layer has a bias and no weight")
         if name == "prop":
             params.setdefault("prop", [None] * n_props)[i] = {"mlp": seq}
         else:
@@ -102,15 +149,53 @@ def params_from_jax(flat: Dict[str, np.ndarray],
     return params
 
 
-def load_asset(path: str, device=None
-               ) -> Tuple[ModelConfig, RenderConfig, Params]:
-    """Read `<path>.json` (model_config, render_config) and `<path>.npz`
-    (flat params) -> (model config, render config, params on `device`)."""
-    dev = resolve_device(device)
+def _read(path: str):
     with open(path + ".json") as f:
         meta = json.load(f)
-    mc = config_from_dict(ModelConfig, meta["model_config"])
-    rc = config_from_dict(RenderConfig, meta["render_config"])
     with np.load(path + ".npz") as z:
         flat = {k: z[k] for k in z.files}
-    return mc, rc, params_from_jax(flat, make_model(mc, rc), dev)
+    return meta, flat
+
+
+def load_asset(path: str, device=None, with_sam: bool = False,
+               seed: int = 0) -> Tuple[ModelConfig, RenderConfig, Params]:
+    """Read `<path>.json` (model_config, render_config) and `<path>.npz`
+    (flat params) -> (model config, render config, params on `device`).
+
+    `with_sam` serves the interactive frame: the model config gains
+    `with_sam` and `sam_use_view_direction`, the SAM feature head is drawn
+    from `torch.Generator().manual_seed(seed)` and every asset weight
+    overlays the result (bench.py:60-67)."""
+    dev = resolve_device(device)
+    meta, flat = _read(path)
+    mc = config_from_dict(ModelConfig, meta["model_config"])
+    rc = config_from_dict(RenderConfig, meta["render_config"])
+    params = params_from_jax(flat, make_model(mc, rc), dev)
+    if with_sam:
+        mc = dataclasses.replace(mc, with_sam=True,
+                                 sam_use_view_direction=True)
+        head = init_params(make_model(mc, rc),
+                           torch.Generator().manual_seed(seed), dev)
+        params = {**head, **params}
+    return mc, rc, params
+
+
+def load_mask_asset(path: str, device=None
+                    ) -> Tuple[ModelConfig, RenderConfig, Params]:
+    """The asset at `path` with the mask head of `<path>_mask.{json,npz}`
+    overlaid (bench.py:194-211): `with_sam` off, `with_mask` on, the mask
+    head type and `n_inst` from the mask JSON. Unlike bench.py it fails on
+    any key of either npz that the mask model does not map, and on any key
+    of the model that neither file holds."""
+    dev = resolve_device(device)
+    meta, flat = _read(path)
+    mmeta, mflat = _read(path + "_mask")
+    mc = dataclasses.replace(
+        config_from_dict(ModelConfig, meta["model_config"]), with_sam=False,
+        with_mask=True, mask_mlp_type=mmeta["mask_mlp_type"],
+        n_inst=mmeta["n_inst"])
+    rc = config_from_dict(RenderConfig, meta["render_config"])
+    overlap = sorted(set(flat) & set(mflat) - {"__meta__"})
+    if overlap:
+        raise ValueError(f"the mask npz repeats asset keys: {overlap}")
+    return mc, rc, params_from_jax({**flat, **mflat}, make_model(mc, rc), dev)

@@ -2,11 +2,14 @@
 (JAX: sanerf_tpu/models/fields.py).
 
 Parameters are nested dicts of tensors with the JAX package's names
-(`grid_mlp`, `view_mlp`, `prop[i]["mlp"]`, `cp_lines`, `sigma_cp_lines`);
-weights are stored [in, out]. The plain functions (`apply_mlp`,
-`position_features`, `forward`, `density`, ...) mirror the JAX XLA path;
-`field_forward_T`, `field_composite_T` and `density(fast=True)` go through
-the kernels of ops/fused_mlp_t.py.
+(`grid_mlp`, `view_mlp`, `prop[i]["mlp"]`, `cp_lines`, `sigma_cp_lines`,
+the SAM feature head `s_field_mlp` / `samvit_mlp` / `samvit_norm`, the
+default mask head `m_field_mlp` / `mask_mlp`); weights are stored
+[in, out]. The plain functions (`apply_mlp`, `position_features`,
+`forward`, `density`, `sam_features`, `mask_grid_features`,
+`apply_samvit_head`, ...) mirror the JAX XLA path; `field_forward_T`,
+`field_composite_T` and `density(fast=True)` go through the kernels of
+ops/fused_mlp_t.py.
 """
 
 from __future__ import annotations
@@ -34,13 +37,45 @@ Params = Dict[str, Any]
 # ---------------------------------------------------------------------------
 
 
+def init_linear(g: torch.Generator, d_in: int, d_out: int, bias: bool,
+                device=None) -> Params:
+    """torch nn.Linear's default init: U(-1/sqrt(d_in), 1/sqrt(d_in))."""
+    bound = 1.0 / d_in ** 0.5
+
+    def u(*shape):
+        return (torch.rand(shape, generator=g) * 2.0 - 1.0) * bound
+
+    p = {"w": u(d_in, d_out).to(device)}
+    if bias:
+        p["b"] = u(d_out).to(device)
+    return p
+
+
+def init_mlp(g, d_in: int, d_out: int, d_hidden: int, n_layers: int,
+             bias: bool, skip_layers: Sequence[int] = (),
+             device=None) -> List[Params]:
+    """Layer l takes d_hidden inputs (d_in at l = 0, d_hidden + d_in at a
+    skip layer) and gives d_hidden outputs (d_out at the last)."""
+    layers = []
+    for l in range(n_layers):
+        fin = d_in if l == 0 else (d_hidden + d_in if l in skip_layers
+                                   else d_hidden)
+        fout = d_out if l == n_layers - 1 else d_hidden
+        layers.append(init_linear(g, fin, fout, bias, device))
+    return layers
+
+
 def apply_linear(p: Params, x: torch.Tensor, hidden: bool = False
                  ) -> torch.Tensor:
     """Product in the weight dtype with float32 accumulation; hidden layers
-    emit the weight dtype, final layers float32."""
+    emit the weight dtype, final layers float32. A bias is added to the
+    product in the output dtype and the sum cast to it again."""
     w = p["w"]
     out_dt = w.dtype if hidden else torch.float32
-    return (x.to(w.dtype).float() @ w.float()).to(out_dt)
+    y = (x.to(w.dtype).float() @ w.float()).to(out_dt)
+    if "b" in p:
+        y = (y + p["b"]).to(out_dt)
+    return y
 
 
 def cast_params(params: Params, dtype=torch.bfloat16) -> Params:
@@ -81,6 +116,13 @@ def apply_skip_mlp(layers: Sequence[Params], x: torch.Tensor,
     return x, []
 
 
+def apply_layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5
+                    ) -> torch.Tensor:
+    mu = x.mean(dim=-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(dim=-1, keepdim=True)
+    return p["w"] * (x - mu) * torch.rsqrt(var + eps) + p["b"]
+
+
 # ---------------------------------------------------------------------------
 # the model
 # ---------------------------------------------------------------------------
@@ -117,10 +159,32 @@ class NerfModel:
     def color_dim(self) -> int:
         return self.cfg.geom_feat_dim + self.view_in_dim
 
+    @property
+    def s_feat_dim(self) -> int:
+        """Per-point SAM field feature width."""
+        return self.cfg.mlp_sam_feat_dim
+
+    @property
+    def m_feat_dim(self) -> int:
+        """Per-point mask field feature width."""
+        return self.cfg.mlp_mask_feat_dim
+
+    @property
+    def samvit_in_dim(self) -> int:
+        """[f_sam, f_image | geo_feat sum, image, depth] (composite-then-
+        head; the port has no sum_after_mlp)."""
+        c = self.cfg
+        per = self.color_dim if c.sam_use_view_direction else c.geom_feat_dim
+        return self.s_feat_dim + per + 3 + 1
+
+    def mask_out_dim(self) -> int:
+        return self.cfg.n_inst + self.cfg.redundant_instance
+
 
 def make_model(cfg: ModelConfig, render_cfg: RenderConfig) -> NerfModel:
     """The port serves the MLP family with single-level CP and sigma-CP
-    grids; every other family or grid raises NotImplementedError."""
+    grids, the composite-then-head SAM feature head and the default mask
+    head; every other family, grid or head raises NotImplementedError."""
     if cfg.field_type != "mlp":
         raise NotImplementedError(
             f"field_type={cfg.field_type!r}: the port has the MLP family only")
@@ -128,9 +192,57 @@ def make_model(cfg: ModelConfig, render_cfg: RenderConfig) -> NerfModel:
         raise NotImplementedError("VM grids are not in the port yet")
     if cfg.mlp_cp_rank > 0 and cfg.mlp_cp_levels != 1:
         raise NotImplementedError("multi-level CP grids are not in the port yet")
-    if cfg.with_mask:
-        raise NotImplementedError("the mask field is not in the port yet")
+    if cfg.with_mask and cfg.mask_mlp_type != "default":
+        raise NotImplementedError(
+            f"mask_mlp_type={cfg.mask_mlp_type!r} is not in the port yet")
+    if cfg.sum_after_mlp:
+        raise NotImplementedError("sum_after_mlp is not in the port yet")
     return NerfModel(cfg=cfg, render_cfg=render_cfg)
+
+
+def init_params(model: NerfModel, generator: torch.Generator,
+                device=None) -> Params:
+    """Random parameters of every head the model has (JAX:
+    fields.py:init_params, :415-424, :451-474), float32, drawn from
+    `generator` on the CPU and moved to `device`. The draws differ from
+    JAX's for the same seed; tests carry JAX's weights across with
+    models/asset.py:params_from_jax instead."""
+    c, g = model.cfg, generator
+    dev = torch.device("cpu") if device is None else device
+    params: Params = {
+        "grid_mlp": init_mlp(g, model.grid_out_dim, 1 + c.geom_feat_dim,
+                             c.mlp_field_width, c.mlp_field_depth, False,
+                             (c.mlp_field_depth // 2,), dev),
+        "view_mlp": init_mlp(g, model.color_dim, 3, c.view_mlp_hidden,
+                             c.view_mlp_layers, False, (), dev),
+        "prop": [{"mlp": init_mlp(g, model.prop_in_dim, 1, c.mlp_prop_width,
+                                  c.mlp_prop_depth, False, (), dev)}
+                 for _ in c.prop_resolutions],
+    }
+    if c.mlp_cp_rank > 0:
+        params["cp_lines"] = 0.2 * torch.randn(
+            3, c.mlp_cp_res, c.mlp_cp_rank, generator=g).to(dev)
+    if c.mlp_sigma_cp_rank > 0:
+        params["sigma_cp_lines"] = 0.2 * torch.randn(
+            3, c.mlp_sigma_cp_res, c.mlp_sigma_cp_rank, generator=g).to(dev)
+    if c.with_sam:
+        params["s_field_mlp"] = init_mlp(
+            g, model.grid_out_dim, model.s_feat_dim, c.mlp_sam_width,
+            c.mlp_sam_depth, False, (), dev)
+        params["samvit_mlp"] = init_mlp(
+            g, model.samvit_in_dim, c.sam_feat_dim, c.samvit_mlp_hidden,
+            c.samvit_mlp_layers, True, c.samvit_skip_layers, dev)
+        params["samvit_norm"] = {
+            "w": torch.ones(c.sam_feat_dim, device=dev),
+            "b": torch.zeros(c.sam_feat_dim, device=dev)}
+    if c.with_mask:
+        params["m_field_mlp"] = init_mlp(
+            g, model.grid_out_dim, model.m_feat_dim, c.mlp_mask_width,
+            c.mlp_mask_depth, False, (), dev)
+        params["mask_mlp"] = init_mlp(
+            g, model.m_feat_dim + c.geom_feat_dim, model.mask_out_dim(), 256,
+            3, False, (), dev)
+    return params
 
 
 def density_activation(model: NerfModel, f0: torch.Tensor) -> torch.Tensor:
@@ -170,11 +282,22 @@ def common_forward(model: NerfModel, params: Params, x: torch.Tensor):
     return density_activation(model, logit), f[..., 1:], grid_output
 
 
-def forward(model: NerfModel, params: Params, x: torch.Tensor,
-            d: torch.Tensor) -> Dict[str, torch.Tensor]:
+def forward(model: NerfModel, params: Params, x: Optional[torch.Tensor],
+            d: torch.Tensor, fast: bool = False,
+            x_T: Optional[torch.Tensor] = None,
+            nets: Optional["KernelNets"] = None) -> Dict[str, torch.Tensor]:
     """Final-level field query: sigma, geo_feat and the raw
-    [geo_feat, sh(d)] color feature (the view MLP runs after compositing)."""
-    sigma, geo_feat, grid_output = common_forward(model, params, x)
+    [geo_feat, sh(d)] color feature (the view MLP runs after compositing).
+    `fast` runs the field chain through run_tmlp (on x_T [3, P] when given)
+    and leaves grid_output out."""
+    if fast:
+        fT = field_forward_T(model, params, x if x_T is None else x_T,
+                             transposed=x_T is not None, nets=nets)
+        sigma = density_activation(model, fT[0])
+        geo_feat = fT[1:1 + model.cfg.geom_feat_dim].T
+        grid_output = None
+    else:
+        sigma, geo_feat, grid_output = common_forward(model, params, x)
     sh = sh_encode(d, model.cfg.sh_degree)
     return {"sigma": sigma, "geo_feat": geo_feat,
             "color": torch.cat([geo_feat, sh], dim=-1),
@@ -210,13 +333,16 @@ def field_forward_T(model: NerfModel, params: Params, x: torch.Tensor,
 
 def field_composite_T(model: NerfModel, params: Params, xT, dl, ts,
                       opaque: bool, rays8=None, with_view: bool = False,
-                      nets: Optional[KernelNets] = None):
+                      nets: Optional[KernelNets] = None, pack_q: int = 1,
+                      T: Optional[int] = None):
     """Final-level field query + composite in one kernel -> (gsum [N, 16],
-    depth [N], weights_sum [N]) and rgb [N, 3] with `with_view`."""
+    depth [N], weights_sum [N]) and rgb [N, 3] with `with_view`. With
+    pack_q > 1, dl/ts are the ray kernels' packed [N/q, q*T, 1] rows."""
     nets = nets or KernelNets(model, params)
     return run_tmlp_composite(xT, dl, ts, nets.field, opaque=opaque,
                               view=nets.view if with_view else None,
-                              rays8=rays8 if with_view else None)
+                              rays8=rays8 if with_view else None,
+                              pack_q=pack_q, T=T)
 
 
 def density(model: NerfModel, params: Params, x: Optional[torch.Tensor],
@@ -239,3 +365,30 @@ def density(model: NerfModel, params: Params, x: Optional[torch.Tensor],
         return density_activation(model, f[..., 0])
     sigma, _, _ = common_forward(model, params, x)
     return sigma
+
+
+def sam_features(model: NerfModel, params: Params, x: torch.Tensor
+                 ) -> torch.Tensor:
+    """Per-point SAM field feature [P, s_feat_dim]: the positional feature
+    through the ReLU `s_field_mlp`."""
+    h = position_features(model, params, x,
+                          dtype=params["s_field_mlp"][0]["w"].dtype)
+    out, _ = apply_mlp(params["s_field_mlp"], h)
+    return out
+
+
+def mask_grid_features(model: NerfModel, params: Params, x: torch.Tensor
+                       ) -> torch.Tensor:
+    """Per-point mask field feature [P, m_feat_dim]: the float32 positional
+    feature through the ReLU `m_field_mlp`."""
+    h = position_features(model, params, x)
+    out, _ = apply_mlp(params["m_field_mlp"], h)
+    return out
+
+
+def apply_samvit_head(model: NerfModel, params: Params, f: torch.Tensor
+                      ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """LeakyReLU skip MLP (biased) + LayerNorm(eps 1e-5)."""
+    out, inter = apply_skip_mlp(params["samvit_mlp"], f,
+                                model.cfg.samvit_skip_layers)
+    return apply_layernorm(params["samvit_norm"], out, eps=1e-5), inter

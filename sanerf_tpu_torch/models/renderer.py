@@ -1,11 +1,20 @@
 """Volume renderer: proposal-network hierarchical sampling + compositing,
-inference only (JAX: sanerf_tpu/models/renderer.py:50-348, 463-569).
+inference only (JAX: sanerf_tpu/models/renderer.py:50-409, 463-569).
 
-`run_rays` has the two paths of the JAX renderer for the RGB frame:
+`run_rays` has the two paths of the JAX renderer:
   - the fast path (`RenderConfig.use_fused_mlp`, default): per level the
     ray-geometry kernel (ray_level0 / ray_level), proposal densities through
-    run_tmlp, and the final level's field + alpha composite + view head in
-    one run_tmlp_composite launch;
+    run_tmlp, then at the final level
+      - the pure-RGB frame: field + alpha composite + view head in one
+        run_tmlp_composite launch (`packed_epilogue` feeds it the ray
+        kernel's packed ts/dl rows);
+      - `return_feats`: the field through run_tmlp, weights from the
+        deltas, the composite and the view head as plain ops, and the SAM
+        feature head (composite-then-head) on the point-major coordinates;
+      - `return_mask`: the same field query, then the mask field and the
+        default mask head per point, composited with the weights;
+    with `flatten_kernel` the [3, N, T] coordinates reach the MLP kernels
+    through the flatten3_nt kernel instead of a reshape;
   - the plain path (`use_fused_mlp=False`): uniform_bins / sample_pdf,
     point-major coordinates, the plain field and compositing. It is the
     oracle the fast path is held against.
@@ -28,16 +37,18 @@ from sanerf_tpu_torch.ops import (composite, compute_weights,
                                   near_far_from_aabb, sample_pdf, spacing_fn,
                                   spacing_fn_inv, uniform_bins)
 from sanerf_tpu_torch.ops.fused_mlp_t import TABLE_BYTES_LIMIT
-from sanerf_tpu_torch.ops.ray_kernels import ray_level, ray_level0
+from sanerf_tpu_torch.ops.ray_kernels import (flatten3_nt, pick_pack_q,
+                                              ray_level, ray_level0)
 from sanerf_tpu_torch.ops.sh import sh_encode
 
 _KEEP = ("image", "depth", "weights_sum")
 
 
 def default_aabb(model: NerfModel, device) -> torch.Tensor:
-    b = model.render_cfg.bound
-    return torch.tensor([-b, -b, -b, b, b, b], dtype=torch.float32,
-                        device=device)
+    b = float(model.render_cfg.bound)
+    # fill kernels, not a copy from host memory (which waits for the card)
+    return torch.cat([torch.full((3,), -b, device=device),
+                      torch.full((3,), b, device=device)])
 
 
 def uses_kernels(model: NerfModel) -> bool:
@@ -59,14 +70,14 @@ def run_rays(model: NerfModel, params: Params, rays_o: torch.Tensor,
              nets: Optional[KernelNets] = None) -> Dict[str, torch.Tensor]:
     """Render a ray batch: rays_o, rays_d [N, 3]; bg_color scalar or
     [N, 3]; cam_near_far [N, 2] or [1, 2]; aabb [6]. Returns image [N, 3],
-    depth [N], weights_sum [N]."""
+    depth [N], weights_sum [N]; samvit [N, sam_feat_dim] with
+    `return_feats` (needs the SAM head); instance_mask_logits
+    [N, mask_out_dim] with `return_mask` (needs the mask head)."""
     cfg, mc = model.render_cfg, model.cfg
-    if return_feats or return_mask or mc.sum_after_mlp:
-        raise NotImplementedError(
-            "SAM features, masks and sum_after_mlp come in a later slice")
-    if cfg.flatten_kernel or cfg.packed_epilogue:
-        raise NotImplementedError(
-            "flatten_kernel / packed_epilogue are not in the port yet")
+    if return_feats and not mc.with_sam:
+        raise ValueError("return_feats needs a model with the SAM head")
+    if return_mask and not mc.with_mask:
+        raise ValueError("return_mask needs a model with the mask head")
     N = rays_o.shape[0]
     dev = rays_o.device
     if aabb is None:
@@ -79,6 +90,8 @@ def run_rays(model: NerfModel, params: Params, rays_o: torch.Tensor,
     perturb = jitter is not None
     opaque = cfg.background == "last_sample"
     fast = uses_kernels(model)
+    # the pure-RGB frame fuses the final level into the composite kernel
+    fast_epi = fast and not return_feats and not return_mask
     if fast:
         nets = nets or KernelNets(model, params)
         if nets.field.table_bytes > TABLE_BYTES_LIMIT:
@@ -88,42 +101,80 @@ def run_rays(model: NerfModel, params: Params, rays_o: torch.Tensor,
         rays8 = torch.cat([rays_o, rays_d, s_nears, s_fars],
                           dim=1).float().contiguous()
 
+    dirs_ray = rays_d / rays_d.norm(dim=-1, keepdim=True)
     bins = weights = None
     last_level = len(cfg.num_steps) - 1
     for level, T in enumerate(cfg.num_steps):
         last = level == last_level
         if fast:
+            pq = 0
+            if last and fast_epi and cfg.packed_epilogue:
+                pq = pick_pack_q(T, N)
+                pq = 0 if pq <= 1 else pq
             if level == 0:
                 jit = None if not perturb else (jitter[0] - 0.5) / T
-                bins, rays_t, dl, x3 = ray_level0(rays8, T, cfg.contract,
-                                                  jitter=jit)
+                bins, rays_t, dl, x3, *packed = ray_level0(
+                    rays8, T, cfg.contract, jitter=jit, pack_q=pq)
             else:
                 jit = None if not perturb else (jitter[level] - 0.5) / (T + 1)
-                bins, rays_t, dl, x3 = ray_level(
+                bins, rays_t, dl, x3, *packed = ray_level(
                     rays8, weights, bins, T, cfg.contract,
-                    uniform_prev=level == 1 and not perturb, jitter=jit)
-            xyzs_T = x3.reshape(3, N * T)
+                    uniform_prev=level == 1 and not perturb, jitter=jit,
+                    pack_q=pq)
+            xyzs_T = (flatten3_nt(x3) if cfg.flatten_kernel
+                      else x3.reshape(3, N * T))
             if not last:
                 sigmas = fields.density(model, params, None, proposal=level,
                                         fast=True, x_T=xyzs_T, nets=nets)
                 weights = compute_weights_from_deltas(
                     dl, sigmas.reshape(N, T), opaque_background=opaque)
                 continue
-            if cfg.view_in_kernel:
-                _, depth, weights_sum, image = fields.field_composite_T(
-                    model, params, xyzs_T, dl, rays_t, opaque=opaque,
-                    rays8=rays8, with_view=True, nets=nets)
+            if fast_epi:
+                if cfg.view_in_kernel or pq:
+                    # the packed composite runs only with the view head
+                    # in the kernel (JAX renderer.py:215)
+                    _, depth, weights_sum, image = fields.field_composite_T(
+                        model, params, xyzs_T, packed[1] if pq else dl,
+                        packed[0] if pq else rays_t, opaque=opaque,
+                        rays8=rays8, with_view=True, nets=nets,
+                        pack_q=pq or 1, T=T)
+                else:
+                    gsum, depth, weights_sum = fields.field_composite_T(
+                        model, params, xyzs_T, dl, rays_t, opaque=opaque,
+                        with_view=False, nets=nets)
+                    f_image = torch.cat(
+                        [gsum[:, 1:1 + mc.geom_feat_dim],
+                         weights_sum[:, None]
+                         * sh_encode(dirs_ray, mc.sh_degree)], dim=-1)
+                    rgb_logits, _ = fields.apply_mlp(params["view_mlp"],
+                                                     f_image)
+                    image = torch.sigmoid(rgb_logits)
+                break
+            # features / masks: the field through run_tmlp, then per-point
+            # heads on the point-major coordinates
+            xyzs = xyzs_T.T
+            if return_mask:
+                dirs = dirs_ray[:, None, :].expand(N, T, 3).reshape(N * T, 3)
+                outputs = fields.forward(model, params, None, dirs,
+                                         fast=True, x_T=xyzs_T, nets=nets)
+                sigmas = outputs["sigma"]
             else:
-                gsum, depth, weights_sum = fields.field_composite_T(
-                    model, params, xyzs_T, dl, rays_t, opaque=opaque,
-                    with_view=False, nets=nets)
-                dirs_ray = rays_d / rays_d.norm(dim=-1, keepdim=True)
+                fT = fields.field_forward_T(model, params, xyzs_T,
+                                            transposed=True, nets=nets)
+                sigmas = fields.density_activation(model, fT[0])
+            weights = compute_weights_from_deltas(
+                dl, sigmas.reshape(N, T), opaque_background=opaque)
+            if return_mask:
+                weights_sum, depth, f_image = composite(
+                    weights, rays_t, outputs["color"].reshape(N, T, -1))
+            else:
+                g_sum = (fT[1:1 + mc.geom_feat_dim].reshape(-1, N, T)
+                         * weights[None]).sum(dim=-1).T
+                weights_sum = weights.sum(dim=-1)
+                depth = (weights * rays_t).sum(dim=-1)
                 f_image = torch.cat(
-                    [gsum[:, 1:1 + mc.geom_feat_dim],
-                     weights_sum[:, None] * sh_encode(dirs_ray, mc.sh_degree)],
-                    dim=-1)
-                rgb_logits, _ = fields.apply_mlp(params["view_mlp"], f_image)
-                image = torch.sigmoid(rgb_logits)
+                    [g_sum, weights_sum[:, None]
+                     * sh_encode(dirs_ray, mc.sh_degree)], dim=-1)
             break
 
         jit = None if not perturb else jitter[level]
@@ -140,7 +191,6 @@ def run_rays(model: NerfModel, params: Params, rays_o: torch.Tensor,
         if not last:
             sigmas = fields.density(model, params, xyzs, proposal=level)
         else:
-            dirs_ray = rays_d / rays_d.norm(dim=-1, keepdim=True)
             dirs = dirs_ray[:, None, :].expand(N, T, 3).reshape(N * T, 3)
             outputs = fields.forward(model, params, xyzs, dirs)
             sigmas = outputs["sigma"]
@@ -149,12 +199,43 @@ def run_rays(model: NerfModel, params: Params, rays_o: torch.Tensor,
         if last:
             weights_sum, depth, f_image = composite(
                 weights, rays_t, outputs["color"].reshape(N, T, -1))
-            rgb_logits, _ = fields.apply_mlp(params["view_mlp"], f_image)
-            image = torch.sigmoid(rgb_logits)
 
-    bg = torch.as_tensor(bg_color, dtype=torch.float32, device=dev)
+    if not fast_epi:
+        rgb_logits, _ = fields.apply_mlp(params["view_mlp"], f_image)
+        image = torch.sigmoid(rgb_logits)
+    bg = (float(bg_color) if isinstance(bg_color, (int, float))
+          else torch.as_tensor(bg_color, dtype=torch.float32, device=dev))
     image = image + (1.0 - weights_sum)[..., None] * bg
-    return {"weights_sum": weights_sum, "depth": depth, "image": image}
+    results = {"weights_sum": weights_sum, "depth": depth, "image": image}
+
+    T = cfg.num_steps[-1]
+    if return_feats:
+        # composite-then-head (JAX renderer.py:364-377): one MLP per ray
+        features = fields.sam_features(model, params, xyzs)
+        f_sam = (weights[..., None] * features.reshape(N, T, -1)).sum(dim=-2)
+        if mc.sam_use_view_direction:
+            mid = f_image
+        else:
+            mid = f_image[:, :mc.geom_feat_dim]
+        f = torch.cat([f_sam, mid, image, depth[..., None]], dim=-1)
+        results["samvit"], _ = fields.apply_samvit_head(model, params, f)
+    if return_mask:
+        # per-point mask logits, composited (JAX renderer.py:379-388)
+        m_feats = fields.mask_grid_features(model, params, xyzs)
+        point_masks = _mask_head(model, params, m_feats, outputs["geo_feat"])
+        results["instance_mask_logits"] = (
+            weights[..., None] * point_masks.reshape(N, T, -1)).sum(dim=-2)
+    return results
+
+
+def _mask_head(model: NerfModel, params: Params, m_feats: torch.Tensor,
+               geo_feat: torch.Tensor) -> torch.Tensor:
+    """The default mask head (JAX renderer.py:393-409): [m_feats, geo_feat]
+    through the LeakyReLU `mask_mlp` with no skips -> per-point logits
+    [P, mask_out_dim]."""
+    m = torch.cat([m_feats, geo_feat.to(m_feats.dtype)], dim=-1)
+    out, _ = fields.apply_skip_mlp(params["mask_mlp"], m, ())
+    return out
 
 
 #: The renderer's entry point (the JAX package jits run_rays under this name).
@@ -165,13 +246,17 @@ def render_frame(model: NerfModel, params: Params, rays_o: torch.Tensor,
                  rays_d: torch.Tensor, *, chunk: int = 65536,
                  bg_color=1.0, aabb: Optional[torch.Tensor] = None,
                  generator: Optional[torch.Generator] = None,
-                 nets: Optional[KernelNets] = None
+                 nets: Optional[KernelNets] = None,
+                 return_feats: bool = False, return_mask: bool = False
                  ) -> Dict[str, torch.Tensor]:
     """Whole-frame inference as a loop over ray chunks of `chunk` rays.
     With `generator`, every chunk draws its own stratified jitter. `nets`
     (the weights packed for the kernels) can be built once by the caller
-    and reused across frames."""
+    and reused across frames. Keeps image, depth, weights_sum, and samvit /
+    instance_mask_logits when asked for."""
     N = rays_o.shape[0]
+    keep = _KEEP + (("samvit",) if return_feats else ()) + (
+        ("instance_mask_logits",) if return_mask else ())
     if nets is None and uses_kernels(model):
         nets = KernelNets(model, params)
     outs = []
@@ -183,11 +268,12 @@ def render_frame(model: NerfModel, params: Params, rays_o: torch.Tensor,
                                  device=o.device)
                       for T in model.render_cfg.num_steps]
         out = run_rays(model, params, o, d, jitter, bg_color=bg_color,
-                       aabb=aabb, nets=nets)
-        outs.append({k: out[k] for k in _KEEP})
+                       aabb=aabb, nets=nets, return_feats=return_feats,
+                       return_mask=return_mask)
+        outs.append({k: out[k] for k in keep})
     if len(outs) == 1:
         return outs[0]
-    return {k: torch.cat([o[k] for o in outs], dim=0) for k in _KEEP}
+    return {k: torch.cat([o[k] for o in outs], dim=0) for k in keep}
 
 
 def render_staged(model: NerfModel, params: Params, rays_o: torch.Tensor,

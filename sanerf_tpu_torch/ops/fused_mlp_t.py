@@ -21,7 +21,8 @@ variant treats P = N * T points as N rays of T samples and returns per-ray
 sums: density softplus(row0 - 1), alpha (last sample opaque when asked),
 exclusive-cumsum transmittance, NaN weights -> 0, gsum [N, kout], depth
 [N], weights_sum [N]; with a view MLP also the SH (degree <= 4) + view MLP
-head on the per-ray sums and its sigmoid, rgb [N, 3].
+head on the per-ray sums and its sigmoid, rgb [N, 3]. With `pack_q > 1` the
+composite reads dl/ts as the ray kernels' packed [N/q, q*T, 1] rows.
 """
 
 from __future__ import annotations
@@ -280,9 +281,24 @@ def run_tmlp_plain(xT: torch.Tensor, tm: TransposedFieldMLP) -> torch.Tensor:
     return tm.forward_plain(xT).T.contiguous()
 
 
+def _unpack_rows(v: torch.Tensor, pack_q: int, T: Optional[int]):
+    """dl/ts operand -> [N, T]: packed [N/q, q*T, 1] rows hold ray n in slot
+    n % q of row n / q, so the [N, T] view is their row-major reshape."""
+    if pack_q <= 1:
+        return v
+    if T is None:
+        raise ValueError("pack_q > 1 needs T")
+    if v.dim() != 3 or v.shape[1] != pack_q * T or v.shape[2] != 1:
+        raise ValueError(f"packed operand must be [N/{pack_q}, {pack_q * T}, "
+                         f"1], got {tuple(v.shape)}")
+    return v.reshape(v.shape[0] * pack_q, T)
+
+
 def run_tmlp_composite_plain(xT, dl, ts, tm: TransposedFieldMLP,
                              opaque: bool = True,
-                             view: Optional[ViewMLP] = None, rays8=None):
+                             view: Optional[ViewMLP] = None, rays8=None,
+                             pack_q: int = 1, T: Optional[int] = None):
+    dl, ts = _unpack_rows(dl, pack_q, T), _unpack_rows(ts, pack_q, T)
     N, T = dl.shape
     h3 = tm.forward_plain(xT).reshape(N, T, tm.kout)
     s = h3[..., 0] - 1.0
@@ -316,10 +332,10 @@ def _lib():
     lib = _build.load("fused_mlp_t")
     net = [_I, _P, _P, _I, _F, *_GRID, *_GRID]
     _build.declare(lib, "tmlp_launch", net + [_P, _L, _P, _I, _P])
-    # view (weights, count, descriptor), xT, dl, ts, rays8, N, T, opaque,
-    # gsum, depth, wsum, rgb, stream
+    # view (weights, count, descriptor), xT, dl, ts, rays8, N, T, pack_q,
+    # opaque, gsum, depth, wsum, rgb, stream
     _build.declare(lib, "tmlp_composite_launch",
-                   net + [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I,
+                   net + [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                           _P, _P, _P, _P, _P])
     return lib
 
@@ -391,25 +407,30 @@ run_tmlp.launches = 0
 def run_tmlp_composite(xT: torch.Tensor, dl: torch.Tensor, ts: torch.Tensor,
                        tm: TransposedFieldMLP, opaque: bool = True,
                        view: Optional[ViewMLP] = None,
-                       rays8: Optional[torch.Tensor] = None):
+                       rays8: Optional[torch.Tensor] = None,
+                       pack_q: int = 1, T: Optional[int] = None):
     """Final-level field query + alpha composite. xT [3, N*T] contracted
-    sample coordinates, dl/ts [N, T] metric deltas/midpoints. -> (gsum
-    [N, kout], depth [N], weights_sum [N]) and, with `view` and `rays8`
-    ([N, 8], directions in columns 3:6), rgb [N, 3] (sigmoid applied,
-    background not blended)."""
+    sample coordinates, dl/ts [N, T] metric deltas/midpoints (with
+    pack_q > 1 the ray kernels' packed [N/q, q*T, 1] rows, and T given).
+    -> (gsum [N, kout], depth [N], weights_sum [N]) and, with `view` and
+    `rays8` ([N, 8], directions in columns 3:6), rgb [N, 3] (sigmoid
+    applied, background not blended)."""
     if view is not None and rays8 is None:
         raise ValueError("the view head needs rays8")
     if not xT.is_cuda:
-        return run_tmlp_composite_plain(xT, dl, ts, tm, opaque, view, rays8)
-    N, T = dl.shape
+        return run_tmlp_composite_plain(xT, dl, ts, tm, opaque, view, rays8,
+                                        pack_q, T)
+    pack_q = max(1, int(pack_q))
+    N, T = _unpack_rows(dl, pack_q, T).shape
     if tm.kout > 16:
         raise NotImplementedError(f"composite of {tm.kout} outputs > 16")
     if not (T <= 128 and (16 % T == 0 or T % 16 == 0)):
         raise NotImplementedError(f"composite kernel: T={T} must divide 16 "
                                   f"or be a multiple of 16 up to 128")
+    rows = (N, T) if pack_q == 1 else (N // pack_q, pack_q * T, 1)
     _check(xT, "xT", (3, N * T))
-    _check(dl, "dl", (N, T))
-    _check(ts, "ts", (N, T))
+    _check(dl, "dl", rows)
+    _check(ts, "ts", rows)
     e = lambda *s: torch.empty(s, dtype=torch.float32, device=xT.device)  # noqa: E731
     gsum, depth, wsum = e(N, tm.kout), e(N), e(N)
     rgb = None
@@ -429,11 +450,13 @@ def run_tmlp_composite(xT: torch.Tensor, dl: torch.Tensor, ts: torch.Tensor,
             None if vdesc is None else vdesc.ctypes.data,
             xT.data_ptr(), dl.data_ptr(), ts.data_ptr(),
             None if rays8 is None or view is None else rays8.data_ptr(),
-            N, T, int(opaque), gsum.data_ptr(), depth.data_ptr(),
+            N, T, pack_q, int(opaque), gsum.data_ptr(), depth.data_ptr(),
             wsum.data_ptr(), None if rgb is None else rgb.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
         _raise_on(code, "run_tmlp_composite")
         run_tmlp_composite.launches += 1
+        if pack_q > 1:
+            run_tmlp_composite.packed_launches += 1
         del keep
     if view is None:
         return gsum, depth, wsum
@@ -441,3 +464,4 @@ def run_tmlp_composite(xT: torch.Tensor, dl: torch.Tensor, ts: torch.Tensor,
 
 
 run_tmlp_composite.launches = 0
+run_tmlp_composite.packed_launches = 0

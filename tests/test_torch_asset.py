@@ -76,9 +76,10 @@ def test_params_from_jax_matches_a_jax_tree():
                                       np.asarray(p["w"]))
 
 
-@pytest.mark.parametrize("bad", ["params/samvit_mlp/0/w",
+@pytest.mark.parametrize("bad", ["params/vm_planes",
                                  "params/grid_mlp/0/b",
-                                 "params/cp_lines_extra"])
+                                 "params/cp_lines_extra",
+                                 "params/samvit_mlp/0/q"])
 def test_params_from_jax_raises_on_unmapped_key(bad):
     flat = dict(np.load(ASSET + ".npz"))
     flat[bad] = np.zeros((2, 2), np.float32)
@@ -104,7 +105,10 @@ def test_params_from_jax_raises_on_shape_or_missing_key():
 @pytest.mark.parametrize("kw", [dict(field_type="hashgrid"),
                                 dict(mlp_vm_rank=4),
                                 dict(mlp_cp_rank=8, mlp_cp_levels=2),
-                                dict(with_mask=True)])
+                                dict(with_mask=True, mask_mlp_type="adaptive"),
+                                dict(with_mask=True,
+                                     mask_mlp_type="lightweight_mask"),
+                                dict(sum_after_mlp=True)])
 def test_other_families_raise(kw):
     with pytest.raises(NotImplementedError):
         fields.make_model(ModelConfig(**kw), RenderConfig())

@@ -7,7 +7,9 @@ nor the JAX package, so it runs where only the port is installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerances as in chip_smoke.py: 1e-5 for the ray kernels, the JAX suite's
-float32 bounds for the MLP kernels with float32 weights (3e-4 and 1e-3).
+float32 bounds for the MLP kernels with float32 weights (3e-4 and 1e-3);
+flatten3_nt and the packed ts/dl rows bit for bit; the packed composite
+within 1e-6 of the unpacked one on the same operands.
 """
 
 import pytest
@@ -118,3 +120,63 @@ def test_run_tmlp_composite_kernel(dev, T, opaque, with_view):
     assert fm.run_tmlp_composite.launches == before + 1
     _close(got, fm.run_tmlp_composite_plain(x, dl, ts, tm, opaque, view, r8),
            1e-3)
+
+
+@pytest.mark.parametrize("N,T", [(301, 16), (1000, 7), (4, 1)])
+def test_flatten3_nt_kernel(dev, N, T):
+    g = torch.Generator(device=dev).manual_seed(N)
+    x3 = torch.randn(3, N, T, generator=g, device=dev)
+    before = rk.flatten3_nt.launches
+    got = rk.flatten3_nt(x3)
+    torch.cuda.synchronize()
+    assert rk.flatten3_nt.launches == before + 1
+    assert torch.equal(got, rk.flatten3_nt_plain(x3))
+
+
+@pytest.mark.parametrize("level,pack_q", [(0, 8), (1, 4), (1, 2)])
+def test_packed_rows_kernel(dev, level, pack_q):
+    g = torch.Generator(device=dev).manual_seed(level + pack_q)
+    n, T = 256, 16
+    r8 = _rays8(n, g, dev)
+    if level == 0:
+        fn = lambda **k: rk.ray_level0(r8, T, True, **k)  # noqa: E731
+    else:
+        b0 = rk.ray_level0(r8, 32, True)[0]
+        w = torch.rand(n, 32, generator=g, device=dev)
+        fn = lambda **k: rk.ray_level(r8, w, b0, T, True, **k)  # noqa: E731
+    flat = fn()
+    before = (rk.ray_level0.packed_launches, rk.ray_level.packed_launches)
+    got = fn(pack_q=pack_q)
+    torch.cuda.synchronize()
+    after = (rk.ray_level0.packed_launches, rk.ray_level.packed_launches)
+    assert after[level] == before[level] + 1
+    assert len(got) == 6
+    for a, b in zip(got[:4], flat):
+        assert torch.equal(a, b)
+    assert got[4].shape == (n // pack_q, pack_q * T, 1)
+    assert torch.equal(got[4].reshape(n, T), flat[1])
+    assert torch.equal(got[5].reshape(n, T), flat[2])
+    with pytest.raises(ValueError):
+        fn(pack_q=3)
+
+
+@pytest.mark.parametrize("T,pack_q", [(16, 8), (32, 4)])
+def test_packed_composite_kernel(dev, T, pack_q):
+    g = torch.Generator(device=dev).manual_seed(T)
+    tm = _field(g, dev)
+    view = fm.ViewMLP(_layers([(15 + 16, 32), (32, 32), (32, 3)], g, dev),
+                      16, 4)
+    n = 72
+    x = torch.rand(3, n * T, generator=g, device=dev) * 4 - 2
+    dl = torch.rand(n, T, generator=g, device=dev) * 0.1
+    ts = torch.cumsum(dl, 1) + 0.5
+    r8 = _rays8(n, g, dev)
+    ref = fm.run_tmlp_composite(x, dl, ts, tm, view=view, rays8=r8)
+    before = fm.run_tmlp_composite.packed_launches
+    pk = lambda v: v.reshape(n // pack_q, pack_q * T, 1)  # noqa: E731
+    got = fm.run_tmlp_composite(x, pk(dl), pk(ts), tm, view=view, rays8=r8,
+                                pack_q=pack_q, T=T)
+    assert fm.run_tmlp_composite.packed_launches == before + 1
+    _close(got, ref, 1e-6)
+    _close(got, fm.run_tmlp_composite_plain(x, pk(dl), pk(ts), tm, True,
+                                            view, r8, pack_q, T), 1e-3)

@@ -1,5 +1,6 @@
-"""Guards of the port: it imports neither jax nor the JAX package, and its
-entry points default to the CUDA card and raise without one."""
+"""Guards of the port: it imports neither jax, nor the JAX package, nor
+OpenCV, and its entry points default to the CUDA card and raise without
+one."""
 
 import ast
 import os
@@ -9,11 +10,14 @@ import torch
 
 from sanerf_tpu_torch.data.rays import full_frame_rays
 from sanerf_tpu_torch.device import resolve_device
-from sanerf_tpu_torch.models.asset import load_asset
+from sanerf_tpu_torch.apps.frame_pipeline import FramePipeline
+from sanerf_tpu_torch.apps.interactive import InteractiveSession
+from sanerf_tpu_torch.models.asset import load_asset, load_mask_asset
+from sanerf_tpu_torch.models.sam.predictor import SamConfig, SamPredictor
 
 torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "sanerf_tpu")
+FORBIDDEN = ("jax", "jaxlib", "sanerf_tpu", "cv2")
 
 
 def _port_files():
@@ -54,8 +58,19 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         full_frame_rays([[1, 0, 0, 0], [0, 1, 0, 0], [0, 0, 1, 2]],
                         [10.0, 10.0, 2.0, 2.0], 4, 4)
+    asset = os.path.join(ROOT, "assets", "serving_student")
     with pytest.raises(RuntimeError, match="CUDA"):
-        load_asset(os.path.join(ROOT, "assets", "serving_student"))
+        load_asset(asset)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_asset(asset, with_sam=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_mask_asset(asset)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SamPredictor(SamConfig(), {})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FramePipeline(None, {}, None, None, 8, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        InteractiveSession(None, None, {})
     o, d = full_frame_rays([[1, 0, 0, 0], [0, 1, 0, 0], [0, 0, 1, 2]],
                            [10.0, 10.0, 2.0, 2.0], 4, 4, device="cpu")
     assert o.shape == d.shape == (16, 3) and o.device.type == "cpu"

@@ -84,3 +84,50 @@ def test_cpu_tensors_take_the_plain_version():
         assert torch.equal(x, y)
     assert a[3].shape == (3, 5, 8)
     assert (trk.ray_level0.launches, trk.ray_level.launches) == before
+
+
+@pytest.mark.parametrize("N,T", [(64, 24), (48, 7)])
+def test_flatten3_nt_matches_jax(N, T):
+    """Bit for bit against the JAX kernel (interpret mode)."""
+    x3 = np.random.default_rng(11).normal(0, 2, (3, N, T)).astype(np.float32)
+    ref = jrk.flatten3_nt(x3, block_rays=16, interpret=True)
+    got = trk.flatten3_nt(torch.from_numpy(x3))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    assert got.data_ptr() != torch.from_numpy(x3).data_ptr()
+
+
+def test_pick_pack_q_matches_jax():
+    for T in (4, 7, 16, 24, 32, 64, 128):
+        for n in (24, 1000, 4096, 512 * 512):
+            assert trk.pick_pack_q(T, n) == jrk.pick_pack_q(T, n), (T, n)
+    assert trk.pick_pack_q(16, 512 * 512) == 8
+    assert trk.pick_pack_q(32, 512 * 512) == 4
+
+
+@pytest.mark.parametrize("level", [0, 1])
+def test_packed_rows_match_jax(level):
+    """ts_p/dl_p: bit for bit the flat ts/dl, and against JAX's packed
+    outputs at 1e-5; q must divide N."""
+    n, T, q = 32, 8, 4
+    r8 = _rays8(n, seed=12)
+    if level == 0:
+        ref = jrk.ray_level0(r8, T, True, block_rays=n, interpret=True,
+                             pack_q=q)
+        got = trk.ray_level0(torch.from_numpy(r8), T, True, pack_q=q)
+    else:
+        rng = np.random.default_rng(13)
+        w = rng.uniform(0, 1, (n, 16)).astype(np.float32)
+        b = np.sort(rng.uniform(0, 1, (n, 17)), 1).astype(np.float32)
+        b[:, 0], b[:, -1] = 0.0, 1.0
+        ref = jrk.ray_level(r8, w, b, T, True, block_rays=n, interpret=True,
+                            pack_q=q)
+        got = trk.ray_level(torch.from_numpy(r8), torch.from_numpy(w),
+                            torch.from_numpy(b), T, True, pack_q=q)
+    assert len(got) == 6 and got[4].shape == (n // q, q * T, 1)
+    assert torch.equal(got[4].reshape(-1), got[1].reshape(-1))
+    assert torch.equal(got[5].reshape(-1), got[2].reshape(-1))
+    _check(got[:4], ref[:4])
+    for g, r in zip(got[4:], ref[4:]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), **TOL)
+    with pytest.raises(ValueError, match="divide"):
+        trk.ray_level0(torch.from_numpy(r8[:30]), T, True, pack_q=4)

@@ -184,3 +184,38 @@ def test_fast_path_refuses_oversized_tables(monkeypatch):
     o, d = (torch.from_numpy(a) for a in _rays(4, seed=1))
     with pytest.raises(NotImplementedError, match="limit"):
         renderer.run_rays(tm, tp, o, d)
+
+
+def test_flatten_kernel_frame_is_identical():
+    """RenderConfig.flatten_kernel routes the [3, N, T] -> [3, N*T] pivot
+    through flatten3_nt: the frame is bit for bit the default one, and the
+    JAX frame of the same option within 2e-3."""
+    jm, tm, jp, tp = _tiny((16, 8, 4), flatten_kernel=True)
+    base = dataclasses.replace(tm, render_cfg=dataclasses.replace(
+        tm.render_cfg, flatten_kernel=False))
+    o, d = _rays(24, seed=5)
+    got = renderer.run_rays(tm, tp, torch.from_numpy(o), torch.from_numpy(d))
+    ref = renderer.run_rays(base, tp, torch.from_numpy(o),
+                            torch.from_numpy(d))
+    for k in KEYS:
+        assert torch.equal(got[k], ref[k]), k
+    _compare(got, jrenderer.run_rays(jm, jp, jnp.asarray(o), jnp.asarray(d)))
+
+
+@pytest.mark.parametrize("view_in_kernel", [True, False])
+def test_packed_epilogue_frame_matches_default(view_in_kernel):
+    """RenderConfig.packed_epilogue: within 1e-6 of the unpacked fast path
+    (the JAX suite's bound, tests/test_ray_kernels.py:197-226), and the
+    JAX packed frame within 2e-3. The packed composite always runs the view
+    head in the kernel."""
+    jm, tm, jp, tp = _tiny((16, 8, 4), packed_epilogue=True,
+                           view_in_kernel=view_in_kernel)
+    base = dataclasses.replace(tm, render_cfg=dataclasses.replace(
+        tm.render_cfg, packed_epilogue=False, view_in_kernel=True))
+    o, d = _rays(24, seed=9)
+    got = renderer.run_rays(tm, tp, torch.from_numpy(o), torch.from_numpy(d))
+    ref = renderer.run_rays(base, tp, torch.from_numpy(o),
+                            torch.from_numpy(d))
+    _compare(got, {k: v.numpy() for k, v in ref.items()},
+             dict(rtol=1e-6, atol=1e-6))
+    _compare(got, jrenderer.run_rays(jm, jp, jnp.asarray(o), jnp.asarray(d)))
