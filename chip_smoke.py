@@ -34,8 +34,28 @@ Phases (any failure exits non-zero and prints no result line):
   7. mask mIoU of assets/serving_student_mask through the port's fast path
      (bench.py:173-225 protocol) against the JAX package's value;
   8. interactive frame times (bench.py:_drive protocol), pipelined and sync;
-  9. one {"kernels": [...]} line, one {"frames": ...} line, one
-     {"interactive": ...} line, and last {"ok": true, "device": {...}}.
+  9. the table gather `gather_rows` at the shapes of the eight Pallas probes
+     of tools/probe_gather.py (2^19-row tables, 2^21 indices; C = 2, 128
+     and 8-row blocks; float32 and bf16), bit for bit against its plain
+     version, with the out-of-range fill, times, bounds and
+     `torch.index_select`'s time;
+ 10. the hash-grid family's interactive frame: `ModelConfig(field_type=
+     "hashgrid", with_sam=True)` at full width, tables redrawn
+     U(-TABLE_STD, TABLE_STD), bf16, 512^2 through `InteractiveSession.step`
+     at (128, 64, 32) with SAM's seeded decoder, the gather's counter set to
+     0 just before a frame and read just after (HASHGRID_LAUNCHES), finite
+     depth / samvit [32, 32, 256] / mask logits, every gather of that frame
+     bit for bit against the plain version, frame times;
+ 11. the same RGB frame with float32 params, with the gather swapped for
+     its plain version inside this script: identical to the kernel's frame;
+ 12. a 64^2 frame of the same model with the numpy-seeded params of
+     port_tools/hashgrid_params.py against the JAX package's values
+     (JAX_HASHGRID, 2e-3);
+ 13. `run_rays(return_mask=True)` at 512^2 with the default mask head
+     (MASK_LAUNCHES gathers, finite logits);
+ 14. one {"kernels": [...]} line, one {"frames": ...} line, one
+     {"interactive": ...} line, one {"hashgrid": ...} line, and last
+     {"ok": true, "device": {...}}.
 Needs no network; builds into build/kernels/.
 """
 
@@ -105,6 +125,72 @@ INTERACTIVE_LAUNCHES = {"32,16": [2, 2, 3, 1, 0],
                         "128,64,32": [2, 4, 5, 1, 0]}
 #: flatten3_nt launches per interactive frame under flatten_kernel
 FLATTEN_LAUNCHES = {"32,16": 4, "128,64,32": 6}
+#: gathers per 512^2 hash-grid interactive frame at (128, 64, 32), one
+#: launch per grid level: the RGB render (5 + 5 proposal levels + 16 field
+#: levels) and the 32^2 feature render (the same 26 + 16 s_grid levels)
+HASHGRID_LAUNCHES = 26 + 42
+#: gathers of one return_mask frame: the RGB render's 26 + 16 m_grid levels
+MASK_LAUNCHES = 26 + 16
+#: The 64^2 frame of ModelConfig(field_type="hashgrid", with_sam=True),
+#: RenderConfig() defaults, float32 params of
+#: port_tools/hashgrid_params.py:make_flat(shapes, 0) (TABLE_STD 2.0),
+#: through the JAX package's run_rays(return_feats=True) on the CPU; from
+#: `JAX_PLATFORMS=cpu python port_tools/jax_hashgrid_reference.py`.
+JAX_HASHGRID = {
+    "pixels": [0, 650, 1500, 2015, 2080, 2700, 3333, 4095],
+    "channels": [0, 1, 128, 255],
+    "mean": {"image": 0.5037444182986898, "depth": 1.243341827444965,
+             "weights_sum": 1.000000001047738,
+             "samvit": 1.7307304743009733e-10},
+    "image": [[0.49564194679260254, 0.5094882845878601, 0.5137070417404175],
+              [0.49897682666778564, 0.5119962692260742, 0.5117372870445251],
+              [0.5011422038078308, 0.5100667476654053, 0.512299120426178],
+              [0.5014047026634216, 0.5072685480117798, 0.5100390911102295],
+              [0.5010114908218384, 0.5068326592445374, 0.5094492435455322],
+              [0.49927613139152527, 0.5050472617149353, 0.5087454319000244],
+              [0.49737322330474854, 0.5017687082290649, 0.5110596418380737],
+              [0.4961124062538147, 0.5009494423866272, 0.5003986358642578]],
+    "depth": [1.2447432279586792, 1.2623270750045776, 1.2497308254241943,
+              1.2582191228866577, 1.2572133541107178, 1.2506392002105713,
+              1.2629318237304688, 1.2255713939666748],
+    "weights_sum": [1.0000001192092896, 0.9999999403953552,
+                    0.9999998211860657, 1.0, 1.0, 0.9999998807907104,
+                    0.9999999403953552, 1.0000001192092896],
+    "samvit": [[0.31635668873786926, -1.5217617750167847, -0.9209179282188416,
+                -0.808202862739563],
+               [0.13284479081630707, -1.7957218885421753, -0.540861964225769,
+                -0.7752104997634888],
+               [0.4856792688369751, -1.773276448249817, -0.7730880379676819,
+                -0.7996563911437988],
+               [0.6615070104598999, -1.4945847988128662, -1.1283538341522217,
+                -0.7630659341812134],
+               [0.6404577493667603, -1.5550992488861084, -1.0329889059066772,
+                -0.7169311046600342],
+               [1.055557370185852, -1.727152943611145, -1.3863506317138672,
+                -0.6143483519554138],
+               [0.7812843322753906, -1.2480156421661377, -0.8907264471054077,
+                -0.756634533405304],
+               [0.38222193717956543, -1.5014022588729858, -1.0049128532409668,
+                -0.7024018168449402]],
+}
+JAX_HASHGRID_TOL = 2e-3
+#: the eight Pallas probes of tools/probe_gather.py as gathers of a
+#: 2^19-row table at 2^21 seeded indices: (name, probe line, row width C,
+#: table rows used (None = all), index form, block_rows).
+#: pallas_take_small and p_blk cannot run as written (operands in the
+#: reverse order of their in_specs; a 1-D index read as i[:n, 0]); these
+#: rows compute their evident intent.
+PROBE_ROWS, PROBE_IDX = 2 ** 19, 2 ** 21
+PROBES = (
+    ("pallas_dynloop", 90, 2, None, "blocks", 1),
+    ("pallas_dynloop_vmem", 109, 2, None, "blocks", 1),
+    ("pallas_take", 125, 2, None, "blocks", 1),
+    ("pallas_take_small", 142, 128, 4096, "mod4096", 1),
+    ("p_loop", 185, 2, None, "flat", 1),
+    ("p2_take", 202, 2, None, "flat", 1),
+    ("p_loop8", 226, 2, None, "flat", 1),
+    ("p_blk", 244, 2, None, "div8", 8),
+)
 SOURCES = {
     "ray_level0": ("sanerf_tpu_torch/csrc/ray_kernels.cu",
                    "sanerf_tpu/ops/ray_kernels.py:275"),
@@ -509,6 +595,9 @@ def main():
         row["launches_interactive_per_frame"] = {
             h: v[KERNELS.index(row["name"])]
             for h, v in inter["launches_per_frame"].items()}
+    torch.cuda.empty_cache()
+    hgrid = hashgrid_phases(torch, np, dev, card, cuda_ms)
+    rows += hgrid.pop("rows")
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({
@@ -521,6 +610,7 @@ def main():
                    "jax_psnr_db_bf16_cpu": jax_psnr,
                    "card": card}}), flush=True)
     print(json.dumps({"interactive": inter}), flush=True)
+    print(json.dumps({"hashgrid": hgrid}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
@@ -844,6 +934,319 @@ def interactive_phases(torch, np, dev, card, fields, renderer, rk, fm,
             "packed_vs_default_max_abs_err": packed_err,
             "mask_miou": miou, "jax_mask_miou_bf16_cpu": JAX_MIOU_32_16_BF16,
             "card": card, "rows": rows}
+
+
+def hashgrid_phases(torch, np, dev, card, cuda_ms):
+    """Phases 9-13: the gather kernel at the probe shapes, and the
+    hash-grid family's interactive frame, path check, JAX reference and
+    mask frame. -> the {"hashgrid": ...} record, with the gather's kernel
+    rows under "rows"."""
+    import dataclasses
+
+    from sanerf_tpu_torch.apps import frame_pipeline as fp
+    from sanerf_tpu_torch.apps.interactive import InteractiveSession
+    from sanerf_tpu_torch.config import ModelConfig, RenderConfig
+    from sanerf_tpu_torch.models import fields, renderer
+    from sanerf_tpu_torch.models.asset import expected_shapes, params_from_jax
+    from sanerf_tpu_torch.models.sam import predictor as sam_mod
+    from sanerf_tpu_torch.ops import gather as ga
+    from sanerf_tpu_torch.ops import hashgrid as hg
+
+    sys.path.insert(0, os.path.join(ROOT, "port_tools"))
+    import hashgrid_params as hp
+
+    def bits(t):
+        return t.view(torch.int16 if t.dtype == torch.bfloat16
+                      else torch.int32)
+
+    def same_bits(a, b):
+        return a.shape == b.shape and a.dtype == b.dtype \
+            and torch.equal(bits(a), bits(b))
+
+    gather_err = [0.0]  # the largest kernel-vs-plain difference seen
+
+    def held(got, ref):
+        """Bit equality of kernel and plain outputs; records their
+        largest absolute difference."""
+        if got.shape == ref.shape:
+            gather_err[0] = max(gather_err[0], float(
+                (got.float() - ref.float()).abs().max()) if got.numel()
+                else 0.0)
+        return same_bits(got, ref)
+
+    def gather_bytes(table, idx, block_rows):
+        """idx read once, the table read once, each output row written
+        once."""
+        row = block_rows * table.shape[1] * table.element_size()
+        return (idx.numel() * 4 + table.numel() * table.element_size()
+                + idx.numel() * row)
+
+    # -- 9. the probe shapes --------------------------------------------------
+    g = torch.Generator(device=dev).manual_seed(0)
+    idx = torch.randint(0, PROBE_ROWS, (PROBE_IDX,), generator=g, device=dev,
+                        dtype=torch.int32)
+    base = {C: torch.randn(PROBE_ROWS, C, generator=g, device=dev)
+            for C in (2, 128)}
+    probe_idx = {
+        "blocks": idx.reshape(64, PROBE_IDX // 64),
+        "flat": idx,
+        "mod4096": (idx % 4096).reshape(64, PROBE_IDX // 64),
+        "div8": (idx[:PROBE_IDX // 8] // 8).contiguous(),
+    }
+    probes = {}
+    for name, line, C, rows_used, form, br in PROBES:
+        i = probe_idx[form]
+        rec = {"replaces": f"tools/probe_gather.py:{line}",
+               "shape": {"table": [rows_used or PROBE_ROWS, C],
+                         "idx": list(i.shape), "block_rows": br}}
+        for dt in (torch.float32, torch.bfloat16):
+            t = base[C].to(dt)
+            if rows_used:
+                t = t[:rows_used]
+            got = ga.gather_rows(t, i, br)
+            ref = ga.gather_rows_plain(t, i, br)
+            torch.cuda.synchronize()
+            check(held(got, ref),
+                  f"gather {name} {dt}: kernel differs from its plain version")
+            del got, ref
+            tv = t.reshape(t.shape[0] // br, br * C)
+            flat_i = i.reshape(-1)
+            key = "f32" if dt == torch.float32 else "bf16"
+            rec[key] = {
+                "ms": cuda_ms(lambda: ga.gather_rows(t, i, br), reps=20),
+                "plain_ms": cuda_ms(lambda: ga.gather_rows_plain(t, i, br),
+                                    reps=5),
+                "library_ms": cuda_ms(
+                    lambda: torch.index_select(tv, 0, flat_i), reps=20),
+                "bound_ms": gather_bytes(t, i, br) / HBM_BPS * 1e3}
+            torch.cuda.empty_cache()
+        probes[name] = rec
+    # p2_take's fill: indices outside the table give rows of zeros
+    fill = idx.clone()
+    fill[::16] = -1
+    fill[8::16] = PROBE_ROWS + 5
+    for dt in (torch.float32, torch.bfloat16):
+        t = base[2].to(dt)
+        got = ga.gather_rows(t, fill)
+        torch.cuda.synchronize()
+        check(held(got, ga.gather_rows_plain(t, fill))
+              and not got[::8].any(),
+              f"gather fill {dt}: out-of-range rows are not zeros")
+    del base, probe_idx, idx, fill, got
+    torch.cuda.empty_cache()
+    log(f"gather probes: {probes}")
+
+    # -- 10. the hash-grid interactive frame -----------------------------------
+    mc = ModelConfig(field_type="hashgrid", with_sam=True)
+    model = fields.make_model(mc, RenderConfig())
+    gen = torch.Generator().manual_seed(0)
+    p32 = fields.init_params(model, gen, dev)
+    # tables redrawn so that densities and features vary across the frame
+    p32["grid"] = hg.init_params(gen, model.grid_spec, hp.TABLE_STD, dev)
+    p32["s_grid"] = hg.init_params(gen, model.s_grid_spec, hp.TABLE_STD, dev)
+    for p, spec in zip(p32["prop"], model.prop_specs):
+        p["grid"] = hg.init_params(gen, spec, hp.TABLE_STD, dev)
+    params = fields.cast_params(p32, torch.bfloat16)
+    check(not renderer.uses_kernels(model), "hash-grid: took the MLP path")
+    sam_cfg = sam_mod.SamConfig()
+    sam_params = fields.cast_params(sam_mod.init_params(
+        sam_cfg, torch.Generator().manual_seed(1), dev))
+    sess = InteractiveSession(None, model, params,
+                              sam_mod.SamPredictor(sam_cfg, sam_params,
+                                                   device=dev),
+                              H=SIZE, W=SIZE, device=dev)
+    pose = np.asarray(SERVE_POSE, np.float32)
+    sess.step(pose)
+    sess.points_3d.append(np.zeros(3, np.float32))
+    sess.step(pose)
+    check(sess._pipe(SIZE, SIZE)._kernel_nets() is None,
+          "hash-grid: the frame packed MLP kernel weights")
+
+    calls, got = [], {}
+    real_gather = hg.gather_rows
+    dfused, dec = fp.decode_fused, sam_mod.decode
+
+    def spy_gather(table, i, block_rows=1):
+        calls.append((table, i))
+        return real_gather(table, i, block_rows)
+
+    def spy_fused(cfg, p, feats, *a, **k):
+        got.setdefault("samvit", feats)
+        return dfused(cfg, p, feats, *a, **k)
+
+    def spy_dec(*a, **k):
+        out = dec(*a, **k)
+        got.setdefault("logits", out[0])
+        return out
+
+    hg.gather_rows, fp.decode_fused, sam_mod.decode = (spy_gather, spy_fused,
+                                                       spy_dec)
+    try:
+        torch.cuda.synchronize()
+        ga.gather_rows.launches = 0
+        r = sess.step(pose, pipelined=False)
+        torch.cuda.synchronize()
+        launches = ga.gather_rows.launches
+    finally:
+        hg.gather_rows, fp.decode_fused, sam_mod.decode = (real_gather,
+                                                           dfused, dec)
+    check(launches == HASHGRID_LAUNCHES,
+          f"hash-grid frame: {launches} gathers, expected {HASHGRID_LAUNCHES}")
+    check(r.rgb_u8.shape == (SIZE, SIZE, 3), "hash-grid frame shape")
+    check(bool(torch.isfinite(r.depth).all()), "hash-grid depth not finite")
+    sv = got.get("samvit")
+    check(sv is not None and tuple(sv.shape) == (sess.h, sess.w,
+                                                 mc.sam_feat_dim)
+          and bool(torch.isfinite(sv).all()), "hash-grid samvit")
+    check(got.get("logits") is not None
+          and bool(torch.isfinite(got["logits"]).all()),
+          "hash-grid mask logits not finite")
+    check(r.mask is not None and tuple(r.mask.shape) == (SIZE, SIZE),
+          "hash-grid mask missing")
+    # every gather of that frame against its plain version, and its times
+    fr = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    shapes = {}
+    for table, i in calls:
+        ref = ga.gather_rows_plain(table, i)
+        check(held(real_gather(table, i), ref),
+              f"hash-grid gather {tuple(i.shape)}: kernel differs")
+        del ref
+        flat_i = i.reshape(-1)
+        fr["ms"] += cuda_ms(lambda: real_gather(table, i), reps=3)
+        fr["plain_ms"] += cuda_ms(lambda: ga.gather_rows_plain(table, i),
+                                  reps=1)
+        fr["library_ms"] += cuda_ms(
+            lambda: torch.index_select(table, 0, flat_i), reps=3)
+        fr["bound_ms"] += gather_bytes(table, i, 1) / HBM_BPS * 1e3
+        k = f"{list(i.shape)} x {table.shape[1]} {str(table.dtype)[6:]}"
+        shapes[k] = shapes.get(k, 0) + 1
+        torch.cuda.empty_cache()
+    del calls, r
+    torch.cuda.empty_cache()
+    log(f"hash-grid frame gathers: {launches} launches, {fr}, {shapes}")
+
+    def drive(n, sync):
+        ts_ = []
+        for _ in range(n):
+            t = time.perf_counter()
+            sess.step(pose, pipelined=not sync)
+            ts_.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(ts_), ts_
+
+    drive(2, False)
+    pipelined = drive(5, False)
+    sync = drive(3, True)
+    sess.step(pose, pipelined=False)
+    rays_o, rays_d = (torch.from_numpy(a).to(dev)
+                      for a in hp.frame_rays(SIZE))
+    ts_ = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        renderer.run_rays(model, params, rays_o, rays_d)
+        torch.cuda.synchronize()
+        ts_.append((time.perf_counter() - t) * 1e3)
+    times = {"pipelined_ms": pipelined[0], "sync_ms": sync[0],
+             "pipelined_runs": pipelined[1], "sync_runs": sync[1],
+             "rgb_render_ms": statistics.median(ts_), "rgb_render_runs": ts_}
+    del sess
+    torch.cuda.empty_cache()
+    log(f"hash-grid frame times {times}")
+
+    # -- 11. the kernel frame against the plain-gather frame --------------------
+    kern = renderer.run_rays(model, p32, rays_o, rays_d)
+    hg.gather_rows = ga.gather_rows_plain
+    try:
+        plain = renderer.run_rays(model, p32, rays_o, rays_d)
+    finally:
+        hg.gather_rows = real_gather
+    torch.cuda.synchronize()
+    for k in ("image", "depth", "weights_sum"):
+        check(torch.equal(kern[k], plain[k]),
+              f"hash-grid {k}: the kernel frame differs from the plain-gather "
+              f"frame by {float((kern[k] - plain[k]).abs().max()):.3g}")
+    depth_std = float(kern["depth"].std())
+    del kern, plain
+    torch.cuda.empty_cache()
+
+    # -- 12. against the JAX package ----------------------------------------------
+    ref = JAX_HASHGRID
+    pj = params_from_jax(hp.make_flat(expected_shapes(model), 0), model, dev)
+    o64, d64 = (torch.from_numpy(a).to(dev) for a in hp.frame_rays(64))
+    out = renderer.run_rays(model, pj, o64, d64, return_feats=True)
+    px = torch.tensor(ref["pixels"], device=dev)
+    vals = {"mean": {k: float(out[k].double().mean()) for k in ref["mean"]},
+            "image": out["image"][px], "depth": out["depth"][px],
+            "weights_sum": out["weights_sum"][px],
+            "samvit": out["samvit"][px][:, ref["channels"]]}
+    jax_err = {}
+    for k, v in vals.items():
+        if k == "mean":
+            got_v = np.asarray([v[m] for m in ref["mean"]])
+            want = np.asarray([ref["mean"][m] for m in ref["mean"]])
+        else:
+            got_v, want = v.double().cpu().numpy(), np.asarray(ref[k])
+        d = np.abs(got_v - want)
+        jax_err[k] = float(d.max())
+        check(bool((d <= JAX_HASHGRID_TOL + JAX_HASHGRID_TOL
+                    * np.abs(want)).all()),
+              f"hash-grid {k} off the JAX values: max {d.max():.3g}")
+    del out, pj
+    log(f"hash-grid vs JAX: {jax_err}")
+
+    # -- 13. the mask frame ----------------------------------------------------------
+    mmodel = fields.make_model(dataclasses.replace(mc, with_mask=True),
+                               RenderConfig())
+    mgen = torch.Generator().manual_seed(2)
+    pm = dict(params)
+    pm["m_grid"] = hg.init_params(mgen, mmodel.m_grid_spec, hp.TABLE_STD,
+                                  dev).to(torch.bfloat16)
+    pm["mask_mlp"] = fields.cast_params(fields.init_mlp(
+        mgen, *fields.mask_mlp_dims(mmodel), 3, False, (), dev))
+    torch.cuda.synchronize()
+    ga.gather_rows.launches = 0
+    mout = renderer.run_rays(mmodel, pm, rays_o, rays_d, return_mask=True)
+    torch.cuda.synchronize()
+    mask_launches = ga.gather_rows.launches
+    logits = mout["instance_mask_logits"]
+    check(mask_launches == MASK_LAUNCHES,
+          f"mask frame: {mask_launches} gathers, expected {MASK_LAUNCHES}")
+    check(tuple(logits.shape) == (SIZE * SIZE, mmodel.mask_out_dim())
+          and bool(torch.isfinite(logits).all()), "mask frame logits")
+    del mout, logits, pm
+    torch.cuda.empty_cache()
+
+    common = {"route": "cuda", "source": "sanerf_tpu_torch/csrc/gather.cu",
+              "launches": launches,
+              "launches_of": "gather_rows in one 512^2 hash-grid interactive "
+                             "frame (the same kernel serves every row)",
+              "max_abs_err": gather_err[0], "tol": 0.0,
+              "tol_kind": "bit for bit",
+              "bound_by": "bytes"}
+    rows = [{"name": f"gather_rows[{name}]", **common,
+             "replaces": rec["replaces"], "ms": rec["f32"]["ms"],
+             "plain_ms": rec["f32"]["plain_ms"],
+             "bound_ms": rec["f32"]["bound_ms"],
+             "library_ms": rec["f32"]["library_ms"],
+             "library": "torch.index_select", "dtype": "float32",
+             "bf16": rec["bf16"], "shape": rec["shape"]}
+            for name, rec in probes.items()]
+    rows.append({
+        "name": "gather_rows[hashgrid frame]", **common,
+        "replaces": "tools/probe_gather.py:90",
+        "also_replaces": "sanerf_tpu/ops/hashgrid.py:229 (jnp.take)",
+        "ms": fr["ms"], "plain_ms": fr["plain_ms"],
+        "bound_ms": fr["bound_ms"], "library_ms": fr["library_ms"],
+        "library": "torch.index_select", "dtype": "bfloat16",
+        "sum_of": f"{launches} launches of one frame", "shapes": shapes})
+    return {"size": SIZE, "param_dtype": "bfloat16",
+            "model": "ModelConfig(field_type='hashgrid', with_sam=True), "
+                     "RenderConfig() (128, 64, 32)",
+            "table_std": hp.TABLE_STD, "launches_per_frame": launches,
+            "mask_frame_launches": mask_launches, "frame_ms": times,
+            "gathers_per_frame": fr, "depth_std_f32": depth_std,
+            "vs_jax_max_abs_err": jax_err, "jax_tol": JAX_HASHGRID_TOL,
+            "probes": probes, "card": card, "rows": rows}
 
 
 if __name__ == "__main__":

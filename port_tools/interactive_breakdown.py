@@ -135,6 +135,7 @@ def main():
     print(json.dumps({"parts": parts, "hierarchy": "32,16", "card": card}),
           flush=True)
 
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     n = 3
@@ -146,8 +147,10 @@ def main():
             s.step(POSE, pipelined=False)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3 / n
+    # kernels only: an operator's own entry repeats its kernels' time
     ev = [e for e in prof.key_averages()
-          if getattr(e, "self_device_time_total", 0) > 0]
+          if e.device_type == DeviceType.CUDA
+          and e.self_device_time_total > 0]
     dev_ms = sum(e.self_device_time_total for e in ev) / 1e3 / n
     top = sorted(ev, key=lambda e: -e.self_device_time_total)[:20]
     print(json.dumps({"profile": {

@@ -1,9 +1,9 @@
 """Frozen configuration objects of the PyTorch/CUDA port.
 
 Field names, defaults and `config_from_dict` are those of the JAX package's
-`sanerf_tpu/config.py` (RenderConfig, ModelConfig), so a serialized asset's
-`model_config` / `render_config` round-trip unchanged. The port keeps its own
-copy: it imports nothing of the JAX package.
+`sanerf_tpu/config.py` (RenderConfig, HashGridConfig, ModelConfig), so a
+serialized asset's `model_config` / `render_config` round-trip unchanged.
+The port keeps its own copy: it imports nothing of the JAX package.
 
 Fields that describe TPU tilings (`fused_block`, `fused_prop_block`,
 `grid_vmem_budget`) are kept so configs round-trip; the CUDA kernels pick
@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -56,8 +56,31 @@ class RenderConfig:
 
 
 @dataclass(frozen=True)
+class HashGridConfig:
+    """One multiresolution hash grid (JAX: sanerf_tpu/config.py:95-108;
+    reference: gridencoder/grid.py:102-142)."""
+
+    input_dim: int = 3
+    num_levels: int = 16
+    level_dim: int = 2
+    base_resolution: int = 16
+    log2_hashmap_size: int = 19
+    desired_resolution: Optional[int] = None
+    per_level_scale: float = 2.0
+    gridtype: str = "hash"  # 'hash' | 'tiled'
+    interpolation: str = "linear"  # 'linear' | 'smoothstep'
+    align_corners: bool = False
+
+
+@dataclass(frozen=True)
 class ModelConfig:
-    """Field architecture. The port serves `field_type="mlp"` only."""
+    """Field architecture. `field_type` selects the encoder family:
+      - "mlp": Fourier features (plus CP line grids) and MLPs, served
+        through the fused kernels of ops/fused_mlp_t.py;
+      - "hashgrid": the reference's instant-ngp multiresolution hash grids
+        (ops/hashgrid.py, its table gather in the kernel of ops/gather.py)
+        with small MLPs, served through the plain path of the renderer.
+    """
 
     field_type: str = "mlp"  # "mlp" | "hashgrid"
     geom_feat_dim: int = 15

@@ -3,8 +3,9 @@
 The JAX checkpoints and serving assets are flat npz files whose keys are
 '/'-joined tree paths under `params/` (sanerf_tpu/train/checkpoints.py:
 flatten_tree), weights stored [in, out]. `params_from_jax` turns such a
-dict into the port's parameter tree; the tests use it to give both
-frameworks identical weights.
+dict into the port's parameter tree, for both field families (the
+hash-grid family's tables `grid`, `prop/<i>/grid`, `s_grid`, `m_grid`
+included); the tests use it to give both frameworks identical weights.
 
 Three ways to load the shipped asset:
   - `load_asset(path)`: the RGB field as shipped;
@@ -31,14 +32,15 @@ import torch
 from sanerf_tpu_torch.config import ModelConfig, RenderConfig, config_from_dict
 from sanerf_tpu_torch.device import resolve_device
 from sanerf_tpu_torch.models.fields import (NerfModel, Params, init_params,
-                                            make_model)
+                                            make_model, mask_mlp_dims)
 
 _LAYER = re.compile(
     r"^(grid_mlp|view_mlp|s_field_mlp|m_field_mlp|mask_mlp)/(\d+)/w$")
 _BIASED = re.compile(r"^(samvit_mlp)/(\d+)/(w|b)$")
 _PROP = re.compile(r"^prop/(\d+)/mlp/(\d+)/w$")
+_PROP_GRID = re.compile(r"^prop/(\d+)/grid$")
 _NORM = re.compile(r"^samvit_norm/(w|b)$")
-_TABLES = ("cp_lines", "sigma_cp_lines")
+_TABLES = ("cp_lines", "sigma_cp_lines", "grid", "s_grid", "m_grid")
 
 
 def _mlp_shapes(out, name, d_in, d_out, d_hidden, n_layers, skip=(),
@@ -51,39 +53,54 @@ def _mlp_shapes(out, name, d_in, d_out, d_hidden, n_layers, skip=(),
             out[f"{name}/{l}/b"] = (o,)
 
 
+def _table(spec) -> Tuple[int, int]:
+    return (spec.total_params, spec.level_dim)
+
+
 def expected_shapes(model: NerfModel) -> Dict[str, Tuple[int, ...]]:
-    """Every parameter of the MLP-family model, path -> shape."""
+    """Every parameter of the model, path -> shape."""
     c = model.cfg
     out: Dict[str, Tuple[int, ...]] = {}
-    fin, W, D = model.grid_out_dim, c.mlp_field_width, c.mlp_field_depth
-    for l in range(D):
-        i = fin if l == 0 else (W + fin if l == D // 2 else W)
-        out[f"grid_mlp/{l}/w"] = (i, 1 + c.geom_feat_dim if l == D - 1 else W)
-    H, L = c.view_mlp_hidden, c.view_mlp_layers
-    for l in range(L):
-        out[f"view_mlp/{l}/w"] = (model.color_dim if l == 0 else H,
-                                  3 if l == L - 1 else H)
-    for i in range(len(c.prop_resolutions)):
-        for l in range(c.mlp_prop_depth):
-            out[f"prop/{i}/mlp/{l}/w"] = (
-                model.prop_in_dim if l == 0 else c.mlp_prop_width,
-                1 if l == c.mlp_prop_depth - 1 else c.mlp_prop_width)
-    if c.mlp_cp_rank > 0:
-        out["cp_lines"] = (3, c.mlp_cp_res, c.mlp_cp_rank)
-    if c.mlp_sigma_cp_rank > 0:
-        out["sigma_cp_lines"] = (3, c.mlp_sigma_cp_res, c.mlp_sigma_cp_rank)
+    geo = 1 + c.geom_feat_dim
+    if model.is_mlp_field:
+        D = c.mlp_field_depth
+        _mlp_shapes(out, "grid_mlp", model.grid_out_dim, geo,
+                    c.mlp_field_width, D, (D // 2,))
+        for i in range(len(c.prop_resolutions)):
+            _mlp_shapes(out, f"prop/{i}/mlp", model.prop_in_dim, 1,
+                        c.mlp_prop_width, c.mlp_prop_depth)
+        if c.mlp_cp_rank > 0:
+            out["cp_lines"] = (3, c.mlp_cp_res, c.mlp_cp_rank)
+        if c.mlp_sigma_cp_rank > 0:
+            out["sigma_cp_lines"] = (3, c.mlp_sigma_cp_res,
+                                     c.mlp_sigma_cp_rank)
+        if c.with_sam:
+            _mlp_shapes(out, "s_field_mlp", model.grid_out_dim,
+                        model.s_feat_dim, c.mlp_sam_width, c.mlp_sam_depth)
+        if c.with_mask:
+            _mlp_shapes(out, "m_field_mlp", model.grid_out_dim,
+                        model.m_feat_dim, c.mlp_mask_width, c.mlp_mask_depth)
+    else:
+        out["grid"] = _table(model.grid_spec)
+        _mlp_shapes(out, "grid_mlp", model.grid_out_dim, geo,
+                    c.grid_mlp_hidden, c.grid_mlp_layers)
+        for i, spec in enumerate(model.prop_specs):
+            out[f"prop/{i}/grid"] = _table(spec)
+            _mlp_shapes(out, f"prop/{i}/mlp", spec.output_dim, 1,
+                        c.prop_mlp_hidden, c.prop_mlp_layers)
+        if c.with_sam:
+            out["s_grid"] = _table(model.s_grid_spec)
+        if c.with_mask:
+            out["m_grid"] = _table(model.m_grid_spec)
+    _mlp_shapes(out, "view_mlp", model.color_dim, 3, c.view_mlp_hidden,
+                c.view_mlp_layers)
     if c.with_sam:
-        _mlp_shapes(out, "s_field_mlp", model.grid_out_dim, model.s_feat_dim,
-                    c.mlp_sam_width, c.mlp_sam_depth)
         _mlp_shapes(out, "samvit_mlp", model.samvit_in_dim, c.sam_feat_dim,
                     c.samvit_mlp_hidden, c.samvit_mlp_layers,
                     c.samvit_skip_layers, bias=True)
         out["samvit_norm/w"] = out["samvit_norm/b"] = (c.sam_feat_dim,)
     if c.with_mask:
-        _mlp_shapes(out, "m_field_mlp", model.grid_out_dim, model.m_feat_dim,
-                    c.mlp_mask_width, c.mlp_mask_depth)
-        _mlp_shapes(out, "mask_mlp", model.m_feat_dim + c.geom_feat_dim,
-                    model.mask_out_dim(), 256, 3)
+        _mlp_shapes(out, "mask_mlp", *mask_mlp_dims(model), 3)
     return out
 
 
@@ -97,6 +114,7 @@ def params_from_jax(flat: Dict[str, np.ndarray],
     dev = torch.device("cpu") if device is None else resolve_device(device)
     shapes = expected_shapes(model) if model is not None else None
     layers: Dict[Tuple[str, int], Dict[int, Dict[str, torch.Tensor]]] = {}
+    prop_grids: Dict[int, torch.Tensor] = {}
     params: Params = {}
     unmapped = []
     for key, v in flat.items():
@@ -108,7 +126,7 @@ def params_from_jax(flat: Dict[str, np.ndarray],
             continue
         t = torch.tensor(np.asarray(v, np.float32), device=dev)
         m, mb, mp = _LAYER.match(path), _BIASED.match(path), _PROP.match(path)
-        mn = _NORM.match(path)
+        mn, mg = _NORM.match(path), _PROP_GRID.match(path)
         if m:
             layers.setdefault((m.group(1), -1), {}).setdefault(
                 int(m.group(2)), {})["w"] = t
@@ -120,6 +138,8 @@ def params_from_jax(flat: Dict[str, np.ndarray],
                 int(mp.group(2)), {})["w"] = t
         elif mn:
             params.setdefault("samvit_norm", {})[mn.group(1)] = t
+        elif mg:
+            prop_grids[int(mg.group(1))] = t
         elif path in _TABLES:
             params[path] = t
         else:
@@ -132,7 +152,8 @@ def params_from_jax(flat: Dict[str, np.ndarray],
                                         if k.startswith("params/")})
         if missing:
             raise ValueError(f"params missing from the checkpoint: {missing}")
-    n_props = 1 + max([i for (n, i) in layers if n == "prop"], default=-1)
+    n_props = 1 + max([i for (n, i) in layers if n == "prop"]
+                      + list(prop_grids), default=-1)
     for (name, i), by_idx in layers.items():
         if sorted(by_idx) != list(range(len(by_idx))):
             raise ValueError(f"{name}: layer indices {sorted(by_idx)} "
@@ -144,6 +165,10 @@ def params_from_jax(flat: Dict[str, np.ndarray],
             params.setdefault("prop", [None] * n_props)[i] = {"mlp": seq}
         else:
             params[name] = seq
+    for i, t in prop_grids.items():
+        if params.get("prop", [None] * n_props)[i] is None:
+            raise ValueError(f"prop/{i}/grid has no prop/{i}/mlp")
+        params["prop"][i]["grid"] = t
     if any(p is None for p in params.get("prop", [])):
         raise ValueError("proposal net indices are not contiguous")
     return params

@@ -1,15 +1,17 @@
-"""NeRF field of the MLP family, inference only
+"""NeRF fields of the MLP and hash-grid families, inference only
 (JAX: sanerf_tpu/models/fields.py).
 
 Parameters are nested dicts of tensors with the JAX package's names
-(`grid_mlp`, `view_mlp`, `prop[i]["mlp"]`, `cp_lines`, `sigma_cp_lines`,
-the SAM feature head `s_field_mlp` / `samvit_mlp` / `samvit_norm`, the
-default mask head `m_field_mlp` / `mask_mlp`); weights are stored
+(`grid_mlp`, `view_mlp`, `prop[i]["mlp"]`, the MLP family's `cp_lines`,
+`sigma_cp_lines`, `s_field_mlp`, `m_field_mlp`, the hash-grid family's
+tables `grid`, `prop[i]["grid"]`, `s_grid`, `m_grid`, and the heads
+`samvit_mlp` / `samvit_norm` and `mask_mlp`); weights are stored
 [in, out]. The plain functions (`apply_mlp`, `position_features`,
 `forward`, `density`, `sam_features`, `mask_grid_features`,
-`apply_samvit_head`, ...) mirror the JAX XLA path; `field_forward_T`,
-`field_composite_T` and `density(fast=True)` go through the kernels of
-ops/fused_mlp_t.py.
+`apply_samvit_head`, ...) mirror the JAX XLA path; the hash-grid family's
+encoder gathers its table rows through the kernel of ops/gather.py;
+`field_forward_T`, `field_composite_T` and `density(fast=True)` go through
+the kernels of ops/fused_mlp_t.py (MLP family only).
 """
 
 from __future__ import annotations
@@ -21,9 +23,9 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from sanerf_tpu_torch.config import ModelConfig, RenderConfig
-from sanerf_tpu_torch.ops import cpgrid
-from sanerf_tpu_torch.ops.activation import shifted_softplus
+from sanerf_tpu_torch.config import HashGridConfig, ModelConfig, RenderConfig
+from sanerf_tpu_torch.ops import cpgrid, hashgrid
+from sanerf_tpu_torch.ops.activation import shifted_softplus, trunc_exp
 from sanerf_tpu_torch.ops.freq import freq_encode, freq_output_dim
 from sanerf_tpu_torch.ops.fused_mlp_t import (TransposedFieldMLP, ViewMLP,
                                               run_tmlp, run_tmlp_composite)
@@ -130,10 +132,19 @@ def apply_layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5
 
 @dataclass(frozen=True)
 class NerfModel:
-    """Static model specification."""
+    """Static model specification; the hash-grid family's grid specs are
+    resolved here (None / () for the MLP family)."""
 
     cfg: ModelConfig
     render_cfg: RenderConfig
+    grid_spec: Optional[hashgrid.HashGridSpec] = None
+    prop_specs: Tuple[hashgrid.HashGridSpec, ...] = ()
+    s_grid_spec: Optional[hashgrid.HashGridSpec] = None
+    m_grid_spec: Optional[hashgrid.HashGridSpec] = None
+
+    @property
+    def is_mlp_field(self) -> bool:
+        return self.cfg.field_type == "mlp"
 
     @property
     def bound(self) -> float:
@@ -141,15 +152,21 @@ class NerfModel:
 
     @property
     def has_sigma_grid(self) -> bool:
-        return self.cfg.mlp_sigma_cp_rank > 0
+        return self.is_mlp_field and self.cfg.mlp_sigma_cp_rank > 0
 
     @property
     def grid_out_dim(self) -> int:
-        return freq_output_dim(3, self.cfg.mlp_enc_freqs) + self.cfg.mlp_cp_rank
+        """Width of the positional feature feeding grid_mlp."""
+        if self.is_mlp_field:
+            return (freq_output_dim(3, self.cfg.mlp_enc_freqs)
+                    + self.cfg.mlp_cp_rank)
+        return self.grid_spec.output_dim
 
     @property
     def prop_in_dim(self) -> int:
-        return freq_output_dim(3, self.cfg.mlp_prop_enc_freqs)
+        if self.is_mlp_field:
+            return freq_output_dim(3, self.cfg.mlp_prop_enc_freqs)
+        return self.prop_specs[0].output_dim
 
     @property
     def view_in_dim(self) -> int:
@@ -162,12 +179,16 @@ class NerfModel:
     @property
     def s_feat_dim(self) -> int:
         """Per-point SAM field feature width."""
-        return self.cfg.mlp_sam_feat_dim
+        if self.is_mlp_field:
+            return self.cfg.mlp_sam_feat_dim
+        return self.s_grid_spec.output_dim
 
     @property
     def m_feat_dim(self) -> int:
         """Per-point mask field feature width."""
-        return self.cfg.mlp_mask_feat_dim
+        if self.is_mlp_field:
+            return self.cfg.mlp_mask_feat_dim
+        return self.m_grid_spec.output_dim
 
     @property
     def samvit_in_dim(self) -> int:
@@ -183,52 +204,107 @@ class NerfModel:
 
 def make_model(cfg: ModelConfig, render_cfg: RenderConfig) -> NerfModel:
     """The port serves the MLP family with single-level CP and sigma-CP
-    grids, the composite-then-head SAM feature head and the default mask
-    head; every other family, grid or head raises NotImplementedError."""
-    if cfg.field_type != "mlp":
-        raise NotImplementedError(
-            f"field_type={cfg.field_type!r}: the port has the MLP family only")
-    if cfg.mlp_vm_rank > 0 or cfg.mlp_sigma_vm_rank > 0:
-        raise NotImplementedError("VM grids are not in the port yet")
-    if cfg.mlp_cp_rank > 0 and cfg.mlp_cp_levels != 1:
-        raise NotImplementedError("multi-level CP grids are not in the port yet")
-    if cfg.with_mask and cfg.mask_mlp_type != "default":
+    grids and the hash-grid family (JAX: fields.py:283-365), each with the
+    composite-then-head SAM feature head and the default or
+    `lightweight_mask` mask head; every other family, grid or head raises
+    NotImplementedError."""
+    if cfg.field_type not in ("mlp", "hashgrid"):
+        raise NotImplementedError(f"field_type={cfg.field_type!r}")
+    if cfg.with_mask and cfg.mask_mlp_type not in ("default",
+                                                   "lightweight_mask"):
         raise NotImplementedError(
             f"mask_mlp_type={cfg.mask_mlp_type!r} is not in the port yet")
     if cfg.sum_after_mlp:
         raise NotImplementedError("sum_after_mlp is not in the port yet")
-    return NerfModel(cfg=cfg, render_cfg=render_cfg)
+    if cfg.field_type == "mlp":
+        if cfg.mlp_vm_rank > 0 or cfg.mlp_sigma_vm_rank > 0:
+            raise NotImplementedError("VM grids are not in the port yet")
+        if cfg.mlp_cp_rank > 0 and cfg.mlp_cp_levels != 1:
+            raise NotImplementedError(
+                "multi-level CP grids are not in the port yet")
+        return NerfModel(cfg=cfg, render_cfg=render_cfg)
+
+    def spec(num_levels, level_dim, log2_hashmap, desired):
+        return hashgrid.build_spec(HashGridConfig(
+            input_dim=3, num_levels=num_levels, level_dim=level_dim,
+            log2_hashmap_size=log2_hashmap, desired_resolution=desired))
+
+    m_grid = None
+    if cfg.with_mask:
+        # the reference's fixed mask grids (network.py:125-142)
+        m_grid = (spec(16, 8, 19, 512) if cfg.mask_mlp_type == "default"
+                  else spec(16, 2, 10, 256))
+    return NerfModel(
+        cfg=cfg, render_cfg=render_cfg,
+        grid_spec=spec(cfg.grid_num_levels, cfg.grid_level_dim,
+                       cfg.grid_log2_hashmap, cfg.grid_desired_resolution),
+        prop_specs=tuple(spec(cfg.prop_num_levels, cfg.prop_level_dim,
+                              cfg.prop_log2_hashmap, res)
+                         for res in cfg.prop_resolutions),
+        s_grid_spec=(spec(cfg.s_grid_num_levels, cfg.s_grid_level_dim,
+                          cfg.s_grid_log2_hashmap,
+                          cfg.s_grid_desired_resolution)
+                     if cfg.with_sam else None),
+        m_grid_spec=m_grid)
 
 
 def init_params(model: NerfModel, generator: torch.Generator,
                 device=None) -> Params:
     """Random parameters of every head the model has (JAX:
-    fields.py:init_params, :415-424, :451-474), float32, drawn from
-    `generator` on the CPU and moved to `device`. The draws differ from
-    JAX's for the same seed; tests carry JAX's weights across with
-    models/asset.py:params_from_jax instead."""
+    fields.py:init_params, :368-510), float32, drawn from `generator` on
+    the CPU and moved to `device`; hash tables U(-1e-4, 1e-4). The draws
+    differ from JAX's for the same seed; tests carry JAX's weights across
+    with models/asset.py:params_from_jax instead."""
     c, g = model.cfg, generator
     dev = torch.device("cpu") if device is None else device
-    params: Params = {
-        "grid_mlp": init_mlp(g, model.grid_out_dim, 1 + c.geom_feat_dim,
-                             c.mlp_field_width, c.mlp_field_depth, False,
-                             (c.mlp_field_depth // 2,), dev),
-        "view_mlp": init_mlp(g, model.color_dim, 3, c.view_mlp_hidden,
-                             c.view_mlp_layers, False, (), dev),
-        "prop": [{"mlp": init_mlp(g, model.prop_in_dim, 1, c.mlp_prop_width,
-                                  c.mlp_prop_depth, False, (), dev)}
-                 for _ in c.prop_resolutions],
-    }
-    if c.mlp_cp_rank > 0:
-        params["cp_lines"] = 0.2 * torch.randn(
-            3, c.mlp_cp_res, c.mlp_cp_rank, generator=g).to(dev)
-    if c.mlp_sigma_cp_rank > 0:
-        params["sigma_cp_lines"] = 0.2 * torch.randn(
-            3, c.mlp_sigma_cp_res, c.mlp_sigma_cp_rank, generator=g).to(dev)
+    view = init_mlp(g, model.color_dim, 3, c.view_mlp_hidden,
+                    c.view_mlp_layers, False, (), dev)
+    if model.is_mlp_field:
+        params: Params = {
+            "grid_mlp": init_mlp(g, model.grid_out_dim, 1 + c.geom_feat_dim,
+                                 c.mlp_field_width, c.mlp_field_depth, False,
+                                 (c.mlp_field_depth // 2,), dev),
+            "view_mlp": view,
+            "prop": [{"mlp": init_mlp(g, model.prop_in_dim, 1,
+                                      c.mlp_prop_width, c.mlp_prop_depth,
+                                      False, (), dev)}
+                     for _ in c.prop_resolutions],
+        }
+        if c.mlp_cp_rank > 0:
+            params["cp_lines"] = 0.2 * torch.randn(
+                3, c.mlp_cp_res, c.mlp_cp_rank, generator=g).to(dev)
+        if c.mlp_sigma_cp_rank > 0:
+            params["sigma_cp_lines"] = 0.2 * torch.randn(
+                3, c.mlp_sigma_cp_res, c.mlp_sigma_cp_rank,
+                generator=g).to(dev)
+        if c.with_sam:
+            params["s_field_mlp"] = init_mlp(
+                g, model.grid_out_dim, model.s_feat_dim, c.mlp_sam_width,
+                c.mlp_sam_depth, False, (), dev)
+        if c.with_mask:
+            params["m_field_mlp"] = init_mlp(
+                g, model.grid_out_dim, model.m_feat_dim, c.mlp_mask_width,
+                c.mlp_mask_depth, False, (), dev)
+    else:
+        params = {
+            "grid": hashgrid.init_params(g, model.grid_spec, device=dev),
+            "grid_mlp": init_mlp(g, model.grid_out_dim, 1 + c.geom_feat_dim,
+                                 c.grid_mlp_hidden, c.grid_mlp_layers, False,
+                                 (), dev),
+            "view_mlp": view,
+            "prop": [{"grid": hashgrid.init_params(g, spec, device=dev),
+                      "mlp": init_mlp(g, spec.output_dim, 1,
+                                      c.prop_mlp_hidden, c.prop_mlp_layers,
+                                      False, (), dev)}
+                     for spec in model.prop_specs],
+        }
+        if c.with_sam:
+            params["s_grid"] = hashgrid.init_params(g, model.s_grid_spec,
+                                                    device=dev)
+        if c.with_mask:
+            params["m_grid"] = hashgrid.init_params(g, model.m_grid_spec,
+                                                    device=dev)
     if c.with_sam:
-        params["s_field_mlp"] = init_mlp(
-            g, model.grid_out_dim, model.s_feat_dim, c.mlp_sam_width,
-            c.mlp_sam_depth, False, (), dev)
         params["samvit_mlp"] = init_mlp(
             g, model.samvit_in_dim, c.sam_feat_dim, c.samvit_mlp_hidden,
             c.samvit_mlp_layers, True, c.samvit_skip_layers, dev)
@@ -236,17 +312,28 @@ def init_params(model: NerfModel, generator: torch.Generator,
             "w": torch.ones(c.sam_feat_dim, device=dev),
             "b": torch.zeros(c.sam_feat_dim, device=dev)}
     if c.with_mask:
-        params["m_field_mlp"] = init_mlp(
-            g, model.grid_out_dim, model.m_feat_dim, c.mlp_mask_width,
-            c.mlp_mask_depth, False, (), dev)
-        params["mask_mlp"] = init_mlp(
-            g, model.m_feat_dim + c.geom_feat_dim, model.mask_out_dim(), 256,
-            3, False, (), dev)
+        params["mask_mlp"] = init_mlp(g, *mask_mlp_dims(model), 3, False, (),
+                                      dev)
     return params
 
 
+def mask_mlp_dims(model: NerfModel) -> Tuple[int, int, int]:
+    """(d_in, d_out, d_hidden) of `mask_mlp`: the default head takes
+    [m_feats, geo_feat] through 256 x 3; `lightweight_mask` takes
+    [m_feats, colors] through 64 x 3 (JAX: fields.py:464-482, sized by the
+    actual input)."""
+    c = model.cfg
+    if c.mask_mlp_type == "lightweight_mask":
+        return model.m_feat_dim + model.color_dim, model.mask_out_dim(), 64
+    return model.m_feat_dim + c.geom_feat_dim, model.mask_out_dim(), 256
+
+
 def density_activation(model: NerfModel, f0: torch.Tensor) -> torch.Tensor:
-    return shifted_softplus(f0)
+    """shifted softplus for the MLP family, trunc_exp for the hash-grid
+    family (JAX: fields.py:518-526)."""
+    if model.is_mlp_field:
+        return shifted_softplus(f0)
+    return trunc_exp(f0)
 
 
 def position_features(model: NerfModel, params: Params, x: torch.Tensor,
@@ -271,10 +358,15 @@ def sigma_grid_logit(model: NerfModel, params: Params,
 
 def common_forward(model: NerfModel, params: Params, x: torch.Tensor):
     """encode -> grid_mlp -> (sigma, geo_feat, grid_output)."""
-    grid_output = position_features(model, params, x,
-                                    dtype=params["grid_mlp"][0]["w"].dtype)
-    f, _ = apply_skip_mlp(params["grid_mlp"], grid_output,
-                          (model.cfg.mlp_field_depth // 2,))
+    if model.is_mlp_field:
+        grid_output = position_features(
+            model, params, x, dtype=params["grid_mlp"][0]["w"].dtype)
+        f, _ = apply_skip_mlp(params["grid_mlp"], grid_output,
+                              (model.cfg.mlp_field_depth // 2,))
+    else:
+        grid_output = hashgrid.hash_encode(x, params["grid"], model.grid_spec,
+                                           model.bound)
+        f, _ = apply_mlp(params["grid_mlp"], grid_output)
     logit = f[..., 0]
     sg = sigma_grid_logit(model, params, x)
     if sg is not None:
@@ -288,9 +380,9 @@ def forward(model: NerfModel, params: Params, x: Optional[torch.Tensor],
             nets: Optional["KernelNets"] = None) -> Dict[str, torch.Tensor]:
     """Final-level field query: sigma, geo_feat and the raw
     [geo_feat, sh(d)] color feature (the view MLP runs after compositing).
-    `fast` runs the field chain through run_tmlp (on x_T [3, P] when given)
-    and leaves grid_output out."""
-    if fast:
+    `fast` runs the MLP family's field chain through run_tmlp (on x_T
+    [3, P] when given) and leaves grid_output out."""
+    if fast and model.is_mlp_field:
         fT = field_forward_T(model, params, x if x_T is None else x_T,
                              transposed=x_T is not None, nets=nets)
         sigma = density_activation(model, fT[0])
@@ -350,17 +442,22 @@ def density(model: NerfModel, params: Params, x: Optional[torch.Tensor],
             x_T: Optional[torch.Tensor] = None,
             nets: Optional[KernelNets] = None) -> torch.Tensor:
     """Density-only query; 0 <= proposal < n_props routes to a proposal
-    net. `fast` runs the proposal chain through run_tmlp on x_T [3, P]."""
+    net. `fast` runs the MLP family's proposal chain through run_tmlp on
+    x_T [3, P]."""
     if 0 <= proposal < len(model.cfg.prop_resolutions):
         p = params["prop"][proposal]
-        if fast:
+        if fast and model.is_mlp_field:
             nets = nets or KernelNets(model, params)
             fT = run_tmlp(x if x_T is None else x_T, nets.props[proposal],
                           transposed=x_T is not None)
             return density_activation(model, fT[0])
-        h = freq_encode(x * (math.pi / model.bound),
-                        model.cfg.mlp_prop_enc_freqs,
-                        out_dtype=p["mlp"][0]["w"].dtype)
+        if model.is_mlp_field:
+            h = freq_encode(x * (math.pi / model.bound),
+                            model.cfg.mlp_prop_enc_freqs,
+                            out_dtype=p["mlp"][0]["w"].dtype)
+        else:
+            h = hashgrid.hash_encode(x, p["grid"], model.prop_specs[proposal],
+                                     model.bound)
         f, _ = apply_mlp(p["mlp"], h)
         return density_activation(model, f[..., 0])
     sigma, _, _ = common_forward(model, params, x)
@@ -370,7 +467,11 @@ def density(model: NerfModel, params: Params, x: Optional[torch.Tensor],
 def sam_features(model: NerfModel, params: Params, x: torch.Tensor
                  ) -> torch.Tensor:
     """Per-point SAM field feature [P, s_feat_dim]: the positional feature
-    through the ReLU `s_field_mlp`."""
+    through the ReLU `s_field_mlp`, or the `s_grid` encode of the hash-grid
+    family."""
+    if not model.is_mlp_field:
+        return hashgrid.hash_encode(x, params["s_grid"], model.s_grid_spec,
+                                    model.bound)
     h = position_features(model, params, x,
                           dtype=params["s_field_mlp"][0]["w"].dtype)
     out, _ = apply_mlp(params["s_field_mlp"], h)
@@ -380,7 +481,11 @@ def sam_features(model: NerfModel, params: Params, x: torch.Tensor
 def mask_grid_features(model: NerfModel, params: Params, x: torch.Tensor
                        ) -> torch.Tensor:
     """Per-point mask field feature [P, m_feat_dim]: the float32 positional
-    feature through the ReLU `m_field_mlp`."""
+    feature through the ReLU `m_field_mlp`, or the `m_grid` encode of the
+    hash-grid family."""
+    if not model.is_mlp_field:
+        return hashgrid.hash_encode(x, params["m_grid"], model.m_grid_spec,
+                                    model.bound)
     h = position_features(model, params, x)
     out, _ = apply_mlp(params["m_field_mlp"], h)
     return out

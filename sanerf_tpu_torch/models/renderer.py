@@ -12,12 +12,15 @@ inference only (JAX: sanerf_tpu/models/renderer.py:50-409, 463-569).
         deltas, the composite and the view head as plain ops, and the SAM
         feature head (composite-then-head) on the point-major coordinates;
       - `return_mask`: the same field query, then the mask field and the
-        default mask head per point, composited with the weights;
+        mask head (default or `lightweight_mask`) per point, composited
+        with the weights;
     with `flatten_kernel` the [3, N, T] coordinates reach the MLP kernels
     through the flatten3_nt kernel instead of a reshape;
-  - the plain path (`use_fused_mlp=False`): uniform_bins / sample_pdf,
-    point-major coordinates, the plain field and compositing. It is the
-    oracle the fast path is held against.
+  - the plain path (`use_fused_mlp=False`, and always for the hash-grid
+    family): uniform_bins / sample_pdf, point-major coordinates, the plain
+    field and compositing. It is the oracle the fast path is held against,
+    and it serves the hash-grid family, whose encoder gathers its table
+    rows through the kernel of ops/gather.py.
 
 Randomness enters as tensors: `jitter` is a list of uniform [0, 1) draws,
 one [N, T_l + 1] per level (the JAX renderer's `jax.random.uniform` draws,
@@ -52,13 +55,14 @@ def default_aabb(model: NerfModel, device) -> torch.Tensor:
 
 
 def uses_kernels(model: NerfModel) -> bool:
-    """Whether run_rays takes the fast path (the JAX predicate of
-    renderer.py:106-116 without its TPU VMEM rule, which the port replaces
-    by raising on tables over TABLE_BYTES_LIMIT)."""
+    """Whether run_rays takes the fast path: the MLP family only (the JAX
+    predicate of renderer.py:106-116 without its TPU VMEM rule, which the
+    port replaces by raising on tables over TABLE_BYTES_LIMIT)."""
     cfg, mc = model.render_cfg, model.cfg
     has_grids = mc.mlp_cp_rank > 0 or model.has_sigma_grid
     skip_ok = mc.mlp_field_depth // 2 != mc.mlp_field_depth - 1
-    return cfg.use_fused_mlp and skip_ok and (not has_grids or cfg.cp_fused)
+    return (model.is_mlp_field and cfg.use_fused_mlp and skip_ok
+            and (not has_grids or cfg.cp_fused))
 
 
 def run_rays(model: NerfModel, params: Params, rays_o: torch.Tensor,
@@ -222,17 +226,24 @@ def run_rays(model: NerfModel, params: Params, rays_o: torch.Tensor,
     if return_mask:
         # per-point mask logits, composited (JAX renderer.py:379-388)
         m_feats = fields.mask_grid_features(model, params, xyzs)
-        point_masks = _mask_head(model, params, m_feats, outputs["geo_feat"])
+        point_masks = _mask_head(model, params, m_feats, outputs["geo_feat"],
+                                 outputs["color"])
         results["instance_mask_logits"] = (
             weights[..., None] * point_masks.reshape(N, T, -1)).sum(dim=-2)
     return results
 
 
 def _mask_head(model: NerfModel, params: Params, m_feats: torch.Tensor,
-               geo_feat: torch.Tensor) -> torch.Tensor:
-    """The default mask head (JAX renderer.py:393-409): [m_feats, geo_feat]
-    through the LeakyReLU `mask_mlp` with no skips -> per-point logits
-    [P, mask_out_dim]."""
+               geo_feat: torch.Tensor,
+               colors: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-point mask logits [P, mask_out_dim] (JAX renderer.py:393-413):
+    the default head takes [m_feats, geo_feat] through the LeakyReLU
+    `mask_mlp` with no skips, `lightweight_mask` takes [m_feats, colors]
+    (the [geo_feat, sh(d)] color feature) through the ReLU `mask_mlp`."""
+    if model.cfg.mask_mlp_type == "lightweight_mask":
+        m = torch.cat([m_feats, colors.to(m_feats.dtype)], dim=-1)
+        out, _ = fields.apply_mlp(params["mask_mlp"], m)
+        return out
     m = torch.cat([m_feats, geo_feat.to(m_feats.dtype)], dim=-1)
     out, _ = fields.apply_skip_mlp(params["mask_mlp"], m, ())
     return out

@@ -18,11 +18,14 @@ def contract(x: torch.Tensor) -> torch.Tensor:
     coordinate is the FIRST maximum (x over y over z), as jnp.argmax. The
     tie-break is spelled out: the index that `max(dim)` returns for a tie
     is not specified on every device, and a tie (|x| == |y| on an image
-    diagonal) is common."""
+    diagonal) is common. It is written as comparisons: PyTorch's CUDA scan
+    along an innermost axis of 3 took 377 ms for the 58.7 M points of a
+    512^2 frame at (128, 64, 32) on an H100 80GB HBM3 at 700 W
+    (port_tools/hashgrid_breakdown.py)."""
     ax = x.abs()
     mag = ax.amax(dim=-1, keepdim=True)
-    eq = ax == mag
-    first = eq & (torch.cumsum(eq.int(), dim=-1) == 1)
+    e0, e1, e2 = (ax == mag).unbind(dim=-1)
+    first = torch.stack([e0, e1 & ~e0, e2 & ~(e0 | e1)], dim=-1)
     safe = torch.clamp(mag, min=1e-12)
     scale = torch.where(first, (2.0 - 1.0 / safe) / safe, 1.0 / safe)
     return torch.where(mag < 1.0, x, x * scale)

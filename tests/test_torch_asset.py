@@ -102,13 +102,68 @@ def test_params_from_jax_raises_on_shape_or_missing_key():
         params_from_jax(missing, model)
 
 
-@pytest.mark.parametrize("kw", [dict(field_type="hashgrid"),
+@pytest.mark.parametrize("kw", [dict(field_type="hashgrid",
+                                     with_mask=True, mask_mlp_type="adaptive"),
                                 dict(mlp_vm_rank=4),
                                 dict(mlp_cp_rank=8, mlp_cp_levels=2),
                                 dict(with_mask=True, mask_mlp_type="adaptive"),
-                                dict(with_mask=True,
-                                     mask_mlp_type="lightweight_mask"),
+                                dict(field_type="hashgrid",
+                                     sum_after_mlp=True),
                                 dict(sum_after_mlp=True)])
 def test_other_families_raise(kw):
     with pytest.raises(NotImplementedError):
         fields.make_model(ModelConfig(**kw), RenderConfig())
+
+
+def _hashgrid_pair(**kw):
+    mc = JModelConfig(field_type="hashgrid", grid_num_levels=4,
+                      grid_log2_hashmap=10, grid_desired_resolution=64,
+                      prop_num_levels=3, prop_log2_hashmap=8,
+                      prop_resolutions=(32, 64), s_grid_num_levels=4,
+                      s_grid_log2_hashmap=10, s_grid_desired_resolution=64,
+                      with_sam=True, with_mask=True, n_inst=3, **kw)
+    rc = JRenderConfig(num_steps=(16, 8, 4), bound=4.0)
+    jp = jfields.init_params(jfields.make_model(mc, rc), jax.random.key(0))
+    model = fields.make_model(
+        config_from_dict(ModelConfig, dataclasses.asdict(mc)),
+        config_from_dict(RenderConfig, dataclasses.asdict(rc)))
+    return model, jp, flatten_tree(jp, "params/")
+
+
+@pytest.mark.parametrize("mask_type", ["default", "lightweight_mask"])
+def test_params_from_jax_round_trips_a_hashgrid_tree(mask_type):
+    """Every key of a JAX hash-grid flat dict maps (tables `grid`,
+    `prop/<i>/grid`, `s_grid`, `m_grid` and the MLPs), value for value."""
+    model, jp, flat = _hashgrid_pair(mask_mlp_type=mask_type)
+    assert set(expected_shapes(model)) == {k[7:] for k in flat}
+    assert all(expected_shapes(model)[k[7:]] == tuple(v.shape)
+               for k, v in flat.items())
+    tp = params_from_jax(flat, model)
+    for key in ("grid", "s_grid", "m_grid"):
+        np.testing.assert_array_equal(tp[key].numpy(), np.asarray(jp[key]))
+    for i, p in enumerate(jp["prop"]):
+        np.testing.assert_array_equal(tp["prop"][i]["grid"].numpy(),
+                                      np.asarray(p["grid"]))
+        assert len(tp["prop"][i]["mlp"]) == len(p["mlp"])
+    np.testing.assert_array_equal(tp["mask_mlp"][0]["w"].numpy(),
+                                  np.asarray(jp["mask_mlp"][0]["w"]))
+    assert len(tp["grid_mlp"]) == 3 and "m_field_mlp" not in tp
+
+
+def test_params_from_jax_hashgrid_raises_on_bad_keys():
+    model, _, flat = _hashgrid_pair()
+    bad = dict(flat)
+    bad["params/s_grid"] = bad["params/s_grid"][:-8]
+    with pytest.raises(ValueError, match="failed to map"):
+        params_from_jax(bad, model)
+    extra = dict(flat)
+    extra["params/prop/0/table"] = np.zeros((8, 2), np.float32)
+    with pytest.raises(ValueError, match="failed to map"):
+        params_from_jax(extra, model)
+    missing = {k: v for k, v in flat.items() if k != "params/prop/1/grid"}
+    with pytest.raises(ValueError, match="missing"):
+        params_from_jax(missing, model)
+    orphan = {k: v for k, v in flat.items()
+              if not k.startswith("params/prop/1/mlp")}
+    with pytest.raises(ValueError, match="prop/1/grid"):
+        params_from_jax(orphan)

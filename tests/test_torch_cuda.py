@@ -8,14 +8,16 @@ nor the JAX package, so it runs where only the port is installed:
 
 Tolerances as in chip_smoke.py: 1e-5 for the ray kernels, the JAX suite's
 float32 bounds for the MLP kernels with float32 weights (3e-4 and 1e-3);
-flatten3_nt and the packed ts/dl rows bit for bit; the packed composite
-within 1e-6 of the unpacked one on the same operands.
+flatten3_nt, the packed ts/dl rows and gather_rows bit for bit; the
+packed composite within 1e-6 of the unpacked one on the same operands.
 """
 
 import pytest
 import torch
 
+from sanerf_tpu_torch.config import HashGridConfig
 from sanerf_tpu_torch.ops import fused_mlp_t as fm
+from sanerf_tpu_torch.ops import gather, hashgrid
 from sanerf_tpu_torch.ops import ray_kernels as rk
 
 pytestmark = pytest.mark.cuda
@@ -180,3 +182,61 @@ def test_packed_composite_kernel(dev, T, pack_q):
     _close(got, ref, 1e-6)
     _close(got, fm.run_tmlp_composite_plain(x, pk(dl), pk(ts), tm, True,
                                             view, r8, pack_q, T), 1e-3)
+
+
+@pytest.mark.parametrize("C,block_rows,M,first", [
+    (2, 1, 1 << 16, 0), (8, 1, 1001, 0), (128, 1, 777, 0), (2, 8, 4099, 0),
+    (3, 1, 999, 0), (3, 1, 1000, 1), (1, 8, 65, 0), (5, 1, 33, 3)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_rows_kernel(dev, C, block_rows, M, first, dtype):
+    """Every vector width of the kernel (16 B down to 2 B pieces), the
+    8-row blocks, ragged index counts, a table starting at an odd row
+    (`first`: a less aligned base), and indices out of range at both
+    ends (zeros), bit for bit against the plain version."""
+    g = torch.Generator(device=dev).manual_seed(C * 10 + block_rows)
+    R = 8 * 512
+    base = torch.randn(R + 8, C, generator=g, device=dev).to(dtype)
+    table = base[first:first + R]
+    n = R // block_rows
+    idx = torch.randint(-2, n + 2, (M,), generator=g, device=dev,
+                        dtype=torch.int32)
+    idx[:2] = torch.tensor([-1, n], dtype=torch.int32)
+    before = gather.gather_rows.launches
+    got = gather.gather_rows(table, idx, block_rows)
+    torch.cuda.synchronize()
+    assert gather.gather_rows.launches == before + 1
+    ref = gather.gather_rows_plain(table, idx, block_rows)
+    assert got.shape == ref.shape == (M, block_rows * C)
+    assert torch.equal(got.view(torch.int16 if dtype == torch.bfloat16
+                                else torch.int32),
+                       ref.view(torch.int16 if dtype == torch.bfloat16
+                                else torch.int32))
+    assert not got[:2].any()
+    got2 = gather.gather_rows(table, idx.reshape(-1, 1), block_rows)
+    assert torch.equal(got2.reshape(got.shape), got)
+
+
+def test_gather_rows_refuses_on_the_card(dev):
+    t = torch.zeros(64, 2, device=dev)
+    with pytest.raises(ValueError):
+        gather.gather_rows(t, torch.zeros(4, dtype=torch.int64, device=dev))
+    with pytest.raises(ValueError):
+        gather.gather_rows(t, torch.zeros(4, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hash_encode_kernel_matches_plain_gather(dev, dtype, monkeypatch):
+    spec = hashgrid.build_spec(HashGridConfig(
+        num_levels=6, level_dim=4, base_resolution=8, log2_hashmap_size=12,
+        desired_resolution=256))
+    g = torch.Generator(device=dev).manual_seed(5)
+    table = torch.randn(spec.total_params, 4, generator=g, device=dev
+                        ).to(dtype)
+    x = torch.rand(5000, 3, generator=g, device=dev) * 4.4 - 2.2
+    before = gather.gather_rows.launches
+    got = hashgrid.hash_encode(x, table, spec, bound=2.0)
+    torch.cuda.synchronize()
+    assert gather.gather_rows.launches == before + spec.num_levels
+    monkeypatch.setattr(hashgrid, "gather_rows", gather.gather_rows_plain)
+    ref = hashgrid.hash_encode(x, table, spec, bound=2.0)
+    assert torch.equal(got, ref)

@@ -12,7 +12,10 @@ from sanerf_tpu_torch.data.rays import full_frame_rays
 from sanerf_tpu_torch.device import resolve_device
 from sanerf_tpu_torch.apps.frame_pipeline import FramePipeline
 from sanerf_tpu_torch.apps.interactive import InteractiveSession
+from sanerf_tpu_torch.config import ModelConfig, RenderConfig
+from sanerf_tpu_torch.models import fields
 from sanerf_tpu_torch.models.asset import load_asset, load_mask_asset
+from sanerf_tpu_torch.models.convert_nerf import convert_nerf_state_dict
 from sanerf_tpu_torch.models.sam.predictor import SamConfig, SamPredictor
 
 torch.set_num_threads(1)
@@ -74,3 +77,29 @@ def test_entry_points_default_to_cuda():
     o, d = full_frame_rays([[1, 0, 0, 0], [0, 1, 0, 0], [0, 0, 1, 2]],
                            [10.0, 10.0, 2.0, 2.0], 4, 4, device="cpu")
     assert o.shape == d.shape == (16, 3) and o.device.type == "cpu"
+
+
+@pytest.mark.parametrize("rel", ["sanerf_tpu_torch/ops/gather.py",
+                                 "sanerf_tpu_torch/ops/hashgrid.py",
+                                 "sanerf_tpu_torch/ops/encoding.py",
+                                 "sanerf_tpu_torch/models/convert_nerf.py",
+                                 "port_tools/hashgrid_params.py"])
+def test_hashgrid_modules_import_no_jax(rel):
+    """The hash-grid slice's modules, and the numpy param maker that the
+    card's smoke run loads, import neither jax nor the JAX package."""
+    path = os.path.join(ROOT, rel)
+    roots = set(_imported_roots(path))
+    assert not roots & set(FORBIDDEN), roots
+    if rel.startswith("port_tools"):
+        assert roots <= {"__future__", "typing", "numpy"}, roots
+    else:
+        assert path in _port_files()
+
+
+def test_hashgrid_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is satisfiable")
+    model = fields.make_model(ModelConfig(field_type="hashgrid"),
+                              RenderConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert_nerf_state_dict({}, model)
