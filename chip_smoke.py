@@ -5,10 +5,11 @@
 Phases (any failure exits non-zero and prints no result line):
   1. build the CUDA kernels from sanerf_tpu_torch/csrc (one nvcc per source,
      all started together) and print the card's name and power limit;
-  2. hold each kernel against its plain PyTorch version on the card, at the
-     shapes the main path gives it (captured from 512^2 frames of the
-     shipped asset at the (32, 16) and (128, 64, 32) hierarchies) and at
-     small ragged shapes. Ray kernels: 1e-5 (|d| <= tol + tol |ref|). MLP
+  2. hold each kernel against its plain PyTorch version on the card, at
+     every shape the main path gives it (captured from 512^2 frames of the
+     shipped asset at the (32, 16) and (128, 64, 32) hierarchies; each
+     launch timed, with its bound) and at small ragged shapes. Ray
+     kernels: 1e-5 (|d| <= tol + tol |ref|). MLP
      kernels: with the serving bf16 weights the JAX suite's 0.05 (see
      MLP_TOL), and with float32 weights the JAX suite's float32 bounds,
      element by element;
@@ -24,7 +25,10 @@ Phases (any failure exits non-zero and prints no result line):
      (`SamConfig()`, seeded bf16 weights), one 3D point at the origin,
      512^2 through `InteractiveSession.step` at (32, 16) and (128, 64, 32),
      launch counters set to 0 just before a frame and read just after,
-     finite depth / samvit [32, 32, 256] / mask logits;
+     finite depth / samvit [32, 32, 256] / mask logits; every kernel
+     launch of one such frame (RGB and feature render) held against its
+     plain version as in phase 2 (bf16 weights and their float32 twins)
+     and timed against its bound, summed per kernel as its loss per frame;
   6. the render options on the same frames: `flatten_kernel` (flatten3_nt
      launches, pixels identical to the default) and `packed_epilogue` on
      the RGB frame (within 1e-6 of the default), each path driven with the
@@ -37,8 +41,9 @@ Phases (any failure exits non-zero and prints no result line):
   9. the table gather `gather_rows` at the shapes of the eight Pallas probes
      of tools/probe_gather.py (2^19-row tables, 2^21 indices; C = 2, 128
      and 8-row blocks; float32 and bf16), bit for bit against its plain
-     version, with the out-of-range fill, times, bounds and
-     `torch.index_select`'s time;
+     version, with the out-of-range fill, bounds, and the kernel's and
+     `torch.index_select`'s times as medians of PROBE_REPS interleaved
+     launches;
  10. the hash-grid family's interactive frame: `ModelConfig(field_type=
      "hashgrid", with_sam=True)` at full width, tables redrawn
      U(-TABLE_STD, TABLE_STD), bf16, 512^2 through `InteractiveSession.step`
@@ -59,6 +64,7 @@ Phases (any failure exits non-zero and prints no result line):
 Needs no network; builds into build/kernels/.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -181,6 +187,10 @@ JAX_HASHGRID_TOL = 2e-3
 #: reverse order of their in_specs; a 1-D index read as i[:n, 0]); these
 #: rows compute their evident intent.
 PROBE_ROWS, PROBE_IDX = 2 ** 19, 2 ** 21
+#: launches of gather_rows and of torch.index_select, interleaved, whose
+#: median times each probe (a launch of ~20-40 us moves with L2 state and
+#: clocks from one to the next)
+PROBE_REPS = 101
 PROBES = (
     ("pallas_dynloop", 90, 2, None, "blocks", 1),
     ("pallas_dynloop_vmem", 109, 2, None, "blocks", 1),
@@ -219,6 +229,43 @@ def check(cond, msg):
 
 def log(msg):
     print(msg, file=sys.stderr, flush=True)
+
+
+@contextlib.contextmanager
+def spying(renderer, fields, kern_fn, calls, h):
+    """Records every call of the four main-path kernels, as the renderer and
+    the fields module make it, under calls[(h, name)] as (args, kwargs)."""
+    spied = {"ray_level0": renderer, "ray_level": renderer,
+             "run_tmlp": fields, "run_tmlp_composite": fields}
+
+    def spy(name, fn):
+        def wrapped(*a, **k):
+            calls.setdefault((h, name), []).append((a, k))
+            return fn(*a, **k)
+        return wrapped
+
+    for n, m in spied.items():
+        setattr(m, n, spy(n, kern_fn[n]))
+    try:
+        yield
+    finally:
+        for n, m in spied.items():
+            setattr(m, n, kern_fn[n])
+
+
+def shape_key(a, k):
+    """One launch's operands as text: tensor shapes, the MLP's layer widths,
+    scalars."""
+    def f(v):
+        if hasattr(v, "shape"):
+            return "x".join(map(str, v.shape))
+        if hasattr(v, "ws"):
+            return "mlp(" + "-".join(str(int(w.shape[1])) for w in v.ws) + ")"
+        if hasattr(v, "H"):
+            return f"view({v.H})"
+        return str(v)
+    return ", ".join([f(v) for v in a]
+                     + [f"{kk}={f(v)}" for kk, v in sorted(k.items())])
 
 
 def main():
@@ -296,28 +343,16 @@ def main():
         "run_tmlp_composite": fm.run_tmlp_composite_plain,
         "flatten3_nt": rk.flatten3_nt_plain,
     }
-    # first call of each kernel in one frame per hierarchy: (args, kwargs)
-    seen = {}
-    spied = {"ray_level0": renderer, "ray_level": renderer,
-             "run_tmlp": fields, "run_tmlp_composite": fields}
+    # every call of each kernel in one frame per hierarchy: [(args, kwargs)]
+    calls = {}
     for h, model in models.items():
-        def spy(name, fn):
-            def wrapped(*a, **k):
-                seen.setdefault((h, name), (a, k))
-                return fn(*a, **k)
-            return wrapped
-
-        for n, m in spied.items():
-            setattr(m, n, spy(n, kern_fn[n]))
-        try:
+        with spying(renderer, fields, kern_fn, calls, h):
             renderer.render_frame(model, params, rays_o, rays_d,
                                   chunk=SIZE * SIZE, nets=nets)
-        finally:
-            for n, m in spied.items():
-                setattr(m, n, kern_fn[n])
         torch.cuda.synchronize()
-        check({n for (hh, n) in seen if hh == h} == set(KERNELS),
-              f"{h}: the main path missed a kernel: {sorted(seen)}")
+        check({n for (hh, n) in calls if hh == h} == set(KERNELS),
+              f"{h}: the main path missed a kernel: {sorted(calls)}")
+    seen = {key: v[0] for key, v in calls.items()}
 
     def compare(name, a, k, tol, flips):
         """Kernel vs plain on the same inputs -> (max abs err, outputs past
@@ -359,14 +394,24 @@ def main():
     errs = {n: {} for n in KERNELS}
     errs32 = {n: {} for n in KERNELS}
     flipped = {n: {} for n in KERNELS}
-    for (h, name), (a, k) in seen.items():
+
+    def hold(name, key, a, k, f32):
+        """One main-path launch against its plain version (an MLP kernel
+        also with the float32 twins f32(a, k) of its weights); the errors
+        go to errs / errs32 / flipped[name][key]."""
         if name.startswith("ray"):
-            errs[name][h], _ = compare(name, a, k, RAY_TOL, flips=False)
-        else:
-            errs[name][h], flipped[name][h] = compare(name, a, k, MLP_TOL,
-                                                      flips=True)
-            errs32[name][h], _ = compare(name, *to_f32(a, k),
-                                         MLP_F32_TOL[name], flips=False)
+            e, _ = compare(name, a, k, RAY_TOL, flips=False)
+            errs[name][key] = max(errs[name].get(key, 0.0), e)
+            return
+        e, past = compare(name, a, k, MLP_TOL, flips=True)
+        e32, _ = compare(name, *f32(a, k), MLP_F32_TOL[name], flips=False)
+        errs[name][key] = max(errs[name].get(key, 0.0), e)
+        errs32[name][key] = max(errs32[name].get(key, 0.0), e32)
+        flipped[name][key] = flipped[name].get(key, 0) + past
+
+    for (h, name), launches_hn in calls.items():
+        for a, k in launches_hn:  # every launch shape of the frame
+            hold(name, h, a, k, to_f32)
     log(f"main-path shapes: max abs err bf16 {errs} f32 {errs32}, "
         f"bf16 outputs past the elementwise bound {flipped}")
 
@@ -530,35 +575,31 @@ def main():
                                            for w in tm.ws)
         return nbytes / HBM_BPS * 1e3, ops / peak * 1e3
 
-    timing = {n: {} for n in KERNELS}
-    for (h, name), (a, k) in seen.items():
-        b_ms, b_by = bound(name, a, k)
-        timing[name][h] = {
-            "ms": cuda_ms(lambda: kern_fn[name](*a, **k), reps=10),
-            "plain_ms": cuda_ms(lambda: plain_fn[name](*a, **k), reps=2),
-            "bound_ms": b_ms, "bound_by": b_by}
-        torch.cuda.empty_cache()
-    del seen
+    def launch_times(name, launches_, plain=True):
+        """[{shape, ms, plain_ms, bound_ms, bound_by}] of each launch, in
+        the frame's order; a shape seen before is timed once."""
+        out, done = [], {}
+        for a, k in launches_:
+            key = shape_key(a, k)
+            if key not in done:
+                b_ms, b_by = bound(name, a, k)
+                done[key] = {
+                    "shape": key,
+                    "ms": cuda_ms(lambda: kern_fn[name](*a, **k), reps=10),
+                    "plain_ms": (cuda_ms(lambda: plain_fn[name](*a, **k),
+                                         reps=2) if plain else None),
+                    "bound_ms": b_ms, "bound_by": b_by}
+                torch.cuda.empty_cache()
+            out.append(done[key])
+        return out
 
-    rows = []
-    for i, name in enumerate(KERNELS):
-        serve = timing[name]["32,16"]
-        rows.append({
-            "name": name, "route": "cuda", "source": SOURCES[name][0],
-            "replaces": SOURCES[name][1], "launches": launches[i],
-            "launches_per_frame": {h: per_frame[h][i] for h in per_frame},
-            "max_abs_err": max(errs[name].values()),
-            "tol": RAY_TOL if name.startswith("ray") else MLP_TOL,
-            "tol_kind": ("elementwise" if name.startswith("ray") else
-                         f"elementwise on all but {FLIP_SHARE} of the "
-                         f"outputs, those within tol * max|ref|"),
-            "max_abs_err_f32_weights": (max(errs32[name].values())
-                                        if errs32[name] else None),
-            "outputs_past_tol": flipped[name] or None,
-            "ms": serve["ms"], "plain_ms": serve["plain_ms"],
-            "bound_ms": serve["bound_ms"], "bound_by": serve["bound_by"],
-            "library_ms": None, "shapes_of": "32,16",
-            "by_hierarchy": timing[name]})
+    timing = {n: {} for n in KERNELS}
+    rgb_launches = {n: {} for n in KERNELS}
+    for (h, name), launches_hn in calls.items():
+        rgb_launches[name][h] = launch_times(name, launches_hn)
+        timing[name][h] = {kk: v for kk, v in rgb_launches[name][h][0].items()
+                           if kk != "shape"}
+    del seen, calls
 
     # -- 4. held-out PSNR on the textured fixture ---------------------------
     ds = SyntheticSphereDataset(H=128, W=128, n_views=8, radius=1.8,
@@ -586,15 +627,47 @@ def main():
               f"{h}: PSNR {psnr[h]:.3f} dB vs JAX {ref:.3f} dB")
 
     inter = interactive_phases(
-        torch, np, dev, card, fields, renderer, rk, fm, compare, cuda_ms,
-        bound, bound_parts, bound_of,
+        torch, np, dev, card, fields, renderer, rk, fm, compare, hold,
+        cuda_ms, bound, bound_parts, bound_of,
         lambda steps, **kw: model_at(steps, **kw), rays_o, rays_d, nets,
-        params, to_f32)
+        params, to_f32, kern_fn, launch_times)
+    # errs / errs32 / flipped now also hold every launch of the interactive
+    # frames (keys "interactive <hierarchy>")
+    rows = []
+    for i, name in enumerate(KERNELS):
+        serve = timing[name]["32,16"]
+        rows.append({
+            "name": name, "route": "cuda", "source": SOURCES[name][0],
+            "replaces": SOURCES[name][1], "launches": launches[i],
+            "launches_per_frame": {h: per_frame[h][i] for h in per_frame},
+            "max_abs_err": max(errs[name].values()),
+            "max_abs_err_by_frame": errs[name],
+            "tol": RAY_TOL if name.startswith("ray") else MLP_TOL,
+            "tol_kind": ("elementwise" if name.startswith("ray") else
+                         f"elementwise on all but {FLIP_SHARE} of the "
+                         f"outputs, those within tol * max|ref|"),
+            "max_abs_err_f32_weights": (max(errs32[name].values())
+                                        if errs32[name] else None),
+            "outputs_past_tol": flipped[name] or None,
+            "ms": serve["ms"], "plain_ms": serve["plain_ms"],
+            "bound_ms": serve["bound_ms"], "bound_by": serve["bound_by"],
+            "library_ms": None,
+            "library": "none: no single PyTorch call computes this function",
+            "shapes_of": "32,16, first launch of the RGB frame",
+            "by_hierarchy": timing[name],
+            "rgb_frame_launches": rgb_launches[name]})
     rows += inter.pop("rows")
+    inter_launches = inter.pop("launch_times")
     for row in rows[:len(KERNELS)]:
+        name = row["name"]
         row["launches_interactive_per_frame"] = {
-            h: v[KERNELS.index(row["name"])]
+            h: v[KERNELS.index(name)]
             for h, v in inter["launches_per_frame"].items()}
+        # every launch of one interactive frame (RGB + feature render)
+        row["interactive_frame_launches"] = inter_launches[name]
+        row["interactive_loss_ms"] = {
+            h: sum(t["ms"] - t["bound_ms"] for t in ts)
+            for h, ts in inter_launches[name].items()}
     torch.cuda.empty_cache()
     hgrid = hashgrid_phases(torch, np, dev, card, cuda_ms)
     rows += hgrid.pop("rows")
@@ -617,11 +690,14 @@ def main():
 
 
 def interactive_phases(torch, np, dev, card, fields, renderer, rk, fm,
-                       compare, cuda_ms, bound, bound_parts, bound_of,
-                       model_at, rays_o, rays_d, nets, params, to_f32):
+                       compare, hold, cuda_ms, bound, bound_parts, bound_of,
+                       model_at, rays_o, rays_d, nets, params, to_f32,
+                       kern_fn, launch_times):
     """Phases 5-8: the interactive frame, the render options, mask mIoU and
     frame times. -> the {"interactive": ...} record, with the kernel rows of
-    flatten3_nt and the packed epilogue under "rows"."""
+    flatten3_nt and the packed epilogue under "rows" and the times of every
+    main-path kernel launch of one interactive frame under
+    "launch_times"."""
     import dataclasses
 
     from sanerf_tpu_torch.apps import frame_pipeline as fp
@@ -715,6 +791,48 @@ def interactive_phases(torch, np, dev, card, fields, renderer, rk, fm,
               f"{h}: mask missing or misshapen")
         check(len(s.points_3d) == 1, f"{h}: the click memory")
     log(f"interactive launches per frame {per_frame}")
+    # every launch of one interactive frame (RGB and feature render) held
+    # against its plain version, with the bf16 weights and their float32
+    # twins, and each distinct shape timed
+    icalls = {}
+    for h, s in sessions.items():
+        with spying(renderer, fields, kern_fn, icalls, h):
+            torch.cuda.synchronize()
+            s.step(pose, pipelined=False)
+            torch.cuda.synchronize()
+    # the packed weights depend on the params only, not on the hierarchy
+    n32 = fields.KernelNets(sessions["32,16"].model, ps32)
+    twins = [*n32.props, n32.field, n32.view]
+
+    def weights(v):
+        return [v.w1, *v.rest] if isinstance(v, fm.ViewMLP) else v.ws
+
+    def twin(v):
+        """v's float32 twin: the net of n32 whose weights, rounded to
+        bf16, are v's."""
+        if not isinstance(v, (fm.TransposedFieldMLP, fm.ViewMLP)):
+            return v
+        for c in twins:
+            if (type(c) is type(v) and len(weights(c)) == len(weights(v))
+                    and all(a.shape == b.shape
+                            and torch.equal(a, b.to(a.dtype))
+                            for a, b in zip(weights(v), weights(c)))):
+                return c
+        fail("interactive frame: a kernel net with no float32 twin")
+
+    def f32(a, k):
+        return (tuple(twin(v) for v in a),
+                {kk: twin(v) for kk, v in k.items()})
+
+    launch_t = {n: {} for n in KERNELS}
+    for (h, name), ls in icalls.items():
+        for a, k in ls:
+            hold(name, f"interactive {h}", a, k, f32)
+        launch_t[name][h] = launch_times(name, ls, plain=False)
+    log(f"interactive frames' launches against plain: "
+        f"{sum(map(len, icalls.values()))} held")
+    del icalls
+    torch.cuda.empty_cache()
 
     # -- 6. the render options -----------------------------------------------
     seen = {}
@@ -924,6 +1042,7 @@ def interactive_phases(torch, np, dev, card, fields, renderer, rk, fm,
         "ms": pk_ms, "plain_ms": pk_plain,
         "bound_ms": bound_of(pk_parts)[0], "bound_by": bound_of(pk_parts)[1],
         "library_ms": None,
+        "library": "none: no single PyTorch call computes this function",
         "shapes_of": "32,16 RGB frame: packed ray_level + packed composite",
         "frame_max_abs_err_vs_default": packed_err})
     return {"size": SIZE, "param_dtype": "bfloat16",
@@ -933,7 +1052,7 @@ def interactive_phases(torch, np, dev, card, fields, renderer, rk, fm,
             "packed_launches_per_frame": packed_launches,
             "packed_vs_default_max_abs_err": packed_err,
             "mask_miou": miou, "jax_mask_miou_bf16_cpu": JAX_MIOU_32_16_BF16,
-            "card": card, "rows": rows}
+            "card": card, "rows": rows, "launch_times": launch_t}
 
 
 def hashgrid_phases(torch, np, dev, card, cuda_ms):
@@ -964,6 +1083,28 @@ def hashgrid_phases(torch, np, dev, card, cuda_ms):
             and torch.equal(bits(a), bits(b))
 
     gather_err = [0.0]  # the largest kernel-vs-plain difference seen
+
+    def interleaved_ms(fns, n=PROBE_REPS):
+        """[(median, 10th, 90th percentile) ms] of each fn over n rounds, a
+        round launching each fn once, each launch timed alone with CUDA
+        events."""
+        for fn in fns:
+            fn()
+        torch.cuda.synchronize()
+        ev = [[(torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True)) for _ in range(n)]
+              for _ in fns]
+        for i in range(n):
+            for j, fn in enumerate(fns):
+                ev[j][i][0].record()
+                fn()
+                ev[j][i][1].record()
+        torch.cuda.synchronize()
+        out = []
+        for e in ev:
+            t = sorted(a.elapsed_time(b) for a, b in e)
+            out.append((statistics.median(t), t[n // 10], t[n - 1 - n // 10]))
+        return out
 
     def held(got, ref):
         """Bit equality of kernel and plain outputs; records their
@@ -1012,12 +1153,15 @@ def hashgrid_phases(torch, np, dev, card, cuda_ms):
             tv = t.reshape(t.shape[0] // br, br * C)
             flat_i = i.reshape(-1)
             key = "f32" if dt == torch.float32 else "bf16"
+            kern, lib = interleaved_ms([
+                lambda: ga.gather_rows(t, i, br),
+                lambda: torch.index_select(tv, 0, flat_i)])
             rec[key] = {
-                "ms": cuda_ms(lambda: ga.gather_rows(t, i, br), reps=20),
+                "ms": kern[0], "ms_p10_p90": kern[1:],
                 "plain_ms": cuda_ms(lambda: ga.gather_rows_plain(t, i, br),
                                     reps=5),
-                "library_ms": cuda_ms(
-                    lambda: torch.index_select(tv, 0, flat_i), reps=20),
+                "library_ms": lib[0], "library_ms_p10_p90": lib[1:],
+                "timed_as": f"median of {PROBE_REPS} interleaved launches",
                 "bound_ms": gather_bytes(t, i, br) / HBM_BPS * 1e3}
             torch.cuda.empty_cache()
         probes[name] = rec

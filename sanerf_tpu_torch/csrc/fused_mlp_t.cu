@@ -14,49 +14,81 @@
 // tensor cores at 989 TFLOP/s. The proposal chain (33->32->1) is ~1.1 k
 // MAC per point and bound by its 12 B in + 4 B out per point.
 //
-// Design: every warp owns tiles of 16 points (the M of mma.m16n8k16). Per
-// tile it
-//   - encodes into shared memory: the angle-doubling Fourier features (one
-//     sinf pair per coordinate, then s' = 2sc, c' = c^2 - s^2, the JAX
-//     recurrence) and the CP line features as 2-tap linear interpolation of
-//     the [3, R, K] tables read through L1/L2 (lanes take consecutive
-//     features, so each table row read is one coalesced segment); the
-//     sigma-CP products are summed over the rank by a warp reduction;
-//   - runs the chain from shared memory: bf16 weights are copied once per
-//     block into shared memory as W^T rows padded by 8 elements (conflict-free
-//     32-bit fragment loads), and each layer is a row of mma.sync m16n8k16
-//     bf16 products with float32 accumulators held in registers (at most 16
-//     n-tiles = 128 outputs). The skip layer is a second product over the
-//     encoding. Activations are rounded to the weight type between layers,
-//     as the TPU kernel does (fused_mlp_t.py:616). float32 weights (the
-//     parity path) take the same data layout with CUDA-core FMAs.
-// The composite kernel gathers whole rays (lcm(16, T) points per step) and
-// runs the epilogue per ray in one warp: softplus density, alpha with the
-// optional opaque last sample, a warp scan for the exclusive transmittance
-// sum of the finite optical depths, NaN weights -> 0, per-ray sums, then the
-// SH (degree <= 4) + view MLP head on one lane per output and the sigmoid.
+// Design (bound by the tensor cores for the field, by bytes for the
+// proposal nets; what holds each back is in PERF.md):
+//   - a warpgroup (4 warps) owns tiles of 64 points, the M of one wgmma;
+//     blocks of up to 4 warpgroups (as many as the shared-memory plan
+//     admits) are persistent and walk the tiles, each thread loading its
+//     point of the next tile while it works on this one;
+//   - encode, one point per thread pair (each thread half of the point's
+//     features), taps computed once per point: the angle-doubling Fourier
+//     features (one sinf pair per coordinate, then s' = 2sc, c' = c^2 - s^2,
+//     the JAX recurrence) and the CP line features as 2-tap linear
+//     interpolation of the [3, R, K] tables, read in 16-byte vectors
+//     through L1/L2;
+//     the sigma-CP sum is a sequential sum per thread plus one shuffle. The
+//     encoding goes to shared memory, since the skip layer reads it a
+//     second time: for bf16 as the core matrices wgmma reads A from;
+//   - the chain, bf16: each layer is a row of wgmma.m64nNk16 (csrc/
+//     wgmma.cuh) with B, the layer's W^T packed on the host as 8x8 core
+//     matrices (K-major, no swizzle), in shared memory, where each block
+//     copies all weights once (or, when they do not fit, one layer at a
+//     time per tile). Layer 0 and the skip layer's encoding part read A
+//     from shared memory; the accumulators of layer l, after the activation
+//     and the rounding to bf16 (fused_mlp_t.py:616), are the register A
+//     fragments of layer l+1, so hidden activations never leave registers;
+//   - the chain, float32 weights (the parity path): CUDA-core FMAs per
+//     warp over a row-major encoding and hidden buffer, weights in shared
+//     memory when they fit, else read through L2, into accumulators of the
+//     same register layout;
+//   - the last layer (plus the sigma-CP sum on column 0) goes to a small
+//     per-warpgroup buffer. run_tmlp writes it out as [kout, P] rows, each
+//     warp its 16 points; the composite kernel gathers whole rays (lcm(64,
+//     T) points per step) and runs the epilogue per ray in one warp:
+//     softplus density, alpha with the optional opaque last sample, a warp
+//     scan for the exclusive transmittance sum of the finite optical
+//     depths, NaN weights -> 0, per-ray sums in index order, then the SH
+//     (degree <= 4) + view MLP head on one lane per output and the sigmoid;
+//   - the proposal nets (bf16, two layers no wider than 32, no CP tables)
+//     take small_kernel instead: a warp per 16-point tile, mma.sync with
+//     the weights held in registers as B fragments.
 // With pack_q > 1 the composite reads dl and ts through the packed layout
 // of the ray kernels, [N/q, q*T, 1] with ray n in slot n % q of row n / q
 // (the TPU fills 128-lane rows with q rays; the per-ray warp epilogue here
 // has no lanes to fill, so the option computes the same function from the
 // packed operands at the same cost).
-// Built with -fmad=false so the encode and the epilogue round like the
-// PyTorch versions.
+// Built with -fmad=false (ops/_build.py) so the encode and the epilogue
+// round like the PyTorch versions (contracting them was measured no
+// faster).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "wgmma.cuh"
+
 namespace {
 
-constexpr int WARPS = 8;
-constexpr int TILE = 16;
+// The most warpgroups in one block (one block an SM): bf16 runs 3 (<= 168
+// registers a thread), 4 in the composite (<= 128; measured faster there
+// despite a few spilled registers, slower in run_tmlp); float32 tiles take
+// twice the shared memory, 2. plan_for takes fewer where the buffers of
+// that many do not fit (long rays in the composite, deep float32 nets).
+template <typename T>
+constexpr int wgs_of(bool composite) {
+  return sizeof(T) == 2 ? (composite ? 4 : 3) : 2;
+}
+constexpr int TILE = 64;  // points per warpgroup tile (the M of wgmma)
+// accumulators a thread: a 64 x 128 tile over the warpgroup's 128 threads
+constexpr int NA = 64;
 constexpr int MAX_LAYERS = 8;
 constexpr int MAX_NT = 16;  // n-tiles of 8 outputs
-constexpr int PAD = 8;      // row padding (elements) of the A/W^T buffers
+constexpr int PAD = 8;      // row padding (elements) of float32 A buffers
 constexpr int SMEM_LIMIT = 232448;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float HALF_PI = 1.57079632679489661923f;
+
+typedef __nv_bfloat16 bf16;
 
 struct Layer {
   int kin_h, kin_e, kout, kout_real, w_off, w_ld;
@@ -74,13 +106,12 @@ struct Net {
   float enc_scale;
   const void* w;
   int w_elems;
-  int w_in_smem;
   Grid cp, scp;
 };
 
 struct View {
   const void* w;
-  int elems, H, n_rest, sh_dim, degree, in_smem;
+  int elems, H, n_rest, sh_dim, degree;
 };
 
 template <typename T>
@@ -88,7 +119,7 @@ __device__ __forceinline__ float tof(T v);
 template <>
 __device__ __forceinline__ float tof<float>(float v) { return v; }
 template <>
-__device__ __forceinline__ float tof<__nv_bfloat16>(__nv_bfloat16 v) {
+__device__ __forceinline__ float tof<bf16>(bf16 v) {
   return __bfloat162float(v);
 }
 template <typename T>
@@ -96,7 +127,7 @@ __device__ __forceinline__ T fromf(float v);
 template <>
 __device__ __forceinline__ float fromf<float>(float v) { return v; }
 template <>
-__device__ __forceinline__ __nv_bfloat16 fromf<__nv_bfloat16>(float v) {
+__device__ __forceinline__ bf16 fromf<bf16>(float v) {
   return __float2bfloat16_rn(v);
 }
 template <typename T>
@@ -104,141 +135,24 @@ __device__ __forceinline__ float rnd(float v) { return tof<T>(fromf<T>(v)); }
 
 __host__ __device__ constexpr int align16(int b) { return (b + 15) & ~15; }
 
-// ---------------------------------------------------------------------------
-// one layer's products into C-fragment accumulators
-//   acc[nt][0,1] = out[row g][col nt*8 + 2t + {0,1}],
-//   acc[nt][2,3] = out[row g+8][...]   (g = lane / 4, t = lane % 4)
-// A: [16][lda] activations, W: [kout][w_ld] transposed weights; the part
-// covers A columns [0, kA) against W columns [wcol0, wcol0 + kA).
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void layer_part(
-    float (&acc)[MAX_NT][4], const __nv_bfloat16* W, int w_ld, int wcol0,
-    const __nv_bfloat16* A, int lda, int kA, int ntiles, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  for (int k0 = 0; k0 < kA; k0 += 16) {
-    const __nv_bfloat16* ar0 = A + g * lda + k0 + 2 * t;
-    const __nv_bfloat16* ar1 = ar0 + 8 * lda;
-    const uint32_t a0 = ld32(ar0), a1 = ld32(ar1), a2 = ld32(ar0 + 8),
-                   a3 = ld32(ar1 + 8);
-    const __nv_bfloat16* wb = W + g * w_ld + wcol0 + k0 + 2 * t;
-#pragma unroll
-    for (int nt = 0; nt < MAX_NT; ++nt) {
-      if (nt < ntiles) {
-        const __nv_bfloat16* wr = wb + nt * 8 * w_ld;
-        mma_bf16(acc[nt], a0, a1, a2, a3, ld32(wr), ld32(wr + 8));
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ void layer_part(float (&acc)[MAX_NT][4],
-                                           const float* W, int w_ld,
-                                           int wcol0, const float* A, int lda,
-                                           int kA, int ntiles, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  const float* ar0 = A + g * lda;
-  const float* ar1 = ar0 + 8 * lda;
-  for (int k = 0; k < kA; ++k) {
-    const float x0 = ar0[k], x1 = ar1[k];
-#pragma unroll
-    for (int nt = 0; nt < MAX_NT; ++nt) {
-      if (nt < ntiles) {
-        const float* w0 = W + (nt * 8 + 2 * t) * w_ld + wcol0 + k;
-        const float wa = w0[0], wb = w0[w_ld];
-        acc[nt][0] += x0 * wa;
-        acc[nt][1] += x0 * wb;
-        acc[nt][2] += x1 * wa;
-        acc[nt][3] += x1 * wb;
-      }
-    }
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ void store_pair(T* p, float v0, float v1);
-template <>
-__device__ __forceinline__ void store_pair<float>(float* p, float v0,
-                                                  float v1) {
-  p[0] = v0;
-  p[1] = v1;
-}
-template <>
-__device__ __forceinline__ void store_pair<__nv_bfloat16>(__nv_bfloat16* p,
-                                                          float v0,
-                                                          float v1) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
-}
-
 __device__ __forceinline__ float act(float v, int leaky) {
   return leaky ? (v >= 0.0f ? v : 0.01f * v) : fmaxf(v, 0.0f);
 }
 
-// The chain over one tile. enc [16][lde] holds the encoding; h [16][ldh] the
-// hidden activations; the last layer (float32, plus `sig` on column 0)
-// lands in outb [16][ldo].
-template <typename T>
-__device__ void chain(const Net& net, const T* W, const T* enc, int lde, T* h,
-                      int ldh, float* outb, int ldo, const float* sig,
-                      int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  for (int l = 0; l < net.n_layers; ++l) {
-    const Layer L = net.layer[l];
-    const int ntiles = L.kout / 8;
-    float acc[MAX_NT][4];
-#pragma unroll
-    for (int nt = 0; nt < MAX_NT; ++nt)
-      acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.0f;
-    const T* Wl = W + L.w_off;
-    if (l == 0)
-      layer_part(acc, Wl, L.w_ld, 0, enc, lde, L.kin_h, ntiles, lane);
-    else
-      layer_part(acc, Wl, L.w_ld, 0, (const T*)h, ldh, L.kin_h, ntiles, lane);
-    if (L.kin_e)
-      layer_part(acc, Wl, L.w_ld, L.kin_h, enc, lde, L.kin_e, ntiles, lane);
-    __syncwarp();
-    const bool last = l == net.n_layers - 1;
-    if (last && sig && t == 0) {
-      acc[0][0] += sig[g];
-      acc[0][2] += sig[g + 8];
-    }
-#pragma unroll
-    for (int nt = 0; nt < MAX_NT; ++nt) {
-      if (nt < ntiles) {
-        const int col = nt * 8 + 2 * t;
-        if (last) {
-          outb[g * ldo + col] = acc[nt][0];
-          outb[g * ldo + col + 1] = acc[nt][1];
-          outb[(g + 8) * ldo + col] = acc[nt][2];
-          outb[(g + 8) * ldo + col + 1] = acc[nt][3];
-        } else {
-          store_pair<T>(h + g * ldh + col, act(acc[nt][0], net.leaky),
-                        act(acc[nt][1], net.leaky));
-          store_pair<T>(h + (g + 8) * ldh + col, act(acc[nt][2], net.leaky),
-                        act(acc[nt][3], net.leaky));
-        }
-      }
-    }
-    __syncwarp();
-  }
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// per-axis 2-tap interpolation setup
+// the warpgroup's own barrier (ids 1..4; 0 is __syncthreads)
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// encode: one point per thread pair
+// ---------------------------------------------------------------------------
+
 struct Taps {
   int i0[3], i1[3];
   float f[3];
@@ -257,38 +171,116 @@ __device__ __forceinline__ Taps taps(const Grid& gr, const float* x) {
   return tp;
 }
 
+// 16 bytes of a table row (shared or global memory) as floats
 template <typename T>
-__device__ __forceinline__ float cp_feature(const Grid& gr, const Taps& tp,
-                                            int k) {
-  const T* L = reinterpret_cast<const T*>(gr.table);
-  float v = 0.0f;
+struct Vec;
+template <>
+struct Vec<bf16> {
+  static constexpr int N = 8;
+  __device__ static void load(const bf16* p, float (&v)[8]) {
+    const uint4 r = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
 #pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    const T* la = L + (size_t)a * gr.R * gr.K;
-    const float fa = tof<T>(la[tp.i0[a] * gr.K + k]) * (1.0f - tp.f[a]) +
-                     tof<T>(la[tp.i1[a] * gr.K + k]) * tp.f[a];
-    v = a == 0 ? fa : v * fa;
+    for (int j = 0; j < 4; ++j) {
+      const float2 f = __bfloat1622float2(h[j]);
+      v[2 * j] = f.x;
+      v[2 * j + 1] = f.y;
+    }
   }
-  return v;
+};
+template <>
+struct Vec<float> {
+  static constexpr int N = 4;
+  __device__ static void load(const float* p, float (&v)[4]) {
+    const float4 r = *reinterpret_cast<const float4*>(p);
+    v[0] = r.x;
+    v[1] = r.y;
+    v[2] = r.z;
+    v[3] = r.w;
+  }
+};
+
+// Column c of tile row p in the encoding buffer: row-major [64][lde] for
+// float32; for bf16 the K-major core matrices that wgmma reads A from
+// (8 x 8 blocks of 128 B, rows 8i.. and columns 8j.. at (8j + i) * 64).
+template <typename T>
+__device__ __forceinline__ int enc_index(int p, int c, int lde);
+template <>
+__device__ __forceinline__ int enc_index<float>(int p, int c, int lde) {
+  return p * lde + c;
+}
+template <>
+__device__ __forceinline__ int enc_index<bf16>(int p, int c, int) {
+  return ((c >> 3) * (TILE / 8) + (p >> 3)) * 64 + (p & 7) * 8 + (c & 7);
 }
 
-// Encodes the tile of points [p0, p0 + 16) into enc; sig[p] gets the
-// sigma-CP sum. xs is [16][3] scratch.
-template <typename T>
-__device__ void encode_tile(const Net& net, const float* __restrict__ x3,
-                            long np, long p0, T* enc, int lde, float* xs,
-                            float* sig, int lane) {
-  if (lane < TILE) {
-    const long p = p0 + lane;
+// CP features k in [k0, k1) of one point from gr's table: each handed to
+// put(c0 + k, value) when `write`; returns their sum in order of k.
+template <typename T, typename Put>
+__device__ float cp_range(const Grid& gr, const Taps& tp, int k0, int k1,
+                          bool write, int c0, const Put& put) {
+  const T* L = reinterpret_cast<const T*>(gr.table);
+  const long plane = (long)gr.R * gr.K;
+  constexpr int V = Vec<T>::N;
+  float sum = 0.0f;
+  const bool vec = gr.K % (2 * V) == 0 &&
+                   (reinterpret_cast<uintptr_t>(L) & 15) == 0;
+  if (vec) {
+#pragma unroll 2
+    for (int k = k0; k < k1; k += V) {
+      float v[V];
 #pragma unroll
-    for (int a = 0; a < 3; ++a) xs[lane * 3 + a] = p < np ? x3[a * np + p] : 0.0f;
+      for (int a = 0; a < 3; ++a) {
+        float lo[V], hi[V];
+        Vec<T>::load(L + a * plane + (long)tp.i0[a] * gr.K + k, lo);
+        Vec<T>::load(L + a * plane + (long)tp.i1[a] * gr.K + k, hi);
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const float fa = lo[j] * (1.0f - tp.f[a]) + hi[j] * tp.f[a];
+          v[j] = a == 0 ? fa : v[j] * fa;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        if (write) put(c0 + k + j, v[j]);
+        sum += v[j];
+      }
+    }
+  } else {
+    for (int k = k0; k < k1; ++k) {
+      float v = 0.0f;
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        const T* la = L + a * plane;
+        const float fa =
+            tof<T>(la[(long)tp.i0[a] * gr.K + k]) * (1.0f - tp.f[a]) +
+            tof<T>(la[(long)tp.i1[a] * gr.K + k]) * tp.f[a];
+        v = a == 0 ? fa : v * fa;
+      }
+      if (write) put(c0 + k, v);
+      sum += v;
+    }
   }
-  __syncwarp();
-  for (int j = lane; j < TILE * 3; j += 32) {
-    const int p = j / 3, d = j - 3 * (j / 3);
-    T* e = enc + p * lde;
-    const float z = xs[p * 3 + d] * net.enc_scale;
-    e[d] = fromf<T>(z);
+  return sum;
+}
+
+// point p of x3 [3, np] (zeros past np); the kernels load the next
+// tile's point while they work on this one
+__device__ __forceinline__ void load_point(const float* __restrict__ x3,
+                                           long np, long p, float (&x)[3]) {
+#pragma unroll
+  for (int a = 0; a < 3; ++a) x[a] = p < np ? x3[a * np + p] : 0.0f;
+}
+
+// Encodes the point x, each feature handed to put(column, value); the
+// thread pair (half 0 / 1) splits the features. Returns the sigma-CP sum
+// (both threads of the pair).
+template <typename T, typename Put>
+__device__ float encode_point(const Net& net, const float (&x)[3], int half,
+                              const Put& put) {
+  for (int d = half; d < 3; d += 2) {
+    const float z = x[d] * net.enc_scale;
+    put(d, z);
     float s = sinf(z), c = sinf(z + HALF_PI);
     for (int f = 0; f < net.enc_freqs; ++f) {
       if (f) {
@@ -297,145 +289,515 @@ __device__ void encode_tile(const Net& net, const float* __restrict__ x3,
         s = s2;
         c = c2;
       }
-      e[3 + 6 * f + d] = fromf<T>(s);
-      e[6 + 6 * f + d] = fromf<T>(c);
+      put(3 + 6 * f + d, s);
+      put(6 + 6 * f + d, c);
     }
   }
-  if (net.cp.table || net.scp.table) {
-    for (int p = 0; p < TILE; ++p) {
-      const float* x = xs + p * 3;
-      if (net.cp.table) {
-        const Taps tp = taps(net.cp, x);
-        for (int k = lane; k < net.cp.K; k += 32)
-          enc[p * lde + net.F + k] = fromf<T>(cp_feature<T>(net.cp, tp, k));
-      }
-      if (net.scp.table) {
-        const Taps tp = taps(net.scp, x);
-        float part = 0.0f;
-        for (int k = lane; k < net.scp.K; k += 32)
-          part += cp_feature<T>(net.scp, tp, k);
-        for (int off = 16; off; off >>= 1)
-          part += __shfl_xor_sync(FULL, part, off);
-        if (lane == 0) sig[p] = part;
+  // halves split at a multiple of the vector width
+  constexpr int V = Vec<T>::N;
+  if (net.cp.table) {
+    const int mid = (net.cp.K / (2 * V)) * V;
+    const int k0 = half ? mid : 0, k1 = half ? net.cp.K : mid;
+    cp_range<T>(net.cp, taps(net.cp, x), k0, k1, true, net.F, put);
+  }
+  float part = 0.0f;
+  if (net.scp.table) {
+    const int mid = (net.scp.K / (2 * V)) * V;
+    const int k0 = half ? mid : 0, k1 = half ? net.scp.K : mid;
+    part = cp_range<T>(net.scp, taps(net.scp, x), k0, k1, false, 0, put);
+  }
+  return part + __shfl_xor_sync(FULL, part, 1);
+}
+
+// ---------------------------------------------------------------------------
+// the chain of one 64-point tile -> the last layer in accumulators
+//   acc[4j + 0, 1] = out[row g][col 8j + 2t + {0, 1}], acc[4j + 2, 3] = row
+//   g + 8 (rows of this warp: 16 warp + g; g = lane / 4, t = lane % 4).
+// ---------------------------------------------------------------------------
+
+// n16 tiles I.. of one k step (kout not 128): B's rows 16I.. sit 2I core
+// matrices (SBO = 128 B each) further on
+template <int I>
+__device__ __forceinline__ void n16_tiles(float (&acc)[NA],
+                                          const uint32_t (&a)[4], uint64_t d,
+                                          int n16) {
+  if constexpr (8 * I < NA) {
+    if (I < n16) {
+      wg::wgmma_n16<8 * I>(acc, a, d + (uint64_t)(16 * I));
+      n16_tiles<I + 1>(acc, a, d, n16);
+    }
+  }
+}
+
+// one k16 step of the layer: D[64 x kout] += A (registers) * B step
+__device__ __forceinline__ void k_step(float (&acc)[NA], const uint32_t (&a)[4],
+                                       uint64_t d, int kout) {
+  if (kout == 128) {
+    wg::wgmma_n128<0>(acc, a, d);
+    return;
+  }
+  n16_tiles<0>(acc, a, d, kout / 16);
+}
+
+template <int I>
+__device__ __forceinline__ void n16_tiles_ss(float (&acc)[NA], uint64_t da,
+                                             uint64_t db, int n16) {
+  if constexpr (8 * I < NA) {
+    if (I < n16) {
+      wg::wgmma_ss_n16<8 * I>(acc, da, db + (uint64_t)(16 * I));
+      n16_tiles_ss<I + 1>(acc, da, db, n16);
+    }
+  }
+}
+
+// Issues the products over the encoding (A: the tile's [64, ke] core
+// matrices in shared memory) columns [0, kA) against W^T columns
+// [kcol0, kcol0 + kA).
+__device__ __forceinline__ void enc_part(float (&acc)[NA], const bf16* Wl,
+                                         int kout, int kcol0, const bf16* enc,
+                                         int kA) {
+  const uint32_t lbo = (uint32_t)kout * 16;  // kout / 8 core matrices of 128 B
+  for (int s = 0; s < kA / 16; ++s) {
+    const int kc = kcol0 + 16 * s;  // W^T column of this step
+    const uint64_t da = wg::desc(enc + s * 2 * TILE * 8, TILE * 16, 128);
+    const uint64_t db = wg::desc(Wl + (kc / 8) * kout * 8, lbo, 128);
+    if (kout == 128) {
+      wg::wgmma_ss_n128<0>(acc, da, db);
+      continue;
+    }
+    n16_tiles_ss<0>(acc, da, db, kout / 16);
+  }
+}
+
+// Copies `bytes` (a multiple of 16) from global to shared memory with the
+// whole block and makes them visible to wgmma (the async proxy).
+__device__ void block_copy(void* dst, const void* src, int bytes) {
+  const uint4* s = reinterpret_cast<const uint4*>(src);
+  uint4* d = reinterpret_cast<uint4*>(dst);
+  for (int i = threadIdx.x; i < bytes / 16; i += blockDim.x) d[i] = s[i];
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+}
+
+// bf16 chain. W: every layer's slab in shared memory, or with `stream` a
+// one-layer buffer that the block refills per layer from net.w (so every
+// warpgroup of the block calls this the same number of times).
+__device__ void chain(const Net& net, const bf16* W, bool stream,
+                      const bf16* enc, int /*lde*/, float* /*h*/, int /*ldh*/,
+                      float (&acc)[NA], int /*warp*/, int /*lane*/) {
+  uint32_t hA[NA / 8][4];
+  for (int l = 0; l < net.n_layers; ++l) {
+    const Layer L = net.layer[l];
+    const bf16* Wl = W + L.w_off;
+    if (stream) {
+      __syncthreads();  // the previous layer's products are done
+      block_copy((void*)W,
+                 reinterpret_cast<const bf16*>(net.w) + L.w_off,
+                 L.kout * L.w_ld * 2);
+      Wl = W;
+    }
+#pragma unroll
+    for (int i = 0; i < NA; ++i) acc[i] = 0.0f;
+    wg::keep(hA);
+    wg::keep(acc);
+    wg::fence();
+    if (l == 0) {
+      enc_part(acc, Wl, L.kout, 0, enc, L.kin_h);
+    } else {
+      const uint32_t lbo = (uint32_t)L.kout * 16;
+#pragma unroll
+      for (int s = 0; s < NA / 8; ++s)
+        if (s < L.kin_h / 16)
+          k_step(acc, hA[s], wg::desc(Wl + 2 * s * L.kout * 8, lbo, 128),
+                 L.kout);
+      if (L.kin_e) enc_part(acc, Wl, L.kout, L.kin_h, enc, L.kin_e);
+    }
+    wg::commit();
+    wg::wait_all();
+    wg::keep(hA);
+    wg::keep(acc);
+    if (l < net.n_layers - 1) {
+#pragma unroll
+      for (int s = 0; s < NA / 8; ++s) {
+        if (s < L.kout / 16) {
+          const float* c = acc + 8 * s;
+          hA[s][0] = pack_bf16(act(c[0], net.leaky), act(c[1], net.leaky));
+          hA[s][1] = pack_bf16(act(c[2], net.leaky), act(c[3], net.leaky));
+          hA[s][2] = pack_bf16(act(c[4], net.leaky), act(c[5], net.leaky));
+          hA[s][3] = pack_bf16(act(c[6], net.leaky), act(c[7], net.leaky));
+        }
       }
     }
   }
-  __syncwarp();
+}
+
+// float32 chain (the parity path): per warp, CUDA-core FMAs over A in
+// shared memory (enc, h) and W^T rows [kout][w_ld] in shared or global
+// memory.
+__device__ __forceinline__ void layer_part(float (&acc)[NA], const float* W,
+                                           int w_ld, int wcol0, const float* A,
+                                           int lda, int kA, int ntiles,
+                                           int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const float* ar0 = A + g * lda;
+  const float* ar1 = ar0 + 8 * lda;
+  for (int k = 0; k < kA; ++k) {
+    const float x0 = ar0[k], x1 = ar1[k];
+#pragma unroll
+    for (int nt = 0; nt < NA / 4; ++nt) {
+      if (nt < ntiles) {
+        const float* w0 = W + (nt * 8 + 2 * t) * w_ld + wcol0 + k;
+        const float wa = w0[0], wb = w0[w_ld];
+        acc[4 * nt + 0] += x0 * wa;
+        acc[4 * nt + 1] += x0 * wb;
+        acc[4 * nt + 2] += x1 * wa;
+        acc[4 * nt + 3] += x1 * wb;
+      }
+    }
+  }
+}
+
+__device__ void chain(const Net& net, const float* W, bool /*stream*/,
+                      const float* enc, int lde, float* h, int ldh,
+                      float (&acc)[NA], int warp, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  enc += 16 * warp * lde;
+  h += 16 * warp * ldh;
+  for (int l = 0; l < net.n_layers; ++l) {
+    const Layer L = net.layer[l];
+    const int ntiles = L.kout / 8;
+#pragma unroll
+    for (int i = 0; i < NA; ++i) acc[i] = 0.0f;
+    const float* Wl = W + L.w_off;
+    layer_part(acc, Wl, L.w_ld, 0, l == 0 ? enc : h, l == 0 ? lde : ldh,
+               L.kin_h, ntiles, lane);
+    if (L.kin_e)
+      layer_part(acc, Wl, L.w_ld, L.kin_h, enc, lde, L.kin_e, ntiles, lane);
+    __syncwarp();
+    if (l < net.n_layers - 1) {
+#pragma unroll
+      for (int nt = 0; nt < NA / 4; ++nt) {
+        if (nt < ntiles) {
+          float* r0 = h + g * ldh + nt * 8 + 2 * t;
+          r0[0] = act(acc[4 * nt + 0], net.leaky);
+          r0[1] = act(acc[4 * nt + 1], net.leaky);
+          r0[8 * ldh] = act(acc[4 * nt + 2], net.leaky);
+          r0[8 * ldh + 1] = act(acc[4 * nt + 3], net.leaky);
+        }
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// The last layer's accumulators (+ the sigma-CP sum on column 0) into
+// outb rows [16 warp, 16 warp + 16) of [rows][ldo]; ncols = kout.
+__device__ __forceinline__ void store_last(const float (&acc)[NA], int ncols,
+                                           const float* sig, float* outb,
+                                           int ldo, int warp, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  float* r0 = outb + (16 * warp + g) * ldo;
+  float* r1 = r0 + 8 * ldo;
+  const float s0 = (sig && t == 0) ? sig[16 * warp + g] : 0.0f;
+  const float s1 = (sig && t == 0) ? sig[16 * warp + g + 8] : 0.0f;
+#pragma unroll
+  for (int nt = 0; nt < NA / 4; ++nt) {
+    if (nt < ncols / 8) {
+      const int col = nt * 8 + 2 * t;
+      r0[col] = acc[4 * nt + 0] + (nt == 0 ? s0 : 0.0f);
+      r0[col + 1] = acc[4 * nt + 1];
+      r1[col] = acc[4 * nt + 2] + (nt == 0 ? s1 : 0.0f);
+      r1[col + 1] = acc[4 * nt + 3];
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
 // shared-memory plan (identical on host and device)
 // ---------------------------------------------------------------------------
 
+enum WeightMode { W_GLOBAL = 0, W_ALL = 1, W_STREAM = 2 };
+
 struct Plan {
-  int lde, ldh, ldo, M;  // M: points per warp step
-  int w_bytes, v_bytes;  // weight copies (0 when read from global)
-  int enc_b, h_b, out_b, xs_b, sig_b, wts_b, ts_b, vin_b;
-  int per_warp, total;
+  int lde, ldh, ldo, M;  // M: points per warpgroup step
+  int wgs, w_mode, w_bytes, v_bytes;
+  int enc_b, h_b, out_b, sig_b, wts_b, ts_b, vin_b;
+  int per_wg, total;
 };
 
 template <typename T>
-__host__ __device__ Plan make_plan(const Net& net, const View* view, int M,
-                                   int ldo, bool composite, bool w_smem,
-                                   bool v_smem) {
+Plan make_plan(const Net& net, const View* view, int wgs, int M, int ldo,
+               bool composite, int w_mode, bool v_smem) {
   Plan p;
-  p.lde = net.ke + PAD;
+  p.wgs = wgs;
+  p.lde = sizeof(T) == 2 ? net.ke : net.ke + PAD;  // see enc_index
   p.ldh = net.hmax + PAD;
   p.ldo = ldo;
   p.M = M;
-  p.w_bytes = w_smem ? align16(net.w_elems * (int)sizeof(T)) : 0;
+  p.w_mode = w_mode;
+  p.w_bytes = 0;
+  if (w_mode == W_ALL) p.w_bytes = align16(net.w_elems * (int)sizeof(T));
+  if (w_mode == W_STREAM)
+    for (int l = 0; l < net.n_layers; ++l) {
+      const Layer& L = net.layer[l];
+      const int b = align16(L.kout * L.w_ld * (int)sizeof(T));
+      p.w_bytes = b > p.w_bytes ? b : p.w_bytes;
+    }
   p.v_bytes = (view && v_smem) ? align16(view->elems * (int)sizeof(T)) : 0;
   p.enc_b = align16(TILE * p.lde * (int)sizeof(T));
-  p.h_b = align16(TILE * p.ldh * (int)sizeof(T));
+  p.h_b = sizeof(T) == 4 ? align16(TILE * p.ldh * 4) : 0;
   p.out_b = align16(M * ldo * 4);
-  p.xs_b = align16(TILE * 3 * 4);
   p.sig_b = align16(TILE * 4);
   p.wts_b = composite ? align16(M * 4) : 0;
   p.ts_b = composite ? align16(M * 4) : 0;
-  p.vin_b = composite ? align16(128 * 4) : 0;
-  p.per_warp = p.enc_b + p.h_b + p.out_b + p.xs_b + p.sig_b + p.wts_b +
-               p.ts_b + p.vin_b;
-  p.total = p.w_bytes + p.v_bytes + WARPS * p.per_warp;
+  p.vin_b = composite ? 4 * 128 * 4 : 0;
+  p.per_wg = p.enc_b + p.h_b + p.out_b + p.sig_b + p.wts_b + p.ts_b + p.vin_b;
+  p.total = p.w_bytes + p.v_bytes + wgs * p.per_wg;
   return p;
 }
 
-struct WarpBufs {
+struct Bufs {
   void* enc;
-  void* h;
-  float *outb, *xs, *sig, *wts, *tsb, *vin;
+  float *h, *outb, *sig, *wts, *tsb, *vin;
 };
 
+// Stages the weights (and the view head's) in shared memory as the plan
+// says and carves out this warpgroup's buffers; -> the chain's weights.
 template <typename T>
 __device__ const T* block_setup(const Net& net, const View* view,
                                 const Plan& pl, unsigned char* smem,
-                                const T** vw, WarpBufs& wb) {
+                                const T** vw, Bufs& b) {
   const T* W = reinterpret_cast<const T*>(net.w);
-  if (pl.w_bytes) {
-    const int words = pl.w_bytes / 4;
-    const uint32_t* src = reinterpret_cast<const uint32_t*>(net.w);
-    uint32_t* dst = reinterpret_cast<uint32_t*>(smem);
-    const int n_src = (net.w_elems * (int)sizeof(T)) / 4;
-    for (int i = threadIdx.x; i < words; i += blockDim.x)
-      dst[i] = i < n_src ? src[i] : 0u;
-    W = reinterpret_cast<const T*>(smem);
-  }
+  if (pl.w_mode != W_GLOBAL) W = reinterpret_cast<const T*>(smem);
+  if (pl.w_mode == W_ALL) block_copy(smem, net.w, pl.w_bytes);
+  unsigned char* base = smem + pl.w_bytes;
   if (view) {
     *vw = reinterpret_cast<const T*>(view->w);
     if (pl.v_bytes) {
-      uint32_t* dst = reinterpret_cast<uint32_t*>(smem + pl.w_bytes);
-      const uint32_t* src = reinterpret_cast<const uint32_t*>(view->w);
-      const int n_src = (view->elems * (int)sizeof(T)) / 4;
-      for (int i = threadIdx.x; i < pl.v_bytes / 4; i += blockDim.x)
-        dst[i] = i < n_src ? src[i] : 0u;
-      *vw = reinterpret_cast<const T*>(smem + pl.w_bytes);
+      block_copy(base, view->w, pl.v_bytes);
+      *vw = reinterpret_cast<const T*>(base);
     }
   }
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  unsigned char* base = smem + pl.w_bytes + pl.v_bytes + warp * pl.per_warp;
-  wb.enc = base;
+  base += pl.v_bytes + (threadIdx.x >> 7) * pl.per_wg;
+  b.enc = base;
   base += pl.enc_b;
-  wb.h = base;
+  b.h = reinterpret_cast<float*>(base);
   base += pl.h_b;
-  wb.outb = reinterpret_cast<float*>(base);
+  b.outb = reinterpret_cast<float*>(base);
   base += pl.out_b;
-  wb.xs = reinterpret_cast<float*>(base);
-  base += pl.xs_b;
-  wb.sig = reinterpret_cast<float*>(base);
+  b.sig = reinterpret_cast<float*>(base);
   base += pl.sig_b;
-  wb.wts = reinterpret_cast<float*>(base);
+  b.wts = reinterpret_cast<float*>(base);
   base += pl.wts_b;
-  wb.tsb = reinterpret_cast<float*>(base);
+  b.tsb = reinterpret_cast<float*>(base);
   base += pl.ts_b;
-  wb.vin = reinterpret_cast<float*>(base);
+  b.vin = reinterpret_cast<float*>(base);
   // zero the encoding buffer once: its padding columns stay zero
-  T* enc = reinterpret_cast<T*>(wb.enc);
-  for (int i = lane; i < TILE * pl.lde; i += 32) enc[i] = fromf<T>(0.0f);
+  T* enc = reinterpret_cast<T*>(b.enc);
+  for (int i = threadIdx.x & 127; i < TILE * pl.lde; i += 128)
+    enc[i] = fromf<T>(0.0f);
   __syncthreads();
   return W;
 }
 
+// Encode + chain of a 64-point tile, this thread's point (row lt / 2)
+// at x; the last layer lands in outb rows [0, 64) (each warp its 16).
 template <typename T>
-__global__ void __launch_bounds__(WARPS * 32)
+__device__ __forceinline__ void tile(const Net& net, const Plan& pl,
+                                     const T* W, const Bufs& b,
+                                     const float (&x)[3], float* outb,
+                                     int ncols) {
+  const int lt = threadIdx.x & 127, warp = lt >> 5, lane = lt & 31;
+  T* enc = reinterpret_cast<T*>(b.enc);
+  const int row = lt >> 1;
+  const float sg = encode_point<T>(
+      net, x, lt & 1,
+      [&](int c, float v) { enc[enc_index<T>(row, c, pl.lde)] = fromf<T>(v); });
+  if (!(lt & 1)) b.sig[row] = sg;
+  if (sizeof(T) == 2) {
+    // the whole tile is wgmma's A: visible to the async proxy, all warps
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    wg_sync(threadIdx.x >> 7);
+  } else {
+    __syncwarp();
+  }
+  float acc[NA];
+  chain(net, W, pl.w_mode == W_STREAM, enc, pl.lde, b.h, pl.ldh, acc, warp,
+        lane);
+  store_last(acc, ncols, net.scp.table ? b.sig : nullptr, outb, pl.ldo, warp,
+             lane);
+  __syncwarp();
+}
+
+// The block's warpgroups walk the work items in step (so that a streamed
+// layer's __syncthreads meets every thread): items base + wg.
+template <typename T>
+__global__ void __launch_bounds__(wgs_of<T>(false) * 128, 1)
 tmlp_kernel(Net net, Plan pl, const float* __restrict__ x3, long np,
             float* __restrict__ out, int out_rows) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  WarpBufs wb;
-  const T* W = block_setup<T>(net, nullptr, pl, smem, nullptr, wb);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  T* enc = reinterpret_cast<T*>(wb.enc);
-  T* h = reinterpret_cast<T*>(wb.h);
-  const float* sig = net.scp.table ? wb.sig : nullptr;
+  extern __shared__ __align__(128) unsigned char smem[];
+  Bufs b;
+  const T* W = block_setup<T>(net, nullptr, pl, smem, nullptr, b);
+  const int warp = (threadIdx.x & 127) >> 5, lane = threadIdx.x & 31;
+  const int kout = net.layer[net.n_layers - 1].kout;
   const long n_tiles = (np + TILE - 1) / TILE;
-  for (long tile = (long)blockIdx.x * WARPS + warp; tile < n_tiles;
-       tile += (long)gridDim.x * WARPS) {
-    const long p0 = tile * TILE;
-    encode_tile<T>(net, x3, np, p0, enc, pl.lde, wb.xs, wb.sig, lane);
-    chain<T>(net, W, enc, pl.lde, h, pl.ldh, wb.outb, pl.ldo, sig, lane);
-    for (int i = lane; i < out_rows * TILE; i += 32) {
-      const int r = i / TILE, p = i - r * TILE;
-      if (p0 + p < np) out[(long)r * np + p0 + p] = wb.outb[p * pl.ldo + r];
+  const long stride = (long)gridDim.x * pl.wgs * TILE;
+  const int row = (threadIdx.x & 127) >> 1;
+  float x[3];
+  load_point(x3, np, ((long)blockIdx.x * pl.wgs + (threadIdx.x >> 7)) * TILE
+                         + row, x);
+  for (long base = (long)blockIdx.x * pl.wgs; base < n_tiles;
+       base += (long)gridDim.x * pl.wgs) {
+    const long p0 = (base + (threadIdx.x >> 7)) * TILE;
+    float xn[3];
+    load_point(x3, np, p0 + stride + row, xn);
+    tile<T>(net, pl, W, b, x, b.outb, kout);
+#pragma unroll
+    for (int a = 0; a < 3; ++a) x[a] = xn[a];
+    for (int i = lane; i < out_rows * 16; i += 32) {
+      const int r = i >> 4, p = 16 * warp + (i & 15);
+      if (p0 + p < np) out[(long)r * np + p0 + p] = b.outb[p * pl.ldo + r];
     }
     __syncwarp();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the proposal nets (bf16, two layers, no CP tables, an encoding <= 64 and
+// layers <= 32 wide): bound by their 12 B in and 4 B out per point, they
+// take one warp per 16-point tile with mma.sync m16n8k16, the weights held
+// in registers as B fragments, the encoding staged through a 16-row
+// buffer of the warp, the hidden layer in registers.
+// ---------------------------------------------------------------------------
+
+constexpr int SMALL_K = 64, SMALL_N = 32, SMALL_WARPS = 8;
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two bf16 of W^T (row n, columns k, k + 1) from the core-matrix slab
+__device__ __forceinline__ uint32_t w_pair(const bf16* Wl, int kout, int n,
+                                           int k) {
+  return *reinterpret_cast<const uint32_t*>(
+      Wl + ((k >> 3) * (kout >> 3) + (n >> 3)) * 64 + (n & 7) * 8 + (k & 7));
+}
+
+bool small_net(const Net& net) {
+  const Layer& a = net.layer[0];
+  const Layer& b = net.layer[1];
+  return net.n_layers == 2 && !net.cp.table && !net.scp.table &&
+         a.kin_h <= SMALL_K && a.kout <= SMALL_N && !b.kin_e &&
+         b.kout <= SMALL_N;
+}
+
+__global__ void __launch_bounds__(SMALL_WARPS * 32, 2)
+small_kernel(Net net, const float* __restrict__ x3, long np,
+             float* __restrict__ out, int out_rows) {
+  constexpr int LD = SMALL_K + 8;  // padded rows: conflict-free A loads
+  __shared__ __align__(16) bf16 encs[SMALL_WARPS][16 * LD];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const Layer L0 = net.layer[0], L1 = net.layer[1];
+  const bf16* W = reinterpret_cast<const bf16*>(net.w);
+  // B fragments: b[s][nt] = W^T[8 nt + g][16 s + 2t (+1)], [.. + 8 (+9)]
+  uint32_t b0[SMALL_K / 16][SMALL_N / 8][2], b1[SMALL_N / 16][SMALL_N / 8][2];
+#pragma unroll
+  for (int s = 0; s < SMALL_K / 16; ++s)
+#pragma unroll
+    for (int nt = 0; nt < SMALL_N / 8; ++nt)
+      if (s < L0.kin_h / 16 && nt < L0.kout / 8) {
+        const bf16* w = W + L0.w_off;
+        b0[s][nt][0] = w_pair(w, L0.kout, 8 * nt + g, 16 * s + 2 * t);
+        b0[s][nt][1] = w_pair(w, L0.kout, 8 * nt + g, 16 * s + 2 * t + 8);
+      }
+#pragma unroll
+  for (int s = 0; s < SMALL_N / 16; ++s)
+#pragma unroll
+    for (int nt = 0; nt < SMALL_N / 8; ++nt)
+      if (s < L1.kin_h / 16 && nt < L1.kout / 8) {
+        const bf16* w = W + L1.w_off;
+        b1[s][nt][0] = w_pair(w, L1.kout, 8 * nt + g, 16 * s + 2 * t);
+        b1[s][nt][1] = w_pair(w, L1.kout, 8 * nt + g, 16 * s + 2 * t + 8);
+      }
+  bf16* enc = encs[warp];
+  for (int i = lane; i < 16 * LD; i += 32) enc[i] = fromf<bf16>(0.0f);
+  __syncwarp();
+  const long n_tiles = (np + 15) / 16;
+  const long stride = (long)gridDim.x * SMALL_WARPS * 16;
+  const int row = lane >> 1;
+  float x[3];
+  load_point(x3, np, ((long)blockIdx.x * SMALL_WARPS + warp) * 16 + row, x);
+  for (long tile = (long)blockIdx.x * SMALL_WARPS + warp; tile < n_tiles;
+       tile += (long)gridDim.x * SMALL_WARPS) {
+    const long p0 = tile * 16;
+    float xn[3];
+    load_point(x3, np, p0 + stride + row, xn);
+    encode_point<bf16>(net, x, lane & 1,
+                       [&](int c, float v) {
+                         enc[row * LD + c] = fromf<bf16>(v);
+                       });
+#pragma unroll
+    for (int a = 0; a < 3; ++a) x[a] = xn[a];
+    __syncwarp();
+    float acc[SMALL_N / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < SMALL_N / 8; ++nt)
+      acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.0f;
+#pragma unroll
+    for (int s = 0; s < SMALL_K / 16; ++s) {
+      if (s < L0.kin_h / 16) {
+        const bf16* r0 = enc + g * LD + 16 * s + 2 * t;
+        const uint32_t a[4] = {
+            *reinterpret_cast<const uint32_t*>(r0),
+            *reinterpret_cast<const uint32_t*>(r0 + 8 * LD),
+            *reinterpret_cast<const uint32_t*>(r0 + 8),
+            *reinterpret_cast<const uint32_t*>(r0 + 8 * LD + 8)};
+#pragma unroll
+        for (int nt = 0; nt < SMALL_N / 8; ++nt)
+          if (nt < L0.kout / 8)
+            mma_bf16(acc[nt], a, b0[s][nt][0], b0[s][nt][1]);
+      }
+    }
+    __syncwarp();  // the next tile's encode overwrites enc
+    // layer 0's accumulators, activated and rounded, are layer 1's A
+    float acc1[SMALL_N / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < SMALL_N / 8; ++nt)
+      acc1[nt][0] = acc1[nt][1] = acc1[nt][2] = acc1[nt][3] = 0.0f;
+#pragma unroll
+    for (int s = 0; s < SMALL_N / 16; ++s) {
+      if (s < L1.kin_h / 16) {
+        const float* c0 = acc[2 * s];
+        const float* c1 = acc[2 * s + 1];
+        const uint32_t a[4] = {
+            pack_bf16(act(c0[0], net.leaky), act(c0[1], net.leaky)),
+            pack_bf16(act(c0[2], net.leaky), act(c0[3], net.leaky)),
+            pack_bf16(act(c1[0], net.leaky), act(c1[1], net.leaky)),
+            pack_bf16(act(c1[2], net.leaky), act(c1[3], net.leaky))};
+#pragma unroll
+        for (int nt = 0; nt < SMALL_N / 8; ++nt)
+          if (nt < L1.kout / 8)
+            mma_bf16(acc1[nt], a, b1[s][nt][0], b1[s][nt][1]);
+      }
+    }
+    // output row r: column r of this lane's fragment
+#pragma unroll
+    for (int nt = 0; nt < SMALL_N / 8; ++nt) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int r = 8 * nt + 2 * t + j;
+        if (r < out_rows) {
+          if (p0 + g < np) out[(long)r * np + p0 + g] = acc1[nt][j];
+          if (p0 + g + 8 < np) out[(long)r * np + p0 + g + 8] = acc1[nt][2 + j];
+        }
+      }
+    }
   }
 }
 
@@ -462,7 +824,6 @@ __device__ __forceinline__ float sh_component(int k, float x, float y,
     default: return 0.59004358992664352f * x * (-x2 + 3.0f * y2);
   }
 }
-
 // offset of ray n's first sample in dl / ts: rows of Ts, or with pack_q > 1
 // the packed rows of q * Ts (slot n % q of row n / q)
 __device__ __forceinline__ long ray_offset(long n, int Ts, int pack_q) {
@@ -470,50 +831,56 @@ __device__ __forceinline__ long ray_offset(long n, int Ts, int pack_q) {
 }
 
 template <typename T>
-__global__ void __launch_bounds__(WARPS * 32)
+__global__ void __launch_bounds__(wgs_of<T>(true) * 128, 1)
 composite_kernel(Net net, View view, Plan pl, const float* __restrict__ x3,
                  const float* __restrict__ dl, const float* __restrict__ ts,
                  const float* __restrict__ rays8, int N, int Ts, int pack_q,
                  int opaque, float* __restrict__ gsum,
-                 float* __restrict__ depth,
-                 float* __restrict__ wsum, float* __restrict__ rgb) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  WarpBufs wb;
+                 float* __restrict__ depth, float* __restrict__ wsum,
+                 float* __restrict__ rgb) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  Bufs b;
   const T* VW = nullptr;
   const T* W = block_setup<T>(net, view.H ? &view : nullptr, pl, smem, &VW,
-                              wb);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  T* enc = reinterpret_cast<T*>(wb.enc);
-  T* h = reinterpret_cast<T*>(wb.h);
-  const float* sig = net.scp.table ? wb.sig : nullptr;
+                              b);
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x & 127) >> 5,
+            lane = threadIdx.x & 31;
   const int G = net.layer[net.n_layers - 1].kout_real;  // gsum columns
   const int M = pl.M, rays_per_step = M / Ts;
   const long np = (long)N * Ts;
-  const long n_steps = (np + M - 1) / M;
   // view weights: VG [G][H] (row 0 zero), VS [sh_dim][H], VR [n_rest][H][H]
   const int H = view.H;
   const T* VG = VW;
   const T* VS = VW + G * H;
   const T* VR = VS + view.sh_dim * H;
-  float* vin = wb.vin;        // [0, 16): rounded gsum
-  float* vsh = wb.vin + 32;   // [0, 16): rounded wsum * sh
-  float* vh = wb.vin + 64;    // hidden activations
-  float* misc = wb.vin + 112; // wsum
-  for (long step = (long)blockIdx.x * WARPS + warp; step < n_steps;
-       step += (long)gridDim.x * WARPS) {
-    const long c0 = step * M;
+  float* vin = b.vin + warp * 128;  // [0, 16): rounded gsum
+  float* vsh = vin + 32;            // [0, 16): rounded wsum * sh
+  float* vh = vin + 64;             // hidden activations
+  float* misc = vin + 112;          // wsum
+  const long n_steps = (np + M - 1) / M;
+  const long stride = (long)gridDim.x * pl.wgs * M;
+  const int row = (threadIdx.x & 127) >> 1;
+  float x[3];
+  load_point(x3, np, ((long)blockIdx.x * pl.wgs + wg) * M + row, x);
+  for (long base = (long)blockIdx.x * pl.wgs; base < n_steps;
+       base += (long)gridDim.x * pl.wgs) {
+    const long c0 = (base + wg) * M;
     for (int tt = 0; tt < M / TILE; ++tt) {
-      encode_tile<T>(net, x3, np, c0 + tt * TILE, enc, pl.lde, wb.xs, wb.sig,
-                     lane);
-      chain<T>(net, W, enc, pl.lde, h, pl.ldh, wb.outb + tt * TILE * pl.ldo,
-               pl.ldo, sig, lane);
+      float xn[3];  // the next tile's point: this step's or the next step's
+      load_point(x3, np,
+                 (tt + 1 < M / TILE ? c0 + (tt + 1) * TILE : c0 + stride) + row,
+                 xn);
+      tile<T>(net, pl, W, b, x, b.outb + tt * TILE * pl.ldo, 16);
+#pragma unroll
+      for (int a = 0; a < 3; ++a) x[a] = xn[a];
     }
-    for (int r = 0; r < rays_per_step; ++r) {
+    wg_sync(wg);
+    for (int r = warp; r < rays_per_step; r += 4) {
       const long n = c0 / Ts + r;
       if (n >= N) break;
-      const float* ob = wb.outb + r * Ts * pl.ldo;
-      float* wts = wb.wts + r * Ts;
-      float* tsb = wb.tsb + r * Ts;
+      const float* ob = b.outb + r * Ts * pl.ldo;
+      float* wts = b.wts + r * Ts;
+      float* tsb = b.tsb + r * Ts;
       const long roff = ray_offset(n, Ts, pack_q);
       float carry = 0.0f;
       for (int t0 = 0; t0 < Ts; t0 += 32) {
@@ -524,7 +891,8 @@ composite_kernel(Net net, View view, Plan pl, const float* __restrict__ x3,
           const float s = ob[t * pl.ldo] - 1.0f;
           const float sigma = fmaxf(s, 0.0f) + log1pf(expf(-fabsf(s)));
           ds = dl[roff + t] * sigma;
-          const float ds_a = (opaque && t == Ts - 1) ? __int_as_float(0x7f800000) : ds;
+          const float ds_a =
+              (opaque && t == Ts - 1) ? __int_as_float(0x7f800000) : ds;
           alpha = 1.0f - expf(-ds_a);
           tsb[t] = ts[roff + t];
         }
@@ -543,15 +911,18 @@ composite_kernel(Net net, View view, Plan pl, const float* __restrict__ x3,
       __syncwarp();
       if (lane < G) {
         float a = 0.0f;
+#pragma unroll 4
         for (int t = 0; t < Ts; ++t) a += wts[t] * ob[t * pl.ldo + lane];
         gsum[n * G + lane] = a;
         vin[lane] = rnd<T>(a);
       } else if (lane == 16) {
         float a = 0.0f;
+#pragma unroll 4
         for (int t = 0; t < Ts; ++t) a += wts[t] * tsb[t];
         depth[n] = a;
       } else if (lane == 17) {
         float a = 0.0f;
+#pragma unroll 4
         for (int t = 0; t < Ts; ++t) a += wts[t];
         wsum[n] = a;
         misc[0] = a;
@@ -567,11 +938,13 @@ composite_kernel(Net net, View view, Plan pl, const float* __restrict__ x3,
         __syncwarp();
         float hj = 0.0f;
         if (lane < H) {
-          float a = 0.0f, b = 0.0f;
-          for (int c = 0; c < G; ++c) a += vin[c] * tof<T>(VG[c * H + lane]);
+          float a = 0.0f, c = 0.0f;
+#pragma unroll 4
+          for (int k = 0; k < G; ++k) a += vin[k] * tof<T>(VG[k * H + lane]);
+#pragma unroll 4
           for (int k = 0; k < view.sh_dim; ++k)
-            b += vsh[k] * tof<T>(VS[k * H + lane]);
-          hj = a + b;
+            c += vsh[k] * tof<T>(VS[k * H + lane]);
+          hj = a + c;
         }
         for (int l = 0; l < view.n_rest; ++l) {
           __syncwarp();
@@ -580,6 +953,7 @@ composite_kernel(Net net, View view, Plan pl, const float* __restrict__ x3,
           if (lane < H) {
             const T* vr = VR + (size_t)l * H * H;
             float a = 0.0f;
+#pragma unroll 8
             for (int i = 0; i < H; ++i) a += vh[i] * tof<T>(vr[i * H + lane]);
             hj = a;
           }
@@ -588,6 +962,7 @@ composite_kernel(Net net, View view, Plan pl, const float* __restrict__ x3,
       }
       __syncwarp();
     }
+    wg_sync(wg);
   }
 }
 
@@ -613,42 +988,58 @@ Net make_net(const int* desc, const void* w, int w_elems, float enc_scale,
   return net;
 }
 
-// Picks where the weights live (shared memory when they fit) and the
-// shared-memory plan; returns false when even the per-warp buffers do not
-// fit.
+// Checks the network against the kernel's limits and picks the
+// shared-memory plan, with at most max_wgs warpgroups; false when the
+// network or the buffers of one warpgroup do not fit.
 template <typename T>
-bool plan_for(Net& net, View* view, int M, int ldo, bool composite,
-              Plan& pl) {
-  const bool ok_layers = net.n_layers >= 1 && net.n_layers <= MAX_LAYERS;
-  if (!ok_layers) return false;
-  for (int l = 0; l < net.n_layers; ++l)
-    if (net.layer[l].kout > 8 * MAX_NT) return false;
-  bool w_smem = true, v_smem = view != nullptr;
-  pl = make_plan<T>(net, view, M, ldo, composite, w_smem, v_smem);
-  if (pl.total > SMEM_LIMIT) {
-    v_smem = false;
-    pl = make_plan<T>(net, view, M, ldo, composite, w_smem, v_smem);
+bool plan_for(const Net& net, View* view, int max_wgs, int M, int ldo,
+              bool composite, Plan& pl) {
+  if (net.n_layers < 1 || net.n_layers > MAX_LAYERS) return false;
+  if (net.ke % 16 || net.hmax > 8 * MAX_NT) return false;
+  for (int l = 0; l < net.n_layers; ++l) {
+    const Layer& L = net.layer[l];
+    if (L.kout > 8 * MAX_NT || L.kout % 16 || L.kin_h % 16 || L.kin_e % 16)
+      return false;
   }
-  if (pl.total > SMEM_LIMIT) {
-    w_smem = false;
-    pl = make_plan<T>(net, view, M, ldo, composite, w_smem, v_smem);
-  }
-  net.w_in_smem = w_smem;
-  if (view) view->in_smem = v_smem;
-  return pl.total <= SMEM_LIMIT;
+  // in shared memory, as far as they fit: all the weights (with fewer
+  // warpgroups if need be), the view head; else bf16 weights stream one
+  // layer at a time and float32 weights are read through L2
+  const int modes[2] = {W_ALL, sizeof(T) == 2 ? W_STREAM : W_GLOBAL};
+  for (const int w : modes)
+    for (int wgs = max_wgs; wgs >= 1; --wgs)
+      for (int v = view != nullptr; v >= 0; --v) {
+        pl = make_plan<T>(net, view, wgs, M, ldo, composite, w, v != 0);
+        if (pl.total <= SMEM_LIMIT) return true;
+      }
+  return false;
+}
+
+int launch_small(const Net& net, const float* x3, long np, float* out,
+                 int out_rows, cudaStream_t stream) {
+  int dev = 0, n_sm = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, small_kernel,
+                                                SMALL_WARPS * 32, 0);
+  const long want = ((np + 15) / 16 + SMALL_WARPS - 1) / SMALL_WARPS;
+  const long cap = (long)n_sm * (per_sm > 0 ? per_sm : 1);
+  const int grid = (int)(want < cap ? (want > 0 ? want : 1) : cap);
+  small_kernel<<<grid, SMALL_WARPS * 32, 0, stream>>>(net, x3, np, out,
+                                                      out_rows);
+  return (int)cudaGetLastError();
 }
 
 template <typename K>
-int grid_size(K kernel, int smem, long work_items) {
+int grid_size(K kernel, int wgs, int smem, long work_items) {
   int dev = 0, n_sm = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        smem);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, WARPS * 32,
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, wgs * 128,
                                                 smem);
   if (per_sm < 1) per_sm = 1;
-  const long want = (work_items + WARPS - 1) / WARPS;
+  const long want = (work_items + wgs - 1) / wgs;
   const long cap = (long)n_sm * per_sm;
   return (int)(want < cap ? (want > 0 ? want : 1) : cap);
 }
@@ -658,29 +1049,35 @@ int launch_tmlp(Net net, const float* x3, long np, float* out, int out_rows,
                 cudaStream_t stream) {
   Plan pl;
   const int ldo = net.layer[net.n_layers - 1].kout + 1;
-  if (!plan_for<T>(net, nullptr, TILE, ldo, false, pl)) return -1;
-  const int grid = grid_size(tmlp_kernel<T>, pl.total, (np + TILE - 1) / TILE);
-  tmlp_kernel<T><<<grid, WARPS * 32, pl.total, stream>>>(net, pl, x3, np, out,
-                                                         out_rows);
+  if (!plan_for<T>(net, nullptr, wgs_of<T>(false), TILE, ldo, false, pl))
+    return -1;
+  const int grid = grid_size(tmlp_kernel<T>, pl.wgs, pl.total,
+                             (np + TILE - 1) / TILE);
+  tmlp_kernel<T><<<grid, pl.wgs * 128, pl.total, stream>>>(
+      net, pl, x3, np, out, out_rows);
   return (int)cudaGetLastError();
 }
+
+int gcd(int a, int b) { return b ? gcd(b, a % b) : a; }
 
 template <typename T>
 int launch_composite(Net net, View view, const float* x3, const float* dl,
                      const float* ts, const float* rays8, int N, int Ts,
                      int pack_q, int opaque, float* gsum, float* depth,
                      float* wsum, float* rgb, cudaStream_t stream) {
-  const int M = Ts > TILE ? Ts : TILE;
-  if (M % TILE || M % Ts || M > 128) return (int)cudaErrorInvalidValue;
+  if (Ts < 1 || Ts > 128 || (16 % Ts && Ts % 16))
+    return (int)cudaErrorInvalidValue;
+  const int M = TILE / gcd(TILE, Ts) * Ts;  // whole rays in whole tiles
   if (pack_q < 1 || N % pack_q) return (int)cudaErrorInvalidValue;
-  if (net.layer[net.n_layers - 1].kout != TILE) return (int)cudaErrorInvalidValue;
+  if (net.layer[net.n_layers - 1].kout != 16) return (int)cudaErrorInvalidValue;
   if (view.H > 32 || view.sh_dim > 16) return (int)cudaErrorInvalidValue;
   Plan pl;
-  if (!plan_for<T>(net, view.H ? &view : nullptr, M, TILE + 1, true, pl))
+  if (!plan_for<T>(net, view.H ? &view : nullptr, wgs_of<T>(true), M, 16 + 1,
+                   true, pl))
     return -1;
   const long n_steps = ((long)N * Ts + M - 1) / M;
-  const int grid = grid_size(composite_kernel<T>, pl.total, n_steps);
-  composite_kernel<T><<<grid, WARPS * 32, pl.total, stream>>>(
+  const int grid = grid_size(composite_kernel<T>, pl.wgs, pl.total, n_steps);
+  composite_kernel<T><<<grid, pl.wgs * 128, pl.total, stream>>>(
       net, view, pl, x3, dl, ts, rays8, N, Ts, pack_q, opaque, gsum, depth,
       wsum, rgb);
   return (int)cudaGetLastError();
@@ -688,7 +1085,7 @@ int launch_composite(Net net, View view, const float* x3, const float* dl,
 
 }  // namespace
 
-extern "C" int tmlp_launch(int bf16, const int* desc, const void* w,
+extern "C" int tmlp_launch(int use_bf16, const int* desc, const void* w,
                            int w_elems, float enc_scale, const void* cp,
                            int cpR, int cpK, float cps, float cpo,
                            const void* scp, int sR, int sK, float ss,
@@ -697,14 +1094,14 @@ extern "C" int tmlp_launch(int bf16, const int* desc, const void* w,
   Net net = make_net(desc, w, w_elems, enc_scale, cp, cpR, cpK, cps, cpo, scp,
                      sR, sK, ss, so);
   if (net.n_layers < 1 || net.n_layers > MAX_LAYERS) return -1;
-  return bf16 ? launch_tmlp<__nv_bfloat16>(net, x3, np, out, out_rows,
-                                           (cudaStream_t)stream)
-              : launch_tmlp<float>(net, x3, np, out, out_rows,
-                                   (cudaStream_t)stream);
+  if (use_bf16 && small_net(net))
+    return launch_small(net, x3, np, out, out_rows, (cudaStream_t)stream);
+  auto* fn = use_bf16 ? &launch_tmlp<bf16> : &launch_tmlp<float>;
+  return fn(net, x3, np, out, out_rows, (cudaStream_t)stream);
 }
 
 extern "C" int tmlp_composite_launch(
-    int bf16, const int* desc, const void* w, int w_elems, float enc_scale,
+    int use_bf16, const int* desc, const void* w, int w_elems, float enc_scale,
     const void* cp, int cpR, int cpK, float cps, float cpo, const void* scp,
     int sR, int sK, float ss, float so, const void* vw, int v_elems,
     const int* vdesc, const float* x3, const float* dl, const float* ts,
@@ -713,17 +1110,14 @@ extern "C" int tmlp_composite_launch(
   Net net = make_net(desc, w, w_elems, enc_scale, cp, cpR, cpK, cps, cpo, scp,
                      sR, sK, ss, so);
   if (net.n_layers < 1 || net.n_layers > MAX_LAYERS) return -1;
-  View view{vw, v_elems, 0, 0, 0, 0, 0};
+  View view{vw, v_elems, 0, 0, 0, 0};
   if (vw && vdesc) {
     view.H = vdesc[0];
     view.n_rest = vdesc[1];
     view.sh_dim = vdesc[2];
     view.degree = vdesc[3];
   }
-  return bf16 ? launch_composite<__nv_bfloat16>(
-                    net, view, x3, dl, ts, rays8, N, Ts, pack_q, opaque, gsum,
-                    depth, wsum, rgb, (cudaStream_t)stream)
-              : launch_composite<float>(net, view, x3, dl, ts, rays8, N, Ts,
-                                        pack_q, opaque, gsum, depth, wsum,
-                                        rgb, (cudaStream_t)stream);
+  auto* fn = use_bf16 ? &launch_composite<bf16> : &launch_composite<float>;
+  return fn(net, view, x3, dl, ts, rays8, N, Ts, pack_q, opaque, gsum, depth,
+            wsum, rgb, (cudaStream_t)stream);
 }

@@ -40,8 +40,9 @@ from sanerf_tpu_torch.ops.composite import exclusive_cumsum
 from sanerf_tpu_torch.ops.freq import HALF_PI
 from sanerf_tpu_torch.ops.sh import sh_components
 
-#: Grid tables are read through L2 by the kernels; models whose CP + sigma-CP
-#: tables exceed half of the H100's 50 MB L2 are refused on the fast path.
+#: Grid tables are read through L2 by the kernels; models whose CP +
+#: sigma-CP tables exceed half of the H100's 50 MB L2 are refused on the
+#: fast path.
 TABLE_BYTES_LIMIT = 25 * 10 ** 6
 #: Widest layer output the kernel's register tile holds (16 tiles of 8).
 MAX_WIDTH = 128
@@ -146,16 +147,20 @@ class TransposedFieldMLP:
 
     def packed(self, device: torch.device):
         """(flat weights, int32 descriptor) for csrc/fused_mlp_t.cu, built
-        once per device. Each layer is stored transposed, [kout_pad][w_ld] with
-        w_ld = kin_h + kin_e + 8 (the +8 keeps the warps' 32-bit loads off
-        shared-memory bank conflicts); the skip layer's encoding block starts
-        at column kin_h. The encoding width is padded to ke = 16k."""
+        once per device. Each layer is its transpose W^T [kout_pad][kin_h +
+        kin_e], the skip layer's encoding block from column kin_h; the
+        encoding width is padded to ke = 16k. float32 slabs are row-major
+        with w_ld = kin_h + kin_e + 8 (the +8 keeps the warps' loads off
+        shared-memory bank conflicts). bfloat16 slabs are what wgmma reads B
+        from (`core_matrices`): w_ld = kin_h + kin_e, 128-byte aligned."""
         if self._packed is not None and self._packed[0].device == device:
             return self._packed
         n = len(self.ws)
         if n > MAX_LAYERS:
             raise NotImplementedError(f"{n} layers > {MAX_LAYERS}")
         ke = _round_up(self.F + self.kc, 16)
+        bf16 = self.dtype == torch.bfloat16
+        align = 64 if bf16 else 8
         desc, slabs, off, kprev, kprev_real = [], [], 0, ke, None
         for l, w in enumerate(self.ws):
             fin, fout = (int(d) for d in w.shape)
@@ -164,7 +169,7 @@ class TransposedFieldMLP:
             kin_h = kprev
             kin_e = ke if l in self.skip and l > 0 else 0
             kout = _round_up(fout, 16)
-            ld = kin_h + kin_e + 8
+            ld = kin_h + kin_e + (0 if bf16 else 8)
             wt = torch.zeros(kout, ld, dtype=torch.float32)
             wf = w.detach().float().cpu()
             if kin_e:
@@ -177,16 +182,25 @@ class TransposedFieldMLP:
                     raise ValueError(f"layer {l} takes {fin} inputs, "
                                      f"layer {l - 1} gives {kprev_real}")
                 wt[:fout, :fin] = wf.T
-            slabs.append(wt.reshape(-1))
+            slabs.append(core_matrices(wt) if bf16 else wt.reshape(-1))
             desc += [kin_h, kin_e, kout, fout, off, ld]
-            off += _round_up(kout * ld, 8)
-            slabs.append(torch.zeros(_round_up(kout * ld, 8) - kout * ld))
+            off += _round_up(kout * ld, align)
+            slabs.append(torch.zeros(_round_up(kout * ld, align) - kout * ld))
             kprev, kprev_real = kout, fout
         flat = torch.cat(slabs).to(self.dtype).to(device)
         hmax = max(desc[6 * l + 2] for l in range(n))
         head = [n, int(self.leaky), self.enc_freqs, self.F, ke, hmax]
         self._packed = (flat, np.asarray(head + desc, np.int32))
         return self._packed
+
+
+def core_matrices(wt: torch.Tensor) -> torch.Tensor:
+    """W^T [N, K] (both multiples of 8) -> flat, as wgmma reads B from shared
+    memory K-major without swizzle (csrc/wgmma.cuh): 8x8 core matrices of
+    rows 8n.. and columns 8k.., each row-major, core matrix (k, n) at
+    element (k * N/8 + n) * 64."""
+    N, K = wt.shape
+    return wt.reshape(N // 8, 8, K // 8, 8).permute(2, 0, 1, 3).reshape(-1)
 
 
 def _cp_plain(lines: torch.Tensor, x: torch.Tensor, bound: float):

@@ -240,3 +240,122 @@ def test_hash_encode_kernel_matches_plain_gather(dev, dtype, monkeypatch):
     monkeypatch.setattr(hashgrid, "gather_rows", gather.gather_rows_plain)
     ref = hashgrid.hash_encode(x, table, spec, bound=2.0)
     assert torch.equal(got, ref)
+
+
+# -- the field kernels at the serving asset's full widths --------------------
+# bf16 weights: chip_smoke.py's bound, |d| <= MLP_TOL + MLP_TOL |ref| on all
+# but FLIP_SHARE of the outputs and those within MLP_TOL * max|ref| (the
+# kernel and the plain version round the hidden activations to bf16 after
+# float32 sums taken in different orders); float32 weights element by
+# element at 3e-4 (run_tmlp) and 1e-3 (the composite).
+MLP_TOL, FLIP_SHARE = 0.05, 1e-5
+
+
+def _held(got, ref, dtype, tol32):
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape
+        assert bool(torch.isfinite(g).all())
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, r, rtol=tol32, atol=tol32)
+            continue
+        d = (g - r).abs()
+        n_over = int((d > MLP_TOL + MLP_TOL * r.abs()).sum())
+        assert n_over <= -(-FLIP_SHARE * r.numel() // 1), (n_over, r.numel())
+        assert float(d.max()) <= MLP_TOL * max(1.0, float(r.abs().max()))
+
+
+def _asset_field(g, dev, dtype):
+    """127 -> 128, 255 -> 128 (skip), 128 -> 16; CP 64 @ 128, sigma-CP
+    32 @ 128; Fourier 10 frequencies, bound 4 (assets/serving_student)."""
+    layers = _layers([(127, 128), (255, 128), (128, 16)], g, dev)
+    cp = torch.rand(3, 128, 64, generator=g, device=dev) * 0.5 + 0.5
+    scp = torch.randn(3, 128, 32, generator=g, device=dev) * 0.5
+    return fm.TransposedFieldMLP(
+        [{"w": p["w"].to(dtype)} for p in layers], 10, 4.0, (1,), leaky=True,
+        cp_lines=cp.to(dtype), sigma_cp_lines=scp.to(dtype))
+
+
+def _asset_view(g, dev, dtype):
+    """31 -> 32 -> 32 -> 3 on [geo 15, SH degree 4]."""
+    return fm.ViewMLP([{"w": p["w"].to(dtype)} for p in
+                       _layers([(31, 32), (32, 32), (32, 3)], g, dev)], 16, 4)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("net", ["prop", "field"])
+def test_run_tmlp_asset_widths(dev, net, dtype):
+    g = torch.Generator(device=dev).manual_seed(11)
+    tm = (fm.TransposedFieldMLP(
+        [{"w": p["w"].to(dtype)} for p in _layers([(33, 32), (32, 1)], g,
+                                                   dev)], 5, 4.0)
+          if net == "prop" else _asset_field(g, dev, dtype))
+    x = torch.rand(3, 1001, generator=g, device=dev) * 8 - 4
+    before = fm.run_tmlp.launches
+    got = fm.run_tmlp(x, tm, transposed=True)
+    assert fm.run_tmlp.launches == before + 1
+    _held(got, fm.run_tmlp_plain(x, tm), dtype, 3e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("T,pack_q", [(16, 1), (32, 1), (4, 1), (16, 8),
+                                      (4, 8), (80, 1), (112, 1)])
+def test_run_tmlp_composite_asset_widths(dev, T, pack_q, dtype):
+    """T = 80 and 112 step lcm(64, T) = 320 and 448 points: their buffers
+    leave room for fewer warpgroups beside the weights."""
+    g = torch.Generator(device=dev).manual_seed(12 + T + pack_q)
+    tm, view = _asset_field(g, dev, dtype), _asset_view(g, dev, dtype)
+    n = 67 if pack_q == 1 else 72
+    x = torch.rand(3, n * T, generator=g, device=dev) * 8 - 4
+    dl = torch.rand(n, T, generator=g, device=dev) * 0.1
+    ts = torch.cumsum(dl, 1) + 0.5
+    r8 = _rays8(n, g, dev)
+    if pack_q > 1:
+        dl, ts = (v.reshape(n // pack_q, pack_q * T, 1) for v in (dl, ts))
+    kw = {"view": view, "rays8": r8, "pack_q": pack_q, "T": T}
+    before = fm.run_tmlp_composite.launches
+    got = fm.run_tmlp_composite(x, dl, ts, tm, opaque=True, **kw)
+    assert fm.run_tmlp_composite.launches == before + 1
+    _held(got, fm.run_tmlp_composite_plain(x, dl, ts, tm, True, **kw), dtype,
+          1e-3)
+
+
+@pytest.mark.parametrize("T", [1, 2, 8, 48, 64, 128])
+def test_run_tmlp_composite_every_T(dev, T):
+    """Rays of T samples in 64-point tiles: T dividing 64, T = 48 (three
+    tiles hold four rays) and T = 128 (two tiles a ray); float32 weights."""
+    g = torch.Generator(device=dev).manual_seed(40 + T)
+    tm = _field(g, dev)
+    n = 37
+    x = torch.rand(3, n * T, generator=g, device=dev) * 4 - 2
+    dl = torch.rand(n, T, generator=g, device=dev) * 0.1
+    ts = torch.cumsum(dl, 1) + 0.5
+    got = fm.run_tmlp_composite(x, dl, ts, tm, opaque=False)
+    _close(got, fm.run_tmlp_composite_plain(x, dl, ts, tm, False), 1e-3)
+
+
+def test_field_kernels_stream_deep_nets(dev):
+    """bf16 weights too large for shared memory (seven 128-wide layers
+    and a skip, ~260 KB): the block stages one layer at a time."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    F, K, Ks = 27, 8, 4
+    sizes = [(F + K, 128)] + [(128, 128)] * 2 + [(128 + F + K, 128)] \
+        + [(128, 128)] * 3 + [(128, 16)]
+    layers = [{"w": p["w"].bfloat16()} for p in _layers(sizes, g, dev)]
+    cp = (torch.rand(3, 16, K, generator=g, device=dev) + 0.5).bfloat16()
+    scp = torch.randn(3, 16, Ks, generator=g, device=dev).bfloat16()
+    tm = fm.TransposedFieldMLP(layers, 4, 2.0, (3,), leaky=True, cp_lines=cp,
+                               sigma_cp_lines=scp)
+    # with the warpgroups' tile buffers, past fm.SMEM_LIMIT
+    assert tm.packed(dev)[0].numel() * 2 > 200_000
+    x = torch.rand(3, 999, generator=g, device=dev) * 4 - 2
+    _held(fm.run_tmlp(x, tm, transposed=True), fm.run_tmlp_plain(x, tm),
+          torch.bfloat16, None)
+    n, T = 61, 16
+    x = torch.rand(3, n * T, generator=g, device=dev) * 4 - 2
+    dl = torch.rand(n, T, generator=g, device=dev) * 0.1
+    ts = torch.cumsum(dl, 1) + 0.5
+    _held(fm.run_tmlp_composite(x, dl, ts, tm),
+          fm.run_tmlp_composite_plain(x, dl, ts, tm), torch.bfloat16, None)

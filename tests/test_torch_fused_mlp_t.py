@@ -173,3 +173,46 @@ def test_packed_composite_matches_jax(T, q):
                                    atol=1e-3, err_msg=name)
     with pytest.raises(ValueError, match="needs T"):
         tfm.run_tmlp_composite(xt, _t(pk(dl)), _t(pk(ts)), tm, pack_q=q)
+
+
+def _from_core_matrices(flat, N, K):
+    """W^T [N, K] from its 8x8 core matrices: the block of rows 8n.. and
+    columns 8k.. at (k * N/8 + n) * 64, each block row-major."""
+    out = torch.empty(N, K, dtype=flat.dtype)
+    for k in range(K // 8):
+        for n in range(N // 8):
+            b = flat[(k * (N // 8) + n) * 64:][:64].reshape(8, 8)
+            out[8 * n:8 * n + 8, 8 * k:8 * k + 8] = b
+    return out
+
+
+def test_packing_layout_bf16():
+    """bfloat16 operands: each layer's W^T [kout_pad][kin_h + kin_e] as the
+    8x8 core matrices wgmma reads B from, 128-byte aligned, unpacking back
+    to the layer weights exactly (the skip layer's encoding block at
+    column kin_h, zeros in the padding)."""
+    layers, cfg = _field_net()
+    tm = _tm(layers, cfg, torch.bfloat16)
+    flat, desc = tm.packed(torch.device("cpu"))
+    assert flat.dtype == torch.bfloat16
+    n, F, ke = desc[0], desc[3], desc[4]
+    lay = desc[6:].reshape(n, 6)
+    for l, (kin_h, kin_e, kout, kreal, off, ld) in enumerate(lay):
+        assert off % 64 == 0 and ld == kin_h + kin_e
+        wt = _from_core_matrices(flat[off:off + kout * ld], kout, ld)
+        ref = _to_torch(layers, torch.bfloat16)[l]["w"]
+        want = torch.zeros(kout, ld, dtype=torch.bfloat16)
+        if kin_e:
+            hid = ref.shape[0] - (F + 8)
+            want[:kreal, :hid] = ref[:hid].T
+            want[:kreal, kin_h:kin_h + F + 8] = ref[hid:].T
+        else:
+            want[:kreal, :ref.shape[0]] = ref.T
+        assert torch.equal(wt, want), l
+    assert ke == 48
+    w = torch.randn(32, 48)
+    core = tfm.core_matrices(w)
+    assert torch.equal(core[:8], w[0, :8]) and torch.equal(core[8:16], w[1, :8])
+    assert torch.equal(core[64:72], w[8, :8])  # the next 8 rows of N
+    assert torch.equal(core[4 * 64:4 * 64 + 8], w[0, 8:16])  # the next 8 of K
+    assert torch.equal(_from_core_matrices(core, 32, 48), w)
