@@ -34,7 +34,8 @@ Phases (any failure exits non-zero and prints no result line):
      the RGB frame (within 1e-6 of the default), each path driven with the
      counters set to 0; flatten3_nt and the packed variants of ray_level0,
      ray_level and run_tmlp_composite held against their plain versions at
-     those frames' shapes and at ragged ones;
+     those frames' shapes and at ragged ones; flatten3_nt timed against
+     its `clone` as medians of PROBE_REPS interleaved launches;
   7. mask mIoU of assets/serving_student_mask through the port's fast path
      (bench.py:173-225 protocol) against the JAX package's value;
   8. interactive frame times (bench.py:_drive protocol), pipelined and sync;
@@ -43,14 +44,17 @@ Phases (any failure exits non-zero and prints no result line):
      and 8-row blocks; float32 and bf16), bit for bit against its plain
      version, with the out-of-range fill, bounds, and the kernel's and
      `torch.index_select`'s times as medians of PROBE_REPS interleaved
-     launches;
+     launches queued behind a backlog (the card's time; also unqueued, on
+     an idle card, where the host's work before each kernel counts);
  10. the hash-grid family's interactive frame: `ModelConfig(field_type=
      "hashgrid", with_sam=True)` at full width, tables redrawn
      U(-TABLE_STD, TABLE_STD), bf16, 512^2 through `InteractiveSession.step`
      at (128, 64, 32) with SAM's seeded decoder, the gather's counter set to
      0 just before a frame and read just after (HASHGRID_LAUNCHES), finite
      depth / samvit [32, 32, 256] / mask logits, every gather of that frame
-     bit for bit against the plain version, frame times;
+     bit for bit against the plain version and timed against
+     `torch.index_select` (medians of HASHGRID_REPS interleaved launches,
+     summed), frame times;
  11. the same RGB frame with float32 params, with the gather swapped for
      its plain version inside this script: identical to the kernel's frame;
  12. a 64^2 frame of the same model with the numpy-seeded params of
@@ -61,7 +65,10 @@ Phases (any failure exits non-zero and prints no result line):
  14. one {"kernels": [...]} line, one {"frames": ...} line, one
      {"interactive": ...} line, one {"hashgrid": ...} line, and last
      {"ok": true, "device": {...}}.
-Needs no network; builds into build/kernels/.
+Kernel times are CUDA events around launches queued behind a sleep
+kernel (`backlog`), so they are the card's time even where the host's
+wrapper takes longer than the kernel. Needs no network; builds into
+build/kernels/.
 """
 
 import contextlib
@@ -191,6 +198,8 @@ PROBE_ROWS, PROBE_IDX = 2 ** 19, 2 ** 21
 #: median times each probe (a launch of ~20-40 us moves with L2 state and
 #: clocks from one to the next)
 PROBE_REPS = 101
+#: the same for each gather of the hash-grid frame (68 launches)
+HASHGRID_REPS = 11
 PROBES = (
     ("pallas_dynloop", 90, 2, None, "blocks", 1),
     ("pallas_dynloop_vmem", 109, 2, None, "blocks", 1),
@@ -220,6 +229,57 @@ SOURCES = {
 def fail(msg):
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+_CYCLES_PER_MS = []
+
+
+def backlog(ms):
+    """Queues a sleep kernel of about `ms` milliseconds on the current
+    stream, so that the launches the host enqueues behind it run back to
+    back: their CUDA-event times are then the card's, not the host's (a
+    wrapper's Python takes 20-60 us a launch, as long as a small kernel)."""
+    import torch
+
+    if not _CYCLES_PER_MS:
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        a.record()
+        torch.cuda._sleep(1_000_000)
+        b.record()
+        torch.cuda.synchronize()
+        _CYCLES_PER_MS.append(1_000_000 / a.elapsed_time(b))
+    torch.cuda._sleep(int(ms * _CYCLES_PER_MS[0]))
+
+
+def interleaved_ms(fns, n=None, queued=True):
+    """[(median, 10th, 90th percentile) ms] of each fn over n rounds
+    (PROBE_REPS), a round launching each fn once, each launch timed alone
+    with CUDA events. `queued`: behind a backlog, the card's time; without
+    it, each launch starts on an idle card and its time includes the host's
+    work before the kernel starts."""
+    import torch
+
+    n = n or PROBE_REPS
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    ev = [[(torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True)) for _ in range(n)]
+          for _ in fns]
+    if queued:
+        backlog(0.3 * n * len(fns))
+    for i in range(n):
+        for j, fn in enumerate(fns):
+            ev[j][i][0].record()
+            fn()
+            ev[j][i][1].record()
+    torch.cuda.synchronize()
+    out = []
+    for e in ev:
+        t = sorted(a.elapsed_time(b) for a, b in e)
+        out.append((statistics.median(t), t[n // 10], t[n - 1 - n // 10]))
+    return out
 
 
 def check(cond, msg):
@@ -512,9 +572,12 @@ def main():
 
     # -- kernel times against bound and plain ----------------------------
     def cuda_ms(fn, reps):
+        """Mean ms of reps launches queued behind a backlog (the card's
+        time)."""
         fn()
         torch.cuda.synchronize()
         a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        backlog(0.5 * reps)
         a.record()
         for _ in range(reps):
             fn()
@@ -536,8 +599,11 @@ def main():
     def bound_parts(name, a, k):
         """(byte ms, operation ms): each input read once and each output
         written once over HBM, and the operations at their type's peak:
-        the ray kernels' float32 ramp sums, the MLPs' bf16 tensor-core MACs
-        (the float32 encode and CP taps, on other units, are left out)."""
+        ray_level's float32 resample as the function needs it (pdf and CDF,
+        5 a previous sample; about one ramp of 10 a previous interval and
+        one a new edge, the CDF walk; 20 a new edge and a new sample for
+        edges and geometry), the MLPs' bf16 tensor-core MACs (the float32
+        encode and CP taps, on other units, are left out)."""
         if name == "flatten3_nt":
             # a copy: each float read once and written once
             return 2 * a[0].numel() * 4 / HBM_BPS * 1e3, 0.0
@@ -553,8 +619,8 @@ def main():
                 nbytes += N * T0 * 4
                 if not k.get("uniform_prev"):
                     nbytes += N * (T0 + 1) * 4
-                # (T + 1) edges x T0 ramps: sub, mul, max, min, add
-                ops = 5.0 * N * (T + 1) * T0
+                ops = N * (5.0 * T0 + 10.0 * (T0 + T + 1)
+                           + 20.0 * (2 * T + 1))
         else:
             tm = a[1] if name == "run_tmlp" else a[3]
             P = a[0].shape[1]
@@ -1000,6 +1066,8 @@ def interactive_phases(torch, np, dev, card, fields, renderer, rk, fm,
     a, k = seen[("32,16", "flatten3_nt")]
     x3 = a[0]
     fl_b = bound("flatten3_nt", a, k)
+    fl_k, fl_lib = interleaved_ms([lambda: rk.flatten3_nt(x3),
+                                   lambda: x3.reshape(3, -1).clone()])
     rows = [{
         "name": "flatten3_nt", "route": "cuda",
         "source": SOURCES["flatten3_nt"][0],
@@ -1008,10 +1076,12 @@ def interactive_phases(torch, np, dev, card, fields, renderer, rk, fm,
         "launches_per_frame": flat_launches,
         "max_abs_err": errs["flatten3_nt"], "tol": 0.0,
         "tol_kind": "bit for bit",
-        "ms": cuda_ms(lambda: rk.flatten3_nt(x3), reps=20),
+        "ms": fl_k[0], "ms_p10_p90": fl_k[1:],
         "plain_ms": cuda_ms(lambda: rk.flatten3_nt_plain(x3), reps=20),
         "bound_ms": fl_b[0], "bound_by": fl_b[1],
-        "library_ms": cuda_ms(lambda: x3.reshape(3, -1).clone(), reps=20),
+        "library_ms": fl_lib[0], "library_ms_p10_p90": fl_lib[1:],
+        "timed_as": f"median of {PROBE_REPS} interleaved launches queued "
+                    f"behind a backlog",
         "shapes_of": "32,16 interactive frame, first launch",
         "shape": list(x3.shape)}]
     pk_ms = pk_plain = 0.0
@@ -1084,28 +1154,6 @@ def hashgrid_phases(torch, np, dev, card, cuda_ms):
 
     gather_err = [0.0]  # the largest kernel-vs-plain difference seen
 
-    def interleaved_ms(fns, n=PROBE_REPS):
-        """[(median, 10th, 90th percentile) ms] of each fn over n rounds, a
-        round launching each fn once, each launch timed alone with CUDA
-        events."""
-        for fn in fns:
-            fn()
-        torch.cuda.synchronize()
-        ev = [[(torch.cuda.Event(enable_timing=True),
-                torch.cuda.Event(enable_timing=True)) for _ in range(n)]
-              for _ in fns]
-        for i in range(n):
-            for j, fn in enumerate(fns):
-                ev[j][i][0].record()
-                fn()
-                ev[j][i][1].record()
-        torch.cuda.synchronize()
-        out = []
-        for e in ev:
-            t = sorted(a.elapsed_time(b) for a, b in e)
-            out.append((statistics.median(t), t[n // 10], t[n - 1 - n // 10]))
-        return out
-
     def held(got, ref):
         """Bit equality of kernel and plain outputs; records their
         largest absolute difference."""
@@ -1153,15 +1201,21 @@ def hashgrid_phases(torch, np, dev, card, cuda_ms):
             tv = t.reshape(t.shape[0] // br, br * C)
             flat_i = i.reshape(-1)
             key = "f32" if dt == torch.float32 else "bf16"
-            kern, lib = interleaved_ms([
-                lambda: ga.gather_rows(t, i, br),
-                lambda: torch.index_select(tv, 0, flat_i)])
+            pair = [lambda: ga.gather_rows(t, i, br),
+                    lambda: torch.index_select(tv, 0, flat_i)]
+            kern, lib = interleaved_ms(pair)
+            kern_u, lib_u = interleaved_ms(pair, queued=False)
             rec[key] = {
                 "ms": kern[0], "ms_p10_p90": kern[1:],
                 "plain_ms": cuda_ms(lambda: ga.gather_rows_plain(t, i, br),
                                     reps=5),
                 "library_ms": lib[0], "library_ms_p10_p90": lib[1:],
-                "timed_as": f"median of {PROBE_REPS} interleaved launches",
+                "timed_as": f"median of {PROBE_REPS} interleaved launches "
+                            f"queued behind a backlog (the card's time)",
+                "unqueued": {"ms": kern_u, "library_ms": lib_u,
+                             "timed_as": "the same on an idle card: each "
+                                         "time includes the host's work "
+                                         "before its kernel starts"},
                 "bound_ms": gather_bytes(t, i, br) / HBM_BPS * 1e3}
             torch.cuda.empty_cache()
         probes[name] = rec
@@ -1247,8 +1301,14 @@ def hashgrid_phases(torch, np, dev, card, cuda_ms):
           "hash-grid mask logits not finite")
     check(r.mask is not None and tuple(r.mask.shape) == (SIZE, SIZE),
           "hash-grid mask missing")
-    # every gather of that frame against its plain version, and its times
-    fr = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    # every gather of that frame against its plain version, and its times:
+    # kernel and index_select as medians (10th, 90th percentiles) of
+    # HASHGRID_REPS interleaved launches, summed over the frame
+    fr = {"ms": 0.0, "ms_p10_p90": [0.0, 0.0], "plain_ms": 0.0,
+          "library_ms": 0.0, "library_ms_p10_p90": [0.0, 0.0],
+          "bound_ms": 0.0,
+          "timed_as": f"sums of medians of {HASHGRID_REPS} interleaved "
+                      f"launches queued behind a backlog"}
     shapes = {}
     for table, i in calls:
         ref = ga.gather_rows_plain(table, i)
@@ -1256,11 +1316,15 @@ def hashgrid_phases(torch, np, dev, card, cuda_ms):
               f"hash-grid gather {tuple(i.shape)}: kernel differs")
         del ref
         flat_i = i.reshape(-1)
-        fr["ms"] += cuda_ms(lambda: real_gather(table, i), reps=3)
+        kern, lib = interleaved_ms(
+            [lambda: real_gather(table, i),
+             lambda: torch.index_select(table, 0, flat_i)], n=HASHGRID_REPS)
+        for key, t in (("ms", kern), ("library_ms", lib)):
+            fr[key] += t[0]
+            fr[key + "_p10_p90"] = [fr[key + "_p10_p90"][0] + t[1],
+                                    fr[key + "_p10_p90"][1] + t[2]]
         fr["plain_ms"] += cuda_ms(lambda: ga.gather_rows_plain(table, i),
                                   reps=1)
-        fr["library_ms"] += cuda_ms(
-            lambda: torch.index_select(table, 0, flat_i), reps=3)
         fr["bound_ms"] += gather_bytes(table, i, 1) / HBM_BPS * 1e3
         k = f"{list(i.shape)} x {table.shape[1]} {str(table.dtype)[6:]}"
         shapes[k] = shapes.get(k, 0) + 1
@@ -1373,6 +1437,7 @@ def hashgrid_phases(torch, np, dev, card, cuda_ms):
              "bound_ms": rec["f32"]["bound_ms"],
              "library_ms": rec["f32"]["library_ms"],
              "library": "torch.index_select", "dtype": "float32",
+             "unqueued": rec["f32"]["unqueued"],
              "bf16": rec["bf16"], "shape": rec["shape"]}
             for name, rec in probes.items()]
     rows.append({

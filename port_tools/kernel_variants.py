@@ -33,36 +33,40 @@ from sanerf_tpu_torch.ops import _build  # noqa: E402
 from sanerf_tpu_torch.ops import fused_mlp_t as fm  # noqa: E402
 
 
-def use_variant(variants, name):
-    """Points the build at the variant's source (a patched copy of csrc)."""
-    if name == "orig":
+def use_variant(name, sources):
+    """Points the build at build/variants/<name>/csrc, a copy of csrc with
+    `sources` applied: {file in csrc: [[old, new], ...] text substitutions,
+    or the path of a whole file to put in its place}. No sources: csrc as
+    it is."""
+    if not sources:
         return
     d = Path(ROOT) / "build" / "variants" / name
     src = d / "csrc"
     shutil.copytree(_build.CSRC, src, dirs_exist_ok=True)
-    p = src / "fused_mlp_t.cu"
-    spec = variants[name]
-    if isinstance(spec, str):
-        shutil.copy(os.path.join(ROOT, spec), p)
-        spec = []
-    text = p.read_text()
-    for old, new in spec:
-        if old not in text:
-            sys.exit(f"kernel_variants: {name}: {old!r} not in the source")
-        text = text.replace(old, new)
-    p.write_text(text)
+    for fname, spec in sources.items():
+        p = src / fname
+        if isinstance(spec, str):
+            shutil.copy(os.path.join(ROOT, spec), p)
+            continue
+        text = p.read_text()
+        for old, new in spec:
+            if old not in text:
+                sys.exit(f"variants: {name}: {old!r} not in {fname}")
+            text = text.replace(old, new)
+        p.write_text(text)
     _build.CSRC = src
     _build.BUILD_DIR = d / "kernels"
-    if name.startswith("fmad"):
-        _build.NVCC_FLAGS = [f for f in _build.NVCC_FLAGS
-                             if f != "-fmad=false"]
 
 
 def main():
     if not torch.cuda.is_available():
         sys.exit("kernel_variants: needs a CUDA card")
     variants, name = json.loads(sys.argv[1]), sys.argv[2]
-    use_variant(variants, name)
+    use_variant(name, {} if name == "orig"
+                else {"fused_mlp_t.cu": variants[name]})
+    if name.startswith("fmad"):
+        _build.NVCC_FLAGS = [f for f in _build.NVCC_FLAGS
+                             if f != "-fmad=false"]
     fm._lib()
     for line in (_build.BUILD_DIR / "fused_mlp_t.log").read_text().splitlines():
         if "registers" in line or "spill" in line:

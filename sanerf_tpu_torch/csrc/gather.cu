@@ -17,14 +17,34 @@
 // bytes over 3.35 TB/s at best; random row reads of 4-32 B each cost a
 // 32 B L2 sector apiece, which is what keeps a gather from that bound.
 //
-// Design: a copy of bytes, the same for float32 and bf16. The row is cut
-// into pieces of the widest vector (16, 8, 4, 2 or 1 B) that divides the
-// row and both base addresses. Thread t copies piece t % ppr of output row
-// t / ppr, so neighbouring threads write neighbouring addresses and every
-// store coalesces; the index is read with __ldg (threads of one row share
-// it through L1) and the piece with __ldg. An index outside [0, rows)
-// writes zeros (jnp.take's mode="fill", fill_value=0). Offsets are 64-bit;
-// a grid-stride loop covers any number of pieces.
+// Two kernels, both a copy of bytes, the same for float32 and bf16. An
+// index outside [0, rows) writes zeros (jnp.take's mode="fill",
+// fill_value=0). Offsets are 64-bit.
+//
+// narrow_kernel, rows of 2, 4, 8 or 16 B (C = 1-8): the hash grid's rows.
+// A unit is 16 B of output, U = 16 / row_bytes rows. Lane l of a warp takes
+// units l, l + 32, ... (KU of them, ROWS_IN_FLIGHT rows), so each of its
+// index loads (one U-int vector) and each 16 B store is contiguous across
+// the warp. It loads all its indices, then issues every table read, and
+// only then stores: ROWS_IN_FLIGHT random reads in flight a thread, where
+// one row a thread left one dependent index -> row -> store chain at a
+// time. Indices are read with ld.global.cs and outputs written with
+// st.global.cs (touched once: evict first), so the table keeps the L2.
+// Table rows are read with ld.global.nc, through L1: the hash encoder's
+// corner indices come from neighbouring samples and reuse rows there
+// (measured on the H100: its 26 gathers of a 512^2 frame took 3.8x as long
+// with L1::no_allocate; the probes' uniform indices moved by nothing). The
+// index count's remainder past the last whole unit is one row a thread.
+// The launch takes this kernel when the index and output pointers allow
+// the vectors; otherwise the generic kernel.
+//
+// generic_kernel, any row: the row is cut into pieces of the widest vector
+// (16, 8, 4, 2 or 1 B) that divides the row and both base addresses.
+// Thread t copies piece t % ppr of output row t / ppr, so neighbouring
+// threads write neighbouring addresses and every store coalesces; the index
+// is read with __ldg (threads of one row share it through L1) and the piece
+// with __ldg. One thread a piece, a grid-stride loop past 2^24 blocks. At
+// C = 128 (32 threads a row) and at 8-row blocks it moves whole sectors.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -32,13 +52,16 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr long MAX_BLOCKS = 132L * 32;
+constexpr long MAX_BLOCKS = 1L << 24;
+// narrow kernel: table rows a thread has in flight before it stores
+// (measured on the H100: 8 is faster than 16 or 32 on the hash-grid frame)
+constexpr int ROWS_IN_FLIGHT = 8;
 
 template <typename V>
 __global__ void __launch_bounds__(THREADS)
-gather_kernel(const V* __restrict__ table, long rows, int ppr, int shift,
-              const int32_t* __restrict__ idx, long total,
-              V* __restrict__ out) {
+generic_kernel(const V* __restrict__ table, long rows, int ppr, int shift,
+               const int32_t* __restrict__ idx, long total,
+               V* __restrict__ out) {
   const long stride = (long)gridDim.x * THREADS;
   for (long t = (long)blockIdx.x * THREADS + threadIdx.x; t < total;
        t += stride) {
@@ -59,8 +82,9 @@ gather_kernel(const V* __restrict__ table, long rows, int ppr, int shift,
 }
 
 template <typename V>
-int launch(const void* table, long rows, int row_bytes, const int32_t* idx,
-           long m, void* out, cudaStream_t stream) {
+int launch_generic(const void* table, long rows, int row_bytes,
+                   const int32_t* idx, long m, void* out,
+                   cudaStream_t stream) {
   const int ppr = row_bytes / (int)sizeof(V);
   int shift = -1;
   if ((ppr & (ppr - 1)) == 0) {
@@ -70,9 +94,102 @@ int launch(const void* table, long rows, int row_bytes, const int32_t* idx,
   const long total = m * ppr;
   long blocks = (total + THREADS - 1) / THREADS;
   if (blocks > MAX_BLOCKS) blocks = MAX_BLOCKS;
-  gather_kernel<V><<<(unsigned)blocks, THREADS, 0, stream>>>(
+  generic_kernel<V><<<(unsigned)blocks, THREADS, 0, stream>>>(
       static_cast<const V*>(table), rows, ppr, shift, idx, total,
       static_cast<V*>(out));
+  return (int)cudaGetLastError();
+}
+
+// one table row of RB bytes as a vector
+template <int RB> struct RowOf;
+template <> struct RowOf<2> { using T = unsigned short; };
+template <> struct RowOf<4> { using T = unsigned int; };
+template <> struct RowOf<8> { using T = uint2; };
+template <> struct RowOf<16> { using T = uint4; };
+
+// the U indices of one unit, read once (evict first)
+template <int U>
+__device__ __forceinline__ void ld_idx(const int32_t* p, int* r) {
+  if constexpr (U == 1) {
+    r[0] = __ldcs(p);
+  } else if constexpr (U == 2) {
+    const int2 a = __ldcs(reinterpret_cast<const int2*>(p));
+    r[0] = a.x; r[1] = a.y;
+  } else {
+#pragma unroll
+    for (int h = 0; h < U / 4; ++h) {
+      const int4 a = __ldcs(reinterpret_cast<const int4*>(p) + h);
+      r[4 * h] = a.x; r[4 * h + 1] = a.y;
+      r[4 * h + 2] = a.z; r[4 * h + 3] = a.w;
+    }
+  }
+}
+
+template <int RB>
+union Unit {
+  uint4 v;
+  typename RowOf<RB>::T row[16 / RB];
+};
+
+template <int RB>
+__global__ void __launch_bounds__(THREADS)
+narrow_kernel(const typename RowOf<RB>::T* __restrict__ table, long rows,
+              const int32_t* __restrict__ idx, long m,
+              uint4* __restrict__ out) {
+  using V = typename RowOf<RB>::T;
+  constexpr int U = 16 / RB;
+  constexpr int KU = ROWS_IN_FLIGHT / U > 0 ? ROWS_IN_FLIGHT / U : 1;
+  const long units = m / U;
+  const int lane = threadIdx.x & 31;
+  const long gt = (long)blockIdx.x * THREADS + threadIdx.x;
+  const long warps = (long)gridDim.x * (THREADS / 32);
+  for (long w = gt >> 5; w * 32 * KU < units; w += warps) {
+    const long u0 = w * 32 * KU + lane;
+    int r[KU][U];
+#pragma unroll
+    for (int k = 0; k < KU; ++k) {
+      if (u0 + 32L * k < units) {
+        ld_idx<U>(idx + (u0 + 32L * k) * U, r[k]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < U; ++j) r[k][j] = -1;
+      }
+    }
+    Unit<RB> v[KU];
+#pragma unroll
+    for (int k = 0; k < KU; ++k) {
+#pragma unroll
+      for (int j = 0; j < U; ++j) {
+        const long rr = r[k][j];
+        v[k].row[j] = (rr >= 0 && rr < rows) ? __ldg(table + rr) : V{};
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < KU; ++k)
+      if (u0 + 32L * k < units) __stcs(out + u0 + 32L * k, v[k].v);
+  }
+  // the rows past the last whole unit, one a thread
+  const long i = units * U + gt;
+  if (i < m) {
+    const long rr = __ldcs(idx + i);
+    reinterpret_cast<V*>(out)[i] =
+        (rr >= 0 && rr < rows) ? __ldg(table + rr) : V{};
+  }
+}
+
+template <int RB>
+int launch_narrow(const void* table, long rows, const int32_t* idx, long m,
+                  void* out, cudaStream_t stream) {
+  constexpr int U = 16 / RB;
+  constexpr int KU = ROWS_IN_FLIGHT / U > 0 ? ROWS_IN_FLIGHT / U : 1;
+  const long units = m / U;
+  const long warps = (units + 32L * KU - 1) / (32L * KU);
+  long blocks = (warps + THREADS / 32 - 1) / (THREADS / 32);
+  if (blocks < 1) blocks = 1;  // the remainder rows
+  if (blocks > (1L << 24)) blocks = 1L << 24;
+  narrow_kernel<RB><<<(unsigned)blocks, THREADS, 0, stream>>>(
+      static_cast<const typename RowOf<RB>::T*>(table), rows, idx, m,
+      static_cast<uint4*>(out));
   return (int)cudaGetLastError();
 }
 
@@ -85,15 +202,33 @@ extern "C" int gather_rows_launch(const void* table, long rows, int row_bytes,
                                   cudaStream_t stream) {
   if (m <= 0) return 0;
   if (row_bytes <= 0) return (int)cudaErrorInvalidValue;
-  const uintptr_t addr = (uintptr_t)table | (uintptr_t)out;
+  const uintptr_t ta = (uintptr_t)table, ia = (uintptr_t)idx,
+                  oa = (uintptr_t)out;
+  // the narrow kernel: rows of one vector, the unit's index vector and
+  // 16 B output stores aligned
+  const bool narrow = row_bytes == 2 || row_bytes == 4 || row_bytes == 8 ||
+                      row_bytes == 16;
+  const int ib = narrow && row_bytes >= 4 ? 64 / row_bytes : 16;  // U int32
+  if (narrow && oa % 16 == 0 && ta % row_bytes == 0 && ia % ib == 0) {
+    switch (row_bytes) {
+      case 2: return launch_narrow<2>(table, rows, idx, m, out, stream);
+      case 4: return launch_narrow<4>(table, rows, idx, m, out, stream);
+      case 8: return launch_narrow<8>(table, rows, idx, m, out, stream);
+      case 16: return launch_narrow<16>(table, rows, idx, m, out, stream);
+      default: break;
+    }
+  }
+  const uintptr_t addr = ta | oa;
   if (row_bytes % 16 == 0 && addr % 16 == 0)
-    return launch<uint4>(table, rows, row_bytes, idx, m, out, stream);
+    return launch_generic<uint4>(table, rows, row_bytes, idx, m, out, stream);
   if (row_bytes % 8 == 0 && addr % 8 == 0)
-    return launch<uint2>(table, rows, row_bytes, idx, m, out, stream);
+    return launch_generic<uint2>(table, rows, row_bytes, idx, m, out, stream);
   if (row_bytes % 4 == 0 && addr % 4 == 0)
-    return launch<unsigned int>(table, rows, row_bytes, idx, m, out, stream);
+    return launch_generic<unsigned int>(table, rows, row_bytes, idx, m, out,
+                                        stream);
   if (row_bytes % 2 == 0 && addr % 2 == 0)
-    return launch<unsigned short>(table, rows, row_bytes, idx, m, out,
-                                  stream);
-  return launch<unsigned char>(table, rows, row_bytes, idx, m, out, stream);
+    return launch_generic<unsigned short>(table, rows, row_bytes, idx, m,
+                                          out, stream);
+  return launch_generic<unsigned char>(table, rows, row_bytes, idx, m, out,
+                                       stream);
 }

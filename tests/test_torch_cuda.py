@@ -6,7 +6,8 @@ nor the JAX package, so it runs where only the port is installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Tolerances as in chip_smoke.py: 1e-5 for the ray kernels, the JAX suite's
+Tolerances as in chip_smoke.py: 1e-5 for the ray kernels (ray_level at
+the served launch shapes, with adversarial weight rows and jitter), the JAX suite's
 float32 bounds for the MLP kernels with float32 weights (3e-4 and 1e-3);
 flatten3_nt, the packed ts/dl rows and gather_rows bit for bit; the
 packed composite within 1e-6 of the unpacked one on the same operands.
@@ -75,6 +76,85 @@ def test_ray_level_kernel(dev, uniform_prev):
     assert rk.ray_level.launches == before + 1
     _close(got, rk.ray_level_plain(r8, w, b0, 16, True, uniform_prev,
                                    None if uniform_prev else jit), 1e-5)
+
+
+def _prev_level(N, T0, g, dev):
+    """Rays, previous weights and edges, with adversarial rows every 97:
+    all-zero weights (the 0.01 floor alone), one-hot, and a CDF that
+    reaches 1 early (zero-width intervals at the end)."""
+    r8 = _rays8(N, g, dev)
+    b0 = rk.ray_level0(r8, T0, True)[0]
+    w = torch.rand(N, T0, generator=g, device=dev) ** 4
+    w[0::97] = 0.0
+    w[1::97] = 0.0
+    w[1::97, T0 // 3] = 1.0
+    w[2::97] = 0.0
+    w[2::97, :3] = 1e4
+    return r8, w, b0
+
+
+def _cdf(w):
+    """ray_level's CDF of each row: index-order sums, clipped at 1."""
+    wf = w + 0.01
+    total = torch.zeros_like(wf[:, 0])
+    for i in range(wf.shape[1]):
+        total = total + wf[:, i]
+    acc, cols = torch.zeros_like(total), [torch.zeros_like(total)]
+    for i in range(wf.shape[1]):
+        acc = acc + wf[:, i] / total
+        cols.append(torch.clamp(acc, max=1.0))
+    return torch.stack(cols, 1)
+
+
+# (N, T0, T, uniform_prev): the launches of the asset's 512^2 RGB frames
+# at (32, 16) and (128, 64, 32) (the thread-per-ray kernel), of the 32^2
+# feature render (warp per ray), and N that are not a multiple of a
+# block's rays on both sides of THREAD_RAYS_FROM (16,384)
+RAY_LEVEL_SHAPES = [
+    (262144, 32, 16, True), (262144, 128, 64, True), (262144, 64, 32, False),
+    (1024, 32, 16, True), (1024, 128, 64, True), (1024, 64, 32, False),
+    (1000, 128, 64, False), (33, 32, 16, True), (16385, 64, 32, False),
+    (20001, 128, 64, True), (16383, 32, 16, False)]
+
+
+@pytest.mark.parametrize("N,T0,T,uniform_prev", RAY_LEVEL_SHAPES)
+def test_ray_level_served_shapes(dev, N, T0, T, uniform_prev):
+    g = torch.Generator(device=dev).manual_seed(N + T0)
+    r8, w, b0 = _prev_level(N, T0, g, dev)
+    got = rk.ray_level(r8, w, b0, T, True, uniform_prev=uniform_prev)
+    _close(got, rk.ray_level_plain(r8, w, b0, T, True, uniform_prev), 1e-5)
+
+
+@pytest.mark.parametrize("N", [1000, 20000])
+@pytest.mark.parametrize("jitter", ["renderer", "exact", "falling"])
+@pytest.mark.parametrize("T0,T,uniform_prev", [(32, 16, False),
+                                               (128, 64, True),
+                                               (64, 32, False)])
+def test_ray_level_jitter_and_packing(dev, N, jitter, T0, T, uniform_prev):
+    """jitter as the renderer draws it ((u - 0.5) / (T + 1)), jitter that
+    puts edges exactly on CDF values, and jitter of +-2 / K that makes
+    edges fall (the walk restarts); with the packed rows of pick_pack_q."""
+    K = T + 1
+    g = torch.Generator(device=dev).manual_seed(T0 + T + N)
+    r8, w, b0 = _prev_level(N, T0, g, dev)
+    draw = torch.rand(N, K, generator=g, device=dev)
+    u = rk._div(torch.arange(K, dtype=torch.float32, device=dev) + 0.5, K)
+    if jitter == "renderer":
+        jit = (draw - 0.5) / (T + 1)
+    elif jitter == "exact":
+        cdf = _cdf(w)
+        near = cdf.gather(1, (cdf[:, None, :] - u[None, :, None]).abs()
+                          .argmin(2))
+        jit = near - u
+        assert bool(((u + jit)[:, :, None] == cdf[:, None, :]).any())
+    else:
+        jit = (draw - 0.5) * 4 / K
+        assert bool(((u + jit).diff(dim=1) < 0).any())
+    q = rk.pick_pack_q(T, N)
+    got = rk.ray_level(r8, w, b0, T, True, uniform_prev=uniform_prev,
+                       jitter=jit, pack_q=q)
+    _close(got, rk.ray_level_plain(r8, w, b0, T, True, uniform_prev, jit, q),
+           1e-5)
 
 
 def _layers(sizes, g, dev):
@@ -214,6 +294,29 @@ def test_gather_rows_kernel(dev, C, block_rows, M, first, dtype):
     assert not got[:2].any()
     got2 = gather.gather_rows(table, idx.reshape(-1, 1), block_rows)
     assert torch.equal(got2.reshape(got.shape), got)
+
+
+@pytest.mark.parametrize("C", [1, 2, 4, 8, 128])
+@pytest.mark.parametrize("M,off", [(1 << 21, 0), (100003, 0), (100003, 1),
+                                   (4099, 2), (13, 3), (7, 0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_rows_tails_and_offsets(dev, C, M, off, dtype):
+    """Rows of 2-16 B (the vector path) and wider: index counts that are
+    not a multiple of a unit's rows, index tensors `off` int32 into their
+    storage (not 16 B aligned), out-of-range fills; bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(C + M + off)
+    R = 1 << 15
+    table = torch.randn(R, C, generator=g, device=dev).to(dtype)
+    store = torch.randint(-3, R + 3, (M + off,), generator=g, device=dev,
+                          dtype=torch.int32)
+    idx = store[off:]
+    assert idx.is_contiguous() and idx.data_ptr() % 16 == 4 * off
+    got = gather.gather_rows(table, idx)
+    ref = gather.gather_rows_plain(table, idx)
+    torch.cuda.synchronize()
+    w = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(got.view(w), ref.view(w))
+    assert not got[(idx < 0) | (idx >= R)].any()
 
 
 def test_gather_rows_refuses_on_the_card(dev):

@@ -131,3 +131,148 @@ def test_packed_rows_match_jax(level):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), **TOL)
     with pytest.raises(ValueError, match="divide"):
         trk.ray_level0(torch.from_numpy(r8[:30]), T, True, pack_q=4)
+
+
+# -- the inverse-CDF walk of csrc/ray_kernels.cu:walk -------------------------
+# A numpy float32 model of the kernel's algorithm, one IEEE operation a step
+# and no fused multiply-add (the kernel builds with -fmad=false), held bit
+# for bit against the plain `_resample` (and through it against the JAX
+# `_resample` at 1e-5): index-order pdf total and CDF, then one walk along
+# the CDF for all K edges: each edge adds, to the index-order sum of the
+# prefix of ramps that are exactly 1, the terms from there to the first
+# exact 0, and the prefix grows while those terms are exactly 1.
+
+F32 = np.float32
+
+
+def _walk_model(w, b, K, jit, uniform_prev):
+    """-> (new edges [N, K], ramps evaluated per ray) as the kernel does."""
+    N, T0 = w.shape
+    out = np.zeros((N, K), F32)
+    steps = np.zeros(N, np.int64)
+    for n in range(N):
+        row = (w[n] + F32(0.01)).astype(F32)
+        total = F32(0)
+        for v in row:
+            total = F32(total + v)
+        c, acc = [F32(0)], F32(0)
+        for v in row:
+            acc = F32(acc + F32(v / total))
+            c.append(min(acc, F32(1)))
+        bp = None if uniform_prev else b[n]
+        db = (lambda i: F32(1)) if uniform_prev else (
+            lambda i: F32(bp[i + 1] - bp[i]))
+        r = [F32(1) / max(F32(c[i + 1] - c[i]), F32(1e-12))
+             for i in range(T0)]
+        m, P, u_last = 0, F32(0), None
+        for j in range(K):
+            u = F32(F32(F32(j) + F32(0.5)) / F32(K))
+            if jit is not None:
+                u = F32(u + jit[n, j])
+            if u_last is not None and u < u_last:
+                m, P = 0, F32(0)
+            u_last = u
+            a, i, prefix = P, m, True
+            while i < T0 and u > c[i]:
+                fr = min(max(F32((u - c[i]) * r[i]), F32(0)), F32(1))
+                a = F32(a + (fr if uniform_prev else F32(fr * db(i))))
+                prefix = prefix and fr == F32(1)
+                if prefix:
+                    P, m = a, i + 1
+                i += 1
+                steps[n] += 1
+            out[n, j] = (F32(a / F32(T0)) if uniform_prev
+                         else F32(bp[0] + a))
+    return out, steps
+
+
+def _cdf(w):
+    """The kernel's CDF of each row (index order, clipped at 1)."""
+    row = (w + F32(0.01)).astype(F32)
+    total = np.zeros(w.shape[0], F32)
+    for i in range(w.shape[1]):
+        total = (total + row[:, i]).astype(F32)
+    acc, cols = np.zeros_like(total), [np.zeros_like(total)]
+    for i in range(w.shape[1]):
+        acc = (acc + (row[:, i] / total).astype(F32)).astype(F32)
+        cols.append(np.minimum(acc, F32(1)))
+    return np.stack(cols, 1)
+
+
+def _walk_inputs(T0, T, uniform_prev, jittered, seed):
+    """Random rows and the adversarial ones: 0 all-zero weights (the 0.01
+    floor alone), 1 one-hot, 2 a CDF that reaches 1 early (zero-width
+    intervals at the end), 3 (jittered) edges landing exactly on CDF
+    values, 4 (jittered) one-hot with an edge one float below the end of
+    its wide interval (a ramp just under 1 that the next edge saturates)."""
+    n, K = 12, T + 1
+    rng = np.random.default_rng(seed)
+    w = rng.uniform(0, 1, (n, T0)).astype(F32) ** 4
+    w[0] = 0.0
+    w[1] = 0.0
+    w[1, T0 // 3] = 1.0
+    w[2] = 0.0
+    w[2, :3] = 1e4
+    b = np.sort(rng.uniform(0, 1, (n, T0 + 1)), axis=1).astype(F32)
+    b[:, 0], b[:, -1] = 0.0, 1.0
+    jit = None
+    if jittered:
+        jit = ((rng.uniform(0, 1, (n, K)) - 0.5) / K).astype(F32)
+        c = _cdf(w[3:4])[0]
+        u = ((np.arange(K, dtype=F32) + F32(0.5)) / F32(K)).astype(F32)
+        near = c[np.abs(c[None, :] - u[:, None]).argmin(1)]
+        jit[3] = (near - u).astype(F32)
+        w[4] = 0.0
+        w[4, T0 // 2] = 1.0
+        end = np.nextafter(_cdf(w[4:5])[0][T0 // 2 + 1], F32(0))
+        j = int(np.abs(u - end).argmin())
+        jit[4, j] = F32(end - u[j])
+    return w, b, jit
+
+
+@pytest.mark.parametrize("T0,T", [(32, 16), (128, 64), (64, 32)])
+@pytest.mark.parametrize("uniform_prev", [False, True])
+@pytest.mark.parametrize("jittered", [False, True])
+def test_cdf_walk_is_the_ramp_sum(T0, T, uniform_prev, jittered):
+    w, b, jit = _walk_inputs(T0, T, uniform_prev, jittered, seed=T0 + T)
+    K = T + 1
+    cdf = _cdf(w)
+    assert (cdf[2, :-1] >= 1).any()  # row 2 reaches 1 before its end
+    got, steps = _walk_model(w, b, K, jit, uniform_prev)
+    if jittered:  # row 3: some u falls exactly on a CDF value
+        u = (((np.arange(K, dtype=F32) + F32(0.5)) / F32(K)).astype(F32)
+             + jit[3]).astype(F32)
+        assert np.isin(u, cdf[3]).any()
+        u4 = (((np.arange(K, dtype=F32) + F32(0.5)) / F32(K)).astype(F32)
+              + jit[4]).astype(F32)
+        lo, hi = cdf[4, T0 // 2], cdf[4, T0 // 2 + 1]
+        assert ((u4 > lo) & (u4 < hi) & (u4 >= np.nextafter(hi, F32(0)))
+                ).any()
+    # O(K + T0) ramps a ray, where the plain sum takes K * T0
+    assert steps.max() <= 2 * (K + T0)
+    tj = None if jit is None else torch.from_numpy(jit)
+    ref = trk._resample(torch.from_numpy(w),
+                        None if uniform_prev else torch.from_numpy(b), K, tj)
+    np.testing.assert_array_equal(got.view(np.int32),
+                                  ref.numpy().view(np.int32))
+    jref = jrk._resample(w, None if uniform_prev else b, K, jit)
+    np.testing.assert_allclose(got, np.asarray(jref), **TOL)
+
+
+@pytest.mark.parametrize("uniform_prev", [False, True])
+def test_cdf_walk_restarts_on_a_falling_edge(uniform_prev):
+    """Jitter of +-2/K makes some u_j fall below u_{j-1}: the walk starts
+    again from the first interval and stays bit for bit."""
+    T0, T = 64, 32
+    w, b, _ = _walk_inputs(T0, T, uniform_prev, False, seed=5)
+    K = T + 1
+    rng = np.random.default_rng(6)
+    jit = ((rng.uniform(0, 1, (w.shape[0], K)) - 0.5) * 4 / K).astype(F32)
+    u = ((np.arange(K, dtype=F32) + F32(0.5)) / F32(K)).astype(F32) + jit
+    assert (np.diff(u, axis=1) < 0).any()
+    got, _ = _walk_model(w, b, K, jit, uniform_prev)
+    ref = trk._resample(torch.from_numpy(w),
+                        None if uniform_prev else torch.from_numpy(b), K,
+                        torch.from_numpy(jit))
+    np.testing.assert_array_equal(got.view(np.int32),
+                                  ref.numpy().view(np.int32))
