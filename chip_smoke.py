@@ -62,9 +62,30 @@ Phases (any failure exits non-zero and prints no result line):
      (JAX_HASHGRID, 2e-3);
  13. `run_rays(return_mask=True)` at 512^2 with the default mask head
      (MASK_LAUNCHES gathers, finite logits);
- 14. one {"kernels": [...]} line, one {"frames": ...} line, one
-     {"interactive": ...} line, one {"hashgrid": ...} line, and last
-     {"ok": true, "device": {...}}.
+ 14. the MLP family's factorized-grid configurations that the kernels
+     serve (GRID_SERVED: VM planes, CP and VM ladders, sigma-CP; full
+     width, numpy-seeded params of port_tools/grid_params.py, bf16 and
+     float32 twins): every encoding column and the sigma sum of each
+     field's tables read back through run_tmlp's encode probes (PROBE_TOL);
+     a 512^2 RGB frame of each through render_frame at (32, 16) and
+     (128, 64, 32), the counters set to 0 just before and read just after
+     (GRID_LAUNCHES), every run_tmlp / run_tmlp_composite launch held
+     against its plain version (bf16 at GRID_TOL, float32 twins as in
+     phase 2) and timed against its bound, frame times;
+ 15. grid_student with a seeded SAM head through InteractiveSession.step
+     at 512^2, (32, 16): launch counts, finite depth / samvit / mask
+     logits, every MLP launch held (bf16, GRID_TOL), frame times;
+ 16. the sigma-VM model of port_tools/grid_params.py (sigma-CP and
+     sigma-VM tables beside CP and VM features): its encode probes, its
+     launches at SIGMA_RAYS ragged rays held against their plain versions,
+     and the fast path against the plain path;
+ 17. quality_recipe, over RenderConfig.grid_vmem_budget: not on the fast
+     path, a 512^2 frame with 0 kernel launches, its time;
+ 18. 64^2 frames of grid_student (fast path) and quality_recipe (plain
+     path) against the JAX package's values (JAX_GRID, 2e-3);
+ 19. one {"kernels": [...]} line, one {"frames": ...} line, one
+     {"interactive": ...} line, one {"hashgrid": ...} line, one
+     {"grids": ...} line, and last {"ok": true, "device": {...}}.
 Kernel times are CUDA events around launches queued behind a sleep
 kernel (`backlog`), so they are the card's time even where the host's
 wrapper takes longer than the kernel. Needs no network; builds into
@@ -210,6 +231,82 @@ PROBES = (
     ("p_loop8", 226, 2, None, "flat", 1),
     ("p_blk", 244, 2, None, "div8", 8),
 )
+#: the MLP family's factorized-grid configurations
+#: (port_tools/grid_params.py: full width, numpy-seeded tables N(0, 1)):
+#: those within RenderConfig.grid_vmem_budget, served by the kernels' VM,
+#: ladder and sigma branches, and the one over it, served by the plain path
+GRID_SERVED = ("grid_student", "cp_ladder", "vm_ladder")
+GRID_OVER_BUDGET = "quality_recipe"
+GRID_SEED = 0
+#: ray_level0 / ray_level / run_tmlp / run_tmlp_composite launches per
+#: 512^2 RGB frame of a served grid configuration (the asset's counts)
+GRID_LAUNCHES = {"32,16": [1, 1, 1, 1], "128,64,32": [1, 2, 2, 1]}
+#: bf16 launches of the grid configurations against their plain versions:
+#: |d| <= GRID_TOL + GRID_TOL |ref| on every output. Their numpy-seeded nets
+#: (weights U(+-1/sqrt(fan_in)), depth 8 in the ladders) shrink what the
+#: encoding does to the output, so MLP_TOL would pass a composite that reads
+#: no grid at all: with a grid's reads left out of the kernel the ladders'
+#: composites move by 0.022-0.059, sound kernels by at most 7.4e-4
+#: (port_tools/grid_breakdown.py, PERF.md).
+GRID_TOL = 5e-3
+#: the encode probes (fused_mlp_t.encode_probes: one output per encoding
+#: column, and the sigma sum) at PROBE_POINTS points, bf16 tables: one bf16
+#: step (2^-8) of a feature where the two float32 features differ in their
+#: last bit; float32 tables at MLP_F32_TOL
+PROBE_TOL = 1e-2
+PROBE_POINTS = 100003
+#: the sigma-VM model of port_tools/grid_params.py (no served configuration
+#: has a sigma-VM table within the budget), held at SIGMA_RAYS rays, (8, 4)
+SIGMA_RAYS = 997
+#: 64^2 frames of grid_student (the fast path) and quality_recipe (the plain
+#: path), RenderConfig() defaults ((128, 64, 32)), float32 params of
+#: port_tools/grid_params.py:make_flat(shapes, GRID_SEED), through the JAX
+#: package's XLA path (use_fused_mlp=False) on the CPU; from
+#: `JAX_PLATFORMS=cpu python port_tools/jax_grid_reference.py`.
+JAX_GRID = {
+    "pixels": [0, 650, 1500, 2015, 2080, 2700, 3333, 4095],
+    "grid_student": {
+        "mean": {"image": 0.4997529357885166, "depth": 1.5001957927743206,
+                 "weights_sum": 1.000000000189175},
+        "image": [
+            [0.5020421743392944, 0.4938781261444092, 0.4991452395915985],
+            [0.500408947467804, 0.49434414505958557, 0.5008178949356079],
+            [0.49857956171035767, 0.4948754608631134, 0.5049996376037598],
+            [0.5006763935089111, 0.4949491322040558, 0.5038001537322998],
+            [0.5010836720466614, 0.4956475794315338, 0.5031304359436035],
+            [0.5012758374214172, 0.49418002367019653, 0.5019010901451111],
+            [0.5010660886764526, 0.4960882365703583, 0.5008257627487183],
+            [0.5042369365692139, 0.49573901295661926, 0.5042673349380493]],
+        "depth": [
+            1.5291187763214111, 1.8011256456375122, 1.1373339891433716,
+            1.2023043632507324, 1.0240651369094849, 1.136056661605835,
+            0.9013692736625671, 1.3753163814544678],
+        "weights_sum": [
+            1.000000238418579, 0.9999998807907104, 1.0000001192092896,
+            1.0, 0.9999998807907104, 1.0,
+            1.000000238418579, 1.0000001192092896],},
+    "quality_recipe": {
+        "mean": {"image": 0.49722376603313023, "depth": 0.8174584086664254,
+                 "weights_sum": 0.9999999853171175},
+        "image": [
+            [0.49869996309280396, 0.5022567510604858, 0.4890907108783722],
+            [0.49874982237815857, 0.5010635852813721, 0.488813579082489],
+            [0.49793776869773865, 0.49951207637786865, 0.4925764799118042],
+            [0.49824416637420654, 0.49857014417648315, 0.4940393269062042],
+            [0.4976920783519745, 0.4999743700027466, 0.49367570877075195],
+            [0.4974334239959717, 0.49929362535476685, 0.4930310547351837],
+            [0.4984947741031647, 0.4976397752761841, 0.4954723119735718],
+            [0.5000168085098267, 0.49781978130340576, 0.5012606382369995]],
+        "depth": [
+            0.5412604808807373, 0.5128118991851807, 0.5741956830024719,
+            1.3134548664093018, 0.7449401617050171, 0.6462126970291138,
+            1.6264522075653076, 0.9368830919265747],
+        "weights_sum": [
+            1.0, 1.0000001192092896, 0.9999998807907104,
+            0.9999998807907104, 1.0000001192092896, 0.9999998807907104,
+            1.0, 0.9999999403953552],},
+}
+JAX_GRID_TOL = 2e-3
 SOURCES = {
     "ray_level0": ("sanerf_tpu_torch/csrc/ray_kernels.cu",
                    "sanerf_tpu/ops/ray_kernels.py:275"),
@@ -737,6 +834,9 @@ def main():
     torch.cuda.empty_cache()
     hgrid = hashgrid_phases(torch, np, dev, card, cuda_ms)
     rows += hgrid.pop("rows")
+    torch.cuda.empty_cache()
+    grids = grid_phases(torch, np, dev, card, compare, launch_times, kern_fn)
+    rows += grids.pop("rows")
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({
@@ -750,6 +850,7 @@ def main():
                    "card": card}}), flush=True)
     print(json.dumps({"interactive": inter}), flush=True)
     print(json.dumps({"hashgrid": hgrid}), flush=True)
+    print(json.dumps({"grids": grids}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
@@ -1456,6 +1557,394 @@ def hashgrid_phases(torch, np, dev, card, cuda_ms):
             "gathers_per_frame": fr, "depth_std_f32": depth_std,
             "vs_jax_max_abs_err": jax_err, "jax_tol": JAX_HASHGRID_TOL,
             "probes": probes, "card": card, "rows": rows}
+
+
+def grid_phases(torch, np, dev, card, compare, launch_times, kern_fn):
+    """Phases 14-18: the factorized-grid configurations of the MLP family.
+    -> the {"grids": ...} record, with the kernel rows of the grid branches
+    of run_tmlp and run_tmlp_composite under "rows"."""
+    import dataclasses
+
+    from sanerf_tpu_torch.apps import frame_pipeline as fp
+    from sanerf_tpu_torch.apps.interactive import InteractiveSession
+    from sanerf_tpu_torch.config import ModelConfig, RenderConfig
+    from sanerf_tpu_torch.models import fields, renderer
+    from sanerf_tpu_torch.models.asset import expected_shapes, params_from_jax
+    from sanerf_tpu_torch.models.sam import predictor as sam_mod
+    from sanerf_tpu_torch.ops import fused_mlp_t as fm
+    from sanerf_tpu_torch.ops import gather as ga
+    from sanerf_tpu_torch.ops import ray_kernels as rk
+
+    sys.path.insert(0, os.path.join(ROOT, "port_tools"))
+    import grid_params as gp
+
+    counters = [rk.ray_level0, rk.ray_level, fm.run_tmlp,
+                fm.run_tmlp_composite]
+    mlps = ("run_tmlp", "run_tmlp_composite")
+    pose = np.asarray(SERVE_POSE, np.float32)
+    rays_o, rays_d = (torch.from_numpy(a).to(dev)
+                      for a in gp.frame_rays(SIZE))
+
+    def model_of(name, steps=(32, 16), **kw):
+        return fields.make_model(ModelConfig(**gp.CONFIGS[name], **kw),
+                                 RenderConfig(num_steps=steps,
+                                              max_ray_batch=SIZE * SIZE))
+
+    def params_of(model):
+        """float32 params of grid_params.make_flat, on the card."""
+        return params_from_jax(gp.make_flat(expected_shapes(model),
+                                            GRID_SEED), model, dev)
+
+    def twins(model, pbf, p32):
+        """(bf16 nets, {id of a bf16 net: its float32 twin})."""
+        nets = fields.KernelNets(model, pbf)
+        n32 = fields.KernelNets(model, p32)
+        return nets, {id(a): b for a, b in zip(
+            [*nets.props, nets.field, nets.view],
+            [*n32.props, n32.field, n32.view])}
+
+    def zero(cs):
+        torch.cuda.synchronize()
+        for c in cs:
+            c.launches = 0
+
+    def spied(fn):
+        """fn() with every main-path kernel call recorded -> {name: [(args,
+        kwargs)]}."""
+        calls = {}
+        with spying(renderer, fields, kern_fn, calls, None):
+            fn()
+        torch.cuda.synchronize()
+        return {n: v for (_, n), v in calls.items()}
+
+    errs = {n: {} for n in mlps}
+    errs32 = {n: {} for n in mlps}
+    past = {n: {} for n in mlps}
+
+    def hold(name, key, a, k, twin=None):
+        """One launch against its plain version with the bf16 weights at
+        GRID_TOL and, with `twin`, with their float32 twins."""
+        e, n_past = compare(name, a, k, GRID_TOL, flips=False)
+        errs[name][key] = max(errs[name].get(key, 0.0), e)
+        past[name][key] = past[name].get(key, 0) + n_past
+        if twin is not None:
+            e32, _ = compare(name, tuple(twin.get(id(v), v) for v in a),
+                             {kk: twin.get(id(v), v) for kk, v in k.items()},
+                             MLP_F32_TOL[name], flips=False)
+            errs32[name][key] = max(errs32[name].get(key, 0.0), e32)
+
+    probe_err = {}
+
+    def probe(key, field, field32):
+        """run_tmlp through the encode probes of a field's tables (bf16 and
+        their float32 twins): every encoding column and the sigma sum,
+        held element by element at PROBE_POINTS points in and around the
+        grids' bounds."""
+        g_ = torch.Generator(device=dev).manual_seed(GRID_SEED)
+        xp = (torch.rand(3, PROBE_POINTS, generator=g_, device=dev) * 2.2
+              - 1.1) * field.bound
+        e16 = e32 = 0.0
+        for p16, p32 in zip(fm.encode_probes(field),
+                            fm.encode_probes(field32)):
+            e16 = max(e16, compare("run_tmlp", (xp, p16), {"transposed": True},
+                                   PROBE_TOL, flips=False)[0])
+            e32 = max(e32, compare("run_tmlp", (xp, p32), {"transposed": True},
+                                   MLP_F32_TOL["run_tmlp"], flips=False)[0])
+        probe_err[key] = {"bf16": e16, "f32": e32,
+                          "columns": field.F + field.kc}
+
+    def host_ms(fn, n=3):
+        ts_ = []
+        for _ in range(n + 1):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts_.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(ts_[1:]), ts_[1:]
+
+    def finite(out, what):
+        check(out["image"].shape == (rays_o.shape[0], 3), f"{what}: image")
+        for k in ("image", "depth", "weights_sum"):
+            check(bool(torch.isfinite(out[k]).all()),
+                  f"{what}: {k} not finite")
+
+    # -- 14. the served configurations' RGB frames ----------------------------
+    per_frame, frame_ms, table_bytes = {}, {}, {}
+    launch_t = {n: {} for n in mlps}
+    for name in GRID_SERVED:
+        m0 = model_of(name)
+        check(renderer.uses_kernels(m0), f"{name}: not on the fast path")
+        table_bytes[name] = m0.grid_table_bytes
+        p32 = params_of(m0)
+        pbf = fields.cast_params(p32, torch.bfloat16)
+        nets, twin = twins(m0, pbf, p32)
+        probe(name, nets.field, twin[id(nets.field)])
+        per_frame[name], frame_ms[name] = {}, {}
+        for h, steps in HIERARCHIES.items():
+            model = model_of(name, steps)
+
+            def frame():
+                return renderer.render_frame(model, pbf, rays_o, rays_d,
+                                             chunk=SIZE * SIZE, nets=nets)
+            zero(counters)
+            out = frame()
+            torch.cuda.synchronize()
+            n = [c.launches for c in counters]
+            per_frame[name][h] = n
+            check(n == GRID_LAUNCHES[h],
+                  f"{name} {h}: launches {n}, expected {GRID_LAUNCHES[h]} "
+                  f"(ray_level0, ray_level, run_tmlp, run_tmlp_composite)")
+            finite(out, f"{name} {h}")
+            check(float(out["weights_sum"].min()) > 0.5,
+                  f"{name} {h}: weights_sum {float(out['weights_sum'].min())}")
+            del out
+            calls = spied(frame)
+            key = f"{name} {h}"
+            for kn in mlps:
+                for a, k in calls[kn]:
+                    hold(kn, key, a, k, twin)
+                launch_t[kn][key] = launch_times(kn, calls[kn])
+            del calls
+            frame_ms[name][h] = host_ms(frame)
+            torch.cuda.empty_cache()
+        del nets, twin, p32, pbf
+        torch.cuda.empty_cache()
+    log(f"grid frames: launches {per_frame}, ms {frame_ms}; vs plain bf16 "
+        f"{errs} f32 {errs32} past {past}; encode probes {probe_err}")
+
+    # -- 15. grid_student's interactive frame ---------------------------------
+    mi = model_of("grid_student", with_sam=True)
+    pi = fields.cast_params(params_of(mi), torch.bfloat16)
+    sam_cfg = sam_mod.SamConfig()
+    sam_params = fields.cast_params(sam_mod.init_params(
+        sam_cfg, torch.Generator().manual_seed(1), dev))
+    sess = InteractiveSession(None, mi, pi, sam_mod.SamPredictor(
+        sam_cfg, sam_params, device=dev), H=SIZE, W=SIZE, device=dev)
+    sess.step(pose)
+    sess.points_3d.append(np.zeros(3, np.float32))
+    sess.step(pose)
+    got = {}
+    dfused, dec = fp.decode_fused, sam_mod.decode
+
+    def spy_fused(cfg, p, feats, *a, **k):
+        got.setdefault("samvit", feats)
+        return dfused(cfg, p, feats, *a, **k)
+
+    def spy_dec(*a, **k):
+        out = dec(*a, **k)
+        got.setdefault("logits", out[0])
+        return out
+
+    fp.decode_fused, sam_mod.decode = spy_fused, spy_dec
+    try:
+        zero(counters + [rk.flatten3_nt])
+        r = sess.step(pose, pipelined=False)
+        torch.cuda.synchronize()
+        inter_n = [c.launches for c in counters + [rk.flatten3_nt]]
+    finally:
+        fp.decode_fused, sam_mod.decode = dfused, dec
+    check(inter_n == INTERACTIVE_LAUNCHES["32,16"],
+          f"grid_student interactive launches {inter_n}, expected "
+          f"{INTERACTIVE_LAUNCHES['32,16']}")
+    check(r.rgb_u8.shape == (SIZE, SIZE, 3), "grid interactive frame shape")
+    check(bool(torch.isfinite(r.depth).all()), "grid interactive depth")
+    sv = got.get("samvit")
+    check(sv is not None and tuple(sv.shape) == (sess.h, sess.w,
+                                                 mi.cfg.sam_feat_dim)
+          and bool(torch.isfinite(sv).all()), "grid interactive samvit")
+    check(got.get("logits") is not None
+          and bool(torch.isfinite(got["logits"]).all()),
+          "grid interactive mask logits not finite")
+    check(r.mask is not None and tuple(r.mask.shape) == (SIZE, SIZE),
+          "grid interactive mask missing")
+    del r, got, sv
+    icalls = spied(lambda: sess.step(pose, pipelined=False))
+    ikey = "interactive grid_student 32,16"
+    for kn in mlps:
+        for a, k in icalls.get(kn, []):
+            hold(kn, ikey, a, k)
+        launch_t[kn][ikey] = launch_times(kn, icalls.get(kn, []), plain=False)
+    # the field's density query of the feature render: run_tmlp with tables
+    grid_at = [i for i, (a, _) in enumerate(icalls["run_tmlp"])
+               if a[1].tables]
+    check(len(grid_at) == 1, f"grid interactive: {len(grid_at)} run_tmlp "
+                             f"launches with grid tables, expected 1")
+    tmlp_grid = launch_times("run_tmlp", [icalls["run_tmlp"][grid_at[0]]])[0]
+    del icalls
+
+    def drive(n, sync):
+        ts_ = []
+        for _ in range(n):
+            t = time.perf_counter()
+            sess.step(pose, pipelined=not sync)
+            ts_.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(ts_), ts_
+
+    drive(3, False)
+    pipelined, sync = drive(7, False), drive(5, True)
+    inter = {"launches_per_frame": inter_n,
+             "pipelined_ms": pipelined[0], "sync_ms": sync[0],
+             "pipelined_runs": pipelined[1], "sync_runs": sync[1]}
+    del sess, pi
+    torch.cuda.empty_cache()
+    log(f"grid interactive frame {inter}")
+
+    # -- 16. sigma-VM with CP and VM features, ragged -------------------------
+    ms_ = fields.make_model(ModelConfig(**gp.SIGMA_VM), RenderConfig(
+        num_steps=(8, 4), bound=4.0, contract=True))
+    check(renderer.uses_kernels(ms_) and ms_.has_sigma_grid,
+          "sigma-VM model: not on the fast path")
+    p32 = params_from_jax(gp.make_flat(expected_shapes(ms_), GRID_SEED), ms_,
+                          dev)
+    pbf = fields.cast_params(p32, torch.bfloat16)
+    nets, twin = twins(ms_, pbf, p32)
+    probe("sigma_vm", nets.field, twin[id(nets.field)])
+    rng = np.random.default_rng(GRID_SEED)
+    so = torch.from_numpy((rng.normal(0, 0.1, (SIGMA_RAYS, 3))
+                           + [0.0, 0.0, 2.0]).astype(np.float32)).to(dev)
+    sd = rng.normal(0, 1, (SIGMA_RAYS, 3)) + [0.0, 0.0, -2.0]
+    sd = torch.from_numpy((sd / np.linalg.norm(sd, axis=-1, keepdims=True))
+                          .astype(np.float32)).to(dev)
+    scalls = spied(lambda: renderer.run_rays(ms_, pbf, so, sd, nets=nets))
+    for kn in mlps:
+        for a, k in scalls[kn]:
+            hold(kn, "sigma_vm", a, k, twin)
+    g = torch.Generator(device=dev).manual_seed(GRID_SEED)
+    xr = torch.rand(3, SIGMA_RAYS * 8 + 5, generator=g, device=dev) * 4 - 2
+    hold("run_tmlp", "sigma_vm", (xr, nets.field), {"transposed": True}, twin)
+    fast = renderer.run_rays(ms_, p32, so, sd)
+    slow = renderer.run_rays(dataclasses.replace(
+        ms_, render_cfg=dataclasses.replace(ms_.render_cfg,
+                                            use_fused_mlp=False)),
+        p32, so, sd)
+    sigma_path = {}
+    for k in ("image", "depth", "weights_sum"):
+        d = (fast[k] - slow[k]).abs()
+        over = d > PATH_TOL + PATH_TOL * slow[k].abs()
+        if over.dim() > 1:
+            over, d = over.any(dim=-1), d.amax(dim=-1)
+        n_over, e = int(over.sum()), float(d.max())
+        sigma_path[k] = {"max_abs_err": e, "rays_over": n_over}
+        allowed = math.floor(DEPTH_SHARE * d.numel()) if k == "depth" else 0
+        check(n_over <= allowed and (k != "depth" or e <= DEPTH_MAX),
+              f"sigma-VM: fast path {k} off the plain path: max {e:.3g}, "
+              f"{n_over} of {d.numel()} rays past {PATH_TOL}")
+    del scalls, fast, slow, nets, twin, p32, pbf
+    log(f"sigma-VM: kernels vs plain bf16 {errs['run_tmlp'].get('sigma_vm')}"
+        f" / {errs['run_tmlp_composite'].get('sigma_vm')}, encode probes "
+        f"{probe_err['sigma_vm']}, fast vs plain path {sigma_path}")
+
+    # -- 17. quality_recipe: over the budget, the plain path ------------------
+    mq = fields.make_model(ModelConfig(**gp.CONFIGS[GRID_OVER_BUDGET]),
+                           RenderConfig())
+    check(mq.grid_table_bytes > RenderConfig().grid_vmem_budget
+          and not renderer.uses_kernels(mq),
+          f"{GRID_OVER_BUDGET}: {mq.grid_table_bytes} B of tables took the "
+          f"fast path")
+    pq32 = params_of(mq)
+    pq = fields.cast_params(pq32, torch.bfloat16)
+    every = counters + [rk.flatten3_nt, ga.gather_rows]
+    zero(every)
+    out = renderer.render_frame(mq, pq, rays_o, rays_d)
+    torch.cuda.synchronize()
+    q_n = [c.launches for c in every]
+    check(sum(q_n) == 0, f"{GRID_OVER_BUDGET}: kernel launches {q_n}")
+    finite(out, GRID_OVER_BUDGET)
+    del out
+    quality = {"grid_table_bytes": mq.grid_table_bytes,
+               "grid_vmem_budget": RenderConfig().grid_vmem_budget,
+               "uses_kernels": renderer.uses_kernels(mq),
+               "kernel_launches": q_n,
+               "frame_ms": host_ms(lambda: renderer.render_frame(
+                   mq, pq, rays_o, rays_d), n=2)}
+    del pq
+    torch.cuda.empty_cache()
+    log(f"{GRID_OVER_BUDGET}: {quality}")
+
+    # -- 18. against the JAX package ------------------------------------------
+    o64, d64 = (torch.from_numpy(a).to(dev) for a in gp.frame_rays(64))
+    mg = fields.make_model(ModelConfig(**gp.CONFIGS["grid_student"]),
+                           RenderConfig())
+    jax_err = {}
+    for name, model, p in (("grid_student", mg, params_of(mg)),
+                           (GRID_OVER_BUDGET, mq, pq32)):
+        ref = JAX_GRID[name]
+        out = renderer.run_rays(model, p, o64, d64)
+        px = torch.tensor(JAX_GRID["pixels"], device=dev)
+        for k in ("mean", "image", "depth", "weights_sum"):
+            if k == "mean":
+                got_v = np.asarray([float(out[m].double().mean())
+                                    for m in ref["mean"]])
+                want = np.asarray(list(ref["mean"].values()))
+            else:
+                got_v, want = (out[k][px].double().cpu().numpy(),
+                               np.asarray(ref[k]))
+            d = np.abs(got_v - want)
+            jax_err[f"{name}/{k}"] = float(d.max())
+            check(bool((d <= JAX_GRID_TOL + JAX_GRID_TOL
+                        * np.abs(want)).all()),
+                  f"{name} {k} off the JAX values: max {d.max():.3g}")
+        del out, p
+    del pq32
+    torch.cuda.empty_cache()
+    log(f"grids vs JAX: {jax_err}")
+
+    def loss(ts_):
+        return sum(t["ms"] - t["bound_ms"] for t in ts_)
+
+    comp = launch_t["run_tmlp_composite"]["grid_student 32,16"][0]
+    common = {"route": "cuda", "source": SOURCES["run_tmlp"][0],
+              "library_ms": None,
+              "library": "none: no single PyTorch call computes this function",
+              "tol": GRID_TOL, "f32_tol": MLP_F32_TOL,
+              "encode_probes": probe_err, "probe_tol": PROBE_TOL,
+              "also_replaces": "sanerf_tpu/ops/fused_mlp_t.py:323 "
+                               "(_grid_blocks: _cp_level :235 per CP level, "
+                               "_vm_block :263 per VM level and sigma-VM)"}
+    rows = [{
+        "name": "run_tmlp_composite[grids]", **common,
+        "replaces": SOURCES["run_tmlp_composite"][1],
+        "launches": sum(v[h][3] for v in per_frame.values() for h in v),
+        "launches_of": "the RGB frames of grid_student, cp_ladder and "
+                       "vm_ladder at (32, 16) and (128, 64, 32)",
+        "max_abs_err": max(errs["run_tmlp_composite"].values()),
+        "max_abs_err_by_frame": errs["run_tmlp_composite"],
+        "max_abs_err_f32_weights": max(errs32["run_tmlp_composite"].values()),
+        "outputs_past_tol": past["run_tmlp_composite"],
+        "ms": comp["ms"], "plain_ms": comp["plain_ms"],
+        "bound_ms": comp["bound_ms"], "bound_by": comp["bound_by"],
+        "shapes_of": "grid_student, 32,16 RGB frame",
+        "launch_times": launch_t["run_tmlp_composite"],
+        "loss_ms_per_frame": {k: loss(v) for k, v in
+                              launch_t["run_tmlp_composite"].items()}}, {
+        "name": "run_tmlp[grids]", **common,
+        "replaces": SOURCES["run_tmlp"][1],
+        "launches": inter_n[2],
+        "launches_of": "run_tmlp in one 512^2 grid_student interactive "
+                       "frame at (32, 16): 2 proposal launches and the "
+                       "feature render's field launch, the one with tables",
+        "max_abs_err": max(errs["run_tmlp"].values()),
+        "max_abs_err_by_frame": errs["run_tmlp"],
+        "max_abs_err_f32_weights": max(errs32["run_tmlp"].values()),
+        "outputs_past_tol": past["run_tmlp"],
+        "ms": tmlp_grid["ms"], "plain_ms": tmlp_grid["plain_ms"],
+        "bound_ms": tmlp_grid["bound_ms"], "bound_by": tmlp_grid["bound_by"],
+        "shapes_of": "the field launch with tables of that frame",
+        "shape": tmlp_grid["shape"],
+        "launch_times": launch_t["run_tmlp"],
+        "loss_ms_per_frame": {k: loss(v) for k, v in
+                              launch_t["run_tmlp"].items()}}]
+    return {"size": SIZE, "param_dtype": "bfloat16", "seed": GRID_SEED,
+            "configs": {n: gp.CONFIGS[n] for n in gp.CONFIGS},
+            "sources": gp.SOURCES, "grid_table_bytes": table_bytes,
+            "launches_per_frame": per_frame, "frame_ms": frame_ms,
+            "interactive_grid_student_32_16": inter,
+            "sigma_vm_fast_vs_plain_f32": sigma_path,
+            "encode_probes_max_abs_err": probe_err,
+            "over_budget": {GRID_OVER_BUDGET: quality},
+            "vs_jax_max_abs_err": jax_err, "jax_tol": JAX_GRID_TOL,
+            "card": card, "rows": rows}
 
 
 if __name__ == "__main__":

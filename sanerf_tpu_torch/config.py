@@ -5,10 +5,11 @@ Field names, defaults and `config_from_dict` are those of the JAX package's
 serialized asset's `model_config` / `render_config` round-trip unchanged.
 The port keeps its own copy: it imports nothing of the JAX package.
 
-Fields that describe TPU tilings (`fused_block`, `fused_prop_block`,
-`grid_vmem_budget`) are kept so configs round-trip; the CUDA kernels pick
-their own tiles and the port's own rule for grid tables is
-`ops.fused_mlp_t.TABLE_BYTES_LIMIT`.
+Fields that describe TPU tilings (`fused_block`, `fused_prop_block`) are
+kept so configs round-trip; the CUDA kernels pick their own tiles.
+`grid_vmem_budget` routes as in the JAX package: a model whose grid
+tables exceed it renders on the plain path (models/renderer.py:
+uses_kernels).
 """
 
 from __future__ import annotations
@@ -36,7 +37,8 @@ class RenderConfig:
     # inference: run the ray geometry and the MLP chains through the CUDA
     # kernels (ops/ray_kernels.py, ops/fused_mlp_t.py); False = plain path
     use_fused_mlp: bool = True
-    # let the kernels compute CP line features themselves
+    # let the kernels compute the factorized-grid features (CP, VM, sigma)
+    # themselves; False sends models with grid tables to the plain path
     cp_fused: bool = True
     # TPU point-block sizes of the JAX kernels (kept for round-trip only)
     fused_block: int = 4096
@@ -44,10 +46,13 @@ class RenderConfig:
     # SH + view MLP inside the composite kernel's epilogue (True) or as
     # plain ops on the composited per-ray sums (False)
     view_in_kernel: bool = True
-    # JAX-only options (off by default there); the port raises when set
+    # off by default, as in the JAX package: the [3, N, T] -> [3, N*T]
+    # pivot through the flatten3_nt kernel, and the composite reading the
+    # ray kernels' packed ts/dl rows
     flatten_kernel: bool = False
     packed_epilogue: bool = False
-    # TPU VMEM budget for grid tables (kept for round-trip only)
+    # the fast path takes grid tables up to this many bytes (bf16,
+    # NerfModel.grid_table_bytes); larger ones render on the plain path
     grid_vmem_budget: int = 6 * 2 ** 20
 
     @property
@@ -75,8 +80,8 @@ class HashGridConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     """Field architecture. `field_type` selects the encoder family:
-      - "mlp": Fourier features (plus CP line grids) and MLPs, served
-        through the fused kernels of ops/fused_mlp_t.py;
+      - "mlp": Fourier features (plus CP / VM factorized grids) and MLPs,
+        served through the fused kernels of ops/fused_mlp_t.py;
       - "hashgrid": the reference's instant-ngp multiresolution hash grids
         (ops/hashgrid.py, its table gather in the kernel of ops/gather.py)
         with small MLPs, served through the plain path of the renderer.

@@ -2,7 +2,8 @@
 //
 // Replaces the TPU kernels sanerf_tpu/ops/fused_mlp_t.py:1077 _run_tmlp
 // (reached by run_tmlp :481; body _encode_and_chain :549, _ad_encode :108,
-// _grid_blocks :323, _cp_level :235) and :885 _run_tmlp_composite (reached
+// _grid_blocks :323 with _cp_level :235 per CP level and _vm_block :263 per
+// VM level and for the sigma-VM table) and :885 _run_tmlp_composite (reached
 // by run_tmlp_composite :978; kernel _tmlp_composite_kernel :707, view
 // epilogue :835-874, packed epilogue pack_q > 1 :757-796). Plain PyTorch
 // versions of the same functions:
@@ -21,12 +22,19 @@
 //     admits) are persistent and walk the tiles, each thread loading its
 //     point of the next tile while it works on this one;
 //   - encode, one point per thread pair (each thread half of the point's
-//     features), taps computed once per point: the angle-doubling Fourier
-//     features (one sinf pair per coordinate, then s' = 2sc, c' = c^2 - s^2,
-//     the JAX recurrence) and the CP line features as 2-tap linear
-//     interpolation of the [3, R, K] tables, read in 16-byte vectors
-//     through L1/L2;
-//     the sigma-CP sum is a sequential sum per thread plus one shuffle. The
+//     features), taps computed once per point and level: the angle-doubling
+//     Fourier features (one sinf pair per coordinate, then s' = 2sc,
+//     c' = c^2 - s^2, the JAX recurrence), then the factorized-grid
+//     features, every table read in 16-byte vectors through L1/L2 (the
+//     TPU's one-hot MXU contractions become direct reads): each level of a
+//     CP ladder as 2-tap linear interpolation of its [3, R, K] table (the
+//     pair splits its K columns in halves); each level of a VM ladder, per
+//     mode m, as the bilinear read of the 4 corner rows of plane m
+//     [R, R, K] times the 2-tap read of line m [Rl, K] (ops/vmgrid.py),
+//     the level's 3K columns in units of a vector that alternate between
+//     the pair (halves of K would leave one thread idle at K = 8 in bf16);
+//     the sigma-CP and sigma-VM sums are sequential sums per thread plus
+//     one shuffle. The
 //     encoding goes to shared memory, since the skip layer reads it a
 //     second time: for bf16 as the core matrices wgmma reads A from;
 //   - the chain, bf16: each layer is a row of wgmma.m64nNk16 (csrc/
@@ -94,10 +102,35 @@ struct Layer {
   int kin_h, kin_e, kout, kout_real, w_off, w_ld;
 };
 
+// a CP level: lines [3, R, K] in the weight type, u = x * s + o
 struct Grid {
-  const void* table;  // [3, R, K] in the weight type
+  const void* table;
   int R, K;
-  float s, o;  // u = x * s + o
+  float s, o;
+};
+
+// a VM level: planes [3, R, R, K] (plane m: rows along axis (m + 1) % 3,
+// columns along (m + 2) % 3) and lines [3, Rl, K] (line m along axis m),
+// u = x * s + o on the planes, x * sl + ol on the lines
+struct VMGrid {
+  const void* planes;
+  const void* lines;
+  int R, Rl, K;
+  float s, o, sl, ol;
+};
+
+constexpr int MAX_LEVELS = 8;  // ops/fused_mlp_t.py:MAX_GRID_LEVELS
+
+// The factorized grids of a net, as the host passes them (mirrored by the
+// ctypes.Structure ops/fused_mlp_t.py:Grids): n_cp CP levels and n_vm VM
+// levels in fixed slots, unused slots zero; scp.table / svm.planes null
+// when there is no sigma-CP / sigma-VM table.
+struct Grids {
+  int n_cp, n_vm;
+  Grid cp[MAX_LEVELS];
+  VMGrid vm[MAX_LEVELS];
+  Grid scp;
+  VMGrid svm;
 };
 
 struct Net {
@@ -106,8 +139,12 @@ struct Net {
   float enc_scale;
   const void* w;
   int w_elems;
-  Grid cp, scp;
+  Grids g;
 };
+
+__host__ __device__ inline bool has_sigma(const Net& net) {
+  return net.g.scp.table != nullptr || net.g.svm.planes != nullptr;
+}
 
 struct View {
   const void* w;
@@ -158,15 +195,16 @@ struct Taps {
   float f[3];
 };
 
-__device__ __forceinline__ Taps taps(const Grid& gr, const float* x) {
+__device__ __forceinline__ Taps taps(int R, float s, float o,
+                                     const float* x) {
   Taps tp;
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
-    const float u = fminf(fmaxf(x[a] * gr.s + gr.o, 0.0f), (float)(gr.R - 1));
+    const float u = fminf(fmaxf(x[a] * s + o, 0.0f), (float)(R - 1));
     const float fl = floorf(u);
     tp.f[a] = u - fl;
     tp.i0[a] = (int)fl;
-    tp.i1[a] = min(tp.i0[a] + 1, gr.R - 1);
+    tp.i1[a] = min(tp.i0[a] + 1, R - 1);
   }
   return tp;
 }
@@ -264,6 +302,74 @@ __device__ float cp_range(const Grid& gr, const Taps& tp, int k0, int k1,
   return sum;
 }
 
+// The VM features of one level at the point x: per mode m, plane m read
+// bilinearly at (u_a, u_b), a = (m + 1) % 3, b = (m + 2) % 3, from its 4
+// corner rows, times line m read at u_m from its 2 taps, in the order of
+// operations of the plain version (ops/fused_mlp_t.py:_vm_plain). The
+// level's 3K columns go in units of W (a 16-byte vector where K and the
+// alignment allow, else 1); unit j of the level belongs to the thread of
+// the pair with (unit + j) % 2 == half, `unit` counting on across levels.
+// Each value goes to put(c0 + m K + k, value) when `write`; returns this
+// thread's sum of its values, mode by mode, in order of k.
+template <typename T, typename Put>
+__device__ float vm_level(const VMGrid& g, const float (&x)[3], int half,
+                          int& unit, bool write, int c0, const Put& put) {
+  constexpr int V = Vec<T>::N;
+  const T* Pl = reinterpret_cast<const T*>(g.planes);
+  const T* Ln = reinterpret_cast<const T*>(g.lines);
+  const bool vec = g.K % V == 0 &&
+                   ((reinterpret_cast<uintptr_t>(Pl) |
+                     reinterpret_cast<uintptr_t>(Ln)) & 15) == 0;
+  const int W = vec ? V : 1;
+  const int per_mode = g.K / W;
+  const Taps tp = taps(g.R, g.s, g.o, x);
+  const Taps tl = taps(g.Rl, g.sl, g.ol, x);
+  const long RK = (long)g.R * g.K;
+  float sum = 0.0f;
+#pragma unroll
+  for (int m = 0; m < 3; ++m) {
+    const int a = (m + 1) % 3, b = (m + 2) % 3;
+    const T* P = Pl + m * g.R * RK;
+    const T* r0 = P + tp.i0[a] * RK;
+    const T* r1 = P + tp.i1[a] * RK;
+    const T* Lm = Ln + (long)m * g.Rl * g.K;
+    const long b0 = (long)tp.i0[b] * g.K, b1 = (long)tp.i1[b] * g.K;
+    const long l0 = (long)tl.i0[m] * g.K, l1 = (long)tl.i1[m] * g.K;
+    const float fa = tp.f[a], fb = tp.f[b], fl = tl.f[m];
+    for (int j = (half + unit + m * per_mode) & 1; j < per_mode; j += 2) {
+      const int k = j * W;
+      if (vec) {
+        float v00[V], v01[V], v10[V], v11[V], q0[V], q1[V];
+        Vec<T>::load(r0 + b0 + k, v00);
+        Vec<T>::load(r0 + b1 + k, v01);
+        Vec<T>::load(r1 + b0 + k, v10);
+        Vec<T>::load(r1 + b1 + k, v11);
+        Vec<T>::load(Lm + l0 + k, q0);
+        Vec<T>::load(Lm + l1 + k, q1);
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          const float pf = (v00[i] * (1.0f - fb) + v01[i] * fb) * (1.0f - fa) +
+                           (v10[i] * (1.0f - fb) + v11[i] * fb) * fa;
+          const float v = pf * (q0[i] * (1.0f - fl) + q1[i] * fl);
+          if (write) put(c0 + m * g.K + k + i, v);
+          sum += v;
+        }
+      } else {
+        const float pf =
+            (tof<T>(r0[b0 + k]) * (1.0f - fb) + tof<T>(r0[b1 + k]) * fb) *
+                (1.0f - fa) +
+            (tof<T>(r1[b0 + k]) * (1.0f - fb) + tof<T>(r1[b1 + k]) * fb) * fa;
+        const float v = pf * (tof<T>(Lm[l0 + k]) * (1.0f - fl) +
+                              tof<T>(Lm[l1 + k]) * fl);
+        if (write) put(c0 + m * g.K + k, v);
+        sum += v;
+      }
+    }
+  }
+  unit += 3 * per_mode;
+  return sum;
+}
+
 // point p of x3 [3, np] (zeros past np); the kernels load the next
 // tile's point while they work on this one
 __device__ __forceinline__ void load_point(const float* __restrict__ x3,
@@ -272,9 +378,10 @@ __device__ __forceinline__ void load_point(const float* __restrict__ x3,
   for (int a = 0; a < 3; ++a) x[a] = p < np ? x3[a * np + p] : 0.0f;
 }
 
-// Encodes the point x, each feature handed to put(column, value); the
-// thread pair (half 0 / 1) splits the features. Returns the sigma-CP sum
-// (both threads of the pair).
+// Encodes the point x, each feature handed to put(column, value): Fourier
+// features, CP levels, VM levels (fields.position_features' order); the
+// thread pair (half 0 / 1) splits the features. Returns the sum of the
+// sigma tables' features (both threads of the pair).
 template <typename T, typename Put>
 __device__ float encode_point(const Net& net, const float (&x)[3], int half,
                               const Put& put) {
@@ -293,19 +400,30 @@ __device__ float encode_point(const Net& net, const float (&x)[3], int half,
       put(6 + 6 * f + d, c);
     }
   }
-  // halves split at a multiple of the vector width
+  // CP halves split at a multiple of the vector width
   constexpr int V = Vec<T>::N;
-  if (net.cp.table) {
-    const int mid = (net.cp.K / (2 * V)) * V;
-    const int k0 = half ? mid : 0, k1 = half ? net.cp.K : mid;
-    cp_range<T>(net.cp, taps(net.cp, x), k0, k1, true, net.F, put);
+  const Grids& g = net.g;
+  int col = net.F;
+  for (int i = 0; i < g.n_cp; ++i) {
+    const Grid& gr = g.cp[i];
+    const int mid = (gr.K / (2 * V)) * V;
+    const int k0 = half ? mid : 0, k1 = half ? gr.K : mid;
+    cp_range<T>(gr, taps(gr.R, gr.s, gr.o, x), k0, k1, true, col, put);
+    col += gr.K;
+  }
+  int unit = 0;
+  for (int i = 0; i < g.n_vm; ++i) {
+    vm_level<T>(g.vm[i], x, half, unit, true, col, put);
+    col += 3 * g.vm[i].K;
   }
   float part = 0.0f;
-  if (net.scp.table) {
-    const int mid = (net.scp.K / (2 * V)) * V;
-    const int k0 = half ? mid : 0, k1 = half ? net.scp.K : mid;
-    part = cp_range<T>(net.scp, taps(net.scp, x), k0, k1, false, 0, put);
+  if (g.scp.table) {
+    const Grid& gr = g.scp;
+    const int mid = (gr.K / (2 * V)) * V;
+    const int k0 = half ? mid : 0, k1 = half ? gr.K : mid;
+    part = cp_range<T>(gr, taps(gr.R, gr.s, gr.o, x), k0, k1, false, 0, put);
   }
+  if (g.svm.planes) part += vm_level<T>(g.svm, x, half, unit, false, 0, put);
   return part + __shfl_xor_sync(FULL, part, 1);
 }
 
@@ -624,8 +742,8 @@ __device__ __forceinline__ void tile(const Net& net, const Plan& pl,
   float acc[NA];
   chain(net, W, pl.w_mode == W_STREAM, enc, pl.lde, b.h, pl.ldh, acc, warp,
         lane);
-  store_last(acc, ncols, net.scp.table ? b.sig : nullptr, outb, pl.ldo, warp,
-             lane);
+  store_last(acc, ncols, has_sigma(net) ? b.sig : nullptr, outb, pl.ldo,
+             warp, lane);
   __syncwarp();
 }
 
@@ -691,7 +809,7 @@ __device__ __forceinline__ uint32_t w_pair(const bf16* Wl, int kout, int n,
 bool small_net(const Net& net) {
   const Layer& a = net.layer[0];
   const Layer& b = net.layer[1];
-  return net.n_layers == 2 && !net.cp.table && !net.scp.table &&
+  return net.n_layers == 2 && !net.g.n_cp && !net.g.n_vm && !has_sigma(net) &&
          a.kin_h <= SMALL_K && a.kout <= SMALL_N && !b.kin_e &&
          b.kout <= SMALL_N;
 }
@@ -967,9 +1085,8 @@ composite_kernel(Net net, View view, Plan pl, const float* __restrict__ x3,
 }
 
 Net make_net(const int* desc, const void* w, int w_elems, float enc_scale,
-             const void* cp, int cpR, int cpK, float cps, float cpo,
-             const void* scp, int sR, int sK, float ss, float so) {
-  Net net;
+             const Grids& grids) {
+  Net net = {};
   net.n_layers = desc[0];
   net.leaky = desc[1];
   net.enc_freqs = desc[2];
@@ -983,8 +1100,7 @@ Net make_net(const int* desc, const void* w, int w_elems, float enc_scale,
   net.enc_scale = enc_scale;
   net.w = w;
   net.w_elems = w_elems;
-  net.cp = Grid{cp, cpR, cpK, cps, cpo};
-  net.scp = Grid{scp, sR, sK, ss, so};
+  net.g = grids;
   return net;
 }
 
@@ -1085,15 +1201,20 @@ int launch_composite(Net net, View view, const float* x3, const float* dl,
 
 }  // namespace
 
+// sizeof(Grids), which ops/fused_mlp_t.py checks its mirror against
+extern "C" int grids_size() { return (int)sizeof(Grids); }
+
+// `grids` points to a Grids (a void pointer: a type of this file's unnamed
+// namespace in the signature would keep the symbol from being exported)
 extern "C" int tmlp_launch(int use_bf16, const int* desc, const void* w,
-                           int w_elems, float enc_scale, const void* cp,
-                           int cpR, int cpK, float cps, float cpo,
-                           const void* scp, int sR, int sK, float ss,
-                           float so, const float* x3, long np, float* out,
-                           int out_rows, void* stream) {
-  Net net = make_net(desc, w, w_elems, enc_scale, cp, cpR, cpK, cps, cpo, scp,
-                     sR, sK, ss, so);
-  if (net.n_layers < 1 || net.n_layers > MAX_LAYERS) return -1;
+                           int w_elems, float enc_scale, const void* grids,
+                           const float* x3, long np, float* out, int out_rows,
+                           void* stream) {
+  const Grids& g = *static_cast<const Grids*>(grids);
+  if (desc[0] < 1 || desc[0] > MAX_LAYERS) return -1;
+  if (g.n_cp > MAX_LEVELS || g.n_vm > MAX_LEVELS)
+    return (int)cudaErrorInvalidValue;
+  Net net = make_net(desc, w, w_elems, enc_scale, g);
   if (use_bf16 && small_net(net))
     return launch_small(net, x3, np, out, out_rows, (cudaStream_t)stream);
   auto* fn = use_bf16 ? &launch_tmlp<bf16> : &launch_tmlp<float>;
@@ -1102,14 +1223,15 @@ extern "C" int tmlp_launch(int use_bf16, const int* desc, const void* w,
 
 extern "C" int tmlp_composite_launch(
     int use_bf16, const int* desc, const void* w, int w_elems, float enc_scale,
-    const void* cp, int cpR, int cpK, float cps, float cpo, const void* scp,
-    int sR, int sK, float ss, float so, const void* vw, int v_elems,
-    const int* vdesc, const float* x3, const float* dl, const float* ts,
-    const float* rays8, int N, int Ts, int pack_q, int opaque, float* gsum,
-    float* depth, float* wsum, float* rgb, void* stream) {
-  Net net = make_net(desc, w, w_elems, enc_scale, cp, cpR, cpK, cps, cpo, scp,
-                     sR, sK, ss, so);
-  if (net.n_layers < 1 || net.n_layers > MAX_LAYERS) return -1;
+    const void* grids, const void* vw, int v_elems, const int* vdesc,
+    const float* x3, const float* dl, const float* ts, const float* rays8,
+    int N, int Ts, int pack_q, int opaque, float* gsum, float* depth,
+    float* wsum, float* rgb, void* stream) {
+  const Grids& g = *static_cast<const Grids*>(grids);
+  if (desc[0] < 1 || desc[0] > MAX_LAYERS) return -1;
+  if (g.n_cp > MAX_LEVELS || g.n_vm > MAX_LEVELS)
+    return (int)cudaErrorInvalidValue;
+  Net net = make_net(desc, w, w_elems, enc_scale, g);
   View view{vw, v_elems, 0, 0, 0, 0};
   if (vw && vdesc) {
     view.H = vdesc[0];

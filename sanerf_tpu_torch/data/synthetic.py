@@ -1,11 +1,13 @@
-"""Procedural quality fixture, numpy only: the twin of the JAX package's
-`SyntheticSphereDataset(scene="textured")` (sanerf_tpu/data/synthetic.py),
-which the port cannot import (it reaches jax through its rays module).
+"""Procedural fixtures, numpy only: the twin of the JAX package's
+`SyntheticSphereDataset` (sanerf_tpu/data/synthetic.py), which the port
+cannot import (it reaches jax through its rays module).
 
-The textured scene is three mutually occluding spheres with high-frequency
-procedural textures over a fine-checkered floor, ray-traced in closed form,
-seen from two interleaved camera rings. Same poses, intrinsics, images and
-per-view near/far as the JAX fixture.
+Two scenes, ray-traced in closed form and seen from two interleaved camera
+rings: "sphere" (the default, as in the JAX package), a Lambertian sphere
+on a white background; "textured", three mutually occluding spheres with
+high-frequency procedural textures over a fine-checkered floor. Same poses,
+intrinsics, images, instance masks and per-view near/far as the JAX
+fixture.
 """
 
 from __future__ import annotations
@@ -17,6 +19,29 @@ import numpy as np
 
 from sanerf_tpu_torch.data.rays import sample_rays
 from sanerf_tpu_torch.utils.camera import circle_poses, fov_to_focal
+
+
+def ray_sphere_shade(rays_o, rays_d, center=(0.0, 0.0, 0.0),
+                     radius: float = 0.5, light=(0.577, 0.577, 0.577),
+                     albedo=(0.8, 0.3, 0.2), bg: float = 1.0):
+    """Closed-form Lambertian sphere -> (rgb [N, 3], depth [N]); depth is t
+    along the unnormalized ray, 0 where it misses."""
+    c = np.asarray(center, np.float32)
+    oc = rays_o - c
+    dnorm = np.linalg.norm(rays_d, axis=-1)
+    d = rays_d / dnorm[:, None]
+    b = np.sum(oc * d, -1)
+    disc = b * b - (np.sum(oc * oc, -1) - radius * radius)
+    hit = disc > 0
+    t = -b - np.sqrt(np.maximum(disc, 0.0))
+    hit &= t > 0
+    p = rays_o + d * t[:, None]
+    n = (p - c) / radius
+    lam = np.clip(n @ np.asarray(light, np.float32), 0.1, 1.0)
+    rgb = np.where(hit[:, None], lam[:, None] * np.asarray(albedo, np.float32),
+                   bg).astype(np.float32)
+    depth = np.where(hit, t / dnorm, 0.0).astype(np.float32)
+    return rgb, depth
 
 
 def _sphere_hit(rays_o, d, center, radius):
@@ -98,7 +123,8 @@ def ray_textured_scene(rays_o, rays_d, bg: float = 1.0,
 
 @dataclass
 class SyntheticSphereDataset:
-    """Held-out views of the textured fixture on two interleaved rings."""
+    """Views of the sphere or the textured scene on two interleaved
+    rings."""
 
     H: int = 64
     W: int = 64
@@ -106,7 +132,7 @@ class SyntheticSphereDataset:
     radius: float = 2.0
     fovy: float = 50.0
     training: bool = True
-    scene: str = "textured"
+    scene: str = "sphere"  # "sphere" | "textured"
     poses: np.ndarray = field(init=False)
     intrinsics: np.ndarray = field(init=False)
     images: np.ndarray = field(init=False)
@@ -114,10 +140,9 @@ class SyntheticSphereDataset:
     instances: np.ndarray = field(init=False)
 
     def __post_init__(self):
-        if self.scene != "textured":
+        if self.scene not in ("sphere", "textured"):
             raise NotImplementedError(
-                f"the port's fixture twin renders scene='textured' only, "
-                f"got {self.scene!r}")
+                f"scene must be 'sphere' or 'textured', got {self.scene!r}")
         lo = circle_poses(radius=self.radius, height=0.5,
                           n=(self.n_views + 1) // 2)
         hi = circle_poses(radius=self.radius * 0.75, height=1.1,
@@ -131,7 +156,7 @@ class SyntheticSphereDataset:
         imgs, deps, insts = [], [], []
         for pose in self.poses:
             rb = sample_rays(pose, self.intrinsics, self.H, self.W, N=-1)
-            rgb, depth, inst = ray_textured_scene(rb.rays_o, rb.rays_d)
+            rgb, depth, inst = self._shade(rb.rays_o, rb.rays_d)
             imgs.append(rgb.reshape(self.H, self.W, 3))
             deps.append(depth.reshape(self.H, self.W))
             insts.append(inst.reshape(self.H, self.W))
@@ -146,6 +171,14 @@ class SyntheticSphereDataset:
             far = 1.25 * float(hit.max()) if hit.size else 10.0
             nf.append([near, far])
         self.cam_near_far = np.asarray(nf, np.float32)
+
+    def _shade(self, rays_o, rays_d):
+        """-> (rgb, depth, instance: textured 0 bg, 1 floor, 2..4 spheres;
+        sphere 1 on the sphere, 0 elsewhere)."""
+        if self.scene == "textured":
+            return ray_textured_scene(rays_o, rays_d)
+        rgb, depth = ray_sphere_shade(rays_o, rays_d)
+        return rgb, depth, (depth > 0).astype(np.int64)
 
     def __len__(self):
         return self.n_views

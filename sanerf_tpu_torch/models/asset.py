@@ -3,9 +3,12 @@
 The JAX checkpoints and serving assets are flat npz files whose keys are
 '/'-joined tree paths under `params/` (sanerf_tpu/train/checkpoints.py:
 flatten_tree), weights stored [in, out]. `params_from_jax` turns such a
-dict into the port's parameter tree, for both field families (the
-hash-grid family's tables `grid`, `prop/<i>/grid`, `s_grid`, `m_grid`
-included); the tests use it to give both frameworks identical weights.
+dict into the port's parameter tree, for both field families (the MLP
+family's factorized tables `cp_lines`, `vm_planes`, `vm_lines`,
+`sigma_cp_lines`, `sigma_vm_planes`, `sigma_vm_lines`, a ladder's levels as
+`cp_lines/<i>`, `vm_planes/<i>`, `vm_lines/<i>`; the hash-grid family's
+tables `grid`, `prop/<i>/grid`, `s_grid`, `m_grid`); the tests use it to
+give both frameworks identical weights.
 
 Three ways to load the shipped asset:
   - `load_asset(path)`: the RGB field as shipped;
@@ -33,6 +36,7 @@ from sanerf_tpu_torch.config import ModelConfig, RenderConfig, config_from_dict
 from sanerf_tpu_torch.device import resolve_device
 from sanerf_tpu_torch.models.fields import (NerfModel, Params, init_params,
                                             make_model, mask_mlp_dims)
+from sanerf_tpu_torch.ops.cpgrid import level_resolutions
 
 _LAYER = re.compile(
     r"^(grid_mlp|view_mlp|s_field_mlp|m_field_mlp|mask_mlp)/(\d+)/w$")
@@ -40,7 +44,13 @@ _BIASED = re.compile(r"^(samvit_mlp)/(\d+)/(w|b)$")
 _PROP = re.compile(r"^prop/(\d+)/mlp/(\d+)/w$")
 _PROP_GRID = re.compile(r"^prop/(\d+)/grid$")
 _NORM = re.compile(r"^samvit_norm/(w|b)$")
-_TABLES = ("cp_lines", "sigma_cp_lines", "grid", "s_grid", "m_grid")
+#: table name -> its rank: [3, R, K] lines, [3, R, R, K] planes, hash
+#: tables [rows, level_dim]
+_TABLES = {"cp_lines": 3, "sigma_cp_lines": 3, "vm_planes": 4, "vm_lines": 3,
+           "sigma_vm_planes": 4, "sigma_vm_lines": 3, "grid": 2, "s_grid": 2,
+           "m_grid": 2}
+#: the levels of a ladder, flattened by index (train/checkpoints.py)
+_LEVEL = re.compile(r"^(cp_lines|vm_planes|vm_lines)/(\d+)$")
 
 
 def _mlp_shapes(out, name, d_in, d_out, d_hidden, n_layers, skip=(),
@@ -57,6 +67,17 @@ def _table(spec) -> Tuple[int, int]:
     return (spec.total_params, spec.level_dim)
 
 
+def _ladder(rank: int, res: int, levels: int):
+    """[(path suffix, resolution)] of a grid's levels: one table at `res`,
+    or the levels of a ladder (fields.init_params), '/<i>' each."""
+    if rank <= 0:
+        return []
+    if levels == 1:
+        return [("", res)]
+    return [(f"/{i}", r) for i, r in enumerate(level_resolutions(res,
+                                                                 levels))]
+
+
 def expected_shapes(model: NerfModel) -> Dict[str, Tuple[int, ...]]:
     """Every parameter of the model, path -> shape."""
     c = model.cfg
@@ -69,11 +90,19 @@ def expected_shapes(model: NerfModel) -> Dict[str, Tuple[int, ...]]:
         for i in range(len(c.prop_resolutions)):
             _mlp_shapes(out, f"prop/{i}/mlp", model.prop_in_dim, 1,
                         c.mlp_prop_width, c.mlp_prop_depth)
-        if c.mlp_cp_rank > 0:
-            out["cp_lines"] = (3, c.mlp_cp_res, c.mlp_cp_rank)
+        for i, r in _ladder(c.mlp_cp_rank, c.mlp_cp_res, c.mlp_cp_levels):
+            out["cp_lines" + i] = (3, r, c.mlp_cp_rank // c.mlp_cp_levels)
+        for i, r in _ladder(c.mlp_vm_rank, c.mlp_vm_res, c.mlp_vm_levels):
+            k = c.mlp_vm_rank // c.mlp_vm_levels
+            out["vm_planes" + i] = (3, r, r, k)
+            out["vm_lines" + i] = (3, r, k)
         if c.mlp_sigma_cp_rank > 0:
             out["sigma_cp_lines"] = (3, c.mlp_sigma_cp_res,
                                      c.mlp_sigma_cp_rank)
+        if c.mlp_sigma_vm_rank > 0:
+            r, k = c.mlp_sigma_vm_res, c.mlp_sigma_vm_rank
+            out["sigma_vm_planes"] = (3, r, r, k)
+            out["sigma_vm_lines"] = (3, r, k)
         if c.with_sam:
             _mlp_shapes(out, "s_field_mlp", model.grid_out_dim,
                         model.s_feat_dim, c.mlp_sam_width, c.mlp_sam_depth)
@@ -115,6 +144,7 @@ def params_from_jax(flat: Dict[str, np.ndarray],
     shapes = expected_shapes(model) if model is not None else None
     layers: Dict[Tuple[str, int], Dict[int, Dict[str, torch.Tensor]]] = {}
     prop_grids: Dict[int, torch.Tensor] = {}
+    levels: Dict[str, Dict[int, torch.Tensor]] = {}
     params: Params = {}
     unmapped = []
     for key, v in flat.items():
@@ -127,6 +157,7 @@ def params_from_jax(flat: Dict[str, np.ndarray],
         t = torch.tensor(np.asarray(v, np.float32), device=dev)
         m, mb, mp = _LAYER.match(path), _BIASED.match(path), _PROP.match(path)
         mn, mg = _NORM.match(path), _PROP_GRID.match(path)
+        ml = _LEVEL.match(path)
         if m:
             layers.setdefault((m.group(1), -1), {}).setdefault(
                 int(m.group(2)), {})["w"] = t
@@ -140,8 +171,10 @@ def params_from_jax(flat: Dict[str, np.ndarray],
             params.setdefault("samvit_norm", {})[mn.group(1)] = t
         elif mg:
             prop_grids[int(mg.group(1))] = t
-        elif path in _TABLES:
+        elif path in _TABLES and t.dim() == _TABLES[path]:
             params[path] = t
+        elif ml and t.dim() == _TABLES[ml.group(1)]:
+            levels.setdefault(ml.group(1), {})[int(ml.group(2))] = t
         else:
             unmapped.append(key)
     if unmapped:
@@ -152,6 +185,11 @@ def params_from_jax(flat: Dict[str, np.ndarray],
                                         if k.startswith("params/")})
         if missing:
             raise ValueError(f"params missing from the checkpoint: {missing}")
+    for name, by_idx in levels.items():
+        if name in params or sorted(by_idx) != list(range(len(by_idx))):
+            raise ValueError(f"{name}: levels {sorted(by_idx)} are not "
+                             f"contiguous, or a level beside a table")
+        params[name] = [by_idx[i] for i in range(len(by_idx))]
     n_props = 1 + max([i for (n, i) in layers if n == "prop"]
                       + list(prop_grids), default=-1)
     for (name, i), by_idx in layers.items():

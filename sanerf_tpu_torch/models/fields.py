@@ -2,8 +2,11 @@
 (JAX: sanerf_tpu/models/fields.py).
 
 Parameters are nested dicts of tensors with the JAX package's names
-(`grid_mlp`, `view_mlp`, `prop[i]["mlp"]`, the MLP family's `cp_lines`,
-`sigma_cp_lines`, `s_field_mlp`, `m_field_mlp`, the hash-grid family's
+(`grid_mlp`, `view_mlp`, `prop[i]["mlp"]`, the MLP family's factorized
+grids `cp_lines`, `vm_planes` / `vm_lines` (each a table, or a list of
+levels for a ladder), `sigma_cp_lines`, `sigma_vm_planes` /
+`sigma_vm_lines`, its heads `s_field_mlp`, `m_field_mlp`, the hash-grid
+family's
 tables `grid`, `prop[i]["grid"]`, `s_grid`, `m_grid`, and the heads
 `samvit_mlp` / `samvit_norm` and `mask_mlp`); weights are stored
 [in, out]. The plain functions (`apply_mlp`, `position_features`,
@@ -24,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from sanerf_tpu_torch.config import HashGridConfig, ModelConfig, RenderConfig
-from sanerf_tpu_torch.ops import cpgrid, hashgrid
+from sanerf_tpu_torch.ops import cpgrid, hashgrid, vmgrid
 from sanerf_tpu_torch.ops.activation import shifted_softplus, trunc_exp
 from sanerf_tpu_torch.ops.freq import freq_encode, freq_output_dim
 from sanerf_tpu_torch.ops.fused_mlp_t import (TransposedFieldMLP, ViewMLP,
@@ -152,14 +155,42 @@ class NerfModel:
 
     @property
     def has_sigma_grid(self) -> bool:
-        return self.is_mlp_field and self.cfg.mlp_sigma_cp_rank > 0
+        """Direct-density tables (sigma-CP or sigma-VM) whose component sum
+        adds to the density logit."""
+        return self.is_mlp_field and (self.cfg.mlp_sigma_cp_rank > 0
+                                      or self.cfg.mlp_sigma_vm_rank > 0)
+
+    @property
+    def grid_table_bytes(self) -> int:
+        """Bytes of the factorized tables in bf16, from the config alone
+        (JAX: fields.py:201-227). run_rays takes the fast path for a model
+        with grids only when this is within RenderConfig.grid_vmem_budget,
+        as the JAX package does, so one config takes one path on both."""
+        c = self.cfg
+        if not self.is_mlp_field:
+            return 0
+        total = 0
+        if c.mlp_cp_rank > 0:
+            k = max(1, c.mlp_cp_rank // c.mlp_cp_levels)
+            for r in cpgrid.level_resolutions(c.mlp_cp_res, c.mlp_cp_levels):
+                total += 3 * r * k
+        if c.mlp_vm_rank > 0:
+            k = max(1, c.mlp_vm_rank // c.mlp_vm_levels)
+            for r in cpgrid.level_resolutions(c.mlp_vm_res, c.mlp_vm_levels):
+                total += 3 * (r * r + r) * k
+        if c.mlp_sigma_cp_rank > 0:
+            total += 3 * c.mlp_sigma_cp_res * c.mlp_sigma_cp_rank
+        if c.mlp_sigma_vm_rank > 0:
+            total += (3 * (c.mlp_sigma_vm_res ** 2 + c.mlp_sigma_vm_res)
+                      * c.mlp_sigma_vm_rank)
+        return 2 * total
 
     @property
     def grid_out_dim(self) -> int:
         """Width of the positional feature feeding grid_mlp."""
         if self.is_mlp_field:
             return (freq_output_dim(3, self.cfg.mlp_enc_freqs)
-                    + self.cfg.mlp_cp_rank)
+                    + self.cfg.mlp_cp_rank + 3 * self.cfg.mlp_vm_rank)
         return self.grid_spec.output_dim
 
     @property
@@ -203,11 +234,11 @@ class NerfModel:
 
 
 def make_model(cfg: ModelConfig, render_cfg: RenderConfig) -> NerfModel:
-    """The port serves the MLP family with single-level CP and sigma-CP
-    grids and the hash-grid family (JAX: fields.py:283-365), each with the
-    composite-then-head SAM feature head and the default or
-    `lightweight_mask` mask head; every other family, grid or head raises
-    NotImplementedError."""
+    """The port serves the MLP family with its factorized grids (CP and VM,
+    single levels or ladders, sigma-CP and sigma-VM) and the hash-grid
+    family (JAX: fields.py:283-365), each with the composite-then-head SAM
+    feature head and the default or `lightweight_mask` mask head; every
+    other family or head raises NotImplementedError."""
     if cfg.field_type not in ("mlp", "hashgrid"):
         raise NotImplementedError(f"field_type={cfg.field_type!r}")
     if cfg.with_mask and cfg.mask_mlp_type not in ("default",
@@ -217,11 +248,6 @@ def make_model(cfg: ModelConfig, render_cfg: RenderConfig) -> NerfModel:
     if cfg.sum_after_mlp:
         raise NotImplementedError("sum_after_mlp is not in the port yet")
     if cfg.field_type == "mlp":
-        if cfg.mlp_vm_rank > 0 or cfg.mlp_sigma_vm_rank > 0:
-            raise NotImplementedError("VM grids are not in the port yet")
-        if cfg.mlp_cp_rank > 0 and cfg.mlp_cp_levels != 1:
-            raise NotImplementedError(
-                "multi-level CP grids are not in the port yet")
         return NerfModel(cfg=cfg, render_cfg=render_cfg)
 
     def spec(num_levels, level_dim, log2_hashmap, desired):
@@ -252,9 +278,10 @@ def init_params(model: NerfModel, generator: torch.Generator,
                 device=None) -> Params:
     """Random parameters of every head the model has (JAX:
     fields.py:init_params, :368-510), float32, drawn from `generator` on
-    the CPU and moved to `device`; hash tables U(-1e-4, 1e-4). The draws
-    differ from JAX's for the same seed; tests carry JAX's weights across
-    with models/asset.py:params_from_jax instead."""
+    the CPU and moved to `device`; hash tables U(-1e-4, 1e-4), factorized
+    tables 0.2 N(0, 1), ladders as lists of levels coarse -> fine. The
+    draws differ from JAX's for the same seed; tests carry JAX's weights
+    across with models/asset.py:params_from_jax instead."""
     c, g = model.cfg, generator
     dev = torch.device("cpu") if device is None else device
     view = init_mlp(g, model.color_dim, 3, c.view_mlp_hidden,
@@ -270,13 +297,29 @@ def init_params(model: NerfModel, generator: torch.Generator,
                                       False, (), dev)}
                      for _ in c.prop_resolutions],
         }
+
+        def lines(res, rank):
+            return 0.2 * torch.randn(3, res, rank, generator=g).to(dev)
+
         if c.mlp_cp_rank > 0:
-            params["cp_lines"] = 0.2 * torch.randn(
-                3, c.mlp_cp_res, c.mlp_cp_rank, generator=g).to(dev)
+            params["cp_lines"] = (
+                lines(c.mlp_cp_res, c.mlp_cp_rank) if c.mlp_cp_levels == 1
+                else [lines(r, c.mlp_cp_rank // c.mlp_cp_levels)
+                      for r in cpgrid.level_resolutions(c.mlp_cp_res,
+                                                        c.mlp_cp_levels)])
+        if c.mlp_vm_rank > 0:
+            params["vm_planes"], params["vm_lines"] = (
+                vmgrid.init_vm(g, c.mlp_vm_res, c.mlp_vm_rank, device=dev)
+                if c.mlp_vm_levels == 1 else
+                vmgrid.init_vm_multi(g, c.mlp_vm_res, c.mlp_vm_rank,
+                                     c.mlp_vm_levels, device=dev))
         if c.mlp_sigma_cp_rank > 0:
-            params["sigma_cp_lines"] = 0.2 * torch.randn(
-                3, c.mlp_sigma_cp_res, c.mlp_sigma_cp_rank,
-                generator=g).to(dev)
+            params["sigma_cp_lines"] = lines(c.mlp_sigma_cp_res,
+                                             c.mlp_sigma_cp_rank)
+        if c.mlp_sigma_vm_rank > 0:
+            params["sigma_vm_planes"], params["sigma_vm_lines"] = (
+                vmgrid.init_vm(g, c.mlp_sigma_vm_res, c.mlp_sigma_vm_rank,
+                               device=dev))
         if c.with_sam:
             params["s_field_mlp"] = init_mlp(
                 g, model.grid_out_dim, model.s_feat_dim, c.mlp_sam_width,
@@ -338,22 +381,43 @@ def density_activation(model: NerfModel, f0: torch.Tensor) -> torch.Tensor:
 
 def position_features(model: NerfModel, params: Params, x: torch.Tensor,
                       dtype=None) -> torch.Tensor:
-    """Fourier bands of x * pi / bound, then the CP line features."""
+    """Fourier bands of x * pi / bound, then the CP line features (each
+    level of a ladder, coarse -> fine), then the VM features (JAX:
+    fields.py:529-588, the gather lookups)."""
     h = freq_encode(x * (math.pi / model.bound), model.cfg.mlp_enc_freqs,
                     out_dtype=dtype)
     if model.cfg.mlp_cp_rank > 0:
-        cp = cpgrid.line_features(params["cp_lines"], x, model.bound)
+        cl = params["cp_lines"]
+        cp = (cpgrid.line_features_multi(cl, x, model.bound)
+              if isinstance(cl, (list, tuple))
+              else cpgrid.line_features(cl, x, model.bound))
         h = torch.cat([h, cp.to(h.dtype)], dim=-1)
+    if model.cfg.mlp_vm_rank > 0:
+        planes, lines = params["vm_planes"], params["vm_lines"]
+        vm = (vmgrid.vm_features_multi(planes, lines, x, model.bound)
+              if isinstance(planes, (list, tuple))
+              else vmgrid.vm_features_gather(planes, lines, x, model.bound))
+        h = torch.cat([h, vm.to(h.dtype)], dim=-1)
     return h
 
 
 def sigma_grid_logit(model: NerfModel, params: Params,
                      x: torch.Tensor) -> Optional[torch.Tensor]:
-    """Sum of the sigma-CP components (direct density), [N] float32."""
-    if not model.has_sigma_grid or "sigma_cp_lines" not in params:
+    """Sum of the sigma-CP and sigma-VM components (direct density), [N]
+    float32 (JAX: fields.py:591-624)."""
+    if not model.is_mlp_field:
         return None
-    return cpgrid.line_features(params["sigma_cp_lines"], x,
-                                model.bound).sum(dim=-1)
+    c = model.cfg
+    out = None
+    if c.mlp_sigma_cp_rank > 0 and "sigma_cp_lines" in params:
+        out = cpgrid.line_features(params["sigma_cp_lines"], x,
+                                   model.bound).sum(dim=-1)
+    if c.mlp_sigma_vm_rank > 0 and "sigma_vm_planes" in params:
+        s = vmgrid.vm_features_gather(params["sigma_vm_planes"],
+                                      params["sigma_vm_lines"], x,
+                                      model.bound).sum(dim=-1)
+        out = s if out is None else out + s
+    return out
 
 
 def common_forward(model: NerfModel, params: Params, x: torch.Tensor):
@@ -398,7 +462,8 @@ def forward(model: NerfModel, params: Params, x: Optional[torch.Tensor],
 
 class KernelNets:
     """The model's chains packed once for the fused kernels: the proposal
-    nets, the field (with its CP and sigma-CP tables) and the view head."""
+    nets, the field (with every grid table: CP and VM levels, sigma-CP,
+    sigma-VM) and the view head."""
 
     def __init__(self, model: NerfModel, params: Params):
         c = model.cfg
@@ -409,7 +474,11 @@ class KernelNets:
             params["grid_mlp"], c.mlp_enc_freqs, model.bound,
             (c.mlp_field_depth // 2,), leaky=True,
             cp_lines=params.get("cp_lines"),
-            sigma_cp_lines=params.get("sigma_cp_lines"))
+            sigma_cp_lines=params.get("sigma_cp_lines"),
+            vm_planes=params.get("vm_planes"),
+            vm_lines=params.get("vm_lines"),
+            sigma_vm_planes=params.get("sigma_vm_planes"),
+            sigma_vm_lines=params.get("sigma_vm_lines"))
         self.view = ViewMLP(params["view_mlp"], 1 + c.geom_feat_dim,
                             c.sh_degree)
 

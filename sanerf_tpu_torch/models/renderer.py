@@ -16,8 +16,9 @@ inference only (JAX: sanerf_tpu/models/renderer.py:50-409, 463-569).
         with the weights;
     with `flatten_kernel` the [3, N, T] coordinates reach the MLP kernels
     through the flatten3_nt kernel instead of a reshape;
-  - the plain path (`use_fused_mlp=False`, and always for the hash-grid
-    family): uniform_bins / sample_pdf, point-major coordinates, the plain
+  - the plain path (`use_fused_mlp=False`, the hash-grid family, and MLP
+    fields whose grid tables exceed `RenderConfig.grid_vmem_budget`):
+    uniform_bins / sample_pdf, point-major coordinates, the plain
     field and compositing. It is the oracle the fast path is held against,
     and it serves the hash-grid family, whose encoder gathers its table
     rows through the kernel of ops/gather.py.
@@ -39,7 +40,6 @@ from sanerf_tpu_torch.ops import (composite, compute_weights,
                                   compute_weights_from_deltas, contract,
                                   near_far_from_aabb, sample_pdf, spacing_fn,
                                   spacing_fn_inv, uniform_bins)
-from sanerf_tpu_torch.ops.fused_mlp_t import TABLE_BYTES_LIMIT
 from sanerf_tpu_torch.ops.ray_kernels import (flatten3_nt, pick_pack_q,
                                               ray_level, ray_level0)
 from sanerf_tpu_torch.ops.sh import sh_encode
@@ -55,14 +55,19 @@ def default_aabb(model: NerfModel, device) -> torch.Tensor:
 
 
 def uses_kernels(model: NerfModel) -> bool:
-    """Whether run_rays takes the fast path: the MLP family only (the JAX
-    predicate of renderer.py:106-116 without its TPU VMEM rule, which the
-    port replaces by raising on tables over TABLE_BYTES_LIMIT)."""
+    """Whether run_rays takes the fast path: the JAX predicate of
+    renderer.py:106-116. The MLP family only; a model with grid tables
+    only with `cp_fused` and tables within `grid_vmem_budget`
+    (NerfModel.grid_table_bytes), so that one config takes the same path
+    on both sides; larger tables take the plain path."""
     cfg, mc = model.render_cfg, model.cfg
-    has_grids = mc.mlp_cp_rank > 0 or model.has_sigma_grid
+    has_grids = (mc.mlp_cp_rank > 0 or mc.mlp_vm_rank > 0
+                 or model.has_sigma_grid)
     skip_ok = mc.mlp_field_depth // 2 != mc.mlp_field_depth - 1
     return (model.is_mlp_field and cfg.use_fused_mlp and skip_ok
-            and (not has_grids or cfg.cp_fused))
+            and (not has_grids
+                 or (cfg.cp_fused
+                     and model.grid_table_bytes <= cfg.grid_vmem_budget)))
 
 
 def run_rays(model: NerfModel, params: Params, rays_o: torch.Tensor,
@@ -98,10 +103,6 @@ def run_rays(model: NerfModel, params: Params, rays_o: torch.Tensor,
     fast_epi = fast and not return_feats and not return_mask
     if fast:
         nets = nets or KernelNets(model, params)
-        if nets.field.table_bytes > TABLE_BYTES_LIMIT:
-            raise NotImplementedError(
-                f"grid tables of {nets.field.table_bytes} B exceed the "
-                f"kernel's {TABLE_BYTES_LIMIT} B limit")
         rays8 = torch.cat([rays_o, rays_d, s_nears, s_fars],
                           dim=1).float().contiguous()
 

@@ -11,8 +11,11 @@ What they compute, per point x (contracted coordinates, [3, P] layout):
     one cos (= sin(z + pi/2)) at the base frequency, then s' = 2sc,
     c' = c^2 - s^2 for each further frequency, in the tight column order of
     ops/freq.py: [z, s_0, c_0, s_1, c_1, ...];
-  - optional CP line features appended to the encoding, and the sum of the
-    sigma-CP features added to output row 0 (direct density);
+  - optional factorized-grid features appended to the encoding, in the
+    order of fields.position_features: CP line features of each level of a
+    CP ladder (coarse -> fine), then VM plane x line features of each level
+    of a VM ladder (3 modes each); the component sums of the sigma-CP and
+    sigma-VM tables added to output row 0 (direct density);
   - the MLP chain (bias-free), the skip layer as a second product over the
     encoding, leaky 0.01 or ReLU between layers; activations are rounded to
     the weight type between layers, the products accumulate in float32.
@@ -39,11 +42,14 @@ from sanerf_tpu_torch.ops import _build
 from sanerf_tpu_torch.ops.composite import exclusive_cumsum
 from sanerf_tpu_torch.ops.freq import HALF_PI
 from sanerf_tpu_torch.ops.sh import sh_components
+from sanerf_tpu_torch.ops.vmgrid import vm_read
 
-#: Grid tables are read through L2 by the kernels; models whose CP +
-#: sigma-CP tables exceed half of the H100's 50 MB L2 are refused on the
-#: fast path.
+#: Grid tables are read through L2 by the kernels, which refuse tables
+#: past half of the H100's 50 MB L2 (the renderer sends models over
+#: RenderConfig.grid_vmem_budget to the plain path before that).
 TABLE_BYTES_LIMIT = 25 * 10 ** 6
+#: Levels of a CP or a VM ladder the kernels' grid descriptor holds.
+MAX_GRID_LEVELS = 8
 #: Widest layer output the kernel's register tile holds (16 tiles of 8).
 MAX_WIDTH = 128
 MAX_LAYERS = 8
@@ -66,18 +72,31 @@ def _scale_off(R: int, bound: float):
     return _f32((R - 1) / (2.0 * bound)), _f32((R - 1) / 2.0)
 
 
+def _levels(t) -> list:
+    """A table or a ladder (list of levels) -> list of levels."""
+    if t is None:
+        return []
+    return list(t) if isinstance(t, (list, tuple)) else [t]
+
+
 class TransposedFieldMLP:
     """One encode + MLP chain, checked once and packed once for the kernel.
 
     layers: [{"w": [in, out]}, ...] bias-free; layer `l in skip_layers` takes
-    [hidden, encoding] as input. cp_lines / sigma_cp_lines: [3, R, K]
-    single-level tables. All weights and tables share one dtype (float32 or
-    bfloat16)."""
+    [hidden, encoding] as input. The factorized grids, each a table or a
+    ladder (a list of levels, coarse -> fine): cp_lines [3, R, K];
+    vm_planes [3, R, R, K] with vm_lines [3, Rl, K]; sigma_cp_lines and
+    sigma_vm_planes / sigma_vm_lines single tables. The encoding is [Fourier,
+    CP levels, VM levels (3 modes each)]; the sigma tables' component sum
+    goes to output row 0. All weights and tables share one dtype (float32
+    or bfloat16)."""
 
     def __init__(self, layers, enc_freqs: int, bound: float,
                  skip_layers: Sequence[int] = (), leaky: bool = False,
-                 cp_lines: Optional[torch.Tensor] = None,
-                 sigma_cp_lines: Optional[torch.Tensor] = None):
+                 cp_lines=None, sigma_cp_lines: Optional[torch.Tensor] = None,
+                 vm_planes=None, vm_lines=None,
+                 sigma_vm_planes: Optional[torch.Tensor] = None,
+                 sigma_vm_lines: Optional[torch.Tensor] = None):
         if any("b" in p for p in layers):
             raise NotImplementedError("biased layers are not in the port")
         self.ws = [p["w"] for p in layers]
@@ -87,14 +106,28 @@ class TransposedFieldMLP:
         self.leaky = leaky
         self.scale = _f32(math.pi / bound)
         self.F = 3 * (1 + 2 * enc_freqs)
-        self.cp = cp_lines
+        self.cp = _levels(cp_lines)
+        planes, lines = _levels(vm_planes), _levels(vm_lines)
+        if len(planes) != len(lines):
+            raise ValueError("vm_planes and vm_lines need as many levels")
+        self.vm = list(zip(planes, lines))
         self.scp = sigma_cp_lines
+        self.svm = (None if sigma_vm_planes is None
+                    else (sigma_vm_planes, sigma_vm_lines))
+        if (sigma_vm_planes is None) != (sigma_vm_lines is None):
+            raise ValueError("sigma_vm_planes and sigma_vm_lines go together")
+        for p, l in self.vm + ([self.svm] if self.svm else []):
+            if (p.dim() != 4 or l.dim() != 3 or p.shape[0] != 3
+                    or p.shape[1] != p.shape[2] or l.shape[0] != 3
+                    or l.shape[2] != p.shape[3]):
+                raise ValueError(f"VM level: planes {tuple(p.shape)} and "
+                                 f"lines {tuple(l.shape)} do not match")
         self.dtype = self.ws[0].dtype
-        for t in self.ws + [t for t in (cp_lines, sigma_cp_lines)
-                            if t is not None]:
+        for t in self.ws + self.tables:
             if t.dtype != self.dtype:
                 raise ValueError("weights and tables must share one dtype")
-        self.kc = 0 if cp_lines is None else int(cp_lines.shape[2])
+        self.kc = (sum(int(t.shape[2]) for t in self.cp)
+                   + sum(3 * int(p.shape[3]) for p, _ in self.vm))
         if self.ws[0].shape[0] != self.F + self.kc:
             raise ValueError(f"layer 0 takes {self.ws[0].shape[0]} inputs, "
                              f"the encoding has {self.F + self.kc}")
@@ -102,9 +135,18 @@ class TransposedFieldMLP:
         self._packed = None
 
     @property
+    def tables(self):
+        """Every grid table, in the order of the kernel's descriptor."""
+        out = list(self.cp) + [t for pl in self.vm for t in pl]
+        if self.scp is not None:
+            out.append(self.scp)
+        if self.svm is not None:
+            out += list(self.svm)
+        return out
+
+    @property
     def table_bytes(self) -> int:
-        return sum(t.numel() * t.element_size()
-                   for t in (self.cp, self.scp) if t is not None)
+        return sum(t.numel() * t.element_size() for t in self.tables)
 
     # -- plain PyTorch version ------------------------------------------------
 
@@ -121,11 +163,15 @@ class TransposedFieldMLP:
             if f:
                 s, c = 2.0 * s * c, c * c - s * s
             cols += [s, c]
-        if self.cp is not None:
-            cols.append(_cp_plain(self.cp, x, self.bound))
+        cols += [_cp_plain(t, x, self.bound) for t in self.cp]
+        cols += [_vm_plain(p, l, x, self.bound) for p, l in self.vm]
         enc = self._rnd(torch.cat(cols, dim=1))
-        sig = (None if self.scp is None
-               else _cp_plain(self.scp, x, self.bound).sum(dim=1))
+        sig = None
+        if self.scp is not None:
+            sig = _cp_plain(self.scp, x, self.bound).sum(dim=1)
+        if self.svm is not None:
+            s_vm = _vm_plain(*self.svm, x, self.bound).sum(dim=1)
+            sig = s_vm if sig is None else sig + s_vm
         h = enc
         for l, w in enumerate(self.ws):
             w = w.float()
@@ -194,6 +240,28 @@ class TransposedFieldMLP:
         return self._packed
 
 
+def encode_probes(tm: TransposedFieldMLP) -> list:
+    """One-layer nets over tm's tables that read its encoding back: output
+    row j + 1 of probe i is encoding column 15 i + j (zero past the
+    encoding's width), row 0 the sigma tables' sum alone. Through them a
+    kernel is held feature by feature against the plain version, where
+    tm's own chain can flatten a wrong feature into a small error."""
+    width = tm.F + tm.kc
+    grids = dict(cp_lines=tm.cp, vm_planes=[p for p, _ in tm.vm],
+                 vm_lines=[l for _, l in tm.vm], sigma_cp_lines=tm.scp,
+                 sigma_vm_planes=tm.svm[0] if tm.svm else None,
+                 sigma_vm_lines=tm.svm[1] if tm.svm else None)
+    probes = []
+    for c0 in range(0, width, 15):
+        w = torch.zeros(width, 16)
+        for j in range(min(15, width - c0)):
+            w[c0 + j, j + 1] = 1.0
+        probes.append(TransposedFieldMLP(
+            [{"w": w.to(tm.dtype).to(tm.ws[0].device)}], tm.enc_freqs,
+            tm.bound, **grids))
+    return probes
+
+
 def core_matrices(wt: torch.Tensor) -> torch.Tensor:
     """W^T [N, K] (both multiples of 8) -> flat, as wgmma reads B from shared
     memory K-major without swizzle (csrc/wgmma.cuh): 8x8 core matrices of
@@ -203,18 +271,30 @@ def core_matrices(wt: torch.Tensor) -> torch.Tensor:
     return wt.reshape(N // 8, 8, K // 8, 8).permute(2, 0, 1, 3).reshape(-1)
 
 
+def _grid_coords(x: torch.Tensor, R: int, bound: float):
+    """u = clamp(x * s + o, 0, R - 1), the kernel's affine -> (i0, i1 [P, 3]
+    long, frac [P, 3])."""
+    s_, o_ = _scale_off(R, bound)
+    u = torch.clamp(x * s_ + o_, 0.0, R - 1.0)
+    fl = torch.floor(u)
+    i0 = fl.long()
+    return i0, torch.clamp(i0 + 1, max=R - 1), u - fl
+
+
+def _vm_plain(planes: torch.Tensor, lines: torch.Tensor, x: torch.Tensor,
+              bound: float):
+    """VM features [P, 3K] (ops/vmgrid.py:vm_read) at the kernel's
+    affine."""
+    return vm_read(planes, lines, _grid_coords(x, planes.shape[1], bound),
+                   _grid_coords(x, lines.shape[1], bound))
+
+
 def _cp_plain(lines: torch.Tensor, x: torch.Tensor, bound: float):
     """CP features [P, K] by 2-tap interpolation at u = x * s + o, the
     kernel's affine (ops/cpgrid.py:line_features rounds u another way; at
     millions of points the 1-ulp difference in u shows in the float32
     comparison of the kernel with this version)."""
-    R = lines.shape[1]
-    s_, o_ = _scale_off(R, bound)
-    u = torch.clamp(x * s_ + o_, 0.0, R - 1.0)
-    fl = torch.floor(u)
-    f = u - fl
-    i0 = fl.long()
-    i1 = torch.clamp(i0 + 1, max=R - 1)
+    i0, i1, f = _grid_coords(x, lines.shape[1], bound)
     feat = None
     for a in range(3):
         la = lines[a].float()
@@ -338,13 +418,37 @@ def run_tmlp_composite_plain(xT, dl, ts, tm: TransposedFieldMLP,
 # ---------------------------------------------------------------------------
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
-_GRID = [_P, _I, _I, _F, _F]  # table, R, K, scale, offset
+
+
+class _Grid(ctypes.Structure):
+    """A CP level (csrc/fused_mlp_t.cu:Grid): lines [3, R, K], u = x s + o."""
+    _fields_ = [("table", _P), ("R", _I), ("K", _I), ("s", _F), ("o", _F)]
+
+
+class _VMGrid(ctypes.Structure):
+    """A VM level (csrc/fused_mlp_t.cu:VMGrid): planes [3, R, R, K] at
+    u = x s + o, lines [3, Rl, K] at x sl + ol."""
+    _fields_ = [("planes", _P), ("lines", _P), ("R", _I), ("Rl", _I),
+                ("K", _I), ("s", _F), ("o", _F), ("sl", _F), ("ol", _F)]
+
+
+class Grids(ctypes.Structure):
+    """The kernels' grid descriptor, csrc/fused_mlp_t.cu:Grids: CP and VM
+    levels in fixed slots, unused slots zero; a null sigma table is none."""
+    _fields_ = [("n_cp", _I), ("n_vm", _I),
+                ("cp", _Grid * MAX_GRID_LEVELS),
+                ("vm", _VMGrid * MAX_GRID_LEVELS),
+                ("scp", _Grid), ("svm", _VMGrid)]
 
 
 @functools.cache
 def _lib():
     lib = _build.load("fused_mlp_t")
-    net = [_I, _P, _P, _I, _F, *_GRID, *_GRID]
+    if lib.grids_size() != ctypes.sizeof(Grids):
+        raise RuntimeError("csrc/fused_mlp_t.cu:Grids and its ctypes mirror "
+                           "differ in size")
+    # bf16, layer descriptor, weights, their count, encode scale, &Grids
+    net = [_I, _P, _P, _I, _F, _P]
     _build.declare(lib, "tmlp_launch", net + [_P, _L, _P, _I, _P])
     # view (weights, count, descriptor), xT, dl, ts, rays8, N, T, pack_q,
     # opaque, gsum, depth, wsum, rgb, stream
@@ -372,17 +476,43 @@ def _net_args(tm: TransposedFieldMLP, device):
         raise NotImplementedError(
             f"grid tables of {tm.table_bytes} B exceed the kernel's "
             f"{TABLE_BYTES_LIMIT} B limit")
+    for t in tm.tables:
+        _check(t, "grid table", t.shape, tm.dtype)
     flat, desc = tm.packed(device)
+    grids = grids_of(tm)
     args = [int(tm.dtype == torch.bfloat16), desc.ctypes.data,
-            flat.data_ptr(), flat.numel(), tm.scale]
-    for t in (tm.cp, tm.scp):
-        if t is None:
-            args += [None, 0, 0, 0.0, 0.0]
-        else:
-            _check(t, "grid table", t.shape, tm.dtype)
-            R = int(t.shape[1])
-            args += [t.data_ptr(), R, int(t.shape[2]), *_scale_off(R, tm.bound)]
-    return args, (flat, desc)
+            flat.data_ptr(), flat.numel(), tm.scale, ctypes.addressof(grids)]
+    return args, (flat, desc, grids)
+
+
+def grids_of(tm: TransposedFieldMLP) -> Grids:
+    """tm's tables as the kernels' grid descriptor, each with the affine
+    u = x * s + o of _scale_off."""
+    L = MAX_GRID_LEVELS
+    if len(tm.cp) > L or len(tm.vm) > L:
+        raise NotImplementedError(f"grid ladders of more than {L} levels")
+
+    def cp(t):
+        R = int(t.shape[1])
+        return _Grid(t.data_ptr(), R, int(t.shape[2]),
+                     *_scale_off(R, tm.bound))
+
+    def vm(planes, lines):
+        R, Rl = int(planes.shape[1]), int(lines.shape[1])
+        return _VMGrid(planes.data_ptr(), lines.data_ptr(), R, Rl,
+                       int(planes.shape[3]), *_scale_off(R, tm.bound),
+                       *_scale_off(Rl, tm.bound))
+
+    g = Grids(n_cp=len(tm.cp), n_vm=len(tm.vm))
+    for i, t in enumerate(tm.cp):
+        g.cp[i] = cp(t)
+    for i, pl in enumerate(tm.vm):
+        g.vm[i] = vm(*pl)
+    if tm.scp is not None:
+        g.scp = cp(tm.scp)
+    if tm.svm is not None:
+        g.svm = vm(*tm.svm)
+    return g
 
 
 def _raise_on(code: int, fn: str) -> None:

@@ -3,6 +3,7 @@
 import dataclasses
 import json
 import os
+import sys
 
 import jax
 import numpy as np
@@ -18,9 +19,12 @@ from sanerf_tpu_torch.models import fields
 from sanerf_tpu_torch.models.asset import (expected_shapes, load_asset,
                                            params_from_jax)
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(ROOT, "port_tools"))
+import grid_params  # noqa: E402  (the served grid configurations)
+
 torch.set_num_threads(1)
-ASSET = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "assets", "serving_student")
+ASSET = os.path.join(ROOT, "assets", "serving_student")
 
 
 def _meta():
@@ -104,15 +108,76 @@ def test_params_from_jax_raises_on_shape_or_missing_key():
 
 @pytest.mark.parametrize("kw", [dict(field_type="hashgrid",
                                      with_mask=True, mask_mlp_type="adaptive"),
-                                dict(mlp_vm_rank=4),
-                                dict(mlp_cp_rank=8, mlp_cp_levels=2),
+                                dict(mlp_vm_rank=4, with_mask=True,
+                                     mask_mlp_type="adaptive"),
+                                dict(mlp_cp_rank=8, mlp_cp_levels=2,
+                                     sum_after_mlp=True),
                                 dict(with_mask=True, mask_mlp_type="adaptive"),
                                 dict(field_type="hashgrid",
                                      sum_after_mlp=True),
                                 dict(sum_after_mlp=True)])
 def test_other_families_raise(kw):
+    """Heads the port does not have raise, with or without factorized
+    grids (which it serves)."""
     with pytest.raises(NotImplementedError):
         fields.make_model(ModelConfig(**kw), RenderConfig())
+
+
+@pytest.mark.parametrize("name", sorted(grid_params.CONFIGS))
+def test_grid_configs_build_as_in_jax(name):
+    """make_model takes VM grids, ladders and sigma-VM; the encoding width,
+    the bf16 table bytes and every parameter's path and shape are the JAX
+    package's (the served configurations of port_tools/grid_params.py)."""
+    kw = grid_params.CONFIGS[name]
+    jm = jfields.make_model(JModelConfig(**kw), JRenderConfig())
+    tm = fields.make_model(ModelConfig(**kw), RenderConfig())
+    assert tm.grid_out_dim == jm.grid_out_dim
+    assert tm.grid_table_bytes == jm.grid_table_bytes
+    assert tm.has_sigma_grid == jm.has_sigma_grid
+    tmpl = jax.eval_shape(lambda k: jfields.init_params(jm, k),
+                          jax.random.key(0))
+    shapes = {k: tuple(v.shape) for k, v in flatten_tree(
+        jax.tree.map(lambda s: np.broadcast_to(np.float32(0), s.shape),
+                     tmpl), "").items()}
+    assert expected_shapes(tm) == shapes
+
+
+@pytest.mark.parametrize("kw", [
+    dict(mlp_cp_rank=8, mlp_cp_res=32, mlp_cp_levels=2),
+    dict(mlp_cp_rank=6, mlp_cp_res=16, mlp_vm_rank=4, mlp_vm_res=16,
+         mlp_vm_levels=2, mlp_sigma_cp_rank=4, mlp_sigma_cp_res=16,
+         mlp_sigma_vm_rank=3, mlp_sigma_vm_res=8)])
+def test_params_from_jax_carries_grid_ladders(kw):
+    """A JAX tree with ladders (list leaves `cp_lines/<i>`, `vm_planes/<i>`,
+    `vm_lines/<i>`) and sigma-VM tables maps value for value; a missing or
+    orphan level raises."""
+    mc = JModelConfig(field_type="mlp", mlp_field_width=32, mlp_field_depth=3,
+                      mlp_prop_width=16, mlp_prop_depth=2, **kw)
+    rc = JRenderConfig(num_steps=(16, 8), bound=4.0)
+    jp = jfields.init_params(jfields.make_model(mc, rc), jax.random.key(0))
+    flat = flatten_tree(jp, "params/")
+    model = fields.make_model(
+        config_from_dict(ModelConfig, dataclasses.asdict(mc)),
+        config_from_dict(RenderConfig, dataclasses.asdict(rc)))
+    assert set(expected_shapes(model)) == {k[7:] for k in flat}
+    tp = params_from_jax(flat, model)
+    for key in ("cp_lines", "vm_planes", "vm_lines", "sigma_vm_planes",
+                "sigma_vm_lines"):
+        if key not in jp:
+            continue
+        ref = jp[key] if isinstance(jp[key], list) else [jp[key]]
+        got = tp[key] if isinstance(jp[key], list) else [tp[key]]
+        assert isinstance(tp[key], list) == isinstance(jp[key], list)
+        assert len(got) == len(ref)
+        for g, r in zip(got, ref):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+    lost = "params/" + ("cp_lines/0" if isinstance(jp["cp_lines"], list)
+                        else "vm_planes/0")
+    missing = {k: v for k, v in flat.items() if k != lost}
+    with pytest.raises(ValueError, match="missing"):
+        params_from_jax(missing, model)
+    with pytest.raises(ValueError, match="not contiguous"):
+        params_from_jax(missing)
 
 
 def _hashgrid_pair(**kw):

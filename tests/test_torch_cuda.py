@@ -9,7 +9,8 @@ nor the JAX package, so it runs where only the port is installed:
 Tolerances as in chip_smoke.py: 1e-5 for the ray kernels (ray_level at
 the served launch shapes, with adversarial weight rows and jitter), the JAX suite's
 float32 bounds for the MLP kernels with float32 weights (3e-4 and 1e-3);
-flatten3_nt, the packed ts/dl rows and gather_rows bit for bit; the
+the grid branches in bf16 at 5e-3 and their encode probes at 1e-2, element
+by element; flatten3_nt, the packed ts/dl rows and gather_rows bit for bit; the
 packed composite within 1e-6 of the unpacked one on the same operands.
 """
 
@@ -352,17 +353,24 @@ def test_hash_encode_kernel_matches_plain_gather(dev, dtype, monkeypatch):
 # float32 sums taken in different orders); float32 weights element by
 # element at 3e-4 (run_tmlp) and 1e-3 (the composite).
 MLP_TOL, FLIP_SHARE = 0.05, 1e-5
+#: bf16 grid branches: chip_smoke.py's GRID_TOL, element by element (MLP_TOL
+#: passes a deep net whose grid reads are left out); the encode probes:
+#: one bf16 step of a feature (PROBE_TOL)
+GRID_TOL, PROBE_TOL = 5e-3, 1e-2
 
 
-def _held(got, ref, dtype, tol32):
+def _held(got, ref, dtype, tol32, tol16=None):
+    """float32 weights at tol32 element by element; bf16 at tol16 element
+    by element when given, else at MLP_TOL with FLIP_SHARE."""
     got = got if isinstance(got, tuple) else (got,)
     ref = ref if isinstance(ref, tuple) else (ref,)
     torch.cuda.synchronize()
     for g, r in zip(got, ref):
         assert g.shape == r.shape
         assert bool(torch.isfinite(g).all())
-        if dtype == torch.float32:
-            torch.testing.assert_close(g, r, rtol=tol32, atol=tol32)
+        if dtype == torch.float32 or tol16 is not None:
+            tol = tol32 if dtype == torch.float32 else tol16
+            torch.testing.assert_close(g, r, rtol=tol, atol=tol)
             continue
         d = (g - r).abs()
         n_over = int((d > MLP_TOL + MLP_TOL * r.abs()).sum())
@@ -462,3 +470,87 @@ def test_field_kernels_stream_deep_nets(dev):
     ts = torch.cumsum(dl, 1) + 0.5
     _held(fm.run_tmlp_composite(x, dl, ts, tm),
           fm.run_tmlp_composite_plain(x, dl, ts, tm), torch.bfloat16, None)
+
+
+# -- the factorized-grid branches: CP ladders, VM levels, sigma-VM ------------
+# name -> CP levels [(R, K)], VM levels [(R, Rl, K)], sigma-CP (R, K),
+# sigma-VM (R, Rl, K), depth: the served widths of grid_student and of the
+# ladders (port_tools/grid_params.py), VM levels of K = 8 (one bf16 vector),
+# lines at another resolution than their planes (Rl != R), and K = 3 / 6
+# (the scalar reads)
+GRID_NETS = {
+    "grid_student": ([(256, 96)], [(64, 64, 16)], (256, 32), None, 3),
+    "cp_ladder": ([(128, 48), (256, 48)], [], None, None, 8),
+    "vm_ladder": ([(128, 48)], [(32, 32, 8), (64, 64, 8)], None, None, 8),
+    "vm_rl": ([], [(16, 24, 8)], None, None, 3),
+    "sigma_vm": ([(64, 8)], [(32, 32, 16)], (24, 6), (16, 12, 3), 4),
+}
+
+
+def _grid_net(name, g, dev, dtype, L=10, width=128):
+    cps, vms, scp, svm, depth = GRID_NETS[name]
+    tab = lambda *s: torch.randn(s, generator=g, device=dev).to(dtype)  # noqa: E731
+    kc = sum(K for _, K in cps) + sum(3 * K for _, _, K in vms)
+    F = 3 * (1 + 2 * L)
+    sizes = ([(F + kc, width)]
+             + [(width + (F + kc if l == depth // 2 else 0), width)
+                for l in range(1, depth - 1)] + [(width, 16)])
+    layers = [{"w": p["w"].to(dtype)} for p in _layers(sizes, g, dev)]
+    vm = [(tab(3, R, R, K), tab(3, Rl, K)) for R, Rl, K in vms]
+    kw = {"cp_lines": [tab(3, R, K) for R, K in cps] or None,
+          "vm_planes": [p for p, _ in vm] or None,
+          "vm_lines": [l for _, l in vm] or None}
+    if scp is not None:
+        kw["sigma_cp_lines"] = tab(3, *scp)
+    if svm is not None:
+        R, Rl, K = svm
+        kw["sigma_vm_planes"], kw["sigma_vm_lines"] = (tab(3, R, R, K),
+                                                       tab(3, Rl, K))
+    return fm.TransposedFieldMLP(layers, L, 2.0, (depth // 2,), leaky=True,
+                                 **kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name", sorted(GRID_NETS))
+def test_run_tmlp_grid_branches(dev, name, dtype):
+    g = torch.Generator(device=dev).manual_seed(21)
+    tm = _grid_net(name, g, dev, dtype)
+    x = torch.rand(3, 1001, generator=g, device=dev) * 4.4 - 2.2
+    before = fm.run_tmlp.launches
+    got = fm.run_tmlp(x, tm, transposed=True)
+    assert fm.run_tmlp.launches == before + 1
+    _held(got, fm.run_tmlp_plain(x, tm), dtype, 3e-4, GRID_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name", sorted(GRID_NETS))
+def test_grid_encode_probes(dev, name, dtype):
+    """Every encoding column and the sigma sum, read back through one-layer
+    probe nets (fused_mlp_t.encode_probes), element by element: the thread
+    pair's split of each CP and VM level, each level's columns in place."""
+    g = torch.Generator(device=dev).manual_seed(23)
+    tm = _grid_net(name, g, dev, dtype)
+    x = torch.rand(3, 4099, generator=g, device=dev) * 4.4 - 2.2
+    for p in fm.encode_probes(tm):
+        _held(fm.run_tmlp(x, p, transposed=True), fm.run_tmlp_plain(x, p),
+              dtype, 3e-4, PROBE_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("T", [16, 32])
+@pytest.mark.parametrize("name", sorted(GRID_NETS))
+def test_run_tmlp_composite_grid_branches(dev, name, T, dtype):
+    g = torch.Generator(device=dev).manual_seed(22 + T)
+    tm = _grid_net(name, g, dev, dtype)
+    view = _asset_view(g, dev, dtype)
+    n = 67
+    x = torch.rand(3, n * T, generator=g, device=dev) * 4.4 - 2.2
+    dl = torch.rand(n, T, generator=g, device=dev) * 0.1
+    ts = torch.cumsum(dl, 1) + 0.5
+    r8 = _rays8(n, g, dev)
+    before = fm.run_tmlp_composite.launches
+    got = fm.run_tmlp_composite(x, dl, ts, tm, opaque=True, view=view,
+                                rays8=r8)
+    assert fm.run_tmlp_composite.launches == before + 1
+    _held(got, fm.run_tmlp_composite_plain(x, dl, ts, tm, True, view, r8),
+          dtype, 1e-3, GRID_TOL)

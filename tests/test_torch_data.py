@@ -61,6 +61,23 @@ def test_textured_fixture_twin():
         SyntheticSphereDataset(H=4, W=4, n_views=1, scene="spheres")
 
 
+def test_sphere_fixture_is_the_default():
+    """With no `scene`, both fixtures are the Lambertian sphere: same
+    frames, depths, instance masks and per-view near/far."""
+    ref = JDataset(H=32, W=32, n_views=8)
+    got = SyntheticSphereDataset(H=32, W=32, n_views=8)
+    assert got.scene == ref.scene == "sphere"
+    for name in ("poses", "intrinsics", "images", "depths", "cam_near_far"):
+        np.testing.assert_allclose(getattr(got, name), getattr(ref, name),
+                                   rtol=1e-5, atol=1e-5, err_msg=name)
+    np.testing.assert_array_equal(got.instances, ref.instances)
+    assert 0 < got.instances.mean() < 1  # the sphere is in view
+    fg, fr = got.frame(3), ref.frame(3)
+    for k in ("rays_o", "rays_d", "images", "masks", "cam_near_far"):
+        np.testing.assert_allclose(fg[k], fr[k], rtol=1e-5, atol=1e-5,
+                                   err_msg=k)
+
+
 def test_psnr_meter():
     rng = np.random.default_rng(0)
     ours, theirs = PSNRMeter(), JPSNRMeter()

@@ -179,11 +179,28 @@ def test_render_frame_and_staged_chunking():
 
 
 def test_fast_path_refuses_oversized_tables(monkeypatch):
-    _, tm, _, tp = _tiny((16, 4))
-    monkeypatch.setattr(renderer, "TABLE_BYTES_LIMIT", -1)
-    o, d = (torch.from_numpy(a) for a in _rays(4, seed=1))
+    """Grid tables over RenderConfig.grid_vmem_budget send the model to the
+    plain path (the same frame, bit for bit), as in the JAX package; the
+    kernels' own guard, TABLE_BYTES_LIMIT, still raises."""
+    from sanerf_tpu_torch.ops import fused_mlp_t
+
+    jm, tm, jp, tp = _asset((16, 4))
+    assert renderer.uses_kernels(tm)
+    over = dataclasses.replace(tm, render_cfg=dataclasses.replace(
+        tm.render_cfg, grid_vmem_budget=tm.grid_table_bytes - 1))
+    slow = dataclasses.replace(tm, render_cfg=dataclasses.replace(
+        tm.render_cfg, use_fused_mlp=False))
+    assert not renderer.uses_kernels(over)
+    o, d = (torch.from_numpy(a) for a in _rays(8, seed=1,
+                                                origin=(0.0, 0.0, 2.0)))
+    got, ref = renderer.run_rays(over, tp, o, d), renderer.run_rays(slow, tp,
+                                                                    o, d)
+    for k in KEYS:
+        assert torch.equal(got[k], ref[k]), k
+    monkeypatch.setattr(fused_mlp_t, "TABLE_BYTES_LIMIT", -1)
+    nets = fields.KernelNets(tm, tp)
     with pytest.raises(NotImplementedError, match="limit"):
-        renderer.run_rays(tm, tp, o, d)
+        fused_mlp_t._net_args(nets.field, torch.device("cpu"))
 
 
 def test_flatten_kernel_frame_is_identical():
