@@ -29,6 +29,9 @@ Phases (any failure exits non-zero and prints no result line):
      launch of one such frame (RGB and feature render) held against its
      plain version as in phase 2 (bf16 weights and their float32 twins)
      and timed against its bound, summed per kernel as its loss per frame;
+     ray_level0's launch shapes (the 512^2 RGB render's and the 1,024-ray
+     feature render's) also as medians of PROBE_REPS interleaved launches
+     queued behind a backlog, with their 10th and 90th percentiles;
   6. the render options on the same frames: `flatten_kernel` (flatten3_nt
      launches, pixels identical to the default) and `packed_epilogue` on
      the RGB frame (within 1e-6 of the default), each path driven with the
@@ -821,6 +824,8 @@ def main():
             "rgb_frame_launches": rgb_launches[name]})
     rows += inter.pop("rows")
     inter_launches = inter.pop("launch_times")
+    level0_served(rows[KERNELS.index("ray_level0")],
+                  inter.pop("level0_launches"), rk.ray_level0, bound)
     for row in rows[:len(KERNELS)]:
         name = row["name"]
         row["launches_interactive_per_frame"] = {
@@ -854,6 +859,35 @@ def main():
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def level0_served(row, launches, kern, bound):
+    """ray_level0's times at each launch shape of one interactive frame per
+    hierarchy (the 512^2 RGB render's and the 1,024-ray feature render's) as
+    median / 10th / 90th percentile of PROBE_REPS interleaved launches
+    queued behind a backlog, into its kernel row; "ms" becomes the median
+    at the (32, 16) RGB launch."""
+    served = []
+    a0, k0 = next(iter(launches.values()))[0]
+    interleaved_ms([lambda: kern(*a0, **k0)])  # warm-up, not kept
+    for h, ls in launches.items():
+        for a, k in ls:
+            key = shape_key(a, k)
+            same = [s for s in served if s["shape"] == key]
+            if same:
+                same[0]["launches_per_frame"][h] = (
+                    same[0]["launches_per_frame"].get(h, 0) + 1)
+                continue
+            t, = interleaved_ms([lambda: kern(*a, **k)])
+            served.append({"shape": key, "N": int(a[0].shape[0]), "T": a[1],
+                           "launches_per_frame": {h: 1}, "ms": t[0],
+                           "ms_p10_p90": list(t[1:]),
+                           "bound_ms": bound("ray_level0", a, k)[0]})
+    first = next(s for s in served if s["N"] == SIZE * SIZE and s["T"] == 32)
+    row.update({"ms": first["ms"], "ms_p10_p90": first["ms_p10_p90"],
+                "timed_as": f"median of {PROBE_REPS} interleaved launches "
+                            f"queued behind a backlog",
+                "served_launches": served})
 
 
 def interactive_phases(torch, np, dev, card, fields, renderer, rk, fm,
@@ -998,6 +1032,8 @@ def interactive_phases(torch, np, dev, card, fields, renderer, rk, fm,
         launch_t[name][h] = launch_times(name, ls, plain=False)
     log(f"interactive frames' launches against plain: "
         f"{sum(map(len, icalls.values()))} held")
+    # ray_level0's launches of one interactive frame (RGB, feature render)
+    level0 = {h: icalls[(h, "ray_level0")] for h in HIERARCHIES}
     del icalls
     torch.cuda.empty_cache()
 
@@ -1181,6 +1217,8 @@ def interactive_phases(torch, np, dev, card, fields, renderer, rk, fm,
         "plain_ms": cuda_ms(lambda: rk.flatten3_nt_plain(x3), reps=20),
         "bound_ms": fl_b[0], "bound_by": fl_b[1],
         "library_ms": fl_lib[0], "library_ms_p10_p90": fl_lib[1:],
+        "median_at_or_below_library": fl_k[0] <= fl_lib[0],
+        "p90_below_library_p10": fl_k[2] < fl_lib[1],
         "timed_as": f"median of {PROBE_REPS} interleaved launches queued "
                     f"behind a backlog",
         "shapes_of": "32,16 interactive frame, first launch",
@@ -1223,7 +1261,8 @@ def interactive_phases(torch, np, dev, card, fields, renderer, rk, fm,
             "packed_launches_per_frame": packed_launches,
             "packed_vs_default_max_abs_err": packed_err,
             "mask_miou": miou, "jax_mask_miou_bf16_cpu": JAX_MIOU_32_16_BF16,
-            "card": card, "rows": rows, "launch_times": launch_t}
+            "card": card, "rows": rows, "launch_times": launch_t,
+            "level0_launches": level0}
 
 
 def hashgrid_phases(torch, np, dev, card, cuda_ms):

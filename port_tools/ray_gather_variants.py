@@ -1,13 +1,17 @@
 """Times `gather_rows` and `ray_level` built from a variant of
 csrc/gather.cu and csrc/ray_kernels.cu, at the shapes of the served frames.
 
-    python3 port_tools/ray_gather_variants.py VARIANTS NAME   (needs a CUDA card)
+    python3 port_tools/ray_gather_variants.py VARIANTS NAME [PARTS]
+    (needs a CUDA card)
 
 VARIANTS is a JSON object {name: {source: [[old, new], ...] or "path"}}, a
 source being "gather.cu" or "ray_kernels.cu": text substitutions in that
 source, or a whole file in its place (for example the parent commit's,
-unpacked with `git archive` into an ignored directory). NAME picks one, or
-is "orig" for the sources as they are. A variant builds into
+unpacked with `git archive` into an ignored directory); or the path of a
+Python file that defines such a dict as VARIANTS
+(port_tools/ray_kernel_variants.py). NAME picks one, or is "orig" for the
+sources as they are. PARTS, a comma-separated subset of gather, hashgrid,
+ray_level, level0, flatten (default: all). A variant builds into
 build/variants/<name>/; compare variants within one run on one card, one
 process each. Prints the ptxas register and spill lines of the two
 sources, then one JSON line:
@@ -21,7 +25,15 @@ sources, then one JSON line:
     at (32, 16) and (128, 64, 32), and those launches cut to their first
     16,384 and 1,024 rays (the 32^2 feature render), the same statistics of 21
     interleaved launches, and the largest difference from ray_level_plain
-    (0.0 = bit for bit).
+    (0.0 = bit for bit);
+  level0: every ray_level0 launch shape of the served frames (the 512^2
+    RGB frame's at T = 32 and 128, and those launches cut to the 1,024 rays
+    of the 32^2 feature render);
+  flatten: flatten3_nt against `x3.reshape(3, -1).clone()` at every
+    [3, N, T] of those frames' levels (seeded normal values);
+  both as median / 10th / 90th percentile ms of PROBE_REPS interleaved
+    launches queued behind a backlog, with the largest difference from the
+    plain version (0.0 = bit for bit).
 """
 
 import json
@@ -35,7 +47,7 @@ sys.path.insert(0, ROOT)
 
 sys.path.insert(0, os.path.join(ROOT, "port_tools"))
 
-from chip_smoke import interleaved_ms  # noqa: E402
+from chip_smoke import PROBE_REPS, interleaved_ms  # noqa: E402
 from kernel_variants import use_variant  # noqa: E402
 from sanerf_tpu_torch.ops import _build  # noqa: E402
 from sanerf_tpu_torch.ops import gather as ga  # noqa: E402
@@ -115,7 +127,10 @@ def hashgrid_cases(dev):
     return out
 
 
-def ray_cases(dev):
+def frame_calls(dev, name):
+    """{hierarchy: [(args, kwargs)]} of every call of the renderer's kernel
+    `name` ("ray_level0" or "ray_level") in the 512^2 RGB frame of
+    assets/serving_student at each hierarchy."""
     import dataclasses
 
     import numpy as np
@@ -134,24 +149,28 @@ def ray_cases(dev):
     o, d = full_frame_rays(pose, np.asarray([focal, focal, SIZE / 2,
                                              SIZE / 2], np.float32),
                            SIZE, SIZE, device=dev)
-    calls = []
-    real = renderer.ray_level
-
-    def spy(*a, **k):
-        calls.append((a, k))
-        return real(*a, **k)
-
-    out = {}
+    real = getattr(renderer, name)
+    calls = {}
     for h, steps in HIERARCHIES.items():
         model = fields.make_model(mc, dataclasses.replace(
             rc, num_steps=steps, max_ray_batch=SIZE * SIZE))
-        calls.clear()
-        renderer.ray_level = spy
+
+        def spy(*a, **k):
+            calls.setdefault(h, []).append((a, k))
+            return real(*a, **k)
+
+        setattr(renderer, name, spy)
         try:
             renderer.render_frame(model, params, o, d, chunk=SIZE * SIZE)
         finally:
-            renderer.ray_level = real
-        for li, (a, k) in enumerate(list(calls)):
+            setattr(renderer, name, real)
+    return calls
+
+
+def ray_cases(dev):
+    out = {}
+    for h, calls in frame_calls(dev, "ray_level").items():
+        for li, (a, k) in enumerate(calls):
             for n in (a[0].shape[0], 16384, 1024):
                 an = (a[0][:n].contiguous(), a[1][:n].contiguous(),
                       a[2][:n].contiguous(), *a[3:])
@@ -166,10 +185,63 @@ def ray_cases(dev):
     return out
 
 
+def level0_cases(dev):
+    """ray_level0 at the served launch shapes (see the module's doc)."""
+    out = {}
+    for h, ((a, k),) in frame_calls(dev, "ray_level0").items():
+        for n in (a[0].shape[0], 1024):
+            an = (a[0][:n].contiguous(), *a[1:])
+            got = rk.ray_level0(*an, **k)
+            ref = rk.ray_level0_plain(*an, **k)
+            err = max(float((x - y).abs().max()) for x, y in zip(got, ref))
+            kern, = interleaved_ms([lambda: rk.ray_level0(*an, **k)])
+            out[f"{h} N={n} T={a[1]}"] = {"ms": kern, "max_abs_err": err}
+            del got, ref
+    return out
+
+
+def flatten_cases(dev):
+    """flatten3_nt and its clone at the served [3, N, T] (see the module's
+    doc)."""
+    out = {}
+    for steps in HIERARCHIES.values():
+        for T in steps:
+            for n in (SIZE * SIZE, 1024):
+                g = torch.Generator(device=dev).manual_seed(n + T)
+                x3 = torch.randn(3, n, T, generator=g, device=dev)
+                same = torch.equal(rk.flatten3_nt(x3),
+                                   rk.flatten3_nt_plain(x3))
+                kern, lib = interleaved_ms(
+                    [lambda: rk.flatten3_nt(x3),
+                     lambda: x3.reshape(3, -1).clone()])
+                out[f"3x{n}x{T}"] = {"ms": kern, "library_ms": lib,
+                                     "bit_for_bit": same}
+                del x3
+    return out
+
+
+CASES = {"gather": gather_cases, "hashgrid": hashgrid_cases,
+         "ray_level": ray_cases, "level0": level0_cases,
+         "flatten": flatten_cases}
+
+
+def load_variants(arg):
+    """VARIANTS from inline JSON or from a Python file's VARIANTS."""
+    if not arg.endswith(".py"):
+        return json.loads(arg)
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("variants", arg)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.VARIANTS
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("ray_gather_variants: needs a CUDA card")
-    variants, name = json.loads(sys.argv[1]), sys.argv[2]
+    variants, name = load_variants(sys.argv[1]), sys.argv[2]
+    parts = sys.argv[3].split(",") if len(sys.argv) > 3 else list(CASES)
     use_variant(name, {} if name == "orig" else variants[name])
     logs = {}
     for src, lib in (("gather", ga._lib), ("ray_kernels", rk._lib)):
@@ -181,9 +253,8 @@ def main():
             if "registers" in line or "spill" in line:
                 print("   ", src, line.strip()[:160])
     dev = torch.device("cuda")
-    print(json.dumps({"variant": name, "gather": gather_cases(dev),
-                      "hashgrid": hashgrid_cases(dev),
-                      "ray_level": ray_cases(dev)}), flush=True)
+    print(json.dumps({"variant": name,
+                      **{p: CASES[p](dev) for p in parts}}), flush=True)
 
 
 if __name__ == "__main__":

@@ -15,8 +15,33 @@
 // the byte time, but each ray's sums and walk are serial chains, and their
 // latency is what bounds that path on the card (PERF.md).
 //
-// ray_level0: one warp per ray; lane t writes sample t, so every store of
-// bins, ts, dl and the [3, N, T] planes is contiguous across the warp.
+// ray_level0, many rays: one tile of R rays a block of L0_THREADS threads,
+// as many blocks as tiles.
+//  1. The tile's rays8 rows (R x 32 contiguous bytes) and jitter rows
+//     (R (T+1) contiguous floats) are staged in shared memory with 16 B
+//     cp.async copies, while the block divides the K uniform edges j / T
+//     once (the same division for every ray).
+//  2. A flat thread index over the tile's R (T+1) edges, 4 consecutive
+//     edges a thread, writes each metric edge to shared memory and bins as
+//     the flat range [n0 (T+1), (n0 + R) (T+1)).
+//  3. A flat index over the tile's R T samples, 4 consecutive samples a
+//     thread, writes ts, dl, the three planes and the packed rows as the
+//     flat ranges [n0 T, (n0 + R) T), in 16 B stores where aligned.
+//  Every output is written with streaming stores (st.global.cs, evict
+//  first): at 512^2 rays the outputs are 4-16x the 50 MB L2, and these
+//  stores were faster than plain ones. R by T: the tile's samples fit in
+//  L0_SAMPLES, R T <= 1,024 (R = 32 at T = 32, 8 at T = 128), one pass of
+//  the block's threads (tiles of 2,048-8,192 samples were slower), and R
+//  is a multiple of 4, so every tile starts 16 B-aligned in bins and the
+//  sample outputs.
+//  A grid of as many blocks as tiles was faster than a persistent grid
+//  that walks the tiles with the next tile's rows loaded in the background
+//  (likely because the block scheduler keeps the tiles in flight close
+//  together in memory).
+// ray_level0, few rays (fewer than 4 samples a resident thread of the tile
+// kernel: the 1,024-ray launch of the 32^2 feature render): one warp a ray,
+// lane t on sample t, the shortest latency a ray; no tiling of so few rays
+// was as fast. (PERF.md section 6 has the times of every design tried.)
 //
 // ray_level, few rays (N < THREAD_RAYS_FROM: the 32^2 feature render's
 // 1,024): one warp a ray, the shortest latency a ray. Lane 0 sums the pdf
@@ -61,10 +86,15 @@
 // cost 8 B per sample of writes and nothing else.
 //
 // flatten3_nt: [3, N, T] -> [3, N*T]. Row-major, the two layouts are the same
-// bytes, so the kernel is a copy: a grid-stride loop of 16-byte loads and
-// stores (scalar when a pointer is not 16-byte aligned). Bound by bytes:
-// 2 x 12 B per sample, ~30 us for the 4.19 M final samples of a 512^2 frame
-// at (32, 16) at 3.35 TB/s.
+// bytes, so the kernel is a copy. Bound by bytes: 2 x 12 B per sample,
+// 60 us for the [3, 262144, 32] coordinates of a 512^2 frame's first level
+// at 3.35 TB/s. Tiles of FLAT_UNROLL x FLAT_THREADS 16 B units, one a block,
+// as many blocks as tiles: each thread issues its FLAT_UNROLL independent
+// 16 B streaming loads (ld.global.cs) before its streaming stores
+// (st.global.cs). Scalar copies when a pointer is not 16 B-aligned, and for
+// the n % 4 floats of the tail. (PERF.md section 6 times it against a
+// persistent grid, contiguous chunks a block, 8 loads a thread, plain
+// loads or stores, and a TMA copy through shared memory with cp.async.bulk.)
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -73,6 +103,14 @@ namespace {
 
 constexpr int WARPS = 8;
 constexpr int MAXE = 132;  // edges per ray held in shared memory (T <= 128)
+// ray_level0's tile kernel: threads a block, samples a tile (R T <=
+// L0_SAMPLES), rays a tile (bounds the rays8 buffers)
+constexpr int L0_THREADS = 256;
+constexpr int L0_SAMPLES = 1024;
+constexpr int L0_MAX_RAYS = 256;
+// flatten3_nt: threads a block, 16 B loads in flight a thread
+constexpr int FLAT_THREADS = 256;
+constexpr int FLAT_UNROLL = 4;
 // ray_level: the thread-per-ray kernel from this many rays on
 constexpr int THREAD_RAYS_FROM = 16384;
 constexpr int RAYS = 32;        // its rays a block, one a thread
@@ -114,7 +152,7 @@ __device__ __forceinline__ float metric_edge(const Ray& r, float b) {
 // emit_samples writes it. The packed rows [N/q, q T] hold ray n (slot
 // n % q of row n / q) at the same offset (n / q) q T + (n % q) T = n T.
 // (emit_samples keeps its own copy: calling this from it spilled 16 B of
-// registers in ray_level0, ptxas on sm_90a.)
+// registers, ptxas on sm_90a.)
 __device__ __forceinline__ void write_sample(
     const Ray& r, float r0, float r1, size_t i, size_t plane, int contract,
     float* __restrict__ ts, float* __restrict__ dl, float* __restrict__ x3,
@@ -166,13 +204,161 @@ __device__ __forceinline__ void emit_samples(const Ray& r, const float* rb,
   }
 }
 
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// len floats from src into shared dst, coalesced across the block: 16 B
+// copies when both start 16 B-aligned (vec), 4 B for the rest (the caller
+// waits: cp_async_wait_all)
+__device__ __forceinline__ void stage_flat(float* dst,
+                                           const float* __restrict__ src,
+                                           int len, bool vec) {
+  int done = 0;
+  if (vec) {
+    const int n4 = len >> 2;
+    for (int i = threadIdx.x; i < n4; i += blockDim.x)
+      cp_async16(dst + 4 * i, src + 4 * i);
+    done = n4 * 4;
+  }
+  for (int i = done + threadIdx.x; i < len; i += blockDim.x)
+    cp_async4(dst + i, src + i);
+}
+
+// v[0, m) to dst[0, m), m <= 4, as streaming stores (st.global.cs: the
+// lines are written once, evict them first): one 16 B store when vec and
+// m == 4
+__device__ __forceinline__ void put4(float* __restrict__ dst,
+                                     const float (&v)[4], int m, bool vec) {
+  if (vec && m == 4) {
+    __stcs(reinterpret_cast<float4*>(dst),
+           make_float4(v[0], v[1], v[2], v[3]));
+    return;
+  }
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+    if (u < m) __stcs(dst + u, v[u]);
+}
+
+// One tile of R rays a block, 4 consecutive edges and samples a thread (see
+// the header). Shared memory: the tile's metric edges [R, T+1], its rays8
+// rows [R, 8], jittered its jitter rows [R, T+1], and the K uniform edges
+// j / T. vec_ray / vec_jit: 16 B copies of the rays8 / jitter rows;
+// vec_out: the outputs 16 B-aligned and N T % 4 == 0 (the planes start
+// aligned; R % 4 == 0 aligns every tile).
+__global__ void __launch_bounds__(L0_THREADS)
+ray_level0_tile_kernel(const float* __restrict__ rays8,
+                       const float* __restrict__ jitter, int N, int T, int R,
+                       int contract, int vec_ray, int vec_jit, int vec_out,
+                       float* __restrict__ bins, float* __restrict__ ts,
+                       float* __restrict__ dl, float* __restrict__ x3,
+                       int pack_q, float* __restrict__ ts_p,
+                       float* __restrict__ dl_p) {
+  extern __shared__ __align__(16) float smem[];
+  const int K = T + 1, EK = R * K;  // R % 4 == 0: the arrays stay aligned
+  float* s_rb = smem;
+  float* ray = s_rb + EK;
+  float* jit = ray + R * 8;
+  float* s_bj = jit + (jitter ? EK : 0);
+  const long n0 = (long)blockIdx.x * R;
+  const int nr = (int)min((long)R, (long)N - n0);
+  stage_flat(ray, rays8 + n0 * 8, nr * 8, vec_ray);
+  if (jitter) stage_flat(jit, jitter + n0 * K, nr * K, vec_jit);
+  // the uniform edges, divided once a block (each is the same division)
+  for (int j = threadIdx.x; j < K; j += L0_THREADS)
+    s_bj[j] = (float)j / (float)T;
+  cp_async_wait_all();
+  __syncthreads();
+  // edges: 4 consecutive of the tile's nr K a thread
+  const int ne = nr * K;
+  float* bins_t = bins + n0 * K;
+  for (int f = 4 * threadIdx.x; f < ne; f += 4 * L0_THREADS) {
+    int q = f / K, j = f - q * K;
+    const int m = min(4, ne - f);
+    float v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (u < m) {
+        float b = s_bj[j];
+        if (jitter) b = fminf(fmaxf(b + jit[f + u], 0.0f), 1.0f);
+        v[u] = b;
+        s_rb[f + u] = spacing_inv(ray[q * 8 + 6] * (1.0f - b) +
+                                  ray[q * 8 + 7] * b);
+        if (++j == K) {
+          j = 0;
+          ++q;
+        }
+      }
+    }
+    put4(bins_t + f, v, m, vec_out);
+  }
+  __syncthreads();
+  // samples: 4 consecutive of the tile's nr T a thread
+  const int ns = nr * T;
+  const size_t s0 = (size_t)n0 * T, plane = (size_t)N * T;
+  for (int f = 4 * threadIdx.x; f < ns; f += 4 * L0_THREADS) {
+    int q = f / T, t = f - q * T;
+    const int m = min(4, ns - f);
+    float vt[4], vd[4], vx[4], vy[4], vz[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (u < m) {
+        const float* rq = ray + q * 8;
+        const float r0 = s_rb[q * K + t], r1 = s_rb[q * K + t + 1];
+        const float tv = 0.5f * (r1 + r0);
+        float x = rq[0] + rq[3] * tv, y = rq[1] + rq[4] * tv,
+              z = rq[2] + rq[5] * tv;
+        if (contract) contract3(x, y, z);
+        vt[u] = tv;
+        vd[u] = r1 - r0;
+        vx[u] = x;
+        vy[u] = y;
+        vz[u] = z;
+        if (++t == T) {
+          t = 0;
+          ++q;
+        }
+      }
+    }
+    const size_t i = s0 + f;
+    put4(ts + i, vt, m, vec_out);
+    put4(dl + i, vd, m, vec_out);
+    put4(x3 + i, vx, m, vec_out);
+    put4(x3 + plane + i, vy, m, vec_out);
+    put4(x3 + 2 * plane + i, vz, m, vec_out);
+    if (pack_q) {  // ray n's packed row offset is n T: the same offsets
+      put4(ts_p + i, vt, m, vec_out);
+      put4(dl_p + i, vd, m, vec_out);
+    }
+  }
+}
+
+// few rays: one warp a ray, lane t on sample t (see the header)
 __global__ void __launch_bounds__(WARPS * 32)
-ray_level0_kernel(const float* __restrict__ rays8,
-                  const float* __restrict__ jitter, int N, int T,
-                  int contract, float* __restrict__ bins,
-                  float* __restrict__ ts, float* __restrict__ dl,
-                  float* __restrict__ x3, int pack_q,
-                  float* __restrict__ ts_p, float* __restrict__ dl_p) {
+ray_level0_warp_kernel(const float* __restrict__ rays8,
+                       const float* __restrict__ jitter, int N, int T,
+                       int contract, float* __restrict__ bins,
+                       float* __restrict__ ts, float* __restrict__ dl,
+                       float* __restrict__ x3, int pack_q,
+                       float* __restrict__ ts_p, float* __restrict__ dl_p) {
   __shared__ float s_rb[WARPS][MAXE];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float* rb = s_rb[warp];
@@ -270,13 +456,6 @@ ray_level_warp_kernel(const float* __restrict__ rays8,
 // (f + 0.5) / len sits at least 0.5 / len from an integer
 __device__ __forceinline__ int row_of(int f, float inv_len) {
   return (int)(((float)f + 0.5f) * inv_len);
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
-               "l"(src)
-               : "memory");
 }
 
 // nr rows of len floats, contiguous at src, into shared rows of stride S
@@ -395,20 +574,50 @@ ray_level_thread_kernel(const float* __restrict__ rays8,
   }
 }
 
-__global__ void __launch_bounds__(256)
+// tiles of FLAT_UNROLL x FLAT_THREADS 16 B units, one a block (tile b + k
+// grid to block b past 2^31 - 1 blocks); FLAT_UNROLL loads in flight a
+// thread (see the header)
+__global__ void __launch_bounds__(FLAT_THREADS)
 flatten3_kernel(const float* __restrict__ x, float* __restrict__ out, long n,
                 int vec) {
-  const long stride = (long)gridDim.x * blockDim.x;
-  const long tid = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  long done = 0;
-  if (vec) {
-    const long n4 = n / 4;
-    const float4* x4 = reinterpret_cast<const float4*>(x);
-    float4* o4 = reinterpret_cast<float4*>(out);
-    for (long i = tid; i < n4; i += stride) o4[i] = __ldg(x4 + i);
-    done = n4 * 4;
+  if (!vec) {
+    const long stride = (long)gridDim.x * blockDim.x;
+    for (long i = (long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+         i += stride)
+      out[i] = __ldcs(x + i);
+    return;
   }
-  for (long i = done + tid; i < n; i += stride) out[i] = x[i];
+  const long n4 = n / 4;
+  const long tile = (long)FLAT_UNROLL * FLAT_THREADS;
+  const float4* x4 = reinterpret_cast<const float4*>(x);
+  float4* o4 = reinterpret_cast<float4*>(out);
+  for (long base = blockIdx.x * tile + threadIdx.x; base < n4;
+       base += gridDim.x * tile) {
+    float4 v[FLAT_UNROLL];
+#pragma unroll
+    for (int u = 0; u < FLAT_UNROLL; ++u) {
+      const long i = base + (long)u * FLAT_THREADS;
+      if (i < n4) v[u] = __ldcs(x4 + i);
+    }
+#pragma unroll
+    for (int u = 0; u < FLAT_UNROLL; ++u) {
+      const long i = base + (long)u * FLAT_THREADS;
+      if (i < n4) __stcs(o4 + i, v[u]);
+    }
+  }
+  if (blockIdx.x == 0 && threadIdx.x < n - n4 * 4)
+    out[n4 * 4 + threadIdx.x] = __ldcs(x + n4 * 4 + threadIdx.x);
+}
+
+// the SMs x the blocks of `threads` threads and `smem` bytes that fit on one
+template <typename Kern>
+long resident_blocks(Kern kernel, int threads, size_t smem) {
+  int dev = 0, n_sm = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                smem);
+  return (long)(n_sm > 0 ? n_sm : 1) * (per_sm > 0 ? per_sm : 1);
 }
 
 bool pack_ok(int N, int pack_q, const float* ts_p, const float* dl_p) {
@@ -428,10 +637,35 @@ extern "C" int ray_level0_launch(const float* rays8, const float* jitter,
                                  int N, int T, int contract, float* bins,
                                  float* ts, float* dl, float* x3, int pack_q,
                                  float* ts_p, float* dl_p, void* stream) {
-  if (T < 1 || T + 1 > MAXE || !pack_ok(N, pack_q, ts_p, dl_p))
+  if (T < 1 || T + 1 > MAXE || N < 0 || !pack_ok(N, pack_q, ts_p, dl_p))
     return (int)cudaErrorInvalidValue;
-  ray_level0_kernel<<<grid_for(N), WARPS * 32, 0, (cudaStream_t)stream>>>(
-      rays8, jitter, N, T, contract, bins, ts, dl, x3, pack_q, ts_p, dl_p);
+  if (N == 0) return 0;
+  const int K = T + 1;
+  // R by T: the tile's samples fit in L0_SAMPLES, R % 4 == 0
+  const int R = min(L0_MAX_RAYS, L0_SAMPLES / T) & ~3;
+  const size_t smem =
+      (size_t)(R * K * (jitter ? 2 : 1) + 8 * R + K) * sizeof(float);
+  static const int attr = (int)cudaFuncSetAttribute(
+      ray_level0_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (2 * (L0_SAMPLES + L0_MAX_RAYS) + 8 * L0_MAX_RAYS + MAXE) *
+          (int)sizeof(float));
+  if (attr) return attr;
+  if ((long)N * T < 4L * L0_THREADS *
+                        resident_blocks(ray_level0_tile_kernel, L0_THREADS,
+                                        smem)) {
+    ray_level0_warp_kernel<<<grid_for(N), WARPS * 32, 0,
+                             (cudaStream_t)stream>>>(
+        rays8, jitter, N, T, contract, bins, ts, dl, x3, pack_q, ts_p, dl_p);
+    return (int)cudaGetLastError();
+  }
+  const auto al = [](const void* p) { return (uintptr_t)p % 16 == 0; };
+  const int vec_out = al(bins) && al(ts) && al(dl) && al(x3) &&
+                      (!pack_q || (al(ts_p) && al(dl_p))) &&
+                      ((long)N * T) % 4 == 0;
+  ray_level0_tile_kernel<<<(int)(((long)N + R - 1) / R), L0_THREADS, smem,
+                           (cudaStream_t)stream>>>(
+      rays8, jitter, N, T, R, contract, al(rays8), jitter && al(jitter),
+      vec_out, bins, ts, dl, x3, pack_q, ts_p, dl_p);
   return (int)cudaGetLastError();
 }
 
@@ -473,10 +707,10 @@ extern "C" int flatten3_launch(const float* x3, long n, float* out,
   if (n < 0) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   const int vec = ((uintptr_t)x3 % 16 == 0) && ((uintptr_t)out % 16 == 0);
-  const long work = vec ? (n + 3) / 4 : n;
-  long blocks = (work + 255) / 256;
-  if (blocks > 132 * 16) blocks = 132 * 16;
-  flatten3_kernel<<<(int)blocks, 256, 0, (cudaStream_t)stream>>>(x3, out, n,
-                                                                vec);
+  const long units = vec ? n / 4 : n;
+  const long per = vec ? (long)FLAT_UNROLL * FLAT_THREADS : FLAT_THREADS;
+  const long tiles = (units + per - 1) / per;
+  flatten3_kernel<<<(int)max(1L, min(tiles, (long)INT32_MAX)), FLAT_THREADS,
+                    0, (cudaStream_t)stream>>>(x3, out, n, vec);
   return (int)cudaGetLastError();
 }

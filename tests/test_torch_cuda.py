@@ -10,8 +10,9 @@ Tolerances as in chip_smoke.py: 1e-5 for the ray kernels (ray_level at
 the served launch shapes, with adversarial weight rows and jitter), the JAX suite's
 float32 bounds for the MLP kernels with float32 weights (3e-4 and 1e-3);
 the grid branches in bf16 at 5e-3 and their encode probes at 1e-2, element
-by element; flatten3_nt, the packed ts/dl rows and gather_rows bit for bit; the
-packed composite within 1e-6 of the unpacked one on the same operands.
+by element; ray_level0 (both of its kernels at every T, N, jitter and
+pack_q), flatten3_nt, the packed ts/dl rows and gather_rows bit for bit;
+the packed composite within 1e-6 of the unpacked one on the same operands.
 """
 
 import pytest
@@ -51,16 +52,56 @@ def _rays8(n, g, dev):
     return torch.cat([o, d, sp(near), sp(far)], 1).contiguous()
 
 
-@pytest.mark.parametrize("T,jittered", [(32, False), (7, True)])
-def test_ray_level0_kernel(dev, T, jittered):
-    g = torch.Generator(device=dev).manual_seed(T)
-    r8 = _rays8(301, g, dev)
-    jit = ((torch.rand(301, T + 1, generator=g, device=dev) - 0.5) / T
-           if jittered else None)
+def _bits(t):
+    return t.view(torch.int32)
+
+
+def _offset_view(t, offset):
+    """t's values in a contiguous view that starts `offset` floats into a
+    larger buffer (offset 1: not 16 B-aligned)."""
+    buf = torch.empty(t.numel() + offset, device=t.device)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+# ray_level0 runs its tile kernel from 4 samples a resident thread (at most
+# 1.1 M samples on an H100) and one warp a ray below that: 1,200,003 // T
+# rays take the tile kernel at any T, are not a multiple of the tiles' R (a
+# multiple of 4 chosen from T and N) and leave a ragged last tile. N = 1, 3
+# and 997 (fewer rays than a tile, ragged), the 1,024 rays of the feature
+# render and the 512^2 RGB frame's 262,144; with and without jitter;
+# pack_q 0, 2 and 8; rays8 and jitter 16 B-aligned or not (offset 1).
+LEVEL0_CASES = (
+    [(1_200_003 // T, T, j, 0, 0) for T in (1, 7, 16, 32, 33, 64, 128)
+     for j in (False, True)]
+    + [(N, T, j, 0, 0) for N, T in ((1, 32), (3, 32), (301, 32), (301, 7),
+                                    (997, 1), (997, 33), (997, 128),
+                                    (1024, 32), (1024, 128), (262144, 32),
+                                    (262144, 128))
+       for j in (False, True)]
+    + [(N, T, True, q, 0) for N in (1000, 200000) for T in (7, 16, 32)
+       for q in (2, 8)]
+    + [(1001, 16, True, 0, 1), (100001, 16, True, 0, 1)])
+
+
+@pytest.mark.parametrize("N,T,jittered,pack_q,offset", LEVEL0_CASES)
+def test_ray_level0_kernel(dev, N, T, jittered, pack_q, offset):
+    """Bit for bit against the plain version, every output."""
+    g = torch.Generator(device=dev).manual_seed(N + T + jittered + pack_q)
+    r8 = _offset_view(_rays8(N, g, dev), offset)
+    jit = (_offset_view((torch.rand(N, T + 1, generator=g, device=dev)
+                         - 0.5) / T, offset) if jittered else None)
+    assert (r8.data_ptr() % 16 == 0) == (offset == 0)
     before = rk.ray_level0.launches
-    got = rk.ray_level0(r8, T, True, jitter=jit)
+    got = rk.ray_level0(r8, T, True, jitter=jit, pack_q=pack_q)
     assert rk.ray_level0.launches == before + 1
-    _close(got, rk.ray_level0_plain(r8, T, True, jitter=jit), 1e-5)
+    ref = rk.ray_level0_plain(r8, T, True, jitter=jit, pack_q=pack_q)
+    torch.cuda.synchronize()
+    assert len(got) == len(ref)
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape
+        assert torch.equal(_bits(a), _bits(b))
 
 
 @pytest.mark.parametrize("uniform_prev", [False, True])
@@ -205,15 +246,22 @@ def test_run_tmlp_composite_kernel(dev, T, opaque, with_view):
            1e-3)
 
 
-@pytest.mark.parametrize("N,T", [(301, 16), (1000, 7), (4, 1)])
-def test_flatten3_nt_kernel(dev, N, T):
-    g = torch.Generator(device=dev).manual_seed(N)
-    x3 = torch.randn(3, N, T, generator=g, device=dev)
+# offset 1: a contiguous view one float into a larger buffer (not 16 B-
+# aligned); N T not a multiple of 4; chip_smoke's shape, the (32, 16)
+# frame's first level
+@pytest.mark.parametrize("N,T,offset", [(301, 16, 0), (1000, 7, 0), (4, 1, 0),
+                                        (301, 16, 1), (1001, 7, 1),
+                                        (1001, 7, 0), (3, 1, 0),
+                                        (262144, 32, 0), (262144, 32, 1)])
+def test_flatten3_nt_kernel(dev, N, T, offset):
+    g = torch.Generator(device=dev).manual_seed(N + offset)
+    x3 = _offset_view(torch.randn(3, N, T, generator=g, device=dev), offset)
+    assert (x3.data_ptr() % 16 == 0) == (offset == 0)
     before = rk.flatten3_nt.launches
     got = rk.flatten3_nt(x3)
     torch.cuda.synchronize()
     assert rk.flatten3_nt.launches == before + 1
-    assert torch.equal(got, rk.flatten3_nt_plain(x3))
+    assert torch.equal(_bits(got), _bits(rk.flatten3_nt_plain(x3)))
 
 
 @pytest.mark.parametrize("level,pack_q", [(0, 8), (1, 4), (1, 2)])
