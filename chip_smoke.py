@@ -86,9 +86,36 @@ Phases (any failure exits non-zero and prints no result line):
      path, a 512^2 frame with 0 kernel launches, its time;
  18. 64^2 frames of grid_student (fast path) and quality_recipe (plain
      path) against the JAX package's values (JAX_GRID, 2e-3);
+ T1. stage-1 training, the convergence protocol of
+     tests/test_train_e2e.py:40-74 on the card: its hash-grid and MLP
+     configurations on the 48^2 12-view sphere fixture, 400 steps of its
+     TrainConfig; PSNR of view 0 > before + 5 dB and > 15 dB; it/s;
+ T2. the default ModelConfig() (w128 d8) and ModelConfig(field_type=
+     "hashgrid") at full width with RenderConfig() and TrainConfig()
+     through Trainer.train on the textured fixture, 2 epochs of 4 steps
+     with 64^2 evaluation; the launch counters set to 0 before the run
+     and read after; one evaluation frame's launches counted, each float32
+     launch of the MLP's held against its plain version (RAY_TOL /
+     MLP_F32_TOL) and timed against its bound; a resume in a fresh
+     Trainer identical; step ms, peak memory, evaluation frame ms;
+ T3. one full-width hash-grid step (8,192 rays) as shipped and with the
+     plain gather and index_add_ swapped in: table gradients within
+     SCATTER_TOL and SCATTER_MAG (a floor scaled by the adds'
+     magnitudes), the rest within GRAD_TOL x max|ref|; a planted fault in
+     any one backward launch (left unapplied, or half its adds dropped)
+     fails that hold; every gather_rows_backward launch of the step held
+     alone against index_add_, with max|ref| and the median |ref|, and
+     timed (medians of PROBE_REPS interleaved queued launches) with its
+     byte bound;
+ T4. the recipe of scripts/train_rgb_grids.sh (RECIPE_TRAIN: its first
+     upsampling milestone moved to step 2) through Trainer.train for
+     quality_recipe (over the budget: plain-path evaluation, 0 launches)
+     and grid_student (fast path): finite losses, tables at
+     grid_upsample_targets;
  19. one {"kernels": [...]} line, one {"frames": ...} line, one
      {"interactive": ...} line, one {"hashgrid": ...} line, one
-     {"grids": ...} line, and last {"ok": true, "device": {...}}.
+     {"grids": ...} line, one {"train": ...} line, and last {"ok": true,
+     "device": {...}}.
 Kernel times are CUDA events around launches queued behind a sleep
 kernel (`backlog`), so they are the card's time even where the host's
 wrapper takes longer than the kernel. Needs no network; builds into
@@ -326,6 +353,46 @@ SOURCES = {
 }
 
 
+#: stage-1 training (phases T1-T4). T1 is the convergence protocol of
+#: tests/test_train_e2e.py:19-74: its RC, MC (hash grid), MC_MLP and TC on
+#: the 48^2 12-view sphere fixture, 400 steps, and its bounds
+TRAIN_RC = dict(num_steps=(16, 8), bound=4.0, contract=True,
+                max_ray_batch=2048)
+TRAIN_MC = {
+    "hashgrid": dict(field_type="hashgrid", grid_num_levels=8,
+                     grid_log2_hashmap=13, grid_desired_resolution=128,
+                     prop_num_levels=4, prop_log2_hashmap=10,
+                     prop_resolutions=(64,)),
+    "mlp": dict(field_type="mlp", prop_resolutions=(64,), mlp_enc_freqs=6,
+                mlp_field_width=64, mlp_field_depth=4, mlp_prop_enc_freqs=4,
+                mlp_prop_width=32, mlp_prop_depth=2)}
+TRAIN_TC = dict(iters=300, lr=1e-2, num_rays=1024, adaptive_num_rays=False,
+                lambda_distort=0.01)
+CONVERGE_STEPS, CONVERGE_GAIN_DB, CONVERGE_MIN_DB = 400, 5.0, 15.0
+#: T2: the defaults through Trainer.train on the textured fixture, two
+#: epochs of TRAIN_STEPS steps, evaluation at EVAL_SIZE^2
+TRAIN_EPOCHS, TRAIN_STEPS, EVAL_SIZE = 2, 4, 64
+#: the hash grid's gathers per ray batch: 16 levels + 2 proposal grids of 5
+HASH_GATHERS = 16 + 2 * 5
+#: gather_rows_backward against index_add_: the atomics sum in another
+#: order. Element i is held at |d| <= SCATTER_TOL[0] + SCATTER_TOL[1] |ref|
+#: and at |d| <= SCATTER_MAG S_i + SCATTER_TOL[1] |ref|, S_i the sum of
+#: |grad_out| over the adds into i (index_add_ of the magnitudes). A float32
+#: sum of n terms in another order moves by ~2^-24 sqrt(n) S_i a side:
+#: 6.7e-6 S_i for two orders of the ~6,400 adds a row of the coarse
+#: proposal level, hence 1e-5. The second floor scales with the terms: a
+#: step's table gradients are 1e-6 and below, where the first alone would
+#: pass a table with no adds at all. Every other gradient of the step
+#: within GRAD_TOL x max|ref| of the plain step's
+SCATTER_TOL, SCATTER_MAG, GRAD_TOL = (1e-6, 1e-5), 1e-5, 1e-5
+#: the table gradients of the hash-grid step
+HASH_TABLES = ("grid", "prop/0/grid", "prop/1/grid")
+#: T4: scripts/train_rgb_grids.sh's recipe with its first milestone moved
+#: from 2000 to 2, so that two epochs of 2 steps cross it
+RECIPE_TRAIN = dict(lambda_tv=1e-3, anneal_iters=4000,
+                    grid_upsample_steps=(2, 4000, 8000))
+
+
 def fail(msg):
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
@@ -411,6 +478,224 @@ def spying(renderer, fields, kern_fn, calls, h):
     finally:
         for n, m in spied.items():
             setattr(m, n, kern_fn[n])
+
+
+def scatter_floor(got, ref, mag):
+    """The least c with |got - ref| <= c mag + SCATTER_TOL[1] |ref| at every
+    element, mag the sum of the magnitudes of the adds into it (inf where
+    mag is 0 and that fails, and where |got - ref| exceeds SCATTER_TOL's
+    absolute bound); the scatter-add is held at c <= SCATTER_MAG."""
+    import torch
+
+    over = ((got - ref).abs() - SCATTER_TOL[1] * ref.abs()).clamp(min=0)
+    if bool((over > SCATTER_TOL[0]).any()):
+        return math.inf
+    c = torch.where(mag > 0, over / mag.clamp(min=1e-38),
+                    torch.where(over > 0, math.inf, 0.0))
+    return float(c.max())
+
+
+def record_backward(ga, step, fault=None):
+    """Runs step() with every gather_rows_backward launch recorded. ->
+    (step's result, [(table rows, idx, grad_out)] in launch order).
+    fault = (j, kind) plants a fault in launch j: "skip" leaves it
+    unapplied, "half" drops the adds of every other index."""
+    real, seen = ga.gather_rows_backward, []
+
+    def recording(gt, idx, go):
+        j = len(seen)
+        seen.append((gt.shape[0], idx, go))
+        if fault is not None and fault[0] == j:
+            if fault[1] == "skip":
+                return gt
+            idx = idx.clone()
+            idx.view(-1)[1::2] = -1
+        return real(gt, idx, go)
+
+    ga.gather_rows_backward = recording
+    try:
+        return step(), seen
+    finally:
+        ga.gather_rows_backward = real
+
+
+def hold_backward(ga, seen, dev):
+    """Every recorded gather_rows_backward launch run alone into a zero
+    table, held against index_add_ on the same views (scatter_floor, with
+    the magnitudes of the adds summed by index_add_ as its scale) and
+    timed against it and the plain version: medians and 10th / 90th
+    percentiles of PROBE_REPS interleaved launches queued behind a backlog,
+    with the byte bound (indices and gradient rows read once, each distinct
+    touched row read and written once). -> the step's sums and one record
+    a launch, with max|ref| and the median |ref| over the touched rows."""
+    import torch
+
+    kern_fn = ga.gather_rows_backward
+    tot = {"ms": 0.0, "ms_p10_p90": [0.0, 0.0], "plain_ms": 0.0,
+           "library_ms": 0.0, "library_ms_p10_p90": [0.0, 0.0],
+           "bound_ms": 0.0, "max_abs_err": 0.0, "floor": 0.0,
+           "timed_as": f"sums of medians of {PROBE_REPS} interleaved "
+                       f"launches queued behind a backlog"}
+    launches = []
+    for R, idx, go in seen:
+        C = go.shape[-1]
+        zeros = torch.zeros(R, C, device=dev)
+        got = kern_fn(zeros.clone(), idx, go)
+        ref = ga.gather_rows_backward_plain(zeros.clone(), idx, go)
+        mag = ga.gather_rows_backward_plain(zeros.clone(), idx, go.abs())
+        floor = scatter_floor(got, ref, mag)
+        M = idx.numel()
+        rows = torch.unique(idx[(idx >= 0) & (idx < R)]).long()
+        U = int(rows.numel())
+        rec = {"shape": f"{list(idx.shape)} x {C} into {R} rows",
+               "distinct_rows": U, "adds_per_row": M / max(U, 1),
+               "max_abs_ref": float(ref.abs().max()),
+               "median_abs_ref": float(ref[rows].abs().median())
+               if U else 0.0,
+               "max_abs_err": float((got - ref).abs().max()),
+               "floor": floor}
+        launches.append(rec)
+        check(floor <= SCATTER_MAG,
+              f"gather_rows_backward {rec['shape']}: {rec}")
+        flat_i, flat_g = idx.reshape(-1).long(), go.reshape(-1, C)
+        buf_k, buf_l, buf_p = zeros.clone(), zeros.clone(), zeros.clone()
+        kern, lib, plain = interleaved_ms([
+            lambda: kern_fn(buf_k, idx, go),
+            lambda: buf_l.index_add_(0, flat_i, flat_g),
+            lambda: ga.gather_rows_backward_plain(buf_p, idx, go)])
+        bound = (4 * M + 4 * M * C + 8 * U * C) / HBM_BPS * 1e3
+        rec.update(ms=list(kern), library_ms=list(lib), plain_ms=plain[0],
+                   bound_ms=bound)
+        for key, t in (("ms", kern), ("library_ms", lib)):
+            tot[key] += t[0]
+            tot[key + "_p10_p90"] = [tot[key + "_p10_p90"][0] + t[1],
+                                     tot[key + "_p10_p90"][1] + t[2]]
+        tot["plain_ms"] += plain[0]
+        tot["bound_ms"] += bound
+        tot["max_abs_err"] = max(tot["max_abs_err"], rec["max_abs_err"])
+        tot["floor"] = max(tot["floor"], floor)
+        del got, ref, mag, buf_k, buf_l, buf_p, zeros
+    return tot, launches
+
+
+def hash_step(model, tc, params, batch, draws):
+    """One rgb_loss_fn gradient of the hash-grid step (state.loss_and_grads
+    with proposal updates) -> (loss, {leaf path: gradient})."""
+    from sanerf_tpu_torch.train import state as st_lib
+    from sanerf_tpu_torch.train.tree import leaves_with_paths
+
+    loss, _, g = st_lib.loss_and_grads(model, tc, params, batch, draws, 0,
+                                       True)
+    return float(loss), dict(leaves_with_paths(g))
+
+
+def hash_step_phase(dev, textured):
+    """Phase T3: one full-width hash-grid step (RenderConfig(),
+    TrainConfig(), 8,192 rays) as shipped and with the plain gather and
+    index_add_ swapped in; each table gradient held at scatter_floor, the
+    rest at GRAD_TOL x max|ref|; a planted fault in each backward launch
+    (left unapplied; half its adds dropped) must fail that hold; every
+    launch held alone and timed (hold_backward). -> (T3's record,
+    hold_backward's sums and launches)."""
+    import numpy as np
+    import torch
+
+    from sanerf_tpu_torch.config import ModelConfig, RenderConfig, TrainConfig
+    from sanerf_tpu_torch.models import fields
+    from sanerf_tpu_torch.ops import gather as ga
+    from sanerf_tpu_torch.ops import hashgrid as hg
+    from sanerf_tpu_torch.train import state as st_lib
+
+    model = fields.make_model(ModelConfig(field_type="hashgrid"),
+                              RenderConfig())
+    tc = TrainConfig()
+    n = st_lib.adaptive_num_rays(tc, model.render_cfg.num_steps[-1])
+    params = fields.init_params(model, torch.Generator().manual_seed(0), dev)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in
+             textured.collate_train(np.random.default_rng(0), n).items()
+             if isinstance(v, np.ndarray)}
+    draws = st_lib.draw_step(model, tc, n,
+                             torch.Generator(device=dev).manual_seed(0), dev)
+
+    def step():
+        out = hash_step(model, tc, params, batch, draws)
+        torch.cuda.synchronize()
+        return out
+
+    bwd_fn = ga.gather_rows_backward
+    bwd_fn.launches = 0
+    (loss_k, g_k), seen = record_backward(ga, step)
+    check(bwd_fn.launches == len(seen) == HASH_GATHERS,
+          f"T3: {bwd_fn.launches} gather_rows_backward launches, "
+          f"{len(seen)} recorded")
+    real_fwd = ga.gather_rows
+
+    def plain_step(bwd):
+        ga.gather_rows = hg.gather_rows = ga.gather_rows_plain
+        ga.gather_rows_backward = hg.gather_rows_backward = bwd
+        try:
+            return step()
+        finally:
+            ga.gather_rows = hg.gather_rows = real_fwd
+            ga.gather_rows_backward = hg.gather_rows_backward = bwd_fn
+
+    loss_p, g_p = plain_step(ga.gather_rows_backward_plain)
+    # each table's S: the step's table gradient with every add's magnitude
+    _, g_m = plain_step(lambda gt, idx, go: ga.gather_rows_backward_plain(
+        gt, idx, go.abs()))
+    mag = {k: g_m[k] for k in HASH_TABLES}
+    del g_m
+    check(loss_k == loss_p, f"T3: loss {loss_k} vs plain {loss_p}")
+    check(sorted(g_k) == sorted(g_p), f"T3: leaves {sorted(g_k)}")
+    ref = g_p
+
+    def held(g):
+        """{leaf: (ok, |d| max, floor or None)} against the plain step."""
+        out = {}
+        for k, r in ref.items():
+            got = g[k]
+            d = float((got - r).abs().max())
+            if k in HASH_TABLES:
+                f = scatter_floor(got, r, mag[k])
+                out[k] = (f <= SCATTER_MAG, d, f)
+            else:
+                out[k] = (d <= GRAD_TOL * float(r.abs().max()), d, None)
+        return out
+
+    step_held = held(g_k)
+    tables = {k: {"max_abs_err": step_held[k][1], "floor": step_held[k][2],
+                  "max_abs_ref": float(ref[k].abs().max()),
+                  "median_abs_ref_nonzero": float(
+                      ref[k][ref[k] != 0].abs().median())
+                  if bool((ref[k] != 0).any()) else 0.0}
+              for k in HASH_TABLES}
+    log(f"T3: table gradients {tables}")
+    for k, (ok, d, f) in step_held.items():
+        check(ok, f"T3: gradient {k} off the plain step: {d} (floor {f})")
+    del g_k
+    # the hold must see a planted fault in any one launch
+    caught, least = 0, math.inf
+    for j in range(HASH_GATHERS):
+        for kind in ("skip", "half"):
+            (_, g_f), _ = record_backward(ga, step, (j, kind))
+            worst = max(f for ok, d, f in held(g_f).values()
+                        if f is not None)
+            check(worst > SCATTER_MAG,
+                  f"T3: a planted fault ({kind}) in backward launch {j} "
+                  f"passed the hold: floor {worst}")
+            caught += 1
+            least = min(least, worst)
+            del g_f
+    del g_p, ref, mag
+    bwd, per_launch = hold_backward(ga, seen, dev)
+    del seen, params, batch, draws
+    torch.cuda.empty_cache()
+    log(f"T3: backward launches {per_launch}")
+    return {"rays": n, "tables": tables,
+            "grad_max_abs_err": {k: v[1] for k, v in step_held.items()},
+            "planted_faults_caught": caught,
+            "least_planted_fault_floor": least,
+            "backward": bwd}, bwd, per_launch
 
 
 def shape_key(a, k):
@@ -702,8 +987,9 @@ def main():
         ray_level's float32 resample as the function needs it (pdf and CDF,
         5 a previous sample; about one ramp of 10 a previous interval and
         one a new edge, the CDF walk; 20 a new edge and a new sample for
-        edges and geometry), the MLPs' bf16 tensor-core MACs (the float32
-        encode and CP taps, on other units, are left out)."""
+        edges and geometry), the MLPs' MACs at the peak of their weights'
+        type (bf16 tensor cores, float32 CUDA cores; the float32 encode and
+        CP taps, on other units, are left out)."""
         if name == "flatten3_nt":
             # a copy: each float read once and written once
             return 2 * a[0].numel() * 4 / HBM_BPS * 1e3, 0.0
@@ -725,7 +1011,9 @@ def main():
             tm = a[1] if name == "run_tmlp" else a[3]
             P = a[0].shape[1]
             macs = sum(int(w.shape[0]) * int(w.shape[1]) for w in tm.ws)
-            ops, peak = 2.0 * macs * P, BF16_FLOPS
+            # float32 weights run a CUDA-core FMA chain
+            ops, peak = 2.0 * macs * P, (BF16_FLOPS if tm.ws[0].dtype
+                                         == torch.bfloat16 else F32_FLOPS)
             if name == "run_tmlp":
                 nbytes = P * 12 + P * tm.kout * 4
             else:
@@ -842,6 +1130,14 @@ def main():
     torch.cuda.empty_cache()
     grids = grid_phases(torch, np, dev, card, compare, launch_times, kern_fn)
     rows += grids.pop("rows")
+    torch.cuda.empty_cache()
+    with contextlib.redirect_stdout(sys.stderr):  # the Trainer's log lines
+        train = train_phases(torch, np, dev, card, compare, launch_times,
+                             kern_fn)
+    for row in rows[:len(KERNELS)]:
+        row["train_eval_f32_launches"] = train["eval_launches"][row["name"]]
+    del train["eval_launches"]
+    rows += train.pop("rows")
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({
@@ -856,6 +1152,7 @@ def main():
     print(json.dumps({"interactive": inter}), flush=True)
     print(json.dumps({"hashgrid": hgrid}), flush=True)
     print(json.dumps({"grids": grids}), flush=True)
+    print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
@@ -1984,6 +2281,268 @@ def grid_phases(torch, np, dev, card, compare, launch_times, kern_fn):
             "over_budget": {GRID_OVER_BUDGET: quality},
             "vs_jax_max_abs_err": jax_err, "jax_tol": JAX_GRID_TOL,
             "card": card, "rows": rows}
+
+
+def train_phases(torch, np, dev, card, compare, launch_times, kern_fn):
+    """Phases T1-T4, stage-1 training. -> the {"train": ...} record, with
+    gather_rows_backward's kernel row under "rows" and the float32 launches
+    of T2's evaluation frame per kernel under "eval_launches"."""
+    import shutil
+
+    from sanerf_tpu_torch.config import (Config, ModelConfig, RenderConfig,
+                                         TrainConfig)
+    from sanerf_tpu_torch.data.synthetic import SyntheticSphereDataset
+    from sanerf_tpu_torch.models import fields, renderer
+    from sanerf_tpu_torch.ops import fused_mlp_t as fm
+    from sanerf_tpu_torch.ops import gather as ga
+    from sanerf_tpu_torch.ops import ray_kernels as rk
+    from sanerf_tpu_torch.train import state as st_lib
+    from sanerf_tpu_torch.train.checkpoints import flatten_tree
+    from sanerf_tpu_torch.train.trainer import Trainer
+    from sanerf_tpu_torch.train.tree import leaves_with_paths
+
+    sys.path.insert(0, os.path.join(ROOT, "port_tools"))
+    import grid_params as gp
+
+    ray_mlp = [rk.ray_level0, rk.ray_level, fm.run_tmlp,
+               fm.run_tmlp_composite]
+    ws = os.path.join(ROOT, "build", "chip_smoke_train")
+    shutil.rmtree(ws, ignore_errors=True)
+
+    def on_card(batch):
+        return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()
+                if isinstance(v, np.ndarray)}
+
+    def zero(cs):
+        torch.cuda.synchronize()
+        for c in cs:
+            c.launches = 0
+
+    def epoch_losses(tr):
+        with open(tr.metrics_path) as f:
+            return [json.loads(line)["loss"] for line in f]
+
+    # -- T1. convergence (tests/test_train_e2e.py:40-74) -----------------------
+    sphere = SyntheticSphereDataset(H=48, W=48, n_views=12)
+    fr0 = sphere.frame(0)
+    o0, d0, cnf0 = (torch.as_tensor(fr0[k], device=dev)
+                    for k in ("rays_o", "rays_d", "cam_near_far"))
+    gt0 = torch.as_tensor(fr0["images"], device=dev)
+    converge = {}
+    for fam, mkw in TRAIN_MC.items():
+        model = fields.make_model(ModelConfig(**mkw),
+                                  RenderConfig(**TRAIN_RC))
+        tc = TrainConfig(**TRAIN_TC)
+        state = st_lib.create_train_state(
+            model, tc, torch.Generator().manual_seed(0), device=dev)
+        step = st_lib.make_rgb_train_step(model, tc)
+        rng = np.random.default_rng(0)
+        gen = torch.Generator(device=dev).manual_seed(1)
+
+        def psnr(p):
+            with torch.no_grad():
+                out = renderer.render_staged(model, p, o0, d0,
+                                             cam_near_far=cnf0)
+            return float(-10 * torch.log10(((out["image"] - gt0) ** 2)
+                                           .mean()))
+
+        before = psnr(state.params)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for i in range(CONVERGE_STEPS):
+            batch = on_card(sphere.collate_train(rng, tc.num_rays))
+            state, aux = step(state, batch, st_lib.draw_step(
+                model, tc, tc.num_rays, gen, dev),
+                st_lib.update_proposal_now(tc, i))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        after = psnr(state.params)
+        loss = float(aux["loss"])
+        check(math.isfinite(loss), f"T1 {fam}: loss {loss}")
+        check(after > before + CONVERGE_GAIN_DB,
+              f"T1 {fam}: no convergence, {before:.2f} -> {after:.2f} dB")
+        check(after > CONVERGE_MIN_DB, f"T1 {fam}: PSNR {after:.2f} dB")
+        converge[fam] = {"psnr_before_db": before, "psnr_after_db": after,
+                         "final_loss": loss, "steps": CONVERGE_STEPS,
+                         "it_per_s": CONVERGE_STEPS / secs, "card": card}
+        log(f"T1 {fam}: {converge[fam]}")
+    del state, step
+    torch.cuda.empty_cache()
+
+    # -- T2. the defaults through Trainer.train ---------------------------------
+    textured = SyntheticSphereDataset(H=64, W=64, n_views=8, scene="textured")
+    valid = SyntheticSphereDataset(H=EVAL_SIZE, W=EVAL_SIZE, n_views=2,
+                                   scene="textured", training=False)
+    defaults, eval_launches, path_launches = {}, {}, {}
+    for fam, mc in (("mlp", ModelConfig()),
+                    ("hashgrid", ModelConfig(field_type="hashgrid"))):
+        cfg = Config(workspace=os.path.join(ws, fam), model=mc)
+        model = fields.make_model(cfg.model, cfg.render)
+        tr = Trainer("t2", cfg, model, use_checkpoint="scratch", device=dev)
+        step_ms, real_step = [], tr._train_step
+
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = real_step(*a, **k)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            return out
+
+        tr._train_step = timed
+        torch.cuda.reset_peak_memory_stats()
+        counters = ray_mlp + [ga.gather_rows, ga.gather_rows_backward]
+        zero(counters)
+        tr.train(textured, valid_dataset=valid, max_epoch=TRAIN_EPOCHS,
+                 steps_per_epoch=TRAIN_STEPS)
+        torch.cuda.synchronize()
+        path_launches[fam] = {c.__name__: c.launches for c in counters}
+        peak = torch.cuda.max_memory_allocated()
+        check(tr.global_step == TRAIN_EPOCHS * TRAIN_STEPS,
+              f"T2 {fam}: {tr.global_step} steps")
+        losses = epoch_losses(tr)
+        check(len(losses) == TRAIN_EPOCHS and all(map(math.isfinite,
+                                                     losses)),
+              f"T2 {fam}: epoch losses {losses}")
+        fast = renderer.uses_kernels(model)
+        check(fast == model.is_mlp_field, f"T2 {fam}: fast path {fast}")
+        if fast:
+            check(all(path_launches[fam][c.__name__] > 0 for c in ray_mlp),
+                  f"T2 {fam}: a kernel never ran: {path_launches[fam]}")
+        else:
+            check(path_launches[fam]["gather_rows_backward"]
+                  == TRAIN_EPOCHS * TRAIN_STEPS * HASH_GATHERS,
+                  f"T2 {fam}: gather_rows_backward launches "
+                  f"{path_launches[fam]}")
+        # one evaluation frame, its launches counted and recorded
+        frame = valid.frame(0)
+        params = tr.eval_params()
+        calls = {}
+        zero(counters)
+        with spying(renderer, fields, kern_fn, calls, None):
+            tr._render(params, frame)
+        torch.cuda.synchronize()
+        frame_launches = {c.__name__: c.launches for c in counters}
+        if fast:
+            check(all(frame_launches[c.__name__] > 0 for c in ray_mlp),
+                  f"T2 {fam}: the evaluation frame missed a kernel: "
+                  f"{frame_launches}")
+            check(all(t.dtype == torch.float32 for _, t in
+                      leaves_with_paths(params)),
+                  f"T2 {fam}: evaluation weights not float32")
+            errs32 = {}
+            for (_, name), ls in calls.items():
+                for a, k in ls:
+                    e, _ = compare(name, a, k,
+                                   RAY_TOL if name.startswith("ray")
+                                   else MLP_F32_TOL[name], flips=False)
+                    errs32[name] = max(errs32.get(name, 0.0), e)
+                eval_launches[name] = launch_times(name, ls)
+        else:
+            check(frame_launches["gather_rows"] == HASH_GATHERS
+                  and not any(frame_launches[c.__name__] for c in ray_mlp),
+                  f"T2 {fam}: evaluation frame launches {frame_launches}")
+            errs32 = None
+        del calls
+        ts_ = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            tr._render(params, frame)
+            torch.cuda.synchronize()
+            ts_.append((time.perf_counter() - t) * 1e3)
+        # resume in a fresh Trainer: identical params, EMA and step
+        tr2 = Trainer("t2", cfg, model, use_checkpoint="latest", device=dev)
+        check(tr2.global_step == tr.global_step
+              and tr2.state.step == tr.state.step,
+              f"T2 {fam}: resumed at step {tr2.global_step}")
+        for a_, b_ in ((tr.state.params, tr2.state.params),
+                       (tr.state.ema_params, tr2.state.ema_params)):
+            fa, fb = flatten_tree(a_), flatten_tree(b_)
+            check(sorted(fa) == sorted(fb)
+                  and all(np.array_equal(fa[k], fb[k]) for k in fa),
+                  f"T2 {fam}: resumed params differ")
+        defaults[fam] = {
+            "config": "ModelConfig(%s), RenderConfig(), TrainConfig()" % (
+                "" if fast else "field_type='hashgrid'"),
+            "rays_per_step": st_lib.adaptive_num_rays(
+                cfg.train, cfg.render.num_steps[-1]),
+            "step_ms_median": statistics.median(step_ms[1:]),
+            "step_ms_runs": step_ms, "max_memory_allocated": peak,
+            "epoch_losses": losses, "launches_of_the_run": path_launches[fam],
+            "eval_frame_launches": frame_launches,
+            "eval_frame_ms": statistics.median(ts_[1:]),
+            "eval_frame_runs": ts_, "eval_size": EVAL_SIZE,
+            "eval_max_abs_err_f32": errs32, "card": card}
+        log(f"T2 {fam}: {defaults[fam]}")
+        del tr, tr2, params
+        torch.cuda.empty_cache()
+
+    # -- T3. the hash grid's step: kernels against the plain gather ------------
+    hstep, bwd, per_launch = hash_step_phase(dev, textured)
+    shapes = {}
+    for rec in per_launch:
+        shapes[rec["shape"]] = shapes.get(rec["shape"], 0) + 1
+    log(f"T3: {hstep}")
+
+    # -- T4. the grid recipe: ladders, sigma grids, TV, annealing, upsampling --
+    recipe = {}
+    for name in (GRID_OVER_BUDGET, "grid_student"):
+        mc = ModelConfig(**gp.CONFIGS[name])
+        cfg = Config(workspace=os.path.join(ws, name), model=mc,
+                     train=TrainConfig(**RECIPE_TRAIN))
+        model = fields.make_model(mc, cfg.render)
+        tr = Trainer("t4", cfg, model, use_checkpoint="scratch", device=dev)
+        zero(ray_mlp)
+        tr.train(textured, valid_dataset=valid, max_epoch=2,
+                 steps_per_epoch=2)
+        torch.cuda.synchronize()
+        launched = {c.__name__: c.launches for c in ray_mlp}
+        losses = epoch_losses(tr)
+        check(all(map(math.isfinite, losses)), f"T4 {name}: losses {losses}")
+        want = st_lib.grid_upsample_targets(cfg.train, mc, tr.global_step)
+        got = fields.grid_resolutions(tr.state.params)
+        check(got == want, f"T4 {name}: tables at {got}, targets {want}")
+        fast = model.grid_table_bytes <= cfg.render.grid_vmem_budget
+        check(renderer.uses_kernels(model) == fast
+              and (sum(launched.values()) > 0) == fast,
+              f"T4 {name}: evaluation route {launched}, budget says "
+              f"{'fast' if fast else 'plain'}")
+        recipe[name] = {"grid_table_bytes": model.grid_table_bytes,
+                        "route": "fast" if fast else "plain",
+                        "eval_launches": launched, "epoch_losses": losses,
+                        "resolutions": got}
+        log(f"T4 {name}: {recipe[name]}")
+        del tr
+        torch.cuda.empty_cache()
+    shutil.rmtree(ws, ignore_errors=True)
+
+    row = {"name": "gather_rows_backward", "route": "cuda",
+           "source": "sanerf_tpu_torch/csrc/gather.cu",
+           "replaces": "none: no Pallas kernel; the gradient of "
+                       "sanerf_tpu/ops/hashgrid.py:229 (jnp.take), XLA's "
+                       "scatter-add",
+           "launches": path_launches["hashgrid"]["gather_rows_backward"],
+           "launches_of": f"Trainer.train of ModelConfig(field_type="
+                          f"'hashgrid'): {TRAIN_EPOCHS * TRAIN_STEPS} steps",
+           "max_abs_err": bwd["max_abs_err"],
+           "tol": list(SCATTER_TOL) + [SCATTER_MAG],
+           "tol_kind": "|d| <= tol[0] + tol[1] |ref| and |d| <= tol[2] S "
+                       "+ tol[1] |ref|, S the sum of |grad_out| over the "
+                       "adds into the element (atomics sum in another "
+                       "order)",
+           "floor": bwd["floor"],
+           "ms": bwd["ms"], "ms_p10_p90": bwd["ms_p10_p90"],
+           "plain_ms": bwd["plain_ms"], "bound_ms": bwd["bound_ms"],
+           "bound_by": "bytes", "library_ms": bwd["library_ms"],
+           "library_ms_p10_p90": bwd["library_ms_p10_p90"],
+           "library": "torch.Tensor.index_add_", "dtype": "float32",
+           "sum_of": f"the {HASH_GATHERS} launches of one step",
+           "timed_as": bwd["timed_as"], "shapes": shapes}
+    return {"convergence": converge, "defaults": defaults,
+            "hashgrid_step": hstep,
+            "grid_recipe": recipe, "card": card, "rows": [row],
+            "eval_launches": eval_launches}
 
 
 if __name__ == "__main__":

@@ -1,9 +1,12 @@
 """Frozen configuration objects of the PyTorch/CUDA port.
 
 Field names, defaults and `config_from_dict` are those of the JAX package's
-`sanerf_tpu/config.py` (RenderConfig, HashGridConfig, ModelConfig), so a
-serialized asset's `model_config` / `render_config` round-trip unchanged.
-The port keeps its own copy: it imports nothing of the JAX package.
+`sanerf_tpu/config.py` (RenderConfig, HashGridConfig, ModelConfig,
+TrainConfig, SamTrainConfig, MaskTrainConfig, DataConfig, Config), so a
+serialized asset's `model_config` / `render_config` and a run's config
+round-trip unchanged. The port keeps its own copy: it imports nothing of
+the JAX package. SamTrainConfig, MaskTrainConfig and DataConfig are held
+so that `Config` has the same fields; nothing in the port reads them yet.
 
 Fields that describe TPU tilings (`fused_block`, `fused_prop_block`) are
 kept so configs round-trip; the CUDA kernels pick their own tiles.
@@ -15,7 +18,7 @@ uses_kernels).
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
 
@@ -154,10 +157,157 @@ class ModelConfig:
     redundant_instance: int = 0
 
 
+@dataclass(frozen=True)
+class TrainConfig:
+    """Stage-1 optimization (JAX: sanerf_tpu/config.py:239-291)."""
+
+    iters: int = 20000
+    lr: float = 1e-2
+    lr_warmup_steps: int = 0  # linear warm-up (0 = none)
+    grad_clip: float = 1.0  # global-norm clip (0 disables)
+    adam_eps: float = 1e-15
+    # lr multiplier of the factorized tables (train/state.py:GRID_LR_KEYS)
+    grid_lr_mult: float = 10.0
+    ema_decay: float = 0.95
+    # rays a step; adaptive: num_points // num_steps[-1]
+    num_rays: int = 4096
+    adaptive_num_rays: bool = True
+    num_points: int = 2 ** 18
+    lambda_entropy: float = 0.0
+    lambda_tv: float = 0.0
+    # L1 sparsity of the factorized tables (MLP family)
+    lambda_l1_grid: float = 0.0
+    # the factorized tables start at final_res >> N and double at each of
+    # these global steps (applied at epoch boundaries; optimizer reset)
+    grid_upsample_steps: Tuple[int, ...] = ()
+    lambda_wd: float = 0.0
+    lambda_proposal: float = 1.0
+    lambda_distort: float = 0.02
+    # proposal nets update every step up to prop_warmup_steps, then every
+    # prop_update_every-th
+    prop_warmup_steps: int = 3000
+    prop_update_every: int = 5
+    # coarse-to-fine opening of the MLP family's encode over these steps
+    # (0 = off; the hash-grid family ignores it)
+    anneal_iters: int = 0
+    # the native prefetching ray sampler for image datasets without
+    # per-view near/far; the port raises on such a dataset (the loader
+    # comes with the data-provider slice)
+    use_native_loader: bool = True
+    # data-parallel device count; the port raises on > 1
+    n_devices: int = 1
+    save_cnt: int = 20
+    eval_cnt: int = 5
+    max_keep_ckpt: int = 2
+
+
+@dataclass(frozen=True)
+class SamTrainConfig:
+    """Stage-2 SAM-feature distillation (JAX: config.py:294-309)."""
+
+    online_resolution: int = 512
+    cache_size: int = 256
+    cache_interval: int = 4
+    sam_ckpt: str = "./pretrained/sam_vit_h_4b8939.pth"
+    fovy_range: Tuple[float, float] = (50.0, 70.0)
+    eval_fovy: float = 60.0
+    pose_jittering: bool = False
+
+
+@dataclass(frozen=True)
+class MaskTrainConfig:
+    """Stage-3 mask-field training (JAX: config.py:312-336)."""
+
+    label_regularization_weight: float = 0.0
+    patch_size: int = 1
+    incoherent_uncertainty_weight: float = 1.0
+    rgb_similarity_loss_weight: float = 0.0
+    rgb_similarity_threshold: float = 0.3
+    epsilon: float = 1e-6
+    rgb_similarity_exp_weight: float = 10.0
+    rgb_similarity_num_sample: int = 1
+    rgb_similarity_iter: int = -1
+    rgb_similarity_use_pred_logistics: bool = False
+    mixed_sampling: bool = False
+    local_sample_patch_size: int = 16
+    num_local_sample: int = 2
+    error_map: bool = False
+    error_map_size: int = 128
+    use_multi_res: bool = False
+    multi_res_update_iter: int = 100
+    max_multi_res_level: int = 2
+    use_dynamic_incoherent: bool = False
+    incoherent_update_iter: int = 50
+    incoherent_downsample_scale: int = 1
+    mask_folder_name: Optional[str] = None
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    """Dataset configuration (JAX: config.py:339-357)."""
+
+    path: str = "."
+    data_type: str = "mip"
+    train_split: str = "train"
+    test_split: str = "val"
+    val_type: str = "default"
+    downscale: int = 1
+    scale: float = -1.0
+    offset: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+    enable_cam_near_far: bool = False
+    enable_cam_center: bool = False
+    random_image_batch: bool = False
+    preload: bool = True
+    camera_traj: str = "interp"
+    scene_name: str = "garden"
+    object_name: str = "table_whole"
+
+
+@dataclass(frozen=True)
+class Config:
+    """Top-level bundle (JAX: config.py:360-382)."""
+
+    workspace: str = "workspace"
+    seed: int = 0
+    ckpt: str = "latest"  # latest | latest_model | best | scratch | <path>
+    init_ckpt: str = ""
+    test: bool = False
+    gui: bool = False
+    render_mask_type: str = "heatmap"  # mask | composition | heatmap
+    render_mask_instance_id: int = 0
+    use_wandb: bool = False
+    render: RenderConfig = field(default_factory=RenderConfig)
+    model: ModelConfig = field(default_factory=ModelConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    sam: SamTrainConfig = field(default_factory=SamTrainConfig)
+    mask: MaskTrainConfig = field(default_factory=MaskTrainConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+
+    def replace(self, **kw) -> "Config":
+        return dataclasses.replace(self, **kw)
+
+
+def replace(cfg, **kw):
+    """dataclasses.replace for any of the frozen configs."""
+    return dataclasses.replace(cfg, **kw)
+
+
+_NESTED = {"render": RenderConfig, "model": ModelConfig,
+           "train": TrainConfig, "sam": SamTrainConfig,
+           "mask": MaskTrainConfig, "data": DataConfig}
+
+
 def config_from_dict(cls, d: dict):
-    """Rebuild a frozen config from a JSON dict: lists become tuples again;
-    unknown keys are ignored so older serialized configs keep loading."""
+    """Rebuild a frozen config from a JSON dict (a dataclasses.asdict round
+    trip): lists become tuples again; unknown keys are ignored so older
+    serialized configs keep loading; a `Config`'s sections, given as dicts,
+    are rebuilt as their own configs."""
     names = {f.name for f in dataclasses.fields(cls)}
-    kw = {k: (tuple(v) if isinstance(v, list) else v)
-          for k, v in d.items() if k in names}
+    kw = {}
+    for k, v in d.items():
+        if k not in names:
+            continue
+        if cls is Config and k in _NESTED and isinstance(v, dict):
+            v = config_from_dict(_NESTED[k], v)
+        kw[k] = tuple(v) if isinstance(v, list) else v
     return cls(**kw)

@@ -1,5 +1,7 @@
 // Row gather out[i] = table[idx[i]] for Hopper (sm_90a): the per-point
-// table lookup of the instant-ngp hash encoder.
+// table lookup of the instant-ngp hash encoder; and its gradient, the
+// scatter-add grad_table[idx[i]] += grad_out[i] (gather_rows_backward, at
+// the end of this file).
 //
 // Replaces the eight Pallas probes of tools/probe_gather.py, which are all
 // formulations of one function: pallas_dynloop :90, pallas_dynloop_vmem
@@ -193,7 +195,140 @@ int launch_narrow(const void* table, long rows, const int32_t* idx, long m,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// gather_rows_backward: grad[idx[i]] += gout[i] over float32 rows of C.
+//
+// The gradient of the gather, which the JAX package leaves to XLA's
+// scatter-add (no Pallas kernel has it). Plain PyTorch version:
+// sanerf_tpu_torch/ops/gather.py:gather_rows_backward_plain (index_add_ on
+// the same views). Each row is cut into pieces of VW floats (4, 2 or 1: the
+// widest that divides C and both base addresses); thread t takes piece
+// t % ppr of gradient row t / ppr, for table row idx[t / ppr]. Where the
+// launch adds many index rows a table row (kWarpSumRatio), the lanes of a
+// warp that add into the same piece (__match_any_sync) sum their pieces in
+// registers first, in lane order, and the first of them adds the sum; each
+// add is one vector atomicAdd (Hopper has float2 / float4 atomicAdd on
+// global memory; the result is unused, so it compiles to a reduction,
+// red.global.add).
+// The gradient rows are read once, with streaming loads; an index outside
+// [0, rows) adds nothing, as the forward gives zeros there. The sums of one
+// row run in the order the warps' atomics reach L2, which changes from run
+// to run: the result differs from index_add_'s by rounding only.
+//
+// Bound on an H100: memory. Each index is read once (4 B), each gradient
+// row once (4 C B), and each distinct table row touched is read and
+// written once at L2 (8 C B); the hash encoder's rows of 8 B are a quarter
+// of a 32 B sector, which keeps the kernel from that bound.
+
+template <int VW> struct PieceOf;
+template <> struct PieceOf<1> { using T = float; };
+template <> struct PieceOf<2> { using T = float2; };
+template <> struct PieceOf<4> { using T = float4; };
+
+// a launch sums across the warp when it adds at least this many index
+// rows a table row on average: the encoder's neighbouring samples share
+// the cells of the coarse levels, where hundreds of adds land on each row
+// and summing first cuts the atomics to a row 3-4x; at the fine, hashed
+// levels (4-32 adds a row) neighbours rarely share a row and the match
+// costs up to 50 % (port_tools/scatter_variants.py on an NVIDIA H100 80GB
+// HBM3 at 700 W: 64 adds a row lost 16 %, 86 won 18 %)
+constexpr long kWarpSumRatio = 80;
+
+template <int VW>
+__device__ __forceinline__ void add_piece(float* p, const float (&v)[VW]) {
+  if constexpr (VW == 4) {
+    atomicAdd(reinterpret_cast<float4*>(p),
+              make_float4(v[0], v[1], v[2], v[3]));
+  } else if constexpr (VW == 2) {
+    atomicAdd(reinterpret_cast<float2*>(p), make_float2(v[0], v[1]));
+  } else {
+    atomicAdd(p, v[0]);
+  }
+}
+
+template <int VW>
+__global__ void __launch_bounds__(THREADS)
+scatter_add_kernel(float* __restrict__ grad, long rows, int ppr, int shift,
+                   const int32_t* __restrict__ idx, long total,
+                   const float* __restrict__ gout, bool warp_sum) {
+  using V = typename PieceOf<VW>::T;
+  const int lane = threadIdx.x & 31;
+  const long stride = (long)gridDim.x * THREADS;
+  // the whole warp steps together (stride and start are warp-aligned)
+  for (long b = (long)blockIdx.x * THREADS + (threadIdx.x & ~31); b < total;
+       b += stride) {
+    const long t = b + lane;
+    long dst = -1;  // the piece this lane adds into; -1: none
+    float v[VW] = {};
+    if (t < total) {
+      long i;
+      int p;
+      if (shift >= 0) {
+        i = t >> shift;
+        p = (int)(t & (ppr - 1));
+      } else {
+        i = t / ppr;
+        p = (int)(t - i * ppr);
+      }
+      const long r = __ldg(idx + i);
+      const V x = __ldcs(reinterpret_cast<const V*>(gout) + t);
+#pragma unroll
+      for (int c = 0; c < VW; ++c) v[c] = reinterpret_cast<const float*>(&x)[c];
+      if (r >= 0 && r < rows) dst = r * ppr + p;
+    }
+    if (warp_sum) {
+      // a lane with nothing to add is a group of its own
+      const unsigned long long key =
+          dst >= 0 ? (unsigned long long)dst : ~0ull - (unsigned)lane;
+      const unsigned peers = __match_any_sync(0xffffffffu, key);
+      float s[VW] = {};
+      for (unsigned m = peers; m; m &= m - 1) {  // in lane order
+        const int src = __ffs(m) - 1;
+#pragma unroll
+        for (int c = 0; c < VW; ++c) s[c] += __shfl_sync(peers, v[c], src);
+      }
+      if (dst >= 0 && lane == __ffs(peers) - 1)
+        add_piece<VW>(grad + dst * VW, s);
+    } else if (dst >= 0) {
+      add_piece<VW>(grad + dst * VW, v);
+    }
+  }
+}
+
+template <int VW>
+int launch_scatter_add(float* grad, long rows, int cols, const int32_t* idx,
+                       long m, const float* gout, cudaStream_t stream) {
+  const int ppr = cols / VW;
+  int shift = -1;
+  if ((ppr & (ppr - 1)) == 0) {
+    shift = 0;
+    while ((1 << shift) < ppr) ++shift;
+  }
+  const long total = m * ppr;
+  long blocks = (total + THREADS - 1) / THREADS;
+  if (blocks > MAX_BLOCKS) blocks = MAX_BLOCKS;
+  scatter_add_kernel<VW><<<(unsigned)blocks, THREADS, 0, stream>>>(
+      grad, rows, ppr, shift, idx, total, gout, m >= kWarpSumRatio * rows);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+// grad: rows x cols float32, contiguous, added into; idx: m int32; gout:
+// m x cols float32, contiguous. Returns the CUDA error code of the launch.
+extern "C" int gather_rows_backward_launch(float* grad, long rows, int cols,
+                                           const int32_t* idx, long m,
+                                           const float* gout,
+                                           cudaStream_t stream) {
+  if (m <= 0) return 0;
+  if (cols <= 0) return (int)cudaErrorInvalidValue;
+  const uintptr_t addr = (uintptr_t)grad | (uintptr_t)gout;
+  if (cols % 4 == 0 && addr % 16 == 0)
+    return launch_scatter_add<4>(grad, rows, cols, idx, m, gout, stream);
+  if (cols % 2 == 0 && addr % 8 == 0)
+    return launch_scatter_add<2>(grad, rows, cols, idx, m, gout, stream);
+  return launch_scatter_add<1>(grad, rows, cols, idx, m, gout, stream);
+}
 
 // table: rows x row_bytes bytes, contiguous; idx: m int32; out: m x
 // row_bytes bytes. Returns the CUDA error code of the launch (0 = none).

@@ -195,4 +195,22 @@ class SyntheticSphereDataset:
             "H": self.H,
             "W": self.W,
             "pose": self.poses[idx],
+            "name": f"{idx:04d}",
+        }
+
+    def collate_train(self, rng: np.random.Generator, num_rays: int) -> Dict:
+        """One training batch (JAX: synthetic.py:207-221): a view drawn
+        from `rng`, num_rays uniform pixels of it, their colors, and the
+        view's near/far."""
+        idx = int(rng.integers(0, self.n_views))
+        rb = sample_rays(self.poses[idx], self.intrinsics, self.H, self.W,
+                         N=num_rays, rng=rng)
+        return {
+            "rays_o": rb.rays_o,
+            "rays_d": rb.rays_d,
+            "images": self.images[idx].reshape(-1, 3)[rb.inds],
+            "cam_near_far": self.cam_near_far[idx: idx + 1],
+            "index": idx,
+            "H": self.H,
+            "W": self.W,
         }

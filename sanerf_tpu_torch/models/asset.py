@@ -135,11 +135,14 @@ def expected_shapes(model: NerfModel) -> Dict[str, Tuple[int, ...]]:
 
 def params_from_jax(flat: Dict[str, np.ndarray],
                     model: Optional[NerfModel] = None,
-                    device=None) -> Params:
-    """Map the `params/...` entries of a JAX flat dict onto the port's
-    parameter tree (float32 tensors). Keys outside `params/` (EMA shadows,
-    metadata) are skipped. Raises ValueError on any `params/` key the port
-    does not map; with `model`, also on a shape mismatch or a missing key."""
+                    device=None, prefix: str = "params/") -> Params:
+    """Map the `params/...` entries of a JAX flat dict (an asset, or a
+    checkpoint of train/checkpoints.py) onto the port's parameter tree
+    (float32 tensors); `prefix="ema/"` takes a checkpoint's EMA weights
+    instead. Keys outside the prefix (EMA shadows, the optimizer,
+    metadata) are skipped. Raises ValueError on any key under the prefix
+    that the port does not map; with `model`, also on a shape mismatch or
+    a missing key."""
     dev = torch.device("cpu") if device is None else resolve_device(device)
     shapes = expected_shapes(model) if model is not None else None
     layers: Dict[Tuple[str, int], Dict[int, Dict[str, torch.Tensor]]] = {}
@@ -148,9 +151,9 @@ def params_from_jax(flat: Dict[str, np.ndarray],
     params: Params = {}
     unmapped = []
     for key, v in flat.items():
-        if not key.startswith("params/"):
+        if not key.startswith(prefix):
             continue
-        path = key[len("params/"):]
+        path = key[len(prefix):]
         if shapes is not None and shapes.get(path) != tuple(v.shape):
             unmapped.append(key)
             continue
@@ -181,8 +184,8 @@ def params_from_jax(flat: Dict[str, np.ndarray],
         raise ValueError(f"params failed to map onto the port's model: "
                          f"{sorted(unmapped)}")
     if shapes is not None:
-        missing = sorted(set(shapes) - {k[len("params/"):] for k in flat
-                                        if k.startswith("params/")})
+        missing = sorted(set(shapes) - {k[len(prefix):] for k in flat
+                                        if k.startswith(prefix)})
         if missing:
             raise ValueError(f"params missing from the checkpoint: {missing}")
     for name, by_idx in levels.items():

@@ -1,4 +1,4 @@
-"""NeRF fields of the MLP and hash-grid families, inference only
+"""NeRF fields of the MLP and hash-grid families
 (JAX: sanerf_tpu/models/fields.py).
 
 Parameters are nested dicts of tensors with the JAX package's names
@@ -14,7 +14,15 @@ tables `grid`, `prop[i]["grid"]`, `s_grid`, `m_grid`, and the heads
 `apply_samvit_head`, ...) mirror the JAX XLA path; the hash-grid family's
 encoder gathers its table rows through the kernel of ops/gather.py;
 `field_forward_T`, `field_composite_T` and `density(fast=True)` go through
-the kernels of ops/fused_mlp_t.py (MLP family only).
+the kernels of ops/fused_mlp_t.py (MLP family only, inference). Training
+takes the plain functions with autograd; `apply_total_variation`,
+`apply_weight_decay` and `apply_l1_sparsity` give the regularizers'
+gradient contributions, `grid_resolutions` / `resize_grid_tables` the
+factorized tables' coarse-to-fine schedule. The training step injects
+`params["enc_alpha"]` (a scalar in [0, 1], not a trainable leaf): the MLP
+family's plain encode then opens coarse-to-fine (Fourier bands by BARF's
+window, ladder levels by the same window over levels); nothing else
+injects it, so inference always runs the full encode.
 """
 
 from __future__ import annotations
@@ -29,7 +37,8 @@ import torch.nn.functional as F
 from sanerf_tpu_torch.config import HashGridConfig, ModelConfig, RenderConfig
 from sanerf_tpu_torch.ops import cpgrid, hashgrid, vmgrid
 from sanerf_tpu_torch.ops.activation import shifted_softplus, trunc_exp
-from sanerf_tpu_torch.ops.freq import freq_encode, freq_output_dim
+from sanerf_tpu_torch.ops.freq import (anneal_band_weights, freq_encode,
+                                      freq_output_dim)
 from sanerf_tpu_torch.ops.fused_mlp_t import (TransposedFieldMLP, ViewMLP,
                                               run_tmlp, run_tmlp_composite)
 from sanerf_tpu_torch.ops.sh import sh_encode, sh_output_dim
@@ -383,18 +392,29 @@ def position_features(model: NerfModel, params: Params, x: torch.Tensor,
                       dtype=None) -> torch.Tensor:
     """Fourier bands of x * pi / bound, then the CP line features (each
     level of a ladder, coarse -> fine), then the VM features (JAX:
-    fields.py:529-588, the gather lookups)."""
+    fields.py:529-588, the gather lookups); annealed by
+    params["enc_alpha"] when the training step injects it."""
+    alpha = params.get("enc_alpha")
+    bw = (anneal_band_weights(alpha, model.cfg.mlp_enc_freqs)
+          if alpha is not None else None)
     h = freq_encode(x * (math.pi / model.bound), model.cfg.mlp_enc_freqs,
-                    out_dtype=dtype)
+                    out_dtype=dtype, band_weights=bw)
     if model.cfg.mlp_cp_rank > 0:
         cl = params["cp_lines"]
-        cp = (cpgrid.line_features_multi(cl, x, model.bound)
+        cp = (cpgrid.line_features_multi(
+                  cl, x, model.bound,
+                  level_weights=(cpgrid.anneal_level_weights(alpha, len(cl))
+                                 if alpha is not None else None))
               if isinstance(cl, (list, tuple))
               else cpgrid.line_features(cl, x, model.bound))
         h = torch.cat([h, cp.to(h.dtype)], dim=-1)
     if model.cfg.mlp_vm_rank > 0:
         planes, lines = params["vm_planes"], params["vm_lines"]
-        vm = (vmgrid.vm_features_multi(planes, lines, x, model.bound)
+        vm = (vmgrid.vm_features_multi(
+                  planes, lines, x, model.bound,
+                  level_weights=(cpgrid.anneal_level_weights(alpha,
+                                                             len(planes))
+                                 if alpha is not None else None))
               if isinstance(planes, (list, tuple))
               else vmgrid.vm_features_gather(planes, lines, x, model.bound))
         h = torch.cat([h, vm.to(h.dtype)], dim=-1)
@@ -521,9 +541,13 @@ def density(model: NerfModel, params: Params, x: Optional[torch.Tensor],
                           transposed=x_T is not None)
             return density_activation(model, fT[0])
         if model.is_mlp_field:
+            alpha = params.get("enc_alpha")
             h = freq_encode(x * (math.pi / model.bound),
                             model.cfg.mlp_prop_enc_freqs,
-                            out_dtype=p["mlp"][0]["w"].dtype)
+                            out_dtype=p["mlp"][0]["w"].dtype,
+                            band_weights=(anneal_band_weights(
+                                alpha, model.cfg.mlp_prop_enc_freqs)
+                                if alpha is not None else None))
         else:
             h = hashgrid.hash_encode(x, p["grid"], model.prop_specs[proposal],
                                      model.bound)
@@ -566,3 +590,132 @@ def apply_samvit_head(model: NerfModel, params: Params, f: torch.Tensor
     out, inter = apply_skip_mlp(params["samvit_mlp"], f,
                                 model.cfg.samvit_skip_layers)
     return apply_layernorm(params["samvit_norm"], out, eps=1e-5), inter
+
+
+# ---------------------------------------------------------------------------
+# training: regularizer gradients and the tables' coarse-to-fine schedule
+# (JAX: fields.py:802-945)
+# ---------------------------------------------------------------------------
+
+
+#: the factorized tables' parameter names
+GRID_TABLES = ("cp_lines", "vm_planes", "vm_lines", "sigma_cp_lines",
+               "sigma_vm_planes", "sigma_vm_lines")
+
+
+def _each(t, fn):
+    """fn over a table, or over each level of a ladder."""
+    return [fn(l) for l in t] if isinstance(t, (list, tuple)) else fn(t)
+
+
+def apply_total_variation(model: NerfModel, params: Params,
+                          x01: torch.Tensor, weight: float) -> Params:
+    """TV gradient contributions {param name: gradient}: 1-D TV on CP
+    lines and VM / sigma lines, 2-D TV on VM / sigma planes (MLP family);
+    for the hash-grid family the active grid's TV at the points x01
+    (s_grid with the SAM head, m_grid with the mask head, else grid)."""
+    c = model.cfg
+    if model.is_mlp_field:
+        g: Params = {}
+        tv1 = lambda t: cpgrid.grad_total_variation(t, weight)  # noqa: E731
+        tv2 = lambda t: vmgrid.grad_total_variation_planes(  # noqa: E731
+            t, weight)
+        if c.mlp_cp_rank > 0 and "cp_lines" in params:
+            g["cp_lines"] = _each(params["cp_lines"], tv1)
+        if c.mlp_vm_rank > 0 and "vm_planes" in params:
+            g["vm_planes"] = _each(params["vm_planes"], tv2)
+            g["vm_lines"] = _each(params["vm_lines"], tv1)
+        if "sigma_cp_lines" in params:
+            g["sigma_cp_lines"] = tv1(params["sigma_cp_lines"])
+        if "sigma_vm_planes" in params:
+            g["sigma_vm_planes"] = tv2(params["sigma_vm_planes"])
+            g["sigma_vm_lines"] = tv1(params["sigma_vm_lines"])
+        return g
+    name, spec = _active_grid(model)
+    return {name: hashgrid.grad_total_variation(x01, params[name], spec,
+                                                weight)}
+
+
+def _active_grid(model: NerfModel):
+    """(param name, spec) of the hash grid the regularizers act on."""
+    c = model.cfg
+    if c.with_sam:
+        return "s_grid", model.s_grid_spec
+    if c.with_mask and model.m_grid_spec is not None:
+        return "m_grid", model.m_grid_spec
+    return "grid", model.grid_spec
+
+
+def apply_weight_decay(model: NerfModel, params: Params,
+                       weight: float) -> Params:
+    """Level-meaned weight-decay gradient of the active hash grid; none
+    for the MLP family."""
+    if model.is_mlp_field:
+        return {}
+    name, spec = _active_grid(model)
+    return {name: hashgrid.grad_weight_decay(params[name], spec, weight)}
+
+
+def apply_l1_sparsity(model: NerfModel, params: Params,
+                      weight: float) -> Params:
+    """Gradient of weight * mean|table| of each factorized table (TensoRF
+    §5.1): weight * sign(t) / t.numel(); none for the hash-grid family."""
+    c = model.cfg
+    if not model.is_mlp_field:
+        return {}
+    g: Params = {}
+    for name in GRID_TABLES:
+        if name not in params:
+            continue
+        if name == "cp_lines" and c.mlp_cp_rank <= 0:
+            continue
+        if name in ("vm_planes", "vm_lines") and c.mlp_vm_rank <= 0:
+            continue
+        g[name] = _each(params[name],
+                        lambda t: (weight / t.numel()) * torch.sign(t))
+    return g
+
+
+def grid_resolutions(params: Params) -> Dict[str, int]:
+    """Finest-level resolution of each factorized table family present:
+    keys "cp", "vm", "sigma_cp", "sigma_vm"."""
+    top = lambda t: t[-1] if isinstance(t, (list, tuple)) else t  # noqa
+    out: Dict[str, int] = {}
+    for key, name in (("cp", "cp_lines"), ("vm", "vm_planes"),
+                      ("sigma_cp", "sigma_cp_lines"),
+                      ("sigma_vm", "sigma_vm_planes")):
+        if name in params:
+            out[key] = top(params[name]).shape[1]
+    return out
+
+
+def resize_grid_tables(model: NerfModel, params: Params,
+                       targets: Dict[str, int]) -> Params:
+    """Linear resample of every factorized table so that its finest level
+    reaches targets[key] (keys of grid_resolutions; absent keys untouched);
+    a ladder recomputes its levels' resolutions for the new top."""
+    p = dict(params)
+    cp_res = targets.get("cp")
+    if cp_res is not None and "cp_lines" in p:
+        cl = p["cp_lines"]
+        p["cp_lines"] = (
+            [cpgrid.linresize(l, r) for l, r in
+             zip(cl, cpgrid.level_resolutions(cp_res, len(cl)))]
+            if isinstance(cl, (list, tuple)) else cpgrid.linresize(cl, cp_res))
+    vm_res = targets.get("vm")
+    if vm_res is not None and "vm_planes" in p:
+        vp, vl = p["vm_planes"], p["vm_lines"]
+        if isinstance(vp, (list, tuple)):
+            pairs = [vmgrid.resize_vm(a, b, r) for a, b, r in
+                     zip(vp, vl, cpgrid.level_resolutions(vm_res, len(vp)))]
+            p["vm_planes"] = [a for a, _ in pairs]
+            p["vm_lines"] = [b for _, b in pairs]
+        else:
+            p["vm_planes"], p["vm_lines"] = vmgrid.resize_vm(vp, vl, vm_res)
+    if targets.get("sigma_cp") is not None and "sigma_cp_lines" in p:
+        p["sigma_cp_lines"] = cpgrid.linresize(p["sigma_cp_lines"],
+                                               targets["sigma_cp"])
+    if targets.get("sigma_vm") is not None and "sigma_vm_planes" in p:
+        p["sigma_vm_planes"], p["sigma_vm_lines"] = vmgrid.resize_vm(
+            p["sigma_vm_planes"], p["sigma_vm_lines"], targets["sigma_vm"])
+    return p

@@ -1,5 +1,5 @@
-"""Volume renderer: proposal-network hierarchical sampling + compositing,
-inference only (JAX: sanerf_tpu/models/renderer.py:50-409, 463-569).
+"""Volume renderer: proposal-network hierarchical sampling + compositing
+(JAX: sanerf_tpu/models/renderer.py:50-409, 463-569).
 
 `run_rays` has the two paths of the JAX renderer:
   - the fast path (`RenderConfig.use_fused_mlp`, default): per level the
@@ -16,8 +16,9 @@ inference only (JAX: sanerf_tpu/models/renderer.py:50-409, 463-569).
         with the weights;
     with `flatten_kernel` the [3, N, T] coordinates reach the MLP kernels
     through the flatten3_nt kernel instead of a reshape;
-  - the plain path (`use_fused_mlp=False`, the hash-grid family, and MLP
-    fields whose grid tables exceed `RenderConfig.grid_vmem_budget`):
+  - the plain path (`use_fused_mlp=False`, the hash-grid family, MLP
+    fields whose grid tables exceed `RenderConfig.grid_vmem_budget`, and
+    every `training=True` batch, which autograd differentiates):
     uniform_bins / sample_pdf, point-major coordinates, the plain
     field and compositing. It is the oracle the fast path is held against,
     and it serves the hash-grid family, whose encoder gathers its table
@@ -26,6 +27,12 @@ inference only (JAX: sanerf_tpu/models/renderer.py:50-409, 463-569).
 Randomness enters as tensors: `jitter` is a list of uniform [0, 1) draws,
 one [N, T_l + 1] per level (the JAX renderer's `jax.random.uniform` draws,
 renderer.py:153-162); None renders unperturbed.
+
+With `training=True` (JAX renderer.py:181-183, 206-207, 272-274, 333-341)
+the resampled bins are detached, the proposal densities too unless
+`update_proposal`, and a pure-RGB model's results gain `weights`,
+`num_points`, `proposal_loss` (0 without `update_proposal`) and
+`distort_loss`.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from sanerf_tpu_torch.ops import (composite, compute_weights,
                                   compute_weights_from_deltas, contract,
                                   near_far_from_aabb, sample_pdf, spacing_fn,
                                   spacing_fn_inv, uniform_bins)
+from sanerf_tpu_torch.ops.losses import distort_loss, proposal_loss
 from sanerf_tpu_torch.ops.ray_kernels import (flatten3_nt, pick_pack_q,
                                               ray_level, ray_level0)
 from sanerf_tpu_torch.ops.sh import sh_encode
@@ -76,12 +84,14 @@ def run_rays(model: NerfModel, params: Params, rays_o: torch.Tensor,
              bg_color=1.0, cam_near_far: Optional[torch.Tensor] = None,
              aabb: Optional[torch.Tensor] = None, return_feats: bool = False,
              return_mask: bool = False,
-             nets: Optional[KernelNets] = None) -> Dict[str, torch.Tensor]:
+             nets: Optional[KernelNets] = None, training: bool = False,
+             update_proposal: bool = True) -> Dict[str, torch.Tensor]:
     """Render a ray batch: rays_o, rays_d [N, 3]; bg_color scalar or
     [N, 3]; cam_near_far [N, 2] or [1, 2]; aabb [6]. Returns image [N, 3],
     depth [N], weights_sum [N]; samvit [N, sam_feat_dim] with
     `return_feats` (needs the SAM head); instance_mask_logits
-    [N, mask_out_dim] with `return_mask` (needs the mask head)."""
+    [N, mask_out_dim] with `return_mask` (needs the mask head); with
+    `training`, the training outputs of the module docstring."""
     cfg, mc = model.render_cfg, model.cfg
     if return_feats and not mc.with_sam:
         raise ValueError("return_feats needs a model with the SAM head")
@@ -98,7 +108,7 @@ def run_rays(model: NerfModel, params: Params, rays_o: torch.Tensor,
     s_nears, s_fars = spacing_fn(nears), spacing_fn(fars)
     perturb = jitter is not None
     opaque = cfg.background == "last_sample"
-    fast = uses_kernels(model)
+    fast = uses_kernels(model) and not training
     # the pure-RGB frame fuses the final level into the composite kernel
     fast_epi = fast and not return_feats and not return_mask
     if fast:
@@ -108,6 +118,7 @@ def run_rays(model: NerfModel, params: Params, rays_o: torch.Tensor,
 
     dirs_ray = rays_d / rays_d.norm(dim=-1, keepdim=True)
     bins = weights = None
+    all_bins, all_weights = [], []
     last_level = len(cfg.num_steps) - 1
     for level, T in enumerate(cfg.num_steps):
         last = level == last_level
@@ -186,7 +197,7 @@ def run_rays(model: NerfModel, params: Params, rays_o: torch.Tensor,
         if level == 0:
             bins = uniform_bins(N, T, jit, device=dev)
         else:
-            bins = sample_pdf(bins, weights, T + 1, jit)
+            bins = sample_pdf(bins, weights, T + 1, jit).detach()
         real_bins = spacing_fn_inv(s_nears * (1.0 - bins) + s_fars * bins)
         rays_t = (real_bins[:, 1:] + real_bins[:, :-1]) / 2.0
         xyzs = (rays_o[:, None, :] + rays_d[:, None, :] * rays_t[..., None]
@@ -195,12 +206,17 @@ def run_rays(model: NerfModel, params: Params, rays_o: torch.Tensor,
             xyzs = contract(xyzs)
         if not last:
             sigmas = fields.density(model, params, xyzs, proposal=level)
+            if not update_proposal:
+                sigmas = sigmas.detach()
         else:
             dirs = dirs_ray[:, None, :].expand(N, T, 3).reshape(N * T, 3)
             outputs = fields.forward(model, params, xyzs, dirs)
             sigmas = outputs["sigma"]
         weights = compute_weights(real_bins, sigmas.reshape(N, T),
                                   opaque_background=opaque)
+        if training:
+            all_bins.append(bins)
+            all_weights.append(weights)
         if last:
             weights_sum, depth, f_image = composite(
                 weights, rays_t, outputs["color"].reshape(N, T, -1))
@@ -212,6 +228,13 @@ def run_rays(model: NerfModel, params: Params, rays_o: torch.Tensor,
           else torch.as_tensor(bg_color, dtype=torch.float32, device=dev))
     image = image + (1.0 - weights_sum)[..., None] * bg
     results = {"weights_sum": weights_sum, "depth": depth, "image": image}
+    if training and not mc.with_mask and not mc.with_sam:
+        results["num_points"] = N * cfg.num_steps[-1]
+        results["weights"] = weights
+        results["proposal_loss"] = (proposal_loss(all_bins, all_weights)
+                                    if update_proposal
+                                    else torch.zeros((), device=dev))
+        results["distort_loss"] = distort_loss(bins, weights)
 
     T = cfg.num_steps[-1]
     if return_feats:

@@ -1,5 +1,5 @@
-"""Multiresolution hash-grid encoder (instant-ngp), inference half
-(JAX: sanerf_tpu/ops/hashgrid.py:48-251).
+"""Multiresolution hash-grid encoder (instant-ngp) and its regularizer
+gradients (JAX: sanerf_tpu/ops/hashgrid.py:48-327).
 
 Per level, the 2^D corners of each point's cell are hashed (xor of
 per-dim prime products) or indexed densely, their table rows gathered and
@@ -12,8 +12,11 @@ package's, operation by operation:
     number picks the cell's upper face in dim d) and the corner sum runs
     sequentially in that order;
   - each level's 2^D corner rows are one `gather_rows` launch (the CUDA
-    kernel of ops/gather.py) on that level's slice of the table.
-The TV and weight-decay gradient terms (JAX :260-327) come with training.
+    kernel of ops/gather.py) on that level's slice of the table; in
+    training, the table's gradient is one `gather_rows_backward` launch a
+    level (ops/gather.py:gather_row_ranges).
+The TV and weight-decay gradient terms (JAX :255-327) are gradient
+contributions the train step adds to autograd's (train/state.py).
 """
 
 from __future__ import annotations
@@ -25,7 +28,8 @@ import numpy as np
 import torch
 
 from sanerf_tpu_torch.config import HashGridConfig
-from sanerf_tpu_torch.ops.gather import gather_rows
+from sanerf_tpu_torch.ops.gather import (gather_row_ranges, gather_rows,
+                                         gather_rows_backward)
 
 # xor-hash primes; primes[0] = 1 keeps the x dim coherent (gridencoder.cu:49)
 _PRIMES = (1, 2654435761, 805459861, 3674653429, 2097192037, 1434869437,
@@ -153,6 +157,55 @@ def _corner_view(v: torch.Tensor, d: int, D: int) -> torch.Tensor:
     return v.reshape(shape)
 
 
+def _cell(x: torch.Tensor, spec: HashGridSpec, level: int
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (pos, pos_grid) [B, D] float32 of unit-cube points at a level."""
+    res = spec.resolutions[level]
+    if spec.align_corners:
+        pos = x * (res - 1)
+        return pos, torch.clamp(torch.floor(pos), max=res - 2)
+    # x * res - 0.5 rounded once, as a fused multiply-add: the reference
+    # kernel (gridencoder.cu, nvcc) and XLA both contract it, and at fine
+    # levels one rounding of pos moves frac by 2^-12 (the float64 product
+    # of a float32 and res is exact)
+    pos = torch.clamp((x.double() * res - 0.5).float(), 0.0, res - 1)
+    return pos, torch.floor(pos)
+
+
+def _level_taps(x: torch.Tensor, spec: HashGridSpec, level: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (weights [K, B] float32, level-local row indices [K, B] int32) of
+    the 2^D corners of each point's cell, corner-major so that each
+    corner's rows are contiguous; the weight products run in dim order, as
+    the JAX loop's."""
+    D, B = spec.input_dim, x.shape[0]
+    res = spec.resolutions[level]
+    pos, pos_grid = _cell(x, spec, level)
+    frac = pos - pos_grid
+    if spec.interpolation == "smoothstep":
+        frac = frac * frac * (3.0 - 2.0 * frac)  # gridencoder.cu:34-37
+    lo = pos_grid.to(torch.int64)
+    # [2, B, D]: (lower, upper) weight factor and cell coordinate
+    wf = torch.stack([1.0 - frac, frac])
+    pg = torch.stack([lo, torch.clamp(lo + 1, max=res - 1)])
+    w, pgs = None, []
+    for d in range(D):
+        a = _corner_view(wf[..., d], d, D)
+        w = a if w is None else w * a
+        pgs.append(_corner_view(pg[..., d], d, D))
+    K = 1 << D
+    return w.reshape(K, B), _grid_index(spec, level, pgs).reshape(K, B)
+
+
+def _corner_sum(w: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """sum_c w[c] rows[c], sequentially in corner order -> [B, C] float32."""
+    prod = w[..., None] * rows
+    acc = prod[0]
+    for c in range(1, prod.shape[0]):
+        acc = acc + prod[c]
+    return acc
+
+
 def hash_encode_01(x: torch.Tensor, table: torch.Tensor, spec: HashGridSpec,
                    max_level: Optional[int] = None) -> torch.Tensor:
     """Encode unit-cube coordinates.
@@ -160,51 +213,29 @@ def hash_encode_01(x: torch.Tensor, table: torch.Tensor, spec: HashGridSpec,
     x [..., D] float (a point outside [0, 1]^D gives zeros); table
     [total_params, C] float32 or bfloat16; `max_level` encodes the first
     levels only, the rest are zero. -> [..., L*C] float32, level-major per
-    point (grid.py:63)."""
+    point (grid.py:63). Without a gradient to take, each level's taps are
+    made, gathered and summed before the next level's (peak memory: one
+    level's); with one, every level's taps first and then one
+    `gather_row_ranges` call, whose backward fills one gradient of the
+    whole table."""
     prefix = x.shape[:-1]
     D, L, C = spec.input_dim, spec.num_levels, spec.level_dim
     x = x.reshape(-1, D).float()
     B = x.shape[0]
-    K = 1 << D
     n_active = L if max_level is None else min(max_level, L)
     oob = ((x < 0.0) | (x > 1.0)).any(dim=-1)
+    ranges = [(spec.offsets[l], spec.sizes[l]) for l in range(n_active)]
 
-    level_feats = []
-    for level in range(n_active):
-        res = spec.resolutions[level]
-        if spec.align_corners:
-            pos = x * (res - 1)
-            pos_grid = torch.clamp(torch.floor(pos), max=res - 2)
-        else:
-            # x * res - 0.5 rounded once, as a fused multiply-add: the
-            # reference kernel (gridencoder.cu, nvcc) and XLA both contract
-            # it, and at fine levels one rounding of pos moves frac by
-            # 2^-12 (the float64 product of a float32 and res is exact)
-            pos = torch.clamp((x.double() * res - 0.5).float(), 0.0, res - 1)
-            pos_grid = torch.floor(pos)
-        frac = pos - pos_grid
-        if spec.interpolation == "smoothstep":
-            frac = frac * frac * (3.0 - 2.0 * frac)  # gridencoder.cu:34-37
-        lo = pos_grid.to(torch.int64)
-        # [2, B, D]: (lower, upper) weight factor and cell coordinate
-        wf = torch.stack([1.0 - frac, frac])
-        pg = torch.stack([lo, torch.clamp(lo + 1, max=res - 1)])
-        # weights and indices of all 2^D corners at once, corner-major so
-        # that each corner's rows are contiguous; the weight products run
-        # in dim order, as the JAX loop's
-        w, pgs = None, []
-        for d in range(D):
-            a = _corner_view(wf[..., d], d, D)
-            w = a if w is None else w * a
-            pgs.append(_corner_view(pg[..., d], d, D))
-        idx = _grid_index(spec, level, pgs).reshape(K, B)
-        o, s = spec.offsets[level], spec.sizes[level]
-        rows = gather_rows(table[o:o + s], idx)  # [K, B, C]
-        prod = w.reshape(K, B, 1) * rows
-        acc = prod[0]
-        for c in range(1, K):
-            acc = acc + prod[c]
-        level_feats.append(acc)
+    if torch.is_grad_enabled() and table.requires_grad:
+        taps = [_level_taps(x, spec, level) for level in range(n_active)]
+        rows = gather_row_ranges(table, ranges, [i for _, i in taps])
+        level_feats = [_corner_sum(w, r) for (w, _), r in zip(taps, rows)]
+    else:
+        level_feats = []
+        for level, (o, s) in enumerate(ranges):
+            w, idx = _level_taps(x, spec, level)
+            level_feats.append(_corner_sum(w, gather_rows(table[o:o + s],
+                                                          idx)))
 
     out = torch.stack(level_feats, dim=1) if level_feats else x.new_zeros(
         (B, 0, C))
@@ -224,3 +255,57 @@ def hash_encode(x: torch.Tensor, table: torch.Tensor, spec: HashGridSpec,
     x01 = (x + bound) / torch.full((), 2.0 * bound, dtype=x.dtype,
                                    device=x.device)
     return hash_encode_01(x01, table, spec, max_level)
+
+
+def grad_total_variation(x01: torch.Tensor, table: torch.Tensor,
+                         spec: HashGridSpec, weight: float) -> torch.Tensor:
+    """The TV gradient at sample points x01 [..., D] (gridencoder.cu
+    kernel_grad_tv, :525-631): at each point's floor corner, the sum of
+    (center - neighbor) over the +-1 neighbors of every dim, divided by
+    the root of its sum of squares + 1e-9, times weight / 2D, added at the
+    center's row (one gather_rows_backward launch a level); points outside
+    the unit cube add nothing. -> [total_params, C]."""
+    D = spec.input_dim
+    x01 = x01.reshape(-1, D).float()
+    oob = ((x01 < 0.0) | (x01 > 1.0)).any(dim=-1)
+    grad = torch.zeros_like(table)
+    w_scale = weight / (2 * D)
+    for level in range(spec.num_levels):
+        res, off = spec.resolutions[level], spec.offsets[level]
+        pos_grid = _cell(x01, spec, level)[1].to(torch.int64)
+        cols = [pos_grid[:, d] for d in range(D)]
+        center_idx = _grid_index(spec, level, cols) + off
+        center = gather_rows(table, center_idx)
+        results = torch.zeros((x01.shape[0], spec.level_dim),
+                              dtype=torch.float32, device=table.device)
+        idelta = torch.zeros_like(results)
+        for d in range(D):
+            for sign in (+1, -1):
+                nb = cols[d] + sign
+                # the reference's guards (gridencoder.cu:595, 608): on the
+                # right it checks pos < res, not res - 1
+                valid = (nb > -1) & ((cols[d] < res) if sign > 0
+                                     else (cols[d] > 0))
+                n_idx = _grid_index(spec, level,
+                                    cols[:d] + [nb] + cols[d + 1:]) + off
+                diff = torch.where(valid[:, None],
+                                   center - gather_rows(table, n_idx),
+                                   torch.zeros_like(results))
+                results = results + diff
+                idelta = idelta + diff * diff
+        contrib = w_scale * results * torch.rsqrt(idelta + 1e-9)
+        contrib = torch.where(oob[:, None], torch.zeros_like(contrib),
+                              contrib)
+        gather_rows_backward(grad, center_idx, contrib.contiguous())
+    return grad
+
+
+def grad_weight_decay(table: torch.Tensor, spec: HashGridSpec,
+                      weight: float) -> torch.Tensor:
+    """Level-meaned weight-decay gradient 2 w table / level_size
+    (gridencoder.cu kernel_grad_wd, :670-703)."""
+    inv_sizes = np.zeros((spec.total_params, 1), np.float32)
+    for o, s in zip(spec.offsets, spec.sizes):
+        inv_sizes[o:o + s] = 1.0 / s
+    return 2.0 * weight * table * torch.as_tensor(inv_sizes,
+                                                  device=table.device)

@@ -1,5 +1,6 @@
 """Ray sampling math (JAX: sanerf_tpu/ops/sampling.py:23-172): AABB
-intersection, contraction, spacing functions, inverse-CDF resampling.
+intersection, contraction, spacing functions, the bisection and dense take
+of the proposal loss, inverse-CDF resampling.
 
 Random draws enter as tensors: a caller that perturbs passes uniform [0, 1)
 draws (`jitter`), which is how the tests feed both frameworks the same
@@ -55,6 +56,25 @@ def spacing_fn_inv(x: torch.Tensor) -> torch.Tensor:
     """Inverse of spacing_fn."""
     return torch.where(x < 0.5, 2.0 * x,
                        1.0 / torch.clamp(2.0 - 2.0 * x, min=1e-12))
+
+
+def searchsorted_right(sorted_seq: torch.Tensor,
+                       values: torch.Tensor) -> torch.Tensor:
+    """Batched right bisection: how many of sorted_seq[..., :] are <=
+    values[..., t]. sorted_seq [..., K], values [..., T] -> int32 [..., T],
+    as the JAX broadcast compare-and-sum."""
+    cmp = sorted_seq[..., None, :] <= values[..., :, None]
+    return cmp.sum(dim=-1, dtype=torch.int32)
+
+
+def take_by_index_dense(values: torch.Tensor,
+                        idx: torch.Tensor) -> torch.Tensor:
+    """values [..., K] taken at idx [..., T] -> [..., T], as the JAX one-hot
+    contraction (its gradient reaches every selected value)."""
+    K = values.shape[-1]
+    onehot = (idx[..., :, None] == torch.arange(
+        K, device=values.device)).to(values.dtype)
+    return (onehot * values[..., None, :]).sum(dim=-1)
 
 
 def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, T: int,

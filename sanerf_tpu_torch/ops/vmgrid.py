@@ -1,6 +1,7 @@
-"""VM (vector-matrix) factorized grid features, TensoRF's VM mode
-(JAX: sanerf_tpu/ops/vmgrid.py: init_vm, init_vm_multi, vm_features_gather,
-vm_features_multi).
+"""VM (vector-matrix) factorized grid features, TensoRF's VM mode, and
+their training side (JAX: sanerf_tpu/ops/vmgrid.py: init_vm, init_vm_multi,
+vm_features_gather, vm_features_multi, resize_vm,
+grad_total_variation_planes).
 
 Per mode m a feature plane over the two other axes and a line along m:
 
@@ -20,7 +21,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from sanerf_tpu_torch.ops.cpgrid import level_resolutions
+from sanerf_tpu_torch.ops.cpgrid import level_resolutions, linresize
 
 
 def init_vm(g: torch.Generator, res: int, rank: int,
@@ -98,3 +99,28 @@ def vm_features_multi(planes_list: Sequence[torch.Tensor],
     if level_weights is not None:
         feats = [f * level_weights[i] for i, f in enumerate(feats)]
     return torch.cat(feats, dim=-1)
+
+
+def resize_vm(planes: torch.Tensor, lines: torch.Tensor, new_res: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Bilinear resample of a VM level to plane resolution `new_res` (two
+    separable linear passes); the line resolution scales by the same
+    factor."""
+    old = planes.shape[1]
+    p = linresize(linresize(planes, new_res, axis=1), new_res, axis=2)
+    new_line = max(2, int(round(lines.shape[1] * new_res / old)))
+    return p, linresize(lines, new_line, axis=1)
+
+
+def grad_total_variation_planes(planes: torch.Tensor,
+                                weight: float) -> torch.Tensor:
+    """Gradient of weight * sum (P[i+1, j] - P[i, j])^2 + (P[i, j+1] -
+    P[i, j])^2 over every plane and rank of planes [3, R, R, K]."""
+    g = torch.zeros_like(planes)
+    dr = planes[:, 1:, :, :] - planes[:, :-1, :, :]
+    g[:, 1:, :, :] += 2.0 * weight * dr
+    g[:, :-1, :, :] += -2.0 * weight * dr
+    dc = planes[:, :, 1:, :] - planes[:, :, :-1, :]
+    g[:, :, 1:, :] += 2.0 * weight * dc
+    g[:, :, :-1, :] += -2.0 * weight * dc
+    return g

@@ -12,7 +12,12 @@ float32 bounds for the MLP kernels with float32 weights (3e-4 and 1e-3);
 the grid branches in bf16 at 5e-3 and their encode probes at 1e-2, element
 by element; ray_level0 (both of its kernels at every T, N, jitter and
 pack_q), flatten3_nt, the packed ts/dl rows and gather_rows bit for bit;
-the packed composite within 1e-6 of the unpacked one on the same operands.
+the packed composite within 1e-6 of the unpacked one on the same operands;
+gather_rows_backward against index_add_ at |d| <= 1e-6 + 1e-5 |ref| (its
+atomics sum in another order), through the hash encoder at |d| <= 1e-6
+max(1, S) + 1e-5 |ref|, and at a step's gradient size at |d| <= 1e-5 S +
+1e-5 |ref| (chip_smoke.py's SCATTER_MAG), S the sum of the magnitudes of
+the adds into an element.
 """
 
 import pytest
@@ -602,3 +607,147 @@ def test_run_tmlp_composite_grid_branches(dev, name, T, dtype):
     assert fm.run_tmlp_composite.launches == before + 1
     _held(got, fm.run_tmlp_composite_plain(x, dl, ts, tm, True, view, r8),
           dtype, 1e-3, GRID_TOL)
+
+
+# gather_rows_backward against index_add_ on the same views: the atomics sum
+# in another order than index_add_, so |d| <= 1e-6 + 1e-5 |ref|. Ragged
+# index counts, rows of 1-8 floats (float4 / float2 / scalar pieces), an
+# unaligned gradient view, out-of-range indices (they add nothing).
+@pytest.mark.parametrize("R,C,M,offset", [(2 ** 19, 2, 2 ** 20 + 7, 0),
+                                          (4096, 2, 8 * 997, 1),
+                                          (1000, 4, 12345, 0),
+                                          (1000, 4, 12345, 2),
+                                          (77, 3, 999, 0), (513, 1, 5001, 0),
+                                          (300, 8, 2049, 0), (5, 2, 1, 0)])
+def test_gather_rows_backward_kernel(dev, R, C, M, offset):
+    g = torch.Generator(device=dev).manual_seed(R + C + M + offset)
+    idx = torch.randint(-3, R + 3, (M,), generator=g, device=dev,
+                        dtype=torch.int32)
+    go = torch.randn(M, C, generator=g, device=dev)
+    base = torch.randn(R * C + offset, generator=g, device=dev)
+    got = base.clone()[offset:].view(R, C)
+    ref = base.clone()[offset:].view(R, C)
+    before = gather.gather_rows_backward.launches
+    out = gather.gather_rows_backward(got, idx, go)
+    assert out is got and gather.gather_rows_backward.launches == before + 1
+    gather.gather_rows_backward_plain(ref, idx, go)
+    torch.cuda.synchronize()
+    assert bool(((got - ref).abs() <= 1e-6 + 1e-5 * ref.abs()).all())
+
+
+def _scatter_held(got, ref, mag):
+    """chip_smoke.py's hold of the scatter-add with its floor scaled to the
+    terms: |d| <= 1e-5 S + 1e-5 |ref| at every element, S the sum of the
+    magnitudes of the adds into it."""
+    return bool(((got - ref).abs() <= 1e-5 * mag + 1e-5 * ref.abs()).all())
+
+
+def _magnitudes(R, C, idx, go):
+    return gather.gather_rows_backward_plain(
+        torch.zeros(R, C, device=go.device), idx, go.abs())
+
+
+# Gradients of a training step's size (a mean over thousands of rays: 1e-9
+# to 1e-8), where the absolute floor of 1e-6 would pass a table with no
+# adds at all: held at the floor scaled by the adds' magnitudes, and a
+# launch with every other index dropped must fail that hold.
+@pytest.mark.parametrize("R,C,M,scale", [(2 ** 19, 2, 2 ** 20 + 7, 1e-8),
+                                         (4096, 2, 8 * 997 * 64, 1e-9),
+                                         (1000, 4, 12345, 1e-8)])
+def test_gather_rows_backward_small_gradients(dev, R, C, M, scale):
+    g = torch.Generator(device=dev).manual_seed(R + C + M)
+    idx = torch.randint(0, R, (M,), generator=g, device=dev,
+                        dtype=torch.int32)
+    go = torch.randn(M, C, generator=g, device=dev) * scale
+    ref = gather.gather_rows_backward_plain(torch.zeros(R, C, device=dev),
+                                            idx, go)
+    mag = _magnitudes(R, C, idx, go)
+    got = gather.gather_rows_backward(torch.zeros(R, C, device=dev), idx, go)
+    assert _scatter_held(got, ref, mag)
+    assert float(ref.abs().max()) < 1e-6  # all under the absolute floor
+    half = idx.clone()
+    half[1::2] = -1
+    bad = gather.gather_rows_backward(torch.zeros(R, C, device=dev), half, go)
+    assert not _scatter_held(bad, ref, mag)
+
+
+def test_gather_rows_backward_counts_on_itself(dev, monkeypatch):
+    """A recorder patched in under the module's name neither moves the
+    kernel's count nor breaks it."""
+    real, seen = gather.gather_rows_backward, []
+
+    def recording(gt, idx, go):
+        seen.append(idx)
+        return real(gt, idx, go)
+
+    monkeypatch.setattr(gather, "gather_rows_backward", recording)
+    idx = torch.arange(8, device=dev, dtype=torch.int32)
+    before = real.launches
+    gather.gather_rows_backward(torch.zeros(8, 2, device=dev), idx,
+                                torch.ones(8, 2, device=dev))
+    assert len(seen) == 1 and real.launches == before + 1
+    assert not hasattr(recording, "launches")
+
+
+def test_hash_encode_table_grad_kernel_matches_plain(dev, monkeypatch):
+    """The encoder's table gradient through gather_row_ranges: the kernels
+    against the plain gather and index_add_, at |d| <= 1e-6 max(1, S) +
+    1e-5 |ref|, S the sum of the magnitudes of the adds into an element:
+    the coarse levels add ~80 unit-size terms into a row (S of 8-13 where
+    the differences peak), where index_add_ against itself already
+    differs by up to 5.7e-7, so the floor of one unit add, 1e-6, grows
+    with S."""
+    spec = hashgrid.build_spec(HashGridConfig(num_levels=6, level_dim=2,
+                                              log2_hashmap_size=14,
+                                              desired_resolution=256))
+    g = torch.Generator(device=dev).manual_seed(9)
+    table = torch.rand(spec.total_params, 2, generator=g, device=dev) - 0.5
+    x = torch.rand(40_000, 3, generator=g, device=dev)
+    r = torch.randn(40_000, spec.output_dim, generator=g, device=dev)
+
+    def grad():
+        t = table.clone().requires_grad_(True)
+        (hashgrid.hash_encode_01(x, t, spec) * r).sum().backward()
+        return t.grad
+
+    before = gather.gather_rows_backward.launches
+    got = grad()
+    assert gather.gather_rows_backward.launches == before + 6
+    monkeypatch.setattr(gather, "gather_rows", gather.gather_rows_plain)
+    monkeypatch.setattr(gather, "gather_rows_backward",
+                        gather.gather_rows_backward_plain)
+    ref = grad()
+    monkeypatch.setattr(gather, "gather_rows_backward",
+                        lambda gt, i, go: gather.gather_rows_backward_plain(
+                            gt, i, go.abs()))
+    mag = grad()
+    torch.cuda.synchronize()
+    floor = 1e-6 * mag.clamp(min=1.0)
+    assert bool(((got - ref).abs() <= floor + 1e-5 * ref.abs()).all())
+
+
+@pytest.mark.parametrize("T", [32, 64])
+def test_run_tmlp_composite_default_field_f32(dev, T):
+    """The default ModelConfig's field at its full width in float32, as the
+    trainer's evaluation renders it: 63 -> 128 x 8 with the skip at 4
+    (191 in), -> 16; the weights past shared memory, read through L2."""
+    g = torch.Generator(device=dev).manual_seed(60 + T)
+    sizes = ([(63, 128)] + [(128, 128)] * 3 + [(191, 128)] + [(128, 128)] * 2
+             + [(128, 16)])
+    tm = fm.TransposedFieldMLP(_layers(sizes, g, dev), 10, 2.0, (4,),
+                               leaky=True)
+    view = fm.ViewMLP(_layers([(31, 32), (32, 32), (32, 3)], g, dev), 16, 4)
+    n = 1003
+    x = torch.rand(3, n * T, generator=g, device=dev) * 4 - 2
+    dl = torch.rand(n, T, generator=g, device=dev) * 0.1
+    ts = torch.cumsum(dl, 1) + 0.5
+    r8 = _rays8(n, g, dev)
+    before = fm.run_tmlp_composite.launches
+    got = fm.run_tmlp_composite(x, dl, ts, tm, opaque=True, view=view,
+                                rays8=r8)
+    assert fm.run_tmlp_composite.launches == before + 1
+    _close(got, fm.run_tmlp_composite_plain(x, dl, ts, tm, True, view, r8),
+           1e-3)
+    p = fm.TransposedFieldMLP(_layers([(33, 64)] + [(64, 64)] * 2
+                                      + [(64, 1)], g, dev), 5, 2.0)
+    _close(fm.run_tmlp(x, p, transposed=True), fm.run_tmlp_plain(x, p), 3e-4)

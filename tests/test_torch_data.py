@@ -36,8 +36,14 @@ def test_sample_rays_and_full_frame_rays():
     got = rays.sample_rays(pose, intr, 20, 24, N=-1)
     for k in ("rays_o", "rays_d", "inds"):
         np.testing.assert_allclose(getattr(got, k), getattr(ref, k), **TOL)
-    with pytest.raises(NotImplementedError):
-        rays.sample_rays(pose, intr, 20, 24, N=16)
+    # N > 0: uniform pixels, the same ones as the JAX package's from the
+    # same generator
+    got = rays.sample_rays(pose, intr, 20, 24, N=16,
+                           rng=np.random.default_rng(1))
+    ref = jrays.sample_rays(pose, intr, 20, 24, N=16,
+                            rng=np.random.default_rng(1))
+    for k in ("rays_o", "rays_d", "inds", "inds_coarse"):
+        np.testing.assert_array_equal(getattr(got, k), getattr(ref, k))
     jo, jd = jrays.full_frame_rays(pose, intr, 20, 24)
     o, d = rays.full_frame_rays(pose, intr, 20, 24, device="cpu")
     np.testing.assert_allclose(o.numpy(), np.asarray(jo), **TOL)
