@@ -48,7 +48,7 @@ sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "port_tools"))
 
 from chip_smoke import PROBE_REPS, interleaved_ms  # noqa: E402
-from kernel_variants import use_variant  # noqa: E402
+from kernel_variants import load_variants, use_variant  # noqa: E402
 from sanerf_tpu_torch.ops import _build  # noqa: E402
 from sanerf_tpu_torch.ops import gather as ga  # noqa: E402
 from sanerf_tpu_torch.ops import ray_kernels as rk  # noqa: E402
@@ -223,18 +223,6 @@ def flatten_cases(dev):
 CASES = {"gather": gather_cases, "hashgrid": hashgrid_cases,
          "ray_level": ray_cases, "level0": level0_cases,
          "flatten": flatten_cases}
-
-
-def load_variants(arg):
-    """VARIANTS from inline JSON or from a Python file's VARIANTS."""
-    if not arg.endswith(".py"):
-        return json.loads(arg)
-    import importlib.util
-
-    spec = importlib.util.spec_from_file_location("variants", arg)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.VARIANTS
 
 
 def main():

@@ -13,7 +13,9 @@
 // point (127->128, 255->128, 128->16); a 512^2 frame at the (32, 16)
 // hierarchy has 4.19 M final points, 0.43 TFLOP, ~0.43 ms on the bf16
 // tensor cores at 989 TFLOP/s. The proposal chain (33->32->1) is ~1.1 k
-// MAC per point and bound by its 12 B in + 4 B out per point.
+// MAC per point and bound by its 12 B in + 4 B out per point. In float32
+// (the trainer's evaluation) the default field is 116,480 MAC a sample:
+// 131,072 samples of a 64^2 frame take 0.185 ms as 3xTF32 at 495 TFLOP/s.
 //
 // Design (bound by the tensor cores for the field, by bytes for the
 // proposal nets; what holds each back is in PERF.md):
@@ -45,10 +47,35 @@
 //     from shared memory; the accumulators of layer l, after the activation
 //     and the rounding to bf16 (fused_mlp_t.py:616), are the register A
 //     fragments of layer l+1, so hidden activations never leave registers;
-//   - the chain, float32 weights (the parity path): CUDA-core FMAs per
-//     warp over a row-major encoding and hidden buffer, weights in shared
-//     memory when they fit, else read through L2, into accumulators of the
-//     same register layout;
+//   - the chain, float32 weights: 3xTF32 on the tensor cores, each
+//     product a b as a_lo b_hi + a_hi b_lo + a_hi b_hi (hi the tf32
+//     rounding of a value, lo the rest as the tensor core reads it; the
+//     products see each operand to 2^-21 and drop the lo lo term), three
+//     mma.sync.m16n8k8 tf32 per warp and 16-row slice, the small terms
+//     first, into a zeroed fragment that a float32 add puts into the
+//     accumulator (the tensor core truncates the sum it writes: summed
+//     into the accumulator itself, that error grows with the accumulator,
+//     1.6-1.9x cuBLAS float32's own against float64 on the asset's trained
+//     weights; with the fresh fragment 0.93-1.05x, PERF.md; 6-16 % more
+//     time). The bound of the work is the
+//     tensor cores' tf32 rate (3 x 2 x MAC at 495 TFLOP/s, 2.5x below the
+//     CUDA cores' 67 TFLOP/s for 2 x MAC); what binds is mma.sync's own
+//     rate (wgmma's half; a third product costs ~8 cycles of an SM
+//     quarter, PERF.md), then the instructions that feed it: a load, two
+//     roundings (two integer instructions each, not cvt's four) and two
+//     subtractions for every three products, four adds, no branch
+//     between the n-tiles (a layer_f32 of constant n-tile count for the
+//     configurations' widths). Each k step of 8 pairs the
+//     columns: a lane's A fragment (rows g, g + 8; k slots t, t + 4) holds
+//     columns 2t and 2t + 1, which are its accumulators' columns, so the
+//     hidden activations stay in registers from layer to layer; A is read
+//     as float2 from the row-major encoding (stride 8 mod 16 floats,
+//     conflict-free) and B as float2 from W^T's core matrices (32 lanes
+//     on 256 contiguous bytes). The weights sit in shared memory when they
+//     fit, else stream one layer at a time (cp.async), else (wide
+//     encodings beside the buffers) are read through L1/L2. The products
+//     are tensor-core instructions and the adds plain adds, which
+//     -fmad=false does not touch;
 //   - the last layer (plus the sigma-CP sum on column 0) goes to a small
 //     per-warpgroup buffer. run_tmlp writes it out as [kout, P] rows, each
 //     warp its 16 points; the composite kernel gathers whole rays (lcm(64,
@@ -67,7 +94,7 @@
 // packed operands at the same cost).
 // Built with -fmad=false (ops/_build.py) so the encode and the epilogue
 // round like the PyTorch versions (contracting them was measured no
-// faster).
+// faster); neither chain has a float32 a * b + c for it to keep apart.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -77,21 +104,27 @@
 
 namespace {
 
-// The most warpgroups in one block (one block an SM): bf16 runs 3 (<= 168
-// registers a thread), 4 in the composite (<= 128; measured faster there
-// despite a few spilled registers, slower in run_tmlp); float32 tiles take
-// twice the shared memory, 2. plan_for takes fewer where the buffers of
-// that many do not fit (long rays in the composite, deep float32 nets).
-template <typename T>
-constexpr int wgs_of(bool composite) {
-  return sizeof(T) == 2 ? (composite ? 4 : 3) : 2;
-}
 constexpr int TILE = 64;  // points per warpgroup tile (the M of wgmma)
 // accumulators a thread: a 64 x 128 tile over the warpgroup's 128 threads
 constexpr int NA = 64;
+// The most warpgroups in one block (one block an SM): bf16 runs 3 (<= 168
+// registers a thread), 4 in the composite (<= 128; measured faster there
+// despite a few spilled registers, slower in run_tmlp). The float32 chain
+// keeps two layers' accumulators in registers: 3 in run_tmlp (168, some
+// spilled), 2 in the composite (no spill; faster there, slower in
+// run_tmlp; a narrow run_tmlp kernel for nets no wider than 64, half the
+// accumulators and 3-5 warpgroups, measured no faster). plan_for takes
+// fewer where the buffers of that many do not fit (long rays in the
+// composite).
+constexpr int F32_WGS = 3, F32_COMPOSITE_WGS = 2;
+template <typename T>
+constexpr int wgs_of(bool composite) {
+  return sizeof(T) == 2 ? (composite ? 4 : 3)
+                        : (composite ? F32_COMPOSITE_WGS : F32_WGS);
+}
 constexpr int MAX_LAYERS = 8;
 constexpr int MAX_NT = 16;  // n-tiles of 8 outputs
-constexpr int PAD = 8;      // row padding (elements) of float32 A buffers
+constexpr int PAD = 8;  // row padding of the float32 encoding: stride 8 mod 16
 constexpr int SMEM_LIMIT = 232448;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float HALF_PI = 1.57079632679489661923f;
@@ -501,8 +534,8 @@ __device__ void block_copy(void* dst, const void* src, int bytes) {
 // one-layer buffer that the block refills per layer from net.w (so every
 // warpgroup of the block calls this the same number of times).
 __device__ void chain(const Net& net, const bf16* W, bool stream,
-                      const bf16* enc, int /*lde*/, float* /*h*/, int /*ldh*/,
-                      float (&acc)[NA], int /*warp*/, int /*lane*/) {
+                      const bf16* enc, int /*lde*/, float (&acc)[NA],
+                      int /*warp*/, int /*lane*/) {
   uint32_t hA[NA / 8][4];
   for (int l = 0; l < net.n_layers; ++l) {
     const Layer L = net.layer[l];
@@ -549,61 +582,160 @@ __device__ void chain(const Net& net, const bf16* W, bool stream,
   }
 }
 
-// float32 chain (the parity path): per warp, CUDA-core FMAs over A in
-// shared memory (enc, h) and W^T rows [kout][w_ld] in shared or global
-// memory.
-__device__ __forceinline__ void layer_part(float (&acc)[NA], const float* W,
-                                           int w_ld, int wcol0, const float* A,
-                                           int lda, int kA, int ntiles,
-                                           int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  const float* ar0 = A + g * lda;
-  const float* ar1 = ar0 + 8 * lda;
-  for (int k = 0; k < kA; ++k) {
-    const float x0 = ar0[k], x1 = ar1[k];
+// float32 chain: 3xTF32 (see the note at the top). A k step of 8 takes the
+// lane's A fragment as a[0..3] = (g, 2t), (g + 8, 2t), (g, 2t + 1), (g + 8,
+// 2t + 1) of the step's 8 columns, the k slots t and t + 4 of mma's A; B's
+// slots t and t + 4 are then W^T columns 2t and 2t + 1 of the step, which
+// the core-matrix layout of the slab (TransposedFieldMLP.packed) keeps
+// side by side: block (s, nt) of 8 x 8 at (s * kout / 8 + nt) * 64, row g
+// of it at 8 g, so lane 4 g + t reads its float2 at 2 lane of the block
+// (32 lanes, 256 contiguous bytes: no bank conflict, no address math but
+// the block's constant offset).
+
+// the tf32 rounding of a finite v as cvt.rna.tf32.f32 gives it (to
+// nearest, ties away from zero): two integer instructions, where the
+// conversion takes four (a test for NaN and infinity, and a select)
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}
+
+// v = hi + lo: hi the tf32 rounding of v, lo the rest (v - hi is exact),
+// whose low 13 bits the tensor core drops, so that the products see v to
+// within 2^-21 |v| (CUTLASS's fast 3xTF32 splits the same way; rounding lo
+// too measured 7-9 % slower for no smaller error)
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(v);
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
+// c[0 .. 3], one n-tile's C fragment, += A (16 x 8) * B (8 x 8) in tf32
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// acc += A times the k step's nt_n blocks of W^T from wb (one n-tile of 8
+// outputs each). The three products of an n-tile go into a zeroed
+// fragment, which is then added to acc in float32: the tensor core
+// truncates the sum it writes, and summed into acc that truncation is of
+// acc's size at every product, here of one k step's. With nt_n the constant
+// NT no branch is left between the n-tiles, so that the scheduler
+// interleaves their loads, splits and the three dependent products of each.
+template <int NT>
+__device__ __forceinline__ void k8_step(float (&acc)[NA], const float (&a)[4],
+                                        const float* wb, int lane, int nt_n) {
+  uint32_t ah[4], al[4];
 #pragma unroll
-    for (int nt = 0; nt < NA / 4; ++nt) {
-      if (nt < ntiles) {
-        const float* w0 = W + (nt * 8 + 2 * t) * w_ld + wcol0 + k;
-        const float wa = w0[0], wb = w0[w_ld];
-        acc[4 * nt + 0] += x0 * wa;
-        acc[4 * nt + 1] += x0 * wb;
-        acc[4 * nt + 2] += x1 * wa;
-        acc[4 * nt + 3] += x1 * wb;
-      }
-    }
+  for (int i = 0; i < 4; ++i) split_tf32(a[i], ah[i], al[i]);
+  const float* w = wb + 2 * lane;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    if (nt >= nt_n) break;
+    const float2 b = *reinterpret_cast<const float2*>(w + nt * 64);
+    uint32_t bh0, bl0, bh1, bl1;
+    split_tf32(b.x, bh0, bl0);
+    split_tf32(b.y, bh1, bl1);
+    float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    mma_tf32(c, al, bh0, bh1);
+    mma_tf32(c, ah, bl0, bl1);
+    mma_tf32(c, ah, bh0, bh1);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[4 * nt + i] += c[i];
   }
 }
 
-__device__ void chain(const Net& net, const float* W, bool /*stream*/,
-                      const float* enc, int lde, float* h, int ldh,
-                      float (&acc)[NA], int warp, int lane) {
+// k steps over columns [0, kA) of the encoding, e the lane's (row g,
+// column 2t) of it, against the W^T blocks from wb on
+template <int NT>
+__device__ __forceinline__ void enc_steps(float (&acc)[NA], const float* e,
+                                          int lde, const float* wb, int kA,
+                                          int lane, int nt_n) {
+  for (int k0 = 0; k0 < kA; k0 += 8, wb += nt_n * 64) {
+    const float2 r0 = *reinterpret_cast<const float2*>(e + k0);
+    const float2 r1 = *reinterpret_cast<const float2*>(e + 8 * lde + k0);
+    const float a[4] = {r0.x, r1.x, r0.y, r1.y};
+    k8_step<NT>(acc, a, wb, lane, nt_n);
+  }
+}
+
+// Layer l of nt_n = kout / 8 <= NT n-tiles into acc: A from the encoding
+// (layer 0), else from hid, the previous layer's activations, then the
+// skip layer's encoding part.
+template <int NT>
+__device__ __forceinline__ void layer_f32(float (&acc)[NA],
+                                          const float (&hid)[NA],
+                                          const float* e, int lde,
+                                          const float* Wl, const Layer& L,
+                                          int l, int lane, int nt_n) {
+#pragma unroll
+  for (int i = 0; i < NA; ++i) acc[i] = 0.0f;
+  if (l == 0) {
+    enc_steps<NT>(acc, e, lde, Wl, L.kin_h, lane, nt_n);
+    return;
+  }
+#pragma unroll
+  for (int s = 0; s < NA / 4; ++s) {
+    if (s < L.kin_h / 8) {
+      const float a[4] = {hid[4 * s], hid[4 * s + 2], hid[4 * s + 1],
+                          hid[4 * s + 3]};
+      k8_step<NT>(acc, a, Wl + s * nt_n * 64, lane, nt_n);
+    }
+  }
+  if (L.kin_e)
+    enc_steps<NT>(acc, e, lde, Wl + L.kin_h / 8 * nt_n * 64, L.kin_e, lane,
+                  nt_n);
+}
+
+// Copies `bytes` (a multiple of 16) from global to shared memory with the
+// whole block, every 16-byte piece in flight at once (cp.async).
+__device__ void block_copy_async(void* dst, const void* src, int bytes) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  const char* s = reinterpret_cast<const char*>(src);
+  for (int i = threadIdx.x; i < bytes / 16; i += blockDim.x)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     d + 16 * i),
+                 "l"(s + 16 * i)
+                 : "memory");
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+}
+
+// float32 chain of the warp's 16 rows. W: every layer's W^T slab in shared
+// or global memory, or with `stream` the block's one-layer buffer (as for
+// bf16).
+__device__ void chain(const Net& net, const float* W, bool stream,
+                      const float* enc, int lde, float (&acc)[NA], int warp,
+                      int lane) {
   const int g = lane >> 2, t = lane & 3;
-  enc += 16 * warp * lde;
-  h += 16 * warp * ldh;
+  const float* e = enc + (16 * warp + g) * lde + 2 * t;
+  float hid[NA];  // the previous layer's activations: its accumulators
   for (int l = 0; l < net.n_layers; ++l) {
     const Layer L = net.layer[l];
-    const int ntiles = L.kout / 8;
-#pragma unroll
-    for (int i = 0; i < NA; ++i) acc[i] = 0.0f;
     const float* Wl = W + L.w_off;
-    layer_part(acc, Wl, L.w_ld, 0, l == 0 ? enc : h, l == 0 ? lde : ldh,
-               L.kin_h, ntiles, lane);
-    if (L.kin_e)
-      layer_part(acc, Wl, L.w_ld, L.kin_h, enc, lde, L.kin_e, ntiles, lane);
-    __syncwarp();
+    if (stream) {
+      __syncthreads();  // the previous layer's products are done
+      block_copy_async((void*)W,
+                       reinterpret_cast<const float*>(net.w) + L.w_off,
+                       L.kout * L.w_ld * 4);
+      Wl = W;
+    }
+    // kout: a multiple of 16 up to 128. The widths of the configurations
+    // (128, 64, 32 and the last layers' 16) take a loop of constant length;
+    // the others one loop that leaves the n-tiles past kout / 8.
+    switch (L.kout) {
+      case 16: layer_f32<2>(acc, hid, e, lde, Wl, L, l, lane, 2); break;
+      case 32: layer_f32<4>(acc, hid, e, lde, Wl, L, l, lane, 4); break;
+      case 64: layer_f32<8>(acc, hid, e, lde, Wl, L, l, lane, 8); break;
+      case 128: layer_f32<16>(acc, hid, e, lde, Wl, L, l, lane, 16); break;
+      default: layer_f32<16>(acc, hid, e, lde, Wl, L, l, lane, L.kout / 8);
+    }
     if (l < net.n_layers - 1) {
 #pragma unroll
-      for (int nt = 0; nt < NA / 4; ++nt) {
-        if (nt < ntiles) {
-          float* r0 = h + g * ldh + nt * 8 + 2 * t;
-          r0[0] = act(acc[4 * nt + 0], net.leaky);
-          r0[1] = act(acc[4 * nt + 1], net.leaky);
-          r0[8 * ldh] = act(acc[4 * nt + 2], net.leaky);
-          r0[8 * ldh + 1] = act(acc[4 * nt + 3], net.leaky);
-        }
-      }
-      __syncwarp();
+      for (int i = 0; i < NA; ++i) hid[i] = act(acc[i], net.leaky);
     }
   }
 }
@@ -637,9 +769,9 @@ __device__ __forceinline__ void store_last(const float (&acc)[NA], int ncols,
 enum WeightMode { W_GLOBAL = 0, W_ALL = 1, W_STREAM = 2 };
 
 struct Plan {
-  int lde, ldh, ldo, M;  // M: points per warpgroup step
+  int lde, ldo, M;  // M: points per warpgroup step
   int wgs, w_mode, w_bytes, v_bytes;
-  int enc_b, h_b, out_b, sig_b, wts_b, ts_b, vin_b;
+  int enc_b, out_b, sig_b, wts_b, ts_b, vin_b;
   int per_wg, total;
 };
 
@@ -649,7 +781,6 @@ Plan make_plan(const Net& net, const View* view, int wgs, int M, int ldo,
   Plan p;
   p.wgs = wgs;
   p.lde = sizeof(T) == 2 ? net.ke : net.ke + PAD;  // see enc_index
-  p.ldh = net.hmax + PAD;
   p.ldo = ldo;
   p.M = M;
   p.w_mode = w_mode;
@@ -663,20 +794,19 @@ Plan make_plan(const Net& net, const View* view, int wgs, int M, int ldo,
     }
   p.v_bytes = (view && v_smem) ? align16(view->elems * (int)sizeof(T)) : 0;
   p.enc_b = align16(TILE * p.lde * (int)sizeof(T));
-  p.h_b = sizeof(T) == 4 ? align16(TILE * p.ldh * 4) : 0;
   p.out_b = align16(M * ldo * 4);
   p.sig_b = align16(TILE * 4);
   p.wts_b = composite ? align16(M * 4) : 0;
   p.ts_b = composite ? align16(M * 4) : 0;
   p.vin_b = composite ? 4 * 128 * 4 : 0;
-  p.per_wg = p.enc_b + p.h_b + p.out_b + p.sig_b + p.wts_b + p.ts_b + p.vin_b;
+  p.per_wg = p.enc_b + p.out_b + p.sig_b + p.wts_b + p.ts_b + p.vin_b;
   p.total = p.w_bytes + p.v_bytes + wgs * p.per_wg;
   return p;
 }
 
 struct Bufs {
   void* enc;
-  float *h, *outb, *sig, *wts, *tsb, *vin;
+  float *outb, *sig, *wts, *tsb, *vin;
 };
 
 // Stages the weights (and the view head's) in shared memory as the plan
@@ -699,8 +829,6 @@ __device__ const T* block_setup(const Net& net, const View* view,
   base += pl.v_bytes + (threadIdx.x >> 7) * pl.per_wg;
   b.enc = base;
   base += pl.enc_b;
-  b.h = reinterpret_cast<float*>(base);
-  base += pl.h_b;
   b.outb = reinterpret_cast<float*>(base);
   base += pl.out_b;
   b.sig = reinterpret_cast<float*>(base);
@@ -740,8 +868,7 @@ __device__ __forceinline__ void tile(const Net& net, const Plan& pl,
     __syncwarp();
   }
   float acc[NA];
-  chain(net, W, pl.w_mode == W_STREAM, enc, pl.lde, b.h, pl.ldh, acc, warp,
-        lane);
+  chain(net, W, pl.w_mode == W_STREAM, enc, pl.lde, acc, warp, lane);
   store_last(acc, ncols, has_sigma(net) ? b.sig : nullptr, outb, pl.ldo,
              warp, lane);
   __syncwarp();
@@ -1117,16 +1244,27 @@ bool plan_for(const Net& net, View* view, int max_wgs, int M, int ldo,
     if (L.kout > 8 * MAX_NT || L.kout % 16 || L.kin_h % 16 || L.kin_e % 16)
       return false;
   }
-  // in shared memory, as far as they fit: all the weights (with fewer
-  // warpgroups if need be), the view head; else bf16 weights stream one
-  // layer at a time and float32 weights are read through L2
-  const int modes[2] = {W_ALL, sizeof(T) == 2 ? W_STREAM : W_GLOBAL};
-  for (const int w : modes)
-    for (int wgs = max_wgs; wgs >= 1; --wgs)
-      for (int v = view != nullptr; v >= 0; --v) {
-        pl = make_plan<T>(net, view, wgs, M, ldo, composite, w, v != 0);
-        if (pl.total <= SMEM_LIMIT) return true;
-      }
+  auto fits = [&](int w, int wgs) {  // with the view head there if it fits
+    for (int v = view != nullptr; v >= 0; --v) {
+      pl = make_plan<T>(net, view, wgs, M, ldo, composite, w, v != 0);
+      if (pl.total <= SMEM_LIMIT) return true;
+    }
+    return false;
+  };
+  // bf16 (wgmma reads B from shared memory): all the weights, with fewer
+  // warpgroups if need be, else one layer at a time. float32: as many
+  // warpgroups as fit, with all the weights, else one layer at a time,
+  // else the weights read through L2.
+  const int modes[3] = {W_ALL, W_STREAM, W_GLOBAL};
+  if (sizeof(T) == 2) {
+    for (int m = 0; m < 2; ++m)
+      for (int wgs = max_wgs; wgs >= 1; --wgs)
+        if (fits(modes[m], wgs)) return true;
+    return false;
+  }
+  for (int wgs = max_wgs; wgs >= 1; --wgs)
+    for (int m = 0; m < 3; ++m)
+      if (fits(modes[m], wgs)) return true;
   return false;
 }
 

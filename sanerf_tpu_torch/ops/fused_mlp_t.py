@@ -150,31 +150,33 @@ class TransposedFieldMLP:
 
     # -- plain PyTorch version ------------------------------------------------
 
-    def _rnd(self, x: torch.Tensor) -> torch.Tensor:
-        return x.to(self.dtype).float()
-
-    def forward_plain(self, xT: torch.Tensor) -> torch.Tensor:
-        """xT [3, P] -> last layer [P, kout] float32."""
+    def forward_plain(self, xT: torch.Tensor,
+                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """xT [3, P] -> last layer [P, kout] in `dtype`, the arithmetic
+        from the float32 coordinates on (float64: the reference that float32
+        chains are measured against); activations are rounded to the weight
+        type between layers in either."""
+        rnd = lambda v: v.to(self.dtype).to(dtype)  # noqa: E731
         x = xT.float().T
-        z = x * self.scale
+        z = (x * self.scale).to(dtype)
         s, c = torch.sin(z), torch.sin(z + HALF_PI)
         cols = [z]
         for f in range(self.enc_freqs):
             if f:
                 s, c = 2.0 * s * c, c * c - s * s
             cols += [s, c]
-        cols += [_cp_plain(t, x, self.bound) for t in self.cp]
-        cols += [_vm_plain(p, l, x, self.bound) for p, l in self.vm]
-        enc = self._rnd(torch.cat(cols, dim=1))
+        cols += [_cp_plain(t, x, self.bound, dtype) for t in self.cp]
+        cols += [_vm_plain(p, l, x, self.bound, dtype) for p, l in self.vm]
+        enc = rnd(torch.cat(cols, dim=1))
         sig = None
         if self.scp is not None:
-            sig = _cp_plain(self.scp, x, self.bound).sum(dim=1)
+            sig = _cp_plain(self.scp, x, self.bound, dtype).sum(dim=1)
         if self.svm is not None:
-            s_vm = _vm_plain(*self.svm, x, self.bound).sum(dim=1)
+            s_vm = _vm_plain(*self.svm, x, self.bound, dtype).sum(dim=1)
             sig = s_vm if sig is None else sig + s_vm
         h = enc
         for l, w in enumerate(self.ws):
-            w = w.float()
+            w = w.to(dtype)
             if l in self.skip:
                 hid = h.shape[1]
                 acc = h @ w[:hid] + enc @ w[hid:]
@@ -186,7 +188,7 @@ class TransposedFieldMLP:
                 return acc
             acc = (torch.where(acc >= 0, acc, 0.01 * acc) if self.leaky
                    else torch.clamp(acc, min=0.0))
-            h = self._rnd(acc)
+            h = rnd(acc)
         raise AssertionError("unreachable")
 
     # -- kernel operands --------------------------------------------------------
@@ -195,18 +197,17 @@ class TransposedFieldMLP:
         """(flat weights, int32 descriptor) for csrc/fused_mlp_t.cu, built
         once per device. Each layer is its transpose W^T [kout_pad][kin_h +
         kin_e], the skip layer's encoding block from column kin_h; the
-        encoding width is padded to ke = 16k. float32 slabs are row-major
-        with w_ld = kin_h + kin_e + 8 (the +8 keeps the warps' loads off
-        shared-memory bank conflicts). bfloat16 slabs are what wgmma reads B
-        from (`core_matrices`): w_ld = kin_h + kin_e, 128-byte aligned."""
+        encoding width is padded to ke = 16k. Every slab is `core_matrices`
+        (w_ld = kin_h + kin_e), 128-byte aligned: what wgmma reads B from in
+        bfloat16, and in float32 what the 3xTF32 chain's lanes read their
+        mma.sync B fragments from (lane 4g + t the float2 at 2 lane of a
+        block: W^T row 8 nt + g, columns 8 s + 2t and 8 s + 2t + 1)."""
         if self._packed is not None and self._packed[0].device == device:
             return self._packed
         n = len(self.ws)
         if n > MAX_LAYERS:
             raise NotImplementedError(f"{n} layers > {MAX_LAYERS}")
         ke = _round_up(self.F + self.kc, 16)
-        bf16 = self.dtype == torch.bfloat16
-        align = 64 if bf16 else 8
         desc, slabs, off, kprev, kprev_real = [], [], 0, ke, None
         for l, w in enumerate(self.ws):
             fin, fout = (int(d) for d in w.shape)
@@ -215,7 +216,7 @@ class TransposedFieldMLP:
             kin_h = kprev
             kin_e = ke if l in self.skip and l > 0 else 0
             kout = _round_up(fout, 16)
-            ld = kin_h + kin_e + (0 if bf16 else 8)
+            ld = kin_h + kin_e
             wt = torch.zeros(kout, ld, dtype=torch.float32)
             wf = w.detach().float().cpu()
             if kin_e:
@@ -228,10 +229,10 @@ class TransposedFieldMLP:
                     raise ValueError(f"layer {l} takes {fin} inputs, "
                                      f"layer {l - 1} gives {kprev_real}")
                 wt[:fout, :fin] = wf.T
-            slabs.append(core_matrices(wt) if bf16 else wt.reshape(-1))
+            slabs.append(core_matrices(wt))
             desc += [kin_h, kin_e, kout, fout, off, ld]
-            off += _round_up(kout * ld, align)
-            slabs.append(torch.zeros(_round_up(kout * ld, align) - kout * ld))
+            off += _round_up(kout * ld, 64)
+            slabs.append(torch.zeros(_round_up(kout * ld, 64) - kout * ld))
             kprev, kprev_real = kout, fout
         flat = torch.cat(slabs).to(self.dtype).to(device)
         hmax = max(desc[6 * l + 2] for l in range(n))
@@ -264,9 +265,10 @@ def encode_probes(tm: TransposedFieldMLP) -> list:
 
 def core_matrices(wt: torch.Tensor) -> torch.Tensor:
     """W^T [N, K] (both multiples of 8) -> flat, as wgmma reads B from shared
-    memory K-major without swizzle (csrc/wgmma.cuh): 8x8 core matrices of
-    rows 8n.. and columns 8k.., each row-major, core matrix (k, n) at
-    element (k * N/8 + n) * 64."""
+    memory K-major without swizzle (csrc/wgmma.cuh), and as the float32
+    chain's lanes read mma.sync's B fragments: 8x8 core matrices of rows
+    8n.. and columns 8k.., each row-major, core matrix (k, n) at element
+    (k * N/8 + n) * 64."""
     N, K = wt.shape
     return wt.reshape(N // 8, 8, K // 8, 8).permute(2, 0, 1, 3).reshape(-1)
 
@@ -282,22 +284,24 @@ def _grid_coords(x: torch.Tensor, R: int, bound: float):
 
 
 def _vm_plain(planes: torch.Tensor, lines: torch.Tensor, x: torch.Tensor,
-              bound: float):
+              bound: float, dtype: torch.dtype = torch.float32):
     """VM features [P, 3K] (ops/vmgrid.py:vm_read) at the kernel's
     affine."""
     return vm_read(planes, lines, _grid_coords(x, planes.shape[1], bound),
-                   _grid_coords(x, lines.shape[1], bound))
+                   _grid_coords(x, lines.shape[1], bound), dtype)
 
 
-def _cp_plain(lines: torch.Tensor, x: torch.Tensor, bound: float):
+def _cp_plain(lines: torch.Tensor, x: torch.Tensor, bound: float,
+              dtype: torch.dtype = torch.float32):
     """CP features [P, K] by 2-tap interpolation at u = x * s + o, the
     kernel's affine (ops/cpgrid.py:line_features rounds u another way; at
     millions of points the 1-ulp difference in u shows in the float32
     comparison of the kernel with this version)."""
     i0, i1, f = _grid_coords(x, lines.shape[1], bound)
+    f = f.to(dtype)
     feat = None
     for a in range(3):
-        la = lines[a].float()
+        la = lines[a].to(dtype)
         fa = la[i0[:, a]] * (1.0 - f[:, a:a + 1]) + la[i1[:, a]] * f[:, a:a + 1]
         feat = fa if feat is None else feat * fa
     return feat
@@ -324,18 +328,18 @@ class ViewMLP:
         self.dtype = self.w1.dtype
         self._packed = None
 
-    def forward_plain(self, gsum, wsum, rays8):
-        rnd = lambda x: x.to(self.dtype).float()  # noqa: E731
-        d = rays8[:, 3:6].float()
+    def forward_plain(self, gsum, wsum, rays8, dtype=torch.float32):
+        rnd = lambda x: x.to(self.dtype).to(dtype)  # noqa: E731
+        d = rays8[:, 3:6].to(dtype)
         dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
         inv = torch.rsqrt(dx * dx + dy * dy + dz * dz + 1e-20)
         sh = torch.stack(sh_components(dx * inv, dy * inv, dz * inv,
                                        self.degree), dim=1)
-        w1 = self.w1.float()
+        w1 = self.w1.to(dtype)
         h = (rnd(gsum[:, 1:1 + self.geo]) @ w1[:self.geo]
              + rnd(wsum[:, None] * sh) @ w1[self.geo:])
         for w in self.rest:
-            h = rnd(torch.clamp(h, min=0.0)) @ w.float()
+            h = rnd(torch.clamp(h, min=0.0)) @ w.to(dtype)
         return 1.0 / (1.0 + torch.exp(-h))
 
     def packed(self, device: torch.device):
@@ -371,8 +375,11 @@ class ViewMLP:
 # ---------------------------------------------------------------------------
 
 
-def run_tmlp_plain(xT: torch.Tensor, tm: TransposedFieldMLP) -> torch.Tensor:
-    return tm.forward_plain(xT).T.contiguous()
+def run_tmlp_plain(xT: torch.Tensor, tm: TransposedFieldMLP,
+                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The plain version, in `dtype` arithmetic (TransposedFieldMLP.
+    forward_plain)."""
+    return tm.forward_plain(xT, dtype).T.contiguous()
 
 
 def _unpack_rows(v: torch.Tensor, pack_q: int, T: Optional[int]):
@@ -391,10 +398,14 @@ def _unpack_rows(v: torch.Tensor, pack_q: int, T: Optional[int]):
 def run_tmlp_composite_plain(xT, dl, ts, tm: TransposedFieldMLP,
                              opaque: bool = True,
                              view: Optional[ViewMLP] = None, rays8=None,
-                             pack_q: int = 1, T: Optional[int] = None):
+                             pack_q: int = 1, T: Optional[int] = None,
+                             dtype: torch.dtype = torch.float32):
+    """The plain version, in `dtype` arithmetic from the float32 operands
+    on (TransposedFieldMLP.forward_plain)."""
     dl, ts = _unpack_rows(dl, pack_q, T), _unpack_rows(ts, pack_q, T)
+    dl, ts = dl.to(dtype), ts.to(dtype)
     N, T = dl.shape
-    h3 = tm.forward_plain(xT).reshape(N, T, tm.kout)
+    h3 = tm.forward_plain(xT, dtype).reshape(N, T, tm.kout)
     s = h3[..., 0] - 1.0
     sigma = torch.clamp(s, min=0.0) + torch.log1p(torch.exp(-s.abs()))
     ds = dl * sigma
@@ -410,7 +421,7 @@ def run_tmlp_composite_plain(xT, dl, ts, tm: TransposedFieldMLP,
     wsum = w.sum(dim=1)
     if view is None:
         return gsum, depth, wsum
-    return gsum, depth, wsum, view.forward_plain(gsum, wsum, rays8)
+    return gsum, depth, wsum, view.forward_plain(gsum, wsum, rays8, dtype)
 
 
 # ---------------------------------------------------------------------------

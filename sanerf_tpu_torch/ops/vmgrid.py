@@ -55,8 +55,8 @@ def _coords(x: torch.Tensor, bound: float, R: int):
 
 
 def vm_read(planes: torch.Tensor, lines: torch.Tensor, plane_taps,
-            line_taps) -> torch.Tensor:
-    """VM features [N, 3K] float32 from the taps (i0, i1 [N, 3] long,
+            line_taps, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """VM features [N, 3K] in `dtype` from the taps (i0, i1 [N, 3] long,
     frac [N, 3]) of the planes' and of the lines' resolution: per mode the
     bilinear plane read times the linear line read, in the order of
     operations of the kernels' encode (csrc/fused_mlp_t.cu:vm_level)."""
@@ -66,15 +66,15 @@ def vm_read(planes: torch.Tensor, lines: torch.Tensor, plane_taps,
     feats = []
     for m in range(3):
         a, b = (m + 1) % 3, (m + 2) % 3
-        P = planes[m].reshape(R * R, K).float()
+        P = planes[m].reshape(R * R, K).to(dtype)
         r0, r1 = i0p[:, a] * R, i1p[:, a] * R
         v00, v01 = P[r0 + i0p[:, b]], P[r0 + i1p[:, b]]
         v10, v11 = P[r1 + i0p[:, b]], P[r1 + i1p[:, b]]
-        fa, fb = fp[:, a:a + 1], fp[:, b:b + 1]
+        fa, fb = fp[:, a:a + 1].to(dtype), fp[:, b:b + 1].to(dtype)
         pf = ((v00 * (1 - fb) + v01 * fb) * (1 - fa)
               + (v10 * (1 - fb) + v11 * fb) * fa)
-        L = lines[m].float()
-        f = fl[:, m:m + 1]
+        L = lines[m].to(dtype)
+        f = fl[:, m:m + 1].to(dtype)
         lf = L[i0l[:, m]] * (1 - f) + L[i1l[:, m]] * f
         feats.append(pf * lf)
     return torch.cat(feats, dim=-1)

@@ -8,7 +8,8 @@ nor the JAX package, so it runs where only the port is installed:
 
 Tolerances as in chip_smoke.py: 1e-5 for the ray kernels (ray_level at
 the served launch shapes, with adversarial weight rows and jitter), the JAX suite's
-float32 bounds for the MLP kernels with float32 weights (3e-4 and 1e-3);
+float32 bounds for the MLP kernels with float32 weights (3e-4 and 1e-3),
+and at the full widths also F32_FAITHFUL (1e-5 + 1e-5 |ref|);
 the grid branches in bf16 at 5e-3 and their encode probes at 1e-2, element
 by element; ray_level0 (both of its kernels at every T, N, jitter and
 pack_q), flatten3_nt, the packed ts/dl rows and gather_rows bit for bit;
@@ -410,11 +411,25 @@ MLP_TOL, FLIP_SHARE = 0.05, 1e-5
 #: passes a deep net whose grid reads are left out); the encode probes:
 #: one bf16 step of a feature (PROBE_TOL)
 GRID_TOL, PROBE_TOL = 5e-3, 1e-2
+#: float32 weights also at chip_smoke.py's F32_FAITHFUL: |d| <= 1e-5 + 1e-5
+#: |ref| (the float32 bounds above would pass a one-pass TF32 chain)
+F32_FAITHFUL = 1e-5
+
+
+def _faithful(got, ref):
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        d = (g - r).abs()
+        assert bool((d <= F32_FAITHFUL * (1.0 + r.abs())).all()), float(
+            (d / (1.0 + r.abs())).max())
 
 
 def _held(got, ref, dtype, tol32, tol16=None):
-    """float32 weights at tol32 element by element; bf16 at tol16 element
-    by element when given, else at MLP_TOL with FLIP_SHARE."""
+    """float32 weights at tol32 and at F32_FAITHFUL element by element;
+    bf16 at tol16 element by element when given, else at MLP_TOL with
+    FLIP_SHARE."""
     got = got if isinstance(got, tuple) else (got,)
     ref = ref if isinstance(ref, tuple) else (ref,)
     torch.cuda.synchronize()
@@ -424,6 +439,8 @@ def _held(got, ref, dtype, tol32, tol16=None):
         if dtype == torch.float32 or tol16 is not None:
             tol = tol32 if dtype == torch.float32 else tol16
             torch.testing.assert_close(g, r, rtol=tol, atol=tol)
+            if dtype == torch.float32:
+                _faithful(g, r)
             continue
         d = (g - r).abs()
         n_over = int((d > MLP_TOL + MLP_TOL * r.abs()).sum())
@@ -730,7 +747,9 @@ def test_hash_encode_table_grad_kernel_matches_plain(dev, monkeypatch):
 def test_run_tmlp_composite_default_field_f32(dev, T):
     """The default ModelConfig's field at its full width in float32, as the
     trainer's evaluation renders it: 63 -> 128 x 8 with the skip at 4
-    (191 in), -> 16; the weights past shared memory, read through L2."""
+    (191 in), -> 16, the weights streamed one layer at a time; and a w64 d4
+    proposal net, its weights all in shared memory. Both at the JAX
+    suite's float32 bounds and at F32_FAITHFUL."""
     g = torch.Generator(device=dev).manual_seed(60 + T)
     sizes = ([(63, 128)] + [(128, 128)] * 3 + [(191, 128)] + [(128, 128)] * 2
              + [(128, 16)])
@@ -746,8 +765,11 @@ def test_run_tmlp_composite_default_field_f32(dev, T):
     got = fm.run_tmlp_composite(x, dl, ts, tm, opaque=True, view=view,
                                 rays8=r8)
     assert fm.run_tmlp_composite.launches == before + 1
-    _close(got, fm.run_tmlp_composite_plain(x, dl, ts, tm, True, view, r8),
-           1e-3)
+    ref = fm.run_tmlp_composite_plain(x, dl, ts, tm, True, view, r8)
+    _close(got, ref, 1e-3)
+    _faithful(got, ref)
     p = fm.TransposedFieldMLP(_layers([(33, 64)] + [(64, 64)] * 2
                                       + [(64, 1)], g, dev), 5, 2.0)
-    _close(fm.run_tmlp(x, p, transposed=True), fm.run_tmlp_plain(x, p), 3e-4)
+    got, ref = fm.run_tmlp(x, p, transposed=True), fm.run_tmlp_plain(x, p)
+    _close(got, ref, 3e-4)
+    _faithful(got, ref)
