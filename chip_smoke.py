@@ -116,9 +116,29 @@ Phases (any failure exits non-zero and prints no result line):
      quality_recipe (over the budget: plain-path evaluation, 0 launches)
      and grid_student (fast path): finite losses, tables at
      grid_upsample_targets;
+ B1. the asset at (32, 24) and (24, 12), whose composites take rays of 24
+     and 12 samples (RAGGED_HIERARCHIES): a 512^2 frame through
+     render_frame with the counters set to 0 just before and read just
+     after, every launch held against its plain version as in phase 2 and
+     timed, the fast path against the plain path (PATH_TOL), held-out PSNR
+     against the JAX package's value at that hierarchy
+     (JAX_PSNR_RAGGED_BF16); at (32, 24) one InteractiveSession.step with
+     its launch counts and the packed_epilogue frame (PACKED_TOL, its
+     composite held);
+ B2. ModelConfig(mlp_field_width=256) with numpy-seeded params (WIDE_MC):
+     512^2 RGB frames at (32, 16) and (128, 64, 32) in bf16 and float32,
+     counted, every launch held (bf16 at GRID_TOL, float32 at MLP_F32_TOL
+     and F32_FAITHFUL) and timed; a 64^2 frame against the JAX package's
+     values (JAX_WIDE, 2e-3); Trainer.train for 2 epochs of 4 steps, its
+     float32 evaluation frame's launches counted and held;
+ B3. the asset's field with seeded biases, and its chain over the Fourier
+     features with the dense-sin encode, through the (32, 16) frame's
+     render_frame (counted) and at its level-0 points, bf16 and float32
+     twins, every launch held and timed;
  19. one {"kernels": [...]} line, one {"frames": ...} line, one
      {"interactive": ...} line, one {"hashgrid": ...} line, one
-     {"grids": ...} line, one {"train": ...} line, and last {"ok": true,
+     {"grids": ...} line, one {"train": ...} line, one {"branches": ...}
+     line, the run's wall time {"wall_s": ...}, and last {"ok": true,
      "device": {...}}.
 Kernel times are CUDA events around launches queued behind a sleep
 kernel (`backlog`), so they are the card's time even where the host's
@@ -127,6 +147,7 @@ build/kernels/.
 """
 
 import contextlib
+import copy
 import json
 import math
 import os
@@ -145,6 +166,12 @@ JAX_PSNR_32_16_BF16 = 21.203517998498757
 #: the same at the full (128, 64, 32) hierarchy
 JAX_PSNR_FULL_BF16 = 21.39814067011814
 PSNR_TOL_DB = 0.2
+#: the same at the hierarchies whose final level the composite takes at a T
+#: that neither divides 16 nor is a multiple of it (RAGGED_HIERARCHIES),
+#: from `JAX_PLATFORMS=cpu python port_tools/jax_psnr_reference.py 32,24
+#: 24,12`
+JAX_PSNR_RAGGED_BF16 = {"32,24": 21.50282090357984,
+                        "24,12": 20.66268365014556}
 #: Held-out mask mIoU of assets/serving_student_mask through the JAX
 #: package's XLA path on the CPU, bf16 params, (32, 16), bench.py:173-225
 #: protocol; from `JAX_PLATFORMS=cpu python port_tools/jax_miou_reference.py`.
@@ -207,6 +234,49 @@ SERVE_POSE = [[1, 0, 0, 0], [0, 1, 0, 0], [0, 0, 1, 2.0], [0, 0, 0, 1]]
 SIZE = 512
 HIERARCHIES = {"32,16": (32, 16), "128,64,32": (128, 64, 32)}
 KERNELS = ("ray_level0", "ray_level", "run_tmlp", "run_tmlp_composite")
+#: phase B1: (32, 24) was bench.py's primary hierarchy, (24, 12) the
+#: README's fine-tuned serving one
+RAGGED_HIERARCHIES = {"32,24": (32, 24), "24,12": (24, 12)}
+#: the fast path against the plain path there: image and weights_sum at
+#: PATH_TOL on every ray, depth on all but DEPTH_SHARE of the rays and those
+#: within DEPTH_MAX or the JAX package's own gap between its two paths at
+#: that hierarchy, whichever is larger: at (24, 12) the reference's fast
+#: path is 0.1201 off its XLA path in depth (10 of the band's 65,536 rays
+#: past 2e-3; 0.0290 and 2 at (32, 24)), from `JAX_PLATFORMS=cpu python
+#: port_tools/jax_path_gap.py --steps 32,24 24,12`
+RAGGED_DEPTH_MAX = {"32,24": DEPTH_MAX, "24,12": 0.12013816833496094}
+#: ray_level0 / ray_level / run_tmlp / run_tmlp_composite launches per
+#: 512^2 RGB frame at a two-level hierarchy
+TWO_LEVEL_LAUNCHES = [1, 1, 1, 1]
+#: phase B2: the MLP field at width 256 (`--mlp_width 256`, README's "MLP
+#: family, width 256": 63 -> 256 x 7, the skip at 4, -> 16), numpy-seeded
+#: params of port_tools/grid_params.py:make_flat(shapes, GRID_SEED)
+WIDE_MC = {"mlp_field_width": 256}
+#: its 64^2 frame, RenderConfig() defaults ((128, 64, 32)), float32 params,
+#: through the JAX package's XLA path on the CPU; from
+#: `JAX_PLATFORMS=cpu python port_tools/jax_wide_reference.py`
+JAX_WIDE = {
+    "pixels": [0, 650, 1500, 2015, 2080, 2700, 3333, 4095],
+    "mean": {"image": 0.5018570725223981, "depth": 3.413804577488918,
+             "weights_sum": 0.999999999825377},
+    "image": [[0.5011590123176575, 0.5054100751876831, 0.5108699798583984],
+              [0.5012319684028625, 0.5062021613121033, 0.5096240639686584],
+              [0.499909371137619, 0.504497766494751, 0.5037614703178406],
+              [0.4990406632423401, 0.5022103786468506, 0.5015493035316467],
+              [0.4988788068294525, 0.5017434358596802, 0.5016143918037415],
+              [0.4981839060783386, 0.5041024684906006, 0.5056597590446472],
+              [0.49788030982017517, 0.5053727626800537, 0.5065138339996338],
+              [0.49551844596862793, 0.4976722300052643, 0.5068801641464233]],
+    "depth": [3.4194321632385254, 3.4220995903015137, 3.4112892150878906,
+              3.418302536010742, 3.4261345863342285, 3.4120335578918457,
+              3.406040668487549, 3.4042129516601562],
+    "weights_sum": [0.9999999403953552, 1.0, 0.9999998807907104,
+                    0.9999998807907104, 0.9999998807907104,
+                    1.0000001192092896, 1.0000001192092896, 1.0],
+}
+JAX_WIDE_TOL = 2e-3
+#: phase B3: the seeded biases given to the asset's field, N(0, BIAS_STD)
+BIAS_STD = 0.1
 #: launches per interactive frame (RGB render + 32^2 feature render) of
 #: ray_level0 / ray_level / run_tmlp / run_tmlp_composite / flatten3_nt
 INTERACTIVE_LAUNCHES = {"32,16": [2, 2, 3, 1, 0],
@@ -722,6 +792,63 @@ def hash_step_phase(dev, textured):
             "backward": bwd}, bwd, per_launch
 
 
+def path_gap(renderer, fast_model, slow_model, params, rays_o, rays_d, what,
+             depth_max=DEPTH_MAX):
+    """The fast path against the plain path (slow_model) on rows 128-255 of
+    the frame (the band of port_tools/jax_path_gap.py), float32 params:
+    image and weights_sum within PATH_TOL on every ray, depth on all but
+    DEPTH_SHARE of the rays and those within depth_max. -> {output:
+    {max_abs_err, rays_over}}."""
+    import torch
+
+    band = slice(SIZE * SIZE // 4, SIZE * SIZE // 2)
+    fast = renderer.run_rays(fast_model, params, rays_o[band], rays_d[band])
+    slow = renderer.run_rays(slow_model, params, rays_o[band], rays_d[band])
+    torch.cuda.synchronize()
+    out = {}
+    for k in ("image", "depth", "weights_sum"):
+        d = (fast[k] - slow[k]).abs()
+        over = d > PATH_TOL + PATH_TOL * slow[k].abs()
+        if over.dim() > 1:
+            over, d = over.any(dim=-1), d.amax(dim=-1)
+        n_over, e = int(over.sum()), float(d.max())
+        out[k] = {"max_abs_err": e, "rays_over": n_over}
+        allowed = math.floor(DEPTH_SHARE * d.numel()) if k == "depth" else 0
+        check(n_over <= allowed and (k != "depth" or e <= depth_max),
+              f"{what}: fast path {k} off the plain path: max {e:.3g}, "
+              f"{n_over} of {d.numel()} rays past {PATH_TOL}")
+    del fast, slow
+    torch.cuda.empty_cache()
+    return out
+
+
+def heldout_psnr(renderer, model, params, nets, dev, what):
+    """Held-out PSNR of a 128^2 model by the bench.py:149-170 protocol
+    (textured fixture, 8 views, ring radius 1.8, per-view cam_near_far,
+    render_staged)."""
+    import numpy as np
+    import torch
+
+    from sanerf_tpu_torch.data.synthetic import SyntheticSphereDataset
+    from sanerf_tpu_torch.train.metrics import PSNRMeter
+
+    ds = SyntheticSphereDataset(H=128, W=128, n_views=8, radius=1.8,
+                                scene="textured", training=False)
+    meter = PSNRMeter()
+    for idx in range(len(ds)):
+        fr = ds.frame(idx)
+        out = renderer.render_staged(
+            model, params, torch.as_tensor(fr["rays_o"], device=dev),
+            torch.as_tensor(fr["rays_d"], device=dev),
+            cam_near_far=torch.as_tensor(fr["cam_near_far"], device=dev),
+            nets=nets)
+        img = out["image"].float().cpu().numpy()
+        check(np.isfinite(img).all() and img.shape == (128 * 128, 3),
+              f"{what}: PSNR frame {idx} not finite or misshapen")
+        meter.update(img, fr["images"])
+    return meter.measure()
+
+
 def field_of(name, a):
     """The TransposedFieldMLP of a run_tmlp / run_tmlp_composite launch."""
     return a[1] if name == "run_tmlp" else a[3]
@@ -814,6 +941,7 @@ def shape_key(a, k):
 def main():
     import torch
 
+    t_wall = time.time()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
     if not os.path.isdir(os.path.join(ROOT, "sanerf_tpu_torch")):
@@ -827,13 +955,11 @@ def main():
     import numpy as np
 
     from sanerf_tpu_torch.data.rays import full_frame_rays
-    from sanerf_tpu_torch.data.synthetic import SyntheticSphereDataset
     from sanerf_tpu_torch.models import fields, renderer
     from sanerf_tpu_torch.models.asset import load_asset
     from sanerf_tpu_torch.ops import _build
     from sanerf_tpu_torch.ops import fused_mlp_t as fm
     from sanerf_tpu_torch.ops import ray_kernels as rk
-    from sanerf_tpu_torch.train.metrics import PSNRMeter
     from sanerf_tpu_torch.utils.camera import fov_to_focal
 
     # -- 1. build + card --------------------------------------------------
@@ -1042,30 +1168,13 @@ def main():
     log(f"launches per frame {per_frame}")
     del frames
 
-    # fast vs plain path, float32 params, on a quarter of the frame (rows
-    # 128-255, the band of port_tools/jax_path_gap.py)
-    band = slice(SIZE * SIZE // 4, SIZE * SIZE // 2)
+    # fast vs plain path, float32 params, on a quarter of the frame
     path_err = {}
     for h, steps in HIERARCHIES.items():
-        fast = renderer.run_rays(model_at(steps), params32, rays_o[band],
-                                 rays_d[band])
-        slow = renderer.run_rays(model_at(steps, use_fused_mlp=False),
-                                 params32, rays_o[band], rays_d[band])
-        torch.cuda.synchronize()
-        for k in ("image", "depth", "weights_sum"):
-            d = (fast[k] - slow[k]).abs()
-            over = d > PATH_TOL + PATH_TOL * slow[k].abs()
-            if over.dim() > 1:
-                over, d = over.any(dim=-1), d.amax(dim=-1)
-            n_over, e = int(over.sum()), float(d.max())
-            path_err[f"{h}/{k}"] = {"max_abs_err": e, "rays_over": n_over}
-            allowed = (math.floor(DEPTH_SHARE * d.numel()) if k == "depth"
-                       else 0)
-            check(n_over <= allowed and (k != "depth" or e <= DEPTH_MAX),
-                  f"{h}: fast path {k} off the plain path: max {e:.3g}, "
-                  f"{n_over} of {d.numel()} rays past {PATH_TOL}")
-        del fast, slow
-        torch.cuda.empty_cache()
+        gap = path_gap(renderer, model_at(steps),
+                       model_at(steps, use_fused_mlp=False), params32, rays_o,
+                       rays_d, h)
+        path_err.update({f"{h}/{k}": v for k, v in gap.items()})
     log(f"fast vs plain (f32 params): {path_err}")
 
     def frame_ms(model, n=5):
@@ -1184,25 +1293,9 @@ def main():
     del seen, calls
 
     # -- 4. held-out PSNR on the textured fixture ---------------------------
-    ds = SyntheticSphereDataset(H=128, W=128, n_views=8, radius=1.8,
-                                scene="textured", training=False)
-    psnr = {}
-    for h, steps in HIERARCHIES.items():
-        model = fields.make_model(mc, dataclasses.replace(
-            rc, num_steps=steps, max_ray_batch=128 * 128))
-        meter = PSNRMeter()
-        for idx in range(len(ds)):
-            fr = ds.frame(idx)
-            out = renderer.render_staged(
-                model, params, torch.as_tensor(fr["rays_o"], device=dev),
-                torch.as_tensor(fr["rays_d"], device=dev),
-                cam_near_far=torch.as_tensor(fr["cam_near_far"], device=dev),
-                nets=nets)
-            img = out["image"].float().cpu().numpy()
-            check(np.isfinite(img).all() and img.shape == (128 * 128, 3),
-                  f"{h}: PSNR frame {idx} not finite or misshapen")
-            meter.update(img, fr["images"])
-        psnr[h] = meter.measure()
+    psnr = {h: heldout_psnr(renderer, fields.make_model(mc, dataclasses.replace(
+        rc, num_steps=steps, max_ray_batch=128 * 128)), params, nets, dev, h)
+        for h, steps in HIERARCHIES.items()}
     jax_psnr = {"32,16": JAX_PSNR_32_16_BF16, "128,64,32": JAX_PSNR_FULL_BF16}
     for h, ref in jax_psnr.items():
         check(abs(psnr[h] - ref) <= PSNR_TOL_DB,
@@ -1276,6 +1369,11 @@ def main():
                 "asset_f64_err": e_k, "asset_cublas_f64_err": e_p}
     del train["eval_launches"]
     rows += train.pop("rows")
+    torch.cuda.empty_cache()
+    branches = branch_phases(torch, np, dev, card, compare, launch_times,
+                             kern_fn, model_at, rays_o, rays_d, nets, params,
+                             params32, mc, rc)
+    rows += branches.pop("rows")
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({
@@ -1291,6 +1389,8 @@ def main():
     print(json.dumps({"hashgrid": hgrid}), flush=True)
     print(json.dumps({"grids": grids}), flush=True)
     print(json.dumps({"train": train}), flush=True)
+    print(json.dumps({"branches": branches}), flush=True)
+    print(json.dumps({"wall_s": time.time() - t_wall}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
@@ -2684,6 +2784,390 @@ def train_phases(torch, np, dev, card, compare, launch_times, kern_fn):
             "hashgrid_step": hstep,
             "grid_recipe": recipe, "card": card, "rows": [row],
             "eval_launches": eval_launches}
+
+
+def branch_phases(torch, np, dev, card, compare, launch_times, kern_fn,
+                  model_at, rays_o, rays_d, nets, params, params32, mc, rc):
+    """Phases B1-B4: the field kernels' branches beyond the served (32, 16)
+    and (128, 64, 32) frames. -> the {"branches": ...} record, with the
+    kernel rows of those launches under "rows"."""
+    import dataclasses
+    import shutil
+
+    from sanerf_tpu_torch.apps.interactive import InteractiveSession
+    from sanerf_tpu_torch.config import Config, ModelConfig, RenderConfig
+    from sanerf_tpu_torch.data.synthetic import SyntheticSphereDataset
+    from sanerf_tpu_torch.models import fields, renderer
+    from sanerf_tpu_torch.models.asset import (expected_shapes, load_asset,
+                                               params_from_jax)
+    from sanerf_tpu_torch.models.sam import predictor as sam_mod
+    from sanerf_tpu_torch.ops import fused_mlp_t as fm
+    from sanerf_tpu_torch.ops import ray_kernels as rk
+    from sanerf_tpu_torch.train.trainer import Trainer
+    from sanerf_tpu_torch.train.tree import leaves_with_paths
+
+    sys.path.insert(0, os.path.join(ROOT, "port_tools"))
+    import grid_params as gp
+
+    counters = [rk.ray_level0, rk.ray_level, fm.run_tmlp,
+                fm.run_tmlp_composite]
+    mlps = ("run_tmlp", "run_tmlp_composite")
+    pose = np.asarray(SERVE_POSE, np.float32)
+    errs, errs32, past, launch_t = {}, {}, {}, {}
+
+    def zero(cs=counters):
+        torch.cuda.synchronize()
+        for c in cs:
+            c.launches = 0
+
+    def spied(fn):
+        calls = {}
+        with spying(renderer, fields, kern_fn, calls, None):
+            fn()
+        torch.cuda.synchronize()
+        return {n: v for (_, n), v in calls.items()}
+
+    def twin_of(pairs):
+        return lambda a, k: (tuple(pairs.get(id(v), v) for v in a),
+                             {kk: pairs.get(id(v), v) for kk, v in k.items()})
+
+    def hold(key, name, a, k, f32, seeded):
+        """One launch against its plain version: ray kernels at RAY_TOL;
+        bf16 weights at MLP_TOL with FLIP_SHARE (trained weights) or
+        GRID_TOL element by element (seeded weights, `seeded`); float32
+        weights, and with `f32` the float32 twins f32(a, k) of bf16 ones,
+        at MLP_F32_TOL and at F32_FAITHFUL (seeded) or against the float64
+        plain version (trained)."""
+        if name.startswith("ray"):
+            e, n = compare(name, a, k, RAY_TOL, flips=False)
+        elif field_of(name, a).dtype == torch.float32:
+            e, n = compare(name, a, k, MLP_F32_TOL[name], flips=False,
+                           faithful_hold=seeded)
+        elif seeded:
+            e, n = compare(name, a, k, GRID_TOL, flips=False)
+        else:
+            e, n = compare(name, a, k, MLP_TOL, flips=True)
+        errs.setdefault(key, {})[name] = max(errs.get(key, {}).get(name, 0.0),
+                                             e)
+        past.setdefault(key, {})[name] = past.get(key, {}).get(name, 0) + n
+        if f32 is not None and not name.startswith("ray"):
+            e32, _ = compare(name, *f32(a, k), MLP_F32_TOL[name], flips=False,
+                             faithful_hold=seeded)
+            errs32.setdefault(key, {})[name] = max(
+                errs32.get(key, {}).get(name, 0.0), e32)
+
+    def frame_path(key, model, p, frame_nets, expect, f32, seeded):
+        """One 512^2 RGB frame with the counters set to 0 just before and
+        read just after (expect: ray_level0 / ray_level / run_tmlp /
+        run_tmlp_composite), every launch of it held and timed."""
+        def frame():
+            return renderer.render_frame(model, p, rays_o, rays_d,
+                                         chunk=SIZE * SIZE, nets=frame_nets)
+        zero()
+        out = frame()
+        torch.cuda.synchronize()
+        n = [c.launches for c in counters]
+        check(n == expect, f"{key}: launches {n}, expected {expect}")
+        for kk in ("image", "depth", "weights_sum"):
+            check(bool(torch.isfinite(out[kk]).all()), f"{key}: {kk}")
+        check(float(out["weights_sum"].min()) > 0.5,
+              f"{key}: weights_sum {float(out['weights_sum'].min())}")
+        del out
+        calls = spied(frame)
+        for name in KERNELS:
+            for a, k in calls.get(name, []):
+                hold(key, name, a, k, f32, seeded)
+        launch_t[key] = {name: launch_times(name, calls[name])
+                         for name in mlps}
+        del calls
+        ts_ = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            frame()
+            torch.cuda.synchronize()
+            ts_.append((time.perf_counter() - t) * 1e3)
+        torch.cuda.empty_cache()
+        return n, statistics.median(ts_[1:])
+
+    rec = {"card": card}
+    n32 = fields.KernelNets(model_at((32, 16)), params32)
+    twin = twin_of({id(a): b for a, b in zip(
+        [*nets.props, nets.field, nets.view],
+        [*n32.props, n32.field, n32.view])})
+
+    # -- B1. the asset at (32, 24) and (24, 12) -------------------------------
+    ragged = {}
+    for h, steps in RAGGED_HIERARCHIES.items():
+        model = model_at(steps)
+        n, ms = frame_path(f"asset {h}", model, params, nets,
+                           TWO_LEVEL_LAUNCHES, twin, seeded=False)
+        gap = path_gap(renderer, model, model_at(steps, use_fused_mlp=False),
+                       params32, rays_o, rays_d, f"asset {h}",
+                       RAGGED_DEPTH_MAX[h])
+        psnr = heldout_psnr(renderer, fields.make_model(
+            mc, dataclasses.replace(rc, num_steps=steps,
+                                    max_ray_batch=128 * 128)),
+            params, nets, dev, h)
+        check(abs(psnr - JAX_PSNR_RAGGED_BF16[h]) <= PSNR_TOL_DB,
+              f"{h}: PSNR {psnr:.3f} dB vs JAX "
+              f"{JAX_PSNR_RAGGED_BF16[h]:.3f} dB")
+        ragged[h] = {"launches_per_frame": n, "frame_ms": ms,
+                     "fast_vs_plain_f32": gap, "psnr_db": psnr,
+                     "jax_psnr_db_bf16_cpu": JAX_PSNR_RAGGED_BF16[h]}
+    log(f"B1 asset at ragged T: {ragged}")
+
+    # the interactive frame and the packed epilogue at (32, 24)
+    h, steps = "32,24", RAGGED_HIERARCHIES["32,24"]
+    mcs, rcs, ps32 = load_asset(os.path.join(ROOT, "assets",
+                                             "serving_student"),
+                                device=dev, with_sam=True, seed=0)
+    sam_cfg = sam_mod.SamConfig()
+    sess = InteractiveSession(
+        None, fields.make_model(mcs, dataclasses.replace(
+            rcs, num_steps=steps, max_ray_batch=SIZE * SIZE)),
+        fields.cast_params(ps32, torch.bfloat16),
+        sam_mod.SamPredictor(sam_cfg, fields.cast_params(sam_mod.init_params(
+            sam_cfg, torch.Generator().manual_seed(1), dev)), device=dev),
+        H=SIZE, W=SIZE, device=dev)
+    sess.step(pose)
+    sess.points_3d.append(np.zeros(3, np.float32))
+    sess.step(pose)
+    zero(counters + [rk.flatten3_nt])
+    r = sess.step(pose, pipelined=False)
+    torch.cuda.synchronize()
+    inter_n = [c.launches for c in counters + [rk.flatten3_nt]]
+    check(inter_n == INTERACTIVE_LAUNCHES["32,16"],
+          f"{h}: interactive launches {inter_n}, expected "
+          f"{INTERACTIVE_LAUNCHES['32,16']}")
+    check(r.rgb_u8.shape == (SIZE, SIZE, 3)
+          and bool(torch.isfinite(r.depth).all()) and r.mask is not None,
+          f"{h}: interactive frame")
+    ragged[h]["interactive_launches"] = inter_n
+    del sess, r, ps32
+    torch.cuda.empty_cache()
+    ref = renderer.render_frame(model_at(steps), params, rays_o, rays_d,
+                                chunk=SIZE * SIZE, nets=nets)
+    packed_model = model_at(steps, packed_epilogue=True)
+    zero()
+    fm.run_tmlp_composite.packed_launches = 0
+    got = renderer.render_frame(packed_model, params, rays_o, rays_d,
+                                chunk=SIZE * SIZE, nets=nets)
+    torch.cuda.synchronize()
+    packed_n = fm.run_tmlp_composite.packed_launches
+    check(packed_n == 1, f"{h}: packed composite launches {packed_n}")
+    packed_err = {}
+    for k in ("image", "depth", "weights_sum"):
+        d = (got[k] - ref[k]).abs()
+        packed_err[k] = float(d.max())
+        check(bool((d <= PACKED_TOL + PACKED_TOL * ref[k].abs()).all()),
+              f"{h}: packed epilogue {k} off the default by {d.max():.3g}")
+    del got, ref
+    pcalls = spied(lambda: renderer.render_frame(
+        packed_model, params, rays_o, rays_d, chunk=SIZE * SIZE, nets=nets))
+    for a, k in pcalls["run_tmlp_composite"]:
+        check(k.get("pack_q", 1) > 1, f"{h}: the composite was not packed")
+        hold(f"asset {h} packed", "run_tmlp_composite", a, k, twin, False)
+    launch_t[f"asset {h} packed"] = {"run_tmlp_composite": launch_times(
+        "run_tmlp_composite", pcalls["run_tmlp_composite"])}
+    ragged[h].update(packed_launches=packed_n,
+                     packed_vs_default_max_abs_err=packed_err)
+    del pcalls
+    log(f"B1 (32, 24): interactive {inter_n}, packed {packed_err}")
+    rec["asset_ragged_T"] = ragged
+
+    # -- B2. the width-256 field ----------------------------------------------
+    wide = {"config": WIDE_MC, "seed": GRID_SEED}
+    mw = fields.make_model(ModelConfig(**WIDE_MC), RenderConfig(
+        num_steps=(32, 16), max_ray_batch=SIZE * SIZE))
+    check(renderer.uses_kernels(mw), "width 256: not on the fast path")
+    pw32 = params_from_jax(gp.make_flat(expected_shapes(mw), GRID_SEED), mw,
+                           dev)
+    pw = fields.cast_params(pw32, torch.bfloat16)
+    wn, wn32 = fields.KernelNets(mw, pw), fields.KernelNets(mw, pw32)
+    wide["frames"] = {}
+    for h, steps in HIERARCHIES.items():
+        model = fields.make_model(ModelConfig(**WIDE_MC), RenderConfig(
+            num_steps=steps, max_ray_batch=SIZE * SIZE))
+        for dt, p, nn in (("bf16", pw, wn), ("f32", pw32, wn32)):
+            key = f"w256 {h} {dt}"
+            n, ms = frame_path(key, model, p, nn, GRID_LAUNCHES[h], None,
+                               seeded=True)
+            wide["frames"][key] = {"launches_per_frame": n, "frame_ms": ms}
+    o64, d64 = (torch.from_numpy(a).to(dev) for a in gp.frame_rays(64))
+    out = renderer.run_rays(fields.make_model(ModelConfig(**WIDE_MC),
+                                              RenderConfig()), pw32, o64, d64)
+    px = torch.tensor(JAX_WIDE["pixels"], device=dev)
+    jax_err = {}
+    for k in ("mean", "image", "depth", "weights_sum"):
+        if k == "mean":
+            got_v = np.asarray([float(out[m].double().mean())
+                                for m in JAX_WIDE["mean"]])
+            want = np.asarray(list(JAX_WIDE["mean"].values()))
+        else:
+            got_v = out[k][px].double().cpu().numpy()
+            want = np.asarray(JAX_WIDE[k])
+        d = np.abs(got_v - want)
+        jax_err[k] = float(d.max())
+        check(bool((d <= JAX_WIDE_TOL + JAX_WIDE_TOL * np.abs(want)).all()),
+              f"width 256 {k} off the JAX values: max {d.max():.3g}")
+    wide["vs_jax_max_abs_err"] = jax_err
+    del out, wn, wn32, pw, pw32
+    torch.cuda.empty_cache()
+    # Trainer.train with a float32 evaluation through the kernels
+    ws = os.path.join(ROOT, "build", "chip_smoke_wide")
+    shutil.rmtree(ws, ignore_errors=True)
+    cfg = Config(workspace=ws, model=ModelConfig(**WIDE_MC))
+    tmodel = fields.make_model(cfg.model, cfg.render)
+    tr = Trainer("w256", cfg, tmodel, use_checkpoint="scratch", device=dev)
+    textured = SyntheticSphereDataset(H=64, W=64, n_views=8, scene="textured")
+    valid = SyntheticSphereDataset(H=EVAL_SIZE, W=EVAL_SIZE, n_views=2,
+                                   scene="textured", training=False)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        tr.train(textured, valid_dataset=valid, max_epoch=TRAIN_EPOCHS,
+                 steps_per_epoch=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    check(tr.global_step == TRAIN_EPOCHS * TRAIN_STEPS,
+          f"width 256: {tr.global_step} steps")
+    eparams = tr.eval_params()
+    check(all(t.dtype == torch.float32 for _, t in leaves_with_paths(eparams)),
+          "width 256: evaluation weights not float32")
+    ecalls = {}
+    zero()
+    with spying(renderer, fields, kern_fn, ecalls, None):
+        tr._render(eparams, valid.frame(0))
+    torch.cuda.synchronize()
+    eval_n = [c.launches for c in counters]
+    check(all(v > 0 for v in eval_n),
+          f"width 256: the evaluation frame missed a kernel: {eval_n}")
+    for (_, name), ls in ecalls.items():
+        for a, k in ls:
+            hold("w256 train eval f32", name, a, k, None, seeded=True)
+    launch_t["w256 train eval f32"] = {
+        name: launch_times(name, ecalls[(None, name)]) for name in mlps}
+    wide["train"] = {"steps": tr.global_step, "seconds": train_s,
+                     "eval_launches": eval_n, "eval_size": EVAL_SIZE}
+    del tr, eparams, ecalls
+    shutil.rmtree(ws, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"B2 width 256: {wide}")
+    rec["w256"] = wide
+
+    # -- B3. biased and dense-sin nets at the asset's widths and frame shapes:
+    # the asset's field (bf16 and its float32 twin) with seeded biases, and
+    # its chain over the Fourier features alone with the dense-sin encode;
+    # each drives the (32, 16) RGB frame's composite through render_frame,
+    # and run_tmlp at the frame's level-0 points
+    m16 = model_at((32, 16))
+    x0 = spied(lambda: renderer.render_frame(
+        m16, params, rays_o, rays_d, chunk=SIZE * SIZE,
+        nets=nets))["run_tmlp"][0][0][0]
+    variants = {}
+    for dt, f in (("bf16", nets.field), ("f32", n32.field)):
+        g = np.random.default_rng(GRID_SEED)  # the same biases in both
+        bias = [torch.from_numpy(g.normal(0, BIAS_STD, w.shape[1]).astype(
+            np.float32)).to(dev) for w in f.ws]
+        biased = fm.TransposedFieldMLP(
+            [{"w": w, "b": b} for w, b in zip(f.ws, bias)], f.enc_freqs,
+            f.bound, f.skip, leaky=f.leaky, cp_lines=f.cp,
+            sigma_cp_lines=f.scp)
+        fourier = []
+        for l, w in enumerate(f.ws):
+            if l == 0:
+                w = w[:f.F]
+            elif l in f.skip:
+                hid = int(f.ws[l - 1].shape[1])
+                w = torch.cat([w[:hid], w[hid:hid + f.F]])
+            fourier.append({"w": w.contiguous()})
+        dense = fm.TransposedFieldMLP(fourier, f.enc_freqs, f.bound, f.skip,
+                                      leaky=f.leaky, angle_double=False)
+        variants[dt] = {"bias": biased, "dense_sin": dense}
+    vtwin = twin_of({id(a): b for a, b in zip(
+        [variants["bf16"]["bias"], variants["bf16"]["dense_sin"], nets.view,
+         *nets.props],
+        [variants["f32"]["bias"], variants["f32"]["dense_sin"], n32.view,
+         *n32.props])})
+    branch_n = {}
+    for kind in ("bias", "dense_sin"):
+        key = f"asset 32,16 {kind}"
+        bnets = copy.copy(nets)
+        bnets.field = variants["bf16"][kind]
+
+        def frame():
+            return renderer.render_frame(m16, params, rays_o, rays_d,
+                                         chunk=SIZE * SIZE, nets=bnets)
+        zero()
+        out = frame()
+        torch.cuda.synchronize()
+        branch_n[kind] = [c.launches for c in counters]
+        check(branch_n[kind] == TWO_LEVEL_LAUNCHES and bool(
+            torch.isfinite(out["image"]).all()),
+              f"{key}: launches {branch_n[kind]}, finite image")
+        del out
+        calls = spied(frame)
+        calls["run_tmlp"] = [((x0, bnets.field), {"transposed": True})]
+        for name in mlps:
+            for a, k in calls[name]:
+                hold(key, name, a, k, vtwin, seeded=False)
+        launch_t[key] = {name: launch_times(name, calls[name])
+                         for name in mlps}
+        del calls
+    del variants, x0
+    torch.cuda.empty_cache()
+    log(f"B3 biased / dense-sin at the asset's frame shapes: "
+        f"{ {k: errs[k] for k in errs if 'bias' in k or 'dense' in k} }")
+
+    def row(name, kernel, key, launches, launches_of):
+        lt = launch_t[key][kernel][0]
+        return {"name": name, "route": "cuda", "source": SOURCES[kernel][0],
+                "replaces": SOURCES[kernel][1], "launches": launches,
+                "launches_of": launches_of,
+                "max_abs_err": errs[key][kernel],
+                "max_abs_err_f32_weights": errs32.get(key, {}).get(kernel),
+                "ms": lt["ms"], "plain_ms": lt["plain_ms"],
+                "bound_ms": lt["bound_ms"], "bound_by": lt["bound_by"],
+                "library_ms": None,
+                "library": "none: no single PyTorch call computes this "
+                           "function",
+                "shape": lt["shape"], "launch_times": launch_t[key][kernel]}
+
+    rows = [
+        row("run_tmlp_composite[T=24]", "run_tmlp_composite", "asset 32,24",
+            ragged["32,24"]["launches_per_frame"][3],
+            "the asset's 512^2 RGB frame at (32, 24)"),
+        row("run_tmlp_composite[T=12]", "run_tmlp_composite", "asset 24,12",
+            ragged["24,12"]["launches_per_frame"][3],
+            "the asset's 512^2 RGB frame at (24, 12)"),
+        row("run_tmlp_composite[T=24 packed]", "run_tmlp_composite",
+            "asset 32,24 packed", packed_n,
+            "the asset's 512^2 packed_epilogue frame at (32, 24)")]
+    for kern in mlps:
+        for h in HIERARCHIES:
+            for dt in ("bf16", "f32"):
+                key = f"w256 {h} {dt}"
+                rows.append(row(
+                    f"{kern}[w256 {h} {dt}]", kern, key,
+                    wide["frames"][key]["launches_per_frame"][
+                        KERNELS.index(kern)],
+                    f"the width-256 field's 512^2 RGB frame at {h}, {dt}"))
+        rows.append(row(f"{kern}[w256 train eval f32]", kern,
+                        "w256 train eval f32",
+                        wide["train"]["eval_launches"][KERNELS.index(kern)],
+                        "the width-256 Trainer's 64^2 float32 evaluation "
+                        "frame"))
+        for kind in ("bias", "dense_sin"):
+            rows.append(row(
+                f"{kern}[{kind}]", kern, f"asset 32,16 {kind}",
+                branch_n[kind][KERNELS.index(kern)],
+                f"the asset's 512^2 RGB frame at (32, 16) with the {kind} "
+                f"field; its run_tmlp launch is the proposal net's, the "
+                f"{kind} field's run_tmlp is held at the frame's level-0 "
+                f"points"))
+    rec.update(max_abs_err=errs, max_abs_err_f32_weights=errs32,
+               outputs_past_tol=past, rows=rows)
+    return rec
 
 
 if __name__ == "__main__":

@@ -103,7 +103,7 @@ _HID = """#pragma unroll
     }
   }"""
 
-_ENC = """  for (int k0 = 0; k0 < kA; k0 += 8, wb += nt_n * 64) {
+_ENC = """  for (int k0 = 0; k0 < kA; k0 += 8, wb += kst) {
     const float2 r0 = *reinterpret_cast<const float2*>(e + k0);
     const float2 r1 = *reinterpret_cast<const float2*>(e + 8 * lde + k0);
     const float a[4] = {r0.x, r1.x, r0.y, r1.y};
@@ -160,14 +160,14 @@ VARIANTS = {
       }
     }
   }"""]],
-    "enc_pairs": [[_ENC, """  for (int k0 = 0; k0 < kA; k0 += 16, wb += 2 * nt_n * 64) {
+    "enc_pairs": [[_ENC, """  for (int k0 = 0; k0 < kA; k0 += 16, wb += 2 * kst) {
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const float2 r0 = *reinterpret_cast<const float2*>(e + k0 + 8 * j);
       const float2 r1 =
           *reinterpret_cast<const float2*>(e + 8 * lde + k0 + 8 * j);
       const float a[4] = {r0.x, r1.x, r0.y, r1.y};
-      k8_step<NT>(acc, a, wb + j * nt_n * 64, lane, nt_n);
+      k8_step<NT>(acc, a, wb + j * kst, lane, nt_n);
     }
   }"""]],
     "wgs2": [[_WGS, "F32_WGS = 2, F32_COMPOSITE_WGS = 2;"]],

@@ -9,9 +9,11 @@ against dense Fourier features, the clamped-ramp resample against
 sample_pdf), and on a few rays whose weight sits between two depths the
 depth moves by more than the 2e-3 the port's fast path is held to against
 its plain path. This script measures that gap in the reference itself.
-Prints one JSON line per hierarchy.
+Prints one JSON line per hierarchy (`--steps`, each as comma-separated
+sample counts; default 32,16 128,64,32).
 
-    JAX_PLATFORMS=cpu python port_tools/jax_path_gap.py [--rows 128 256]
+    JAX_PLATFORMS=cpu python port_tools/jax_path_gap.py [--rows 128 256] \
+        [--steps 32,24 24,12]
 """
 
 import argparse
@@ -43,6 +45,7 @@ TOL = 2e-3
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--rows", type=int, nargs=2, default=(128, 256))
+    ap.add_argument("--steps", nargs="+", default=["32,16", "128,64,32"])
     args = ap.parse_args()
     asset = os.path.join(ROOT, "assets", "serving_student")
     with open(asset + ".json") as f:
@@ -53,7 +56,7 @@ def main():
     o, d = full_frame_rays(jnp.asarray(POSE, jnp.float32),
                            jnp.asarray([focal, focal, SIZE / 2, SIZE / 2],
                                        jnp.float32), SIZE, SIZE)
-    for steps in [(32, 16), (128, 64, 32)]:
+    for steps in [tuple(int(v) for v in h.split(",")) for h in args.steps]:
         t0 = time.time()
         outs = {}
         for fused in (True, False):

@@ -4,9 +4,10 @@
 
 Protocol of bench.py:149-170: textured fixture, 128^2, 8 views, ring radius
 1.8, per-view `cam_near_far`, `render_staged`. Prints one JSON line per
-(hierarchy, param dtype).
+(hierarchy, param dtype); the hierarchies are the arguments, each as
+comma-separated sample counts (default: 32,16 128,64,32).
 
-    JAX_PLATFORMS=cpu python port_tools/jax_psnr_reference.py
+    JAX_PLATFORMS=cpu python port_tools/jax_psnr_reference.py [32,24 24,12]
 """
 
 import dataclasses
@@ -38,7 +39,8 @@ def main():
     mc = config_from_dict(ModelConfig, meta["model_config"])
     ds = SyntheticSphereDataset(H=128, W=128, n_views=8, radius=1.8,
                                 scene="textured", training=False)
-    for steps in [(32, 16), (128, 64, 32)]:
+    hierarchies = sys.argv[1:] or ["32,16", "128,64,32"]
+    for steps in [tuple(int(v) for v in h.split(",")) for h in hierarchies]:
         for dt in ["bfloat16", "float32"]:
             rc = dataclasses.replace(
                 config_from_dict(RenderConfig, meta["render_config"]),

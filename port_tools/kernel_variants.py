@@ -7,8 +7,9 @@ VARIANTS is a JSON object {name: [[old, new], ...]} of text substitutions
 in csrc/fused_mlp_t.cu, or {name: "path/to/fused_mlp_t.cu"} for a whole
 source, or {name: "path/to/tree"} for the port of another commit unpacked
 there (`git archive COMMIT sanerf_tpu_torch | tar -x -C path/to/tree`):
-its csrc/fused_mlp_t.cu with its TransposedFieldMLP.packed (the float32
-weight layout moved with the kernel); or the path of a Python file that
+its csrc/fused_mlp_t.cu with its TransposedFieldMLP.packed and its
+launch arguments (the weight layout and the C interface move with the
+kernel); or the path of a Python file that
 defines such a dict as VARIANTS (port_tools/field_f32_variants.py); NAME
 picks one, or is "orig" for the source as it is. A name starting with "fmad" also drops -fmad=false from
 the build. A variant builds into build/variants/<name>/; compare variants
@@ -85,6 +86,9 @@ def use_tree(tree):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     fm.TransposedFieldMLP.packed = mod.TransposedFieldMLP.packed
+    # and calls its kernels with its own arguments (the C interface moves
+    # with the kernels)
+    fm._lib, fm._net_args = mod._lib, mod._net_args
     _build.CSRC = src / "csrc"
     _build.BUILD_DIR = Path(ROOT) / "build" / "variants" / tree.replace(
         "/", "_") / "kernels"

@@ -76,17 +76,41 @@
 //     encodings beside the buffers) are read through L1/L2. The products
 //     are tensor-core instructions and the adds plain adds, which
 //     -fmad=false does not touch;
+//   - nets wider than 128 (up to 256; the V_WIDE variant of tmlp_kernel
+//     and composite_kernel) keep the hidden activations of a tile in
+//     shared memory, since a 64 x 256 accumulator and the next layer's A
+//     fragments would not fit in a thread's registers: each layer runs as
+//     chunks of at most 128 outputs (one 64-register accumulator), chunk 0
+//     of a two-chunk layer held in registers, activated, until chunk 1 has
+//     read the previous activations, then both written back. bf16: A
+//     comes from shared memory for every layer (wgmma_ss), B from the
+//     weights in shared memory, all of them where they fit, else streamed
+//     one chunk (128 rows of W^T) at a time, 80 KB for a 256-wide skip
+//     layer where the whole layer would leave no room for the buffers;
+//     float32: the A fragments read from the row-major activations as from
+//     the encoding, the weights in shared memory where they fit, else
+//     streamed in units of one chunk's rows over 64 columns (32 KB; a 256
+//     x 320 float32 skip layer is 320 KB);
+//   - optional biases (float32, as the JAX package packs them) are added
+//     to the layer's float32 sum before the activation; the dense-sin
+//     encode (angle_double = 0) takes one sinf pair per coordinate and
+//     frequency at z 2^f instead of the doubling recurrence;
 //   - the last layer (plus the sigma-CP sum on column 0) goes to a small
 //     per-warpgroup buffer. run_tmlp writes it out as [kout, P] rows, each
-//     warp its 16 points; the composite kernel gathers whole rays (lcm(64,
-//     T) points per step) and runs the epilogue per ray in one warp:
+//     warp its 16 points; the composite kernel gathers whole rays (a step
+//     of lcm(64, T) points where that is at most MAX_STEP, else of the R
+//     rays that leave the fewest padded points in its last tile, the
+//     padded points encoded from x = 0 and never read; the JAX kernel pads
+//     its block with rays of dl = 0 the same way) and runs the epilogue
+//     per ray in one warp:
 //     softplus density, alpha with the optional opaque last sample, a warp
 //     scan for the exclusive transmittance sum of the finite optical
 //     depths, NaN weights -> 0, per-ray sums in index order, then the SH
 //     (degree <= 4) + view MLP head on one lane per output and the sigmoid;
-//   - the proposal nets (bf16, two layers no wider than 32, no CP tables)
-//     take small_kernel instead: a warp per 16-point tile, mma.sync with
-//     the weights held in registers as B fragments.
+//   - the proposal nets (bf16, two layers no wider than 32, no CP tables,
+//     no bias, angle doubling) take small_kernel instead: a warp per
+//     16-point tile, mma.sync with the weights held in registers as B
+//     fragments.
 // With pack_q > 1 the composite reads dl and ts through the packed layout
 // of the ray kernels, [N/q, q*T, 1] with ray n in slot n % q of row n / q
 // (the TPU fills 128-lane rows with q rays; the per-ray warp epilogue here
@@ -122,8 +146,30 @@ constexpr int wgs_of(bool composite) {
   return sizeof(T) == 2 ? (composite ? 4 : 3)
                         : (composite ? F32_COMPOSITE_WGS : F32_WGS);
 }
+// Each kernel comes in three variants, picked per net at launch
+// (variant_of): V_SERVED, the nets every served configuration has (no bias,
+// angle doubling, no layer over 128), whose code holds no test for the
+// branches below (a run-time test of either cost the asset's float32
+// launches 3-7 %, PERF.md); V_BRANCHES, such nets with biases or the
+// dense-sin encode; V_WIDE, nets with a layer over 128 (either branch at
+// run time).
+enum Variant { V_SERVED = 0, V_BRANCHES = 1, V_WIDE = 2 };
+// V_WIDE kernels: 2 warpgroups (plan_for takes fewer where the buffers do
+// not fit)
+constexpr int WIDE_WGS = 2;
+template <typename T>
+constexpr int wgs_of(bool composite, int v) {
+  return v == V_WIDE ? WIDE_WGS : wgs_of<T>(composite);
+}
 constexpr int MAX_LAYERS = 8;
-constexpr int MAX_NT = 16;  // n-tiles of 8 outputs
+constexpr int MAX_NT = 16;  // n-tiles of 8 outputs in one accumulator
+constexpr int MAX_WIDTH = 256;  // the widest layer (two accumulator chunks)
+constexpr int CHUNK = 8 * MAX_NT;  // outputs of one chunk of a wide layer
+// bias rows: [n_layers][BIAS_LD] float32 (ops/fused_mlp_t.py:BIAS_LD)
+constexpr int BIAS_LD = MAX_WIDTH;
+// the most points of a composite step (the largest lcm(64, T) of the T
+// that divide 16 or are multiples of 16, at T = 112)
+constexpr int MAX_STEP = 448;
 constexpr int PAD = 8;  // row padding of the float32 encoding: stride 8 mod 16
 constexpr int SMEM_LIMIT = 232448;
 constexpr unsigned FULL = 0xffffffffu;
@@ -167,11 +213,12 @@ struct Grids {
 };
 
 struct Net {
-  int n_layers, leaky, enc_freqs, F, ke, hmax;
+  int n_layers, leaky, enc_freqs, F, ke, hmax, angle_double;
   Layer layer[MAX_LAYERS];
   float enc_scale;
   const void* w;
   int w_elems;
+  const float* bias;  // [n_layers][BIAS_LD], or null: no bias
   Grids g;
 };
 
@@ -412,15 +459,26 @@ __device__ __forceinline__ void load_point(const float* __restrict__ x3,
 }
 
 // Encodes the point x, each feature handed to put(column, value): Fourier
-// features, CP levels, VM levels (fields.position_features' order); the
-// thread pair (half 0 / 1) splits the features. Returns the sum of the
+// features (the dense-sin encode only with EXTRA), CP levels, VM levels
+// (fields.position_features' order); the thread pair (half 0 / 1) splits
+// the features. Returns the sum of the
 // sigma tables' features (both threads of the pair).
-template <typename T, typename Put>
+template <typename T, bool EXTRA, typename Put>
 __device__ float encode_point(const Net& net, const float (&x)[3], int half,
                               const Put& put) {
   for (int d = half; d < 3; d += 2) {
     const float z = x[d] * net.enc_scale;
     put(d, z);
+    if (EXTRA && !net.angle_double) {
+      // dense sin: z 2^f is exact, as the JAX kernel's projection by
+      // 2^f pi / bound is
+      for (int f = 0; f < net.enc_freqs; ++f) {
+        const float zf = z * (float)(1 << f);
+        put(3 + 6 * f + d, sinf(zf));
+        put(6 + 6 * f + d, sinf(zf + HALF_PI));
+      }
+      continue;
+    }
     float s = sinf(z), c = sinf(z + HALF_PI);
     for (int f = 0; f < net.enc_freqs; ++f) {
       if (f) {
@@ -501,22 +559,41 @@ __device__ __forceinline__ void n16_tiles_ss(float (&acc)[NA], uint64_t da,
   }
 }
 
-// Issues the products over the encoding (A: the tile's [64, ke] core
-// matrices in shared memory) columns [0, kA) against W^T columns
-// [kcol0, kcol0 + kA).
-__device__ __forceinline__ void enc_part(float (&acc)[NA], const bf16* Wl,
-                                         int kout, int kcol0, const bf16* enc,
-                                         int kA) {
-  const uint32_t lbo = (uint32_t)kout * 16;  // kout / 8 core matrices of 128 B
+// Issues the products over A (the tile's [64, kA] core matrices in shared
+// memory: the encoding, or a wide net's hidden activations) columns [0, kA)
+// against W^T columns [kcol0, kcol0 + kA) of nw outputs; Wl holds W^T rows
+// as core matrices of a slab ldn rows wide (ldn / 8 core matrices of 128 B
+// from one k column to the next).
+__device__ __forceinline__ void ss_part(float (&acc)[NA], const bf16* Wl,
+                                        int ldn, int nw, int kcol0,
+                                        const bf16* A, int kA) {
+  const uint32_t lbo = (uint32_t)ldn * 16;
   for (int s = 0; s < kA / 16; ++s) {
     const int kc = kcol0 + 16 * s;  // W^T column of this step
-    const uint64_t da = wg::desc(enc + s * 2 * TILE * 8, TILE * 16, 128);
-    const uint64_t db = wg::desc(Wl + (kc / 8) * kout * 8, lbo, 128);
-    if (kout == 128) {
+    const uint64_t da = wg::desc(A + s * 2 * TILE * 8, TILE * 16, 128);
+    const uint64_t db = wg::desc(Wl + (kc / 8) * ldn * 8, lbo, 128);
+    if (nw == 128) {
       wg::wgmma_ss_n128<0>(acc, da, db);
       continue;
     }
-    n16_tiles_ss<0>(acc, da, db, kout / 16);
+    n16_tiles_ss<0>(acc, da, db, nw / 16);
+  }
+}
+
+// acc += the bias b at the columns of its ncols / 8 n-tiles (column 8 nt +
+// 2t (+1) of rows g and g + 8)
+__device__ __forceinline__ void add_bias(float (&acc)[NA], const float* b,
+                                         int ncols, int lane) {
+  const int t = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < NA / 4; ++nt) {
+    if (nt < ncols / 8) {
+      const float2 v = *reinterpret_cast<const float2*>(b + 8 * nt + 2 * t);
+      acc[4 * nt] += v.x;
+      acc[4 * nt + 1] += v.y;
+      acc[4 * nt + 2] += v.x;
+      acc[4 * nt + 3] += v.y;
+    }
   }
 }
 
@@ -532,10 +609,12 @@ __device__ void block_copy(void* dst, const void* src, int bytes) {
 
 // bf16 chain. W: every layer's slab in shared memory, or with `stream` a
 // one-layer buffer that the block refills per layer from net.w (so every
-// warpgroup of the block calls this the same number of times).
+// warpgroup of the block calls this the same number of times). Biases only
+// with EXTRA.
+template <bool EXTRA>
 __device__ void chain(const Net& net, const bf16* W, bool stream,
                       const bf16* enc, int /*lde*/, float (&acc)[NA],
-                      int /*warp*/, int /*lane*/) {
+                      int /*warp*/, int lane) {
   uint32_t hA[NA / 8][4];
   for (int l = 0; l < net.n_layers; ++l) {
     const Layer L = net.layer[l];
@@ -553,7 +632,7 @@ __device__ void chain(const Net& net, const bf16* W, bool stream,
     wg::keep(acc);
     wg::fence();
     if (l == 0) {
-      enc_part(acc, Wl, L.kout, 0, enc, L.kin_h);
+      ss_part(acc, Wl, L.kout, L.kout, 0, enc, L.kin_h);
     } else {
       const uint32_t lbo = (uint32_t)L.kout * 16;
 #pragma unroll
@@ -561,12 +640,13 @@ __device__ void chain(const Net& net, const bf16* W, bool stream,
         if (s < L.kin_h / 16)
           k_step(acc, hA[s], wg::desc(Wl + 2 * s * L.kout * 8, lbo, 128),
                  L.kout);
-      if (L.kin_e) enc_part(acc, Wl, L.kout, L.kin_h, enc, L.kin_e);
+      if (L.kin_e) ss_part(acc, Wl, L.kout, L.kout, L.kin_h, enc, L.kin_e);
     }
     wg::commit();
     wg::wait_all();
     wg::keep(hA);
     wg::keep(acc);
+    if (EXTRA && net.bias) add_bias(acc, net.bias + l * BIAS_LD, L.kout, lane);
     if (l < net.n_layers - 1) {
 #pragma unroll
       for (int s = 0; s < NA / 8; ++s) {
@@ -648,13 +728,14 @@ __device__ __forceinline__ void k8_step(float (&acc)[NA], const float (&a)[4],
   }
 }
 
-// k steps over columns [0, kA) of the encoding, e the lane's (row g,
-// column 2t) of it, against the W^T blocks from wb on
+// k steps over columns [0, kA) of the encoding (or of a wide net's hidden
+// activations), e the lane's (row g, column 2t) of it, against the W^T
+// blocks from wb on, kst floats from one k step's blocks to the next
 template <int NT>
 __device__ __forceinline__ void enc_steps(float (&acc)[NA], const float* e,
                                           int lde, const float* wb, int kA,
-                                          int lane, int nt_n) {
-  for (int k0 = 0; k0 < kA; k0 += 8, wb += nt_n * 64) {
+                                          int lane, int nt_n, int kst) {
+  for (int k0 = 0; k0 < kA; k0 += 8, wb += kst) {
     const float2 r0 = *reinterpret_cast<const float2*>(e + k0);
     const float2 r1 = *reinterpret_cast<const float2*>(e + 8 * lde + k0);
     const float a[4] = {r0.x, r1.x, r0.y, r1.y};
@@ -674,7 +755,7 @@ __device__ __forceinline__ void layer_f32(float (&acc)[NA],
 #pragma unroll
   for (int i = 0; i < NA; ++i) acc[i] = 0.0f;
   if (l == 0) {
-    enc_steps<NT>(acc, e, lde, Wl, L.kin_h, lane, nt_n);
+    enc_steps<NT>(acc, e, lde, Wl, L.kin_h, lane, nt_n, nt_n * 64);
     return;
   }
 #pragma unroll
@@ -687,7 +768,7 @@ __device__ __forceinline__ void layer_f32(float (&acc)[NA],
   }
   if (L.kin_e)
     enc_steps<NT>(acc, e, lde, Wl + L.kin_h / 8 * nt_n * 64, L.kin_e, lane,
-                  nt_n);
+                  nt_n, nt_n * 64);
 }
 
 // Copies `bytes` (a multiple of 16) from global to shared memory with the
@@ -706,7 +787,8 @@ __device__ void block_copy_async(void* dst, const void* src, int bytes) {
 
 // float32 chain of the warp's 16 rows. W: every layer's W^T slab in shared
 // or global memory, or with `stream` the block's one-layer buffer (as for
-// bf16).
+// bf16). Biases only with EXTRA.
+template <bool EXTRA>
 __device__ void chain(const Net& net, const float* W, bool stream,
                       const float* enc, int lde, float (&acc)[NA], int warp,
                       int lane) {
@@ -733,6 +815,7 @@ __device__ void chain(const Net& net, const float* W, bool stream,
       case 128: layer_f32<16>(acc, hid, e, lde, Wl, L, l, lane, 16); break;
       default: layer_f32<16>(acc, hid, e, lde, Wl, L, l, lane, L.kout / 8);
     }
+    if (EXTRA && net.bias) add_bias(acc, net.bias + l * BIAS_LD, L.kout, lane);
     if (l < net.n_layers - 1) {
 #pragma unroll
       for (int i = 0; i < NA; ++i) hid[i] = act(acc[i], net.leaky);
@@ -762,50 +845,277 @@ __device__ __forceinline__ void store_last(const float (&acc)[NA], int ncols,
   }
 }
 
+// where a block's chains read the weights from: global memory (through
+// L2; float32 only), all of them staged in shared memory, or one layer
+// (one chunk of a V_WIDE bf16 layer) at a time
+enum WeightMode { W_GLOBAL = 0, W_ALL = 1, W_STREAM = 2 };
+
+// ---------------------------------------------------------------------------
+// the chain of a net wider than 128 (V_WIDE kernels): the hidden activations
+// of the tile in shared memory (hb), each layer in chunks of <= CHUNK
+// outputs; the last layer's chunks go straight to outb
+// ---------------------------------------------------------------------------
+
+// Copies rows [n0, n0 + nw) of a W^T slab (kout rows, ld columns, core
+// matrices) to dst as a slab nw rows wide, with the whole block, visible
+// to wgmma: for each k column of core matrices, nw / 8 of them, contiguous
+// in both.
+__device__ void block_copy_chunk(bf16* dst, const bf16* slab, int kout,
+                                 int ld, int n0, int nw) {
+  const int per_k = nw;  // 16-byte pieces of one k column: nw rows of 16 B
+  for (int i = threadIdx.x; i < ld / 8 * per_k; i += blockDim.x) {
+    const int kb = i / per_k, j = i - kb * per_k;
+    reinterpret_cast<uint4*>(dst + kb * nw * 8)[j] =
+        reinterpret_cast<const uint4*>(slab + (kb * kout / 8 + n0 / 8) * 64)[j];
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+}
+
+// a chunk's accumulators, activated, as bf16 pairs: v[2 nt] = row g,
+// v[2 nt + 1] = row g + 8, columns 8 nt + 2t, 8 nt + 2t + 1
+__device__ __forceinline__ void pack_act(const float (&acc)[NA],
+                                         uint32_t (&v)[NA / 2], int leaky) {
+#pragma unroll
+  for (int nt = 0; nt < NA / 4; ++nt) {
+    v[2 * nt] = pack_bf16(act(acc[4 * nt], leaky), act(acc[4 * nt + 1], leaky));
+    v[2 * nt + 1] =
+        pack_bf16(act(acc[4 * nt + 2], leaky), act(acc[4 * nt + 3], leaky));
+  }
+}
+
+// v (pack_act) into hb's columns [n0, n0 + nw) of this warp's rows, in the
+// core-matrix layout of the encoding (enc_index)
+__device__ __forceinline__ void put_hidden(bf16* hb,
+                                           const uint32_t (&v)[NA / 2],
+                                           int n0, int nw, int warp,
+                                           int lane) {
+  const int g = lane >> 2, t = lane & 3, p = 16 * warp + g;
+#pragma unroll
+  for (int nt = 0; nt < NA / 4; ++nt) {
+    if (nt < nw / 8) {
+      const int c = n0 + 8 * nt + 2 * t;
+      *reinterpret_cast<uint32_t*>(hb + enc_index<bf16>(p, c, 0)) = v[2 * nt];
+      *reinterpret_cast<uint32_t*>(hb + enc_index<bf16>(p + 8, c, 0)) =
+          v[2 * nt + 1];
+    }
+  }
+}
+
+// bf16: A from shared memory for every layer (the encoding, then hb), B
+// from W: every layer in shared memory, or (W_STREAM) the block's
+// one-chunk buffer, refilled per chunk.
+__device__ void chain_wide(const Net& net, const bf16* W, int w_mode,
+                           const bf16* enc, int /*lde*/, bf16* hb,
+                           int /*ldh*/, float (&acc)[NA], const float* sig,
+                           float* outb, int ldo, int warp, int lane) {
+  uint32_t held[NA / 2];  // chunk 0 of a two-chunk layer, activated
+  for (int l = 0; l < net.n_layers; ++l) {
+    const Layer L = net.layer[l];
+    const bool last = l == net.n_layers - 1;
+    const int nch = (L.kout + CHUNK - 1) / CHUNK;
+    for (int c = 0; c < nch; ++c) {
+      const int n0 = CHUNK * c, nw = min(CHUNK, L.kout - n0);
+      const bf16* Wc = W + L.w_off + n0 * 8;
+      int ldn = L.kout;
+      if (w_mode == W_STREAM) {
+        __syncthreads();  // the previous chunk's products are done
+        block_copy_chunk(const_cast<bf16*>(W),
+                         reinterpret_cast<const bf16*>(net.w) + L.w_off,
+                         L.kout, L.w_ld, n0, nw);
+        Wc = W;
+        ldn = nw;
+      }
+#pragma unroll
+      for (int i = 0; i < NA; ++i) acc[i] = 0.0f;
+      wg::keep(acc);
+      wg::fence();
+      ss_part(acc, Wc, ldn, nw, 0, l == 0 ? enc : hb, L.kin_h);
+      if (L.kin_e) ss_part(acc, Wc, ldn, nw, L.kin_h, enc, L.kin_e);
+      wg::commit();
+      wg::wait_all();
+      wg::keep(acc);
+      if (net.bias) add_bias(acc, net.bias + l * BIAS_LD + n0, nw, lane);
+      if (last) {
+        store_last(acc, nw, c == 0 ? sig : nullptr, outb + n0, ldo, warp,
+                   lane);
+      } else if (c + 1 < nch) {
+        pack_act(acc, held, net.leaky);
+      }
+    }
+    if (last) break;
+    // every wgmma that read hb is done (wait_all): the layer's
+    // activations replace the previous ones
+    const int n_last = CHUNK * (nch - 1);
+    if (nch > 1) put_hidden(hb, held, 0, CHUNK, warp, lane);
+    pack_act(acc, held, net.leaky);
+    put_hidden(hb, held, n_last, L.kout - n_last, warp, lane);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    wg_sync(threadIdx.x >> 7);
+  }
+}
+
+// float32 V_WIDE weights streamed in units: one chunk's W^T rows over
+// F32_UNIT_K columns (32 KB at 128 x 64), as a 256 x 320 float32 skip
+// layer (320 KB) does not fit; 64 columns leave room for 2 warpgroups
+// beside a unit at an encoding of 64 (each 67.6 KB of hidden activations;
+// read through L2, or streamed in units of 128 columns beside one
+// warpgroup, the weights left the composite slower than cuBLAS, PERF.md)
+constexpr int F32_UNIT_K = 64;
+
+// Copies the W^T blocks of k steps [s0, s1) and n-tiles [nt0, nt0 + nt_n)
+// of a layer slab (kout / 8 n-tiles a k step) to dst, nt_n blocks a k step,
+// with the whole block (cp.async).
+__device__ void block_copy_unit(float* dst, const float* slab, int kout,
+                                int s0, int s1, int nt0, int nt_n) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  const int per_s = nt_n * 16;  // 16-byte pieces of one k step's blocks
+  for (int i = threadIdx.x; i < (s1 - s0) * per_s; i += blockDim.x) {
+    const int s = i / per_s, j = i - s * per_s;
+    const float* src = slab + ((s0 + s) * (kout / 8) + nt0) * 64 + 4 * j;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     d + 16 * i),
+                 "l"(src)
+                 : "memory");
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+}
+
+// float32: each warp its 16 rows of hb, row-major [64][ldh] as the
+// encoding; B from W: every layer in shared memory, global memory, or
+// (W_STREAM) the block's one-unit buffer, refilled per unit.
+__device__ void chain_wide(const Net& net, const float* W, int w_mode,
+                           const float* enc, int lde, float* hb, int ldh,
+                           float (&acc)[NA], const float* sig, float* outb,
+                           int ldo, int warp, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const float* e = enc + (16 * warp + g) * lde + 2 * t;
+  float* h = hb + (16 * warp + g) * ldh + 2 * t;
+  float held[NA];  // chunk 0 of a two-chunk layer, activated
+  for (int l = 0; l < net.n_layers; ++l) {
+    const Layer L = net.layer[l];
+    const float* Wl = W + L.w_off;
+    const bool last = l == net.n_layers - 1;
+    const int nch = (L.kout + CHUNK - 1) / CHUNK;
+    const int kst = L.kout / 8 * 64;  // one k step's blocks of W^T
+    // A of the columns before kin_h: the encoding (layer 0) or hb
+    const float* A = l == 0 ? e : h;
+    const int lda = l == 0 ? lde : ldh;
+    for (int c = 0; c < nch; ++c) {
+      const int nt0 = MAX_NT * c, nt_n = min(MAX_NT, L.kout / 8 - nt0);
+      const float* Wc = Wl + nt0 * 64;
+#pragma unroll
+      for (int i = 0; i < NA; ++i) acc[i] = 0.0f;
+      if (w_mode != W_STREAM) {
+        enc_steps<MAX_NT>(acc, A, lda, Wc, L.kin_h, lane, nt_n, kst);
+        if (L.kin_e)
+          enc_steps<MAX_NT>(acc, e, lde, Wc + L.kin_h / 8 * kst, L.kin_e,
+                            lane, nt_n, kst);
+      }
+      for (int k0 = 0; w_mode == W_STREAM && k0 < L.w_ld; k0 += F32_UNIT_K) {
+        const int k1 = min(k0 + F32_UNIT_K, L.w_ld), ust = nt_n * 64;
+        __syncthreads();  // the previous unit's products are done
+        block_copy_unit(const_cast<float*>(W),
+                        reinterpret_cast<const float*>(net.w) + L.w_off,
+                        L.kout, k0 / 8, k1 / 8, nt0, nt_n);
+        const int h1 = min(k1, L.kin_h), e0 = max(k0, L.kin_h);
+        if (k0 < h1)
+          enc_steps<MAX_NT>(acc, A + k0, lda, W, h1 - k0, lane, nt_n, ust);
+        if (e0 < k1)
+          enc_steps<MAX_NT>(acc, e + (e0 - L.kin_h), lde,
+                            W + (e0 - k0) / 8 * ust, k1 - e0, lane, nt_n,
+                            ust);
+      }
+      if (net.bias) add_bias(acc, net.bias + l * BIAS_LD + 8 * nt0, 8 * nt_n,
+                             lane);
+      if (last) {
+        store_last(acc, 8 * nt_n, c == 0 ? sig : nullptr, outb + 8 * nt0,
+                   ldo, warp, lane);
+      } else if (c + 1 < nch) {
+#pragma unroll
+        for (int i = 0; i < NA; ++i) held[i] = act(acc[i], net.leaky);
+      }
+    }
+    if (last) break;
+    __syncwarp();  // the warp's reads of its rows of hb are done
+    const int nt_last = MAX_NT * (nch - 1);
+#pragma unroll
+    for (int nt = 0; nt < MAX_NT; ++nt) {
+      if (nch > 1) {
+        *reinterpret_cast<float2*>(h + 8 * nt) =
+            make_float2(held[4 * nt], held[4 * nt + 1]);
+        *reinterpret_cast<float2*>(h + 8 * ldh + 8 * nt) =
+            make_float2(held[4 * nt + 2], held[4 * nt + 3]);
+      }
+      if (nt < L.kout / 8 - nt_last) {
+        float* r = h + 8 * (nt_last + nt);
+        *reinterpret_cast<float2*>(r) = make_float2(
+            act(acc[4 * nt], net.leaky), act(acc[4 * nt + 1], net.leaky));
+        *reinterpret_cast<float2*>(r + 8 * ldh) =
+            make_float2(act(acc[4 * nt + 2], net.leaky),
+                        act(acc[4 * nt + 3], net.leaky));
+      }
+    }
+    __syncwarp();
+  }
+}
+
 // ---------------------------------------------------------------------------
 // shared-memory plan (identical on host and device)
 // ---------------------------------------------------------------------------
 
-enum WeightMode { W_GLOBAL = 0, W_ALL = 1, W_STREAM = 2 };
-
 struct Plan {
-  int lde, ldo, M;  // M: points per warpgroup step
+  int lde, ldo, M, R;  // M: points per warpgroup step, R of them rays'
+  int ldh;             // float32 hb row stride (V_WIDE)
   int wgs, w_mode, w_bytes, v_bytes;
-  int enc_b, out_b, sig_b, wts_b, ts_b, vin_b;
+  int enc_b, h_b, out_b, sig_b, wts_b, ts_b, vin_b;
   int per_wg, total;
 };
 
 template <typename T>
-Plan make_plan(const Net& net, const View* view, int wgs, int M, int ldo,
-               bool composite, int w_mode, bool v_smem) {
+Plan make_plan(const Net& net, const View* view, int wgs, int M, int R,
+               int ldo, bool composite, bool wide, int w_mode, bool v_smem) {
   Plan p;
   p.wgs = wgs;
   p.lde = sizeof(T) == 2 ? net.ke : net.ke + PAD;  // see enc_index
   p.ldo = ldo;
   p.M = M;
+  p.R = R;
   p.w_mode = w_mode;
   p.w_bytes = 0;
   if (w_mode == W_ALL) p.w_bytes = align16(net.w_elems * (int)sizeof(T));
-  if (w_mode == W_STREAM)
-    for (int l = 0; l < net.n_layers; ++l) {
-      const Layer& L = net.layer[l];
-      const int b = align16(L.kout * L.w_ld * (int)sizeof(T));
-      p.w_bytes = b > p.w_bytes ? b : p.w_bytes;
-    }
+  // a streamed unit: a layer; of a V_WIDE net one chunk of a layer (bf16)
+  // or of a chunk F32_UNIT_K columns (float32)
+  const int rows_max = wide ? CHUNK : MAX_WIDTH;
+  const int cols_max = wide && sizeof(T) == 4 ? F32_UNIT_K : 1 << 30;
+  int hw = 0;  // the widest hidden layer
+  for (int l = 0; l < net.n_layers; ++l) {
+    const Layer& L = net.layer[l];
+    if (l + 1 < net.n_layers) hw = L.kout > hw ? L.kout : hw;
+    if (w_mode != W_STREAM) continue;
+    const int rows = L.kout < rows_max ? L.kout : rows_max;
+    const int cols = L.w_ld < cols_max ? L.w_ld : cols_max;
+    const int b = align16(rows * cols * (int)sizeof(T));
+    p.w_bytes = b > p.w_bytes ? b : p.w_bytes;
+  }
   p.v_bytes = (view && v_smem) ? align16(view->elems * (int)sizeof(T)) : 0;
   p.enc_b = align16(TILE * p.lde * (int)sizeof(T));
+  p.ldh = sizeof(T) == 2 ? hw : hw + PAD;
+  p.h_b = wide ? align16(TILE * p.ldh * (int)sizeof(T)) : 0;
   p.out_b = align16(M * ldo * 4);
   p.sig_b = align16(TILE * 4);
   p.wts_b = composite ? align16(M * 4) : 0;
   p.ts_b = composite ? align16(M * 4) : 0;
   p.vin_b = composite ? 4 * 128 * 4 : 0;
-  p.per_wg = p.enc_b + p.out_b + p.sig_b + p.wts_b + p.ts_b + p.vin_b;
+  p.per_wg =
+      p.enc_b + p.h_b + p.out_b + p.sig_b + p.wts_b + p.ts_b + p.vin_b;
   p.total = p.w_bytes + p.v_bytes + wgs * p.per_wg;
   return p;
 }
 
 struct Bufs {
-  void* enc;
+  void *enc, *hb;
   float *outb, *sig, *wts, *tsb, *vin;
 };
 
@@ -829,6 +1139,8 @@ __device__ const T* block_setup(const Net& net, const View* view,
   base += pl.v_bytes + (threadIdx.x >> 7) * pl.per_wg;
   b.enc = base;
   base += pl.enc_b;
+  b.hb = base;
+  base += pl.h_b;
   b.outb = reinterpret_cast<float*>(base);
   base += pl.out_b;
   b.sig = reinterpret_cast<float*>(base);
@@ -848,7 +1160,7 @@ __device__ const T* block_setup(const Net& net, const View* view,
 
 // Encode + chain of a 64-point tile, this thread's point (row lt / 2)
 // at x; the last layer lands in outb rows [0, 64) (each warp its 16).
-template <typename T>
+template <typename T, int V>
 __device__ __forceinline__ void tile(const Net& net, const Plan& pl,
                                      const T* W, const Bufs& b,
                                      const float (&x)[3], float* outb,
@@ -856,7 +1168,7 @@ __device__ __forceinline__ void tile(const Net& net, const Plan& pl,
   const int lt = threadIdx.x & 127, warp = lt >> 5, lane = lt & 31;
   T* enc = reinterpret_cast<T*>(b.enc);
   const int row = lt >> 1;
-  const float sg = encode_point<T>(
+  const float sg = encode_point<T, V != V_SERVED>(
       net, x, lt & 1,
       [&](int c, float v) { enc[enc_index<T>(row, c, pl.lde)] = fromf<T>(v); });
   if (!(lt & 1)) b.sig[row] = sg;
@@ -868,16 +1180,23 @@ __device__ __forceinline__ void tile(const Net& net, const Plan& pl,
     __syncwarp();
   }
   float acc[NA];
-  chain(net, W, pl.w_mode == W_STREAM, enc, pl.lde, acc, warp, lane);
-  store_last(acc, ncols, has_sigma(net) ? b.sig : nullptr, outb, pl.ldo,
-             warp, lane);
+  if constexpr (V == V_WIDE) {
+    chain_wide(net, W, pl.w_mode, enc, pl.lde, reinterpret_cast<T*>(b.hb),
+               pl.ldh, acc, has_sigma(net) ? b.sig : nullptr, outb, pl.ldo,
+               warp, lane);
+  } else {
+    chain<V == V_BRANCHES>(net, W, pl.w_mode == W_STREAM, enc, pl.lde, acc,
+                           warp, lane);
+    store_last(acc, ncols, has_sigma(net) ? b.sig : nullptr, outb, pl.ldo,
+               warp, lane);
+  }
   __syncwarp();
 }
 
 // The block's warpgroups walk the work items in step (so that a streamed
 // layer's __syncthreads meets every thread): items base + wg.
-template <typename T>
-__global__ void __launch_bounds__(wgs_of<T>(false) * 128, 1)
+template <typename T, int V>
+__global__ void __launch_bounds__(wgs_of<T>(false, V) * 128, 1)
 tmlp_kernel(Net net, Plan pl, const float* __restrict__ x3, long np,
             float* __restrict__ out, int out_rows) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -896,7 +1215,7 @@ tmlp_kernel(Net net, Plan pl, const float* __restrict__ x3, long np,
     const long p0 = (base + (threadIdx.x >> 7)) * TILE;
     float xn[3];
     load_point(x3, np, p0 + stride + row, xn);
-    tile<T>(net, pl, W, b, x, b.outb, kout);
+    tile<T, V>(net, pl, W, b, x, b.outb, kout);
 #pragma unroll
     for (int a = 0; a < 3; ++a) x[a] = xn[a];
     for (int i = lane; i < out_rows * 16; i += 32) {
@@ -908,11 +1227,12 @@ tmlp_kernel(Net net, Plan pl, const float* __restrict__ x3, long np,
 }
 
 // ---------------------------------------------------------------------------
-// the proposal nets (bf16, two layers, no CP tables, an encoding <= 64 and
-// layers <= 32 wide): bound by their 12 B in and 4 B out per point, they
-// take one warp per 16-point tile with mma.sync m16n8k16, the weights held
-// in registers as B fragments, the encoding staged through a 16-row
-// buffer of the warp, the hidden layer in registers.
+// the proposal nets (bf16, two layers, no CP tables, no bias, angle
+// doubling, an encoding <= 64 and layers <= 32 wide): bound by their 12 B
+// in and 4 B out per point, they take one warp per 16-point tile with
+// mma.sync m16n8k16, the weights held in registers as B fragments, the
+// encoding staged through a 16-row buffer of the warp, the hidden layer in
+// registers.
 // ---------------------------------------------------------------------------
 
 constexpr int SMALL_K = 64, SMALL_N = 32, SMALL_WARPS = 8;
@@ -937,8 +1257,8 @@ bool small_net(const Net& net) {
   const Layer& a = net.layer[0];
   const Layer& b = net.layer[1];
   return net.n_layers == 2 && !net.g.n_cp && !net.g.n_vm && !has_sigma(net) &&
-         a.kin_h <= SMALL_K && a.kout <= SMALL_N && !b.kin_e &&
-         b.kout <= SMALL_N;
+         !net.bias && net.angle_double && a.kin_h <= SMALL_K &&
+         a.kout <= SMALL_N && !b.kin_e && b.kout <= SMALL_N;
 }
 
 __global__ void __launch_bounds__(SMALL_WARPS * 32, 2)
@@ -983,7 +1303,7 @@ small_kernel(Net net, const float* __restrict__ x3, long np,
     const long p0 = tile * 16;
     float xn[3];
     load_point(x3, np, p0 + stride + row, xn);
-    encode_point<bf16>(net, x, lane & 1,
+    encode_point<bf16, false>(net, x, lane & 1,
                        [&](int c, float v) {
                          enc[row * LD + c] = fromf<bf16>(v);
                        });
@@ -1075,8 +1395,8 @@ __device__ __forceinline__ long ray_offset(long n, int Ts, int pack_q) {
   return (n / pack_q) * ((long)pack_q * Ts) + (n % pack_q) * Ts;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(wgs_of<T>(true) * 128, 1)
+template <typename T, int V>
+__global__ void __launch_bounds__(wgs_of<T>(true, V) * 128, 1)
 composite_kernel(Net net, View view, Plan pl, const float* __restrict__ x3,
                  const float* __restrict__ dl, const float* __restrict__ ts,
                  const float* __restrict__ rays8, int N, int Ts, int pack_q,
@@ -1091,7 +1411,7 @@ composite_kernel(Net net, View view, Plan pl, const float* __restrict__ x3,
   const int wg = threadIdx.x >> 7, warp = (threadIdx.x & 127) >> 5,
             lane = threadIdx.x & 31;
   const int G = net.layer[net.n_layers - 1].kout_real;  // gsum columns
-  const int M = pl.M, rays_per_step = M / Ts;
+  const int M = pl.M, rays_per_step = pl.R, RT = pl.R * Ts;
   const long np = (long)N * Ts;
   // view weights: VG [G][H] (row 0 zero), VS [sh_dim][H], VR [n_rest][H][H]
   const int H = view.H;
@@ -1102,26 +1422,31 @@ composite_kernel(Net net, View view, Plan pl, const float* __restrict__ x3,
   float* vsh = vin + 32;            // [0, 16): rounded wsum * sh
   float* vh = vin + 64;             // hidden activations
   float* misc = vin + 112;          // wsum
-  const long n_steps = (np + M - 1) / M;
-  const long stride = (long)gridDim.x * pl.wgs * M;
+  const long n_steps = ((long)N + rays_per_step - 1) / rays_per_step;
+  const long steps_apart = (long)gridDim.x * pl.wgs;  // a warpgroup's steps
   const int row = (threadIdx.x & 127) >> 1;
+  // point `local` of step s: np (zeros) past the step's rays
+  auto point = [&](long s, int local) {
+    return local < RT ? s * RT + local : np;
+  };
   float x[3];
-  load_point(x3, np, ((long)blockIdx.x * pl.wgs + wg) * M + row, x);
+  load_point(x3, np, point((long)blockIdx.x * pl.wgs + wg, row), x);
   for (long base = (long)blockIdx.x * pl.wgs; base < n_steps;
-       base += (long)gridDim.x * pl.wgs) {
-    const long c0 = (base + wg) * M;
+       base += steps_apart) {
+    const long s = base + wg;
     for (int tt = 0; tt < M / TILE; ++tt) {
       float xn[3];  // the next tile's point: this step's or the next step's
       load_point(x3, np,
-                 (tt + 1 < M / TILE ? c0 + (tt + 1) * TILE : c0 + stride) + row,
+                 tt + 1 < M / TILE ? point(s, (tt + 1) * TILE + row)
+                                   : point(s + steps_apart, row),
                  xn);
-      tile<T>(net, pl, W, b, x, b.outb + tt * TILE * pl.ldo, 16);
+      tile<T, V>(net, pl, W, b, x, b.outb + tt * TILE * pl.ldo, 16);
 #pragma unroll
       for (int a = 0; a < 3; ++a) x[a] = xn[a];
     }
     wg_sync(wg);
     for (int r = warp; r < rays_per_step; r += 4) {
-      const long n = c0 / Ts + r;
+      const long n = s * rays_per_step + r;
       if (n >= N) break;
       const float* ob = b.outb + r * Ts * pl.ldo;
       float* wts = b.wts + r * Ts;
@@ -1212,7 +1537,7 @@ composite_kernel(Net net, View view, Plan pl, const float* __restrict__ x3,
 }
 
 Net make_net(const int* desc, const void* w, int w_elems, float enc_scale,
-             const Grids& grids) {
+             int angle_double, const float* bias, const Grids& grids) {
   Net net = {};
   net.n_layers = desc[0];
   net.leaky = desc[1];
@@ -1220,6 +1545,7 @@ Net make_net(const int* desc, const void* w, int w_elems, float enc_scale,
   net.F = desc[3];
   net.ke = desc[4];
   net.hmax = desc[5];
+  net.angle_double = angle_double;
   for (int l = 0; l < net.n_layers && l < MAX_LAYERS; ++l) {
     const int* d = desc + 6 + 6 * l;
     net.layer[l] = Layer{d[0], d[1], d[2], d[3], d[4], d[5]};
@@ -1227,37 +1553,49 @@ Net make_net(const int* desc, const void* w, int w_elems, float enc_scale,
   net.enc_scale = enc_scale;
   net.w = w;
   net.w_elems = w_elems;
+  net.bias = bias;
   net.g = grids;
   return net;
+}
+
+// A net with a layer wider than one accumulator takes the V_WIDE kernels,
+// one with biases or the dense-sin encode the V_BRANCHES ones.
+bool is_wide(const Net& net) { return net.hmax > CHUNK; }
+int variant_of(const Net& net) {
+  if (is_wide(net)) return V_WIDE;
+  return net.bias || !net.angle_double ? V_BRANCHES : V_SERVED;
 }
 
 // Checks the network against the kernel's limits and picks the
 // shared-memory plan, with at most max_wgs warpgroups; false when the
 // network or the buffers of one warpgroup do not fit.
 template <typename T>
-bool plan_for(const Net& net, View* view, int max_wgs, int M, int ldo,
+bool plan_for(const Net& net, View* view, int max_wgs, int M, int R, int ldo,
               bool composite, Plan& pl) {
+  const bool wide = is_wide(net);
   if (net.n_layers < 1 || net.n_layers > MAX_LAYERS) return false;
-  if (net.ke % 16 || net.hmax > 8 * MAX_NT) return false;
+  if (net.ke % 16 || net.hmax > MAX_WIDTH) return false;
   for (int l = 0; l < net.n_layers; ++l) {
     const Layer& L = net.layer[l];
-    if (L.kout > 8 * MAX_NT || L.kout % 16 || L.kin_h % 16 || L.kin_e % 16)
+    if (L.kout > MAX_WIDTH || L.kout % 16 || L.kin_h % 16 || L.kin_e % 16)
       return false;
   }
   auto fits = [&](int w, int wgs) {  // with the view head there if it fits
     for (int v = view != nullptr; v >= 0; --v) {
-      pl = make_plan<T>(net, view, wgs, M, ldo, composite, w, v != 0);
+      pl = make_plan<T>(net, view, wgs, M, R, ldo, composite, wide, w,
+                        v != 0);
       if (pl.total <= SMEM_LIMIT) return true;
     }
     return false;
   };
-  // bf16 (wgmma reads B from shared memory): all the weights, with fewer
-  // warpgroups if need be, else one layer at a time. float32: as many
-  // warpgroups as fit, with all the weights, else one layer at a time,
-  // else the weights read through L2.
+  // bf16 (wgmma reads B from shared memory) and V_WIDE nets: all the
+  // weights, with fewer warpgroups if need be, else streamed, else (float32
+  // only) read through L2. float32 nets up to 128 wide: as many warpgroups
+  // as fit, with all the weights, else one layer at a time, else the
+  // weights read through L2.
   const int modes[3] = {W_ALL, W_STREAM, W_GLOBAL};
-  if (sizeof(T) == 2) {
-    for (int m = 0; m < 2; ++m)
+  if (sizeof(T) == 2 || wide) {
+    for (int m = 0; m < (sizeof(T) == 2 ? 2 : 3); ++m)
       for (int wgs = max_wgs; wgs >= 1; --wgs)
         if (fits(modes[m], wgs)) return true;
     return false;
@@ -1298,43 +1636,96 @@ int grid_size(K kernel, int wgs, int smem, long work_items) {
   return (int)(want < cap ? (want > 0 ? want : 1) : cap);
 }
 
-template <typename T>
-int launch_tmlp(Net net, const float* x3, long np, float* out, int out_rows,
-                cudaStream_t stream) {
+template <typename T, int V>
+int launch_tmlp(const Net& net, const float* x3, long np, float* out,
+                int out_rows, cudaStream_t stream) {
   Plan pl;
   const int ldo = net.layer[net.n_layers - 1].kout + 1;
-  if (!plan_for<T>(net, nullptr, wgs_of<T>(false), TILE, ldo, false, pl))
+  if (!plan_for<T>(net, nullptr, wgs_of<T>(false, V), TILE, 0, ldo, false,
+                   pl))
     return -1;
-  const int grid = grid_size(tmlp_kernel<T>, pl.wgs, pl.total,
+  const int grid = grid_size(tmlp_kernel<T, V>, pl.wgs, pl.total,
                              (np + TILE - 1) / TILE);
-  tmlp_kernel<T><<<grid, pl.wgs * 128, pl.total, stream>>>(
+  tmlp_kernel<T, V><<<grid, pl.wgs * 128, pl.total, stream>>>(
       net, pl, x3, np, out, out_rows);
   return (int)cudaGetLastError();
 }
 
-int gcd(int a, int b) { return b ? gcd(b, a % b) : a; }
-
 template <typename T>
-int launch_composite(Net net, View view, const float* x3, const float* dl,
-                     const float* ts, const float* rays8, int N, int Ts,
-                     int pack_q, int opaque, float* gsum, float* depth,
-                     float* wsum, float* rgb, cudaStream_t stream) {
-  if (Ts < 1 || Ts > 128 || (16 % Ts && Ts % 16))
-    return (int)cudaErrorInvalidValue;
-  const int M = TILE / gcd(TILE, Ts) * Ts;  // whole rays in whole tiles
+int launch_tmlp_of(const Net& net, const float* x3, long np, float* out,
+                   int out_rows, cudaStream_t stream) {
+  switch (variant_of(net)) {
+    case V_SERVED:
+      return launch_tmlp<T, V_SERVED>(net, x3, np, out, out_rows, stream);
+    case V_BRANCHES:
+      return launch_tmlp<T, V_BRANCHES>(net, x3, np, out, out_rows, stream);
+    default:
+      return launch_tmlp<T, V_WIDE>(net, x3, np, out, out_rows, stream);
+  }
+}
+
+int gcd(int a, int b) { return b ? gcd(b, a % b) : a; }
+int round_tile(int n) { return (n + TILE - 1) / TILE * TILE; }
+
+// The points M of a composite step and its R rays: lcm(64, T), whole rays
+// in whole tiles, where that is at most MAX_STEP; else the R whole rays of
+// at most MAX_STEP points whose last tile has the smallest padded share,
+// M = R T rounded up to whole tiles.
+void step_of(int Ts, int& M, int& R) {
+  M = TILE / gcd(TILE, Ts) * Ts;
+  R = M / Ts;
+  if (M <= MAX_STEP) return;
+  R = 1;
+  for (int r = 2; r * Ts <= MAX_STEP; ++r)
+    if ((long)r * round_tile(R * Ts) > (long)R * round_tile(r * Ts)) R = r;
+  M = round_tile(R * Ts);
+}
+
+template <typename T, int V>
+int launch_composite(const Net& net, View view, const float* x3,
+                     const float* dl, const float* ts, const float* rays8,
+                     int N, int Ts, int pack_q, int opaque, float* gsum,
+                     float* depth, float* wsum, float* rgb,
+                     cudaStream_t stream) {
+  if (Ts < 1 || Ts > 128) return (int)cudaErrorInvalidValue;
+  int M, R;
+  step_of(Ts, M, R);
   if (pack_q < 1 || N % pack_q) return (int)cudaErrorInvalidValue;
   if (net.layer[net.n_layers - 1].kout != 16) return (int)cudaErrorInvalidValue;
   if (view.H > 32 || view.sh_dim > 16) return (int)cudaErrorInvalidValue;
   Plan pl;
-  if (!plan_for<T>(net, view.H ? &view : nullptr, wgs_of<T>(true), M, 16 + 1,
-                   true, pl))
+  if (!plan_for<T>(net, view.H ? &view : nullptr, wgs_of<T>(true, V), M, R,
+                   16 + 1, true, pl))
     return -1;
-  const long n_steps = ((long)N * Ts + M - 1) / M;
-  const int grid = grid_size(composite_kernel<T>, pl.wgs, pl.total, n_steps);
-  composite_kernel<T><<<grid, pl.wgs * 128, pl.total, stream>>>(
+  const long n_steps = ((long)N + R - 1) / R;
+  const int grid = grid_size(composite_kernel<T, V>, pl.wgs, pl.total,
+                             n_steps);
+  composite_kernel<T, V><<<grid, pl.wgs * 128, pl.total, stream>>>(
       net, view, pl, x3, dl, ts, rays8, N, Ts, pack_q, opaque, gsum, depth,
       wsum, rgb);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_composite_of(const Net& net, View view, const float* x3,
+                        const float* dl, const float* ts, const float* rays8,
+                        int N, int Ts, int pack_q, int opaque, float* gsum,
+                        float* depth, float* wsum, float* rgb,
+                        cudaStream_t stream) {
+  switch (variant_of(net)) {
+    case V_SERVED:
+      return launch_composite<T, V_SERVED>(net, view, x3, dl, ts, rays8, N, Ts,
+                                           pack_q, opaque, gsum, depth, wsum,
+                                           rgb, stream);
+    case V_BRANCHES:
+      return launch_composite<T, V_BRANCHES>(net, view, x3, dl, ts, rays8, N,
+                                             Ts, pack_q, opaque, gsum, depth,
+                                             wsum, rgb, stream);
+    default:
+      return launch_composite<T, V_WIDE>(net, view, x3, dl, ts, rays8, N, Ts,
+                                         pack_q, opaque, gsum, depth, wsum,
+                                         rgb, stream);
+  }
 }
 
 }  // namespace
@@ -1344,32 +1735,35 @@ extern "C" int grids_size() { return (int)sizeof(Grids); }
 
 // `grids` points to a Grids (a void pointer: a type of this file's unnamed
 // namespace in the signature would keep the symbol from being exported)
+// `bias` is null for a net without biases
 extern "C" int tmlp_launch(int use_bf16, const int* desc, const void* w,
-                           int w_elems, float enc_scale, const void* grids,
+                           int w_elems, float enc_scale, int angle_double,
+                           const float* bias, const void* grids,
                            const float* x3, long np, float* out, int out_rows,
                            void* stream) {
   const Grids& g = *static_cast<const Grids*>(grids);
   if (desc[0] < 1 || desc[0] > MAX_LAYERS) return -1;
   if (g.n_cp > MAX_LEVELS || g.n_vm > MAX_LEVELS)
     return (int)cudaErrorInvalidValue;
-  Net net = make_net(desc, w, w_elems, enc_scale, g);
+  Net net = make_net(desc, w, w_elems, enc_scale, angle_double, bias, g);
   if (use_bf16 && small_net(net))
     return launch_small(net, x3, np, out, out_rows, (cudaStream_t)stream);
-  auto* fn = use_bf16 ? &launch_tmlp<bf16> : &launch_tmlp<float>;
+  auto* fn = use_bf16 ? &launch_tmlp_of<bf16> : &launch_tmlp_of<float>;
   return fn(net, x3, np, out, out_rows, (cudaStream_t)stream);
 }
 
 extern "C" int tmlp_composite_launch(
     int use_bf16, const int* desc, const void* w, int w_elems, float enc_scale,
-    const void* grids, const void* vw, int v_elems, const int* vdesc,
-    const float* x3, const float* dl, const float* ts, const float* rays8,
-    int N, int Ts, int pack_q, int opaque, float* gsum, float* depth,
-    float* wsum, float* rgb, void* stream) {
+    int angle_double, const float* bias, const void* grids, const void* vw,
+    int v_elems, const int* vdesc, const float* x3, const float* dl,
+    const float* ts, const float* rays8, int N, int Ts, int pack_q,
+    int opaque, float* gsum, float* depth, float* wsum, float* rgb,
+    void* stream) {
   const Grids& g = *static_cast<const Grids*>(grids);
   if (desc[0] < 1 || desc[0] > MAX_LAYERS) return -1;
   if (g.n_cp > MAX_LEVELS || g.n_vm > MAX_LEVELS)
     return (int)cudaErrorInvalidValue;
-  Net net = make_net(desc, w, w_elems, enc_scale, g);
+  Net net = make_net(desc, w, w_elems, enc_scale, angle_double, bias, g);
   View view{vw, v_elems, 0, 0, 0, 0};
   if (vw && vdesc) {
     view.H = vdesc[0];
@@ -1377,7 +1771,8 @@ extern "C" int tmlp_composite_launch(
     view.sh_dim = vdesc[2];
     view.degree = vdesc[3];
   }
-  auto* fn = use_bf16 ? &launch_composite<bf16> : &launch_composite<float>;
+  auto* fn =
+      use_bf16 ? &launch_composite_of<bf16> : &launch_composite_of<float>;
   return fn(net, view, x3, dl, ts, rays8, N, Ts, pack_q, opaque, gsum, depth,
             wsum, rgb, (cudaStream_t)stream);
 }

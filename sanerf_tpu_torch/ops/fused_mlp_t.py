@@ -10,15 +10,19 @@ What they compute, per point x (contracted coordinates, [3, P] layout):
   - the Fourier encode by angle doubling: z = x * pi / bound, one sin and
     one cos (= sin(z + pi/2)) at the base frequency, then s' = 2sc,
     c' = c^2 - s^2 for each further frequency, in the tight column order of
-    ops/freq.py: [z, s_0, c_0, s_1, c_1, ...];
+    ops/freq.py: [z, s_0, c_0, s_1, c_1, ...]; or with `angle_double=False`
+    the dense-sin encode of the JAX package's make_enc_consts, the same
+    columns as sin(z 2^f) and sin(z 2^f + pi/2);
   - optional factorized-grid features appended to the encoding, in the
     order of fields.position_features: CP line features of each level of a
     CP ladder (coarse -> fine), then VM plane x line features of each level
     of a VM ladder (3 modes each); the component sums of the sigma-CP and
     sigma-VM tables added to output row 0 (direct density);
-  - the MLP chain (bias-free), the skip layer as a second product over the
-    encoding, leaky 0.01 or ReLU between layers; activations are rounded to
-    the weight type between layers, the products accumulate in float32.
+  - the MLP chain, the skip layer as a second product over the encoding,
+    an optional float32 bias added to each layer's sum, leaky 0.01 or ReLU
+    between layers; activations are rounded to the weight type between
+    layers, the products accumulate in float32. Layers may be up to 256
+    wide (MAX_WIDTH).
 `run_tmlp` returns the last layer transposed, [kout, P]. The composite
 variant treats P = N * T points as N rays of T samples and returns per-ray
 sums: density softplus(row0 - 1), alpha (last sample opaque when asked),
@@ -50,9 +54,12 @@ from sanerf_tpu_torch.ops.vmgrid import vm_read
 TABLE_BYTES_LIMIT = 25 * 10 ** 6
 #: Levels of a CP or a VM ladder the kernels' grid descriptor holds.
 MAX_GRID_LEVELS = 8
-#: Widest layer output the kernel's register tile holds (16 tiles of 8).
-MAX_WIDTH = 128
+#: Widest layer output the kernels take: one accumulator of 16 n-tiles of 8
+#: holds 128, a wider layer runs as two such chunks.
+MAX_WIDTH = 256
 MAX_LAYERS = 8
+#: floats per layer of the kernels' bias rows (csrc/fused_mlp_t.cu:BIAS_LD)
+BIAS_LD = MAX_WIDTH
 #: The view head runs one output per lane of a warp.
 MAX_VIEW_WIDTH = 32
 #: Shared memory a block may use on the H100.
@@ -82,8 +89,10 @@ def _levels(t) -> list:
 class TransposedFieldMLP:
     """One encode + MLP chain, checked once and packed once for the kernel.
 
-    layers: [{"w": [in, out]}, ...] bias-free; layer `l in skip_layers` takes
-    [hidden, encoding] as input. The factorized grids, each a table or a
+    layers: [{"w": [in, out], "b": [out] (optional)}, ...]; layer `l in
+    skip_layers` takes [hidden, encoding] as input; biases are kept in
+    float32, as the JAX package's pack_tmlp keeps them. `angle_double`
+    False takes the dense-sin encode (no grid tables then, as in JAX). The factorized grids, each a table or a
     ladder (a list of levels, coarse -> fine): cp_lines [3, R, K];
     vm_planes [3, R, R, K] with vm_lines [3, Rl, K]; sigma_cp_lines and
     sigma_vm_planes / sigma_vm_lines single tables. The encoding is [Fourier,
@@ -96,10 +105,12 @@ class TransposedFieldMLP:
                  cp_lines=None, sigma_cp_lines: Optional[torch.Tensor] = None,
                  vm_planes=None, vm_lines=None,
                  sigma_vm_planes: Optional[torch.Tensor] = None,
-                 sigma_vm_lines: Optional[torch.Tensor] = None):
-        if any("b" in p for p in layers):
-            raise NotImplementedError("biased layers are not in the port")
+                 sigma_vm_lines: Optional[torch.Tensor] = None,
+                 angle_double: bool = True):
         self.ws = [p["w"] for p in layers]
+        self.bs = ([p.get("b") for p in layers]
+                   if any("b" in p for p in layers) else None)
+        self.angle_double = bool(angle_double)
         self.enc_freqs = enc_freqs
         self.bound = bound
         self.skip = tuple(skip_layers)
@@ -122,6 +133,9 @@ class TransposedFieldMLP:
                     or l.shape[2] != p.shape[3]):
                 raise ValueError(f"VM level: planes {tuple(p.shape)} and "
                                  f"lines {tuple(l.shape)} do not match")
+        if not self.angle_double and self.tables:
+            raise ValueError("grid features require the angle-doubling "
+                             "encode")
         self.dtype = self.ws[0].dtype
         for t in self.ws + self.tables:
             if t.dtype != self.dtype:
@@ -132,7 +146,7 @@ class TransposedFieldMLP:
             raise ValueError(f"layer 0 takes {self.ws[0].shape[0]} inputs, "
                              f"the encoding has {self.F + self.kc}")
         self.kout = int(self.ws[-1].shape[1])
-        self._packed = None
+        self._packed = self._bias = None
 
     @property
     def tables(self):
@@ -162,7 +176,10 @@ class TransposedFieldMLP:
         s, c = torch.sin(z), torch.sin(z + HALF_PI)
         cols = [z]
         for f in range(self.enc_freqs):
-            if f:
+            if not self.angle_double:  # z 2^f is exact
+                s, c = torch.sin(z * 2.0 ** f), torch.sin(z * 2.0 ** f
+                                                          + HALF_PI)
+            elif f:
                 s, c = 2.0 * s * c, c * c - s * s
             cols += [s, c]
         cols += [_cp_plain(t, x, self.bound, dtype) for t in self.cp]
@@ -182,6 +199,8 @@ class TransposedFieldMLP:
                 acc = h @ w[:hid] + enc @ w[hid:]
             else:
                 acc = h @ w
+            if self.bs is not None and self.bs[l] is not None:
+                acc = acc + self.bs[l].float().to(dtype)
             if l == len(self.ws) - 1:
                 if sig is not None:
                     acc = torch.cat([acc[:, :1] + sig[:, None], acc[:, 1:]], 1)
@@ -240,6 +259,20 @@ class TransposedFieldMLP:
         self._packed = (flat, np.asarray(head + desc, np.int32))
         return self._packed
 
+    def bias_rows(self, device: torch.device) -> Optional[torch.Tensor]:
+        """The biases as the kernels read them, float32 [n_layers, BIAS_LD]
+        zero-padded (a layer without one zero), or None for a bias-free net;
+        built once per device."""
+        if self.bs is None:
+            return None
+        if self._bias is None or self._bias.device != device:
+            rows = torch.zeros(len(self.ws), BIAS_LD)
+            for l, b in enumerate(self.bs):
+                if b is not None:
+                    rows[l, :b.numel()] = b.detach().float().cpu()
+            self._bias = rows.to(device)
+        return self._bias
+
 
 def encode_probes(tm: TransposedFieldMLP) -> list:
     """One-layer nets over tm's tables that read its encoding back: output
@@ -259,7 +292,7 @@ def encode_probes(tm: TransposedFieldMLP) -> list:
             w[c0 + j, j + 1] = 1.0
         probes.append(TransposedFieldMLP(
             [{"w": w.to(tm.dtype).to(tm.ws[0].device)}], tm.enc_freqs,
-            tm.bound, **grids))
+            tm.bound, angle_double=tm.angle_double, **grids))
     return probes
 
 
@@ -458,8 +491,9 @@ def _lib():
     if lib.grids_size() != ctypes.sizeof(Grids):
         raise RuntimeError("csrc/fused_mlp_t.cu:Grids and its ctypes mirror "
                            "differ in size")
-    # bf16, layer descriptor, weights, their count, encode scale, &Grids
-    net = [_I, _P, _P, _I, _F, _P]
+    # bf16, layer descriptor, weights, their count, encode scale, angle
+    # doubling, bias rows, &Grids
+    net = [_I, _P, _P, _I, _F, _I, _P, _P]
     _build.declare(lib, "tmlp_launch", net + [_P, _L, _P, _I, _P])
     # view (weights, count, descriptor), xT, dl, ts, rays8, N, T, pack_q,
     # opaque, gsum, depth, wsum, rgb, stream
@@ -490,10 +524,13 @@ def _net_args(tm: TransposedFieldMLP, device):
     for t in tm.tables:
         _check(t, "grid table", t.shape, tm.dtype)
     flat, desc = tm.packed(device)
+    bias = tm.bias_rows(device)
     grids = grids_of(tm)
     args = [int(tm.dtype == torch.bfloat16), desc.ctypes.data,
-            flat.data_ptr(), flat.numel(), tm.scale, ctypes.addressof(grids)]
-    return args, (flat, desc, grids)
+            flat.data_ptr(), flat.numel(), tm.scale, int(tm.angle_double),
+            None if bias is None else bias.data_ptr(),
+            ctypes.addressof(grids)]
+    return args, (flat, desc, bias, grids)
 
 
 def grids_of(tm: TransposedFieldMLP) -> Grids:
@@ -579,9 +616,8 @@ def run_tmlp_composite(xT: torch.Tensor, dl: torch.Tensor, ts: torch.Tensor,
     N, T = _unpack_rows(dl, pack_q, T).shape
     if tm.kout > 16:
         raise NotImplementedError(f"composite of {tm.kout} outputs > 16")
-    if not (T <= 128 and (16 % T == 0 or T % 16 == 0)):
-        raise NotImplementedError(f"composite kernel: T={T} must divide 16 "
-                                  f"or be a multiple of 16 up to 128")
+    if not 1 <= T <= 128:
+        raise NotImplementedError(f"composite kernel: T={T} past 128")
     rows = (N, T) if pack_q == 1 else (N // pack_q, pack_q * T, 1)
     _check(xT, "xT", (3, N * T))
     _check(dl, "dl", rows)

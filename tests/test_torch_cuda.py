@@ -482,10 +482,17 @@ def test_run_tmlp_asset_widths(dev, net, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("T,pack_q", [(16, 1), (32, 1), (4, 1), (16, 8),
-                                      (4, 8), (80, 1), (112, 1)])
+                                      (4, 8), (80, 1), (112, 1), (1, 1),
+                                      (3, 1), (12, 1), (24, 1), (40, 1),
+                                      (100, 1), (127, 1), (24, 4)])
 def test_run_tmlp_composite_asset_widths(dev, T, pack_q, dtype):
     """T = 80 and 112 step lcm(64, T) = 320 and 448 points: their buffers
-    leave room for fewer warpgroups beside the weights."""
+    leave room for fewer warpgroups beside the weights. T that neither
+    divides 16 nor is a multiple of it step whole rays, the last tile
+    padded where no whole number of rays fills whole tiles (12, 24 and 40
+    fill 192, 192 and 320 points; 3 rays of 100 take 320, one of 127 128);
+    67 rays leave a ragged last step; the packed epilogue at T = 24, q = 4
+    (the ray kernels' pick)."""
     g = torch.Generator(device=dev).manual_seed(12 + T + pack_q)
     tm, view = _asset_field(g, dev, dtype), _asset_view(g, dev, dtype)
     n = 67 if pack_q == 1 else 72
@@ -773,3 +780,158 @@ def test_run_tmlp_composite_default_field_f32(dev, T):
     got, ref = fm.run_tmlp(x, p, transposed=True), fm.run_tmlp_plain(x, p)
     _close(got, ref, 3e-4)
     _faithful(got, ref)
+
+
+# -- the branches beyond the served asset: ragged T, layers up to 256 wide,
+# biases, the dense-sin encode; each at _held's bounds, and a planted fault
+# of each kind must fail that hold ------------------------------------------
+
+
+def _fails_hold(*args):
+    try:
+        _held(*args)
+    except AssertionError:
+        return True
+    return False
+
+
+def _rays_of(n, T, g, dev):
+    x = torch.rand(3, n * T, generator=g, device=dev) * 8 - 4
+    dl = torch.rand(n, T, generator=g, device=dev) * 0.1
+    return x, dl, torch.cumsum(dl, 1) + 0.5, _rays8(n, g, dev)
+
+
+def _composite_held(tm, view, n, T, g, dev, dtype, pack_q=1):
+    x, dl, ts, r8 = _rays_of(n, T, g, dev)
+    if pack_q > 1:
+        dl, ts = (v.reshape(n // pack_q, pack_q * T, 1) for v in (dl, ts))
+    kw = {"view": view, "rays8": r8, "pack_q": pack_q, "T": T}
+    before = fm.run_tmlp_composite.launches
+    got = fm.run_tmlp_composite(x, dl, ts, tm, opaque=True, **kw)
+    assert fm.run_tmlp_composite.launches == before + 1
+    ref = fm.run_tmlp_composite_plain(x, dl, ts, tm, True, **kw)
+    _held(got, ref, dtype, 1e-3)
+    return got, ref
+
+
+def test_composite_T24_unwritten_ray_fails(dev):
+    """Planted fault: the last whole ray of every T = 24 step (8 rays of 24
+    points) left unwritten (zero) must fail the hold that the kernel's own
+    outputs pass."""
+    g = torch.Generator(device=dev).manual_seed(78)
+    dtype = torch.float32
+    got, ref = _composite_held(_asset_field(g, dev, dtype),
+                               _asset_view(g, dev, dtype), 1003, 24, g, dev,
+                               dtype)
+    bad = tuple(v.clone() for v in got)
+    for v in bad:
+        v[7::8] = 0.0
+    assert _fails_hold(bad, ref, dtype, 1e-3)
+
+
+def _wide_field(g, dev, dtype, width, depth=8, bias=False):
+    """The default field's shape at `width`: 63 -> width x depth - 1 (the
+    skip at depth / 2) -> 16, leaky; a CP table of 32 columns beside the
+    Fourier features, seeded biases of a visible size with `bias`."""
+    F, K = 63, 32
+    sizes = ([(F + K, width)]
+             + [(width + (F + K if l == depth // 2 else 0), width)
+                for l in range(1, depth - 1)] + [(width, 16)])
+    layers = _layers(sizes, g, dev)
+    for p in layers:
+        p["w"] = p["w"].to(dtype)
+        if bias:
+            p["b"] = torch.randn(p["w"].shape[1], generator=g,
+                                 device=dev) * 0.3
+    cp = torch.rand(3, 128, K, generator=g, device=dev) * 0.5 + 0.5
+    return fm.TransposedFieldMLP(layers, 10, 4.0, (depth // 2,), leaky=True,
+                                 cp_lines=cp.to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("width", [144, 192, 256])
+def test_field_kernels_wide_layers(dev, width, dtype):
+    """Layers over 128 wide (two accumulator chunks: 128 + 16, 128 + 64,
+    128 + 128), depth 8 with the skip: run_tmlp, and the composite at
+    T = 32 and 24 with the view head."""
+    g = torch.Generator(device=dev).manual_seed(80 + width)
+    tm = _wide_field(g, dev, dtype, width)
+    x = torch.rand(3, 20011, generator=g, device=dev) * 8 - 4
+    before = fm.run_tmlp.launches
+    got = fm.run_tmlp(x, tm, transposed=True)
+    assert fm.run_tmlp.launches == before + 1
+    _held(got, fm.run_tmlp_plain(x, tm), dtype, 3e-4)
+    for T in (32, 24):
+        _composite_held(tm, _asset_view(g, dev, dtype), 701, T, g, dev,
+                        dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("width", [128, 256])
+def test_field_kernels_biased(dev, width, dtype):
+    """Biased layers (float32 biases added before the activation, the
+    last layer's before the sigma sum), at the asset's widths (a sigma-CP
+    table too) and 256 wide; a planted fault, the biases left out of the
+    kernel's net, must fail the hold."""
+    g = torch.Generator(device=dev).manual_seed(90 + width)
+    if width == 128:
+        tm = _asset_field(g, dev, dtype)
+        layers = [{"w": w, "b": torch.randn(w.shape[1], generator=g,
+                                            device=dev) * 0.3}
+                  for w in tm.ws]
+        tm = fm.TransposedFieldMLP(layers, 10, 4.0, (1,), leaky=True,
+                                   cp_lines=tm.cp, sigma_cp_lines=tm.scp)
+    else:
+        tm = _wide_field(g, dev, dtype, width, bias=True)
+    bare = fm.TransposedFieldMLP(
+        [{"w": w} for w in tm.ws], 10, 4.0, tm.skip, leaky=True,
+        cp_lines=tm.cp, sigma_cp_lines=tm.scp)
+    x = torch.rand(3, 20011, generator=g, device=dev) * 8 - 4
+    ref = fm.run_tmlp_plain(x, tm)
+    _held(fm.run_tmlp(x, tm, transposed=True), ref, dtype, 3e-4)
+    assert _fails_hold(fm.run_tmlp(x, bare, transposed=True), ref, dtype,
+                       3e-4)
+    got, ref = _composite_held(tm, _asset_view(g, dev, dtype), 701, 24, g,
+                               dev, dtype)
+    xr, dl, ts, r8 = _rays_of(701, 24, g, dev)
+    kw = {"view": _asset_view(g, dev, dtype), "rays8": r8}
+    assert _fails_hold(fm.run_tmlp_composite(xr, dl, ts, bare, **kw),
+                       fm.run_tmlp_composite_plain(xr, dl, ts, tm, **kw),
+                       dtype, 1e-3)
+
+
+def _dense(tm, angle_double=False):
+    """tm's chain (no grid tables) with the given encode."""
+    return fm.TransposedFieldMLP([{"w": w} for w in tm.ws], tm.enc_freqs,
+                                 tm.bound, tm.skip, leaky=tm.leaky,
+                                 angle_double=angle_double)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_field_kernels_dense_sin(dev, dtype):
+    """The dense-sin encode at the asset's field widths (127 -> 128, 255 ->
+    128, 128 -> 16 over Fourier features only, 10 frequencies): run_tmlp,
+    the composite at T = 16 and 24, every encoding column through the
+    probes. Planted fault: the kernel's encode by angle doubling, whose
+    features drift from sin(z 2^f) by up to 1e-4 at 2^9, must fail the
+    float32 probes' hold."""
+    g = torch.Generator(device=dev).manual_seed(95)
+    layers = _layers([(63, 128), (191, 128), (128, 16)], g, dev)
+    tm = fm.TransposedFieldMLP([{"w": p["w"].to(dtype)} for p in layers], 10,
+                               2.0, (1,), leaky=True, angle_double=False)
+    x = torch.rand(3, 20011, generator=g, device=dev) * 4.4 - 2.2
+    _held(fm.run_tmlp(x, tm, transposed=True), fm.run_tmlp_plain(x, tm),
+          dtype, 3e-4)
+    for T in (16, 24):
+        _composite_held(tm, _asset_view(g, dev, dtype), 701, T, g, dev,
+                        dtype)
+    ad = _dense(tm, angle_double=True)
+    faults = 0
+    for p, q in zip(fm.encode_probes(tm), fm.encode_probes(ad)):
+        ref = fm.run_tmlp_plain(x, p)
+        _held(fm.run_tmlp(x, p, transposed=True), ref, dtype, 3e-4,
+              PROBE_TOL)
+        faults += _fails_hold(fm.run_tmlp(x, q, transposed=True), ref,
+                              dtype, 3e-4, PROBE_TOL)
+    if dtype == torch.float32:
+        assert faults > 0
