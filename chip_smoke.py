@@ -135,11 +135,38 @@ Phases (any failure exits non-zero and prints no result line):
      features with the dense-sin encode, through the (32, 16) frame's
      render_frame (counted) and at its level-0 points, bf16 and float32
      twins, every launch held and timed;
+ L1. the asset at (128, 256) and (256, 128, 64), whose levels pass 128
+     samples a ray: a 512^2 frame through render_frame with the counters
+     set to 0 just before and read just after, every launch of the frame
+     held whole against its plain version run on slices of SLICE_RAYS
+     rays (the plain composite of a whole frame at once does not fit the
+     card's memory), both timed, the fast path against the plain path (PATH_TOL), held-out PSNR at
+     (128, 256) against the JAX package's (JAX_PSNR_LONG_BF16);
+ L1-L7. 64^2 frames of port_tools/grid_params.py:LIMITS, the seeded
+     configurations past each former limit of the kernels (rays of 512 /
+     256 samples, 12 and 16 layers, widths 320 and 512, view heads 48 and
+     128, 31 geometry features, CP and VM ladders of 16 levels, the
+     quality recipe's tables with RenderConfig.grid_vmem_budget raised
+     past them): on the kernels, float32 params against the JAX
+     package's frame (port_tools/jax_limits.jsonl, JAX_GRID; JAX_WIDE_TOL)
+     and against the plain path, every bf16 launch held (GRID_TOL;
+     float32 twins at MLP_F32_TOL and F32_FAITHFUL) and timed; a 512^2
+     frame of width 512
+     at (32, 16) (held whole, the plain version on slices; timed); the
+     feature render of 31
+     geometry features (its run_tmlp of 32 outputs held); the quality
+     recipe's 512^2 frame on the kernels (counted, timed);
+ S.  ModelConfig(sum_after_mlp=True)'s 64^2 frame: the final level's field
+     through run_tmlp (launch counts 1 / 2 / 3 / 0), against the plain
+     path, its launches held and timed;
+ and before phase 3, the asset's served bf16 launches of both 512^2 RGB
+     frames digested (port_tools/served_digests.py) and held bit for bit
+     to SERVED_DIGESTS;
  19. one {"kernels": [...]} line, one {"frames": ...} line, one
      {"interactive": ...} line, one {"hashgrid": ...} line, one
      {"grids": ...} line, one {"train": ...} line, one {"branches": ...}
-     line, the run's wall time {"wall_s": ...}, and last {"ok": true,
-     "device": {...}}.
+     line, one {"limits": ...} line, the run's wall time {"wall_s": ...},
+     and last {"ok": true, "device": {...}}.
 Kernel times are CUDA events around launches queued behind a sleep
 kernel (`backlog`), so they are the card's time even where the host's
 wrapper takes longer than the kernel. Needs no network; builds into
@@ -487,6 +514,51 @@ RECIPE_TRAIN = dict(lambda_tv=1e-3, anneal_iters=4000,
                     grid_upsample_steps=(2, 4000, 8000))
 
 
+#: SHA-256 of the outputs of each served bf16 launch of the asset's 512^2
+#: RGB frames, in launch order (port_tools/served_digests.py), as the
+#: port of the commit before the kernel limits were lifted computes them
+#: on the H100 (`python3 port_tools/served_digests.py build/parent`): the
+#: lifted kernels must give the served launches the same bits
+SERVED_DIGESTS = {
+    "32,16": [
+        ("ray_level0",
+         "fd0e67dec8635ddac7759e3f66c16771eb24700a1d3560d9bd848f48cc3bd932"),
+        ("run_tmlp",
+         "eed2e1de8908a455124b3eed7847ad962b8419b242dea7598bb782b29e145e1e"),
+        ("ray_level",
+         "1262584429b2539a6bdd1d1ba53c26ad76387e5be780068ed703ff1ab202cbf4"),
+        ("run_tmlp_composite",
+         "61d929ad47ea37cb7f74ca25214e202b0e04682dbf11907220159fb761988a5c"),
+    ],
+    "128,64,32": [
+        ("ray_level0",
+         "1d4e72a473a501b970dcec81df4c7db41816784089810ef1054affd3188a0328"),
+        ("run_tmlp",
+         "7934e5a671eb8161b34b9de2e8a20712e1da02fd18af220bc0b9c1c7f0f81ca2"),
+        ("ray_level",
+         "7be9d7ee7072c01fbc8dd5499a732c712b03f4ec8b24ddb544c408313f45e507"),
+        ("run_tmlp",
+         "9c1e547712f6ac551cdba96eefd1723332b0201b8f00d53661171084ccd94990"),
+        ("ray_level",
+         "dcbb38dc2efc6b88c1edece234c304dd0698831fe7c85101d34dddfc26d323f0"),
+        ("run_tmlp_composite",
+         "581570aa6797cc921b563587dff58c84cac8a8b568c05d33eeadfa2186c1547a"),
+    ],
+}
+#: phases L1-L7 and S (limit_phases): the asset at hierarchies past 128
+#: samples a ray, each 512^2 frame's launches held and timed whole against
+#: their plain versions run on slices of SLICE_RAYS rays (the plain
+#: composite of a whole frame at once does not fit the card's memory); then the seeded configurations past the former
+#: limits (port_tools/grid_params.py:LIMITS), each a 64^2 frame against the
+#: JAX package's (port_tools/jax_limits.jsonl from `JAX_PLATFORMS=cpu
+#: python port_tools/jax_limits_reference.py`; the quality recipe's is
+#: JAX_GRID's) at JAX_WIDE_TOL
+LONG_HIERARCHIES = {"128,256": (128, 256), "256,128,64": (256, 128, 64)}
+SLICE_RAYS = 32768
+#: the held-out PSNR of the asset at (128, 256), bf16, through the JAX
+#: package's XLA path on the CPU, bench.py:149-170 protocol; from
+#: `JAX_PLATFORMS=cpu python port_tools/jax_psnr_reference.py 128,256`
+JAX_PSNR_LONG_BF16 = {"128,256": 21.446619081724656}
 def fail(msg):
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
@@ -910,6 +982,54 @@ def plain_f64(name, a, k, chunk=1 << 21):
     return tuple(torch.cat(o, 0) for o in zip(*parts))
 
 
+def slice_launch(name, a, k, lo, hi):
+    """A launch (name, arguments a, k) cut to its rays lo..hi (run_tmlp:
+    its points lo..hi), each slice contiguous."""
+    c = lambda t: None if t is None else t[lo:hi].contiguous()  # noqa: E731
+    k = dict(k)
+    if name == "run_tmlp":
+        return (a[0][:, lo:hi].contiguous(),) + tuple(a[1:]), k
+    if name == "run_tmlp_composite":
+        T = a[1].shape[1]
+        if k.get("rays8") is not None:
+            k["rays8"] = c(k["rays8"])
+        return ((a[0][:, lo * T:hi * T].contiguous(), c(a[1]), c(a[2]))
+                + tuple(a[3:]), k)
+    if k.get("jitter") is not None:
+        k["jitter"] = c(k["jitter"])
+    if name == "ray_level0":
+        return (c(a[0]),) + tuple(a[1:]), k
+    return (c(a[0]), c(a[1]), c(a[2])) + tuple(a[3:]), k
+
+
+def plain_in_slices(plain, name, a, k, rays=None):
+    """The plain version `plain` of a whole launch (name, arguments a, k)
+    run on its rays in slices of `rays` (SLICE_RAYS) rays (run_tmlp: rays
+    x 64 points) and the slices' outputs put together, where the plain
+    version of the whole launch at once would not fit the card's memory
+    -> a tuple."""
+    import torch
+
+    if name == "run_tmlp_composite" and (k.get("pack_q", 1) > 1
+                                         or a[1].dim() != 2):
+        fail("plain_in_slices: a packed composite launch")
+    rays = rays or SLICE_RAYS
+    step = rays * 64 if name == "run_tmlp" else rays
+    total = (a[0].shape[1] if name == "run_tmlp"
+             else a[1].shape[0] if name == "run_tmlp_composite"
+             else a[0].shape[0])
+    outs = []
+    for lo in range(0, total, step):
+        sa, sk = slice_launch(name, a, k, lo, min(lo + step, total))
+        o = plain(*sa, **sk)
+        outs.append(o if isinstance(o, tuple) else (o,))
+        del sa, sk
+    # run_tmlp [kout, P] and the ray kernels' x3 [3, N, T] along dim 1
+    dims = ((1,) if name == "run_tmlp" else (0,) * 4 if name.startswith(
+        "run_tmlp") else (0, 0, 0, 1, 0, 0))
+    return tuple(torch.cat(parts, d) for parts, d in zip(zip(*outs), dims))
+
+
 def f64_errors(got, ref, ref64):
     """(kernel's, plain version's) largest |d| / (1 + |r64|) over every
     output of a launch, against its float64 plain version ref64."""
@@ -1022,15 +1142,28 @@ def main():
         check({n for (hh, n) in calls if hh == h} == set(KERNELS),
               f"{h}: the main path missed a kernel: {sorted(calls)}")
     seen = {key: v[0] for key, v in calls.items()}
+    # the served launches bit for bit as before the limits were lifted
+    sys.path.insert(0, os.path.join(ROOT, "port_tools"))
+    from served_digests import served_launches
+
+    digests = {h: [(r["kernel"], r["digest"]) for r in rows_]
+               for h, rows_ in served_launches(ROOT, 0, dev).items()}
+    for h, want in SERVED_DIGESTS.items():
+        check(digests[h] == [tuple(w) for w in want],
+              f"{h}: the served bf16 launches' outputs differ from "
+              f"SERVED_DIGESTS: {digests[h]}")
+    log("served launches: digests equal SERVED_DIGESTS")
 
     # field kernel -> its float32 launches' largest max |d| / (1 + |ref|)
     # of those held at F32_FAITHFUL ("held"), and the largest kernel and
     # cuBLAS errors against the float64 plain version of the others ("f64")
     faithful = {"held": {}, "f64": {}}
 
-    def compare(name, a, k, tol, flips, faithful_hold=False):
+    def compare(name, a, k, tol, flips, faithful_hold=False,
+                in_slices=False):
         """Kernel vs plain on the same inputs -> (max abs err, outputs past
-        tol + tol |ref|). Fails where
+        tol + tol |ref|); with `in_slices` the plain version runs on slices
+        of the launch's rays (plain_in_slices). Fails where
         |d| > tol + tol |ref|; with `flips` (bf16 weights), on more than
         FLIP_SHARE of the outputs or past tol * max|ref| (see MLP_TOL). A
         field kernel with float32 weights also fails, with `faithful_hold`
@@ -1041,7 +1174,8 @@ def main():
         f32_field = (name.startswith("run_tmlp")
                      and field_of(name, a).dtype == torch.float32)
         got = kern_fn[name](*a, **k)
-        ref = plain_fn[name](*a, **k)
+        ref = (plain_in_slices(plain_fn[name], name, a, k) if in_slices
+               else plain_fn[name](*a, **k))
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
         ref = ref if isinstance(ref, tuple) else (ref,)
@@ -1257,11 +1391,12 @@ def main():
                                            for w in tm.ws)
         return nbytes / HBM_BPS * 1e3, op_ms
 
-    def launch_times(name, launches_, plain=True):
+    def launch_times(name, launches_, plain=True, in_slices=False):
         """[{shape, ms, plain_ms, bound_ms, bound_by}] of each launch, in
         the frame's order; a shape seen before is timed once: the kernel and
-        the plain version each as the mean of 10 launches queued behind a
-        backlog. A field kernel with float32 weights also gets both of its
+        the plain version (with `in_slices`, on slices of the launch's
+        rays: plain_in_slices) each as the mean of 10 launches queued behind
+        a backlog. A field kernel with float32 weights also gets both of its
         bounds (field_op_ms), bound_ms being the lower."""
         out, done = [], {}
         for a, k in launches_:
@@ -1271,8 +1406,10 @@ def main():
                 done[key] = {
                     "shape": key,
                     "ms": cuda_ms(lambda: kern_fn[name](*a, **k), reps=10),
-                    "plain_ms": (cuda_ms(lambda: plain_fn[name](*a, **k),
-                                         reps=10) if plain else None),
+                    "plain_ms": (cuda_ms(
+                        (lambda: plain_in_slices(plain_fn[name], name, a, k))
+                        if in_slices else (lambda: plain_fn[name](*a, **k)),
+                        reps=10) if plain else None),
                     "bound_ms": b_ms, "bound_by": b_by}
                 if (name.startswith("run_tmlp")
                         and field_of(name, a).dtype == torch.float32):
@@ -1374,6 +1511,11 @@ def main():
                              kern_fn, model_at, rays_o, rays_d, nets, params,
                              params32, mc, rc)
     rows += branches.pop("rows")
+    torch.cuda.empty_cache()
+    limits = limit_phases(torch, np, dev, card, compare, launch_times,
+                          kern_fn, model_at, rays_o, rays_d, nets, params,
+                          params32)
+    rows += limits.pop("rows")
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({
@@ -1390,6 +1532,7 @@ def main():
     print(json.dumps({"grids": grids}), flush=True)
     print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"branches": branches}), flush=True)
+    print(json.dumps({"limits": limits}), flush=True)
     print(json.dumps({"wall_s": time.time() - t_wall}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -2084,8 +2227,9 @@ def hashgrid_phases(torch, np, dev, card, cuda_ms):
     pm = dict(params)
     pm["m_grid"] = hg.init_params(mgen, mmodel.m_grid_spec, hp.TABLE_STD,
                                   dev).to(torch.bfloat16)
-    pm["mask_mlp"] = fields.cast_params(fields.init_mlp(
-        mgen, *fields.mask_mlp_dims(mmodel), 3, False, (), dev))
+    pm["mask_mlp"] = fields.cast_params([
+        fields.init_linear(mgen, a, b, False, dev)
+        for a, b in fields.mask_mlp_shapes(mmodel)])
     torch.cuda.synchronize()
     ga.gather_rows.launches = 0
     mout = renderer.run_rays(mmodel, pm, rays_o, rays_d, return_mask=True)
@@ -3167,6 +3311,373 @@ def branch_phases(torch, np, dev, card, compare, launch_times, kern_fn,
                 f"points"))
     rec.update(max_abs_err=errs, max_abs_err_f32_weights=errs32,
                outputs_past_tol=past, rows=rows)
+    return rec
+
+
+def limit_phases(torch, np, dev, card, compare, launch_times, kern_fn,
+                 model_at, rays_o, rays_d, nets, params, params32):
+    """Phases L1-L7 and S: the configurations past the kernels' former
+    limits and the sum_after_mlp frame. -> the {"limits": ...} record,
+    with the kernel rows of their launches under "rows"."""
+    import dataclasses
+
+    from sanerf_tpu_torch.config import ModelConfig, RenderConfig
+    from sanerf_tpu_torch.models import fields, renderer
+    from sanerf_tpu_torch.models.asset import expected_shapes, params_from_jax
+    from sanerf_tpu_torch.ops import fused_mlp_t as fm
+    from sanerf_tpu_torch.ops import ray_kernels as rk
+
+    sys.path.insert(0, os.path.join(ROOT, "port_tools"))
+    import grid_params as gp
+
+    counters = [rk.ray_level0, rk.ray_level, fm.run_tmlp,
+                fm.run_tmlp_composite]
+    limit_configs = gp.LIMITS
+    rec = {"card": card}
+    errs, launch_t, rows = {}, {}, []
+    with open(os.path.join(ROOT, "port_tools", "jax_limits.jsonl")) as f:
+        jax_ref = {r["name"]: r for r in map(json.loads, f)}
+    jax_ref["L7 quality recipe"] = JAX_GRID["quality_recipe"]
+
+    def zero():
+        torch.cuda.synchronize()
+        for c in counters:
+            c.launches = 0
+
+    def counts():
+        torch.cuda.synchronize()
+        return [c.launches for c in counters]
+
+    def spied(fn):
+        calls = {}
+        with spying(renderer, fields, kern_fn, calls, None):
+            fn()
+        torch.cuda.synchronize()
+        return {n: v for (_, n), v in calls.items()}
+
+    def hold(key, name, a, k, twin, seeded, in_slices=False):
+        """A launch against its plain version (with `in_slices` run on
+        slices of its rays, plain_in_slices): the ray kernels at RAY_TOL;
+        bf16 weights at GRID_TOL (seeded) or MLP_TOL with FLIP_SHARE (the
+        asset's), their float32 twins at MLP_F32_TOL and F32_FAITHFUL
+        (seeded) or against the float64 plain version."""
+        if name.startswith("ray"):
+            e, _ = compare(name, a, k, RAY_TOL, flips=False,
+                           in_slices=in_slices)
+        else:
+            e, _ = (compare(name, a, k, GRID_TOL, flips=False,
+                            in_slices=in_slices) if seeded
+                    else compare(name, a, k, MLP_TOL, flips=True,
+                                 in_slices=in_slices))
+            if twin is not None:
+                compare(name, *twin(a, k), MLP_F32_TOL[name], flips=False,
+                        faithful_hold=seeded, in_slices=in_slices)
+        errs.setdefault(key, {})[name] = max(
+            errs.get(key, {}).get(name, 0.0), e)
+
+    def twin_of(bf, f32):
+        pairs = {id(x): y for x, y in zip([*bf.props, bf.field, bf.view],
+                                          [*f32.props, f32.field, f32.view])}
+        return lambda a, k: (tuple(pairs.get(id(v), v) for v in a),
+                             {kk: pairs.get(id(v), v) for kk, v in k.items()})
+
+    def frame_ms(fn, n=4):
+        ts_ = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts_.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(ts_[1:])
+
+    def row(name, kernel, key, launches, launches_of, i=0):
+        lt = launch_t[key][kernel][i]
+        return {"name": name, "route": "cuda", "source": SOURCES[kernel][0],
+                "replaces": SOURCES[kernel][1], "launches": launches,
+                "launches_of": launches_of,
+                "max_abs_err": errs[key][kernel],
+                "ms": lt["ms"], "plain_ms": lt["plain_ms"],
+                "bound_ms": lt["bound_ms"], "bound_by": lt["bound_by"],
+                "library_ms": None,
+                "library": "none: no single PyTorch call computes this "
+                           "function",
+                "shape": lt["shape"], "launch_times": launch_t[key][kernel]}
+
+    # -- L1: the asset past 128 samples a ray, 512^2 --------------------------
+    twin = twin_of(nets, fields.KernelNets(model_at((32, 16)), params32))
+    long_rec = {}
+    for h, steps in LONG_HIERARCHIES.items():
+        key = f"asset {h}"
+        model = model_at(steps)
+
+        def frame():
+            return renderer.render_frame(model, params, rays_o, rays_d,
+                                         chunk=SIZE * SIZE, nets=nets)
+        zero()
+        out = frame()
+        n = counts()
+        want = [1, len(steps) - 1, len(steps) - 1, 1]
+        check(n == want, f"{key}: launches {n}, expected {want}")
+        for kk in ("image", "depth", "weights_sum"):
+            check(bool(torch.isfinite(out[kk]).all()), f"{key}: {kk}")
+        check(float(out["weights_sum"].min()) > 0.5, f"{key}: weights_sum")
+        del out
+        calls = spied(frame)
+        # each launch of the frame whole, its plain version on slices of
+        # SLICE_RAYS rays (the plain composite of the whole frame at once
+        # does not fit the card's memory)
+        for name in KERNELS:
+            for a, k in calls.get(name, []):
+                hold(key, name, a, k, twin, seeded=False, in_slices=True)
+        launch_t[key] = {name: launch_times(name, calls[name],
+                                            in_slices=True)
+                         for name in calls}
+        del calls
+        gap = path_gap(renderer, model, model_at(steps, use_fused_mlp=False),
+                       params32, rays_o, rays_d, key)
+        long_rec[h] = {"launches_per_frame": n, "frame_ms": frame_ms(frame),
+                       "fast_vs_plain_f32": gap}
+        if h in JAX_PSNR_LONG_BF16:
+            psnr = heldout_psnr(renderer, fields.make_model(
+                model.cfg, dataclasses.replace(model.render_cfg,
+                                               max_ray_batch=128 * 128)),
+                params, nets, dev, h)
+            check(abs(psnr - JAX_PSNR_LONG_BF16[h]) <= PSNR_TOL_DB,
+                  f"{h}: PSNR {psnr:.3f} dB vs JAX "
+                  f"{JAX_PSNR_LONG_BF16[h]:.3f} dB")
+            long_rec[h].update(psnr_db=psnr,
+                               jax_psnr_db_bf16_cpu=JAX_PSNR_LONG_BF16[h])
+        torch.cuda.empty_cache()
+        log(f"L1 asset {h}: {long_rec[h]}")
+    rec["asset_long_rays"] = long_rec
+    rows += [
+        row("ray_level[T0=128, T=256]", "ray_level", "asset 128,256",
+            long_rec["128,256"]["launches_per_frame"][1],
+            f"the asset's 512^2 RGB frame at (128, 256); plain in slices of "
+            f"{SLICE_RAYS} rays"),
+        row("run_tmlp_composite[T=256]", "run_tmlp_composite",
+            "asset 128,256", long_rec["128,256"]["launches_per_frame"][3],
+            f"the asset's 512^2 RGB frame at (128, 256), segments of 256; "
+            f"plain in slices of {SLICE_RAYS} rays"),
+        row("ray_level0[T=256]", "ray_level0", "asset 256,128,64",
+            long_rec["256,128,64"]["launches_per_frame"][0],
+            f"the asset's 512^2 RGB frame at (256, 128, 64); plain in "
+            f"slices of {SLICE_RAYS} rays"),
+        row("ray_level[T0=256, T=128]", "ray_level", "asset 256,128,64",
+            long_rec["256,128,64"]["launches_per_frame"][1],
+            f"the asset's 512^2 RGB frame at (256, 128, 64); plain in "
+            f"slices of {SLICE_RAYS} rays")]
+
+    # -- L1-L7 at 64^2: the seeded configurations against the JAX package ----
+    o64, d64 = (torch.from_numpy(a).to(dev) for a in gp.frame_rays(64))
+    px = torch.tensor(JAX_WIDE["pixels"], device=dev)
+    seeded = {}
+    for name, (mkw, rkw) in limit_configs.items():
+        model = fields.make_model(ModelConfig(**mkw), RenderConfig(**rkw))
+        plain = fields.make_model(ModelConfig(**mkw), RenderConfig(
+            use_fused_mlp=False, **rkw))
+        check(renderer.uses_kernels(model), f"{name}: not on the kernels")
+        p32 = params_from_jax(gp.make_flat(expected_shapes(model),
+                                           GRID_SEED), model, dev)
+        pbf = fields.cast_params(p32, torch.bfloat16)
+        nbf, n32 = fields.KernelNets(model, pbf), fields.KernelNets(model,
+                                                                    p32)
+        zero()
+        out = renderer.run_rays(model, p32, o64, d64, nets=n32)
+        n = counts()
+        check(all(v > 0 for v in n), f"{name}: launches {n}")
+        ref = jax_ref[name]
+        jax_err = {}
+        for kk in ("mean", "image", "depth", "weights_sum"):
+            if kk == "mean":
+                got_v = np.asarray([float(out[m].double().mean())
+                                    for m in ref["mean"]])
+                want = np.asarray(list(ref["mean"].values()))
+            else:
+                got_v = out[kk][px].double().cpu().numpy()
+                want = np.asarray(ref[kk])
+            d = np.abs(got_v - want)
+            jax_err[kk] = float(d.max())
+            check(bool((d <= JAX_WIDE_TOL + JAX_WIDE_TOL
+                        * np.abs(want)).all()),
+                  f"{name}: {kk} off the JAX package's frame: "
+                  f"max {d.max():.3g}")
+        slow = renderer.run_rays(plain, p32, o64, d64)
+        gap = {}
+        for kk in ("image", "depth", "weights_sum"):
+            d = (out[kk] - slow[kk]).abs()
+            over = d > PATH_TOL + PATH_TOL * slow[kk].abs()
+            if over.dim() > 1:
+                over, d = over.any(dim=-1), d.amax(dim=-1)
+            n_over, e = int(over.sum()), float(d.max())
+            allowed = (math.floor(DEPTH_SHARE * d.numel()) if kk == "depth"
+                       else 0)
+            check(n_over <= allowed and (kk != "depth" or e <= DEPTH_MAX),
+                  f"{name}: fast path {kk} off the plain path: max {e:.3g}, "
+                  f"{n_over} rays past {PATH_TOL}")
+            gap[kk] = {"max_abs_err": e, "rays_over": n_over}
+        del out, slow
+        calls = spied(lambda: renderer.run_rays(model, pbf, o64, d64,
+                                                nets=nbf))
+        for kname in KERNELS:
+            for a, k in calls.get(kname, []):
+                hold(name, kname, a, k, twin_of(nbf, n32), seeded=True)
+        launch_t[name] = {kname: launch_times(kname, calls[kname])
+                          for kname in calls}
+        seeded[name] = {"launches": n, "vs_jax_max_abs_err": jax_err,
+                        "fast_vs_plain_f32": gap}
+        del calls, nbf, n32, pbf, p32
+        torch.cuda.empty_cache()
+        log(f"{name}: {seeded[name]}")
+    rec["seeded_64"] = seeded
+    # a row a new launch shape: each kernel of the (512, 256) frame, the
+    # composite of every other configuration
+    for name, kernel in ([("L1 default (512, 256)", k) for k in KERNELS]
+                         + [(n, "run_tmlp_composite") for n in limit_configs
+                            if not n.startswith("L1")]):
+        rows.append(row(f"{kernel}[{name}]", kernel, name,
+                        seeded[name]["launches"][KERNELS.index(kernel)],
+                        f"{name}: the 64^2 frame of the seeded "
+                        f"configuration, bf16"))
+
+    # -- L3 at 512^2 and L5's feature render ---------------------------------
+    mkw = limit_configs["L3 width 512"][0]
+    model = fields.make_model(ModelConfig(**mkw), RenderConfig(
+        num_steps=(32, 16), max_ray_batch=SIZE * SIZE))
+    p32 = params_from_jax(gp.make_flat(expected_shapes(model), GRID_SEED),
+                          model, dev)
+    pbf = fields.cast_params(p32, torch.bfloat16)
+    nbf, n32 = fields.KernelNets(model, pbf), fields.KernelNets(model, p32)
+
+    def wide_frame():
+        return renderer.render_frame(model, pbf, rays_o, rays_d,
+                                     chunk=SIZE * SIZE, nets=nbf)
+    zero()
+    out = wide_frame()
+    n = counts()
+    check(n == TWO_LEVEL_LAUNCHES and bool(torch.isfinite(out["image"]).all()),
+          f"width 512 at 512^2: launches {n}, finite image")
+    del out
+    calls = spied(wide_frame)
+    key = "L3 width 512, 512^2"
+    for kname in KERNELS:
+        for a, k in calls.get(kname, []):
+            hold(key, kname, a, k, twin_of(nbf, n32), seeded=True,
+                 in_slices=True)
+    launch_t[key] = {"run_tmlp_composite": launch_times(
+        "run_tmlp_composite", calls["run_tmlp_composite"], in_slices=True)}
+    rec["w512_512"] = {"launches_per_frame": n, "frame_ms": frame_ms(
+        wide_frame)}
+    rows.append(row("run_tmlp_composite[L3 width 512, 512^2]",
+                    "run_tmlp_composite", key, n[3],
+                    f"the width-512 field's 512^2 RGB frame at (32, 16), "
+                    f"bf16; plain in slices of {SLICE_RAYS} rays"))
+    del calls, nbf, n32, pbf, p32
+    torch.cuda.empty_cache()
+    # the feature render of geom_feat_dim 31: run_tmlp of 32 outputs, then
+    # the composite and the SAM head as plain ops; its launches held (the
+    # fast and the plain path differ in depth on a few rays, and the SAM
+    # head reads the depth)
+    mkw = dict(limit_configs["L5 geo 31"][0], with_sam=True)
+    model = fields.make_model(ModelConfig(**mkw), RenderConfig())
+    p32 = params_from_jax(gp.make_flat(expected_shapes(model), GRID_SEED),
+                          model, dev)
+    pbf = fields.cast_params(p32, torch.bfloat16)
+    nbf, n32 = fields.KernelNets(model, pbf), fields.KernelNets(model, p32)
+
+    def feature_frame():
+        return renderer.run_rays(model, pbf, o64, d64, return_feats=True,
+                                 nets=nbf)
+    zero()
+    got = feature_frame()
+    n = counts()
+    check(n == [1, 2, 3, 0] and got["samvit"].shape == (64 * 64, 256)
+          and bool(torch.isfinite(got["samvit"]).all()),
+          f"geo 31 feature render: launches {n}, samvit "
+          f"{tuple(got['samvit'].shape)}")
+    calls = spied(feature_frame)
+    for kname in KERNELS:
+        for a, k in calls.get(kname, []):
+            hold("L5 geo 31 features", kname, a, k, twin_of(nbf, n32),
+                 seeded=True)
+    rec["geo31_features"] = {"launches": n}
+    del got, calls, nbf, n32, pbf, p32
+    torch.cuda.empty_cache()
+
+    # -- L7: the quality recipe's 512^2 frame on the kernels -----------------
+    mkw, rkw = limit_configs["L7 quality recipe"]
+    model = fields.make_model(ModelConfig(**mkw), RenderConfig(
+        max_ray_batch=SIZE * SIZE, **rkw))
+    pbf = fields.cast_params(params_from_jax(gp.make_flat(
+        expected_shapes(model), GRID_SEED), model, dev), torch.bfloat16)
+    nbf = fields.KernelNets(model, pbf)
+    check(nbf.field.table_bytes == 93_886_464,
+          f"quality recipe: {nbf.field.table_bytes} B of tables")
+
+    def recipe_frame():
+        return renderer.render_frame(model, pbf, rays_o, rays_d,
+                                     chunk=SIZE * SIZE, nets=nbf)
+    zero()
+    out = recipe_frame()
+    n = counts()
+    check(n == GRID_LAUNCHES["128,64,32"] and bool(
+        torch.isfinite(out["image"]).all()),
+          f"quality recipe 512^2 on the kernels: launches {n}")
+    del out
+    rec["quality_recipe_512"] = {"launches_per_frame": n,
+                                 "frame_ms": frame_ms(recipe_frame),
+                                 "table_bytes": nbf.field.table_bytes}
+    del nbf, pbf
+    torch.cuda.empty_cache()
+    log(f"L3 / L5 / L7 frames: {rec['w512_512']}, {rec['geo31_features']}, "
+        f"{rec['quality_recipe_512']}")
+
+    # -- S: sum_after_mlp ----------------------------------------------------
+    mkw = {"sum_after_mlp": True}
+    model = fields.make_model(ModelConfig(**mkw), RenderConfig())
+    plain = fields.make_model(ModelConfig(**mkw),
+                              RenderConfig(use_fused_mlp=False))
+    p32 = params_from_jax(gp.make_flat(expected_shapes(model), GRID_SEED),
+                          model, dev)
+    pbf = fields.cast_params(p32, torch.bfloat16)
+    nbf, n32 = fields.KernelNets(model, pbf), fields.KernelNets(model, p32)
+    zero()
+    got = renderer.run_rays(model, p32, o64, d64, nets=n32)
+    n = counts()
+    # the proposal nets' two run_tmlp and the final level's field
+    check(n == [1, 2, 3, 0], f"sum_after_mlp: launches {n}, expected "
+                             f"[1, 2, 3, 0]")
+    ref = renderer.run_rays(plain, p32, o64, d64)
+    gap = {}
+    for kk in ("image", "weights_sum", "depth"):
+        d = (got[kk] - ref[kk]).abs()
+        gap[kk] = float(d.max())
+        over = d > PATH_TOL + PATH_TOL * ref[kk].abs()
+        if over.dim() > 1:
+            over = over.any(dim=-1)
+        allowed = math.floor(DEPTH_SHARE * d.shape[0]) if kk == "depth" else 0
+        check(int(over.sum()) <= allowed
+              and (kk != "depth" or gap[kk] <= DEPTH_MAX),
+              f"sum_after_mlp: fast path {kk} off the plain path by "
+              f"{gap[kk]:.3g}")
+    calls = spied(lambda: renderer.run_rays(model, pbf, o64, d64, nets=nbf))
+    for kname in KERNELS:
+        for a, k in calls.get(kname, []):
+            hold("sum_after_mlp", kname, a, k, twin_of(nbf, n32),
+                 seeded=True)
+    launch_t["sum_after_mlp"] = {"run_tmlp": launch_times(
+        "run_tmlp", calls["run_tmlp"])}
+    rec["sum_after_mlp"] = {"launches": n, "fast_vs_plain_f32": gap}
+    rows.append(row("run_tmlp[sum_after_mlp field]", "run_tmlp",
+                    "sum_after_mlp", n[2],
+                    "the final-level field of ModelConfig(sum_after_mlp="
+                    "True)'s 64^2 frame, bf16 (its third run_tmlp launch)",
+                    2))
+    del calls, nbf, n32, pbf, p32, got, ref
+    torch.cuda.empty_cache()
+    log(f"S sum_after_mlp: {rec['sum_after_mlp']}")
+    rec.update(max_abs_err=errs, rows=rows)
     return rec
 
 

@@ -14,6 +14,11 @@ text substitutions in that source, for `port_tools/kernel_variants.py`
   old_point      the composite's step points without the padded-ray test
                  (right only where whole rays fill whole tiles, as at the
                  asset's T = 16 and 32);
+  drop_carry     planted fault: the general composite's transmittance and
+                 partial sums reset at every segment, not at a ray's first
+                 (a ray longer than a step keeps its last segment's alone);
+  lost_park      planted fault: the V_WIDE kernels' parked chunks read back
+                 as zeros (what a lost park slot gives);
   parent         the port of the commit before these branches, unpacked
                  under build/parent10 (`git archive d830384
                  sanerf_tpu_torch | tar -x -C build/parent10`).
@@ -26,7 +31,11 @@ VARIANTS = {
     "runtime_tests": _BIAS + _DENSE,
     "runtime_bias": _BIAS,
     "runtime_dense": _DENSE,
-    "old_point": [["    return local < RT ? s * RT + local : np;",
-                   "    return s * RT + local;"]],
+    "old_point": [["    return i < RT ? s * RT + i : np;",
+                   "    return s * RT + i;"]],
+    "drop_carry": [["        if (t_lo == 0) {  // the ray's first segment",
+                    "        if (true) {"]],
+    "lost_park": [["  for (int i = 0; i < NW; ++i) v[i] = p[i * 128];",
+                   "  for (int i = 0; i < NW; ++i) v[i] = 0u * p[i * 128];"]],
     "parent": "build/parent10",
 }

@@ -26,7 +26,8 @@ at both ends):
   sync_copy    a streamed layer copied through registers (block_copy), not
                by cp.async;
   w_global     weights that do not all fit in shared memory read through
-               L2 instead of streamed a layer at a time;
+               L2 instead of streamed a layer at a time (the plan's
+               streaming buffer left unused);
   no_mma       the chain without its products (wrong outputs): the time of
                everything else;
   s_pairs      the hidden k steps two to a branch (kin_h is a multiple of
@@ -145,9 +146,11 @@ VARIANTS = {
     "ffma": [[_K8_BODY, _FFMA_BODY]],
     "sync_copy": [[_STREAM, """      block_copy((void*)W, reinterpret_cast<const float*>(net.w) + L.w_off,
                  L.kout * L.w_ld * 4);"""]],
-    "w_global": [["""    for (int m = 0; m < 3; ++m)
-      if (fits(modes[m], wgs)) return true;""", """    for (int m = 0; m < 3; m += 2)
-      if (fits(modes[m], wgs)) return true;"""]],
+    "w_global": [["""    chain<V == V_BRANCHES>(net, W, pl.w_mode == W_STREAM, enc, pl.lde, acc,
+                           warp, lane);""", """    const bool f32_stream = sizeof(T) == 4 && pl.w_mode == W_STREAM;
+    chain<V == V_BRANCHES>(
+        net, f32_stream ? reinterpret_cast<const T*>(net.w) : W,
+        pl.w_mode == W_STREAM && !f32_stream, enc, pl.lde, acc, warp, lane);"""]],
     "no_mma": [[_MMA3, ""]],
     "s_pairs": [[_HID, """#pragma unroll
   for (int s = 0; s < NA / 4; s += 2) {

@@ -60,6 +60,28 @@ SIGMA = dict(mlp_sigma_cp_rank=6, mlp_sigma_cp_res=24, mlp_sigma_vm_rank=3,
              mlp_prop_depth=2, prop_resolutions=(16,))
 SIGMA_VM = dict(SIGMA, mlp_cp_rank=8, mlp_cp_res=16, mlp_vm_rank=2,
                 mlp_vm_res=8)
+#: the configurations past the port's former kernel limits (ROADMAP queue
+#: C): name -> (ModelConfig fields, RenderConfig fields) that differ
+#: from the defaults: rays past 128 samples (L1), 12 and 16 layers (L2),
+#: widths 320 and 512 (L3), view heads 48 and 128 (L4), 31 geometry
+#: features, a composite of 32 outputs (L5), CP and VM ladders of 16 levels
+#: (L6), and the quality recipe's 94 MB of tables with the budget raised
+#: past them (L7). port_tools/jax_limits_reference.py renders them in JAX,
+#: chip_smoke.py on the card, tests/test_torch_kernel_limits.py on the CPU.
+LIMITS = {
+    "L1 default (512, 256)": ({}, {"num_steps": (512, 256)}),
+    "L2 depth 12": ({"mlp_field_depth": 12}, {}),
+    "L2 depth 16": ({"mlp_field_depth": 16}, {}),
+    "L3 width 320": ({"mlp_field_width": 320}, {}),
+    "L3 width 512": ({"mlp_field_width": 512}, {}),
+    "L4 view 48": ({"view_mlp_hidden": 48}, {}),
+    "L4 view 128": ({"view_mlp_hidden": 128}, {}),
+    "L5 geo 31": ({"geom_feat_dim": 31}, {}),
+    "L6 CP x 16": ({"mlp_cp_rank": 64, "mlp_cp_levels": 16}, {}),
+    "L6 VM x 16": ({"mlp_vm_rank": 32, "mlp_vm_levels": 16}, {}),
+    "L7 quality recipe": (CONFIGS["quality_recipe"],
+                          {"grid_vmem_budget": 2 ** 27}),
+}
 SOURCES = {
     "grid_student": "tools/hw_parity.py:29-31",
     "cp_ladder": "tools/hw_parity.py:33",

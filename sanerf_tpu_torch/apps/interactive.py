@@ -192,3 +192,22 @@ class InteractiveSession:
             mask = mask_dev
         return FrameResult(rgb_u8=u8, depth=depth_dev, mask=mask,
                            points_2d=pts)
+
+
+def overlay_mask_and_points(rgb: np.ndarray, mask: Optional[np.ndarray],
+                            pts2d: np.ndarray) -> np.ndarray:
+    """Host-side overlay for offline tools (JAX apps/interactive.py:227,
+    the reference's utils.py:1396-1399): the mask's pixels blended half
+    way to blue, a 5 x 5 red square at each 2D point (clipped at the
+    image's top and left edges as numpy slicing clips them); the
+    interactive path draws its overlays on the card
+    (frame_pipeline._frame_program)."""
+    out = rgb.copy()
+    if mask is not None:
+        m = np.asarray(mask)
+        color = np.array([0.2, 0.5, 1.0], np.float32)
+        out[m] = 0.5 * out[m] + 0.5 * color
+    for x, y in np.asarray(pts2d).reshape(-1, 2):
+        j, i = int(y), int(x)
+        out[max(0, j - 2):j + 3, max(0, i - 2):i + 3] = [1.0, 0.2, 0.2]
+    return out

@@ -76,21 +76,24 @@
 //     encodings beside the buffers) are read through L1/L2. The products
 //     are tensor-core instructions and the adds plain adds, which
 //     -fmad=false does not touch;
-//   - nets wider than 128 (up to 256; the V_WIDE variant of tmlp_kernel
-//     and composite_kernel) keep the hidden activations of a tile in
-//     shared memory, since a 64 x 256 accumulator and the next layer's A
-//     fragments would not fit in a thread's registers: each layer runs as
-//     chunks of at most 128 outputs (one 64-register accumulator), chunk 0
-//     of a two-chunk layer held in registers, activated, until chunk 1 has
-//     read the previous activations, then both written back. bf16: A
-//     comes from shared memory for every layer (wgmma_ss), B from the
-//     weights in shared memory, all of them where they fit, else streamed
-//     one chunk (128 rows of W^T) at a time, 80 KB for a 256-wide skip
-//     layer where the whole layer would leave no room for the buffers;
+//   - nets wider than 128 (up to MAX_WIDTH = 512; the V_WIDE variant of
+//     tmlp_kernel and the composites) keep the hidden activations of a
+//     tile in shared memory, since a 64 x 256 accumulator and the next
+//     layer's A fragments would not fit in a thread's registers: each
+//     layer runs as chunks of at most 128 outputs (one 64-register
+//     accumulator), chunk 0 held in registers, activated, the chunks
+//     between the first and the last parked in device memory (a slot per
+//     warpgroup of the persistent grid, each thread its own words,
+//     coalesced), until the last chunk has read the previous activations,
+//     then all written back. bf16: A comes from shared memory for every
+//     layer (wgmma_ss), B from the weights in shared memory, all of them
+//     where they fit, else streamed one chunk (128 rows of W^T) at a time
+//     (80 KB for a 256-wide skip layer), else in units of one chunk's rows
+//     over 64 columns (16 KB: a 512-wide layer's chunk is 128 KB);
 //     float32: the A fragments read from the row-major activations as from
 //     the encoding, the weights in shared memory where they fit, else
 //     streamed in units of one chunk's rows over 64 columns (32 KB; a 256
-//     x 320 float32 skip layer is 320 KB);
+//     x 320 float32 skip layer is 320 KB), else read through L2;
 //   - optional biases (float32, as the JAX package packs them) are added
 //     to the layer's float32 sum before the activation; the dense-sin
 //     encode (angle_double = 0) takes one sinf pair per coordinate and
@@ -98,19 +101,35 @@
 //   - the last layer (plus the sigma-CP sum on column 0) goes to a small
 //     per-warpgroup buffer. run_tmlp writes it out as [kout, P] rows, each
 //     warp its 16 points; the composite kernel gathers whole rays (a step
-//     of lcm(64, T) points where that is at most MAX_STEP, else of the R
-//     rays that leave the fewest padded points in its last tile, the
-//     padded points encoded from x = 0 and never read; the JAX kernel pads
-//     its block with rays of dl = 0 the same way) and runs the epilogue
-//     per ray in one warp:
+//     of lcm(64, T) points where that is at most 448, else of the R rays
+//     that leave the fewest padded points in its last tile, the padded
+//     points encoded from x = 0 and never read; the JAX kernel pads its
+//     block with rays of dl = 0 the same way) and runs the epilogue per
+//     ray in one warp:
 //     softplus density, alpha with the optional opaque last sample, a warp
 //     scan for the exclusive transmittance sum of the finite optical
 //     depths, NaN weights -> 0, per-ray sums in index order, then the SH
 //     (degree <= 4) + view MLP head on one lane per output and the sigmoid;
+//   - the general composite (composite_kernel<..., GEN = true>, chosen by
+//     the plan) takes what that epilogue does not: rays longer
+//     than a step holds (past 128 samples) run one ray a step in segments
+//     of up to 256 points, warp 0 carrying the transmittance and the
+//     partial sums from one segment to the next (every sum in index order,
+//     as in one pass); up to MAX_GSUM outputs (a lane a column of each
+//     16-column group); view heads up to MAX_VIEW wide (a lane its units
+//     lane + 32 q); and the parked chunks of the widest nets;
 //   - the proposal nets (bf16, two layers no wider than 32, no CP tables,
 //     no bias, angle doubling) take small_kernel instead: a warp per
 //     16-point tile, mma.sync with the weights held in registers as B
 //     fragments.
+// The host plans every launch (ops/fused_mlp_t.py:kernel_plan, which the
+// CPU tests read): the variant, the warpgroups and the shared-memory carve,
+// where the weights and the view head live, the composite's steps; the
+// kernels trust the plan's buffers, and the launch functions check it.
+// A ladder's first INLINE_LEVELS levels sit in the grid descriptor's slots
+// (kernel parameters); levels past them (V_BRANCHES and V_WIDE only) are
+// read from an array in device memory. Grid tables of any size are read
+// through L2 from device memory.
 // With pack_q > 1 the composite reads dl and ts through the packed layout
 // of the ray kernels, [N/q, q*T, 1] with ray n in slot n % q of row n / q
 // (the TPU fills 128-lane rows with q rays; the per-ray warp epilogue here
@@ -146,13 +165,14 @@ constexpr int wgs_of(bool composite) {
   return sizeof(T) == 2 ? (composite ? 4 : 3)
                         : (composite ? F32_COMPOSITE_WGS : F32_WGS);
 }
-// Each kernel comes in three variants, picked per net at launch
-// (variant_of): V_SERVED, the nets every served configuration has (no bias,
-// angle doubling, no layer over 128), whose code holds no test for the
+// Each kernel comes in three variants, picked per net by the host's plan
+// (ops/fused_mlp_t.py:kernel_plan): V_SERVED, the nets every served
+// configuration has (no bias, angle doubling, no layer over 128, ladders
+// of at most INLINE_LEVELS levels), whose code holds no test for the
 // branches below (a run-time test of either cost the asset's float32
-// launches 3-7 %, PERF.md); V_BRANCHES, such nets with biases or the
-// dense-sin encode; V_WIDE, nets with a layer over 128 (either branch at
-// run time).
+// launches 3-7 %, PERF.md); V_BRANCHES, such nets with biases, the
+// dense-sin encode or longer ladders; V_WIDE, nets with a layer over 128
+// (each branch at run time).
 enum Variant { V_SERVED = 0, V_BRANCHES = 1, V_WIDE = 2 };
 // V_WIDE kernels: 2 warpgroups (plan_for takes fewer where the buffers do
 // not fit)
@@ -161,15 +181,21 @@ template <typename T>
 constexpr int wgs_of(bool composite, int v) {
   return v == V_WIDE ? WIDE_WGS : wgs_of<T>(composite);
 }
-constexpr int MAX_LAYERS = 8;
+// Layers of a net: the layer table is a kernel parameter (the parameter
+// space's budget sets this; ops/fused_mlp_t.py:MAX_LAYERS)
+constexpr int MAX_LAYERS = 32;
 constexpr int MAX_NT = 16;  // n-tiles of 8 outputs in one accumulator
-constexpr int MAX_WIDTH = 256;  // the widest layer (two accumulator chunks)
+// the widest layer: four accumulator chunks (ops/fused_mlp_t.py:MAX_WIDTH)
+constexpr int MAX_WIDTH = 512;
 constexpr int CHUNK = 8 * MAX_NT;  // outputs of one chunk of a wide layer
 // bias rows: [n_layers][BIAS_LD] float32 (ops/fused_mlp_t.py:BIAS_LD)
 constexpr int BIAS_LD = MAX_WIDTH;
-// the most points of a composite step (the largest lcm(64, T) of the T
-// that divide 16 or are multiples of 16, at T = 112)
-constexpr int MAX_STEP = 448;
+// the general composite (composite_kernel, GEN): per-ray sums of up to
+// MAX_GSUM outputs, 16 lanes of a warp each holding a column of every
+// 16-column group; a view head of up to MAX_VIEW hidden units, 32 a lane
+// group
+constexpr int MAX_GSUM = 64;
+constexpr int MAX_VIEW = 128;
 constexpr int PAD = 8;  // row padding of the float32 encoding: stride 8 mod 16
 constexpr int SMEM_LIMIT = 232448;
 constexpr unsigned FULL = 0xffffffffu;
@@ -198,18 +224,22 @@ struct VMGrid {
   float s, o, sl, ol;
 };
 
-constexpr int MAX_LEVELS = 8;  // ops/fused_mlp_t.py:MAX_GRID_LEVELS
-
 // The factorized grids of a net, as the host passes them (mirrored by the
-// ctypes.Structure ops/fused_mlp_t.py:Grids): n_cp CP levels and n_vm VM
-// levels in fixed slots, unused slots zero; scp.table / svm.planes null
-// when there is no sigma-CP / sigma-VM table.
+// ctypes.Structure ops/fused_mlp_t.py:Grids): the first n_cp CP levels and
+// n_vm VM levels of a ladder in fixed slots of the kernel parameters (at
+// most INLINE_LEVELS each), the n_cp_more / n_vm_more levels past them as
+// arrays in device memory (so a ladder may have any number of levels);
+// scp.table / svm.planes null when there is no sigma-CP / sigma-VM table.
+constexpr int INLINE_LEVELS = 8;  // ops/fused_mlp_t.py:INLINE_LEVELS
 struct Grids {
   int n_cp, n_vm;
-  Grid cp[MAX_LEVELS];
-  VMGrid vm[MAX_LEVELS];
+  Grid cp[INLINE_LEVELS];
+  VMGrid vm[INLINE_LEVELS];
   Grid scp;
   VMGrid svm;
+  int n_cp_more, n_vm_more;
+  const Grid* cp_more;
+  const VMGrid* vm_more;
 };
 
 struct Net {
@@ -460,10 +490,10 @@ __device__ __forceinline__ void load_point(const float* __restrict__ x3,
 
 // Encodes the point x, each feature handed to put(column, value): Fourier
 // features (the dense-sin encode only with EXTRA), CP levels, VM levels
-// (fields.position_features' order); the thread pair (half 0 / 1) splits
-// the features. Returns the sum of the
-// sigma tables' features (both threads of the pair).
-template <typename T, bool EXTRA, typename Put>
+// (fields.position_features' order; none without GRIDS, for nets that have
+// no tables); the thread pair (half 0 / 1) splits the features. Returns the
+// sum of the sigma tables' features (both threads of the pair).
+template <typename T, bool EXTRA, bool GRIDS = true, typename Put>
 __device__ float encode_point(const Net& net, const float (&x)[3], int half,
                               const Put& put) {
   for (int d = half; d < 3; d += 2) {
@@ -491,6 +521,7 @@ __device__ float encode_point(const Net& net, const float (&x)[3], int half,
       put(6 + 6 * f + d, c);
     }
   }
+  if constexpr (!GRIDS) return 0.0f;
   // CP halves split at a multiple of the vector width
   constexpr int V = Vec<T>::N;
   const Grids& g = net.g;
@@ -502,10 +533,28 @@ __device__ float encode_point(const Net& net, const float (&x)[3], int half,
     cp_range<T>(gr, taps(gr.R, gr.s, gr.o, x), k0, k1, true, col, put);
     col += gr.K;
   }
+  // a ladder's levels past the slots: only in the EXTRA variants (in the
+  // served ones their loop would cost registers, and spills, PERF.md)
+  if constexpr (EXTRA) {
+    for (int i = 0; i < g.n_cp_more; ++i) {
+      const Grid gr = g.cp_more[i];
+      const int mid = (gr.K / (2 * V)) * V;
+      const int k0 = half ? mid : 0, k1 = half ? gr.K : mid;
+      cp_range<T>(gr, taps(gr.R, gr.s, gr.o, x), k0, k1, true, col, put);
+      col += gr.K;
+    }
+  }
   int unit = 0;
   for (int i = 0; i < g.n_vm; ++i) {
     vm_level<T>(g.vm[i], x, half, unit, true, col, put);
     col += 3 * g.vm[i].K;
+  }
+  if constexpr (EXTRA) {
+    for (int i = 0; i < g.n_vm_more; ++i) {
+      const VMGrid gv = g.vm_more[i];
+      vm_level<T>(gv, x, half, unit, true, col, put);
+      col += 3 * gv.K;
+    }
   }
   float part = 0.0f;
   if (g.scp.table) {
@@ -847,26 +896,54 @@ __device__ __forceinline__ void store_last(const float (&acc)[NA], int ncols,
 
 // where a block's chains read the weights from: global memory (through
 // L2; float32 only), all of them staged in shared memory, or one layer
-// (one chunk of a V_WIDE bf16 layer) at a time
+// (one chunk of a V_WIDE layer, or one unit of a chunk) at a time
 enum WeightMode { W_GLOBAL = 0, W_ALL = 1, W_STREAM = 2 };
+
+// ---------------------------------------------------------------------------
+// the launch plan: made on the host by ops/fused_mlp_t.py:kernel_plan (its
+// ctypes mirror KernelPlan; plan_size() checks the two agree) and passed to
+// the kernels as it is
+// ---------------------------------------------------------------------------
+
+struct Plan {
+  int lde, ldo, M, R;  // M: points per warpgroup step, R of them rays'
+  int ldh;             // hb row stride (V_WIDE)
+  int wgs, w_mode, w_bytes, v_bytes;
+  int enc_b, h_b, out_b, sig_b, wts_b, ts_b, vin_b;
+  int per_wg, total;
+  // segments of a composite step (a ray longer than a step runs as nseg
+  // segments of M points, one ray a step; 1: whole rays), floats of a
+  // warp's view-head scratch, columns of a streamed V_WIDE weight unit (0:
+  // a whole chunk of rows), chunks of a V_WIDE layer parked in the park
+  // buffer (all but the first and the last of the widest layer's)
+  int nseg, vld, unit_k, park_chunks;
+  // the kernel: its variant (Variant), the proposal nets' small_kernel
+  // (run_tmlp), the general composite epilogue
+  int variant, small, general;
+};
 
 // ---------------------------------------------------------------------------
 // the chain of a net wider than 128 (V_WIDE kernels): the hidden activations
 // of the tile in shared memory (hb), each layer in chunks of <= CHUNK
-// outputs; the last layer's chunks go straight to outb
+// outputs; the last layer's chunks go straight to outb. A layer of more
+// than two chunks keeps its first chunk's activations in registers and
+// parks the ones between in device memory (a slot per warpgroup of the
+// grid, each thread its own words, coalesced) until every chunk has read
+// the previous activations.
 // ---------------------------------------------------------------------------
 
-// Copies rows [n0, n0 + nw) of a W^T slab (kout rows, ld columns, core
-// matrices) to dst as a slab nw rows wide, with the whole block, visible
-// to wgmma: for each k column of core matrices, nw / 8 of them, contiguous
-// in both.
+// Copies the core matrices of k blocks [kb0, kb1) and rows [n0, n0 + nw) of
+// a W^T slab (kout rows, core matrices) to dst as a slab nw rows wide, with
+// the whole block, visible to wgmma: for each k block, nw / 8 core
+// matrices, contiguous in both.
 __device__ void block_copy_chunk(bf16* dst, const bf16* slab, int kout,
-                                 int ld, int n0, int nw) {
+                                 int kb0, int kb1, int n0, int nw) {
   const int per_k = nw;  // 16-byte pieces of one k column: nw rows of 16 B
-  for (int i = threadIdx.x; i < ld / 8 * per_k; i += blockDim.x) {
+  for (int i = threadIdx.x; i < (kb1 - kb0) * per_k; i += blockDim.x) {
     const int kb = i / per_k, j = i - kb * per_k;
     reinterpret_cast<uint4*>(dst + kb * nw * 8)[j] =
-        reinterpret_cast<const uint4*>(slab + (kb * kout / 8 + n0 / 8) * 64)[j];
+        reinterpret_cast<const uint4*>(
+            slab + ((kb0 + kb) * kout / 8 + n0 / 8) * 64)[j];
   }
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   __syncthreads();
@@ -902,45 +979,96 @@ __device__ __forceinline__ void put_hidden(bf16* hb,
   }
 }
 
+// This thread's NW words of parked chunk j: word i at i * 128 of the slot
+// (the warpgroup's 128 threads side by side)
+template <int NW>
+__device__ __forceinline__ uint32_t* park_slot(uint32_t* park, const Plan& pl,
+                                               int j) {
+  const long wg = (long)blockIdx.x * pl.wgs + (threadIdx.x >> 7);
+  return park + ((wg * pl.park_chunks + j) * NW) * 128 + (threadIdx.x & 127);
+}
+
+template <int NW>
+__device__ __forceinline__ void park_put(uint32_t* park, const Plan& pl, int j,
+                                         const uint32_t (&v)[NW]) {
+  uint32_t* p = park_slot<NW>(park, pl, j);
+#pragma unroll
+  for (int i = 0; i < NW; ++i) p[i * 128] = v[i];
+}
+
+template <int NW>
+__device__ __forceinline__ void park_get(const uint32_t* park, const Plan& pl,
+                                         int j, uint32_t (&v)[NW]) {
+  const uint32_t* p = park_slot<NW>(const_cast<uint32_t*>(park), pl, j);
+#pragma unroll
+  for (int i = 0; i < NW; ++i) v[i] = p[i * 128];
+}
+
 // bf16: A from shared memory for every layer (the encoding, then hb), B
 // from W: every layer in shared memory, or (W_STREAM) the block's
-// one-chunk buffer, refilled per chunk.
-__device__ void chain_wide(const Net& net, const bf16* W, int w_mode,
-                           const bf16* enc, int /*lde*/, bf16* hb,
-                           int /*ldh*/, float (&acc)[NA], const float* sig,
-                           float* outb, int ldo, int warp, int lane) {
-  uint32_t held[NA / 2];  // chunk 0 of a two-chunk layer, activated
+// one-chunk buffer, refilled per chunk, or with pl.unit_k its one-unit
+// buffer (a chunk's rows over unit_k columns), refilled per unit.
+__device__ void chain_wide(const Net& net, const bf16* W, const Plan& pl,
+                           const bf16* enc, bf16* hb, float (&acc)[NA],
+                           const float* sig, float* outb, int ldo, int warp,
+                           int lane, uint32_t* park) {
+  uint32_t held[NA / 2];  // chunk 0 of a layer of two chunks or more
   for (int l = 0; l < net.n_layers; ++l) {
     const Layer L = net.layer[l];
     const bool last = l == net.n_layers - 1;
     const int nch = (L.kout + CHUNK - 1) / CHUNK;
+    const bf16* A = l == 0 ? enc : hb;
     for (int c = 0; c < nch; ++c) {
       const int n0 = CHUNK * c, nw = min(CHUNK, L.kout - n0);
-      const bf16* Wc = W + L.w_off + n0 * 8;
-      int ldn = L.kout;
-      if (w_mode == W_STREAM) {
-        __syncthreads();  // the previous chunk's products are done
-        block_copy_chunk(const_cast<bf16*>(W),
-                         reinterpret_cast<const bf16*>(net.w) + L.w_off,
-                         L.kout, L.w_ld, n0, nw);
-        Wc = W;
-        ldn = nw;
-      }
 #pragma unroll
       for (int i = 0; i < NA; ++i) acc[i] = 0.0f;
-      wg::keep(acc);
-      wg::fence();
-      ss_part(acc, Wc, ldn, nw, 0, l == 0 ? enc : hb, L.kin_h);
-      if (L.kin_e) ss_part(acc, Wc, ldn, nw, L.kin_h, enc, L.kin_e);
-      wg::commit();
-      wg::wait_all();
-      wg::keep(acc);
+      if (pl.w_mode == W_STREAM && pl.unit_k) {
+        const bf16* slab = reinterpret_cast<const bf16*>(net.w) + L.w_off;
+        for (int k0 = 0; k0 < L.w_ld; k0 += pl.unit_k) {
+          const int k1 = min(k0 + pl.unit_k, L.w_ld);
+          const int h1 = min(k1, L.kin_h), e0 = max(k0, L.kin_h);
+          __syncthreads();  // the previous unit's products are done
+          block_copy_chunk(const_cast<bf16*>(W), slab, L.kout, k0 / 8,
+                           k1 / 8, n0, nw);
+          wg::keep(acc);
+          wg::fence();
+          if (k0 < h1) ss_part(acc, W, nw, nw, 0, A + k0 * TILE, h1 - k0);
+          if (e0 < k1)
+            ss_part(acc, W, nw, nw, e0 - k0, enc + (e0 - L.kin_h) * TILE,
+                    k1 - e0);
+          wg::commit();
+          wg::wait_all();
+          wg::keep(acc);
+        }
+      } else {
+        const bf16* Wc = W + L.w_off + n0 * 8;
+        int ldn = L.kout;
+        if (pl.w_mode == W_STREAM) {
+          __syncthreads();  // the previous chunk's products are done
+          block_copy_chunk(const_cast<bf16*>(W),
+                           reinterpret_cast<const bf16*>(net.w) + L.w_off,
+                           L.kout, 0, L.w_ld / 8, n0, nw);
+          Wc = W;
+          ldn = nw;
+        }
+        wg::keep(acc);
+        wg::fence();
+        ss_part(acc, Wc, ldn, nw, 0, A, L.kin_h);
+        if (L.kin_e) ss_part(acc, Wc, ldn, nw, L.kin_h, enc, L.kin_e);
+        wg::commit();
+        wg::wait_all();
+        wg::keep(acc);
+      }
       if (net.bias) add_bias(acc, net.bias + l * BIAS_LD + n0, nw, lane);
       if (last) {
         store_last(acc, nw, c == 0 ? sig : nullptr, outb + n0, ldo, warp,
                    lane);
+      } else if (c == 0) {
+        if (nch > 1) pack_act(acc, held, net.leaky);
       } else if (c + 1 < nch) {
-        pack_act(acc, held, net.leaky);
+        uint32_t v[NA / 2];
+        pack_act(acc, v, net.leaky);
+        park_put<NA / 2>(park, pl, c - 1, v);
       }
     }
     if (last) break;
@@ -948,6 +1076,10 @@ __device__ void chain_wide(const Net& net, const bf16* W, int w_mode,
     // activations replace the previous ones
     const int n_last = CHUNK * (nch - 1);
     if (nch > 1) put_hidden(hb, held, 0, CHUNK, warp, lane);
+    for (int c = 1; c + 1 < nch; ++c) {
+      park_get<NA / 2>(park, pl, c - 1, held);
+      put_hidden(hb, held, CHUNK * c, CHUNK, warp, lane);
+    }
     pack_act(acc, held, net.leaky);
     put_hidden(hb, held, n_last, L.kout - n_last, warp, lane);
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -955,17 +1087,15 @@ __device__ void chain_wide(const Net& net, const bf16* W, int w_mode,
   }
 }
 
-// float32 V_WIDE weights streamed in units: one chunk's W^T rows over
-// F32_UNIT_K columns (32 KB at 128 x 64), as a 256 x 320 float32 skip
-// layer (320 KB) does not fit; 64 columns leave room for 2 warpgroups
-// beside a unit at an encoding of 64 (each 67.6 KB of hidden activations;
-// read through L2, or streamed in units of 128 columns beside one
-// warpgroup, the weights left the composite slower than cuBLAS, PERF.md)
-constexpr int F32_UNIT_K = 64;
-
 // Copies the W^T blocks of k steps [s0, s1) and n-tiles [nt0, nt0 + nt_n)
 // of a layer slab (kout / 8 n-tiles a k step) to dst, nt_n blocks a k step,
-// with the whole block (cp.async).
+// with the whole block (cp.async). The float32 V_WIDE weights stream in
+// such units of one chunk's rows over pl.unit_k columns (32 KB at 128 x
+// 64), as a 256 x 320 float32 skip layer (320 KB) does not fit; 64 columns
+// leave room for 2 warpgroups beside a unit at an encoding of 64 (each
+// 67.6 KB of hidden activations at width 256; read through L2, or streamed
+// in units of 128 columns beside one warpgroup, the weights left the
+// composite slower than cuBLAS, PERF.md).
 __device__ void block_copy_unit(float* dst, const float* slab, int kout,
                                 int s0, int s1, int nt0, int nt_n) {
   const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
@@ -982,17 +1112,34 @@ __device__ void block_copy_unit(float* dst, const float* slab, int kout,
   __syncthreads();
 }
 
+// the activated accumulators of a chunk (or their parked bits) into this
+// warp's rows of hb, columns [8 nt0, 8 nt0 + 8 nt_n)
+__device__ __forceinline__ void put_rows_f32(float* h, int ldh,
+                                             const float (&v)[NA], int nt0,
+                                             int nt_n) {
+#pragma unroll
+  for (int nt = 0; nt < MAX_NT; ++nt) {
+    if (nt < nt_n) {
+      float* r = h + 8 * (nt0 + nt);
+      *reinterpret_cast<float2*>(r) = make_float2(v[4 * nt], v[4 * nt + 1]);
+      *reinterpret_cast<float2*>(r + 8 * ldh) =
+          make_float2(v[4 * nt + 2], v[4 * nt + 3]);
+    }
+  }
+}
+
 // float32: each warp its 16 rows of hb, row-major [64][ldh] as the
 // encoding; B from W: every layer in shared memory, global memory, or
 // (W_STREAM) the block's one-unit buffer, refilled per unit.
-__device__ void chain_wide(const Net& net, const float* W, int w_mode,
-                           const float* enc, int lde, float* hb, int ldh,
-                           float (&acc)[NA], const float* sig, float* outb,
-                           int ldo, int warp, int lane) {
+__device__ void chain_wide(const Net& net, const float* W, const Plan& pl,
+                           const float* enc, float* hb, float (&acc)[NA],
+                           const float* sig, float* outb, int ldo, int warp,
+                           int lane, uint32_t* park) {
+  const int lde = pl.lde, ldh = pl.ldh;
   const int g = lane >> 2, t = lane & 3;
   const float* e = enc + (16 * warp + g) * lde + 2 * t;
   float* h = hb + (16 * warp + g) * ldh + 2 * t;
-  float held[NA];  // chunk 0 of a two-chunk layer, activated
+  float held[NA];  // chunk 0 of a layer of two chunks or more, activated
   for (int l = 0; l < net.n_layers; ++l) {
     const Layer L = net.layer[l];
     const float* Wl = W + L.w_off;
@@ -1007,14 +1154,15 @@ __device__ void chain_wide(const Net& net, const float* W, int w_mode,
       const float* Wc = Wl + nt0 * 64;
 #pragma unroll
       for (int i = 0; i < NA; ++i) acc[i] = 0.0f;
-      if (w_mode != W_STREAM) {
+      if (pl.w_mode != W_STREAM) {
         enc_steps<MAX_NT>(acc, A, lda, Wc, L.kin_h, lane, nt_n, kst);
         if (L.kin_e)
           enc_steps<MAX_NT>(acc, e, lde, Wc + L.kin_h / 8 * kst, L.kin_e,
                             lane, nt_n, kst);
       }
-      for (int k0 = 0; w_mode == W_STREAM && k0 < L.w_ld; k0 += F32_UNIT_K) {
-        const int k1 = min(k0 + F32_UNIT_K, L.w_ld), ust = nt_n * 64;
+      for (int k0 = 0; pl.w_mode == W_STREAM && k0 < L.w_ld;
+           k0 += pl.unit_k) {
+        const int k1 = min(k0 + pl.unit_k, L.w_ld), ust = nt_n * 64;
         __syncthreads();  // the previous unit's products are done
         block_copy_unit(const_cast<float*>(W),
                         reinterpret_cast<const float*>(net.w) + L.w_off,
@@ -1032,86 +1180,35 @@ __device__ void chain_wide(const Net& net, const float* W, int w_mode,
       if (last) {
         store_last(acc, 8 * nt_n, c == 0 ? sig : nullptr, outb + 8 * nt0,
                    ldo, warp, lane);
-      } else if (c + 1 < nch) {
+      } else if (c == 0) {
+        if (nch > 1) {
 #pragma unroll
-        for (int i = 0; i < NA; ++i) held[i] = act(acc[i], net.leaky);
+          for (int i = 0; i < NA; ++i) held[i] = act(acc[i], net.leaky);
+        }
+      } else if (c + 1 < nch) {
+        uint32_t v[NA];
+#pragma unroll
+        for (int i = 0; i < NA; ++i)
+          v[i] = __float_as_uint(act(acc[i], net.leaky));
+        park_put<NA>(park, pl, c - 1, v);
       }
     }
     if (last) break;
     __syncwarp();  // the warp's reads of its rows of hb are done
     const int nt_last = MAX_NT * (nch - 1);
+    if (nch > 1) put_rows_f32(h, ldh, held, 0, MAX_NT);
+    for (int c = 1; c + 1 < nch; ++c) {
+      uint32_t v[NA];
+      park_get<NA>(park, pl, c - 1, v);
 #pragma unroll
-    for (int nt = 0; nt < MAX_NT; ++nt) {
-      if (nch > 1) {
-        *reinterpret_cast<float2*>(h + 8 * nt) =
-            make_float2(held[4 * nt], held[4 * nt + 1]);
-        *reinterpret_cast<float2*>(h + 8 * ldh + 8 * nt) =
-            make_float2(held[4 * nt + 2], held[4 * nt + 3]);
-      }
-      if (nt < L.kout / 8 - nt_last) {
-        float* r = h + 8 * (nt_last + nt);
-        *reinterpret_cast<float2*>(r) = make_float2(
-            act(acc[4 * nt], net.leaky), act(acc[4 * nt + 1], net.leaky));
-        *reinterpret_cast<float2*>(r + 8 * ldh) =
-            make_float2(act(acc[4 * nt + 2], net.leaky),
-                        act(acc[4 * nt + 3], net.leaky));
-      }
+      for (int i = 0; i < NA; ++i) held[i] = __uint_as_float(v[i]);
+      put_rows_f32(h, ldh, held, MAX_NT * c, MAX_NT);
     }
+#pragma unroll
+    for (int i = 0; i < NA; ++i) acc[i] = act(acc[i], net.leaky);
+    put_rows_f32(h, ldh, acc, nt_last, L.kout / 8 - nt_last);
     __syncwarp();
   }
-}
-
-// ---------------------------------------------------------------------------
-// shared-memory plan (identical on host and device)
-// ---------------------------------------------------------------------------
-
-struct Plan {
-  int lde, ldo, M, R;  // M: points per warpgroup step, R of them rays'
-  int ldh;             // float32 hb row stride (V_WIDE)
-  int wgs, w_mode, w_bytes, v_bytes;
-  int enc_b, h_b, out_b, sig_b, wts_b, ts_b, vin_b;
-  int per_wg, total;
-};
-
-template <typename T>
-Plan make_plan(const Net& net, const View* view, int wgs, int M, int R,
-               int ldo, bool composite, bool wide, int w_mode, bool v_smem) {
-  Plan p;
-  p.wgs = wgs;
-  p.lde = sizeof(T) == 2 ? net.ke : net.ke + PAD;  // see enc_index
-  p.ldo = ldo;
-  p.M = M;
-  p.R = R;
-  p.w_mode = w_mode;
-  p.w_bytes = 0;
-  if (w_mode == W_ALL) p.w_bytes = align16(net.w_elems * (int)sizeof(T));
-  // a streamed unit: a layer; of a V_WIDE net one chunk of a layer (bf16)
-  // or of a chunk F32_UNIT_K columns (float32)
-  const int rows_max = wide ? CHUNK : MAX_WIDTH;
-  const int cols_max = wide && sizeof(T) == 4 ? F32_UNIT_K : 1 << 30;
-  int hw = 0;  // the widest hidden layer
-  for (int l = 0; l < net.n_layers; ++l) {
-    const Layer& L = net.layer[l];
-    if (l + 1 < net.n_layers) hw = L.kout > hw ? L.kout : hw;
-    if (w_mode != W_STREAM) continue;
-    const int rows = L.kout < rows_max ? L.kout : rows_max;
-    const int cols = L.w_ld < cols_max ? L.w_ld : cols_max;
-    const int b = align16(rows * cols * (int)sizeof(T));
-    p.w_bytes = b > p.w_bytes ? b : p.w_bytes;
-  }
-  p.v_bytes = (view && v_smem) ? align16(view->elems * (int)sizeof(T)) : 0;
-  p.enc_b = align16(TILE * p.lde * (int)sizeof(T));
-  p.ldh = sizeof(T) == 2 ? hw : hw + PAD;
-  p.h_b = wide ? align16(TILE * p.ldh * (int)sizeof(T)) : 0;
-  p.out_b = align16(M * ldo * 4);
-  p.sig_b = align16(TILE * 4);
-  p.wts_b = composite ? align16(M * 4) : 0;
-  p.ts_b = composite ? align16(M * 4) : 0;
-  p.vin_b = composite ? 4 * 128 * 4 : 0;
-  p.per_wg =
-      p.enc_b + p.h_b + p.out_b + p.sig_b + p.wts_b + p.ts_b + p.vin_b;
-  p.total = p.w_bytes + p.v_bytes + wgs * p.per_wg;
-  return p;
 }
 
 struct Bufs {
@@ -1164,7 +1261,7 @@ template <typename T, int V>
 __device__ __forceinline__ void tile(const Net& net, const Plan& pl,
                                      const T* W, const Bufs& b,
                                      const float (&x)[3], float* outb,
-                                     int ncols) {
+                                     int ncols, uint32_t* park = nullptr) {
   const int lt = threadIdx.x & 127, warp = lt >> 5, lane = lt & 31;
   T* enc = reinterpret_cast<T*>(b.enc);
   const int row = lt >> 1;
@@ -1181,9 +1278,9 @@ __device__ __forceinline__ void tile(const Net& net, const Plan& pl,
   }
   float acc[NA];
   if constexpr (V == V_WIDE) {
-    chain_wide(net, W, pl.w_mode, enc, pl.lde, reinterpret_cast<T*>(b.hb),
-               pl.ldh, acc, has_sigma(net) ? b.sig : nullptr, outb, pl.ldo,
-               warp, lane);
+    chain_wide(net, W, pl, enc, reinterpret_cast<T*>(b.hb), acc,
+               has_sigma(net) ? b.sig : nullptr, outb, pl.ldo, warp, lane,
+               park);
   } else {
     chain<V == V_BRANCHES>(net, W, pl.w_mode == W_STREAM, enc, pl.lde, acc,
                            warp, lane);
@@ -1198,7 +1295,7 @@ __device__ __forceinline__ void tile(const Net& net, const Plan& pl,
 template <typename T, int V>
 __global__ void __launch_bounds__(wgs_of<T>(false, V) * 128, 1)
 tmlp_kernel(Net net, Plan pl, const float* __restrict__ x3, long np,
-            float* __restrict__ out, int out_rows) {
+            float* __restrict__ out, int out_rows, uint32_t* park) {
   extern __shared__ __align__(128) unsigned char smem[];
   Bufs b;
   const T* W = block_setup<T>(net, nullptr, pl, smem, nullptr, b);
@@ -1215,7 +1312,7 @@ tmlp_kernel(Net net, Plan pl, const float* __restrict__ x3, long np,
     const long p0 = (base + (threadIdx.x >> 7)) * TILE;
     float xn[3];
     load_point(x3, np, p0 + stride + row, xn);
-    tile<T, V>(net, pl, W, b, x, b.outb, kout);
+    tile<T, V>(net, pl, W, b, x, b.outb, kout, park);
 #pragma unroll
     for (int a = 0; a < 3; ++a) x[a] = xn[a];
     for (int i = lane; i < out_rows * 16; i += 32) {
@@ -1303,7 +1400,7 @@ small_kernel(Net net, const float* __restrict__ x3, long np,
     const long p0 = tile * 16;
     float xn[3];
     load_point(x3, np, p0 + stride + row, xn);
-    encode_point<bf16, false>(net, x, lane & 1,
+    encode_point<bf16, false, false>(net, x, lane & 1,
                        [&](int c, float v) {
                          enc[row * LD + c] = fromf<bf16>(v);
                        });
@@ -1395,14 +1492,26 @@ __device__ __forceinline__ long ray_offset(long n, int Ts, int pack_q) {
   return (n / pack_q) * ((long)pack_q * Ts) + (n % pack_q) * Ts;
 }
 
-template <typename T, int V>
+// The composite: each warpgroup takes steps of R whole rays, M points (the
+// rays' R T points rounded up to whole tiles, the pad encoded from x = 0 and
+// never read), runs their tiles, then its warps the per-ray epilogue, a warp
+// a ray. GEN = false is the served nets' composite (16 outputs, a view head
+// of at most 32, whole rays of T <= 128 a step): each GEN test below folds
+// at compile time to its code. GEN = true takes what that one does not: a
+// step may run as nseg segments of M points (one ray a step, for rays longer
+// than a step holds: warp 0 carries the ray's transmittance and its partial
+// sums from segment to segment, so every sum runs in index order as in one
+// pass), up to MAX_GSUM outputs (16 lanes, one column of each 16-column
+// group a lane), a view head of up to MAX_VIEW hidden units (each lane its
+// units lane + 32 q), and the V_WIDE nets' parked chunks.
+template <typename T, int V, bool GEN>
 __global__ void __launch_bounds__(wgs_of<T>(true, V) * 128, 1)
 composite_kernel(Net net, View view, Plan pl, const float* __restrict__ x3,
                  const float* __restrict__ dl, const float* __restrict__ ts,
                  const float* __restrict__ rays8, int N, int Ts, int pack_q,
                  int opaque, float* __restrict__ gsum,
                  float* __restrict__ depth, float* __restrict__ wsum,
-                 float* __restrict__ rgb) {
+                 float* __restrict__ rgb, uint32_t* park) {
   extern __shared__ __align__(128) unsigned char smem[];
   Bufs b;
   const T* VW = nullptr;
@@ -1411,6 +1520,9 @@ composite_kernel(Net net, View view, Plan pl, const float* __restrict__ x3,
   const int wg = threadIdx.x >> 7, warp = (threadIdx.x & 127) >> 5,
             lane = threadIdx.x & 31;
   const int G = net.layer[net.n_layers - 1].kout_real;  // gsum columns
+  // the tiles' output columns, and the segments of a step
+  const int kout = GEN ? net.layer[net.n_layers - 1].kout : 16;
+  const int nseg = GEN ? pl.nseg : 1;
   const int M = pl.M, rays_per_step = pl.R, RT = pl.R * Ts;
   const long np = (long)N * Ts;
   // view weights: VG [G][H] (row 0 zero), VS [sh_dim][H], VR [n_rest][H][H]
@@ -1418,121 +1530,199 @@ composite_kernel(Net net, View view, Plan pl, const float* __restrict__ x3,
   const T* VG = VW;
   const T* VS = VW + G * H;
   const T* VR = VS + view.sh_dim * H;
-  float* vin = b.vin + warp * 128;  // [0, 16): rounded gsum
-  float* vsh = vin + 32;            // [0, 16): rounded wsum * sh
-  float* vh = vin + 64;             // hidden activations
-  float* misc = vin + 112;          // wsum
+  // a warp's scratch (GEN: pl.vld floats, ops/fused_mlp_t.py:_view_scratch;
+  // else 128): rounded gsum, rounded wsum * sh, hidden activations, wsum
+  float* vin = b.vin + warp * (GEN ? pl.vld : 128);
+  float* vsh = vin + (GEN && G > 32 ? 64 : 32);
+  float* vh = vsh + 32;
+  float* misc = vh + (GEN && H > 48 ? H : 48);
   const long n_steps = ((long)N + rays_per_step - 1) / rays_per_step;
   const long steps_apart = (long)gridDim.x * pl.wgs;  // a warpgroup's steps
   const int row = (threadIdx.x & 127) >> 1;
-  // point `local` of step s: np (zeros) past the step's rays
-  auto point = [&](long s, int local) {
-    return local < RT ? s * RT + local : np;
+  // point `local` of segment k of step s: np (zeros) past the step's rays
+  auto point = [&](long s, int k, int local) {
+    const int i = k * M + local;
+    return i < RT ? s * RT + i : np;
   };
   float x[3];
-  load_point(x3, np, point((long)blockIdx.x * pl.wgs + wg, row), x);
+  load_point(x3, np, point((long)blockIdx.x * pl.wgs + wg, 0, row), x);
   for (long base = (long)blockIdx.x * pl.wgs; base < n_steps;
        base += steps_apart) {
     const long s = base + wg;
-    for (int tt = 0; tt < M / TILE; ++tt) {
-      float xn[3];  // the next tile's point: this step's or the next step's
-      load_point(x3, np,
-                 tt + 1 < M / TILE ? point(s, (tt + 1) * TILE + row)
-                                   : point(s + steps_apart, row),
-                 xn);
-      tile<T, V>(net, pl, W, b, x, b.outb + tt * TILE * pl.ldo, 16);
+    // the running state of the ray a warp works on, carried across
+    // segments: transmittance, and (lanes 0-15) a column of each 16-column
+    // group of gsum, (16) depth, (17) weights_sum
+    float carry = 0.0f, part[MAX_GSUM / 16] = {};
+    for (int k = 0; k < nseg; ++k) {
+      for (int tt = 0; tt < M / TILE; ++tt) {
+        float xn[3];  // the next tile's point: this step's or the next one's
+        const long nxt = tt + 1 < M / TILE ? point(s, k, (tt + 1) * TILE + row)
+                         : k + 1 < nseg    ? point(s, k + 1, row)
+                                           : point(s + steps_apart, 0, row);
+        load_point(x3, np, nxt, xn);
+        tile<T, V>(net, pl, W, b, x, b.outb + tt * TILE * pl.ldo, kout,
+                   GEN ? park : nullptr);
 #pragma unroll
-      for (int a = 0; a < 3; ++a) x[a] = xn[a];
-    }
-    wg_sync(wg);
-    for (int r = warp; r < rays_per_step; r += 4) {
-      const long n = s * rays_per_step + r;
-      if (n >= N) break;
-      const float* ob = b.outb + r * Ts * pl.ldo;
-      float* wts = b.wts + r * Ts;
-      float* tsb = b.tsb + r * Ts;
-      const long roff = ray_offset(n, Ts, pack_q);
-      float carry = 0.0f;
-      for (int t0 = 0; t0 < Ts; t0 += 32) {
-        const int t = t0 + lane;
-        const bool valid = t < Ts;
-        float ds = 0.0f, alpha = 0.0f;
-        if (valid) {
-          const float s = ob[t * pl.ldo] - 1.0f;
-          const float sigma = fmaxf(s, 0.0f) + log1pf(expf(-fabsf(s)));
-          ds = dl[roff + t] * sigma;
-          const float ds_a =
-              (opaque && t == Ts - 1) ? __int_as_float(0x7f800000) : ds;
-          alpha = 1.0f - expf(-ds_a);
-          tsb[t] = ts[roff + t];
-        }
-        float incl = ds;
-        for (int off = 1; off < 32; off <<= 1) {
-          const float v = __shfl_up_sync(FULL, incl, off);
-          if (lane >= off) incl += v;
-        }
-        float excl = __shfl_up_sync(FULL, incl, 1);
-        if (lane == 0) excl = 0.0f;
-        float w = alpha * expf(-(carry + excl));
-        if (isnan(w)) w = 0.0f;
-        if (valid) wts[t] = w;
-        carry += __shfl_sync(FULL, incl, 31);
+        for (int a = 0; a < 3; ++a) x[a] = xn[a];
       }
-      __syncwarp();
-      if (lane < G) {
-        float a = 0.0f;
-#pragma unroll 4
-        for (int t = 0; t < Ts; ++t) a += wts[t] * ob[t * pl.ldo + lane];
-        gsum[n * G + lane] = a;
-        vin[lane] = rnd<T>(a);
-      } else if (lane == 16) {
-        float a = 0.0f;
-#pragma unroll 4
-        for (int t = 0; t < Ts; ++t) a += wts[t] * tsb[t];
-        depth[n] = a;
-      } else if (lane == 17) {
-        float a = 0.0f;
-#pragma unroll 4
-        for (int t = 0; t < Ts; ++t) a += wts[t];
-        wsum[n] = a;
-        misc[0] = a;
-      }
-      __syncwarp();
-      if (H) {
-        const float* rr = rays8 + n * 8;
-        const float dx = rr[3], dy = rr[4], dz = rr[5];
-        const float inv = rsqrtf(dx * dx + dy * dy + dz * dz + 1e-20f);
-        if (lane < view.sh_dim)
-          vsh[lane] = rnd<T>(misc[0] * sh_component(lane, dx * inv, dy * inv,
-                                                    dz * inv));
+      wg_sync(wg);
+      for (int r = warp; r < rays_per_step; r += 4) {
+        const long n = s * rays_per_step + r;
+        if (n >= N) break;
+        // this segment's samples [t_lo, t_hi) of ray r, at local row
+        // r Ts + t - k M of the buffers (without GEN the whole ray)
+        const int t_lo = GEN ? max(0, k * M - r * Ts) : 0;
+        const int t_hi = GEN ? min(Ts, (k + 1) * M - r * Ts) : Ts;
+        if (GEN && t_lo >= t_hi) continue;
+        const int row0 = r * Ts + t_lo - k * M;
+        const float* ob = b.outb + row0 * pl.ldo;
+        float* wts = b.wts + row0;
+        float* tsb = b.tsb + row0;
+        const long roff = ray_offset(n, Ts, pack_q);
+        if (t_lo == 0) {  // the ray's first segment
+          carry = 0.0f;
+#pragma unroll
+          for (int j = 0; j < MAX_GSUM / 16; ++j) part[j] = 0.0f;
+        }
+        for (int t0 = t_lo; t0 < t_hi; t0 += 32) {
+          const int t = t0 + lane;
+          const bool valid = t < t_hi;
+          float ds = 0.0f, alpha = 0.0f;
+          if (valid) {
+            const float s = ob[(t - t_lo) * pl.ldo] - 1.0f;
+            const float sigma = fmaxf(s, 0.0f) + log1pf(expf(-fabsf(s)));
+            ds = dl[roff + t] * sigma;
+            const float ds_a =
+                (opaque && t == Ts - 1) ? __int_as_float(0x7f800000) : ds;
+            alpha = 1.0f - expf(-ds_a);
+            tsb[t - t_lo] = ts[roff + t];
+          }
+          float incl = ds;
+          for (int off = 1; off < 32; off <<= 1) {
+            const float v = __shfl_up_sync(FULL, incl, off);
+            if (lane >= off) incl += v;
+          }
+          float excl = __shfl_up_sync(FULL, incl, 1);
+          if (lane == 0) excl = 0.0f;
+          float w = alpha * expf(-(carry + excl));
+          if (isnan(w)) w = 0.0f;
+          if (valid) wts[t - t_lo] = w;
+          carry += __shfl_sync(FULL, incl, 31);
+        }
         __syncwarp();
-        float hj = 0.0f;
-        if (lane < H) {
-          float a = 0.0f, c = 0.0f;
+        if constexpr (GEN) {
+          // the per-ray sums, each in index order across the segments
+          const int nt = t_hi - t_lo;
+          if (lane < 16) {
+#pragma unroll
+            for (int j = 0; j < MAX_GSUM / 16; ++j) {
+              const int c = lane + 16 * j;
+              if (c < G) {
+                float a = part[j];
 #pragma unroll 4
-          for (int k = 0; k < G; ++k) a += vin[k] * tof<T>(VG[k * H + lane]);
+                for (int t = 0; t < nt; ++t) a += wts[t] * ob[t * pl.ldo + c];
+                part[j] = a;
+              }
+            }
+          } else if (lane < 18) {
+            float a = part[0];
 #pragma unroll 4
-          for (int k = 0; k < view.sh_dim; ++k)
-            c += vsh[k] * tof<T>(VS[k * H + lane]);
-          hj = a + c;
-        }
-        for (int l = 0; l < view.n_rest; ++l) {
-          __syncwarp();
-          if (lane < H) vh[lane] = rnd<T>(fmaxf(hj, 0.0f));
-          __syncwarp();
-          if (lane < H) {
-            const T* vr = VR + (size_t)l * H * H;
+            for (int t = 0; t < nt; ++t)
+              a += wts[t] * (lane == 16 ? tsb[t] : 1.0f);
+            part[0] = a;
+          }
+          if (t_hi < Ts) {  // the ray goes on in the next segment
+            __syncwarp();
+            continue;
+          }
+          if (lane < 16) {
+#pragma unroll
+            for (int j = 0; j < MAX_GSUM / 16; ++j) {
+              const int c = lane + 16 * j;
+              if (c < G) {
+                gsum[n * G + c] = part[j];
+                vin[c] = rnd<T>(part[j]);
+              }
+            }
+          } else if (lane == 16) {
+            depth[n] = part[0];
+          } else if (lane == 17) {
+            wsum[n] = part[0];
+            misc[0] = part[0];
+          }
+        } else {
+          if (lane < G) {
             float a = 0.0f;
-#pragma unroll 8
-            for (int i = 0; i < H; ++i) a += vh[i] * tof<T>(vr[i * H + lane]);
-            hj = a;
+#pragma unroll 4
+            for (int t = 0; t < Ts; ++t) a += wts[t] * ob[t * pl.ldo + lane];
+            gsum[n * G + lane] = a;
+            vin[lane] = rnd<T>(a);
+          } else if (lane == 16) {
+            float a = 0.0f;
+#pragma unroll 4
+            for (int t = 0; t < Ts; ++t) a += wts[t] * tsb[t];
+            depth[n] = a;
+          } else if (lane == 17) {
+            float a = 0.0f;
+#pragma unroll 4
+            for (int t = 0; t < Ts; ++t) a += wts[t];
+            wsum[n] = a;
+            misc[0] = a;
           }
         }
-        if (lane < 3) rgb[n * 3 + lane] = 1.0f / (1.0f + expf(-hj));
+        __syncwarp();
+        if (H) {
+          const float* rr = rays8 + n * 8;
+          const float dx = rr[3], dy = rr[4], dz = rr[5];
+          const float inv = rsqrtf(dx * dx + dy * dy + dz * dz + 1e-20f);
+          if (lane < view.sh_dim)
+            vsh[lane] = rnd<T>(misc[0] * sh_component(lane, dx * inv,
+                                                      dy * inv, dz * inv));
+          __syncwarp();
+          // hidden unit lane + 32 q in hj[q], each sum in index order
+          constexpr int NQ = GEN ? MAX_VIEW / 32 : 1;
+          float hj[NQ];
+#pragma unroll
+          for (int q = 0; q < NQ; ++q) {
+            const int j = lane + 32 * q;
+            hj[q] = 0.0f;
+            if (j < H) {
+              float a = 0.0f, c = 0.0f;
+#pragma unroll 4
+              for (int k2 = 0; k2 < G; ++k2)
+                a += vin[k2] * tof<T>(VG[k2 * H + j]);
+#pragma unroll 4
+              for (int k2 = 0; k2 < view.sh_dim; ++k2)
+                c += vsh[k2] * tof<T>(VS[k2 * H + j]);
+              hj[q] = a + c;
+            }
+          }
+          for (int l = 0; l < view.n_rest; ++l) {
+            __syncwarp();
+#pragma unroll
+            for (int q = 0; q < NQ; ++q) {
+              const int j = lane + 32 * q;
+              if (j < H) vh[j] = rnd<T>(fmaxf(hj[q], 0.0f));
+            }
+            __syncwarp();
+            const T* vr = VR + (size_t)l * H * H;
+#pragma unroll
+            for (int q = 0; q < NQ; ++q) {
+              const int j = lane + 32 * q;
+              if (j < H) {
+                float a = 0.0f;
+#pragma unroll 8
+                for (int i = 0; i < H; ++i) a += vh[i] * tof<T>(vr[i * H + j]);
+                hj[q] = a;
+              }
+            }
+          }
+          if (lane < 3) rgb[n * 3 + lane] = 1.0f / (1.0f + expf(-hj[0]));
+        }
+        __syncwarp();
       }
-      __syncwarp();
+      wg_sync(wg);
     }
-    wg_sync(wg);
   }
 }
 
@@ -1558,54 +1748,6 @@ Net make_net(const int* desc, const void* w, int w_elems, float enc_scale,
   return net;
 }
 
-// A net with a layer wider than one accumulator takes the V_WIDE kernels,
-// one with biases or the dense-sin encode the V_BRANCHES ones.
-bool is_wide(const Net& net) { return net.hmax > CHUNK; }
-int variant_of(const Net& net) {
-  if (is_wide(net)) return V_WIDE;
-  return net.bias || !net.angle_double ? V_BRANCHES : V_SERVED;
-}
-
-// Checks the network against the kernel's limits and picks the
-// shared-memory plan, with at most max_wgs warpgroups; false when the
-// network or the buffers of one warpgroup do not fit.
-template <typename T>
-bool plan_for(const Net& net, View* view, int max_wgs, int M, int R, int ldo,
-              bool composite, Plan& pl) {
-  const bool wide = is_wide(net);
-  if (net.n_layers < 1 || net.n_layers > MAX_LAYERS) return false;
-  if (net.ke % 16 || net.hmax > MAX_WIDTH) return false;
-  for (int l = 0; l < net.n_layers; ++l) {
-    const Layer& L = net.layer[l];
-    if (L.kout > MAX_WIDTH || L.kout % 16 || L.kin_h % 16 || L.kin_e % 16)
-      return false;
-  }
-  auto fits = [&](int w, int wgs) {  // with the view head there if it fits
-    for (int v = view != nullptr; v >= 0; --v) {
-      pl = make_plan<T>(net, view, wgs, M, R, ldo, composite, wide, w,
-                        v != 0);
-      if (pl.total <= SMEM_LIMIT) return true;
-    }
-    return false;
-  };
-  // bf16 (wgmma reads B from shared memory) and V_WIDE nets: all the
-  // weights, with fewer warpgroups if need be, else streamed, else (float32
-  // only) read through L2. float32 nets up to 128 wide: as many warpgroups
-  // as fit, with all the weights, else one layer at a time, else the
-  // weights read through L2.
-  const int modes[3] = {W_ALL, W_STREAM, W_GLOBAL};
-  if (sizeof(T) == 2 || wide) {
-    for (int m = 0; m < (sizeof(T) == 2 ? 2 : 3); ++m)
-      for (int wgs = max_wgs; wgs >= 1; --wgs)
-        if (fits(modes[m], wgs)) return true;
-    return false;
-  }
-  for (int wgs = max_wgs; wgs >= 1; --wgs)
-    for (int m = 0; m < 3; ++m)
-      if (fits(modes[m], wgs)) return true;
-  return false;
-}
-
 int launch_small(const Net& net, const float* x3, long np, float* out,
                  int out_rows, cudaStream_t stream) {
   int dev = 0, n_sm = 0, per_sm = 0;
@@ -1621,148 +1763,200 @@ int launch_small(const Net& net, const float* x3, long np, float* out,
   return (int)cudaGetLastError();
 }
 
+// the blocks of `kernel` resident on the card at the plan's block size and
+// shared memory: the persistent grid's size, and the slots of the park
+// buffer (park_blocks)
 template <typename K>
-int grid_size(K kernel, int wgs, int smem, long work_items) {
+long resident_blocks(K kernel, const Plan& pl) {
   int dev = 0, n_sm = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       smem);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, wgs * 128,
-                                                smem);
-  if (per_sm < 1) per_sm = 1;
-  const long want = (work_items + wgs - 1) / wgs;
-  const long cap = (long)n_sm * per_sm;
-  return (int)(want < cap ? (want > 0 ? want : 1) : cap);
+                       pl.total);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                pl.wgs * 128, pl.total);
+  return (long)n_sm * (per_sm < 1 ? 1 : per_sm);
+}
+
+// the persistent grid: the resident blocks, at most one a work_items / wgs;
+// 0 where the park buffer (sized by park_blocks) has too few slots
+template <typename K>
+int grid_size(K kernel, const Plan& pl, long work_items, int park_words,
+              long park_bytes) {
+  const long want = (work_items + pl.wgs - 1) / pl.wgs;
+  long grid = resident_blocks(kernel, pl);
+  if (want < grid) grid = want > 0 ? want : 1;
+  if (pl.park_chunks &&
+      park_bytes < grid * pl.wgs * pl.park_chunks * park_words * 128 * 4L)
+    return 0;
+  return (int)grid;
+}
+
+// the plan's own checks: the kernels trust it for every buffer they carve
+bool plan_ok(const Net& net, const Plan& pl, int max_wgs) {
+  if (pl.total > SMEM_LIMIT || pl.wgs < 1 || pl.wgs > max_wgs) return false;
+  if (pl.M < TILE || pl.M % TILE || pl.nseg < 1) return false;
+  if (pl.unit_k < 0 || pl.unit_k % 16 || pl.park_chunks < 0) return false;
+  if (net.ke % 16 || net.hmax > MAX_WIDTH) return false;
+  if (pl.variant != V_WIDE && net.hmax > CHUNK) return false;
+  // the served variant has no loop over a ladder's levels past the slots
+  if (pl.variant == V_SERVED && (net.g.n_cp_more || net.g.n_vm_more))
+    return false;
+  for (int l = 0; l < net.n_layers; ++l) {
+    const Layer& L = net.layer[l];
+    if (L.kout > MAX_WIDTH || L.kout % 16 || L.kin_h % 16 || L.kin_e % 16)
+      return false;
+  }
+  return true;
 }
 
 template <typename T, int V>
-int launch_tmlp(const Net& net, const float* x3, long np, float* out,
-                int out_rows, cudaStream_t stream) {
-  Plan pl;
-  const int ldo = net.layer[net.n_layers - 1].kout + 1;
-  if (!plan_for<T>(net, nullptr, wgs_of<T>(false, V), TILE, 0, ldo, false,
-                   pl))
+int launch_tmlp(const Net& net, const Plan& pl, const float* x3, long np,
+                float* out, int out_rows, uint32_t* park, long park_bytes,
+                cudaStream_t stream) {
+  if (!plan_ok(net, pl, wgs_of<T>(false, V)) || pl.M != TILE) return -1;
+  if (V == V_WIDE && sizeof(T) == 4 && pl.w_mode == W_STREAM && !pl.unit_k)
     return -1;
-  const int grid = grid_size(tmlp_kernel<T, V>, pl.wgs, pl.total,
-                             (np + TILE - 1) / TILE);
+  const int grid = grid_size(tmlp_kernel<T, V>, pl, (np + TILE - 1) / TILE,
+                             sizeof(T) == 2 ? NA / 2 : NA, park_bytes);
+  if (grid < 1) return (int)cudaErrorInvalidValue;
   tmlp_kernel<T, V><<<grid, pl.wgs * 128, pl.total, stream>>>(
-      net, pl, x3, np, out, out_rows);
+      net, pl, x3, np, out, out_rows, park);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_tmlp_of(const Net& net, const float* x3, long np, float* out,
-                   int out_rows, cudaStream_t stream) {
-  switch (variant_of(net)) {
+int launch_tmlp_of(const Net& net, const Plan& pl, const float* x3, long np,
+                   float* out, int out_rows, uint32_t* park, long park_bytes,
+                   cudaStream_t stream) {
+  switch (pl.variant) {
     case V_SERVED:
-      return launch_tmlp<T, V_SERVED>(net, x3, np, out, out_rows, stream);
+      return launch_tmlp<T, V_SERVED>(net, pl, x3, np, out, out_rows, park,
+                                      park_bytes, stream);
     case V_BRANCHES:
-      return launch_tmlp<T, V_BRANCHES>(net, x3, np, out, out_rows, stream);
+      return launch_tmlp<T, V_BRANCHES>(net, pl, x3, np, out, out_rows, park,
+                                        park_bytes, stream);
     default:
-      return launch_tmlp<T, V_WIDE>(net, x3, np, out, out_rows, stream);
+      return launch_tmlp<T, V_WIDE>(net, pl, x3, np, out, out_rows, park,
+                                    park_bytes, stream);
   }
 }
 
-int gcd(int a, int b) { return b ? gcd(b, a % b) : a; }
-int round_tile(int n) { return (n + TILE - 1) / TILE * TILE; }
-
-// The points M of a composite step and its R rays: lcm(64, T), whole rays
-// in whole tiles, where that is at most MAX_STEP; else the R whole rays of
-// at most MAX_STEP points whose last tile has the smallest padded share,
-// M = R T rounded up to whole tiles.
-void step_of(int Ts, int& M, int& R) {
-  M = TILE / gcd(TILE, Ts) * Ts;
-  R = M / Ts;
-  if (M <= MAX_STEP) return;
-  R = 1;
-  for (int r = 2; r * Ts <= MAX_STEP; ++r)
-    if ((long)r * round_tile(R * Ts) > (long)R * round_tile(r * Ts)) R = r;
-  M = round_tile(R * Ts);
+// the composite a plan runs: the general one (GEN) or the served one
+template <typename T, int V>
+auto composite_of(const Plan& pl) {
+  return pl.general ? &composite_kernel<T, V, true>
+                    : &composite_kernel<T, V, false>;
 }
 
+struct CompositeArgs {
+  const float *x3, *dl, *ts, *rays8;
+  int N, Ts, pack_q, opaque;
+  float *gsum, *depth, *wsum, *rgb;
+};
+
 template <typename T, int V>
-int launch_composite(const Net& net, View view, const float* x3,
-                     const float* dl, const float* ts, const float* rays8,
-                     int N, int Ts, int pack_q, int opaque, float* gsum,
-                     float* depth, float* wsum, float* rgb,
+int launch_composite(const Net& net, View view, const Plan& pl,
+                     const CompositeArgs& c, uint32_t* park, long park_bytes,
                      cudaStream_t stream) {
-  if (Ts < 1 || Ts > 128) return (int)cudaErrorInvalidValue;
-  int M, R;
-  step_of(Ts, M, R);
-  if (pack_q < 1 || N % pack_q) return (int)cudaErrorInvalidValue;
-  if (net.layer[net.n_layers - 1].kout != 16) return (int)cudaErrorInvalidValue;
-  if (view.H > 32 || view.sh_dim > 16) return (int)cudaErrorInvalidValue;
-  Plan pl;
-  if (!plan_for<T>(net, view.H ? &view : nullptr, wgs_of<T>(true, V), M, R,
-                   16 + 1, true, pl))
+  if (!plan_ok(net, pl, wgs_of<T>(true, V))) return -1;
+  if (c.Ts < 1 || c.pack_q < 1 || c.N % c.pack_q || pl.R < 1)
+    return (int)cudaErrorInvalidValue;
+  // the steps' buffers hold their rays: whole rays of R T <= M points, or
+  // (general) one ray in nseg segments of M
+  if ((pl.nseg == 1 && pl.R * c.Ts > pl.M) ||
+      (pl.nseg > 1 && (pl.R != 1 || pl.nseg * pl.M < c.Ts)))
+    return (int)cudaErrorInvalidValue;
+  const Layer& last = net.layer[net.n_layers - 1];
+  if (view.sh_dim > 16) return (int)cudaErrorInvalidValue;
+  if (pl.general ? (last.kout_real > MAX_GSUM || view.H > MAX_VIEW)
+                 : (last.kout != 16 || view.H > 32 || pl.nseg != 1 ||
+                    c.Ts > 128 || pl.park_chunks))
+    return (int)cudaErrorInvalidValue;
+  if (V == V_WIDE && sizeof(T) == 4 && pl.w_mode == W_STREAM && !pl.unit_k)
     return -1;
-  const long n_steps = ((long)N + R - 1) / R;
-  const int grid = grid_size(composite_kernel<T, V>, pl.wgs, pl.total,
-                             n_steps);
-  composite_kernel<T, V><<<grid, pl.wgs * 128, pl.total, stream>>>(
-      net, view, pl, x3, dl, ts, rays8, N, Ts, pack_q, opaque, gsum, depth,
-      wsum, rgb);
+  const long n_steps = ((long)c.N + pl.R - 1) / pl.R;
+  auto* kernel = composite_of<T, V>(pl);
+  const int grid = grid_size(kernel, pl, n_steps,
+                             sizeof(T) == 2 ? NA / 2 : NA, park_bytes);
+  if (grid < 1) return (int)cudaErrorInvalidValue;
+  kernel<<<grid, pl.wgs * 128, pl.total, stream>>>(
+      net, view, pl, c.x3, c.dl, c.ts, c.rays8, c.N, c.Ts, c.pack_q, c.opaque,
+      c.gsum, c.depth, c.wsum, c.rgb, park);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_composite_of(const Net& net, View view, const float* x3,
-                        const float* dl, const float* ts, const float* rays8,
-                        int N, int Ts, int pack_q, int opaque, float* gsum,
-                        float* depth, float* wsum, float* rgb,
-                        cudaStream_t stream) {
-  switch (variant_of(net)) {
+int launch_composite_of(const Net& net, View view, const Plan& pl,
+                        const CompositeArgs& c, uint32_t* park,
+                        long park_bytes, cudaStream_t stream) {
+  switch (pl.variant) {
     case V_SERVED:
-      return launch_composite<T, V_SERVED>(net, view, x3, dl, ts, rays8, N, Ts,
-                                           pack_q, opaque, gsum, depth, wsum,
-                                           rgb, stream);
+      return launch_composite<T, V_SERVED>(net, view, pl, c, park,
+                                           park_bytes, stream);
     case V_BRANCHES:
-      return launch_composite<T, V_BRANCHES>(net, view, x3, dl, ts, rays8, N,
-                                             Ts, pack_q, opaque, gsum, depth,
-                                             wsum, rgb, stream);
+      return launch_composite<T, V_BRANCHES>(net, view, pl, c, park,
+                                             park_bytes, stream);
     default:
-      return launch_composite<T, V_WIDE>(net, view, x3, dl, ts, rays8, N, Ts,
-                                         pack_q, opaque, gsum, depth, wsum,
-                                         rgb, stream);
+      return launch_composite<T, V_WIDE>(net, view, pl, c, park, park_bytes,
+                                         stream);
   }
 }
 
 }  // namespace
 
-// sizeof(Grids), which ops/fused_mlp_t.py checks its mirror against
+// sizeof(Grids) and sizeof(Plan), which ops/fused_mlp_t.py checks its
+// mirrors against
 extern "C" int grids_size() { return (int)sizeof(Grids); }
+extern "C" int plan_size() { return (int)sizeof(Plan); }
 
-// `grids` points to a Grids (a void pointer: a type of this file's unnamed
-// namespace in the signature would keep the symbol from being exported)
-// `bias` is null for a net without biases
+// the blocks a launch of `plan` keeps resident (its persistent grid at
+// most), for which the host sizes the park buffer: a slot of
+// plan.park_chunks chunks a warpgroup (0 when the plan parks none)
+extern "C" long park_blocks(int use_bf16, int composite, const void* plan) {
+  const Plan& pl = *static_cast<const Plan*>(plan);
+  if (!pl.park_chunks || pl.variant != V_WIDE) return 0;
+  if (composite)
+    return use_bf16 ? resident_blocks(composite_of<bf16, V_WIDE>(pl), pl)
+                    : resident_blocks(composite_of<float, V_WIDE>(pl), pl);
+  return use_bf16 ? resident_blocks(tmlp_kernel<bf16, V_WIDE>, pl)
+                  : resident_blocks(tmlp_kernel<float, V_WIDE>, pl);
+}
+
+// `grids` points to a Grids and `plan` to a Plan (void pointers: a type of
+// this file's unnamed namespace in the signature would keep the symbol
+// from being exported); `bias` is null for a net without biases; `park`
+// holds park_bytes for the V_WIDE kernels' parked chunks (null when the
+// plan parks none)
 extern "C" int tmlp_launch(int use_bf16, const int* desc, const void* w,
                            int w_elems, float enc_scale, int angle_double,
                            const float* bias, const void* grids,
-                           const float* x3, long np, float* out, int out_rows,
-                           void* stream) {
+                           const void* plan, const float* x3, long np,
+                           float* out, int out_rows, void* park,
+                           long park_bytes, void* stream) {
   const Grids& g = *static_cast<const Grids*>(grids);
+  const Plan& pl = *static_cast<const Plan*>(plan);
   if (desc[0] < 1 || desc[0] > MAX_LAYERS) return -1;
-  if (g.n_cp > MAX_LEVELS || g.n_vm > MAX_LEVELS)
-    return (int)cudaErrorInvalidValue;
   Net net = make_net(desc, w, w_elems, enc_scale, angle_double, bias, g);
-  if (use_bf16 && small_net(net))
+  if (pl.small) {
+    if (!use_bf16 || !small_net(net)) return -1;
     return launch_small(net, x3, np, out, out_rows, (cudaStream_t)stream);
+  }
   auto* fn = use_bf16 ? &launch_tmlp_of<bf16> : &launch_tmlp_of<float>;
-  return fn(net, x3, np, out, out_rows, (cudaStream_t)stream);
+  return fn(net, pl, x3, np, out, out_rows, static_cast<uint32_t*>(park),
+            park_bytes, (cudaStream_t)stream);
 }
 
 extern "C" int tmlp_composite_launch(
     int use_bf16, const int* desc, const void* w, int w_elems, float enc_scale,
-    int angle_double, const float* bias, const void* grids, const void* vw,
-    int v_elems, const int* vdesc, const float* x3, const float* dl,
-    const float* ts, const float* rays8, int N, int Ts, int pack_q,
-    int opaque, float* gsum, float* depth, float* wsum, float* rgb,
-    void* stream) {
+    int angle_double, const float* bias, const void* grids, const void* plan,
+    const void* vw, int v_elems, const int* vdesc, const float* x3,
+    const float* dl, const float* ts, const float* rays8, int N, int Ts,
+    int pack_q, int opaque, float* gsum, float* depth, float* wsum,
+    float* rgb, void* park, long park_bytes, void* stream) {
   const Grids& g = *static_cast<const Grids*>(grids);
-  if (desc[0] < 1 || desc[0] > MAX_LAYERS) return -1;
-  if (g.n_cp > MAX_LEVELS || g.n_vm > MAX_LEVELS)
-    return (int)cudaErrorInvalidValue;
+  const Plan& pl = *static_cast<const Plan*>(plan);
+  if (desc[0] < 1 || desc[0] > MAX_LAYERS || pl.small) return -1;
   Net net = make_net(desc, w, w_elems, enc_scale, angle_double, bias, g);
   View view{vw, v_elems, 0, 0, 0, 0};
   if (vw && vdesc) {
@@ -1771,8 +1965,10 @@ extern "C" int tmlp_composite_launch(
     view.sh_dim = vdesc[2];
     view.degree = vdesc[3];
   }
+  const CompositeArgs c{x3, dl, ts, rays8, N, Ts, pack_q, opaque,
+                        gsum, depth, wsum, rgb};
   auto* fn =
       use_bf16 ? &launch_composite_of<bf16> : &launch_composite_of<float>;
-  return fn(net, view, x3, dl, ts, rays8, N, Ts, pack_q, opaque, gsum, depth,
-            wsum, rgb, (cudaStream_t)stream);
+  return fn(net, view, pl, c, static_cast<uint32_t*>(park), park_bytes,
+            (cudaStream_t)stream);
 }

@@ -29,11 +29,12 @@
 //     flat ranges [n0 T, (n0 + R) T), in 16 B stores where aligned.
 //  Every output is written with streaming stores (st.global.cs, evict
 //  first): at 512^2 rays the outputs are 4-16x the 50 MB L2, and these
-//  stores were faster than plain ones. R by T: the tile's samples fit in
-//  L0_SAMPLES, R T <= 1,024 (R = 32 at T = 32, 8 at T = 128), one pass of
-//  the block's threads (tiles of 2,048-8,192 samples were slower), and R
-//  is a multiple of 4, so every tile starts 16 B-aligned in bins and the
-//  sample outputs.
+//  stores were faster than plain ones. R by T (the host's plan,
+//  ops/ray_kernels.py:ray_plan): R T <= 1,024 samples (R = 32 at T = 32,
+//  8 at T = 128), one pass of the block's threads (tiles of 2,048-8,192
+//  samples were slower), and R is a multiple of 4, at least 4 (so a tile
+//  of a level past 256 samples takes several passes), so every tile starts
+//  16 B-aligned in bins and the sample outputs.
 //  A grid of as many blocks as tiles was faster than a persistent grid
 //  that walks the tiles with the next tile's rows loaded in the background
 //  (likely because the block scheduler keeps the tiles in flight close
@@ -85,6 +86,12 @@
 // one 128-lane row; Hopper has no lanes to fill), so the two extra outputs
 // cost 8 B per sample of writes and nothing else.
 //
+// Levels of any length: every kernel holds its rays' rows in shared memory,
+// a warp kernel's in static arrays up to 131 samples (the served levels)
+// and in dynamic shared memory past them, ray_level's thread kernel with
+// fewer rays a block where 32 rays' rows do not fit (ray_plan); the only
+// limit is a block's 227 KB (T of a few thousand).
+//
 // flatten3_nt: [3, N, T] -> [3, N*T]. Row-major, the two layouts are the same
 // bytes, so the kernel is a copy. Bound by bytes: 2 x 12 B per sample,
 // 60 us for the [3, 262144, 32] coordinates of a 512^2 frame's first level
@@ -101,19 +108,23 @@
 
 namespace {
 
+// the warp-per-ray kernels: warps a block (at most), and the edges a ray's
+// rows hold in their static shared memory (levels of T <= 131; longer ones
+// take their rows in dynamic shared memory)
 constexpr int WARPS = 8;
-constexpr int MAXE = 132;  // edges per ray held in shared memory (T <= 128)
-// ray_level0's tile kernel: threads a block, samples a tile (R T <=
-// L0_SAMPLES), rays a tile (bounds the rays8 buffers)
+constexpr int STATIC_EDGES = 132;
+// ray_level0's tile kernel: threads a block; its rays a tile R come from
+// the host (ops/ray_kernels.py:ray_plan: R T <= 1,024 samples, R % 4 == 0,
+// at least 4)
 constexpr int L0_THREADS = 256;
-constexpr int L0_SAMPLES = 1024;
-constexpr int L0_MAX_RAYS = 256;
 // flatten3_nt: threads a block, 16 B loads in flight a thread
 constexpr int FLAT_THREADS = 256;
 constexpr int FLAT_UNROLL = 4;
 // ray_level: the thread-per-ray kernel from this many rays on
 constexpr int THREAD_RAYS_FROM = 16384;
-constexpr int RAYS = 32;        // its rays a block, one a thread
+constexpr int RAYS = 32;  // its rays a block (at most), one a thread
+// shared memory a block may use (dynamic, beside the kernels' static)
+constexpr int SMEM_LIMIT = 232448;
 
 __device__ __forceinline__ float spacing_inv(float x) {
   return x < 0.5f ? 2.0f * x : 1.0f / fmaxf(2.0f - 2.0f * x, 1e-12f);
@@ -351,7 +362,10 @@ ray_level0_tile_kernel(const float* __restrict__ rays8,
   }
 }
 
-// few rays: one warp a ray, lane t on sample t (see the header)
+// few rays: one warp a ray, lane t on sample t (see the header). E: the
+// edges a warp's row holds in static shared memory (levels of T < E, the
+// served ones); E = 0: [WARPS][T + 1] in dynamic shared memory (longer)
+template <int E>
 __global__ void __launch_bounds__(WARPS * 32)
 ray_level0_warp_kernel(const float* __restrict__ rays8,
                        const float* __restrict__ jitter, int N, int T,
@@ -359,9 +373,10 @@ ray_level0_warp_kernel(const float* __restrict__ rays8,
                        float* __restrict__ ts, float* __restrict__ dl,
                        float* __restrict__ x3, int pack_q,
                        float* __restrict__ ts_p, float* __restrict__ dl_p) {
-  __shared__ float s_rb[WARPS][MAXE];
+  __shared__ float s_rb[E ? WARPS : 1][E ? E : 1];
+  extern __shared__ float s_dyn[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float* rb = s_rb[warp];
+  float* rb = E ? s_rb[warp] : s_dyn + warp * (T + 1);
   for (long n = (long)blockIdx.x * WARPS + warp; n < N;
        n += (long)gridDim.x * WARPS) {
     const Ray r = load_ray(rays8, n);
@@ -378,7 +393,10 @@ ray_level0_warp_kernel(const float* __restrict__ rays8,
   }
 }
 
-// ray_level, few rays: one warp a ray (see the header)
+// ray_level, few rays: one warp a ray (see the header). E as for
+// ray_level0_warp_kernel (T0, T < E, WARPS warps a block); E = 0: the
+// warps a block of the host's plan, their rows in dynamic shared memory
+template <int E>
 __global__ void __launch_bounds__(WARPS * 32)
 ray_level_warp_kernel(const float* __restrict__ rays8,
                       const float* __restrict__ w_prev,
@@ -389,18 +407,36 @@ ray_level_warp_kernel(const float* __restrict__ rays8,
                       float* __restrict__ dl, float* __restrict__ x3,
                       int pack_q, float* __restrict__ ts_p,
                       float* __restrict__ dl_p) {
-  __shared__ float s_pdf[WARPS][MAXE];
-  __shared__ float s_cdf[WARPS][MAXE];
-  __shared__ float s_rc[WARPS][MAXE];
-  __shared__ float s_db[WARPS][MAXE];
-  __shared__ float s_rb[WARPS][MAXE];
-  __shared__ float s_total[WARPS];
+  // per warp: pdf [T0], cdf [T0 + 1], rc [T0], db [T0], rb [T + 1], total
+  constexpr int W = E ? WARPS : 1, S = E ? E : 1;
+  __shared__ float s_pdf[W][S];
+  __shared__ float s_cdf[W][S];
+  __shared__ float s_rc[W][S];
+  __shared__ float s_db[W][S];
+  __shared__ float s_rb[W][S];
+  __shared__ float s_tot[W];
+  extern __shared__ float s_warp[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float *pdf = s_pdf[warp], *cdf = s_cdf[warp], *rc = s_rc[warp],
-        *db = s_db[warp], *rb = s_rb[warp];
+  const int warps = E ? WARPS : blockDim.x >> 5;
   const int K = T + 1;
-  for (long n = (long)blockIdx.x * WARPS + warp; n < N;
-       n += (long)gridDim.x * WARPS) {
+  float *pdf, *cdf, *rc, *db, *rb, *s_total;
+  if constexpr (E != 0) {
+    pdf = s_pdf[warp];
+    cdf = s_cdf[warp];
+    rc = s_rc[warp];
+    db = s_db[warp];
+    rb = s_rb[warp];
+    s_total = s_tot + warp;
+  } else {
+    pdf = s_warp + (size_t)warp * (4 * T0 + K + 2);
+    cdf = pdf + T0;
+    rc = cdf + T0 + 1;
+    db = rc + T0;
+    rb = db + T0;
+    s_total = rb + K;
+  }
+  for (long n = (long)blockIdx.x * warps + warp; n < N;
+       n += (long)gridDim.x * warps) {
     const Ray r = load_ray(rays8, n);
     // pdf = (w + 0.01) / sum; the sums run in index order (the deltas
     // downstream difference nearly equal edges, so the order shows)
@@ -409,10 +445,10 @@ ray_level_warp_kernel(const float* __restrict__ rays8,
     if (lane == 0) {
       float total = 0.0f;
       for (int i = 0; i < T0; ++i) total += pdf[i];
-      s_total[warp] = total;
+      s_total[0] = total;
     }
     __syncwarp();
-    const float total = s_total[warp];
+    const float total = s_total[0];
     for (int i = lane; i < T0; i += 32) pdf[i] = pdf[i] / total;
     __syncwarp();
     // cdf by running sum, clipped at 1
@@ -463,10 +499,10 @@ __device__ __forceinline__ int row_of(int f, float inv_len) {
 // block, all in flight at once (the caller waits: cp.async.wait_all)
 __device__ __forceinline__ void stage_rows(const float* __restrict__ src,
                                            int nr, int len, float* dst,
-                                           int S, int off) {
+                                           int S, int off, int stride) {
   const int n = nr * len;
   const float inv = 1.0f / (float)len;
-  for (int f = threadIdx.x; f < n; f += RAYS) {
+  for (int f = threadIdx.x; f < n; f += stride) {
     const int q = row_of(f, inv);
     cp_async4(dst + q * S + off + (f - q * len), src + f);
   }
@@ -518,7 +554,10 @@ __device__ __forceinline__ void resample_ray(float* c, const float* bp,
   }
 }
 
-// many rays: a block of RAYS rays, one thread a ray (see the header)
+// many rays: a block of RB rays, one thread a ray (see the header); RB = 0:
+// blockDim.x rays, as many as fit beside their rows (the host's plan; long
+// levels), RAYS otherwise
+template <int RB>
 __global__ void __launch_bounds__(RAYS)
 ray_level_thread_kernel(const float* __restrict__ rays8,
                         const float* __restrict__ w_prev,
@@ -534,26 +573,26 @@ ray_level_thread_kernel(const float* __restrict__ rays8,
   extern __shared__ float smem[];
   __shared__ float s_ray[RAYS * 8];
   float* s_a = smem;
-  float* s_c = s_a + RAYS * SA;
-  float* s_b = s_c + RAYS * SC;
-  const int tid = threadIdx.x, K = T + 1;
+  const int tid = threadIdx.x, K = T + 1, rays = RB ? RB : blockDim.x;
+  float* s_c = s_a + rays * SA;
+  float* s_b = s_c + rays * SC;
   const size_t plane = (size_t)N * T;
   const float inv_k = 1.0f / (float)K, inv_t = 1.0f / (float)T;
-  for (long n0 = (long)blockIdx.x * RAYS; n0 < N;
-       n0 += (long)gridDim.x * RAYS) {
-    const int nr = (int)min((long)RAYS, (long)N - n0);
-    stage_rows(w_prev + n0 * T0, nr, T0, s_a, SA, 1);
+  for (long n0 = (long)blockIdx.x * rays; n0 < N;
+       n0 += (long)gridDim.x * rays) {
+    const int nr = (int)min((long)rays, (long)N - n0);
+    stage_rows(w_prev + n0 * T0, nr, T0, s_a, SA, 1, rays);
     if (!uniform_prev)
-      stage_rows(bins_prev + n0 * (T0 + 1), nr, T0 + 1, s_b, SB, 0);
-    if (jitter) stage_rows(jitter + n0 * K, nr, K, s_c, SC, 0);
-    stage_rows(rays8 + n0 * 8, nr, 8, s_ray, 8, 0);
+      stage_rows(bins_prev + n0 * (T0 + 1), nr, T0 + 1, s_b, SB, 0, rays);
+    if (jitter) stage_rows(jitter + n0 * K, nr, K, s_c, SC, 0, rays);
+    stage_rows(rays8 + n0 * 8, nr, 8, s_ray, 8, 0, rays);
     asm volatile("cp.async.wait_all;\n" ::: "memory");
     __syncthreads();
     if (tid < nr)
       resample_ray(s_a + tid * SA, s_b + tid * SB, s_c + tid * SC, T0, K,
                    uniform_prev, jitter != nullptr);
     __syncthreads();
-    for (int f = tid; f < nr * K; f += RAYS) {
+    for (int f = tid; f < nr * K; f += rays) {
       const int q = row_of(f, inv_k), j = f - q * K;
       const float b = s_c[q * SC + j];
       bins[n0 * K + f] = b;
@@ -562,7 +601,7 @@ ray_level_thread_kernel(const float* __restrict__ rays8,
           Ray{rq[0], rq[1], rq[2], rq[3], rq[4], rq[5], rq[6], rq[7]}, b);
     }
     __syncthreads();
-    for (int f = tid; f < nr * T; f += RAYS) {
+    for (int f = tid; f < nr * T; f += rays) {
       const int q = row_of(f, inv_t), t = f - q * T;
       const float* rq = s_ray + q * 8;
       write_sample(
@@ -633,29 +672,48 @@ int grid_for(int N) {
 
 }  // namespace
 
+// The plans come from the host (ops/ray_kernels.py:ray_plan): R, the rays
+// of a ray_level0 tile; for ray_level the warps a block of its warp kernel
+// and the rays a block of its thread kernel. Each kernel may take up to
+// SMEM_LIMIT bytes of dynamic shared memory; a launch whose plan needs
+// more is refused.
+template <typename Kern>
+int allow_smem(Kern kernel, int static_bytes) {
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_LIMIT - static_bytes);
+}
+
 extern "C" int ray_level0_launch(const float* rays8, const float* jitter,
                                  int N, int T, int contract, float* bins,
                                  float* ts, float* dl, float* x3, int pack_q,
-                                 float* ts_p, float* dl_p, void* stream) {
-  if (T < 1 || T + 1 > MAXE || N < 0 || !pack_ok(N, pack_q, ts_p, dl_p))
+                                 float* ts_p, float* dl_p, int R,
+                                 void* stream) {
+  if (T < 1 || N < 0 || R < 4 || R % 4 || !pack_ok(N, pack_q, ts_p, dl_p))
     return (int)cudaErrorInvalidValue;
   if (N == 0) return 0;
   const int K = T + 1;
-  // R by T: the tile's samples fit in L0_SAMPLES, R % 4 == 0
-  const int R = min(L0_MAX_RAYS, L0_SAMPLES / T) & ~3;
   const size_t smem =
       (size_t)(R * K * (jitter ? 2 : 1) + 8 * R + K) * sizeof(float);
-  static const int attr = (int)cudaFuncSetAttribute(
-      ray_level0_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (2 * (L0_SAMPLES + L0_MAX_RAYS) + 8 * L0_MAX_RAYS + MAXE) *
-          (int)sizeof(float));
+  const size_t warp_smem = (size_t)WARPS * K * sizeof(float);
+  if (smem > (size_t)SMEM_LIMIT || warp_smem > (size_t)SMEM_LIMIT)
+    return (int)cudaErrorInvalidValue;
+  static const int attr = allow_smem(ray_level0_tile_kernel, 0) |
+                          allow_smem(ray_level0_warp_kernel<0>, 0);
   if (attr) return attr;
   if ((long)N * T < 4L * L0_THREADS *
                         resident_blocks(ray_level0_tile_kernel, L0_THREADS,
                                         smem)) {
-    ray_level0_warp_kernel<<<grid_for(N), WARPS * 32, 0,
-                             (cudaStream_t)stream>>>(
-        rays8, jitter, N, T, contract, bins, ts, dl, x3, pack_q, ts_p, dl_p);
+    if (K <= STATIC_EDGES)
+      ray_level0_warp_kernel<STATIC_EDGES><<<grid_for(N), WARPS * 32, 0,
+                                             (cudaStream_t)stream>>>(
+          rays8, jitter, N, T, contract, bins, ts, dl, x3, pack_q, ts_p,
+          dl_p);
+    else
+      ray_level0_warp_kernel<0><<<grid_for(N), WARPS * 32, warp_smem,
+                                  (cudaStream_t)stream>>>(
+          rays8, jitter, N, T, contract, bins, ts, dl, x3, pack_q, ts_p,
+          dl_p);
     return (int)cudaGetLastError();
   }
   const auto al = [](const void* p) { return (uintptr_t)p % 16 == 0; };
@@ -674,13 +732,29 @@ extern "C" int ray_level_launch(const float* rays8, const float* w_prev,
                                 int N, int T0, int T, int contract,
                                 int uniform_prev, float* bins, float* ts,
                                 float* dl, float* x3, int pack_q, float* ts_p,
-                                float* dl_p, void* stream) {
-  if (T < 1 || T + 1 > MAXE || T0 < 1 || T0 + 1 > MAXE ||
-      !pack_ok(N, pack_q, ts_p, dl_p))
+                                float* dl_p, int warps, int rays,
+                                void* stream) {
+  if (T < 1 || T0 < 1 || warps < 1 || warps > WARPS || rays < 1 ||
+      rays > RAYS || !pack_ok(N, pack_q, ts_p, dl_p))
     return (int)cudaErrorInvalidValue;
+  static const int attr =
+      allow_smem(ray_level_warp_kernel<0>, 0) |
+      allow_smem(ray_level_thread_kernel<RAYS>,
+                 RAYS * 8 * (int)sizeof(float)) |
+      allow_smem(ray_level_thread_kernel<0>, RAYS * 8 * (int)sizeof(float));
+  if (attr) return attr;
+  const int K = T + 1;
   if (N < THREAD_RAYS_FROM) {
-    ray_level_warp_kernel<<<grid_for(N), WARPS * 32, 0,
-                            (cudaStream_t)stream>>>(
+    const size_t smem = (size_t)warps * (4 * T0 + K + 2) * sizeof(float);
+    if (smem > (size_t)SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+    long blocks = ((long)N + warps - 1) / warps;
+    blocks = blocks < (1L << 20) ? blocks : (1L << 20);
+    const bool fixed = warps == WARPS && T0 + 1 <= STATIC_EDGES &&
+                       K <= STATIC_EDGES;
+    auto* kernel = fixed ? ray_level_warp_kernel<STATIC_EDGES>
+                         : ray_level_warp_kernel<0>;
+    kernel<<<(int)blocks, warps * 32, fixed ? 0 : smem,
+             (cudaStream_t)stream>>>(
         rays8, w_prev, bins_prev, jitter, N, T0, T, contract, uniform_prev,
         bins, ts, dl, x3, pack_q, ts_p, dl_p);
     return (int)cudaGetLastError();
@@ -688,15 +762,14 @@ extern "C" int ray_level_launch(const float* rays8, const float* w_prev,
   // odd strides: thread q's row starts in bank (q * S) % 32, all distinct
   const int SA = (T0 + 1 > T + 1 ? T0 + 1 : T + 1) | 1, SC = (T + 1) | 1,
             SB = uniform_prev ? 0 : (T0 + 1) | 1;
-  static const int attr = (int)cudaFuncSetAttribute(
-      ray_level_thread_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      RAYS * 3 * (MAXE | 1) * (int)sizeof(float));
-  if (attr) return attr;
-  const long blocks = ((long)N + RAYS - 1) / RAYS;
-  ray_level_thread_kernel<<<(int)(blocks < (1L << 20) ? blocks : (1L << 20)),
-                            RAYS, (size_t)RAYS * (SA + SB + SC) *
-                                      sizeof(float),
-                            (cudaStream_t)stream>>>(
+  const size_t smem = (size_t)rays * (SA + SB + SC) * sizeof(float);
+  if (smem + RAYS * 8 * sizeof(float) > (size_t)SMEM_LIMIT)
+    return (int)cudaErrorInvalidValue;
+  long blocks = ((long)N + rays - 1) / rays;
+  blocks = blocks < (1L << 20) ? blocks : (1L << 20);
+  auto* kernel = rays == RAYS ? ray_level_thread_kernel<RAYS>
+                              : ray_level_thread_kernel<0>;
+  kernel<<<(int)blocks, rays, smem, (cudaStream_t)stream>>>(
       rays8, w_prev, bins_prev, jitter, N, T0, T, contract, uniform_prev,
       bins, ts, dl, x3, pack_q, ts_p, dl_p, SA, SB, SC);
   return (int)cudaGetLastError();

@@ -35,7 +35,7 @@ import torch
 from sanerf_tpu_torch.config import ModelConfig, RenderConfig, config_from_dict
 from sanerf_tpu_torch.device import resolve_device
 from sanerf_tpu_torch.models.fields import (NerfModel, Params, init_params,
-                                            make_model, mask_mlp_dims)
+                                            make_model, mask_mlp_shapes)
 from sanerf_tpu_torch.ops.cpgrid import level_resolutions
 
 _LAYER = re.compile(
@@ -106,7 +106,7 @@ def expected_shapes(model: NerfModel) -> Dict[str, Tuple[int, ...]]:
         if c.with_sam:
             _mlp_shapes(out, "s_field_mlp", model.grid_out_dim,
                         model.s_feat_dim, c.mlp_sam_width, c.mlp_sam_depth)
-        if c.with_mask:
+        if c.with_mask and c.mask_mlp_type != "adaptive":
             _mlp_shapes(out, "m_field_mlp", model.grid_out_dim,
                         model.m_feat_dim, c.mlp_mask_width, c.mlp_mask_depth)
     else:
@@ -119,7 +119,7 @@ def expected_shapes(model: NerfModel) -> Dict[str, Tuple[int, ...]]:
                         c.prop_mlp_hidden, c.prop_mlp_layers)
         if c.with_sam:
             out["s_grid"] = _table(model.s_grid_spec)
-        if c.with_mask:
+        if c.with_mask and model.m_grid_spec is not None:
             out["m_grid"] = _table(model.m_grid_spec)
     _mlp_shapes(out, "view_mlp", model.color_dim, 3, c.view_mlp_hidden,
                 c.view_mlp_layers)
@@ -129,7 +129,8 @@ def expected_shapes(model: NerfModel) -> Dict[str, Tuple[int, ...]]:
                     c.samvit_skip_layers, bias=True)
         out["samvit_norm/w"] = out["samvit_norm/b"] = (c.sam_feat_dim,)
     if c.with_mask:
-        _mlp_shapes(out, "mask_mlp", *mask_mlp_dims(model), 3)
+        for l, shape in enumerate(mask_mlp_shapes(model)):
+            out[f"mask_mlp/{l}/w"] = shape
     return out
 
 

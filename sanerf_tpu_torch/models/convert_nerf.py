@@ -8,8 +8,9 @@ Sequential(SkipConnMLP, LayerNorm), `mask_mlp`, `prop_encoders` /
 with `field_type="hashgrid"`. The hash tables have the same layout
 (ops/hashgrid.build_spec sizes and offsets the levels as
 gridencoder/grid.py:103-137 does), so `*.embeddings` copy over unchanged;
-nn.Linear weights are [out, in] and transpose to [in, out]. The default
-and `lightweight_mask` mask heads map; `adaptive` raises.
+nn.Linear weights are [out, in] and transpose to [in, out]. Every mask
+head maps: the default and `lightweight_mask` ones with their `m_grid`,
+the `adaptive` ladder as the `mask_mlp.<i>` linears it holds.
 """
 
 from __future__ import annotations
@@ -64,7 +65,7 @@ def convert_nerf_state_dict(sd: Dict, model: NerfModel, device=None
     checkpoint dict with a 'model' entry (utils.py:2041-2060) -> float32
     params on `device` (the CUDA card unless the caller asks for the
     CPU). Raises ConversionError on a missing key, a table of the wrong
-    shape, an unconsumed key, the MLP family or the `adaptive` head."""
+    shape, an unconsumed key or the MLP family."""
     dev = resolve_device(device)
     if "model" in sd and not any("." in k for k in sd):
         sd = sd["model"]
@@ -74,9 +75,6 @@ def convert_nerf_state_dict(sd: Dict, model: NerfModel, device=None
         raise ConversionError(
             "reference checkpoints hold hash tables; build the model with "
             "field_type='hashgrid' to convert")
-    if c.with_mask and c.mask_mlp_type not in ("default", "lightweight_mask"):
-        raise ConversionError(
-            f"mask_mlp_type={c.mask_mlp_type!r} is not in the port yet")
     params: Params = {
         "grid": _grid(sd, "grid.embeddings", model.grid_spec, dev),
         "grid_mlp": _mlp(sd, "grid_mlp", c.grid_mlp_layers, False, dev),
@@ -94,7 +92,17 @@ def convert_nerf_state_dict(sd: Dict, model: NerfModel, device=None
                                     True, dev)
         params["samvit_norm"] = {"w": _w(sd, "samvit_mlp.1.weight", dev),
                                  "b": _w(sd, "samvit_mlp.1.bias", dev)}
-    if c.with_mask:
+    if c.with_mask and c.mask_mlp_type == "adaptive":
+        # the adaptive ladder: bias-free linears mask_mlp.<i> (JAX
+        # convert_nerf.py:115-122)
+        layers = []
+        while f"mask_mlp.{len(layers)}.weight" in sd:
+            layers.append({"w": _w(sd, f"mask_mlp.{len(layers)}.weight",
+                                   dev).T.contiguous()})
+        if not layers:
+            raise ConversionError("no mask_mlp.{i}.weight keys found")
+        params["mask_mlp"] = layers
+    elif c.with_mask:
         params["m_grid"] = _grid(sd, "m_grid.embeddings", model.m_grid_spec,
                                  dev)
         prefix = "mask_mlp.0" if c.mask_mlp_type == "default" else "mask_mlp"

@@ -103,31 +103,41 @@ def cast_params(params: Params, dtype=torch.bfloat16) -> Params:
     return params
 
 
-def apply_mlp(layers: Sequence[Params], x: torch.Tensor
+def apply_mlp(layers: Sequence[Params], x: torch.Tensor,
+              save_intermediates: bool = False
               ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-    """ReLU MLP over the last axis."""
+    """ReLU MLP over the last axis; with `save_intermediates` also each
+    layer's detached activation (post-ReLU, the last one raw; JAX
+    fields.py:92-116)."""
     n = len(layers)
+    inter: List[torch.Tensor] = []
     for l, p in enumerate(layers):
         x = apply_linear(p, x, hidden=l != n - 1)
         if l != n - 1:
             x = torch.relu(x)
-    return x, []
+        if save_intermediates:
+            inter.append(x.detach())
+    return x, inter
 
 
 def apply_skip_mlp(layers: Sequence[Params], x: torch.Tensor,
-                   skip_layers: Sequence[int]
+                   skip_layers: Sequence[int],
+                   save_intermediates: bool = False
                    ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """LeakyReLU(0.01) MLP with the input concatenated after the hidden
-    activation at each skip layer."""
+    activation at each skip layer; intermediates as apply_mlp."""
     x_in = x
     n = len(layers)
+    inter: List[torch.Tensor] = []
     for l, p in enumerate(layers):
         if l in skip_layers:
             x = torch.cat([x, x_in.to(x.dtype)], dim=-1)
         x = apply_linear(p, x, hidden=l != n - 1)
         if l != n - 1:
             x = F.leaky_relu(x, negative_slope=0.01)
-    return x, []
+        if save_intermediates:
+            inter.append(x.detach())
+    return x, inter
 
 
 def apply_layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5
@@ -232,9 +242,13 @@ class NerfModel:
 
     @property
     def samvit_in_dim(self) -> int:
-        """[f_sam, f_image | geo_feat sum, image, depth] (composite-then-
-        head; the port has no sum_after_mlp)."""
+        """Composite-then-head: [f_sam, f_image | geo_feat sum, image,
+        depth]; `sum_after_mlp`, per point: [features, f_colors | geo_feat,
+        f_colors] (JAX fields.py:266-276)."""
         c = self.cfg
+        if c.sum_after_mlp:
+            per = 3 if c.sam_use_view_direction else c.geom_feat_dim
+            return self.s_feat_dim + per + 3
         per = self.color_dim if c.sam_use_view_direction else c.geom_feat_dim
         return self.s_feat_dim + per + 3 + 1
 
@@ -243,19 +257,30 @@ class NerfModel:
 
 
 def make_model(cfg: ModelConfig, render_cfg: RenderConfig) -> NerfModel:
-    """The port serves the MLP family with its factorized grids (CP and VM,
-    single levels or ladders, sigma-CP and sigma-VM) and the hash-grid
-    family (JAX: fields.py:283-365), each with the composite-then-head SAM
-    feature head and the default or `lightweight_mask` mask head; every
-    other family or head raises NotImplementedError."""
+    """The MLP family with its factorized grids (CP and VM, single levels
+    or ladders, sigma-CP and sigma-VM) and the hash-grid family (JAX:
+    fields.py:283-365), each with the SAM feature head (composite-then-head,
+    or per point with `sum_after_mlp`) and the default, `lightweight_mask`
+    or `adaptive` mask head. The 'sam' adaptive ladder taps four samvit
+    activations: it needs the SAM head and 5 samvit layers (ValueError, as
+    JAX raises)."""
     if cfg.field_type not in ("mlp", "hashgrid"):
         raise NotImplementedError(f"field_type={cfg.field_type!r}")
     if cfg.with_mask and cfg.mask_mlp_type not in ("default",
-                                                   "lightweight_mask"):
-        raise NotImplementedError(
-            f"mask_mlp_type={cfg.mask_mlp_type!r} is not in the port yet")
-    if cfg.sum_after_mlp:
-        raise NotImplementedError("sum_after_mlp is not in the port yet")
+                                                   "lightweight_mask",
+                                                   "adaptive"):
+        raise ValueError(f"mask_mlp_type={cfg.mask_mlp_type!r}")
+    if (cfg.with_mask and cfg.mask_mlp_type == "adaptive"
+            and cfg.adaptive_mlp_type == "sam"):
+        if not cfg.with_sam:
+            raise ValueError(
+                "adaptive_mlp_type='sam' requires with_sam=True: the mask "
+                "ladder consumes samvit_mlp intermediate activations")
+        if cfg.samvit_mlp_layers < 5:
+            raise ValueError(
+                "adaptive_mlp_type='sam' needs samvit_mlp_layers >= 5 "
+                f"(got {cfg.samvit_mlp_layers}): the ladder taps 4 "
+                "intermediate samvit activations")
     if cfg.field_type == "mlp":
         return NerfModel(cfg=cfg, render_cfg=render_cfg)
 
@@ -265,8 +290,9 @@ def make_model(cfg: ModelConfig, render_cfg: RenderConfig) -> NerfModel:
             log2_hashmap_size=log2_hashmap, desired_resolution=desired))
 
     m_grid = None
-    if cfg.with_mask:
-        # the reference's fixed mask grids (network.py:125-142)
+    if cfg.with_mask and cfg.mask_mlp_type != "adaptive":
+        # the reference's fixed mask grids (network.py:125-142); the
+        # adaptive head reads the backbone's activations instead
         m_grid = (spec(16, 8, 19, 512) if cfg.mask_mlp_type == "default"
                   else spec(16, 2, 10, 256))
     return NerfModel(
@@ -333,7 +359,7 @@ def init_params(model: NerfModel, generator: torch.Generator,
             params["s_field_mlp"] = init_mlp(
                 g, model.grid_out_dim, model.s_feat_dim, c.mlp_sam_width,
                 c.mlp_sam_depth, False, (), dev)
-        if c.with_mask:
+        if c.with_mask and c.mask_mlp_type != "adaptive":
             params["m_field_mlp"] = init_mlp(
                 g, model.grid_out_dim, model.m_feat_dim, c.mlp_mask_width,
                 c.mlp_mask_depth, False, (), dev)
@@ -353,7 +379,7 @@ def init_params(model: NerfModel, generator: torch.Generator,
         if c.with_sam:
             params["s_grid"] = hashgrid.init_params(g, model.s_grid_spec,
                                                     device=dev)
-        if c.with_mask:
+        if c.with_mask and model.m_grid_spec is not None:
             params["m_grid"] = hashgrid.init_params(g, model.m_grid_spec,
                                                     device=dev)
     if c.with_sam:
@@ -364,20 +390,40 @@ def init_params(model: NerfModel, generator: torch.Generator,
             "w": torch.ones(c.sam_feat_dim, device=dev),
             "b": torch.zeros(c.sam_feat_dim, device=dev)}
     if c.with_mask:
-        params["mask_mlp"] = init_mlp(g, *mask_mlp_dims(model), 3, False, (),
-                                      dev)
+        params["mask_mlp"] = [init_linear(g, a, b, False, dev)
+                              for a, b in mask_mlp_shapes(model)]
     return params
 
 
-def mask_mlp_dims(model: NerfModel) -> Tuple[int, int, int]:
-    """(d_in, d_out, d_hidden) of `mask_mlp`: the default head takes
-    [m_feats, geo_feat] through 256 x 3; `lightweight_mask` takes
-    [m_feats, colors] through 64 x 3 (JAX: fields.py:464-482, sized by the
-    actual input)."""
+def mask_mlp_shapes(model: NerfModel) -> List[Tuple[int, int]]:
+    """[(in, out)] of each `mask_mlp` layer (JAX: fields.py:464-509): the
+    default head takes [m_feats, geo_feat] through 256 x 3;
+    `lightweight_mask` [m_feats, colors] through 64 x 3 (sized by the
+    actual input); `adaptive` a ladder of bias-free linears over the
+    backbone's intermediate activations (no activation between them), by
+    `adaptive_mlp_type`."""
     c = model.cfg
-    if c.mask_mlp_type == "lightweight_mask":
-        return model.m_feat_dim + model.color_dim, model.mask_out_dim(), 64
-    return model.m_feat_dim + c.geom_feat_dim, model.mask_out_dim(), 256
+    out = model.mask_out_dim()
+    if c.mask_mlp_type in ("default", "lightweight_mask"):
+        if c.mask_mlp_type == "lightweight_mask":
+            d_in, H = model.m_feat_dim + model.color_dim, 64
+        else:
+            d_in, H = model.m_feat_dim + c.geom_feat_dim, 256
+        return [(d_in, H), (H, H), (H, out)]
+    H = 96
+    gmh = c.mlp_field_width if model.is_mlp_field else c.grid_mlp_hidden
+    gin, geo = model.grid_out_dim, 1 + c.geom_feat_dim
+    vmh, smh = c.view_mlp_hidden, c.samvit_mlp_hidden
+    if c.adaptive_mlp_type == "rgb":
+        return [(gin, H), (gmh + H, H), (gmh + H, H), (geo + H, H),
+                (vmh + H, H), (vmh + H, H), (H, H), (H, c.n_inst)]
+    if c.adaptive_mlp_type == "density":
+        return [(gin, H), (gmh + H, H), (gmh + H, H), (geo + H, H), (H, H),
+                (H, c.n_inst)]
+    if c.adaptive_mlp_type == "sam":
+        return [(gmh, 32), (gmh + 32, 32), (geo + 32, 64), (smh + 64, 256),
+                (smh + 256, 256), (smh + 256, 256), (smh + 256, c.n_inst)]
+    raise ValueError(c.adaptive_mlp_type)
 
 
 def density_activation(model: NerfModel, f0: torch.Tensor) -> torch.Tensor:
@@ -440,44 +486,51 @@ def sigma_grid_logit(model: NerfModel, params: Params,
     return out
 
 
-def common_forward(model: NerfModel, params: Params, x: torch.Tensor):
-    """encode -> grid_mlp -> (sigma, geo_feat, grid_output)."""
+def common_forward(model: NerfModel, params: Params, x: torch.Tensor,
+                   save_intermediates: bool = False):
+    """encode -> grid_mlp -> (sigma, geo_feat, grid_output, grid_mlp's
+    intermediates when asked)."""
     if model.is_mlp_field:
         grid_output = position_features(
             model, params, x, dtype=params["grid_mlp"][0]["w"].dtype)
-        f, _ = apply_skip_mlp(params["grid_mlp"], grid_output,
-                              (model.cfg.mlp_field_depth // 2,))
+        f, inter = apply_skip_mlp(params["grid_mlp"], grid_output,
+                                  (model.cfg.mlp_field_depth // 2,),
+                                  save_intermediates)
     else:
         grid_output = hashgrid.hash_encode(x, params["grid"], model.grid_spec,
                                            model.bound)
-        f, _ = apply_mlp(params["grid_mlp"], grid_output)
+        f, inter = apply_mlp(params["grid_mlp"], grid_output,
+                             save_intermediates)
     logit = f[..., 0]
     sg = sigma_grid_logit(model, params, x)
     if sg is not None:
         logit = logit + sg.to(logit.dtype)
-    return density_activation(model, logit), f[..., 1:], grid_output
+    return density_activation(model, logit), f[..., 1:], grid_output, inter
 
 
 def forward(model: NerfModel, params: Params, x: Optional[torch.Tensor],
             d: torch.Tensor, fast: bool = False,
             x_T: Optional[torch.Tensor] = None,
-            nets: Optional["KernelNets"] = None) -> Dict[str, torch.Tensor]:
+            nets: Optional["KernelNets"] = None,
+            save_intermediates: bool = False) -> Dict[str, torch.Tensor]:
     """Final-level field query: sigma, geo_feat and the raw
-    [geo_feat, sh(d)] color feature (the view MLP runs after compositing).
+    [geo_feat, sh(d)] color feature (the view MLP runs after compositing),
+    grid_output and with `save_intermediates` grid_mlp's activations.
     `fast` runs the MLP family's field chain through run_tmlp (on x_T
     [3, P] when given) and leaves grid_output out."""
-    if fast and model.is_mlp_field:
+    if fast and model.is_mlp_field and not save_intermediates:
         fT = field_forward_T(model, params, x if x_T is None else x_T,
                              transposed=x_T is not None, nets=nets)
         sigma = density_activation(model, fT[0])
         geo_feat = fT[1:1 + model.cfg.geom_feat_dim].T
-        grid_output = None
+        grid_output, inter = None, []
     else:
-        sigma, geo_feat, grid_output = common_forward(model, params, x)
+        sigma, geo_feat, grid_output, inter = common_forward(
+            model, params, x, save_intermediates)
     sh = sh_encode(d, model.cfg.sh_degree)
     return {"sigma": sigma, "geo_feat": geo_feat,
             "color": torch.cat([geo_feat, sh], dim=-1),
-            "grid_output": grid_output}
+            "grid_output": grid_output, "grid_mlp_inter": inter}
 
 
 class KernelNets:
@@ -553,7 +606,7 @@ def density(model: NerfModel, params: Params, x: Optional[torch.Tensor],
                                      model.bound)
         f, _ = apply_mlp(p["mlp"], h)
         return density_activation(model, f[..., 0])
-    sigma, _, _ = common_forward(model, params, x)
+    sigma, _, _, _ = common_forward(model, params, x)
     return sigma
 
 
@@ -584,11 +637,14 @@ def mask_grid_features(model: NerfModel, params: Params, x: torch.Tensor
     return out
 
 
-def apply_samvit_head(model: NerfModel, params: Params, f: torch.Tensor
+def apply_samvit_head(model: NerfModel, params: Params, f: torch.Tensor,
+                      save_intermediates: bool = False
                       ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-    """LeakyReLU skip MLP (biased) + LayerNorm(eps 1e-5)."""
+    """LeakyReLU skip MLP (biased) + LayerNorm(eps 1e-5); with
+    `save_intermediates` also the skip MLP's activations."""
     out, inter = apply_skip_mlp(params["samvit_mlp"], f,
-                                model.cfg.samvit_skip_layers)
+                                model.cfg.samvit_skip_layers,
+                                save_intermediates)
     return apply_layernorm(params["samvit_norm"], out, eps=1e-5), inter
 
 

@@ -62,10 +62,18 @@ def default_aabb(model: NerfModel, device) -> torch.Tensor:
                       torch.full((3,), b, device=device)])
 
 
+def saves_intermediates(model: NerfModel) -> bool:
+    """The adaptive mask head reads the backbone's intermediate
+    activations (JAX renderer.py:103)."""
+    mc = model.cfg
+    return mc.with_mask and mc.mask_mlp_type == "adaptive"
+
+
 def uses_kernels(model: NerfModel) -> bool:
     """Whether run_rays takes the fast path: the JAX predicate of
-    renderer.py:106-116. The MLP family only; a model with grid tables
-    only with `cp_fused` and tables within `grid_vmem_budget`
+    renderer.py:106-116. The MLP family only, not with the adaptive mask
+    head (its intermediates); a model with grid tables only with
+    `cp_fused` and tables within `grid_vmem_budget`
     (NerfModel.grid_table_bytes), so that one config takes the same path
     on both sides; larger tables take the plain path."""
     cfg, mc = model.render_cfg, model.cfg
@@ -73,6 +81,7 @@ def uses_kernels(model: NerfModel) -> bool:
                  or model.has_sigma_grid)
     skip_ok = mc.mlp_field_depth // 2 != mc.mlp_field_depth - 1
     return (model.is_mlp_field and cfg.use_fused_mlp and skip_ok
+            and not saves_intermediates(model)
             and (not has_grids
                  or (cfg.cp_fused
                      and model.grid_table_bytes <= cfg.grid_vmem_budget)))
@@ -109,14 +118,19 @@ def run_rays(model: NerfModel, params: Params, rays_o: torch.Tensor,
     perturb = jitter is not None
     opaque = cfg.background == "last_sample"
     fast = uses_kernels(model) and not training
+    save_inter = saves_intermediates(model)
     # the pure-RGB frame fuses the final level into the composite kernel
-    fast_epi = fast and not return_feats and not return_mask
+    # (JAX renderer.py:117-120: not with sum_after_mlp, whose view MLP runs
+    # per sample)
+    fast_epi = (fast and not mc.sum_after_mlp and not return_feats
+                and not return_mask)
     if fast:
         nets = nets or KernelNets(model, params)
         rays8 = torch.cat([rays_o, rays_d, s_nears, s_fars],
                           dim=1).float().contiguous()
 
     dirs_ray = rays_d / rays_d.norm(dim=-1, keepdim=True)
+    T_last = cfg.num_steps[-1]
     bins = weights = None
     all_bins, all_weights = [], []
     last_level = len(cfg.num_steps) - 1
@@ -149,6 +163,13 @@ def run_rays(model: NerfModel, params: Params, rays_o: torch.Tensor,
                 if cfg.view_in_kernel or pq:
                     # the packed composite runs only with the view head
                     # in the kernel (JAX renderer.py:215)
+                    if mc.sh_degree > 4:
+                        raise NotImplementedError(
+                            f"sh_degree={mc.sh_degree} with the view head "
+                            f"in the composite kernel: the kernels of both "
+                            f"packages evaluate SH degrees 1-4 (the JAX "
+                            f"package raises here too); "
+                            f"RenderConfig(view_in_kernel=False) renders it")
                     _, depth, weights_sum, image = fields.field_composite_T(
                         model, params, xyzs_T, packed[1] if pq else dl,
                         packed[0] if pq else rays_t, opaque=opaque,
@@ -166,10 +187,11 @@ def run_rays(model: NerfModel, params: Params, rays_o: torch.Tensor,
                                                      f_image)
                     image = torch.sigmoid(rgb_logits)
                 break
-            # features / masks: the field through run_tmlp, then per-point
-            # heads on the point-major coordinates
+            # features / masks / sum_after_mlp: the field through
+            # run_tmlp, then per-point heads on the point-major coordinates
             xyzs = xyzs_T.T
-            if return_mask:
+            per_point = return_mask or mc.sum_after_mlp
+            if per_point:
                 dirs = dirs_ray[:, None, :].expand(N, T, 3).reshape(N * T, 3)
                 outputs = fields.forward(model, params, None, dirs,
                                          fast=True, x_T=xyzs_T, nets=nets)
@@ -180,7 +202,7 @@ def run_rays(model: NerfModel, params: Params, rays_o: torch.Tensor,
                 sigmas = fields.density_activation(model, fT[0])
             weights = compute_weights_from_deltas(
                 dl, sigmas.reshape(N, T), opaque_background=opaque)
-            if return_mask:
+            if per_point:
                 weights_sum, depth, f_image = composite(
                     weights, rays_t, outputs["color"].reshape(N, T, -1))
             else:
@@ -210,7 +232,8 @@ def run_rays(model: NerfModel, params: Params, rays_o: torch.Tensor,
                 sigmas = sigmas.detach()
         else:
             dirs = dirs_ray[:, None, :].expand(N, T, 3).reshape(N * T, 3)
-            outputs = fields.forward(model, params, xyzs, dirs)
+            outputs = fields.forward(model, params, xyzs, dirs,
+                                     save_intermediates=save_inter)
             sigmas = outputs["sigma"]
         weights = compute_weights(real_bins, sigmas.reshape(N, T),
                                   opaque_background=opaque)
@@ -221,8 +244,16 @@ def run_rays(model: NerfModel, params: Params, rays_o: torch.Tensor,
             weights_sum, depth, f_image = composite(
                 weights, rays_t, outputs["color"].reshape(N, T, -1))
 
-    if not fast_epi:
-        rgb_logits, _ = fields.apply_mlp(params["view_mlp"], f_image)
+    view_inter = []
+    if mc.sum_after_mlp:
+        # per-sample view MLP, then the composite (JAX renderer.py:324-328)
+        f_colors, view_inter = fields.apply_mlp(
+            params["view_mlp"], outputs["color"], save_inter)
+        image = torch.sigmoid((weights[..., None]
+                               * f_colors.reshape(N, T_last, -1)).sum(-2))
+    elif not fast_epi:
+        rgb_logits, view_inter = fields.apply_mlp(params["view_mlp"], f_image,
+                                                  save_inter)
         image = torch.sigmoid(rgb_logits)
     bg = (float(bg_color) if isinstance(bg_color, (int, float))
           else torch.as_tensor(bg_color, dtype=torch.float32, device=dev))
@@ -236,41 +267,93 @@ def run_rays(model: NerfModel, params: Params, rays_o: torch.Tensor,
                                     else torch.zeros((), device=dev))
         results["distort_loss"] = distort_loss(bins, weights)
 
-    T = cfg.num_steps[-1]
-    if return_feats:
-        # composite-then-head (JAX renderer.py:364-377): one MLP per ray
+    T = T_last
+    sam_inter = []
+    if mc.with_sam and (return_feats or (
+            return_mask and save_inter and mc.adaptive_mlp_type == "sam")):
         features = fields.sam_features(model, params, xyzs)
-        f_sam = (weights[..., None] * features.reshape(N, T, -1)).sum(dim=-2)
-        if mc.sam_use_view_direction:
-            mid = f_image
+        if mc.sum_after_mlp:
+            # per-point head, then the composite (JAX renderer.py:356-363)
+            mid = f_colors if mc.sam_use_view_direction else \
+                outputs["geo_feat"].to(f_colors.dtype)
+            f = torch.cat([features.to(f_colors.dtype), mid, f_colors],
+                          dim=-1)
+            samvit_out, sam_inter = fields.apply_samvit_head(
+                model, params, f, save_inter)
+            samvit = (weights[..., None]
+                      * samvit_out.reshape(N, T, -1)).sum(dim=-2)
         else:
-            mid = f_image[:, :mc.geom_feat_dim]
-        f = torch.cat([f_sam, mid, image, depth[..., None]], dim=-1)
-        results["samvit"], _ = fields.apply_samvit_head(model, params, f)
+            # composite-then-head (JAX renderer.py:364-377): one MLP a ray
+            f_sam = (weights[..., None]
+                     * features.reshape(N, T, -1)).sum(dim=-2)
+            if mc.sam_use_view_direction:
+                mid = f_image
+            else:
+                mid = f_image[:, :mc.geom_feat_dim]
+            f = torch.cat([f_sam, mid, image, depth[..., None]], dim=-1)
+            samvit, sam_inter = fields.apply_samvit_head(model, params, f,
+                                                         save_inter)
+        if return_feats:
+            results["samvit"] = samvit
     if return_mask:
         # per-point mask logits, composited (JAX renderer.py:379-388)
-        m_feats = fields.mask_grid_features(model, params, xyzs)
+        m_feats = (None if save_inter
+                   else fields.mask_grid_features(model, params, xyzs))
         point_masks = _mask_head(model, params, m_feats, outputs["geo_feat"],
-                                 outputs["color"])
+                                 outputs["color"], outputs=outputs,
+                                 view_inter=view_inter, sam_inter=sam_inter)
         results["instance_mask_logits"] = (
             weights[..., None] * point_masks.reshape(N, T, -1)).sum(dim=-2)
     return results
 
 
-def _mask_head(model: NerfModel, params: Params, m_feats: torch.Tensor,
-               geo_feat: torch.Tensor,
-               colors: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Per-point mask logits [P, mask_out_dim] (JAX renderer.py:393-413):
+def _mask_head(model: NerfModel, params: Params,
+               m_feats: Optional[torch.Tensor], geo_feat: torch.Tensor,
+               colors: Optional[torch.Tensor] = None, *,
+               outputs: Optional[Dict] = None, view_inter=(), sam_inter=()
+               ) -> torch.Tensor:
+    """Per-point mask logits [P, mask_out_dim] (JAX renderer.py:393-451):
     the default head takes [m_feats, geo_feat] through the LeakyReLU
     `mask_mlp` with no skips, `lightweight_mask` takes [m_feats, colors]
-    (the [geo_feat, sh(d)] color feature) through the ReLU `mask_mlp`."""
-    if model.cfg.mask_mlp_type == "lightweight_mask":
+    (the [geo_feat, sh(d)] color feature) through the ReLU `mask_mlp`;
+    `adaptive` is a ladder of linears (no activation between them) over the
+    detached grid_output and grid_mlp activations of `outputs`, then the
+    view MLP's (`rgb`) or the samvit head's (`sam`) activations."""
+    mc = model.cfg
+    mm = params["mask_mlp"]
+    if mc.mask_mlp_type == "lightweight_mask":
         m = torch.cat([m_feats, colors.to(m_feats.dtype)], dim=-1)
-        out, _ = fields.apply_mlp(params["mask_mlp"], m)
+        out, _ = fields.apply_mlp(mm, m)
         return out
-    m = torch.cat([m_feats, geo_feat.to(m_feats.dtype)], dim=-1)
-    out, _ = fields.apply_skip_mlp(params["mask_mlp"], m, ())
-    return out
+    if mc.mask_mlp_type == "default":
+        m = torch.cat([m_feats, geo_feat.to(m_feats.dtype)], dim=-1)
+        out, _ = fields.apply_skip_mlp(mm, m, ())
+        return out
+    gi = outputs["grid_mlp_inter"]
+    lin = fields.apply_linear
+
+    def cat(*xs):
+        return torch.cat(xs, dim=-1)
+
+    if mc.adaptive_mlp_type in ("rgb", "density"):
+        m = lin(mm[0], outputs["grid_output"].detach())
+        m = lin(mm[1], cat(gi[0], m))
+        m = lin(mm[2], cat(gi[1], m))
+        m = lin(mm[3], cat(gi[-1], m))
+        if mc.adaptive_mlp_type == "density":
+            return lin(mm[5], lin(mm[4], m))
+        m = lin(mm[4], cat(view_inter[0], m))
+        m = lin(mm[5], cat(view_inter[1], m))
+        return lin(mm[7], lin(mm[6], m))
+    if mc.adaptive_mlp_type == "sam":
+        m = lin(mm[0], gi[0])
+        m = lin(mm[1], cat(gi[1], m))
+        m = lin(mm[2], cat(gi[-1], m))
+        m = lin(mm[3], cat(sam_inter[0], m))
+        m = lin(mm[4], cat(sam_inter[1], m))
+        m = lin(mm[5], cat(sam_inter[2], m))
+        return lin(mm[6], cat(sam_inter[3], m))
+    raise ValueError(mc.adaptive_mlp_type)
 
 
 #: The renderer's entry point (the JAX package jits run_rays under this name).

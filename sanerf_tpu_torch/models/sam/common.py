@@ -86,6 +86,24 @@ def init_conv_transpose(g: torch.Generator, k: int, c_in: int, c_out: int,
     return p
 
 
+def conv2d_patches(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """VALID conv with stride == kernel (k) on [B, H, W, C] channels-last
+    with HWIO weights (JAX common.conv2d(..., stride=k, padding="VALID")):
+    the k x k patches do not overlap, so it is a per-patch product,
+    out[i, j, o] = sum_{di, dj, c} x[k i + di, k j + dj, c] W[di, dj, c, o],
+    in float32 from the input rounded to the weight dtype (no cuDNN, whose
+    float32 convolutions run in TF32 by default)."""
+    k = p["w"].shape[0]
+    B, H, W, C = x.shape
+    H2, W2 = H // k, W // k
+    xp = _in_weight_dtype(x[:, :H2 * k, :W2 * k], p["w"]).reshape(
+        B, H2, k, W2, k, C)
+    y = torch.einsum("bhiwjc,ijco->bhwo", xp, p["w"].float())
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
 def conv_transpose2d(p: Params, x: torch.Tensor, stride: int = 2
                      ) -> torch.Tensor:
     """Transposed conv with kernel == stride on [B, H, W, C]: no output

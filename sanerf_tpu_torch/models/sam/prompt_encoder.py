@@ -1,7 +1,6 @@
-"""SAM prompt encoder, point prompts (JAX:
-sanerf_tpu/models/sam/prompt_encoder.py). The interactive frame prompts
-with points only; box and dense-mask prompts are not ported yet (their
-parameters are kept, so a JAX parameter tree maps whole)."""
+"""SAM prompt encoder (JAX: sanerf_tpu/models/sam/prompt_encoder.py):
+point prompts (the interactive frame's), box prompts and dense mask
+prompts."""
 
 from __future__ import annotations
 
@@ -10,6 +9,7 @@ from dataclasses import dataclass
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from sanerf_tpu_torch.models.sam import common
 from sanerf_tpu_torch.models.sam.common import Params
@@ -80,6 +80,31 @@ def encode_points(params: Params, cfg: PromptConfig, coords: torch.Tensor,
     out = out + torch.where(lab == 0, params["point_embeddings"][0], 0.0)
     out = out + torch.where(lab == 1, params["point_embeddings"][1], 0.0)
     return out
+
+
+def encode_boxes(params: Params, cfg: PromptConfig, boxes: torch.Tensor
+                 ) -> torch.Tensor:
+    """boxes [B, 4] (x0, y0, x1, y1) input-image pixels -> [B, 2, C] corner
+    embeddings (the position encoding plus point_embeddings[2] / [3])."""
+    size = common.const_row([cfg.input_image_size[1],
+                             cfg.input_image_size[0]], boxes.device)
+    pe = _pe_encode(params, (boxes.float().reshape(-1, 2, 2) + 0.5) / size)
+    emb = params["point_embeddings"]
+    return pe + torch.stack([emb[2], emb[3]])[None].float()
+
+
+def encode_masks(params: Params, cfg: PromptConfig, masks: torch.Tensor
+                 ) -> torch.Tensor:
+    """Dense mask prompt [B, 4h, 4w, 1] -> [B, h*w, C] through the
+    downscaler: two 2x2 stride-2 convolutions, each with a LayerNorm2d and
+    the exact GELU, then a 1x1 convolution."""
+    p = params["mask_down"]
+    x = common.conv2d_patches(p["conv1"], masks)
+    x = F.gelu(common.layer_norm_2d(p["ln1"], x))
+    x = common.conv2d_patches(p["conv2"], x)
+    x = F.gelu(common.layer_norm_2d(p["ln2"], x))
+    x = common.conv2d_patches(p["conv3"], x)
+    return x.reshape(x.shape[0], -1, x.shape[-1])
 
 
 def no_mask_dense(params: Params, cfg: PromptConfig, batch: int

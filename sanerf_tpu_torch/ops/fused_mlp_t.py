@@ -21,15 +21,21 @@ What they compute, per point x (contracted coordinates, [3, P] layout):
   - the MLP chain, the skip layer as a second product over the encoding,
     an optional float32 bias added to each layer's sum, leaky 0.01 or ReLU
     between layers; activations are rounded to the weight type between
-    layers, the products accumulate in float32. Layers may be up to 256
-    wide (MAX_WIDTH).
+    layers, the products accumulate in float32. Layers may be up to 512
+    wide (MAX_WIDTH), nets up to MAX_LAYERS deep.
 `run_tmlp` returns the last layer transposed, [kout, P]. The composite
 variant treats P = N * T points as N rays of T samples and returns per-ray
 sums: density softplus(row0 - 1), alpha (last sample opaque when asked),
 exclusive-cumsum transmittance, NaN weights -> 0, gsum [N, kout], depth
 [N], weights_sum [N]; with a view MLP also the SH (degree <= 4) + view MLP
 head on the per-ray sums and its sigmoid, rgb [N, 3]. With `pack_q > 1` the
-composite reads dl/ts as the ray kernels' packed [N/q, q*T, 1] rows.
+composite reads dl/ts as the ray kernels' packed [N/q, q*T, 1] rows. Rays
+of any T, up to MAX_GSUM outputs, view heads up to MAX_VIEW_WIDTH wide.
+
+`kernel_plan` is the guard every launch goes through: whether the kernels
+take a net (with a view head and rays of T samples for the composite) and
+the plan they launch it with; past the limits that stay it raises
+NotImplementedError naming ROADMAP.md's queue B.
 """
 
 from __future__ import annotations
@@ -48,22 +54,37 @@ from sanerf_tpu_torch.ops.freq import HALF_PI
 from sanerf_tpu_torch.ops.sh import sh_components
 from sanerf_tpu_torch.ops.vmgrid import vm_read
 
-#: Grid tables are read through L2 by the kernels, which refuse tables
-#: past half of the H100's 50 MB L2 (the renderer sends models over
-#: RenderConfig.grid_vmem_budget to the plain path before that).
-TABLE_BYTES_LIMIT = 25 * 10 ** 6
-#: Levels of a CP or a VM ladder the kernels' grid descriptor holds.
-MAX_GRID_LEVELS = 8
+#: The most layers a net may have: the layer table is a kernel parameter,
+#: and the parameter space's budget sets this (csrc/fused_mlp_t.cu:
+#: MAX_LAYERS).
+MAX_LAYERS = 32
 #: Widest layer output the kernels take: one accumulator of 16 n-tiles of 8
-#: holds 128, a wider layer runs as two such chunks.
-MAX_WIDTH = 256
-MAX_LAYERS = 8
+#: holds 128, a wider layer runs as up to four such chunks.
+MAX_WIDTH = 512
 #: floats per layer of the kernels' bias rows (csrc/fused_mlp_t.cu:BIAS_LD)
 BIAS_LD = MAX_WIDTH
-#: The view head runs one output per lane of a warp.
-MAX_VIEW_WIDTH = 32
+#: The composite's general epilogue: per-ray sums of up to MAX_GSUM outputs
+#: (16 lanes, a column of each 16-column group a lane) and a view head of up
+#: to MAX_VIEW_WIDTH hidden units (32 a lane group, four groups).
+MAX_GSUM = 64
+MAX_VIEW_WIDTH = 128
 #: Shared memory a block may use on the H100.
 SMEM_LIMIT = 232448
+#: Where a limit of the kernels stays, what it says.
+QUEUE_B = "still to port: ROADMAP.md, queue B"
+
+# the kernels' fixed shapes (csrc/fused_mlp_t.cu): points a warpgroup tile,
+# accumulators a thread, outputs a chunk of a wide layer, the float32
+# encoding's row padding; the composite's whole-ray steps take at most
+# MAX_STEP points, longer rays run in segments of SEGMENTS points (the
+# largest whose buffers fit); a streamed V_WIDE weight unit is UNIT_K
+# columns of a chunk
+TILE, NA, CHUNK, PAD, MAX_STEP = 64, 64, 128, 8, 448
+SEGMENTS = (256, 128, 64)
+UNIT_K = 64
+W_GLOBAL, W_ALL, W_STREAM = 0, 1, 2
+V_SERVED, V_BRANCHES, V_WIDE = 0, 1, 2
+SMALL_K, SMALL_N = 64, 32
 
 
 def _round_up(x: int, m: int) -> int:
@@ -146,7 +167,9 @@ class TransposedFieldMLP:
             raise ValueError(f"layer 0 takes {self.ws[0].shape[0]} inputs, "
                              f"the encoding has {self.F + self.kc}")
         self.kout = int(self.ws[-1].shape[1])
-        self._packed = self._bias = None
+        self._packed = self._bias = self._layout = self._levels = None
+        self._plans = {}
+        self._parks = {}
 
     @property
     def tables(self):
@@ -212,6 +235,34 @@ class TransposedFieldMLP:
 
     # -- kernel operands --------------------------------------------------------
 
+    def layout(self):
+        """(int32 descriptor, weight elements) of the packed net: the
+        header [n_layers, leaky, enc_freqs, F, ke, hmax] and per layer
+        [kin_h, kin_e, kout, kout_real, w_off, w_ld] (packed())."""
+        if self._layout is not None:
+            return self._layout
+        n = len(self.ws)
+        ke = _round_up(self.F + self.kc, 16)
+        desc, off, kprev, kprev_real = [], 0, ke, None
+        for l, w in enumerate(self.ws):
+            fin, fout = (int(d) for d in w.shape)
+            kin_h = kprev
+            kin_e = ke if l in self.skip and l > 0 else 0
+            if kin_e and fin != kprev_real + self.F + self.kc:
+                raise ValueError(f"skip layer {l} takes {fin} inputs")
+            if not kin_e and l and fin != kprev_real:
+                raise ValueError(f"layer {l} takes {fin} inputs, "
+                                 f"layer {l - 1} gives {kprev_real}")
+            kout = _round_up(fout, 16)
+            ld = kin_h + kin_e
+            desc += [kin_h, kin_e, kout, fout, off, ld]
+            off += _round_up(kout * ld, 64)
+            kprev, kprev_real = kout, fout
+        hmax = max(desc[6 * l + 2] for l in range(n))
+        head = [n, int(self.leaky), self.enc_freqs, self.F, ke, hmax]
+        self._layout = (np.asarray(head + desc, np.int32), off)
+        return self._layout
+
     def packed(self, device: torch.device):
         """(flat weights, int32 descriptor) for csrc/fused_mlp_t.cu, built
         once per device. Each layer is its transpose W^T [kout_pad][kin_h +
@@ -223,41 +274,36 @@ class TransposedFieldMLP:
         block: W^T row 8 nt + g, columns 8 s + 2t and 8 s + 2t + 1)."""
         if self._packed is not None and self._packed[0].device == device:
             return self._packed
-        n = len(self.ws)
-        if n > MAX_LAYERS:
-            raise NotImplementedError(f"{n} layers > {MAX_LAYERS}")
-        ke = _round_up(self.F + self.kc, 16)
-        desc, slabs, off, kprev, kprev_real = [], [], 0, ke, None
+        desc, w_elems = self.layout()
+        slabs = []
         for l, w in enumerate(self.ws):
-            fin, fout = (int(d) for d in w.shape)
-            if fout > MAX_WIDTH:
-                raise NotImplementedError(f"layer width {fout} > {MAX_WIDTH}")
-            kin_h = kprev
-            kin_e = ke if l in self.skip and l > 0 else 0
-            kout = _round_up(fout, 16)
-            ld = kin_h + kin_e
+            kin_h, kin_e, kout, fout, _, ld = (
+                int(v) for v in desc[6 + 6 * l:12 + 6 * l])
+            fin = int(w.shape[0])
             wt = torch.zeros(kout, ld, dtype=torch.float32)
             wf = w.detach().float().cpu()
             if kin_e:
-                if fin != kprev_real + self.F + self.kc:
-                    raise ValueError(f"skip layer {l} takes {fin} inputs")
-                wt[:fout, :kprev_real] = wf[:kprev_real].T
-                wt[:fout, kin_h:kin_h + fin - kprev_real] = wf[kprev_real:].T
+                hid = int(desc[6 + 6 * (l - 1) + 3])
+                wt[:fout, :hid] = wf[:hid].T
+                wt[:fout, kin_h:kin_h + fin - hid] = wf[hid:].T
             else:
-                if l and fin != kprev_real:
-                    raise ValueError(f"layer {l} takes {fin} inputs, "
-                                     f"layer {l - 1} gives {kprev_real}")
                 wt[:fout, :fin] = wf.T
             slabs.append(core_matrices(wt))
-            desc += [kin_h, kin_e, kout, fout, off, ld]
-            off += _round_up(kout * ld, 64)
             slabs.append(torch.zeros(_round_up(kout * ld, 64) - kout * ld))
-            kprev, kprev_real = kout, fout
         flat = torch.cat(slabs).to(self.dtype).to(device)
-        hmax = max(desc[6 * l + 2] for l in range(n))
-        head = [n, int(self.leaky), self.enc_freqs, self.F, ke, hmax]
-        self._packed = (flat, np.asarray(head + desc, np.int32))
+        assert flat.numel() == w_elems
+        self._packed = (flat, desc)
         return self._packed
+
+    def grid_levels(self, device: torch.device) -> torch.Tensor:
+        """The ladders' levels past the descriptor's slots, CP then VM, as
+        the kernels read them from device memory (csrc/fused_mlp_t.cu:
+        Grids.cp_more, vm_more), built once per device."""
+        if self._levels is None or self._levels.device != device:
+            raw = bytes(_levels_array(self))
+            self._levels = torch.frombuffer(bytearray(raw) or bytearray(1),
+                                            dtype=torch.uint8).to(device)
+        return self._levels
 
     def bias_rows(self, device: torch.device) -> Optional[torch.Tensor]:
         """The biases as the kernels read them, float32 [n_layers, BIAS_LD]
@@ -375,14 +421,18 @@ class ViewMLP:
             h = rnd(torch.clamp(h, min=0.0)) @ w.to(dtype)
         return 1.0 / (1.0 + torch.exp(-h))
 
+    def elems(self) -> int:
+        """Elements of packed()'s flat weights."""
+        H = self.H
+        return _round_up((self.geo + 1 + self.sh_dim) * H
+                         + len(self.rest) * H * H, 8)
+
     def packed(self, device: torch.device):
         """[VG (geo+1 rows, row 0 zero) | VS (sh_dim rows) | rest layers
         padded to H x H], all [in][out]; plus (H, n_rest, sh_dim, degree)."""
         if self._packed is not None and self._packed[0].device == device:
             return self._packed
         H = self.H
-        if H > MAX_VIEW_WIDTH:
-            raise NotImplementedError(f"view width {H} > {MAX_VIEW_WIDTH}")
         w1 = self.w1.detach().float().cpu()
         vg = torch.zeros(self.geo + 1, H)
         vg[1:] = w1[:self.geo]
@@ -397,6 +447,7 @@ class ViewMLP:
         flat = torch.cat(parts)
         flat = torch.cat([flat, torch.zeros(_round_up(flat.numel(), 8)
                                             - flat.numel())])
+        assert flat.numel() == self.elems()
         self._packed = (flat.to(self.dtype).to(device),
                         np.asarray([H, len(self.rest), self.sh_dim,
                                     self.degree], np.int32))
@@ -476,13 +527,267 @@ class _VMGrid(ctypes.Structure):
                 ("K", _I), ("s", _F), ("o", _F), ("sl", _F), ("ol", _F)]
 
 
+#: Levels of a CP or a VM ladder the kernels' grid descriptor holds in its
+#: fixed slots (kernel parameters); a ladder's levels past them are read
+#: from device memory (TransposedFieldMLP.grid_levels).
+INLINE_LEVELS = 8
+
+
 class Grids(ctypes.Structure):
-    """The kernels' grid descriptor, csrc/fused_mlp_t.cu:Grids: CP and VM
-    levels in fixed slots, unused slots zero; a null sigma table is none."""
+    """The kernels' grid descriptor, csrc/fused_mlp_t.cu:Grids: the first
+    INLINE_LEVELS CP and VM levels in fixed slots (unused slots zero), the
+    sigma tables (a null table is none), and the counts and device
+    addresses of the levels past the slots (TransposedFieldMLP.
+    grid_levels; null where there are none)."""
     _fields_ = [("n_cp", _I), ("n_vm", _I),
-                ("cp", _Grid * MAX_GRID_LEVELS),
-                ("vm", _VMGrid * MAX_GRID_LEVELS),
-                ("scp", _Grid), ("svm", _VMGrid)]
+                ("cp", _Grid * INLINE_LEVELS),
+                ("vm", _VMGrid * INLINE_LEVELS),
+                ("scp", _Grid), ("svm", _VMGrid),
+                ("n_cp_more", _I), ("n_vm_more", _I),
+                ("cp_more", _P), ("vm_more", _P)]
+
+
+class KernelPlan(ctypes.Structure):
+    """The launch plan of a field kernel, csrc/fused_mlp_t.cu:Plan (made by
+    kernel_plan): the shared-memory carve of a block (row strides, buffer
+    bytes, warpgroups, where the weights and the view head live), the
+    composite's steps (M points of R whole rays, or one ray in nseg
+    segments of M), the V_WIDE weight unit and parked chunks, and the
+    kernel: its variant, small_kernel, the general composite epilogue."""
+    _fields_ = [(name, _I) for name in (
+        "lde", "ldo", "M", "R", "ldh", "wgs", "w_mode", "w_bytes", "v_bytes",
+        "enc_b", "h_b", "out_b", "sig_b", "wts_b", "ts_b", "vin_b", "per_wg",
+        "total", "nseg", "vld", "unit_k", "park_chunks", "variant", "small",
+        "general")]
+
+    def as_dict(self) -> dict:
+        return {name: getattr(self, name) for name, _ in self._fields_}
+
+    def __repr__(self):
+        return f"KernelPlan({self.as_dict()})"
+
+
+def _align16(b: int) -> int:
+    return (b + 15) & ~15
+
+
+def _round_tile(n: int) -> int:
+    return _round_up(n, TILE)
+
+
+def _layer_rows(desc) -> list:
+    """[(kin_h, kin_e, kout, kout_real, w_off, w_ld)] of a layout()."""
+    return [tuple(int(v) for v in desc[6 + 6 * l:12 + 6 * l])
+            for l in range(int(desc[0]))]
+
+
+def _max_wgs(bf16: bool, composite: bool, variant: int) -> int:
+    """csrc/fused_mlp_t.cu:wgs_of: the warpgroups a block starts from."""
+    if variant == V_WIDE:
+        return 2
+    if bf16:
+        return 4 if composite else 3
+    return 2 if composite else 3
+
+
+def _make_plan(layers, ke, es, w_elems, v_elems, wgs, M, R, ldo, composite,
+               wide, w_mode, v_smem, unit_k=0, nseg=1, vld=128):
+    """The shared-memory plan of one choice (csrc/fused_mlp_t.cu reads it as
+    it is): the weights (all, or the largest streamed unit: a layer, a
+    V_WIDE chunk of 128 rows, or unit_k columns of one), the view head,
+    and per warpgroup the encoding, the hidden activations (V_WIDE), the
+    last layer's outputs of a step, the sigma sums and the composite's
+    weights, midpoints and view scratch."""
+    p = KernelPlan(wgs=wgs, M=M, R=R, ldo=ldo, w_mode=w_mode, unit_k=unit_k,
+                   nseg=nseg, vld=vld)
+    p.lde = ke if es == 2 else ke + PAD
+    rows_max = CHUNK if wide else MAX_WIDTH
+    cols_max = unit_k if wide and unit_k else 1 << 30
+    hw = max([L[2] for L in layers[:-1]], default=0)
+    if w_mode == W_ALL:
+        p.w_bytes = _align16(w_elems * es)
+    elif w_mode == W_STREAM:
+        p.w_bytes = max(_align16(min(L[2], rows_max) * min(L[5], cols_max)
+                                 * es) for L in layers)
+    p.v_bytes = _align16(v_elems * es) if v_elems and v_smem else 0
+    p.enc_b = _align16(TILE * p.lde * es)
+    p.ldh = hw if es == 2 else hw + PAD
+    p.h_b = _align16(TILE * p.ldh * es) if wide else 0
+    p.out_b = _align16(M * ldo * 4)
+    p.sig_b = _align16(TILE * 4)
+    p.wts_b = p.ts_b = _align16(M * 4) if composite else 0
+    p.vin_b = 4 * vld * 4 if composite else 0
+    p.per_wg = (p.enc_b + p.h_b + p.out_b + p.sig_b + p.wts_b + p.ts_b
+                + p.vin_b)
+    p.total = p.w_bytes + p.v_bytes + wgs * p.per_wg
+    p.park_chunks = max(0, -(-hw // CHUNK) - 2) if wide else 0
+    return p
+
+
+def _fit(layers, ke, bf16, w_elems, v_elems, max_wgs, M, R, ldo, composite,
+         wide, **kw):
+    """The first plan that fits SMEM_LIMIT, or None. bf16 (wgmma reads B
+    from shared memory) and V_WIDE nets: all the weights, with fewer
+    warpgroups if need be, else streamed (bf16 V_WIDE: whole chunks, then
+    units of UNIT_K columns), else (float32 only) read through L2. float32
+    nets up to 128 wide: as many warpgroups as fit, with all the weights,
+    else one layer at a time, else the weights read through L2. The view
+    head in shared memory where it fits."""
+    es = 2 if bf16 else 4
+
+    def fits(w_mode, unit_k, wgs):
+        for v_smem in ((True, False) if v_elems else (False,)):
+            p = _make_plan(layers, ke, es, w_elems, v_elems, wgs, M, R, ldo,
+                           composite, wide, w_mode, v_smem, unit_k, **kw)
+            if p.total <= SMEM_LIMIT:
+                return p
+        return None
+
+    wgs_down = range(max_wgs, 0, -1)
+    if bf16 or wide:
+        modes = [(W_ALL, 0)]
+        if bf16:
+            modes += [(W_STREAM, 0)] + ([(W_STREAM, UNIT_K)] if wide else [])
+        else:
+            modes += [(W_STREAM, UNIT_K), (W_GLOBAL, 0)]
+        tries = [(m, u, w) for m, u in modes for w in wgs_down]
+    else:
+        tries = [(m, 0, w) for w in wgs_down
+                 for m in (W_ALL, W_STREAM, W_GLOBAL)]
+    for m, u, w in tries:
+        p = fits(m, u, w)
+        if p is not None:
+            return p
+    return None
+
+
+def _step_of(T: int):
+    """(M, R) of a whole-ray composite step: lcm(64, T) points where that
+    is at most MAX_STEP; else the R whole rays of at most MAX_STEP points
+    whose last tile has the smallest padded share, M = R T rounded up to
+    whole tiles."""
+    M = TILE // math.gcd(TILE, T) * T
+    if M <= MAX_STEP:
+        return M, M // T
+    R = 1
+    for r in range(2, MAX_STEP // T + 1):
+        if r * _round_tile(R * T) > R * _round_tile(r * T):
+            R = r
+    return _round_tile(R * T), R
+
+
+def _composite_steps(T: int, general: bool) -> list:
+    """(M, R, nseg) choices of a composite step, in order of preference:
+    whole rays (T <= 128), then with the general epilogue one ray a step in
+    nseg segments of M points, the largest SEGMENTS first."""
+    out = [(*_step_of(T), 1)] if T <= 128 else []
+    if general:
+        for seg in SEGMENTS:
+            m = min(seg, _round_tile(T))
+            c = (m, 1, -(-T // m))
+            if c not in out:
+                out.append(c)
+    return out
+
+
+def _view_scratch(G: int, H: int) -> int:
+    """Floats of a warp's view scratch in the general epilogue
+    (csrc/fused_mlp_t.cu:composite_kernel: rounded gsum, SH row, hidden
+    activations, wsum)."""
+    vh = (64 if G > 32 else 32) + 32
+    return vh + max(48, H) + 16
+
+
+def _is_small(tm: "TransposedFieldMLP", layers) -> bool:
+    """The proposal nets' small_kernel: bf16, two layers no wider than 32
+    over an encoding of at most 64, no tables, no bias, angle doubling."""
+    return (tm.dtype == torch.bfloat16 and len(layers) == 2 and not tm.tables
+            and tm.bs is None and tm.angle_double
+            and layers[0][0] <= SMALL_K and layers[0][2] <= SMALL_N
+            and not layers[1][1] and layers[1][2] <= SMALL_N)
+
+
+def _refuse(what: str):
+    raise NotImplementedError(f"field kernels: {what} ({QUEUE_B})")
+
+
+def kernel_plan(tm: "TransposedFieldMLP", T: Optional[int] = None,
+                view: Optional["ViewMLP"] = None) -> KernelPlan:
+    """Whether the field kernels take tm, and the plan they launch it with:
+    run_tmlp (T None), or run_tmlp_composite over rays of T samples with the
+    view head `view`. Raises NotImplementedError, naming ROADMAP.md's queue
+    B, for what they do not take; the wrappers launch through it, so no
+    configuration reaches a kernel without a plan. Cached per net."""
+    vkey = None if view is None else (view.H, len(view.rest), view.sh_dim,
+                                      view.degree, view.elems())
+    key = (T, vkey)
+    if key in tm._plans:
+        return tm._plans[key]
+    if tm.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"kernel weights must be float32 or bfloat16, "
+                         f"got {tm.dtype}")
+    desc, w_elems = tm.layout()
+    layers = _layer_rows(desc)
+    if len(layers) > MAX_LAYERS:
+        _refuse(f"{len(layers)} layers, the layer table holds {MAX_LAYERS}")
+    hmax = int(desc[5])
+    if hmax > MAX_WIDTH:
+        _refuse(f"a layer of {hmax} outputs, past {MAX_WIDTH}")
+    bf16 = tm.dtype == torch.bfloat16
+    # the served variant: no bias, angle doubling, ladders within the
+    # descriptor's slots (csrc/fused_mlp_t.cu: Variant)
+    long_ladder = max(len(tm.cp), len(tm.vm)) > INLINE_LEVELS
+    variant = (V_WIDE if hmax > CHUNK else
+               V_BRANCHES if (tm.bs is not None or not tm.angle_double
+                              or long_ladder) else V_SERVED)
+    wide, ke = variant == V_WIDE, int(desc[4])
+    kout, G = layers[-1][2], layers[-1][3]
+    plan = None
+    if T is None:
+        if _is_small(tm, layers):
+            plan = KernelPlan(small=1, M=TILE, nseg=1)
+        else:
+            plan = _fit(layers, ke, bf16, w_elems, 0,
+                        _max_wgs(bf16, False, variant), TILE, 0, kout + 1,
+                        False, wide)
+    else:
+        if T < 1:
+            raise ValueError(f"composite: T={T}")
+        H = v_elems = 0
+        if view is not None:
+            if view.dtype != tm.dtype or view.geo + 1 != tm.kout:
+                raise ValueError("view head does not match the field")
+            if view.degree > 4:
+                raise NotImplementedError(
+                    f"SH degree {view.degree} in the view head: the kernels "
+                    f"of both packages evaluate degrees 1-4 "
+                    f"(sanerf_tpu/ops/fused_mlp_t.py:653)")
+            if view.H > MAX_VIEW_WIDTH:
+                _refuse(f"a view head {view.H} wide, past {MAX_VIEW_WIDTH}")
+            H, v_elems = view.H, view.elems()
+        if G > MAX_GSUM:
+            _refuse(f"a composite of {G} outputs, past {MAX_GSUM}")
+        # the served composite: 16 outputs, a view head of at most 32,
+        # whole rays of T <= 128, no parked chunks (hidden layers <= 256)
+        hw = max([L[2] for L in layers[:-1]], default=0)
+        needs_general = T > 128 or kout != 16 or H > 32 or hw > 2 * CHUNK
+        for general in ((True,) if needs_general else (False, True)):
+            for M, R, nseg in _composite_steps(T, general):
+                plan = _fit(layers, ke, bf16, w_elems, v_elems,
+                            _max_wgs(bf16, True, variant), M, R, kout + 1,
+                            True, wide, nseg=nseg,
+                            vld=_view_scratch(G, H) if general else 128)
+                if plan is not None:
+                    plan.general = int(general)
+                    break
+            if plan is not None:
+                break
+    if plan is None:
+        _refuse(f"the buffers of one warpgroup do not fit {SMEM_LIMIT} B "
+                f"of shared memory")
+    plan.variant = variant
+    tm._plans[key] = plan
+    return plan
 
 
 @functools.cache
@@ -491,15 +796,22 @@ def _lib():
     if lib.grids_size() != ctypes.sizeof(Grids):
         raise RuntimeError("csrc/fused_mlp_t.cu:Grids and its ctypes mirror "
                            "differ in size")
+    if lib.plan_size() != ctypes.sizeof(KernelPlan):
+        raise RuntimeError("csrc/fused_mlp_t.cu:Plan and its ctypes mirror "
+                           "differ in size")
     # bf16, layer descriptor, weights, their count, encode scale, angle
-    # doubling, bias rows, &Grids
-    net = [_I, _P, _P, _I, _F, _I, _P, _P]
-    _build.declare(lib, "tmlp_launch", net + [_P, _L, _P, _I, _P])
+    # doubling, bias rows, &Grids, &Plan
+    net = [_I, _P, _P, _I, _F, _I, _P, _P, _P]
+    # ... xT, P, out, out rows, park, park bytes, stream
+    _build.declare(lib, "tmlp_launch", net + [_P, _L, _P, _I, _P, _L, _P])
     # view (weights, count, descriptor), xT, dl, ts, rays8, N, T, pack_q,
-    # opaque, gsum, depth, wsum, rgb, stream
+    # opaque, gsum, depth, wsum, rgb, park, park bytes, stream
     _build.declare(lib, "tmlp_composite_launch",
                    net + [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                          _P, _P, _P, _P, _P])
+                          _P, _P, _P, _P, _P, _L, _P])
+    # bf16, composite, &Plan -> resident blocks
+    _build.declare(lib, "park_blocks", [_I, _I, _P])
+    lib.park_blocks.restype = _L
     return lib
 
 
@@ -513,60 +825,92 @@ def _check(t: torch.Tensor, name: str, shape, dtype=torch.float32) -> None:
         raise ValueError(f"{name}: on {t.device}, not the current device")
 
 
-def _net_args(tm: TransposedFieldMLP, device):
-    if tm.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"kernel weights must be float32 or bfloat16, "
-                         f"got {tm.dtype}")
-    if tm.table_bytes > TABLE_BYTES_LIMIT:
-        raise NotImplementedError(
-            f"grid tables of {tm.table_bytes} B exceed the kernel's "
-            f"{TABLE_BYTES_LIMIT} B limit")
+def _cp_grid(t: torch.Tensor, bound: float) -> _Grid:
+    R = int(t.shape[1])
+    return _Grid(t.data_ptr(), R, int(t.shape[2]), *_scale_off(R, bound))
+
+
+def _vm_grid(planes: torch.Tensor, lines: torch.Tensor,
+             bound: float) -> _VMGrid:
+    R, Rl = int(planes.shape[1]), int(lines.shape[1])
+    return _VMGrid(planes.data_ptr(), lines.data_ptr(), R, Rl,
+                   int(planes.shape[3]), *_scale_off(R, bound),
+                   *_scale_off(Rl, bound))
+
+
+def _levels_array(tm: "TransposedFieldMLP") -> bytes:
+    """The CP levels past the descriptor's slots as a Grid array, then the
+    VM levels past them as a VMGrid array, each with its table addresses
+    and the affine u = x * s + o of _scale_off."""
+    cps = [_cp_grid(t, tm.bound) for t in tm.cp[INLINE_LEVELS:]]
+    vms = [_vm_grid(p, l, tm.bound) for p, l in tm.vm[INLINE_LEVELS:]]
+    return (bytes((_Grid * len(cps))(*cps))
+            + bytes((_VMGrid * len(vms))(*vms)))
+
+
+def grids_of(tm: TransposedFieldMLP, device=None) -> Grids:
+    """tm's tables as the kernels' grid descriptor: the first INLINE_LEVELS
+    levels of each ladder in the slots, the rest in tm.grid_levels(device)
+    (the tables' device by default), the sigma tables in theirs."""
+    cps, vms = tm.cp[:INLINE_LEVELS], tm.vm[:INLINE_LEVELS]
+    g = Grids(n_cp=len(cps), n_vm=len(vms))
+    for i, t in enumerate(cps):
+        g.cp[i] = _cp_grid(t, tm.bound)
+    for i, pl in enumerate(vms):
+        g.vm[i] = _vm_grid(*pl, tm.bound)
+    g.n_cp_more = len(tm.cp) - len(cps)
+    g.n_vm_more = len(tm.vm) - len(vms)
+    if g.n_cp_more or g.n_vm_more:
+        base = tm.grid_levels(device or tm.tables[0].device).data_ptr()
+        g.cp_more = base if g.n_cp_more else None
+        g.vm_more = (base + ctypes.sizeof(_Grid) * g.n_cp_more
+                     if g.n_vm_more else None)
+    if tm.scp is not None:
+        g.scp = _cp_grid(tm.scp, tm.bound)
+    if tm.svm is not None:
+        g.svm = _vm_grid(*tm.svm, tm.bound)
+    return g
+
+
+def _net_args(tm: TransposedFieldMLP, plan: KernelPlan, device):
     for t in tm.tables:
         _check(t, "grid table", t.shape, tm.dtype)
     flat, desc = tm.packed(device)
     bias = tm.bias_rows(device)
-    grids = grids_of(tm)
+    grids = grids_of(tm, device)
     args = [int(tm.dtype == torch.bfloat16), desc.ctypes.data,
             flat.data_ptr(), flat.numel(), tm.scale, int(tm.angle_double),
             None if bias is None else bias.data_ptr(),
-            ctypes.addressof(grids)]
-    return args, (flat, desc, bias, grids)
+            ctypes.addressof(grids), ctypes.addressof(plan)]
+    more = grids.n_cp_more or grids.n_vm_more
+    return args, (flat, desc, bias, grids,
+                  tm.grid_levels(device) if more else None)
 
 
-def grids_of(tm: TransposedFieldMLP) -> Grids:
-    """tm's tables as the kernels' grid descriptor, each with the affine
-    u = x * s + o of _scale_off."""
-    L = MAX_GRID_LEVELS
-    if len(tm.cp) > L or len(tm.vm) > L:
-        raise NotImplementedError(f"grid ladders of more than {L} levels")
-
-    def cp(t):
-        R = int(t.shape[1])
-        return _Grid(t.data_ptr(), R, int(t.shape[2]),
-                     *_scale_off(R, tm.bound))
-
-    def vm(planes, lines):
-        R, Rl = int(planes.shape[1]), int(lines.shape[1])
-        return _VMGrid(planes.data_ptr(), lines.data_ptr(), R, Rl,
-                       int(planes.shape[3]), *_scale_off(R, tm.bound),
-                       *_scale_off(Rl, tm.bound))
-
-    g = Grids(n_cp=len(tm.cp), n_vm=len(tm.vm))
-    for i, t in enumerate(tm.cp):
-        g.cp[i] = cp(t)
-    for i, pl in enumerate(tm.vm):
-        g.vm[i] = vm(*pl)
-    if tm.scp is not None:
-        g.scp = cp(tm.scp)
-    if tm.svm is not None:
-        g.svm = vm(*tm.svm)
-    return g
+def park_buffer(tm: TransposedFieldMLP, plan: KernelPlan, device,
+                composite: bool):
+    """(buffer, bytes) for the V_WIDE kernels' parked chunks: a slot of
+    plan.park_chunks chunks for every warpgroup of the blocks the launch
+    keeps resident (csrc/fused_mlp_t.cu:park_slot, park_blocks), built once
+    per net, plan, device and stream (launches on one stream run in turn);
+    or (None, 0)."""
+    if not plan.park_chunks:
+        return None, 0
+    key = (bytes(plan), composite, device,
+           torch.cuda.current_stream(device).cuda_stream)
+    if key not in tm._parks:
+        words = NA // 2 if tm.dtype == torch.bfloat16 else NA
+        blocks = _lib().park_blocks(int(tm.dtype == torch.bfloat16),
+                                    int(composite), ctypes.addressof(plan))
+        nbytes = blocks * plan.wgs * plan.park_chunks * words * 128 * 4
+        tm._parks[key] = (torch.empty(nbytes // 4, dtype=torch.int32,
+                                      device=device), nbytes)
+    return tm._parks[key]
 
 
 def _raise_on(code: int, fn: str) -> None:
     if code == -1:
-        raise RuntimeError(f"{fn}: the network does not fit the kernel's "
-                           f"{SMEM_LIMIT} B of shared memory")
+        raise RuntimeError(f"{fn}: the kernel refused its plan")
     if code != 0:
         raise RuntimeError(f"{fn}: CUDA error {code} at launch")
 
@@ -581,11 +925,14 @@ def run_tmlp(x: torch.Tensor, tm: TransposedFieldMLP,
     xT = xT.contiguous()
     P = xT.shape[1]
     _check(xT, "xT", (3, P))
+    plan = kernel_plan(tm)
     out = torch.empty(tm.kout, P, dtype=torch.float32, device=x.device)
     if P:
-        args, keep = _net_args(tm, x.device)
+        args, keep = _net_args(tm, plan, x.device)
+        park, park_bytes = park_buffer(tm, plan, x.device, False)
         code = _lib().tmlp_launch(
             *args, xT.data_ptr(), P, out.data_ptr(), tm.kout,
+            None if park is None else park.data_ptr(), park_bytes,
             torch.cuda.current_stream().cuda_stream)
         _raise_on(code, "run_tmlp")
         run_tmlp.launches += 1
@@ -614,10 +961,7 @@ def run_tmlp_composite(xT: torch.Tensor, dl: torch.Tensor, ts: torch.Tensor,
                                         pack_q, T)
     pack_q = max(1, int(pack_q))
     N, T = _unpack_rows(dl, pack_q, T).shape
-    if tm.kout > 16:
-        raise NotImplementedError(f"composite of {tm.kout} outputs > 16")
-    if not 1 <= T <= 128:
-        raise NotImplementedError(f"composite kernel: T={T} past 128")
+    plan = kernel_plan(tm, T, view)
     rows = (N, T) if pack_q == 1 else (N // pack_q, pack_q * T, 1)
     _check(xT, "xT", (3, N * T))
     _check(dl, "dl", rows)
@@ -628,12 +972,11 @@ def run_tmlp_composite(xT: torch.Tensor, dl: torch.Tensor, ts: torch.Tensor,
     vflat = vdesc = None
     if view is not None:
         _check(rays8, "rays8", (N, 8))
-        if view.dtype != tm.dtype or view.geo + 1 != tm.kout:
-            raise ValueError("view head does not match the field")
         vflat, vdesc = view.packed(xT.device)
         rgb = e(N, 3)
     if N:
-        args, keep = _net_args(tm, xT.device)
+        args, keep = _net_args(tm, plan, xT.device)
+        park, park_bytes = park_buffer(tm, plan, xT.device, True)
         code = _lib().tmlp_composite_launch(
             *args,
             None if vflat is None else vflat.data_ptr(),
@@ -643,6 +986,7 @@ def run_tmlp_composite(xT: torch.Tensor, dl: torch.Tensor, ts: torch.Tensor,
             None if rays8 is None or view is None else rays8.data_ptr(),
             N, T, pack_q, int(opaque), gsum.data_ptr(), depth.data_ptr(),
             wsum.data_ptr(), None if rgb is None else rgb.data_ptr(),
+            None if park is None else park.data_ptr(), park_bytes,
             torch.cuda.current_stream().cuda_stream)
         _raise_on(code, "run_tmlp_composite")
         run_tmlp_composite.launches += 1

@@ -26,9 +26,52 @@ import torch
 
 from sanerf_tpu_torch.ops import _build
 
-MAX_T = 128
+#: Shared memory a block may use on the H100; ray_plan's only limit.
+SMEM_LIMIT = 232448
+#: csrc/ray_kernels.cu: warps a block of the warp-per-ray kernels, rays a
+#: block of ray_level's thread-per-ray kernel (at most), samples a tile of
+#: ray_level0's tile kernel (R T <= L0_SAMPLES, R % 4 == 0, R >= 4), and
+#: the thread kernel's static rays8 rows
+WARPS, RAYS, L0_SAMPLES, L0_MAX_RAYS = 8, 32, 1024, 256
+THREAD_STATIC = RAYS * 8 * 4
+QUEUE_B = "still to port: ROADMAP.md, queue B"
 
 Out = Tuple[torch.Tensor, ...]
+
+
+def ray_plan(T: int, T0: Optional[int] = None, jittered: bool = False,
+             uniform_prev: bool = False) -> dict:
+    """Whether the ray kernels take a level of T samples (ray_level0, or
+    ray_level after a level of T0), and the plan they launch it with:
+    ray_level0's tile of R rays and the shared memory of its tile and warp
+    kernels; ray_level's warps a block of its warp kernel and rays a block
+    of its thread kernel, each with its shared memory. The rays' rows sit
+    in shared memory, so a level's length is bounded only by SMEM_LIMIT;
+    past it this raises NotImplementedError naming ROADMAP.md's queue B.
+    The wrappers launch through it."""
+    if T < 1 or (T0 is not None and T0 < 1):
+        raise ValueError(f"ray kernels: T={T}, T0={T0}")
+    K = T + 1
+    if T0 is None:
+        R = max(4, min(L0_MAX_RAYS, L0_SAMPLES // T) & ~3)
+        plan = {"R": R,
+                "tile_smem": 4 * (R * K * (2 if jittered else 1) + 8 * R + K),
+                "warp_smem": 4 * WARPS * K}
+        fits = max(plan["tile_smem"], plan["warp_smem"]) <= SMEM_LIMIT
+    else:
+        per_warp = 4 * (4 * T0 + K + 2)
+        per_ray = 4 * (((max(T0, T) + 1) | 1) + (K | 1)
+                       + (0 if uniform_prev else (T0 + 1) | 1))
+        plan = {"warps": min(WARPS, SMEM_LIMIT // per_warp),
+                "rays": min(RAYS, (SMEM_LIMIT - THREAD_STATIC) // per_ray)}
+        plan["warp_smem"] = plan["warps"] * per_warp
+        plan["thread_smem"] = plan["rays"] * per_ray
+        fits = plan["warps"] >= 1 and plan["rays"] >= 1
+    if not fits:
+        raise NotImplementedError(
+            f"ray kernels: a level of T={T} samples (T0={T0}) does not fit "
+            f"{SMEM_LIMIT} B of shared memory ({QUEUE_B})")
+    return plan
 
 
 def _div(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -97,13 +140,12 @@ def _resample(w_prev, bins_prev, K: int, u_jitter=None):
     u = u.expand(N, K)
     if u_jitter is not None:
         u = u + u_jitter
-    frac = torch.clamp((u[:, :, None] - c_lo[:, None, :]) * recip[:, None, :],
-                       0.0, 1.0)
     db = None if bins_prev is None else bins_prev[:, 1:] - bins_prev[:, :-1]
     out = torch.zeros_like(u)
-    for i in range(T0):
-        out = out + (frac[:, :, i] if db is None
-                     else frac[:, :, i] * db[:, i:i + 1])
+    for i in range(T0):  # one interval's ramps at a time: O(N K) memory
+        frac = torch.clamp((u - c_lo[:, i:i + 1]) * recip[:, i:i + 1],
+                           0.0, 1.0)
+        out = out + (frac if db is None else frac * db[:, i:i + 1])
     return _div(out, T0) if db is None else bins_prev[:, 0:1] + out
 
 
@@ -178,10 +220,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 def _lib():
     lib = _build.load("ray_kernels")
     _build.declare(lib, "ray_level0_launch",
-                   [_P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P])
+                   [_P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _I, _P])
     _build.declare(lib, "ray_level_launch",
                    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
-                    _I, _P, _P, _P])
+                    _I, _P, _P, _I, _I, _P])
     _build.declare(lib, "flatten3_launch", [_P, ctypes.c_long, _P, _P])
     return lib
 
@@ -228,8 +270,7 @@ def ray_level0(rays8: torch.Tensor, T: int, contract: bool = True,
     if not rays8.is_cuda:
         return ray_level0_plain(rays8, T, contract, jitter, pack_q)
     N = rays8.shape[0]
-    if not 1 <= T <= MAX_T:
-        raise ValueError(f"ray_level0: T={T} outside [1, {MAX_T}]")
+    plan = ray_plan(T, jittered=jitter is not None)
     _check_pack(N, pack_q)
     _check(rays8, "rays8", (N, 8))
     if jitter is not None:
@@ -239,7 +280,7 @@ def ray_level0(rays8: torch.Tensor, T: int, contract: bool = True,
         code = _lib().ray_level0_launch(
             rays8.data_ptr(), _ptr(jitter), N, T, int(contract),
             *[o.data_ptr() for o in outs[:4]], *_pack_args(outs, pack_q),
-            torch.cuda.current_stream().cuda_stream)
+            plan["R"], torch.cuda.current_stream().cuda_stream)
         _raise_on(code, "ray_level0")
         ray_level0.launches += 1
         if pack_q:
@@ -264,8 +305,7 @@ def ray_level(rays8: torch.Tensor, w_prev: torch.Tensor,
         return ray_level_plain(rays8, w_prev, bins_prev, T, contract,
                                uniform_prev, jitter, pack_q)
     N, T0 = w_prev.shape
-    if not 1 <= T <= MAX_T or not 1 <= T0 <= MAX_T:
-        raise ValueError(f"ray_level: T={T}, T0={T0} outside [1, {MAX_T}]")
+    plan = ray_plan(T, T0, uniform_prev=uniform_prev)
     _check_pack(N, pack_q)
     _check(rays8, "rays8", (N, 8))
     _check(w_prev, "w_prev", (N, T0))
@@ -278,6 +318,7 @@ def ray_level(rays8: torch.Tensor, w_prev: torch.Tensor,
             rays8.data_ptr(), w_prev.data_ptr(), bins_prev.data_ptr(),
             _ptr(jitter), N, T0, T, int(contract), int(uniform_prev),
             *[o.data_ptr() for o in outs[:4]], *_pack_args(outs, pack_q),
+            plan["warps"], plan["rays"],
             torch.cuda.current_stream().cuda_stream)
         _raise_on(code, "ray_level")
         ray_level.launches += 1

@@ -32,6 +32,33 @@ def contract(x: torch.Tensor) -> torch.Tensor:
     return torch.where(mag < 1.0, x, x * scale)
 
 
+def _first_max(a: torch.Tensor, dim: int) -> torch.Tensor:
+    """Mask of the first maximum of the 3 entries along `dim` (the
+    tie-break of jnp.argmax), spelled out as comparisons (contract)."""
+    mag = a.amax(dim=dim, keepdim=True)
+    e0, e1, e2 = (a == mag).unbind(dim=dim)
+    return torch.stack([e0, e1 & ~e0, e2 & ~(e0 | e1)], dim=dim), mag
+
+
+def contract_T(x: torch.Tensor) -> torch.Tensor:
+    """contract() for dims-first [3, N] coordinates (JAX:
+    ops/sampling.py:39): the same first-maximum tie-break along axis 0."""
+    first, mag = _first_max(x.abs(), 0)
+    safe = torch.clamp(mag, min=1e-12)
+    scale = torch.where(first, (2.0 - 1.0 / safe) / safe, 1.0 / safe)
+    return torch.where(mag < 1.0, x, x * scale)
+
+
+def uncontract(z: torch.Tensor) -> torch.Tensor:
+    """The inverse contraction of [..., 3] points (JAX:
+    ops/sampling.py:52): the dominant coordinate (first maximum) scaled by
+    1 / max(2 |z| - |z|^2, 1e-8), the others by 1 / max(2 - |z|, 1e-8)."""
+    first, mag = _first_max(z.abs(), -1)
+    other = 1.0 / torch.clamp(2.0 - mag, min=1e-8)
+    top = 1.0 / torch.clamp(2.0 * mag - mag * mag, min=1e-8)
+    return torch.where(mag < 1.0, z, z * torch.where(first, top, other))
+
+
 def near_far_from_aabb(rays_o: torch.Tensor, rays_d: torch.Tensor,
                        aabb: torch.Tensor, min_near: float = 0.05
                        ) -> Tuple[torch.Tensor, torch.Tensor]:

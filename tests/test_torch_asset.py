@@ -117,10 +117,21 @@ def test_params_from_jax_raises_on_shape_or_missing_key():
                                      sum_after_mlp=True),
                                 dict(sum_after_mlp=True)])
 def test_other_families_raise(kw):
-    """Heads the port does not have raise, with or without factorized
-    grids (which it serves)."""
+    """The heads the port used to refuse (the adaptive mask head,
+    sum_after_mlp), with or without factorized grids, now build, with the
+    JAX package's parameter paths and shapes; what the port does not
+    have still raises: a field family other than mlp and hashgrid."""
+    tm = fields.make_model(ModelConfig(**kw), RenderConfig())
+    jm = jfields.make_model(JModelConfig(**kw), JRenderConfig())
+    tmpl = jax.eval_shape(lambda k: jfields.init_params(jm, k),
+                          jax.random.key(0))
+    assert expected_shapes(tm) == {
+        k: tuple(v.shape) for k, v in flatten_tree(jax.tree.map(
+            lambda s: np.broadcast_to(np.float32(0), s.shape), tmpl),
+            "").items()}
     with pytest.raises(NotImplementedError):
-        fields.make_model(ModelConfig(**kw), RenderConfig())
+        fields.make_model(ModelConfig(**{**kw, "field_type": "voxels"}),
+                          RenderConfig())
 
 
 @pytest.mark.parametrize("name", sorted(grid_params.CONFIGS))

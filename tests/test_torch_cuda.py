@@ -18,13 +18,23 @@ gather_rows_backward against index_add_ at |d| <= 1e-6 + 1e-5 |ref| (its
 atomics sum in another order), through the hash encoder at |d| <= 1e-6
 max(1, S) + 1e-5 |ref|, and at a step's gradient size at |d| <= 1e-5 S +
 1e-5 |ref| (chip_smoke.py's SCATTER_MAG), S the sum of the magnitudes of
-the adds into an element.
+the adds into an element. The configurations past the kernels' former
+limits (rays past 128 samples, 12 to 32 layers, widths to 512, view heads
+to 128, 20 to 64 composite outputs, ladders of 16 levels, 94 MB of tables,
+sum_after_mlp) at the same bounds, and through run_rays against the plain
+path at chip_smoke.py's PATH_TOL.
 """
+
+import contextlib
+import importlib.util
+import shutil
+from pathlib import Path
 
 import pytest
 import torch
 
 from sanerf_tpu_torch.config import HashGridConfig
+from sanerf_tpu_torch.ops import _build
 from sanerf_tpu_torch.ops import fused_mlp_t as fm
 from sanerf_tpu_torch.ops import gather, hashgrid
 from sanerf_tpu_torch.ops import ray_kernels as rk
@@ -935,3 +945,386 @@ def test_field_kernels_dense_sin(dev, dtype):
                               dtype, 3e-4, PROBE_TOL)
     if dtype == torch.float32:
         assert faults > 0
+
+
+# -- the lifted limits: rays past 128 samples (L1), more than 8 layers (L2),
+# layers past 256 wide (L3), view heads past 32 (L4), composites of more
+# than 16 outputs (L5), ladders past 8 levels (L6), tables past 25 MB (L7);
+# each at _held's bounds (the ray kernels at 1e-5, ray_level0 bit for bit)
+
+LONG_T = (129, 200, 256, 512, 1024)
+
+
+@pytest.mark.parametrize("jittered", [False, True])
+@pytest.mark.parametrize("N", ["warp", "tile"])
+@pytest.mark.parametrize("T", LONG_T)
+def test_ray_level0_long_rays(dev, T, N, jittered):
+    """L1: both of ray_level0's kernels past 128 samples a ray (the tile
+    kernel's tile shrinks to 4 rays from T = 256 on), bit for bit."""
+    N = 997 if N == "warp" else 1_200_003 // T
+    g = torch.Generator(device=dev).manual_seed(T + N + jittered)
+    r8 = _rays8(N, g, dev)
+    jit = ((torch.rand(N, T + 1, generator=g, device=dev) - 0.5) / T
+           if jittered else None)
+    assert rk.ray_plan(T, jittered=jittered)["R"] == max(
+        4, min(256, 1024 // T) & ~3)
+    got = rk.ray_level0(r8, T, True, jitter=jit)
+    ref = rk.ray_level0_plain(r8, T, True, jitter=jit)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert torch.equal(_bits(a), _bits(b))
+
+
+# (T0, T): longer and shorter than 128 on either side
+LONG_LEVELS = [(128, 129), (129, 200), (200, 256), (256, 512), (512, 256),
+               (1024, 1024), (64, 1024), (1024, 64)]
+
+
+@pytest.mark.parametrize("uniform_prev", [False, True])
+@pytest.mark.parametrize("N", [997, 20001])
+@pytest.mark.parametrize("T0,T", LONG_LEVELS)
+def test_ray_level_long_rays(dev, T0, T, N, uniform_prev):
+    """L1: ray_level's warp kernel (997 rays) and thread kernel (20,001:
+    fewer rays a block where 32 rays' rows do not fit) past 128 samples,
+    with adversarial weight rows and the renderer's jitter."""
+    g = torch.Generator(device=dev).manual_seed(T0 + T + N)
+    r8, w, b0 = _prev_level(N, T0, g, dev)
+    jit = None if uniform_prev else (
+        torch.rand(N, T + 1, generator=g, device=dev) - 0.5) / (T + 1)
+    before = rk.ray_level.launches
+    got = rk.ray_level(r8, w, b0, T, True, uniform_prev=uniform_prev,
+                       jitter=jit)
+    assert rk.ray_level.launches == before + 1
+    _close(got, rk.ray_level_plain(r8, w, b0, T, True, uniform_prev, jit),
+           1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("T", LONG_T)
+def test_run_tmlp_composite_long_rays(dev, T, dtype):
+    """L1: the composite of rays longer than a step: one ray a step in
+    segments of up to 256 points, its transmittance and sums carried from
+    segment to segment; the asset's field and view head, 37 rays."""
+    g = torch.Generator(device=dev).manual_seed(100 + T)
+    plan = fm.kernel_plan(_asset_field(g, dev, dtype), T,
+                          _asset_view(g, dev, dtype))
+    assert plan.general and plan.R == 1 and plan.nseg * plan.M >= T
+    _composite_held(_asset_field(g, dev, dtype), _asset_view(g, dev, dtype),
+                    37, T, g, dev, dtype)
+
+
+def _branch_variant(name):
+    """The text substitutions of port_tools/field_branch_variants.py's
+    variant `name`."""
+    path = (Path(__file__).resolve().parents[1] / "port_tools"
+            / "field_branch_variants.py")
+    spec = importlib.util.spec_from_file_location("field_branch_variants",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.VARIANTS[name]
+
+
+@contextlib.contextmanager
+def _field_kernels_from(tmp):
+    """fused_mlp_t's launches go to the kernels of tmp/csrc, built into
+    tmp/kernels (once: named by the sources' hash), inside the block."""
+    saved = _build.CSRC, _build.BUILD_DIR, _build._libs.pop("fused_mlp_t",
+                                                           None)
+    _build.CSRC, _build.BUILD_DIR = tmp / "csrc", tmp / "kernels"
+    fm._lib.cache_clear()
+    try:
+        yield
+    finally:
+        _build.CSRC, _build.BUILD_DIR = saved[:2]
+        _build._libs.pop("fused_mlp_t", None)
+        if saved[2] is not None:
+            _build._libs["fused_mlp_t"] = saved[2]
+        fm._lib.cache_clear()
+
+
+@pytest.fixture(scope="module")
+def planted(tmp_path_factory):
+    """-> a context in which the field kernels carry both planted faults of
+    port_tools/field_branch_variants.py, drop_carry and lost_park (each
+    fires on a path the other's test does not take): csrc/fused_mlp_t.cu
+    with their text substitutions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    tmp = tmp_path_factory.mktemp("planted")
+    shutil.copytree(_build.CSRC, tmp / "csrc")
+    p = tmp / "csrc" / "fused_mlp_t.cu"
+    text = p.read_text()
+    for old, new in (_branch_variant("drop_carry")
+                     + _branch_variant("lost_park")):
+        assert old in text, old
+        text = text.replace(old, new)
+    p.write_text(text)
+    return lambda: _field_kernels_from(tmp)
+
+
+def test_composite_long_rays_dropped_segment_fails(dev, planted):
+    """Planted fault in the kernel: the general composite with the
+    transmittance and the partial sums reset at every segment
+    (field_branch_variants.py: drop_carry) must fail the hold that the
+    kernel passes on the same rays of T = 512, two segments of 256."""
+    dtype = torch.float32
+
+    def held():
+        g = torch.Generator(device=dev).manual_seed(109)
+        tm, view = _asset_field(g, dev, dtype), _asset_view(g, dev, dtype)
+        assert fm.kernel_plan(tm, 512, view).nseg == 2
+        _composite_held(tm, view, 37, 512, g, dev, dtype)
+
+    held()
+    with planted():
+        with pytest.raises(AssertionError):
+            held()
+
+
+def _deep_field(g, dev, dtype, depth, width=128):
+    """L2: the default field at `depth` layers (skip at depth // 2)."""
+    sizes = ([(63 + 32, width)]
+             + [(width + (95 if l == depth // 2 else 0), width)
+                for l in range(1, depth - 1)] + [(width, 16)])
+    cp = torch.rand(3, 128, 32, generator=g, device=dev) * 0.5 + 0.5
+    return fm.TransposedFieldMLP(
+        [{"w": p["w"].to(dtype)} for p in _layers(sizes, g, dev)], 10, 4.0,
+        (depth // 2,), leaky=True, cp_lines=cp.to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("depth", [12, 16, 32])
+def test_field_kernels_deep_nets(dev, depth, dtype):
+    """L2: 12, 16 and 32 layers (the layer table's size), run_tmlp and the
+    composite at T = 32 and 200."""
+    g = torch.Generator(device=dev).manual_seed(110 + depth)
+    tm = _deep_field(g, dev, dtype, depth)
+    x = torch.rand(3, 20011, generator=g, device=dev) * 8 - 4
+    _held(fm.run_tmlp(x, tm, transposed=True), fm.run_tmlp_plain(x, tm),
+          dtype, 3e-4)
+    for T in (32, 200):
+        _composite_held(tm, _asset_view(g, dev, dtype), 301, T, g, dev,
+                        dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("width", [272, 320, 384, 512])
+def test_field_kernels_wider_layers(dev, width, dtype):
+    """L3: layers of three and four 128-output chunks (272 = 128 + 128 +
+    16), the middle chunks parked in device memory, bf16 weights streamed
+    in units of 64 columns where a chunk does not fit; run_tmlp and the
+    composite at T = 32 and 24."""
+    g = torch.Generator(device=dev).manual_seed(120 + width)
+    tm = _wide_field(g, dev, dtype, width)
+    plan = fm.kernel_plan(tm)
+    assert plan.park_chunks == -(-width // 128) - 2
+    x = torch.rand(3, 20011, generator=g, device=dev) * 8 - 4
+    before = fm.run_tmlp.launches
+    got = fm.run_tmlp(x, tm, transposed=True)
+    assert fm.run_tmlp.launches == before + 1
+    _held(got, fm.run_tmlp_plain(x, tm), dtype, 3e-4)
+    for T in (32, 24):
+        _composite_held(tm, _asset_view(g, dev, dtype), 301, T, g, dev,
+                        dtype)
+
+
+def test_wide_parked_chunk_lost_fails(dev, planted):
+    """Planted fault in the kernel: a 512-wide net's parked middle chunks
+    read back as zeros (field_branch_variants.py: lost_park, what a lost
+    park slot gives) must fail the hold that the kernel passes on the same
+    points."""
+    dtype = torch.float32
+
+    def held():
+        g = torch.Generator(device=dev).manual_seed(129)
+        tm = _wide_field(g, dev, dtype, 512)
+        assert fm.kernel_plan(tm).park_chunks == 2
+        x = torch.rand(3, 4001, generator=g, device=dev) * 8 - 4
+        _held(fm.run_tmlp(x, tm, transposed=True), fm.run_tmlp_plain(x, tm),
+              dtype, 3e-4)
+
+    held()
+    with planted():
+        with pytest.raises(AssertionError):
+            held()
+
+
+def _view_of(g, dev, dtype, geo, H):
+    return fm.ViewMLP([{"w": p["w"].to(dtype)} for p in _layers(
+        [(geo + 16, H), (H, H), (H, 3)], g, dev)], geo + 1, 4)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("H", [48, 96, 128])
+def test_composite_wide_view_heads(dev, H, dtype):
+    """L4: view heads 48, 96 and 128 wide (each lane its units lane + 32
+    q) at T = 16, 24 and 256."""
+    g = torch.Generator(device=dev).manual_seed(130 + H)
+    tm = _asset_field(g, dev, dtype)
+    for T in (16, 24, 256):
+        _composite_held(tm, _view_of(g, dev, dtype, 15, H), 301, T, g, dev,
+                        dtype)
+
+
+def _geo_field(g, dev, dtype, kout):
+    """The asset's field with kout outputs (geom_feat_dim = kout - 1)."""
+    layers = _layers([(127, 128), (255, 128), (128, kout)], g, dev)
+    cp = torch.rand(3, 128, 64, generator=g, device=dev) * 0.5 + 0.5
+    scp = torch.randn(3, 128, 32, generator=g, device=dev) * 0.5
+    return fm.TransposedFieldMLP(
+        [{"w": p["w"].to(dtype)} for p in layers], 10, 4.0, (1,), leaky=True,
+        cp_lines=cp.to(dtype), sigma_cp_lines=scp.to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kout", [20, 32, 64])
+def test_composite_many_outputs(dev, kout, dtype):
+    """L5: composites of 20, 32 and 64 outputs (one column of each
+    16-column group a lane), with the view head (geo kout - 1) and
+    without, at T = 16, 24 and 200."""
+    g = torch.Generator(device=dev).manual_seed(140 + kout)
+    tm = _geo_field(g, dev, dtype, kout)
+    for T in (16, 24, 200):
+        _composite_held(tm, _view_of(g, dev, dtype, kout - 1, 32), 301, T,
+                        g, dev, dtype)
+        x, dl, ts, _ = _rays_of(301, T, g, dev)
+        _held(fm.run_tmlp_composite(x, dl, ts, tm),
+              fm.run_tmlp_composite_plain(x, dl, ts, tm), dtype, 1e-3)
+
+
+def _ladder_field(g, dev, dtype, cp_levels, vm_levels, big=False):
+    """L6 / L7: CP and VM ladders of the given levels at the config's
+    resolutions (cpgrid.level_resolutions); `big`: the quality recipe's
+    tables (CP96@2048 x 4, VM32@1024 x 4, sigma-CP96@2048, sigma-VM16@512:
+    93,886,464 B in bf16)."""
+    from sanerf_tpu_torch.ops.cpgrid import level_resolutions
+
+    tab = lambda *s: torch.randn(s, generator=g, device=dev).to(dtype)  # noqa: E731
+    if big:
+        cps = [(r, 24) for r in level_resolutions(2048, 4)]
+        vms = [(r, 8) for r in level_resolutions(1024, 4)]
+    else:
+        cps = [(r, 64 // cp_levels) for r in level_resolutions(256,
+                                                               cp_levels)]
+        vms = [(r, 32 // vm_levels) for r in level_resolutions(64, vm_levels)]
+    kc = sum(K for _, K in cps) + sum(3 * K for _, K in vms)
+    sizes = [(63 + kc, 128), (128 + 63 + kc, 128), (128, 16)]
+    kw = {"cp_lines": [tab(3, r, K) for r, K in cps],
+          "vm_planes": [tab(3, r, r, K) for r, K in vms],
+          "vm_lines": [tab(3, r, K) for r, K in vms]}
+    if big:
+        kw.update(sigma_cp_lines=tab(3, 2048, 96),
+                  sigma_vm_planes=tab(3, 512, 512, 16),
+                  sigma_vm_lines=tab(3, 512, 16))
+    return fm.TransposedFieldMLP(
+        [{"w": p["w"].to(dtype)} for p in _layers(sizes, g, dev)], 10, 2.0,
+        (1,), leaky=True, **kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("levels", [(16, 1), (1, 16), (16, 16), "big"])
+def test_field_kernels_ladders_and_large_tables(dev, levels, dtype):
+    """L6 / L7: CP and VM ladders of 16 levels (the levels' descriptors in
+    device memory), and the quality recipe's 94 MB of tables read from
+    device memory: run_tmlp, every encoding column through the probes,
+    and the composite at T = 32."""
+    g = torch.Generator(device=dev).manual_seed(150 + len(str(levels)))
+    big = levels == "big"
+    tm = _ladder_field(g, dev, dtype, *((4, 4) if big else levels), big=big)
+    if big:
+        assert tm.table_bytes == 93_886_464 * (4 if dtype == torch.float32
+                                                else 2) // 2
+    x = torch.rand(3, 20011, generator=g, device=dev) * 4.4 - 2.2
+    _held(fm.run_tmlp(x, tm, transposed=True), fm.run_tmlp_plain(x, tm),
+          dtype, 3e-4, GRID_TOL)
+    for p in fm.encode_probes(tm):
+        _held(fm.run_tmlp(x, p, transposed=True), fm.run_tmlp_plain(x, p),
+              dtype, 3e-4, PROBE_TOL)
+    x, dl, ts, r8 = _rays_of(301, 32, g, dev)
+    _held(fm.run_tmlp_composite(x, dl, ts, tm),
+          fm.run_tmlp_composite_plain(x, dl, ts, tm), dtype, 1e-3, GRID_TOL)
+
+
+# the lifted configurations of the JAX package's flags and config fields,
+# rendered through run_rays on the kernels against the plain path: image
+# and weights_sum at chip_smoke.py's PATH_TOL, depth within DEPTH_MAX
+PATH_TOL, DEPTH_MAX = 2e-3, 0.05
+
+
+def _lifted():
+    """port_tools/grid_params.py:LIMITS (numpy alone, as this file)."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "port_tools"))
+    import grid_params
+
+    return grid_params.LIMITS
+
+
+LIFTED = _lifted()
+
+
+@pytest.mark.parametrize("name", sorted(LIFTED))
+def test_lifted_configs_render_on_the_kernels(dev, name):
+    from sanerf_tpu_torch.config import ModelConfig, RenderConfig
+    from sanerf_tpu_torch.models import fields, renderer
+
+    mkw, rkw = LIFTED[name]
+    model = fields.make_model(ModelConfig(**mkw), RenderConfig(**rkw))
+    plain = fields.make_model(ModelConfig(**mkw),
+                              RenderConfig(use_fused_mlp=False, **rkw))
+    assert renderer.uses_kernels(model)
+    g = torch.Generator().manual_seed(7)
+    params = fields.init_params(model, g, dev)
+    n = 1024
+    o = torch.randn(n, 3, generator=g).mul(0.1).add(
+        torch.tensor([0.0, 0.0, 2.0])).to(dev)
+    d = torch.randn(n, 3, generator=g).mul(0.2).add(
+        torch.tensor([0.0, 0.0, -1.0])).to(dev)
+    counters = (rk.ray_level0, rk.ray_level, fm.run_tmlp,
+                fm.run_tmlp_composite)
+    before = [c.launches for c in counters]
+    got = renderer.run_rays(model, params, o, d)
+    assert all(c.launches > b for c, b in zip(counters, before))
+    ref = renderer.run_rays(plain, params, o, d)
+    torch.cuda.synchronize()
+    for k in ("image", "weights_sum"):
+        assert bool(torch.isfinite(got[k]).all())
+        torch.testing.assert_close(got[k], ref[k], rtol=PATH_TOL,
+                                   atol=PATH_TOL)
+    assert float((got["depth"] - ref["depth"]).abs().max()) <= DEPTH_MAX
+
+
+def test_sum_after_mlp_runs_the_field_kernel(dev):
+    """sum_after_mlp on the card: the final level's field through run_tmlp
+    (the proposal nets' two launches and the field's), no composite
+    launch, then the per-sample view MLP and the composite as plain ops;
+    the frame against the plain path at PATH_TOL, depth within
+    DEPTH_MAX."""
+    from sanerf_tpu_torch.config import ModelConfig, RenderConfig
+    from sanerf_tpu_torch.models import fields, renderer
+
+    mc = ModelConfig(sum_after_mlp=True)
+    model = fields.make_model(mc, RenderConfig())
+    plain = fields.make_model(mc, RenderConfig(use_fused_mlp=False))
+    assert renderer.uses_kernels(model)
+    g = torch.Generator().manual_seed(8)
+    params = fields.init_params(model, g, dev)
+    n = 1024
+    o = torch.randn(n, 3, generator=g).mul(0.1).add(
+        torch.tensor([0.0, 0.0, 2.0])).to(dev)
+    d = torch.randn(n, 3, generator=g).mul(0.2).add(
+        torch.tensor([0.0, 0.0, -1.0])).to(dev)
+    before = (fm.run_tmlp.launches, fm.run_tmlp_composite.launches)
+    got = renderer.run_rays(model, params, o, d)
+    assert (fm.run_tmlp.launches - before[0],
+            fm.run_tmlp_composite.launches - before[1]) == (3, 0)
+    ref = renderer.run_rays(plain, params, o, d)
+    torch.cuda.synchronize()
+    for k in ("image", "weights_sum"):
+        torch.testing.assert_close(got[k], ref[k], rtol=PATH_TOL,
+                                   atol=PATH_TOL)
+    assert float((got["depth"] - ref["depth"]).abs().max()) <= DEPTH_MAX

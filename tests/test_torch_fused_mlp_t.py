@@ -477,6 +477,51 @@ def test_plain_f64_in_slices_is_the_whole_float64_plain_version(q):
                           rtol=1e-12, atol=1e-12)
 
 
+@pytest.mark.parametrize("name", ["ray_level0", "ray_level", "run_tmlp",
+                                  "run_tmlp_composite"])
+def test_plain_in_slices_is_the_whole_plain_version(name):
+    """chip_smoke.plain_in_slices (a launch's plain version run on slices
+    of its rays, the outputs put together, as chip_smoke holds the 512^2
+    frames' whole launches) gives the plain version of the whole launch:
+    the ray kernels' bit for bit, the field's within float32 rounding."""
+    from sanerf_tpu_torch.ops import ray_kernels as trk
+
+    cs = _chip_smoke()
+    N, T = 23, 8
+    r8 = _t(_rays8(N, seed=31))
+    if name == "ray_level0":
+        plain, a, k = trk.ray_level0_plain, (r8, T, True), {
+            "jitter": _t(np.random.default_rng(32).uniform(
+                -0.5, 0.5, (N, T + 1)) / T)}
+    elif name == "ray_level":
+        bins = trk.ray_level0_plain(r8, T, True)[0]
+        w = _t(np.random.default_rng(33).uniform(0.0, 1.0, (N, T)))
+        plain, a, k = trk.ray_level_plain, (r8, w, bins, 12, True), {}
+    else:
+        layers, cfg = _field_net(width=32, depth=3)
+        _, view, _ = _default_field()
+        tm, vm = _tm(layers, cfg), tfm.ViewMLP(_to_torch(view), 16, 4)
+        xt = torch.from_numpy(_points(N * T * 64, seed=34).T.copy())
+        if name == "run_tmlp":
+            plain, a, k = (lambda x, tm_, transposed: tfm.run_tmlp_plain(
+                x, tm_)), (xt, tm), {"transposed": True}
+        else:
+            dl = _t(np.random.default_rng(35).uniform(0.05, 0.3, (N, T)))
+            plain = tfm.run_tmlp_composite_plain
+            a = (xt[:, :N * T].contiguous(), dl, torch.cumsum(dl, 1), tm)
+            k = {"opaque": True, "view": vm, "rays8": r8}
+    whole = plain(*a, **k)
+    whole = whole if isinstance(whole, tuple) else (whole,)
+    got = cs.plain_in_slices(plain, name, a, k, rays=5)
+    assert len(got) == len(whole)
+    for g, w in zip(got, whole):
+        assert g.shape == w.shape
+        if name.startswith("ray"):
+            assert torch.equal(g, w)
+        else:
+            assert torch.allclose(g, w, rtol=1e-6, atol=1e-6)
+
+
 @pytest.fixture(scope="module")
 def asset_launches():
     """The field launches of a 32^2 (32, 16) frame of the shipped asset

@@ -223,8 +223,10 @@ def test_run_tmlp_composite_plain_matches_jax(name, opaque):
 
 def test_grid_descriptor_and_packing():
     """The encoding width and the kernel's grid descriptor: fixed slots of
-    MAX_GRID_LEVELS levels, each level's (R, K) / (R, Rl, K), affine and
-    table address in its slot, empty slots and absent tables zero."""
+    INLINE_LEVELS levels, each level's (R, K) / (R, Rl, K), affine and
+    table address in its slot, empty slots and absent tables zero; a
+    ladder's levels past the slots in an array in device memory
+    (TransposedFieldMLP.grid_levels), in order."""
     import ctypes
 
     _, _, tm = _field("sigma")
@@ -232,12 +234,13 @@ def test_grid_descriptor_and_packing():
     flat, desc = tm.packed(torch.device("cpu"))
     assert desc[4] == 48  # ke: 27 + 14 -> 48
     g = tfm.grids_of(tm)
-    assert (g.n_cp, g.n_vm) == (1, 1)
+    assert (g.n_cp, g.n_vm, g.n_cp_more, g.n_vm_more) == (1, 1, 0, 0)
+    assert g.cp_more is None and g.vm_more is None
     assert (g.cp[0].table, g.cp[0].R, g.cp[0].K) == (tm.cp[0].data_ptr(),
                                                      16, 8)
     assert (g.cp[0].s, g.cp[0].o) == tfm._scale_off(16, BOUND)
     assert not any(g.cp[i].table or g.vm[i].planes
-                   for i in range(1, tfm.MAX_GRID_LEVELS))
+                   for i in range(1, tfm.INLINE_LEVELS))
     v = g.vm[0]
     assert (v.planes, v.lines, v.R, v.Rl, v.K) == (
         tm.vm[0][0].data_ptr(), tm.vm[0][1].data_ptr(), 8, 8, 2)
@@ -246,13 +249,44 @@ def test_grid_descriptor_and_packing():
         tm.svm[1].data_ptr(), 16, 16, 3)
     assert (g.svm.s, g.svm.o, g.svm.sl, g.svm.ol) == (
         *tfm._scale_off(16, BOUND), *tfm._scale_off(16, BOUND))
-    # the C struct's layout: 8 B of counts, 24 B a CP and 48 B a VM level
-    assert ctypes.sizeof(tfm.Grids) == 8 + 24 * 9 + 48 * 9
+    # the C struct's layout: 8 B of counts, 24 B a CP and 48 B a VM level,
+    # then the counts and addresses of the levels past the slots
+    assert ctypes.sizeof(tfm.Grids) == 8 + 24 * 9 + 48 * 9 + 8 + 16
     _, _, no_sigma = _field("vm_rl")
     g = tfm.grids_of(no_sigma)
     assert g.scp.table is None and g.svm.planes is None and g.n_cp == 0
     assert tm.table_bytes == 4 * (3 * 16 * 8 + 3 * (64 + 8) * 2 + 3 * 24 * 6
                                   + 3 * (256 + 16) * 3)
+    # ladders of 11 CP and 10 VM levels: 8 of each in the slots, the rest
+    # in device memory, CP then VM
+    cps = [torch.randn(3, 4 + i, 2) for i in range(11)]
+    vms = [(torch.randn(3, 4 + i, 4 + i, 1), torch.randn(3, 5 + i, 1))
+           for i in range(10)]
+    kc = 2 * 11 + 3 * 10
+    ladder = tfm.TransposedFieldMLP(
+        [{"w": torch.zeros(27 + kc, 16)}], 4, BOUND,
+        cp_lines=cps, vm_planes=[p for p, _ in vms],
+        vm_lines=[l for _, l in vms])
+    g = tfm.grids_of(ladder, torch.device("cpu"))
+    assert (g.n_cp, g.n_vm, g.n_cp_more, g.n_vm_more) == (8, 8, 3, 2)
+    assert [g.cp[i].R for i in range(8)] == list(range(4, 12))
+    levels = ladder.grid_levels(torch.device("cpu"))
+    assert g.cp_more == levels.data_ptr()
+    assert g.vm_more == g.cp_more + 3 * ctypes.sizeof(tfm._Grid)
+    raw = bytes(levels.numpy())
+    assert len(raw) == 3 * ctypes.sizeof(tfm._Grid) + 2 * ctypes.sizeof(
+        tfm._VMGrid)
+    for i in range(3):
+        c = tfm._Grid.from_buffer_copy(raw, i * ctypes.sizeof(tfm._Grid))
+        assert (c.table, c.R, c.K) == (cps[8 + i].data_ptr(), 12 + i, 2)
+        assert (c.s, c.o) == tfm._scale_off(12 + i, BOUND)
+    for i in range(2):
+        v = tfm._VMGrid.from_buffer_copy(
+            raw, 3 * ctypes.sizeof(tfm._Grid)
+            + i * ctypes.sizeof(tfm._VMGrid))
+        assert (v.planes, v.lines, v.R, v.Rl, v.K) == (
+            vms[8 + i][0].data_ptr(), vms[8 + i][1].data_ptr(), 12 + i,
+            13 + i, 1)
 
 
 @pytest.mark.parametrize("name", sorted(GRIDS))

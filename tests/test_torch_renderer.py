@@ -178,10 +178,11 @@ def test_render_frame_and_staged_chunking():
     assert float((out["image"][:8] - out["image"][8:]).abs().max()) > 1e-6
 
 
-def test_fast_path_refuses_oversized_tables(monkeypatch):
+def test_fast_path_refuses_oversized_tables():
     """Grid tables over RenderConfig.grid_vmem_budget send the model to the
     plain path (the same frame, bit for bit), as in the JAX package; the
-    kernels' own guard, TABLE_BYTES_LIMIT, still raises."""
+    kernels themselves take tables of any size (read from device memory),
+    so a budget raised past them puts the model back on the kernels."""
     from sanerf_tpu_torch.ops import fused_mlp_t
 
     jm, tm, jp, tp = _asset((16, 4))
@@ -197,10 +198,12 @@ def test_fast_path_refuses_oversized_tables(monkeypatch):
                                                                     o, d)
     for k in KEYS:
         assert torch.equal(got[k], ref[k]), k
-    monkeypatch.setattr(fused_mlp_t, "TABLE_BYTES_LIMIT", -1)
-    nets = fields.KernelNets(tm, tp)
-    with pytest.raises(NotImplementedError, match="limit"):
-        fused_mlp_t._net_args(nets.field, torch.device("cpu"))
+    raised = dataclasses.replace(tm, render_cfg=dataclasses.replace(
+        tm.render_cfg, grid_vmem_budget=2 ** 27))
+    assert renderer.uses_kernels(raised)
+    nets = fields.KernelNets(raised, tp)
+    assert fused_mlp_t.kernel_plan(nets.field).total > 0
+    assert fused_mlp_t.kernel_plan(nets.field, 4, nets.view).total > 0
 
 
 def test_flatten_kernel_frame_is_identical():
