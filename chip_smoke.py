@@ -129,8 +129,11 @@ Phases (any failure exits non-zero and prints no result line):
      512^2 RGB frames at (32, 16) and (128, 64, 32) in bf16 and float32,
      counted, every launch held (bf16 at GRID_TOL, float32 at MLP_F32_TOL
      and F32_FAITHFUL) and timed; a 64^2 frame against the JAX package's
-     values (JAX_WIDE, 2e-3); Trainer.train for 2 epochs of 4 steps, its
-     float32 evaluation frame's launches counted and held;
+     values (JAX_WIDE, 2e-3); the FEAT_HW^2-ray feature render of a 512^2
+     interactive frame of that field with a seeded SAM head at both
+     hierarchies, bf16 (its width-256 run_tmlp launch: counted, held,
+     timed); Trainer.train for 2 epochs of 4 steps, its float32
+     evaluation frame's launches counted and held;
  B3. the asset's field with seeded biases, and its chain over the Fourier
      features with the dense-sin encode, through the (32, 16) frame's
      render_frame (counted) and at its level-0 points, bf16 and float32
@@ -159,14 +162,35 @@ Phases (any failure exits non-zero and prints no result line):
  S.  ModelConfig(sum_after_mlp=True)'s 64^2 frame: the final level's field
      through run_tmlp (launch counts 1 / 2 / 3 / 0), against the plain
      path, its launches held and timed;
+ C.  the CLI (`sanerf_tpu_torch.apps.main.main`, on the card) on scene
+     files it writes from the textured fixture (CLI_SIZE^2, CLI_VIEWS
+     views; port_tools/scene_files.py): a transforms.json scene with PNG
+     images, the same cameras as a binary COLMAP model, per-view
+     `<name>_masks.npy` (the spheres), and a seeded SAM ViT-H state dict in
+     the official key layout (port_tools/sam_weights.py, float32, ~2.5 GB
+     under build/); at ModelConfig()'s full width and `--num_steps 128 64
+     32`, with the counters set to 0 just before each call and read just
+     after: stage 1 (CLI_ITERS; no per-view near/far, so the native ray
+     loader, which must be taken), its validation PSNR rising; `--test`;
+     `--test` on the COLMAP copy (`--data_type mip --enable_cam_center`),
+     its PSNR within CLI_MIP_PSNR_TOL of the llff one; `--with_sam` from
+     the stage-1 checkpoint with the ViT-H teacher (bf16), the feature MSE
+     of the val view after training below SAM_LEARN x before;
+     `--with_mask`, the mIoU after above max(before, MIOU_FLOOR); the
+     handed-off leaves bit for bit the checkpoint's and the heads moved;
+     the four kernels launched in stage 1's, the tests' and stage 2's
+     renders, the three of a per-point head render in stage 3's; finite
+     losses; it/s, seconds and peak memory of each stage and the
+     teacher's 1024^2 forward time (CUDA events), printed beside the card;
  and before phase 3, the asset's served bf16 launches of both 512^2 RGB
      frames digested (port_tools/served_digests.py) and held bit for bit
      to SERVED_DIGESTS;
  19. one {"kernels": [...]} line, one {"frames": ...} line, one
      {"interactive": ...} line, one {"hashgrid": ...} line, one
      {"grids": ...} line, one {"train": ...} line, one {"branches": ...}
-     line, one {"limits": ...} line, the run's wall time {"wall_s": ...},
-     and last {"ok": true, "device": {...}}.
+     line, one {"limits": ...} line, one {"cli": ...} line and its summary
+     lines, the run's wall time {"wall_s": ...}, and last {"ok": true,
+     "device": {...}}.
 Kernel times are CUDA events around launches queued behind a sleep
 kernel (`backlog`), so they are the card's time even where the host's
 wrapper takes longer than the kernel. Needs no network; builds into
@@ -279,6 +303,8 @@ TWO_LEVEL_LAUNCHES = [1, 1, 1, 1]
 #: family, width 256": 63 -> 256 x 7, the skip at 4, -> 16), numpy-seeded
 #: params of port_tools/grid_params.py:make_flat(shapes, GRID_SEED)
 WIDE_MC = {"mlp_field_width": 256}
+#: the interactive frame's feature render: FEAT_HW x FEAT_HW rays
+FEAT_HW = 32
 #: its 64^2 frame, RenderConfig() defaults ((128, 64, 32)), float32 params,
 #: through the JAX package's XLA path on the CPU; from
 #: `JAX_PLATFORMS=cpu python port_tools/jax_wide_reference.py`
@@ -555,6 +581,22 @@ SERVED_DIGESTS = {
 #: JAX_GRID's) at JAX_WIDE_TOL
 LONG_HIERARCHIES = {"128,256": (128, 256), "256,128,64": (256, 128, 64)}
 SLICE_RAYS = 32768
+#: phase C: the CLI (`sanerf_tpu_torch.apps.main.main`) on scene files of
+#: the textured fixture: CLI_VIEWS views of CLI_SIZE^2 (val: view 0), at
+#: ModelConfig()'s full width and `--num_steps 128 64 32`; the iterations
+#: of stage 1, 2 and 3; stage 2's teacher is SAM ViT-H on seeded weights
+#: (port_tools/sam_weights.py, SAM_SEED) written as a float32 .pth
+CLI_SIZE, CLI_VIEWS = 128, 16
+CLI_ARGS = ["--data_type", "llff", "--bound", "4",
+            "--num_steps", "128", "64", "32"]
+CLI_ITERS = {"rgb": 1000, "sam": 90, "mask": 300}
+CLI_SAM_LR = CLI_MASK_LR = "5e-3"
+SAM_SEED = 0
+#: tests/test_stages.py's "learns" bounds: the feature MSE ends below
+#: SAM_LEARN x its first value, the mIoU above max(first, MIOU_FLOOR)
+SAM_LEARN, MIOU_FLOOR = 0.8, 0.6
+#: the COLMAP copy of the scene renders the llff one's PSNR within this
+CLI_MIP_PSNR_TOL = 0.05
 #: the held-out PSNR of the asset at (128, 256), bf16, through the JAX
 #: package's XLA path on the CPU, bench.py:149-170 protocol; from
 #: `JAX_PLATFORMS=cpu python port_tools/jax_psnr_reference.py 128,256`
@@ -1516,6 +1558,9 @@ def main():
                           kern_fn, model_at, rays_o, rays_d, nets, params,
                           params32)
     rows += limits.pop("rows")
+    torch.cuda.empty_cache()
+    with contextlib.redirect_stdout(sys.stderr):  # the trainers' log lines
+        cli = cli_phase(torch, np, dev, card)
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({
@@ -1533,6 +1578,9 @@ def main():
     print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"branches": branches}), flush=True)
     print(json.dumps({"limits": limits}), flush=True)
+    print(json.dumps({"cli": cli}), flush=True)
+    for line in cli["summary"]:
+        print(f"{line} ({card})", flush=True)
     print(json.dumps({"wall_s": time.time() - t_wall}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -2940,6 +2988,7 @@ def branch_phases(torch, np, dev, card, compare, launch_times, kern_fn,
 
     from sanerf_tpu_torch.apps.interactive import InteractiveSession
     from sanerf_tpu_torch.config import Config, ModelConfig, RenderConfig
+    from sanerf_tpu_torch.data.rays import full_frame_rays
     from sanerf_tpu_torch.data.synthetic import SyntheticSphereDataset
     from sanerf_tpu_torch.models import fields, renderer
     from sanerf_tpu_torch.models.asset import (expected_shapes, load_asset,
@@ -2949,6 +2998,7 @@ def branch_phases(torch, np, dev, card, compare, launch_times, kern_fn,
     from sanerf_tpu_torch.ops import ray_kernels as rk
     from sanerf_tpu_torch.train.trainer import Trainer
     from sanerf_tpu_torch.train.tree import leaves_with_paths
+    from sanerf_tpu_torch.utils.camera import fov_to_focal
 
     sys.path.insert(0, os.path.join(ROOT, "port_tools"))
     import grid_params as gp
@@ -3158,6 +3208,45 @@ def branch_phases(torch, np, dev, card, compare, launch_times, kern_fn,
     wide["vs_jax_max_abs_err"] = jax_err
     del out, wn, wn32, pw, pw32
     torch.cuda.empty_cache()
+    # the feature render of a 512^2 interactive frame of the width-256
+    # field with a seeded SAM head: its 32 x 32 rays, where the field's
+    # run_tmlp runs at width 256 (no RGB frame launches it)
+    focal_lr = fov_to_focal(60.0, SIZE) * FEAT_HW / SIZE
+    ro_lr, rd_lr = full_frame_rays(
+        pose, np.asarray([focal_lr, focal_lr, FEAT_HW / 2, FEAT_HW / 2],
+                         np.float32), FEAT_HW, FEAT_HW, device=dev)
+    wide["feature_render"] = {}
+    for h, steps in HIERARCHIES.items():
+        mf = fields.make_model(ModelConfig(**WIDE_MC, with_sam=True),
+                               RenderConfig(num_steps=steps))
+        pf = fields.cast_params(params_from_jax(gp.make_flat(
+            expected_shapes(mf), GRID_SEED), mf, dev), torch.bfloat16)
+        fnets = fields.KernelNets(mf, pf)
+        key = f"w256 feature {h} bf16"
+        zero()
+        fcalls = spied(lambda: renderer.run_rays(
+            mf, pf, ro_lr, rd_lr, return_feats=True, nets=fnets))
+        n = [c.launches for c in counters]
+        zero()
+        renderer.run_rays(mf, pf, ro_lr, rd_lr, return_feats=True,
+                          nets=fnets)
+        torch.cuda.synchronize()
+        check([c.launches for c in counters] == n and n[2] > 0,
+              f"{key}: launches {n}")
+        widths = [max(w.shape[1] for w in field_of("run_tmlp", a).ws)
+                  for a, _ in fcalls["run_tmlp"]]
+        check(max(widths) == 256, f"{key}: no width-256 run_tmlp {widths}")
+        for name, ls in fcalls.items():
+            for a, k in ls:
+                hold(key, name, a, k, None, seeded=True)
+        launch_t[key] = {"run_tmlp": launch_times("run_tmlp",
+                                                  fcalls["run_tmlp"])}
+        wide["feature_render"][h] = {
+            "rays": FEAT_HW * FEAT_HW, "launches": n,
+            "run_tmlp_widths": widths,
+            "run_tmlp_launches": launch_t[key]["run_tmlp"]}
+        del pf, fnets, fcalls
+        torch.cuda.empty_cache()
     # Trainer.train with a float32 evaluation through the kernels
     ws = os.path.join(ROOT, "build", "chip_smoke_wide")
     shutil.rmtree(ws, ignore_errors=True)
@@ -3301,6 +3390,19 @@ def branch_phases(torch, np, dev, card, compare, launch_times, kern_fn,
                         wide["train"]["eval_launches"][KERNELS.index(kern)],
                         "the width-256 Trainer's 64^2 float32 evaluation "
                         "frame"))
+        if kern == "run_tmlp":
+            for h in HIERARCHIES:
+                fr = wide["feature_render"][h]
+                r = row(f"run_tmlp[w256 feature {h}]", kern,
+                        f"w256 feature {h} bf16", fr["launches"][2],
+                        f"the {FEAT_HW} x {FEAT_HW}-ray feature render of a "
+                        f"512^2 interactive frame of the width-256 field "
+                        f"with a SAM head at {h}, bf16; times of its "
+                        f"width-256 (field) launch")
+                lt = fr["run_tmlp_launches"][fr["run_tmlp_widths"].index(256)]
+                r.update({kk: lt[kk] for kk in ("ms", "plain_ms", "bound_ms",
+                                                "bound_by", "shape")})
+                rows.append(r)
         for kind in ("bias", "dense_sin"):
             rows.append(row(
                 f"{kern}[{kind}]", kern, f"asset 32,16 {kind}",
@@ -3678,6 +3780,233 @@ def limit_phases(torch, np, dev, card, compare, launch_times, kern_fn,
     torch.cuda.empty_cache()
     log(f"S sum_after_mlp: {rec['sum_after_mlp']}")
     rec.update(max_abs_err=errs, rows=rows)
+    return rec
+
+
+def cli_phase(torch, np, dev, card):
+    """Phase C: the CLI's three workloads on scene files, end to end
+    (CLI_* settings). -> the {"cli": ...} record; its "summary" lines
+    (it/s of each stage, the teacher's forward time, peak memory) are
+    printed beside the card's name and power limit."""
+    import shutil
+
+    from sanerf_tpu_torch.apps import main as cli
+    from sanerf_tpu_torch.data import native_loader
+    from sanerf_tpu_torch.data.synthetic import SyntheticSphereDataset
+    from sanerf_tpu_torch.models import fields
+    from sanerf_tpu_torch.models.sam import convert as sam_convert
+    from sanerf_tpu_torch.models.sam import image_encoder as ienc
+    from sanerf_tpu_torch.models.sam import predictor as sam_pred
+    from sanerf_tpu_torch.ops import fused_mlp_t as fm
+    from sanerf_tpu_torch.ops import ray_kernels as rk
+    from sanerf_tpu_torch.train.checkpoints import (CheckpointManager,
+                                                    flatten_tree)
+    from sanerf_tpu_torch.train.distill import SamDistillTrainer
+    from sanerf_tpu_torch.train.mask_trainer import MaskTrainer
+
+    sys.path.insert(0, os.path.join(ROOT, "port_tools"))
+    from sam_weights import seeded_state_dict
+    from scene_files import (write_colmap_scene, write_masks,
+                             write_transforms_scene)
+
+    counters = [rk.ray_level0, rk.ray_level, fm.run_tmlp,
+                fm.run_tmlp_composite]
+    base = os.path.join(ROOT, "build", "chip_smoke_cli")
+    shutil.rmtree(base, ignore_errors=True)
+    t0 = time.perf_counter()
+    ds = SyntheticSphereDataset(H=CLI_SIZE, W=CLI_SIZE, n_views=CLI_VIEWS,
+                                scene="textured")
+    scene = write_transforms_scene(ds, os.path.join(base, "scene"))
+    names = [f"r_{i}" for i in range(CLI_VIEWS)]
+    write_masks(scene, "obj_masks", names, (ds.instances >= 2))
+    mip = write_colmap_scene(ds, os.path.join(base, "scene_colmap"),
+                             np.random.default_rng(0).uniform(
+                                 -0.5, 0.5, (64, 3)))
+    sam_path = os.path.join(base, "sam_vit_h_seeded.pth")
+    torch.save(seeded_state_dict(sam_convert.sam_config_for("vit_h"),
+                                 SAM_SEED), sam_path)
+    rec = {"size": CLI_SIZE, "views": CLI_VIEWS, "iters": CLI_ITERS,
+           "sam_ckpt_bytes": os.path.getsize(sam_path),
+           "setup_s": time.perf_counter() - t0}
+    check(native_loader.available(),
+          f"native loader does not build: {native_loader.build_error()}")
+    common = list(CLI_ARGS)
+    seen = {"mask_eval": [], "feat_mse": []}
+
+    def drive(stage, argv):
+        """main(argv) on the card with the counters set to 0 just before
+        and read just after; -> (trainer, record)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters:
+            c.launches = 0
+        t = time.perf_counter()
+        tr = cli.main(argv)
+        torch.cuda.synchronize()
+        r = {"argv": argv, "seconds": time.perf_counter() - t,
+             "launches": dict(zip(KERNELS, [c.launches for c in counters])),
+             "peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+        check(tr.device.type == "cuda", f"{stage}: not on the card")
+        if not argv.count("--test") and os.path.exists(tr.metrics_path):
+            with open(tr.metrics_path) as f:
+                recs = [json.loads(line) for line in f]
+            its = [x["it_per_s"] for x in recs if "it_per_s" in x]
+            losses = [v for x in recs for k, v in x.items()
+                      if k in ("loss", "feat_mse", "mask_loss")]
+            check(all(math.isfinite(v) for v in losses),
+                  f"{stage}: a loss is not finite: {losses}")
+            if its:
+                r["it_per_s"] = statistics.median(its[1:] or its)
+        log(f"C {stage}: {r}")
+        rec[stage] = r
+        return tr
+
+    def frozen_and_moved(stage, tr, ck, heads):
+        """The stage-1 leaves bit for bit as the checkpoint holds them, the
+        heads away from their initial draw."""
+        flat0 = CheckpointManager.load_file(ck)[0]
+        flat = flatten_tree(tr.state.params, "params/")
+        init = flatten_tree(fields.init_params(
+            tr.model, torch.Generator().manual_seed(tr.cfg.seed), dev),
+            "params/")
+        frozen = [k for k in flat0 if k in flat]
+        check(len(frozen) > 0, f"{stage}: nothing handed off")
+        for k in frozen:
+            check(np.array_equal(flat[k], flat0[k]),
+                  f"{stage}: frozen leaf {k} changed")
+        moved = [k for k in flat if k.split("/")[1] in heads]
+        check(moved and all(not np.array_equal(flat[k], init[k])
+                            for k in moved if k.endswith("/w")),
+              f"{stage}: a trained head did not move")
+        rec[stage].update(frozen_leaves=len(frozen), head_leaves=len(moved))
+
+    # -- C1. stage 1 (the native loader: images and no per-view near/far) ---
+    ws1 = os.path.join(base, "ws_rgb")
+    tr1 = drive("rgb", [scene, *common, "--workspace", ws1, "--iters",
+                        str(CLI_ITERS["rgb"]), "--eval_cnt", "4"])
+    with open(tr1.log_path) as f:
+        check("[native loader]" in f.read(), "stage 1: no native loader")
+    psnrs = [r["PSNRMeter"] for r in tr1.stats["results"]]
+    rec["rgb"]["val_psnr"] = psnrs
+    check(len(psnrs) >= 2 and psnrs[-1] > psnrs[0],
+          f"stage 1: validation PSNR {psnrs} did not rise")
+    ck1 = tr1.ckpt_mgr.list_checkpoints()[-1]
+    del tr1
+
+    # -- C2. --test on the scene, and on its COLMAP copy --------------------
+    tr = drive("test", [scene, *common, "--workspace", ws1, "--test"])
+    psnr_test = tr.stats["results"][-1]["PSNRMeter"]
+    check(any(f.endswith("_rgb.png")
+              for f in os.listdir(os.path.join(ws1, "results"))),
+          "--test wrote no frames")
+    tr = drive("test_mip", [mip, *common[2:], "--data_type", "mip",
+                            "--enable_cam_center", "--workspace", ws1,
+                            "--test"])
+    psnr_mip = tr.stats["results"][-1]["PSNRMeter"]
+    rec["test"]["val_psnr"], rec["test_mip"]["val_psnr"] = psnr_test, psnr_mip
+    check(abs(psnr_mip - psnr_test) <= CLI_MIP_PSNR_TOL,
+          f"--data_type mip PSNR {psnr_mip} vs llff {psnr_test}")
+    del tr
+
+    # -- C3. stage 2 from the stage-1 checkpoint, SAM ViT-H teacher ---------
+    orig_train = SamDistillTrainer.train
+
+    def sam_train(self, train_ds, valid_ds=None, *a, **k):
+        seen["feat_mse"].append(self.eval_feature_mse(valid_ds, n_frames=1))
+        out = orig_train(self, train_ds, valid_ds, *a, **k)
+        seen["feat_mse"].append(self.eval_feature_mse(valid_ds, n_frames=1))
+        return out
+
+    SamDistillTrainer.train = sam_train
+    try:
+        tr2 = drive("sam", [scene, *common, "--workspace",
+                            os.path.join(base, "ws_sam"), "--with_sam",
+                            "--init_ckpt", ck1, "--sam_ckpt", sam_path,
+                            "--cache_size", "4", "--cache_interval", "2",
+                            "--iters", str(CLI_ITERS["sam"]),
+                            "--lr", CLI_SAM_LR])
+    finally:
+        SamDistillTrainer.train = orig_train
+    check(tr2.teacher is not None and tr2.cache.full(),
+          "stage 2: no teacher or cache")
+    mse0, mse1 = seen["feat_mse"]
+    rec["sam"]["feat_mse"] = [mse0, mse1]
+    check(math.isfinite(mse1) and mse1 < SAM_LEARN * mse0,
+          f"stage 2: feature MSE {mse0} -> {mse1}")
+    frozen_and_moved("sam", tr2, ck1, ("s_field_mlp", "samvit_mlp",
+                                       "samvit_norm"))
+    # the teacher's 1024^2 forward in bf16 (CUDA events)
+    teacher = tr2.teacher
+    check(all(t.dtype == torch.bfloat16 and t.device.type == "cuda"
+              for t in sam_pred._flatten(teacher.params).values()),
+          "stage 2: the teacher's weights are not bf16 on the card")
+    x = ienc.preprocess(torch.randint(0, 256, (1024, 1024, 3), device=dev,
+                                      dtype=torch.uint8), 1024)
+    with torch.no_grad():
+        feats = sam_pred.encode_image(teacher.cfg, teacher.params, x)
+        torch.cuda.synchronize()
+        check(feats.shape == (1, 64, 64, 256)
+              and bool(torch.isfinite(feats).all()), "teacher features")
+        times = []
+        for _ in range(3):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            sam_pred.encode_image(teacher.cfg, teacher.params, x)
+            b.record()
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(b))
+    rec["sam"]["teacher_forward_ms"] = statistics.median(times)
+    rec["sam"]["teacher_forward_ms_runs"] = times
+    rec["sam"]["teacher_dtype"] = str(teacher.params["image_encoder"][
+        "patch_embed"]["w"].dtype)
+    del tr2, teacher, feats, x
+    torch.cuda.empty_cache()
+
+    # -- C4. stage 3 from the stage-1 checkpoint and the per-view masks -----
+    orig_mtrain, orig_eval = MaskTrainer.train, MaskTrainer.evaluate_mask
+
+    def mask_train(self, train_ds, valid_ds=None, *a, **k):
+        self.evaluate_mask(valid_ds)  # its first value, before training
+        return orig_mtrain(self, train_ds, valid_ds, *a, **k)
+
+    def mask_eval(self, *a, **k):
+        v = orig_eval(self, *a, **k)
+        seen["mask_eval"].append(v)
+        return v
+
+    MaskTrainer.train, MaskTrainer.evaluate_mask = mask_train, mask_eval
+    try:
+        tr3 = drive("mask", [scene, *common, "--workspace",
+                             os.path.join(base, "ws_mask"), "--with_mask",
+                             "--init_ckpt", ck1, "--mask_folder_name",
+                             "obj_masks", "--iters", str(CLI_ITERS["mask"]),
+                             "--lr", CLI_MASK_LR])
+    finally:
+        MaskTrainer.train, MaskTrainer.evaluate_mask = orig_mtrain, orig_eval
+    miou = seen["mask_eval"]
+    rec["mask"]["val_miou"] = miou
+    check(miou[-1] > max(miou[0], MIOU_FLOOR),
+          f"stage 3: mIoU {miou[0]} -> {miou[-1]}")
+    frozen_and_moved("mask", tr3, ck1, ("m_field_mlp", "mask_mlp"))
+    del tr3
+
+    # every kernel of the path ran in the stages' renders: stage 1's and
+    # stage 2's frames all four; stage 3's mask frames the three of a
+    # render with per-point heads (its composite is a plain op)
+    for stage, need in (("rgb", KERNELS), ("test", KERNELS),
+                        ("test_mip", KERNELS), ("sam", KERNELS),
+                        ("mask", KERNELS[:3])):
+        n = rec[stage]["launches"]
+        check(all(n[k] > 0 for k in need),
+              f"{stage}: a kernel was not launched: {n}")
+    rec["summary"] = [
+        f"cli {s}: {rec[s].get('it_per_s', float('nan')):.1f} it/s, "
+        f"{rec[s]['seconds']:.1f} s, peak {rec[s]['peak_gb']:.2f} GiB"
+        for s in ("rgb", "sam", "mask")] + [
+        f"cli teacher: SAM ViT-H 1024^2 forward, bf16 weights, "
+        f"{rec['sam']['teacher_forward_ms']:.1f} ms (CUDA events, median "
+        f"of 3)"]
+    shutil.rmtree(base, ignore_errors=True)
     return rec
 
 

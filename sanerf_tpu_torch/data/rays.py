@@ -1,4 +1,5 @@
-"""Ray generation (JAX: sanerf_tpu/data/rays.py).
+"""Ray generation and the incoherent-region detector (JAX:
+sanerf_tpu/data/rays.py).
 
 Conventions: pixel centers at +0.5; directions x = (i - cx) / fx,
 y = -(j - cy) / fy, z = -1 (OpenGL, not normalized, so composited t is
@@ -14,6 +15,7 @@ import numpy as np
 import torch
 
 from sanerf_tpu_torch.device import resolve_device
+from sanerf_tpu_torch.utils.image import resize
 
 
 @dataclass
@@ -120,3 +122,28 @@ def full_frame_rays(pose: Union[np.ndarray, torch.Tensor],
     rays_d = dirs @ pose[:3, :3].T
     rays_o = pose[:3, 3].expand_as(rays_d).contiguous()
     return rays_o, rays_d
+
+
+def get_incoherent_mask(mask: np.ndarray, sfact: int = 2,
+                        keep_size: bool = True) -> np.ndarray:
+    """Boundary / uncertainty detector (JAX rays.py:154-179): the residual
+    of a bilinear down-up resample by `sfact`, shrunk again, thresholded
+    at 0.01, and (keep_size) grown back by nearest neighbour. mask [H, W]
+    or [H, W, C] float; the resizes are cv2's (utils/image.py)."""
+    squeeze = mask.ndim == 2
+    m = mask.astype(np.float32)
+    if squeeze:
+        m = m[..., None]
+    h, w = m.shape[:2]
+    small = (w // sfact, h // sfact)
+
+    def rs(x, size, how):
+        out = resize(x if x.shape[-1] > 1 else x[..., 0], size, how)
+        return out if out.ndim == 3 else out[..., None]
+
+    recover = rs(rs(m, small, "linear"), (w, h), "linear")
+    uncertain = rs(np.abs(m - recover), small, "linear")
+    uncertain = (uncertain >= 0.01).astype(np.float32)
+    if keep_size:
+        uncertain = rs(uncertain, (w, h), "nearest")
+    return uncertain[..., 0] if squeeze else uncertain

@@ -13,7 +13,7 @@ fixture.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -214,3 +214,39 @@ class SyntheticSphereDataset:
             "H": self.H,
             "W": self.W,
         }
+
+    @property
+    def masks(self) -> np.ndarray:
+        """Instance labels of every pixel (the `_shade` labels)."""
+        return self.instances.astype(np.int64)
+
+    @property
+    def error_map(self):
+        return None
+
+    def collate_sam(self, rng: np.random.Generator,
+                    index: Optional[int] = None) -> Dict:
+        """A stage-2 batch (JAX: synthetic.py:239-256): a view drawn from
+        `rng` (or `index`), all its rays, and the low-res feature rays at
+        SAM's 64-per-1024 scale (at least 4 x 4)."""
+        i = int(rng.integers(0, self.n_views)) if index is None else index
+        rb = sample_rays(self.poses[i], self.intrinsics, self.H, self.W, N=-1)
+        lr = max(4, int(self.H / 1024 * 64))
+        intr_lr = self.intrinsics * (lr / self.H)
+        intr_lr[2:] = lr / 2
+        rb_lr = sample_rays(self.poses[i], intr_lr, lr, lr, N=-1)
+        return {"rays_o": rb.rays_o, "rays_d": rb.rays_d,
+                "rays_o_lr": rb_lr.rays_o, "rays_d_lr": rb_lr.rays_d,
+                "H": self.H, "W": self.W, "h": lr, "w": lr, "index": i}
+
+    def collate_mask(self, rng: np.random.Generator, num_rays: int) -> Dict:
+        """A stage-3 batch (JAX: synthetic.py:258-267): num_rays uniform
+        pixels of a view with their labels."""
+        i = int(rng.integers(0, self.n_views))
+        rb = sample_rays(self.poses[i], self.intrinsics, self.H, self.W,
+                         N=num_rays, rng=rng)
+        return {"rays_o": rb.rays_o, "rays_d": rb.rays_d,
+                "masks": self.masks[i].reshape(-1)[rb.inds],
+                "cam_near_far": self.cam_near_far[i: i + 1],
+                "inds": rb.inds, "inds_coarse": rb.inds_coarse,
+                "index": i, "H": self.H, "W": self.W}

@@ -104,6 +104,30 @@ def conv2d_patches(p: Params, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def conv2d(p: Params, x: torch.Tensor, padding: str = "SAME"
+           ) -> torch.Tensor:
+    """Stride-1 conv on [B, H, W, C] channels-last with HWIO weights (JAX
+    common.conv2d, "VALID" or "SAME" zero padding): one product per kernel
+    tap over the shifted input, in float32 from the input rounded to the
+    weight dtype (no cuDNN, whose float32 convolutions run in TF32 by
+    default)."""
+    k = p["w"].shape[0]
+    xin = _in_weight_dtype(x, p["w"])
+    if padding == "SAME":
+        lo = (k - 1) // 2
+        xin = F.pad(xin, (0, 0, lo, k - 1 - lo, lo, k - 1 - lo))
+    H2, W2 = xin.shape[1] - k + 1, xin.shape[2] - k + 1
+    w = p["w"].float()
+    y = None
+    for i in range(k):
+        for j in range(k):
+            t = xin[:, i:i + H2, j:j + W2] @ w[i, j]
+            y = t if y is None else y + t
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
 def conv_transpose2d(p: Params, x: torch.Tensor, stride: int = 2
                      ) -> torch.Tensor:
     """Transposed conv with kernel == stride on [B, H, W, C]: no output

@@ -6,9 +6,10 @@ predictor.py).
   feature map resized so its longest side is 64 and zero-padded, the click
   coordinates moved to the virtual input size, `decode`, then the masks
   upsampled to the input square, cropped and resized to the frame;
-- `SamPredictor`: the stateful wrapper (`set_features`, `predict`,
-  `predict_batch`, `postprocess`). `set_image` raises: the ViT image
-  encoder is not ported yet.
+- `encode_image`: the ViT image encoder on a normalized input square;
+- `SamPredictor`: the stateful wrapper (`set_image`: resize the longest
+  side to 1024 with cv2's uint8 bilinear (utils/image.py), normalize, pad,
+  encode; `set_features`, `predict`, `predict_batch`, `postprocess`).
 
 Resizes are bilinear with half-pixel centres, as `jax.image.resize`; that
 one antialiases when it shrinks, so a downsample here passes
@@ -25,31 +26,12 @@ import torch
 import torch.nn.functional as F
 
 from sanerf_tpu_torch.device import resolve_device
-from sanerf_tpu_torch.models.sam import common, mask_decoder, prompt_encoder
+from sanerf_tpu_torch.models.sam import (common, image_encoder,
+                                         mask_decoder, prompt_encoder)
+from sanerf_tpu_torch.models.sam.image_encoder import ViTConfig
 from sanerf_tpu_torch.models.sam.mask_decoder import DecoderConfig
 from sanerf_tpu_torch.models.sam.prompt_encoder import PromptConfig
-
-
-@dataclass(frozen=True)
-class ViTConfig:
-    """The image encoder's configuration (ViT-H defaults). The port keeps
-    it for `img_size`, the side of SAM's input square."""
-
-    img_size: int = 1024
-    patch_size: int = 16
-    in_chans: int = 3
-    embed_dim: int = 1280
-    depth: int = 32
-    num_heads: int = 16
-    mlp_ratio: float = 4.0
-    out_chans: int = 256
-    window_size: int = 14
-    global_attn_indexes: Tuple[int, ...] = (7, 15, 23, 31)
-    use_rel_pos: bool = True
-
-    @property
-    def grid(self) -> int:
-        return self.img_size // self.patch_size
+from sanerf_tpu_torch.utils.image import resize as resize_image
 
 
 @dataclass(frozen=True)
@@ -61,11 +43,14 @@ class SamConfig:
 
 
 def init_params(cfg: SamConfig, generator: torch.Generator,
-                device=None) -> dict:
-    """Random prompt encoder and mask decoder (no image encoder), float32,
-    drawn on the CPU from `generator` and moved to `device`."""
+                device=None, with_encoder: bool = False) -> dict:
+    """Random prompt encoder and mask decoder (and, with `with_encoder`,
+    the ViT image encoder), float32, drawn on the CPU from `generator` and
+    moved to `device`."""
     p = {"prompt_encoder": prompt_encoder.init_params(cfg.prompt, generator),
          "mask_decoder": mask_decoder.init_params(cfg.decoder, generator)}
+    if with_encoder:
+        p["image_encoder"] = image_encoder.init_params(cfg.vit, generator)
     return p if device is None else _map(p, lambda t: t.to(device))
 
 
@@ -102,13 +87,15 @@ def params_from_jax(flat: Dict[str, np.ndarray], cfg: SamConfig,
                     device=None) -> dict:
     """A JAX SAM parameter tree, flattened to numpy under 'a/b/0/c' path
     keys, -> the port's tree (float32 tensors on `device`, CPU by default).
-    Keys under `image_encoder/` are skipped (the encoder is not ported).
-    Raises ValueError on any other key the port does not hold, on a shape
-    that differs, and on a missing key."""
+    The image encoder is mapped when `flat` holds it. Raises ValueError on
+    a key the port does not hold, on a shape that differs, and on a
+    missing key."""
     dev = torch.device("cpu") if device is None else resolve_device(device)
-    tmpl = init_params(cfg, torch.Generator().manual_seed(0))
+    tmpl = init_params(cfg, torch.Generator().manual_seed(0),
+                       with_encoder=any(k.startswith("image_encoder/")
+                                        for k in flat))
     want = {k: tuple(v.shape) for k, v in _flatten(tmpl).items()}
-    got = {k: v for k, v in flat.items() if not k.startswith("image_encoder/")}
+    got = dict(flat)
     bad = sorted(k for k, v in got.items()
                  if want.get(k) != tuple(np.shape(v)))
     if bad:
@@ -145,6 +132,14 @@ def _inject(cfg: SamConfig, feats: torch.Tensor):
     f = resize_bilinear(feats.permute(2, 0, 1), (nh, nw)).permute(1, 2, 0)
     f = F.pad(f, (0, 0, 0, grid - nw, 0, grid - nh))
     return f[None], (nh, nw)
+
+
+def encode_image(cfg: SamConfig, params, x: torch.Tensor) -> torch.Tensor:
+    """[1, 1024, 1024, 3] normalized -> [1, 64, 64, 256]."""
+    if "image_encoder" not in params:
+        raise ValueError("these SAM params hold no image_encoder (a decoder "
+                         "for rendered features); set_image needs one")
+    return image_encoder.encode(cfg.vit, params["image_encoder"], x)
 
 
 def decode(cfg: SamConfig, params, features: torch.Tensor,
@@ -207,10 +202,22 @@ class SamPredictor:
         self.original_size: Optional[Tuple[int, int]] = None
         self.input_size: Optional[Tuple[int, int]] = None
 
+    @torch.no_grad()
     def set_image(self, image: np.ndarray):
-        raise NotImplementedError(
-            "the SAM ViT image encoder is not in the port yet; use "
-            "set_features with a rendered feature map")
+        """image [H, W, 3] uint8 RGB: its longest side resized to
+        img_size (cv2's uint8 bilinear), normalized, zero-padded, encoded;
+        `features` [1, 64, 64, 256]."""
+        h, w = image.shape[:2]
+        target = self.cfg.vit.img_size
+        scale = target / max(h, w)
+        nh, nw = int(round(h * scale)), int(round(w * scale))
+        resized = resize_image(np.ascontiguousarray(image, np.uint8),
+                               (nw, nh), "linear")
+        x = image_encoder.preprocess(
+            torch.from_numpy(resized).to(self.device), target)
+        self.features = encode_image(self.cfg, self.params, x)
+        self.original_size = (h, w)
+        self.input_size = (nh, nw)
 
     def set_features(self, feats, H: int, W: int):
         """feats [h, w, C]: the rendered feature map of an H x W frame,
@@ -233,7 +240,7 @@ class SamPredictor:
     def _decode(self, coords: np.ndarray, labels: np.ndarray,
                 multimask_output: bool):
         if self.features is None:
-            raise RuntimeError("call set_features first")
+            raise RuntimeError("call set_image or set_features first")
         return decode(self.cfg, self.params, self.features,
                       torch.as_tensor(coords, device=self.device),
                       torch.as_tensor(np.asarray(labels, np.int64),

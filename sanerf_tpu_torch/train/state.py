@@ -273,20 +273,16 @@ def step_inputs(model: NerfModel, cfg: TrainConfig, step: int,
     return gt_rgb, bg, enc_alpha
 
 
-def loss_and_grads(model: NerfModel, cfg: TrainConfig, params: Params,
-                   batch: Dict[str, torch.Tensor], draws: StepDraws,
-                   step: int, update_proposal: bool,
-                   trainable: Optional[Params] = None):
-    """-> (loss, aux, grads): autograd's gradient of rgb_loss_fn at
-    `params` for every trainable leaf (zeros where the loss does not reach
-    it, None at frozen leaves)."""
+def value_and_grads(loss_fn, params: Params,
+                    trainable: Optional[Params] = None):
+    """-> (loss, aux, grads) of `loss_fn(params) -> (loss, aux)`:
+    autograd's gradient at every trainable leaf (zeros where the loss does
+    not reach it, None at frozen leaves)."""
     on = all_trainable(params) if trainable is None else trainable
     live = map_with_path(
         lambda _, p, t: p.detach().requires_grad_(True) if t else p,
         params, on)
-    gt_rgb, bg, enc_alpha = step_inputs(model, cfg, step, batch, draws)
-    loss, aux = rgb_loss_fn(model, cfg, live, batch, gt_rgb, bg,
-                            draws.jitter, update_proposal, enc_alpha)
+    loss, aux = loss_fn(live)
     req = [(k, p) for k, p in leaves_with_paths(live) if p.requires_grad]
     got = dict(zip((k for k, _ in req), torch.autograd.grad(
         loss, [p for _, p in req], allow_unused=True)))
@@ -300,6 +296,27 @@ def loss_and_grads(model: NerfModel, cfg: TrainConfig, params: Params,
     return loss.detach(), aux, map_with_path(grad_of, live, on)
 
 
+def loss_and_grads(model: NerfModel, cfg: TrainConfig, params: Params,
+                   batch: Dict[str, torch.Tensor], draws: StepDraws,
+                   step: int, update_proposal: bool,
+                   trainable: Optional[Params] = None):
+    """-> (loss, aux, grads) of rgb_loss_fn at `params` (value_and_grads)."""
+    gt_rgb, bg, enc_alpha = step_inputs(model, cfg, step, batch, draws)
+    return value_and_grads(
+        lambda p: rgb_loss_fn(model, cfg, p, batch, gt_rgb, bg,
+                              draws.jitter, update_proposal, enc_alpha),
+        params, trainable)
+
+
+def apply_update(cfg: TrainConfig, opt: Optimizer, state: TrainState,
+                 grads: Params) -> TrainState:
+    """The optimizer on `grads`, then the EMA; the step goes on by one."""
+    params, opt_state = opt.update(grads, state.opt_state, state.params)
+    with torch.no_grad():
+        ema = _ema_update(state.ema_params, params, cfg.ema_decay)
+    return TrainState(params, ema, opt_state, state.step + 1)
+
+
 def rgb_step_body(model: NerfModel, cfg: TrainConfig, opt: Optimizer,
                   state: TrainState, batch: Dict[str, torch.Tensor],
                   draws: StepDraws, update_proposal: bool = True
@@ -311,11 +328,8 @@ def rgb_step_body(model: NerfModel, cfg: TrainConfig, opt: Optimizer,
                                    opt.trainable)
     grads = _apply_regularizer_grads(model, cfg, state.params, grads,
                                      draws.tv_points)
-    params, opt_state = opt.update(grads, state.opt_state, state.params)
-    with torch.no_grad():
-        ema = _ema_update(state.ema_params, params, cfg.ema_decay)
     aux["lr"] = lr_schedule(cfg, state.step)
-    return TrainState(params, ema, opt_state, state.step + 1), aux
+    return apply_update(cfg, opt, state, grads), aux
 
 
 def make_rgb_train_step(model: NerfModel, cfg: TrainConfig,

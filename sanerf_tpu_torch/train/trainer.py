@@ -10,9 +10,11 @@ opt-in), evaluates each `eval_interval` epochs with the EMA weights through
 float32), saves checkpoints on the `save_interval` cadence, resamples the
 factorized tables on the `grid_upsample_steps` schedule, and restores by
 mode (`latest | latest_model | best | scratch | <path>`). Training itself
-runs the plain path with autograd. Not in the port yet: `n_devices > 1`
-(data parallel) and the native ray loader, which a dataset of images
-without per-view near/far would take; both raise.
+runs the plain path with autograd. A dataset of images without per-view
+near/far draws its batches from the native ray loader
+(data/native_loader.py), or, where it does not build, from its numpy
+collate (logged). Not in the port yet: `n_devices > 1` (data parallel,
+ROADMAP A6) raises.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import numpy as np
 import torch
 
 from sanerf_tpu_torch.config import Config
+from sanerf_tpu_torch.data.native_loader import NativeRaySampler
 from sanerf_tpu_torch.data.rays import full_frame_rays
 from sanerf_tpu_torch.device import resolve_device
 from sanerf_tpu_torch.models import fields, renderer
@@ -46,7 +49,8 @@ class Trainer:
                  init_params=None, device=None):
         if cfg.train.n_devices > 1:
             raise NotImplementedError(
-                "n_devices > 1: data-parallel training is not in the port")
+                "n_devices > 1: data-parallel training is not in the port "
+                "(ROADMAP.md, A6)")
         self.name = name
         self.cfg = cfg
         self.model = model
@@ -144,16 +148,23 @@ class Trainer:
         save_interval = max(1, max_epoch // max(1, tc.save_cnt))
         num_rays = state_lib.adaptive_num_rays(
             tc, self.cfg.render.num_steps[-1])
+        sampler, native = train_dataset, None
         if (tc.use_native_loader
                 and getattr(train_dataset, "images", None) is not None
                 and getattr(train_dataset, "cam_near_far", None) is None):
-            raise NotImplementedError(
-                "use_native_loader: the native ray loader (a dataset of "
-                "images without per-view near/far) is not in the port; set "
-                "use_native_loader=False")
+            try:
+                native = NativeRaySampler(
+                    train_dataset.poses, train_dataset.intrinsics,
+                    train_dataset.images, num_rays, seed=self.cfg.seed,
+                    prefetch_depth=6, n_threads=4)
+                sampler = native
+            except Exception as e:  # no toolchain: the numpy collate
+                self.log(f"[INFO] native loader unavailable ({e}); using "
+                         "numpy collate")
         self.log(f"[INFO] train: {max_epoch} epochs x {steps_per_epoch} "
                  f"steps, num_rays={num_rays}, eval every {eval_interval}, "
-                 f"save every {save_interval}")
+                 f"save every {save_interval}"
+                 + (" [native loader]" if native else ""))
         self._maybe_resize_grids()
         for _ in range(self.epoch, max_epoch):
             self.epoch += 1
@@ -162,8 +173,8 @@ class Trainer:
             acc, last = None, None
             for _ in range(steps_per_epoch):
                 self.global_step += 1
-                batch = self._batch(train_dataset.collate_train(self.rng,
-                                                                num_rays))
+                batch = self._batch(sampler.collate_train(self.rng,
+                                                          num_rays))
                 draws = state_lib.draw_step(self.model, tc, num_rays,
                                             self.generator, self.device)
                 up = state_lib.update_proposal_now(tc, self.global_step)
@@ -187,6 +198,8 @@ class Trainer:
                 self.evaluate_one_epoch(valid_dataset)
             if self.epoch % save_interval == 0:
                 self.save_checkpoint(full=True)
+        if native is not None:
+            native.close()
         self.save_checkpoint(full=True)
 
     def _maybe_resize_grids(self):
@@ -381,9 +394,10 @@ def render_mask_visualization(rgb: np.ndarray, logits: np.ndarray,
 
 
 def save_png(path: str, img: np.ndarray) -> None:
-    """An [H, W, 3] image in [0, 1] as an 8-bit RGB PNG (zlib, no imaging
-    package)."""
-    a = (np.clip(img, 0, 1) * 255).astype(np.uint8)
+    """An [H, W, 3] image, float in [0, 1] or uint8, as an 8-bit RGB PNG
+    (zlib, no imaging package)."""
+    a = (img if img.dtype == np.uint8
+         else (np.clip(img, 0, 1) * 255).astype(np.uint8))
     H, W = a.shape[:2]
     raw = b"".join(b"\x00" + a[r].tobytes() for r in range(H))
 

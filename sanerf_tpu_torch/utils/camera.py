@@ -1,8 +1,12 @@
-"""Camera/pose math (numpy), the parts of sanerf_tpu/utils/camera.py the
-port uses. cam2world matrices follow the OpenGL convention (x right, y up,
-camera looks along -z)."""
+"""Camera/pose math (numpy; JAX package: sanerf_tpu/utils/camera.py, all
+but the GUI's orbit camera). cam2world matrices follow the OpenGL
+convention (x right, y up, camera looks along -z); the dataset pipeline
+flips COLMAP's (OpenCV) cameras into it, centres and scales the scene; the
+test trajectories are a circle or a slerp through train poses."""
 
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -38,3 +42,99 @@ def circle_poses(radius: float = 2.0, height: float = 0.0, n: int = 100,
 
 def fov_to_focal(fov_deg: float, pixels: int) -> float:
     return 0.5 * pixels / np.tan(0.5 * np.deg2rad(fov_deg))
+
+
+def nerf_matrix_to_ngp(pose: np.ndarray, scale: float = 1.0,
+                       offset=(0.0, 0.0, 0.0)) -> np.ndarray:
+    """COLMAP/NeRF (OpenCV-ish) c2w -> the renderer's OpenGL convention with
+    scene scale/offset applied (colmap_provider.py:28-36 semantics: flip y/z
+    columns, scale+offset translation)."""
+    out = pose.astype(np.float32).copy()
+    out[:3, 1] *= -1
+    out[:3, 2] *= -1
+    out[:3, 3] = out[:3, 3] * scale + np.asarray(offset, np.float32)
+    return out
+
+
+def center_poses(poses: np.ndarray, pts3d: Optional[np.ndarray] = None,
+                 enable_cam_center: bool = False) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+    """Recenter the scene at the camera/point centroid
+    (colmap_provider.py:50-74): subtract the centroid from all camera
+    positions (and sparse points when given)."""
+    if pts3d is None or enable_cam_center:
+        center = poses[:, :3, 3].mean(0)
+    else:
+        center = pts3d.mean(0)
+    poses = poses.copy()
+    poses[:, :3, 3] -= center
+    if pts3d is not None:
+        pts3d = pts3d - center
+    return poses, pts3d
+
+
+def auto_scale_poses(poses: np.ndarray, pts3d: Optional[np.ndarray] = None
+                     ) -> Tuple[np.ndarray, Optional[np.ndarray], float]:
+    """Scale camera positions to fit a unit-ish radius
+    (colmap_provider.py:528-533: scale = 1 / max |t|)."""
+    radius = np.abs(poses[:, :3, 3]).max()
+    scale = 1.0 / max(radius, 1e-8)
+    poses = poses.copy()
+    poses[:, :3, 3] *= scale
+    if pts3d is not None:
+        pts3d = pts3d * scale
+    return poses, pts3d, scale
+
+
+def slerp_quat(q0: np.ndarray, q1: np.ndarray, t: float) -> np.ndarray:
+    d = float(np.dot(q0, q1))
+    if d < 0:
+        q1, d = -q1, -d
+    if d > 0.9995:
+        return normalize(q0 + t * (q1 - q0))
+    th = np.arccos(np.clip(d, -1, 1))
+    return (np.sin((1 - t) * th) * q0 + np.sin(t * th) * q1) / np.sin(th)
+
+
+def rotmat_to_quat(R: np.ndarray) -> np.ndarray:
+    w = np.sqrt(max(0.0, 1 + R[0, 0] + R[1, 1] + R[2, 2])) / 2
+    if w < 1e-8:
+        # fall back via largest diagonal
+        i = int(np.argmax([R[0, 0], R[1, 1], R[2, 2]]))
+        j, k = (i + 1) % 3, (i + 2) % 3
+        s = np.sqrt(max(1e-12, 1 + R[i, i] - R[j, j] - R[k, k])) * 2
+        q = np.zeros(4)
+        q[0] = (R[k, j] - R[j, k]) / s
+        q[1 + i] = s / 4
+        q[1 + j] = (R[j, i] + R[i, j]) / s
+        q[1 + k] = (R[k, i] + R[i, k]) / s
+        return normalize(q)
+    return normalize(
+        np.array([w, (R[2, 1] - R[1, 2]) / (4 * w), (R[0, 2] - R[2, 0]) / (4 * w),
+                  (R[1, 0] - R[0, 1]) / (4 * w)])
+    )
+
+
+def quat_to_rotmat(q: np.ndarray) -> np.ndarray:
+    w, x, y, z = q
+    return np.array(
+        [
+            [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+            [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+            [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+        ],
+        np.float32,
+    )
+
+
+def interp_poses(anchors: np.ndarray, n_per_segment: int = 20) -> np.ndarray:
+    """Slerp+lerp interpolated trajectory through anchor poses
+    (colmap_provider.py:639-654)."""
+    out = []
+    for a, b in zip(anchors[:-1], anchors[1:]):
+        qa, qb = rotmat_to_quat(a[:3, :3]), rotmat_to_quat(b[:3, :3])
+        for t in np.linspace(0, 1, n_per_segment, endpoint=False):
+            pose = np.eye(4, dtype=np.float32)
+            pose[:3, :3] = quat_to_rotmat(slerp_quat(qa, qb, float(t)))
+            pose[:3, 3] = (1 - t) * a[:3, 3] + t * b[:3, 3]
+            out.append(pose)
+    return np.stack(out)

@@ -209,19 +209,23 @@ def test_trainer_loop_and_checkpoint_resume(tmp_path):
 def test_trainer_refuses_what_the_port_lacks(tmp_path):
     cfg = _cfg(tmp_path)
     model = fields.make_model(cfg.model, cfg.render)
-    with pytest.raises(NotImplementedError, match="n_devices"):
+    with pytest.raises(NotImplementedError, match="n_devices.*A6"):
         Trainer("t", dataclasses.replace(cfg, train=dataclasses.replace(
             cfg.train, n_devices=2)), model, device="cpu")
     tr = Trainer("t", cfg, model, use_checkpoint="scratch", device="cpu")
 
     class Images:  # images and no per-view near/far: the native loader's
-        images = np.zeros((1, 4, 4, 3), np.float32)
+        ds = SyntheticSphereDataset(H=8, W=8, n_views=2)
+        poses, intrinsics, images = ds.poses, ds.intrinsics, ds.images
 
         def __len__(self):
-            return 1
+            return 2
 
-    with pytest.raises(NotImplementedError, match="native"):
-        tr.train(Images(), max_epoch=1, steps_per_epoch=1)
+    # the native loader is in the port now: such a dataset trains on it
+    tr.train(Images(), max_epoch=1, steps_per_epoch=2)
+    assert tr.global_step == 2
+    with open(tr.log_path) as f:
+        assert "[native loader]" in f.read()
 
 
 def test_trainer_resizes_the_grid_tables(tmp_path):

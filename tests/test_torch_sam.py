@@ -267,8 +267,14 @@ def test_predictor_matches_jax(sam):
     assert mb.shape == ma.shape == (2, 3, 16, 16)
     np.testing.assert_allclose(mb, ma, **DEC_TOL)
     np.testing.assert_allclose(ib, ia, **DEC_TOL)
-    with pytest.raises(NotImplementedError):
-        b.set_image(np.zeros((8, 8, 3), np.uint8))
+    # set_image: the tiny ViT encoder on a non-square uint8 image, at the
+    # encoder's bounds of tests/test_sam_torch_parity.py
+    img = np.random.default_rng(3).integers(0, 256, (12, 20, 3), np.uint8)
+    a.set_image(img)
+    b.set_image(img)
+    assert a.input_size == b.input_size and a.original_size == b.original_size
+    np.testing.assert_allclose(b.features.numpy(), np.asarray(a.features),
+                               rtol=2e-3, atol=2e-4)
 
 
 def test_params_from_jax_checks_every_key(sam):
