@@ -182,6 +182,39 @@ Phases (any failure exits non-zero and prints no result line):
      renders, the three of a per-point head render in stage 3's; finite
      losses; it/s, seconds and peak memory of each stage and the
      teacher's 1024^2 forward time (CUDA events), printed beside the card;
+ D.  the apps on phase C's scene files and workspaces, each part with the
+     counters (and gather_rows') set to 0 just before and read just after:
+     D1 `sam_project.generate_masks` over the CLI_VIEWS views from 3D
+     points on the spheres (APPS_SPHERES), on the stage-2 model's rendered
+     features and, on APPS_TEACHER_VIEWS views, through the seeded ViT-H
+     (`set_image`): valid.json against the occlusion test recomputed on
+     the NeRF's depth, the labels' shapes and values, the feature route's
+     labels against a rerun on the plain path (use_fused_mlp=False) on
+     MASK_AGREE of the pixels, the masks' IoU with the spheres reported (a
+     seeded decoder: not held until SAM's checkpoint ships); D2
+     `evaluation.evaluate_scene` of stage 3's `--test` renders against
+     D1's labels, equal to a numpy recomputation; D3
+     `AutomaticMaskGenerator` at its default grid and crop layers on an
+     AUTO_FEAT^2 rendered feature map (AUTO_HW^2 masks, the score filters
+     off), at least one mask, the same masks (MASK_AGREE of their pixels,
+     scores within BF16_TOL) as the same generator one point a decode, and
+     the batched decode within DEC_TOL of one prompt at a time (float32
+     weights); D4 `main(... --test --gui)`: 10
+     headless 512^2 frames, then a HeadlessViewer with a Trainer and the
+     train split for VIEWER_FRAMES frames (fps; the trainer stepped); D5
+     LangDistillTrainer at D = LANG_DIM from the stage-1 checkpoint with
+     a region teacher, the feature MSE below SAM_LEARN x its first value,
+     a text query's IoU with the region reported, and `python -m
+     sanerf_tpu_torch.apps.open_vocab` with an .npz vocabulary on the
+     stage-2 workspace; D6 `batch.main eval-rgb` on the llff and mip
+     copies; D7 a `--field_type hashgrid` stage 1 (HASH_TEACHER_ITERS),
+     `distill_to_mlp` (DISTILL, DISTILL_STUDENT) with finite, falling
+     losses, the student's frames against the teacher's on the scene's
+     views past the untrained student's by DISTILL_MARGIN_DB, render_psnr
+     past the untrained student's, the teacher's encode on gather_rows,
+     and the
+     student's 512^2 RGB frame at (32, 16) on the four kernels once each,
+     within PATH_TOL of the plain path;
  and before phase 3, the asset's served bf16 launches of both 512^2 RGB
      frames digested (port_tools/served_digests.py) and held bit for bit
      to SERVED_DIGESTS;
@@ -189,8 +222,8 @@ Phases (any failure exits non-zero and prints no result line):
      {"interactive": ...} line, one {"hashgrid": ...} line, one
      {"grids": ...} line, one {"train": ...} line, one {"branches": ...}
      line, one {"limits": ...} line, one {"cli": ...} line and its summary
-     lines, the run's wall time {"wall_s": ...}, and last {"ok": true,
-     "device": {...}}.
+     lines, one {"apps": ...} line and its summary lines, the run's wall
+     time {"wall_s": ...}, and last {"ok": true, "device": {...}}.
 Kernel times are CUDA events around launches queued behind a sleep
 kernel (`backlog`), so they are the card's time even where the host's
 wrapper takes longer than the kernel. Needs no network; builds into
@@ -597,6 +630,48 @@ SAM_SEED = 0
 SAM_LEARN, MIOU_FLOOR = 0.8, 0.6
 #: the COLMAP copy of the scene renders the llff one's PSNR within this
 CLI_MIP_PSNR_TOL = 0.05
+#: phase D: the apps on phase C's workspace and scene files. D1 prompts
+#: SAM with points on the textured scene's three spheres (APPS_SPHERES,
+#: data/synthetic.py:ray_textured_scene), 8 around each at 20 degrees of
+#: elevation and one on top, moved into the provider's frame; the ViT-H
+#: teacher route on the first APPS_TEACHER_VIEWS views
+APPS_SPHERES = (((0.0, 0.0, 0.0), 0.5), ((0.55, -0.15, 0.35), 0.3),
+                ((-0.5, -0.25, -0.3), 0.35))
+APPS_TEACHER_VIEWS = 2
+#: D1: the share of label pixels on which the kernels' run of
+#: generate_masks must agree with the plain path's (tests/test_torch_apps.py
+#: holds the port against JAX at the same share)
+MASK_AGREE = 0.999
+#: D3: the rendered feature map's side, the frame it stands for
+AUTO_FEAT, AUTO_HW = 64, 256
+#: D4: the viewer's frames with a trainer stepping between them
+VIEWER_FRAMES = 4
+#: D5: the language field's width, its epochs x steps, its lr
+LANG_DIM, LANG_EPOCHS, LANG_STEPS, LANG_LR = 512, 4, 30, 1e-2
+#: D7: the hash-grid teacher's stage-1 iterations; distill_to_mlp at full
+#: size but its iterations (8000 by default) cut to DISTILL["iters"]; the
+#: student the shipped asset's architecture (tools/redistill_asset.py:
+#: 40-51). The student's frames against the teacher's on the scene's 16
+#: views must pass the untrained student's PSNR by DISTILL_MARGIN_DB;
+#: render_psnr (distill_to_mlp's orbit at twice the cameras' distance,
+#: which sees the teacher's unconstrained far field) is held at a margin of
+#: 0 dB over the untrained student's: its gain over 23 hash-grid teachers
+#: on an H100 ranged +1.07 to +15.85 dB; on the scene's views (17 of them)
+#: +7.18 to +11.30 (PERF.md, PR 13; port_tools/distill_spread.py)
+HASH_TEACHER_ITERS = 300
+DISTILL = dict(n_points=1 << 22, batch=1 << 15, iters=1024, lr=2e-3)
+DISTILL_STUDENT = dict(cp_rank=64, cp_res=128, sigma_cp_rank=32,
+                       sigma_cp_res=128, width=128, depth=3, prop_width=32,
+                       prop_depth=2)
+DISTILL_MARGIN_DB = 3.0
+#: the decoder's batched decode against its one-prompt decode (float32
+#: weights): tests/test_torch_sam.py's DEC_TOL
+DEC_TOL = 1e-4
+#: D3: the bf16 predictor's scores at 64 against 1 point a decode. Its
+#: products round their inputs to bf16 (models/sam/common.py:
+#: _in_weight_dtype), and a float32 sum whose order follows the batch size
+#: can move one such input by bf16's rounding, 2^-8 of it
+BF16_TOL = 2.0 ** -8
 #: the held-out PSNR of the asset at (128, 256), bf16, through the JAX
 #: package's XLA path on the CPU, bench.py:149-170 protocol; from
 #: `JAX_PLATFORMS=cpu python port_tools/jax_psnr_reference.py 128,256`
@@ -961,6 +1036,27 @@ def heldout_psnr(renderer, model, params, nets, dev, what):
               f"{what}: PSNR frame {idx} not finite or misshapen")
         meter.update(img, fr["images"])
     return meter.measure()
+
+
+def views_psnr(tm, tp, sm, sp, views, dev):
+    """D7 (and port_tools/distill_spread.py): the student's (sm, sp) frames
+    against the teacher's (tm, tp) on the scene's views, render_staged:
+    PSNR of the mean square error."""
+    import numpy as np
+    import torch
+
+    from sanerf_tpu_torch.models import renderer
+
+    mse = []
+    for i in range(len(views)):
+        fr = views.frame(i)
+        ro, rd = (torch.as_tensor(fr[k], device=dev)
+                  for k in ("rays_o", "rays_d"))
+        with torch.no_grad():
+            a, b = (renderer.render_staged(m, p, ro, rd)["image"].float()
+                    for m, p in ((tm, tp), (sm, sp)))
+        mse.append(float(((a - b) ** 2).mean()))
+    return float(-10.0 * np.log10(max(np.mean(mse), 1e-10)))
 
 
 def field_of(name, a):
@@ -1560,7 +1656,9 @@ def main():
     rows += limits.pop("rows")
     torch.cuda.empty_cache()
     with contextlib.redirect_stdout(sys.stderr):  # the trainers' log lines
-        cli = cli_phase(torch, np, dev, card)
+        cli, cli_ctx = cli_phase(torch, np, dev, card)
+        torch.cuda.empty_cache()
+        apps = apps_phase(torch, np, dev, card, cli_ctx, rays_o, rays_d)
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({
@@ -1580,6 +1678,9 @@ def main():
     print(json.dumps({"limits": limits}), flush=True)
     print(json.dumps({"cli": cli}), flush=True)
     for line in cli["summary"]:
+        print(f"{line} ({card})", flush=True)
+    print(json.dumps({"apps": apps}), flush=True)
+    for line in apps["summary"]:
         print(f"{line} ({card})", flush=True)
     print(json.dumps({"wall_s": time.time() - t_wall}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -4006,6 +4107,488 @@ def cli_phase(torch, np, dev, card):
         f"cli teacher: SAM ViT-H 1024^2 forward, bf16 weights, "
         f"{rec['sam']['teacher_forward_ms']:.1f} ms (CUDA events, median "
         f"of 3)"]
+    ctx = {"base": base, "ds": ds, "scene": scene, "mip": mip,
+           "sam_path": sam_path, "ws_rgb": ws1,
+           "ws_sam": os.path.join(base, "ws_sam"),
+           "ws_mask": os.path.join(base, "ws_mask"), "ck1": ck1}
+    return rec, ctx
+
+
+def apps_phase(torch, np, dev, card, ctx, rays_o, rays_d):
+    """Phase D: the apps on phase C's scene files and workspaces (ctx), each
+    part with the counters set to 0 just before and read just after, its
+    seconds and peak memory. -> the {"apps": ...} record; its "summary"
+    lines are printed beside the card's name and power limit. Deletes
+    phase C's directory at the end."""
+    import dataclasses
+    import shutil
+
+    from sanerf_tpu_torch.apps import (auto_generator, batch, evaluation,
+                                       gui, open_vocab, sam_project)
+    from sanerf_tpu_torch.apps import main as cli
+    from sanerf_tpu_torch.apps.interactive import InteractiveSession
+    from sanerf_tpu_torch.data.provider import SceneDataset
+    from sanerf_tpu_torch.models import fields, import_distill, renderer
+    from sanerf_tpu_torch.models.sam import predictor as sam_pred
+    from sanerf_tpu_torch.ops import fused_mlp_t as fm
+    from sanerf_tpu_torch.ops import gather as ga
+    from sanerf_tpu_torch.ops import ray_kernels as rk
+    from sanerf_tpu_torch.train import checkpoints as ckpt_lib
+    from sanerf_tpu_torch.train.trainer import Trainer
+    from sanerf_tpu_torch.utils.image import read_png, resize
+
+    counters = [rk.ray_level0, rk.ray_level, fm.run_tmlp,
+                fm.run_tmlp_composite]
+    base, ds, scene = ctx["base"], ctx["ds"], ctx["scene"]
+    rec = {"card": card}
+
+    @contextlib.contextmanager
+    def part(name):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters:
+            c.launches = 0
+        ga.gather_rows.launches = 0
+        r = rec.setdefault(name, {})
+        t = time.perf_counter()
+        yield r
+        torch.cuda.synchronize()
+        r["seconds"] = time.perf_counter() - t
+        r["peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        r["launches"] = dict(zip(KERNELS, [c.launches for c in counters]))
+        r["launches"]["gather_rows"] = ga.gather_rows.launches
+        log(f"D {name}: {r}")
+
+    def all_four(name):
+        n = rec[name]["launches"]
+        check(all(n[k] > 0 for k in KERNELS),
+              f"D {name}: a kernel was not launched: {n}")
+
+    def cfg_of(argv):
+        return cli.config_from_args(cli.build_parser().parse_args(argv))
+
+    # -- D1. multi-view masks from 3D points: both routes ------------------
+    cfg2 = cfg_of([scene, *CLI_ARGS, "--workspace", ctx["ws_sam"],
+                   "--with_sam", "--sam_ckpt", ctx["sam_path"]])
+    with part("masks") as r:
+        tr2 = Trainer("ngp", cfg2, fields.make_model(cfg2.model, cfg2.render),
+                      workspace=ctx["ws_sam"])
+        check(tr2.global_step > 0, "D1: the stage-2 checkpoint did not load")
+        sam = cli.build_sam_predictor(cfg2)
+        check(sam is not None, "D1: no SAM predictor")
+        views = SceneDataset(cfg2, "all")
+        check(len(views) == CLI_VIEWS, f"D1: {len(views)} views")
+        # the provider centres and scales the cameras: T' = s T + o
+        T, T2 = ds.poses[:, :3, 3], views.poses[:, :3, 3]
+        sc = float(np.sqrt(((T2 - T2.mean(0)) ** 2).sum()
+                           / ((T - T.mean(0)) ** 2).sum()))
+        off = T2.mean(0) - sc * T.mean(0)
+        check(np.abs(sc * T + off - T2).max() < 1e-4,
+              "D1: the provider's cameras are not a scaled copy")
+        el = np.deg2rad(20.0)
+        dirs = [(np.cos(a) * np.cos(el), np.sin(el), np.sin(a) * np.cos(el))
+                for a in np.arange(8) * np.pi / 4] + [(0.0, 1.0, 0.0)]
+        pts = np.asarray([np.asarray(c) + rad * np.asarray(d)
+                          for c, rad in APPS_SPHERES for d in dirs],
+                         np.float32)
+        pts_w = (sc * pts + off).astype(np.float32)
+        out_f = os.path.join(base, "labels_feature")
+        valid = sam_project.generate_masks(cfg2, views, pts_w, sam, out_f,
+                                           trainer=tr2,
+                                           use_nerf_feature=True)
+
+        class First:
+            """The first n views of a dataset."""
+
+            def __init__(self, d, n):
+                self.d, self.n = d, n
+                self.H, self.W, self.intrinsics = d.H, d.W, d.intrinsics
+
+            def __len__(self):
+                return self.n
+
+            def frame(self, i):
+                return self.d.frame(i)
+
+        out_t = os.path.join(base, "labels_teacher")
+        valid_t = sam_project.generate_masks(
+            cfg2, First(views, APPS_TEACHER_VIEWS), pts_w, sam, out_t,
+            trainer=tr2)
+    all_four("masks")
+    with open(os.path.join(out_f, "valid.json")) as f:
+        check(json.load(f) == valid, "D1: valid.json is not what ran")
+    check(list(valid) == views.names, "D1: valid.json's views")
+
+    def visible(depth, pose, intr, p, thr):
+        """At least one prompt point on screen within thr of the depth."""
+        xy, z, on = sam_project.project_to_2d(p, pose, intr, ds.H, ds.W)
+        return bool(sum(on[k] and abs(z[k] - depth[int(xy[k, 1]),
+                                                   int(xy[k, 0])]) <= thr
+                        for k in range(len(p))) >= 1)
+
+    # the occlusion test again on the NeRF's depth (what valid.json must
+    # say), and on the fixture's exact depths (how good that depth is)
+    want, exact = {}, {}
+    for i, name in enumerate(views.names):
+        depth = tr2.render_pose(views.poses[i], views.intrinsics, ds.H,
+                                ds.W)["depth"].reshape(ds.H, ds.W)
+        want[name] = visible(depth, views.poses[i], views.intrinsics, pts_w,
+                             0.05)
+        exact[name] = visible(ds.depths[i], ds.poses[i], ds.intrinsics, pts,
+                              0.05 / sc)
+    r["valid_views"] = sum(valid.values())
+    r["valid_agrees_with_exact_depth"] = sum(valid[n] == exact[n]
+                                             for n in valid)
+    check(valid == want and r["valid_views"] > 0,
+          f"D1: valid.json {valid} against the depth test's {want}")
+    spheres = ds.instances >= 2
+    ious = []
+    for i, name in enumerate(views.names):
+        m = np.load(os.path.join(out_f, f"{name}_masks.npy"))
+        check(m.shape == (ds.H, ds.W) and m.dtype == np.int64,
+              f"D1: {name}: {m.shape} {m.dtype}")
+        if not valid[name]:
+            check((m == -1).all(), f"D1: {name}: invalid view not -1")
+            continue
+        check(set(np.unique(m)) <= {0, 1}, f"D1: {name}: labels")
+        check(os.path.exists(os.path.join(out_f, f"{name}_overlay.png")),
+              f"D1: {name}: no overlay")
+        ious.append(evaluation.eval_iou(m, spheres[i].astype(np.int64)))
+    check(valid_t == {n: valid[n] for n in views.names[:APPS_TEACHER_VIEWS]},
+          f"D1: the teacher route's visibility {valid_t}")
+    # the feature route again on the plain path (use_fused_mlp=False: no
+    # kernel renders its depths or features): the label maps must agree on
+    # MASK_AGREE of the pixels, as tests/test_torch_apps.py holds the port
+    # against JAX
+    tr2p = Trainer("ngp", cfg2, fields.make_model(
+        cfg2.model, dataclasses.replace(cfg2.render, use_fused_mlp=False)),
+        workspace=ctx["ws_sam"])
+    check(tr2p.global_step == tr2.global_step,
+          "D1: the plain trainer loaded another checkpoint")
+    out_p = os.path.join(base, "labels_plain")
+    valid_p = sam_project.generate_masks(cfg2, views, pts_w, sam, out_p,
+                                         trainer=tr2p, use_nerf_feature=True)
+    del tr2p
+    same = total = fg = 0
+    for name in views.names:
+        a, b = (np.load(os.path.join(d, f"{name}_masks.npy"))
+                for d in (out_f, out_p))
+        same += int((a == b).sum())
+        total += a.size
+        fg += int((a == 1).sum())
+    r.update(plain_agreement=same / total, plain_valid=valid_p,
+             foreground_share=fg / total)
+    check(valid_p == valid and same >= MASK_AGREE * total,
+          f"D1: the kernels' labels against the plain path's: valid "
+          f"{valid} / {valid_p}, {same} of {total} pixels agree")
+    ious_t = [evaluation.eval_iou(
+        np.load(os.path.join(out_t, f"{n}_masks.npy")),
+        spheres[i].astype(np.int64))
+        for i, n in enumerate(views.names[:APPS_TEACHER_VIEWS]) if valid[n]]
+    # reported, not held: the decoder is seeded, so its masks say nothing
+    # of quality until SAM's checkpoint is in the repository
+    r["miou_feature_route"] = float(np.mean(ious))
+    r["miou_teacher_route"] = float(np.mean(ious_t)) if ious_t else None
+    r["ious_feature_route"] = ious
+
+    # -- D2. evaluation of stage 3's test renders against D1's labels ------
+    with part("evaluation") as r:
+        ws_m = ctx["ws_mask"]
+        cli.main([scene, *CLI_ARGS, "--workspace", ws_m, "--with_mask",
+                  "--mask_folder_name", "obj_masks", "--test",
+                  "--test_split", "train"])
+        res_dir = os.path.join(ws_m, "results")
+        names = [n for n in views.names
+                 if os.path.exists(os.path.join(res_dir, f"{n}_mask.npy"))]
+        got = evaluation.evaluate_scene(out_f, res_dir, names, "ours")
+    all_four("evaluation")
+    ious, accs = [], []
+    for n in names:  # the numpy recomputation
+        gt = np.load(os.path.join(out_f, f"{n}_masks.npy"))
+        pred = np.load(os.path.join(res_dir, f"{n}_mask.npy")).argmax(-1)
+        lab = gt != -1
+        p, g = (pred > 0) & lab, (gt > 0) & lab
+        u = int((p | g).sum())
+        ious.append(int((p & g).sum()) / u if u else 1.0)
+        accs.append(float(np.mean(p[lab] == g[lab])) if lab.any() else 1.0)
+    want = {"miou": float(np.mean(ious)), "acc": float(np.mean(accs)),
+            "n_views": len(ious)}
+    r.update(got)
+    check(len(names) == CLI_VIEWS - 1 and got == want,
+          f"D2: evaluate_scene {got} against numpy {want}")
+
+    # -- D3. automatic masks on a rendered feature map ---------------------
+    with part("auto_masks") as r:
+        intr = views.intrinsics * (AUTO_FEAT / views.H)
+        intr[2:] = AUTO_FEAT / 2
+        feats = tr2.render_pose(views.poses[1], intr, AUTO_FEAT, AUTO_FEAT,
+                                return_feats=True)["samvit"].reshape(
+            AUTO_FEAT, AUTO_FEAT, -1)
+        kw = dict(pred_iou_thresh=float("-inf"), stability_score_thresh=0.0)
+        gen = auto_generator.AutomaticMaskGenerator(sam, **kw)
+        t = time.perf_counter()
+        masks = gen.generate(features=feats, hw=(AUTO_HW, AUTO_HW))
+        r["generate_s"] = time.perf_counter() - t
+        # the same generator one point a decode, on the same predictor
+        masks1 = auto_generator.AutomaticMaskGenerator(
+            sam, points_per_batch=1, **kw).generate(features=feats,
+                                                     hw=(AUTO_HW, AUTO_HW))
+        # the batched decode against one prompt at a time, float32 weights
+        dec = sam_pred.SamPredictor(sam.cfg, fields.cast_params(
+            {k: sam.params[k] for k in ("prompt_encoder", "mask_decoder")},
+            torch.float32))
+        dec.set_features(feats, AUTO_HW, AUTO_HW)
+        pts16 = gen.point_grid[:16] * AUTO_HW
+        lb, ib = dec.predict_batch(pts16[:, None, :], chunk=16)
+        err = 0.0
+        for k in range(len(pts16)):
+            lo, io, _ = dec.predict(pts16[k:k + 1], np.ones(1, np.int32),
+                                    multimask_output=True, return_logits=True)
+            for a, b in ((lb[k], lo), (ib[k], io)):
+                err = max(err, float((np.abs(a - b)
+                                      / (DEC_TOL + DEC_TOL * np.abs(b))
+                                      ).max()))
+    r.update(points=len(gen.point_grid), masks=len(masks),
+             batched_vs_loop_err_ratio=err)
+    check(len(gen.point_grid) == 32 * 32 and len(masks) >= 1,
+          f"D3: {len(masks)} masks from {len(gen.point_grid)} points")
+    agree, score_err = [], 0.0
+    for a, b in zip(masks, masks1):
+        ma, mb = (auto_generator.rle_to_mask(m["segmentation"])
+                  for m in (a, b))
+        agree.append(float((ma == mb).mean()))
+        check(a["point_coords"] == b["point_coords"]
+              and a["crop_box"] == b["crop_box"],
+              f"D3: the masks of 64 and of 1 point a decode came from other "
+              f"prompts: {a['point_coords']} / {b['point_coords']}")
+        for k in ("predicted_iou", "stability_score"):
+            score_err = max(score_err, abs(a[k] - b[k])
+                            / (BF16_TOL + BF16_TOL * abs(b[k])))
+    r.update(one_point_masks=len(masks1), one_point_agreement=agree,
+             one_point_score_err_ratio=score_err)
+    check(len(masks1) == len(masks) and min(agree) >= MASK_AGREE,
+          f"D3: {len(masks)} masks at 64 points a decode, {len(masks1)} at "
+          f"1; pixel agreement {agree}")
+    check(score_err <= 1.0, f"D3: the scores at 64 and at 1 point a decode "
+          f"{score_err} x BF16_TOL apart")
+    for m in masks:
+        mm = auto_generator.rle_to_mask(m["segmentation"])
+        check(mm.shape == (AUTO_HW, AUTO_HW) and int(mm.sum()) == m["area"],
+              "D3: a mask's RLE")
+    check(err <= 1.0, f"D3: batched decode off the loop: {err} x DEC_TOL")
+    del sam, dec, feats, masks, masks1, tr2
+    torch.cuda.empty_cache()
+
+    # -- D4. --test --gui, then the viewer with a trainer ------------------
+    ws1 = ctx["ws_rgb"]
+    with part("gui") as r:
+        cli.main([scene, *CLI_ARGS, "--workspace", ws1, "--test", "--gui"])
+        frames = sorted(os.listdir(os.path.join(ws1, "gui_frames")))
+        imgs = [read_png(os.path.join(ws1, "gui_frames", f)) for f in frames]
+    all_four("gui")
+    check(frames == [f"frame_{i:03d}.png" for i in range(10)]
+          and all(im.shape == (512, 512, 3) for im in imgs),
+          f"D4: headless frames {frames}")
+    r["frames"] = len(frames)
+    cfg1 = cfg_of([scene, *CLI_ARGS, "--workspace", ws1])
+    with part("viewer") as r:
+        model1 = fields.make_model(cfg1.model, cfg1.render)
+        tr1 = Trainer("ngp", cfg1, model1, workspace=ws1)
+        train_ds = SceneDataset(cfg1, "train")
+        session = InteractiveSession(cfg1, model1, tr1.eval_params(), None,
+                                     H=512, W=512)
+        viewer = gui.HeadlessViewer(cfg1, session, tr1, train_ds)
+        step0, fps, steps = tr1.global_step, [], []
+        for _ in range(VIEWER_FRAMES):
+            viewer.orbit(30, 0)
+            steps.append(viewer.ctrl.train_steps)
+            res = viewer.frame()
+            check(res.rgb_u8.shape == (512, 512, 3)
+                  and np.isfinite(res.rgb).all(), "D4: a viewer frame")
+            fps.append(viewer.fps)
+    all_four("viewer")
+    r.update(fps=fps, train_steps=steps, step0=step0,
+             steps_taken=tr1.global_step - step0,
+             downscale=viewer.ctrl.downscale)
+    check(tr1.global_step - step0 == sum(steps) > 0,
+          "D4: the viewer did not train")
+    check(session.params is tr1.eval_params(), "D4: stale params")
+    del tr1, session, viewer
+
+    # -- D5. the language field at D = LANG_DIM, queries, the CLI ----------
+    with part("lang") as r:
+        mc5 = dataclasses.replace(cfg1.model, with_sam=True,
+                                  sam_feat_dim=LANG_DIM)
+        cfg5 = dataclasses.replace(
+            cfg1, workspace=os.path.join(base, "ws_lang"), model=mc5,
+            train=dataclasses.replace(cfg1.train, lr=LANG_LR),
+            sam=dataclasses.replace(cfg1.sam, cache_size=4,
+                                    cache_interval=2))
+        model5 = fields.make_model(mc5, cfg5.render)
+        merged, trainable = ckpt_lib.load_partial_and_freeze(
+            ctx["ck1"], fields.init_params(
+                model5, torch.Generator().manual_seed(1), dev))
+        vocab = np.random.default_rng(5).standard_normal(
+            (2, LANG_DIM)).astype(np.float32)
+        vocab /= np.linalg.norm(vocab, axis=-1, keepdims=True)
+
+        def regions(img):  # the scene's objects against the white background
+            return (img.min(-1) < 245).astype(np.int32)
+
+        tr5 = open_vocab.LangDistillTrainer(
+            "lang", cfg5, model5,
+            teacher=open_vocab.make_region_teacher(regions, vocab, grid=64),
+            workspace=cfg5.workspace, use_checkpoint="scratch",
+            trainable=trainable, init_params=merged)
+        mse0 = tr5.eval_feature_mse(train_ds, n_frames=2)
+        tr5.train(train_ds, max_epoch=LANG_EPOCHS,
+                  steps_per_epoch=LANG_STEPS)
+        mse1 = tr5.eval_feature_mse(train_ds, n_frames=2)
+        b = train_ds.collate_sam(np.random.default_rng(0), index=0)
+        with torch.no_grad():
+            fmap = renderer.run_rays(
+                model5, tr5.eval_params(),
+                torch.as_tensor(b["rays_o_lr"], device=dev),
+                torch.as_tensor(b["rays_d_lr"], device=dev),
+                return_feats=True)["samvit"]
+            rgb = renderer.render_staged(
+                model5, tr5.eval_params(),
+                torch.as_tensor(b["rays_o"], device=dev),
+                torch.as_tensor(b["rays_d"], device=dev))["image"]
+        h, w = b["h"], b["w"]
+        check(tuple(fmap.shape) == (h * w, LANG_DIM)
+              and bool(torch.isfinite(fmap).all()), "D5: the feature map")
+        mask, rel, peak = open_vocab.text_query_mask(
+            fmap.reshape(h, w, -1), vocab[1], vocab[:1])
+        u8 = (np.clip(rgb.float().cpu().numpy(), 0, 1) * 255).astype(
+            np.uint8).reshape(b["H"], b["W"], 3)
+        gt = resize(regions(u8).astype(np.uint8), (w, h),
+                    "nearest").astype(bool)
+        r.update(feat_mse=[mse0, mse1], steps=LANG_EPOCHS * LANG_STEPS,
+                 query_iou=float((mask & gt).sum() / max((mask | gt).sum(),
+                                                         1)),
+                 query_peak=peak)
+        # the offline query through the module's entry point, on stage 2
+        npz = os.path.join(base, "vocab.npz")
+        v256 = np.random.default_rng(6).standard_normal(
+            (5, cfg2.model.sam_feat_dim)).astype(np.float32)
+        np.savez(npz, **{p: v256[i] for i, p in enumerate(
+            ("a sphere", *open_vocab.CANONICAL_NEGATIVES))})
+        out_ov = os.path.join(base, "open_vocab")
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "sanerf_tpu_torch.apps.open_vocab", scene,
+             *CLI_ARGS, "--workspace", ctx["ws_sam"], "--with_sam",
+             "--vocab", npz, "--phrase", "a sphere", "--out_dir", out_ov],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        r["cli_s"] = time.perf_counter() - t
+        log(proc.stdout[-2000:] + proc.stderr[-2000:])
+    all_four("lang")
+    check(math.isfinite(mse1) and mse1 < SAM_LEARN * mse0,
+          f"D5: feature MSE {mse0} -> {mse1}")
+    check(proc.returncode == 0, f"D5: open_vocab exited {proc.returncode}")
+    rels = [np.load(os.path.join(out_ov, f))
+            for f in sorted(os.listdir(out_ov)) if f.endswith("_relevancy.npy")]
+    check(len(rels) > 0 and all(np.isfinite(x).all() and (x > 0).all()
+                                and (x < 1).all() for x in rels),
+          "D5: open_vocab's relevancy maps")
+    r["cli_maps"] = len(rels)
+    del tr5, fmap, rgb
+    torch.cuda.empty_cache()
+
+    # -- D6. the batch driver's eval over the llff and mip copies ----------
+    with part("batch") as r:
+        trials = os.path.join(base, "trials")
+        for name, dtype in (("scene", "llff"), ("scene_colmap", "mip")):
+            ws = os.path.join(trials, f"{name}_rgb")
+            shutil.copytree(os.path.join(ws1, "checkpoints"),
+                            os.path.join(ws, "checkpoints"))
+            batch.main(["eval-rgb", "--data_root", base, "--out_root",
+                        trials, "--data_type", dtype, "--scenes", name])
+            pngs = [f for f in os.listdir(os.path.join(ws, "results"))
+                    if f.endswith("_rgb.png")]
+            check(len(pngs) > 0, f"D6: {name}: no frames")
+            r[name] = len(pngs)
+    all_four("batch")
+
+    # -- D7. import distillation: hash-grid teacher -> the asset's MLP -----
+    with part("hash_teacher") as r:
+        trh = cli.main([scene, *CLI_ARGS, "--field_type", "hashgrid",
+                        "--workspace", os.path.join(base, "ws_hash"),
+                        "--iters", str(HASH_TEACHER_ITERS), "--eval_cnt",
+                        "1"])
+        r["val_psnr"] = trh.stats["results"][-1]["PSNRMeter"]
+    check(rec["hash_teacher"]["launches"]["gather_rows"] > 0,
+          "D7: the hash-grid teacher launched no gather_rows")
+    tm, tp = trh.model, trh.eval_params()
+    with part("distill") as r:
+        sm = fields.make_model(import_distill.student_config(
+            tm.cfg, **DISTILL_STUDENT), tm.render_cfg)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        sm, sp, report = import_distill.distill_to_mlp(
+            tm, tp, gen, student_model=sm, render_check=2, render_hw=128,
+            **DISTILL)
+    check(r["launches"]["gather_rows"] > 0,
+          "D7: the teacher's encode launched no gather_rows")
+    hist = report["loss_history"]
+    check(all(math.isfinite(v) for v in hist) and hist[-1] < hist[0],
+          f"D7: losses {hist[0]} -> {hist[-1]}")
+    init = fields.init_params(sm, torch.Generator().manual_seed(
+        gen.initial_seed()), dev)
+    init["view_mlp"] = tp["view_mlp"]
+    psnr0 = import_distill._render_fidelity(tm, tp, sm, init, 2, 128, dev)
+    views = SceneDataset(trh.cfg, "all")
+    r.update(losses=report["losses"], loss_first=hist[0],
+             loss_last=hist[-1], iters=report["iters"],
+             render_psnr=report["render_psnr"], untrained_psnr=psnr0,
+             views_psnr=views_psnr(tm, tp, sm, sp, views, dev),
+             untrained_views_psnr=views_psnr(tm, tp, sm, init, views, dev),
+             it_per_s_incl_targets_and_renders=report["iters"]
+             / r["seconds"], **{k: v for k, v in DISTILL.items()
+                                if k != "iters"})
+    check(r["views_psnr"] > r["untrained_views_psnr"] + DISTILL_MARGIN_DB,
+          f"D7: the student's views at {r['views_psnr']} dB against the "
+          f"untrained student's {r['untrained_views_psnr']}")
+    check(report["render_psnr"] > psnr0,
+          f"D7: render_psnr {report['render_psnr']} against the untrained "
+          f"student's {psnr0}")
+    fast = fields.make_model(sm.cfg, dataclasses.replace(
+        sm.render_cfg, num_steps=(32, 16), max_ray_batch=SIZE * SIZE))
+    slow = fields.make_model(sm.cfg, dataclasses.replace(
+        fast.render_cfg, use_fused_mlp=False))
+    check(renderer.uses_kernels(fast), "D7: the student is off the kernels")
+    with part("student_frame") as r:
+        with torch.no_grad():
+            out = renderer.render_frame(fast, sp, rays_o, rays_d,
+                                        chunk=SIZE * SIZE,
+                                        nets=fields.KernelNets(fast, sp))
+    check(r["launches"] == {**{k: 1 for k in KERNELS}, "gather_rows": 0},
+          f"D7: the student's frame launched {r['launches']}")
+    check(bool(torch.isfinite(out["image"]).all()), "D7: student frame")
+    with torch.no_grad():
+        r["vs_plain"] = path_gap(renderer, fast, slow, sp, rays_o, rays_d,
+                                 "D7 student")
+    del trh, tm, tp, sm, sp, init, out
+    torch.cuda.empty_cache()
+
+    m, g, l5, d7 = rec["masks"], rec["gui"], rec["lang"], rec["distill"]
+    rec["summary"] = [
+        f"apps masks: {CLI_VIEWS} views of {ds.H}^2, {m['seconds']:.1f} s, "
+        f"{m['valid_views']} valid, mIoU against the spheres "
+        f"{m['miou_feature_route']:.3f} (seeded SAM ViT-H)",
+        f"apps gui: {g['frames']} headless 512^2 frames in "
+        f"{g['seconds']:.1f} s (CLI, model load included); viewer with "
+        f"training {statistics.median(rec['viewer']['fps']):.2f} fps",
+        f"apps auto masks: {rec['auto_masks']['points']} points on a "
+        f"{AUTO_FEAT}^2 feature map, {rec['auto_masks']['generate_s']:.1f} s",
+        f"apps lang: D={LANG_DIM}, {l5['steps']} steps, feature MSE "
+        f"{l5['feat_mse'][0]:.4f} -> {l5['feat_mse'][1]:.4f}, query IoU "
+        f"{l5['query_iou']:.3f}",
+        f"apps distill: {d7['iters']} steps of 2^15 of 2^22 points, "
+        f"{d7['seconds']:.1f} s with the targets and renders; student "
+        f"against teacher {d7['views_psnr']:.2f} dB on the scene's views "
+        f"(untrained {d7['untrained_views_psnr']:.2f}), render_psnr "
+        f"{d7['render_psnr']:.2f} (untrained {d7['untrained_psnr']:.2f})"]
     shutil.rmtree(base, ignore_errors=True)
     return rec
 

@@ -6,13 +6,16 @@ and its dispatch to the three workloads: stage 1 (`Trainer`, then the
 PSNR / SSIM / LPIPS evaluation of the val split), stage 2 (`--with_sam`:
 `SamDistillTrainer` with SAM's ViT-H teacher from `--sam_ckpt`, cast to
 bf16), stage 3 (`--with_mask`: `MaskTrainer`, then its mIoU); `--test`
-renders the test split (and scores it where it has images). Stages 2 and
-3 take the previous stage's weights through `--init_ckpt`, frozen
-(`checkpoints.load_partial_and_freeze`). Runs on the CUDA card;
+renders the test split (and scores it where it has images), and with
+`--gui` opens the viewer on the checkpoint instead (apps/gui.py:
+`launch_gui`; headless frames where dearpygui does not import); `--gui`
+without `--test` trains as if it were not there, as in the JAX CLI.
+Stages 2 and 3 take the previous stage's weights through `--init_ckpt`,
+frozen (`checkpoints.load_partial_and_freeze`). Runs on the CUDA card;
 `main(argv, device="cpu")` and `run(cfg, device="cpu")` run the plain
 versions on the CPU (the JAX CLI has no device flag). Not in the port:
-`--gui` (ROADMAP.md, A7) and `--n_devices > 1` (A6) raise
-NotImplementedError; `--write_video` needs imageio, as in the JAX CLI.
+`--n_devices > 1` (ROADMAP.md, A6) raises NotImplementedError;
+`--write_video` needs imageio, as in the JAX CLI.
 """
 
 from __future__ import annotations
@@ -317,10 +320,6 @@ def run(cfg: Config, write_video: bool = False, return_extra: bool = False,
                                                 PSNRMeter, SSIMMeter)
     from sanerf_tpu_torch.train.trainer import Trainer
 
-    if cfg.gui:
-        raise NotImplementedError(
-            "--gui: the interactive viewer is not in the port (ROADMAP.md, "
-            "A7)")
     if cfg.train.n_devices > 1:
         raise NotImplementedError(
             "--n_devices > 1: data-parallel training is not in the port "
@@ -343,6 +342,11 @@ def run(cfg: Config, write_video: bool = False, return_extra: bool = False,
         trainer = Trainer("ngp", cfg, model, **kw)
         if cfg.use_wandb:
             trainer.enable_wandb()
+        if cfg.gui:
+            from sanerf_tpu_torch.apps.gui import launch_gui
+
+            launch_gui(cfg, trainer, sam_predictor)
+            return trainer
         test_ds = SceneDataset(cfg, cfg.data.test_split)
         if cfg.data.test_split != "test":
             trainer.metrics = (

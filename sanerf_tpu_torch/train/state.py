@@ -112,9 +112,10 @@ class Optimizer:
                          tree_map(zeros, params, on))
 
     @torch.no_grad()
-    def update(self, grads: Params, state: AdamState, params: Params
-               ) -> Tuple[Params, AdamState]:
-        """-> (new params, new state); grads None at frozen leaves."""
+    def update(self, grads: Params, state: AdamState, params: Params,
+               lr: Optional[float] = None) -> Tuple[Params, AdamState]:
+        """-> (new params, new state); grads None at frozen leaves. A
+        given `lr` is a constant schedule in place of `lr_schedule`."""
         cfg = self.cfg
         live = [g for _, g in leaves_with_paths(grads)]
         clip = None
@@ -125,7 +126,7 @@ class Optimizer:
         f32 = np.float32
         bc1 = float(f32(1.0) - f32(B1) ** f32(count))
         bc2 = float(f32(1.0) - f32(B2) ** f32(count))
-        neg_lr = -lr_schedule(cfg, state.count)
+        neg_lr = -(lr_schedule(cfg, state.count) if lr is None else lr)
         mult = cfg.grid_lr_mult
 
         def step(path, p, g, m, v):

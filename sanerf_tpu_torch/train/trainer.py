@@ -172,14 +172,7 @@ class Trainer:
             t0 = time.time()
             acc, last = None, None
             for _ in range(steps_per_epoch):
-                self.global_step += 1
-                batch = self._batch(sampler.collate_train(self.rng,
-                                                          num_rays))
-                draws = state_lib.draw_step(self.model, tc, num_rays,
-                                            self.generator, self.device)
-                up = state_lib.update_proposal_now(tc, self.global_step)
-                self.state, aux = self._train_step(self.state, batch, draws,
-                                                   update_proposal=up)
+                aux = self.train_step(sampler, num_rays)
                 acc = aux if acc is None else {k: acc[k] + v
                                                for k, v in aux.items()}
                 last = aux
@@ -201,6 +194,18 @@ class Trainer:
         if native is not None:
             native.close()
         self.save_checkpoint(full=True)
+
+    def train_step(self, sampler, num_rays: int) -> Dict:
+        """One step on a batch of `sampler.collate_train` and fresh draws
+        from `self.generator`, on the proposal schedule -> its aux."""
+        self.global_step += 1
+        batch = self._batch(sampler.collate_train(self.rng, num_rays))
+        draws = state_lib.draw_step(self.model, self.cfg.train, num_rays,
+                                    self.generator, self.device)
+        up = state_lib.update_proposal_now(self.cfg.train, self.global_step)
+        self.state, aux = self._train_step(self.state, batch, draws,
+                                           update_proposal=up)
+        return aux
 
     def _maybe_resize_grids(self):
         """The factorized tables' coarse-to-fine schedule: at an epoch

@@ -1,5 +1,5 @@
-"""Camera/pose math (numpy; JAX package: sanerf_tpu/utils/camera.py, all
-but the GUI's orbit camera). cam2world matrices follow the OpenGL
+"""Camera/pose math (numpy; JAX package: sanerf_tpu/utils/camera.py; the
+viewer's orbit camera since its port). cam2world matrices follow the OpenGL
 convention (x right, y up, camera looks along -z); the dataset pipeline
 flips COLMAP's (OpenCV) cameras into it, centres and scales the scene; the
 test trajectories are a circle or a slerp through train poses."""
@@ -138,3 +138,50 @@ def interp_poses(anchors: np.ndarray, n_per_segment: int = 20) -> np.ndarray:
             pose[:3, 3] = (1 - t) * a[:3, 3] + t * b[:3, 3]
             out.append(pose)
     return np.stack(out)
+
+
+class OrbitCamera:
+    """The viewer's orbit camera: orbit / pan / zoom around a centre ->
+    an OpenGL cam2world pose and pinhole intrinsics."""
+
+    def __init__(self, W: int, H: int, r: float = 2.0, fovy: float = 60.0):
+        self.W, self.H = W, H
+        self.radius = r
+        self.fovy = fovy
+        self.center = np.zeros(3, np.float32)
+        self.rot = np.eye(3, dtype=np.float32)
+
+    @property
+    def pose(self) -> np.ndarray:
+        pose = np.eye(4, dtype=np.float32)
+        pose[:3, :3] = self.rot
+        pose[:3, 3] = self.center + self.rot @ np.array(
+            [0, 0, self.radius], np.float32)
+        return pose
+
+    @property
+    def intrinsics(self) -> np.ndarray:
+        focal = fov_to_focal(self.fovy, self.H)
+        return np.array([focal, focal, self.W / 2, self.H / 2], np.float32)
+
+    def orbit(self, dx: float, dy: float):
+        side = self.rot[:, 0]
+        up = np.array([0.0, 1.0, 0.0], np.float32)
+        rot_y = _axis_angle(up, -dx * 0.005)
+        rot_x = _axis_angle(side, -dy * 0.005)
+        self.rot = rot_y @ rot_x @ self.rot
+
+    def scale(self, delta: float):
+        self.radius *= 1.1 ** -delta
+
+    def pan(self, dx: float, dy: float, dz: float = 0.0):
+        self.center += 0.0005 * self.rot @ np.array([dx, -dy, dz], np.float32)
+
+
+def _axis_angle(axis: np.ndarray, angle: float) -> np.ndarray:
+    """Rodrigues' rotation about `axis` by `angle` radians, float32."""
+    axis = normalize(axis)
+    K = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]],
+                  [-axis[1], axis[0], 0]], np.float32)
+    return (np.eye(3, dtype=np.float32) + np.sin(angle) * K
+            + (1 - np.cos(angle)) * K @ K)

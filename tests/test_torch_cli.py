@@ -11,8 +11,9 @@ surface, and end to end on the CPU (`main(argv, device="cpu")`).
   `build_sam_predictor`, its ViT config shrunk), and `--with_mask` from
   per-view masks, both from the stage-1 checkpoint, whose leaves stay
   frozen;
-- `--gui` and `--n_devices > 1` raise NotImplementedError naming ROADMAP
-  A7 / A6.
+- `--test --gui` writes the viewer's headless frames, `--gui` alone
+  trains (as in the JAX CLI); `--n_devices > 1` raises NotImplementedError
+  naming ROADMAP A6.
 """
 
 import dataclasses
@@ -173,11 +174,49 @@ def test_missing_sam_checkpoint_warns(tmp_path, capsys):
 
 
 def test_refuses_what_the_port_lacks(tmp_path):
-    for argv in (["--gui", "--test"], ["--gui"]):
-        with pytest.raises(NotImplementedError, match="A7"):
-            tmain.main([str(tmp_path), *argv], device="cpu")
     with pytest.raises(NotImplementedError, match="A6"):
         tmain.main([str(tmp_path), "--n_devices", "2"], device="cpu")
+
+
+GUI_ARGS = ["--data_type", "llff", "--bound", "4", "--num_steps", "8", "4",
+            "--mlp_width", "16", "--mlp_depth", "2", "--num_rays", "128",
+            "--no-adaptive_num_rays"]
+
+
+def _gui_scene(tmp_path):
+    ds = SyntheticSphereDataset(H=16, W=16, n_views=4)
+    return write_transforms_scene(ds, str(tmp_path / "scene"))
+
+
+def test_test_and_gui_write_headless_frames(tmp_path):
+    """`--test --gui` opens the viewer on the workspace's checkpoint (JAX
+    main.py:317-326); without dearpygui it writes 10 headless 512^2
+    frames under <workspace>/gui_frames and renders no test split."""
+    scene = _gui_scene(tmp_path)
+    ws = str(tmp_path / "ws")
+    tr0 = tmain.main([scene, *GUI_ARGS, "--workspace", ws, "--iters", "4"],
+                     device="cpu")
+    tr = tmain.main([scene, *GUI_ARGS, "--workspace", ws, "--test",
+                     "--gui"], device="cpu")
+    assert tr.global_step == tr0.global_step > 0  # the checkpoint's
+    frames = sorted(os.listdir(os.path.join(ws, "gui_frames")))
+    assert frames == [f"frame_{i:03d}.png" for i in range(10)]
+    from sanerf_tpu_torch.utils.image import read_png
+
+    assert read_png(os.path.join(ws, "gui_frames", frames[-1])).shape == \
+        (512, 512, 3)
+    assert not os.path.exists(os.path.join(ws, "results"))
+
+
+def test_gui_without_test_trains(tmp_path):
+    """`--gui` alone trains as if it were not there, as the JAX CLI does."""
+    scene = _gui_scene(tmp_path)
+    ws = str(tmp_path / "ws")
+    tr = tmain.main([scene, *GUI_ARGS, "--workspace", ws, "--iters", "8",
+                     "--gui"], device="cpu")
+    assert tr.global_step >= 8
+    assert os.path.isdir(os.path.join(ws, "checkpoints"))
+    assert not os.path.exists(os.path.join(ws, "gui_frames"))
 
 
 def test_scene_and_weight_writers_import_no_jax_cv2_or_pil():

@@ -5,6 +5,7 @@ one."""
 import ast
 import os
 
+import numpy as np
 import pytest
 import torch
 
@@ -103,3 +104,53 @@ def test_hashgrid_entry_points_default_to_cuda():
                               RenderConfig())
     with pytest.raises(RuntimeError, match="CUDA"):
         convert_nerf_state_dict({}, model)
+
+
+A7 = ("apps/evaluation.py", "apps/sam_project.py", "apps/auto_generator.py",
+      "apps/gui.py", "apps/batch.py", "apps/open_vocab.py",
+      "models/import_distill.py")
+
+
+def _top_level_roots(path):
+    """The roots imported at module level (not inside a function)."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in tree.body:
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("rel", A7)
+def test_apps_modules_import_no_jax_cv2_or_pil(rel):
+    """The apps slice's modules: no jax, JAX package, OpenCV or PIL
+    anywhere; transformers (the CLIP text tower) and dearpygui (the
+    window) only inside the functions that need them."""
+    path = os.path.join(ROOT, "sanerf_tpu_torch", rel)
+    roots = set(_imported_roots(path))
+    assert not roots & set(FORBIDDEN + ("PIL",)), roots
+    assert not set(_top_level_roots(path)) & {"transformers", "dearpygui"}
+
+
+def test_apps_entry_points_default_to_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is satisfiable")
+    from sanerf_tpu_torch.apps import batch, open_vocab, sam_project
+    from sanerf_tpu_torch.models import import_distill
+
+    model = fields.make_model(ModelConfig(field_type="hashgrid"),
+                              RenderConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        import_distill.distill_to_mlp(model, {})
+    vocab = str(tmp_path / "v.npz")
+    np.savez(vocab, p=np.ones(4, np.float32), object=np.ones(4, np.float32),
+             things=np.ones(4), stuff=np.ones(4), texture=np.ones(4))
+    argv = [str(tmp_path), "--workspace", str(tmp_path / "ws")]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sam_project.main(argv)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        open_vocab.main(argv + ["--vocab", vocab, "--phrase", "p"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        batch.main(["eval-rgb", "--scenes", "s", "--data_root",
+                    str(tmp_path)])
