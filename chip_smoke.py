@@ -215,6 +215,26 @@ Phases (any failure exits non-zero and prints no result line):
      and the
      student's 512^2 RGB frame at (32, 16) on the four kernels once each,
      within PATH_TOL of the plain path;
+ E.  data parallelism (sanerf_tpu_torch/parallel), on phase C's scene
+     files and the shipped asset, each part's seconds printed beside the
+     card: E1 (in a child process with deterministic algorithms and
+     cuBLAS) the DP stage-1 step over a 1-rank NCCL group against the
+     single-device step, DP_STEPS steps of DP_RAYS rays at ModelConfig()'s
+     width and (128, 64, 32), params, EMA and moments bit for bit (two
+     single-device runs bit for bit first); E2 `python -m
+     sanerf_tpu_torch.apps.main <scene> --n_devices 2 --dist_backend gloo`
+     (two ranks on the one card) through stage 1 (DP_ITERS), `--with_sam`,
+     `--with_mask` and `--test`, every save's replica digests equal across
+     the ranks, finite losses, stage 1's PSNR within DP_PSNR_TOL_DB of a
+     1-rank run of the same steps (stages 2, 3 and --test run at once,
+     all from stage 1's checkpoint); E3 (two gloo ranks spawned by E1's
+     process) the asset's 512^2 frame through dp.render_frame_dp at both
+     hierarchies against the one-rank frame (PATH_TOL; whether bit for bit
+     is recorded), the sharded InteractiveSession frame (rank 1
+     following without a SAM decoder) within 1 uint8 level and 1e-4 depth of the single one,
+     each kernel launched in a sharded frame on both ranks, frame times
+     (gloo's gathers go through the host: not a claim), and which
+     collectives gloo takes as CUDA tensors;
  and before phase 3, the asset's served bf16 launches of both 512^2 RGB
      frames digested (port_tools/served_digests.py) and held bit for bit
      to SERVED_DIGESTS;
@@ -222,8 +242,9 @@ Phases (any failure exits non-zero and prints no result line):
      {"interactive": ...} line, one {"hashgrid": ...} line, one
      {"grids": ...} line, one {"train": ...} line, one {"branches": ...}
      line, one {"limits": ...} line, one {"cli": ...} line and its summary
-     lines, one {"apps": ...} line and its summary lines, the run's wall
-     time {"wall_s": ...}, and last {"ok": true, "device": {...}}.
+     lines, one {"apps": ...} line and its summary lines, one {"dp": ...}
+     line and its summary lines, the run's wall time {"wall_s": ...}, and
+     last {"ok": true, "device": {...}}.
 Kernel times are CUDA events around launches queued behind a sleep
 kernel (`backlog`), so they are the card's time even where the host's
 wrapper takes longer than the kernel. Needs no network; builds into
@@ -235,6 +256,7 @@ import copy
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -672,6 +694,17 @@ DEC_TOL = 1e-4
 #: _in_weight_dtype), and a float32 sum whose order follows the batch size
 #: can move one such input by bf16's rounding, 2^-8 of it
 BF16_TOL = 2.0 ** -8
+#: phase E: data parallelism. E1: DP_STEPS steps of DP_RAYS rays at
+#: ModelConfig()'s width over a 1-rank NCCL group against the single step;
+#: E2: the CLI on phase C's scene over two gloo ranks, stage 1 for DP_ITERS
+#: iterations at DP_LR (its PSNR within DP_PSNR_TOL_DB of one rank's on the
+#: same steps, tests/test_parallel.py:372), stages 2 and 3 one epoch each;
+#: E3: the asset's sharded frames, each timed as the median of DP_FRAMES.
+#: The child process (E1, E3) and each CLI run have these time limits
+DP_RAYS, DP_STEPS = 8192, 4
+DP_ITERS, DP_LR, DP_PSNR_TOL_DB = 180, "5e-3", 3.0
+DP_FRAMES = 5
+DP_CHILD_TIMEOUT_S, DP_CLI_TIMEOUT_S = 400, 300
 #: the held-out PSNR of the asset at (128, 256), bf16, through the JAX
 #: package's XLA path on the CPU, bench.py:149-170 protocol; from
 #: `JAX_PLATFORMS=cpu python port_tools/jax_psnr_reference.py 128,256`
@@ -1659,6 +1692,21 @@ def main():
         cli, cli_ctx = cli_phase(torch, np, dev, card)
         torch.cuda.empty_cache()
         apps = apps_phase(torch, np, dev, card, cli_ctx, rays_o, rays_d)
+        torch.cuda.empty_cache()
+        dpr = dp_phase(torch, np, dev, card, cli_ctx)
+    shutil.rmtree(cli_ctx["base"], ignore_errors=True)
+    e3 = dpr["e3"]
+    for row in rows:
+        # phase E: each kernel's launches in one sharded frame of each rank
+        # (E3; E1 trains on the plain path and launches none)
+        name = row["name"]
+        row["dp_launches"] = {
+            **{f"E3 render {h} rank {r}": n.get(name, 0)
+               for r, rr in enumerate((e3, e3["follower"]))
+               for h, n in rr["dp_render_launches"].items()},
+            **{f"E3 interactive {h} rank {r}": n.get(name, 0)
+               for r, rr in enumerate((e3, e3["follower"]))
+               for h, n in rr["interactive_launches"].items()}}
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({
@@ -1681,6 +1729,9 @@ def main():
         print(f"{line} ({card})", flush=True)
     print(json.dumps({"apps": apps}), flush=True)
     for line in apps["summary"]:
+        print(f"{line} ({card})", flush=True)
+    print(json.dumps({"dp": dpr}), flush=True)
+    for line in dpr["summary"]:
         print(f"{line} ({card})", flush=True)
     print(json.dumps({"wall_s": time.time() - t_wall}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -4118,8 +4169,8 @@ def apps_phase(torch, np, dev, card, ctx, rays_o, rays_d):
     """Phase D: the apps on phase C's scene files and workspaces (ctx), each
     part with the counters set to 0 just before and read just after, its
     seconds and peak memory. -> the {"apps": ...} record; its "summary"
-    lines are printed beside the card's name and power limit. Deletes
-    phase C's directory at the end."""
+    lines are printed beside the card's name and power limit. Phase E
+    runs on the same directory after it; main deletes it."""
     import dataclasses
     import shutil
 
@@ -4589,7 +4640,547 @@ def apps_phase(torch, np, dev, card, ctx, rays_o, rays_d):
         f"against teacher {d7['views_psnr']:.2f} dB on the scene's views "
         f"(untrained {d7['untrained_views_psnr']:.2f}), render_psnr "
         f"{d7['render_psnr']:.2f} (untrained {d7['untrained_psnr']:.2f})"]
-    shutil.rmtree(base, ignore_errors=True)
+    return rec
+
+
+# -- phase E: data parallelism (sanerf_tpu_torch/parallel) --------------------
+
+def _replica_lines(path):
+    """The '[ckpt] replica digests' lines of a trainer's log -> [[hex, ...]]
+    per save."""
+    out = []
+    with open(path) as f:
+        for line in f:
+            if line.startswith("[ckpt] replica digests"):
+                out.append(line.split(":", 1)[1].split())
+    return out
+
+
+def _logged_psnr(path):
+    """The PSNR of the last '[eval epoch' line of a trainer's log."""
+    psnr = None
+    with open(path) as f:
+        for line in f:
+            if line.startswith("[eval epoch") and "PSNR = " in line:
+                psnr = float(line.split("PSNR = ")[1].split()[0])
+    return psnr
+
+
+def dp_phase(torch, np, dev, card, ctx):
+    """Phase E: data parallelism on the card, on phase C's scene files and
+    the shipped asset (DP_* settings). E1 and E3 run in a child process
+    (`dp_child`: deterministic cuBLAS for E1's bit-for-bit hold, E3's two
+    ranks spawned from it); E2 runs the CLI as a user would, its stages 2
+    and 3 and --test at once. -> the
+    {"dp": ...} record; its "summary" lines are printed beside the card's
+    name and power limit."""
+    from sanerf_tpu_torch.apps import main as cli
+
+    base, scene = ctx["base"], ctx["scene"]
+    rec = {}
+    t_all = time.perf_counter()
+
+    # -- E1 and E3 ------------------------------------------------------------
+    out = os.path.join(base, "dp_child.json")
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8",
+               PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    t = time.perf_counter()
+    child = subprocess.Popen(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); "
+         "import chip_smoke; chip_smoke.dp_child(sys.argv[2], sys.argv[3])",
+         ROOT, out, base], env=env, cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        text, _ = child.communicate(timeout=DP_CHILD_TIMEOUT_S)
+    finally:
+        if child.poll() is None:  # the child and E3's ranks
+            os.killpg(child.pid, 9)
+            child.wait()
+    for line in text.splitlines()[-40:]:
+        log(f"  E child: {line}")
+    check(child.returncode == 0, f"E1/E3 child exited {child.returncode}")
+    with open(out) as f:
+        rec.update(json.load(f))
+    rec["child_seconds"] = time.perf_counter() - t
+
+    # -- E2. the CLI over two gloo ranks on the card -----------------------
+    common = [scene, *CLI_ARGS, "--lr", DP_LR, "--eval_cnt", "1"]
+    two = ["--n_devices", "2", "--dist_backend", "gloo"]
+
+    def start_cli(stage, argv):
+        """`python -m sanerf_tpu_torch.apps.main argv` in its own process,
+        its output to a file; -> what finish_cli needs."""
+        out = open(os.path.join(base, f"e2_{stage}.log"), "w")
+        p = subprocess.Popen([sys.executable, "-m",
+                              "sanerf_tpu_torch.apps.main", *argv, *two],
+                             env=env, cwd=ROOT, stdout=out,
+                             stderr=subprocess.STDOUT, text=True,
+                             start_new_session=True)
+        return stage, argv, p, out, time.perf_counter()
+
+    def stop(started):
+        """Kills a start_cli process and its ranks if still running."""
+        p = started[2]
+        if p.poll() is None:
+            os.killpg(p.pid, 9)
+            p.wait()
+        started[3].close()
+
+    def finish_cli(*runs):
+        """Waits for start_cli processes (each one's seconds to its own
+        end), then checks each record (the replica digests of every save,
+        the losses, it/s, the logged PSNR) and keeps it under
+        rec["e2_<stage>"]; -> the first one's workspace."""
+        ends = {}
+        try:
+            while len(ends) < len(runs):
+                for i, run in enumerate(runs):
+                    if i not in ends and run[2].poll() is not None:
+                        ends[i] = time.perf_counter()
+                check(time.perf_counter() - runs[0][4] < DP_CLI_TIMEOUT_S,
+                      "E2: a CLI run did not end")
+                time.sleep(0.1)
+        finally:
+            for run in runs:
+                stop(run)
+        for i, run in enumerate(runs):
+            check_cli(run, ends[i] - run[4])
+        return runs[0][1][runs[0][1].index("--workspace") + 1]
+
+    def check_cli(started, seconds):
+        stage, argv, p, out, _ = started
+        rc = p.returncode
+        r = {"argv": argv + two, "seconds": seconds}
+        with open(out.name) as f:
+            for line in f.read().splitlines()[-12:]:
+                log(f"  E2 {stage}: {line}")
+        check(rc == 0, f"E2 {stage}: exited {rc}")
+        ws = argv[argv.index("--workspace") + 1]
+        logp = os.path.join(ws, "log_ngp.txt")
+        with open(logp) as f:
+            check("2 ranks (gloo)" in f.read(),
+                  f"E2 {stage}: not on 2 gloo ranks")
+        if stage != "test":  # --test saves nothing; its log is stage 1's
+            digests = _replica_lines(logp)
+            r["replica_digests"] = digests
+            check(digests and all(len(d) == 2 and d[0] == d[1]
+                                  for d in digests),
+                  f"E2 {stage}: replica digests {digests}")
+            with open(os.path.join(ws, "metrics_ngp.jsonl")) as f:
+                recs = [json.loads(line) for line in f]
+            losses = [v for x in recs for k, v in x.items()
+                      if k in ("loss", "feat_mse", "mask_loss")]
+            check(losses and all(math.isfinite(v) for v in losses),
+                  f"E2 {stage}: losses {losses}")
+            r["losses"] = losses
+            its = [x["it_per_s"] for x in recs if "it_per_s" in x]
+            if its:
+                r["it_per_s"] = statistics.median(its)
+        r["psnr"] = _logged_psnr(logp)
+        log(f"E2 {stage}: {r}")
+        rec[f"e2_{stage}"] = r
+
+    ws = finish_cli(start_cli("rgb", common + [
+        "--workspace", os.path.join(base, "ws_dp"), "--iters",
+        str(DP_ITERS)]))
+    ck = sorted(f for f in os.listdir(os.path.join(ws, "checkpoints"))
+                if "_step" in f)[-1]
+    ck = os.path.join(ws, "checkpoints", ck)
+    # the same steps on one rank, in this process
+    t = time.perf_counter()
+    tr = cli.main(common + ["--workspace", os.path.join(base, "ws_dp1"),
+                            "--iters", str(DP_ITERS)])
+    psnr1 = tr.stats["results"][-1]["PSNRMeter"]
+    rec["e2_rgb_1rank"] = {"seconds": time.perf_counter() - t,
+                           "psnr": psnr1}
+    del tr
+    torch.cuda.empty_cache()
+    psnr2 = rec["e2_rgb"]["psnr"]
+    check(psnr2 is not None and abs(psnr2 - psnr1) < DP_PSNR_TOL_DB,
+          f"E2: 2-rank PSNR {psnr2} against 1-rank {psnr1}")
+    # stages 2 and 3 and --test need only stage 1's checkpoint: they run
+    # at once (6 ranks on the card; their it/s are not one stage's alone)
+    t = time.perf_counter()
+    finish_cli(
+        start_cli("sam", [scene, *CLI_ARGS, "--workspace",
+                          os.path.join(base, "ws_dp_sam"), "--with_sam",
+                          "--init_ckpt", ck, "--sam_ckpt", ctx["sam_path"],
+                          "--cache_size", "2", "--cache_interval", "2",
+                          "--iters", "1", "--lr", CLI_SAM_LR]),
+        start_cli("mask", [scene, *CLI_ARGS, "--workspace",
+                           os.path.join(base, "ws_dp_mask"), "--with_mask",
+                           "--init_ckpt", ck, "--mask_folder_name",
+                           "obj_masks", "--iters", "1", "--lr",
+                           CLI_MASK_LR]),
+        start_cli("test", common + ["--workspace", ws, "--test"]))
+    rec["e2_concurrent_seconds"] = time.perf_counter() - t
+    check(rec["e2_test"]["psnr"] is not None
+          and math.isfinite(rec["e2_test"]["psnr"]),
+          f"E2: --test PSNR {rec['e2_test']['psnr']}")
+    rec["seconds"] = time.perf_counter() - t_all
+    e1, e3 = rec["e1"], rec["e3"]
+    rec["summary"] = [
+        f"dp E1: NCCL 1-rank DP step = single step bit for bit, "
+        f"{DP_STEPS} steps of {DP_RAYS} rays at (128, 64, 32), "
+        f"{e1['dp_step_ms']:.1f} ms a step against "
+        f"{e1['single_step_ms']:.1f}; its {e1['frame_rays']}-ray sharded "
+        f"frame, barrier, object broadcast and replica check on NCCL",
+        f"dp E2: 2 gloo ranks on one card, stage 1 {DP_ITERS} steps "
+        f"{rec['e2_rgb'].get('it_per_s', float('nan')):.1f} it/s, PSNR "
+        f"{psnr2:.2f} dB (1 rank {psnr1:.2f}); stages 2, 3 and --test; "
+        f"replicas equal at every save",
+        *(f"dp E3 {h}: sharded 512^2 frame {e3['dp_render_ms'][h]:.1f} ms "
+          f"(1 rank {e3['single_render_ms'][h]:.1f}), interactive "
+          f"{e3['sharded_frame_ms'][h]:.1f} ms (1 rank "
+          f"{e3['single_frame_ms'][h]:.1f}); gloo gathers through the host"
+          for h in HIERARCHIES),
+        f"dp phase: {rec['seconds']:.1f} s"]
+    return rec
+
+
+def _digest_hex(dp, state):
+    return dp.replica_digest(state).hex()
+
+
+def dp_child(out_path, base):
+    """E1, then E3's two ranks; writes their records to out_path (run in a
+    process of its own by dp_phase)."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    rec = {"e1": e1_nccl()}
+    store = tempfile.mkdtemp(dir=base)
+    t = time.perf_counter()
+    ctx = mp.start_processes(e3_rank, nprocs=2, join=False,
+                             start_method="spawn",
+                             args=(os.path.join(store, "s"), base))
+    try:
+        while not ctx.join(timeout=5):
+            check(time.perf_counter() - t < DP_CHILD_TIMEOUT_S - 60,
+                  "E3: the ranks did not end")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(base, f"e3_{r}.json")) as f:
+            ranks.append(json.load(f))
+    e3 = ranks[0]
+    e3["follower"] = ranks[1]
+    e3["seconds"] = time.perf_counter() - t
+    rec["e3"] = e3
+    with open(out_path, "w") as f:
+        json.dump(rec, f)
+
+
+def e1_nccl():
+    """E1: the DP step over a 1-rank NCCL group on the card against the
+    single-device step, DP_STEPS steps of DP_RAYS rays at ModelConfig()'s
+    width and (128, 64, 32), deterministic algorithms on: the params, EMA
+    and moments bit for bit (one rank's all-reduce is the identity), and
+    two single-device runs bit for bit first (else the hold says
+    nothing). Then, on the same group, a sharded evaluation frame of the
+    trained EMA weights bit for bit render_staged's, the barrier, the
+    object broadcast and the replica check."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from sanerf_tpu_torch.config import ModelConfig, RenderConfig, TrainConfig
+    from sanerf_tpu_torch.data.synthetic import SyntheticSphereDataset
+    from sanerf_tpu_torch.models import fields, renderer
+    from sanerf_tpu_torch.parallel import collectives, dp
+    from sanerf_tpu_torch.train import state as st
+    from sanerf_tpu_torch.train.tree import leaves_with_paths
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    store = tempfile.mkdtemp()
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(store, "s"), 1), rank=0, world_size=1)
+    torch.use_deterministic_algorithms(True)
+    try:
+        mesh = dp.make_mesh(1, dev)
+        check(mesh.backend == "nccl" and mesh.size == 1,
+              f"E1: mesh {mesh.backend} x {mesh.size}")
+        model = fields.make_model(ModelConfig(), RenderConfig(
+            num_steps=(128, 64, 32), bound=4.0))
+        tc = TrainConfig(num_rays=DP_RAYS, adaptive_num_rays=False,
+                         iters=1000, lr=float(DP_LR))
+        ds = SyntheticSphereDataset(H=CLI_SIZE, W=CLI_SIZE,
+                                    n_views=CLI_VIEWS, scene="textured")
+        params = fields.init_params(model, torch.Generator().manual_seed(0),
+                                    dev)
+
+        def run(step, sharded):
+            s = st.create_train_state(model, tc, params=params)
+            rng = np.random.default_rng(0)
+            gen = torch.Generator(device=dev).manual_seed(0)
+            losses, times = [], []
+            for i in range(DP_STEPS):
+                host = {k: v for k, v in ds.collate_train(rng, DP_RAYS).items()
+                        if isinstance(v, np.ndarray)}
+                b = (dp.shard_batch(host, mesh) if sharded else
+                     {k: torch.as_tensor(v, device=dev)
+                      for k, v in host.items()})
+                draws = st.draw_step(model, tc, DP_RAYS, gen, dev)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                s, aux = step(s, b, draws, update_proposal=(
+                    st.update_proposal_now(tc, i + 1)))
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) * 1e3)
+                losses.append(float(aux["loss"]))
+            return s, losses, times
+
+        single = st.make_rgb_train_step(model, tc)
+        s1, l1, t1 = run(single, False)
+        s2, _, _ = run(single, False)
+        check(_digest_hex(dp, s1) == _digest_hex(dp, s2),
+              "E1: two single-device runs differ (not deterministic)")
+        sd, ld, td = run(dp.make_dp_train_step(model, tc, mesh), True)
+        check(_digest_hex(dp, sd) == _digest_hex(dp, s1),
+              "E1: the 1-rank NCCL step differs from the single step")
+        check(all(math.isfinite(v) for v in l1 + ld), f"E1: losses {l1}")
+        torch.use_deterministic_algorithms(False)
+        # the rest of what a multi-card run calls, on NCCL: the sharded
+        # evaluation frame, the barrier, the object broadcast and the
+        # replica check of a save
+        frame = ds.frame(0)
+        ro, rd = (torch.as_tensor(frame[k], device=dev)
+                  for k in ("rays_o", "rays_d"))
+        with torch.no_grad():
+            ref = renderer.render_staged(model, sd.ema_params, ro, rd)
+        got = dp.render_frame_dp(model, mesh, dp.make_dp_render(model, mesh),
+                                 sd.ema_params, ro, rd)
+        frame_equal = all(torch.equal(got[k], ref[k])
+                          for k in ("image", "depth", "weights_sum"))
+        check(frame_equal, "E1: the 1-rank NCCL frame differs from "
+              "render_staged's")
+        mesh.barrier()
+        check(collectives.broadcast_object(mesh, {"path": "x"})
+              == {"path": "x"}, "E1: broadcast_object on NCCL")
+        check(dp.check_replicas(sd, mesh, "E1")[0] == dp.replica_digest(sd),
+              "E1: check_replicas on NCCL")
+        return {"steps": DP_STEPS, "rays": DP_RAYS, "losses": ld,
+                "single_losses": l1, "digest": _digest_hex(dp, sd),
+                "single_step_ms": statistics.median(t1[1:]),
+                "dp_step_ms": statistics.median(td[1:]),
+                "frame_rays": int(ro.shape[0]), "frame_equal": frame_equal,
+                "params": sum(int(t.numel()) for _, t in
+                              leaves_with_paths(sd.params))}
+    finally:
+        torch.use_deterministic_algorithms(False)
+        dist.destroy_process_group()
+
+
+def e3_rank(rank, store, base):
+    """A rank of E3 (two gloo ranks on one card): writes e3_<rank>.json."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
+                            rank=rank, world_size=2)
+    try:
+        rec = {"gloo_cuda": gloo_cuda_probe(torch, dist, timedelta)}
+        rec.update(e3_frames(torch, rank))
+        with open(os.path.join(base, f"e3_{rank}.json"), "w") as f:
+            json.dump(rec, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def gloo_cuda_probe(torch, dist, timedelta):
+    """Which collectives gloo takes as CUDA tensors here (the port's
+    collectives hand them to gloo as they are: parallel/collectives.py);
+    on a group of its own. -> {op: true or the error, "torch": version}."""
+    group = dist.new_group(backend="gloo", timeout=timedelta(seconds=60))
+    dev = torch.device("cuda", 0)
+    out = {}
+    for name, fn in (
+            ("all_reduce", lambda t: dist.all_reduce(t, group=group)),
+            ("broadcast", lambda t: dist.broadcast(t, 0, group=group)),
+            ("all_gather", lambda t: dist.all_gather(
+                [torch.empty_like(t) for _ in range(2)], t, group=group))):
+        try:
+            fn(torch.ones(4, device=dev))
+            torch.cuda.synchronize()
+            out[name] = True
+        except Exception as e:  # a probe: the answer is the error
+            out[name] = f"{type(e).__name__}: {e}"[:300]
+    dist.destroy_process_group(group)
+    out["torch"] = torch.__version__
+    return out
+
+
+#: E3's own follower commands (beside frame_pipeline's CMD_*): set the
+#: launch counts to 0, read them
+E3_ZERO, E3_READ = 100, 101
+
+
+def e3_frames(torch, rank):
+    """E3 on one rank: the asset's sharded 512^2 frames (render_frame_dp)
+    and interactive frames (InteractiveSession with the mesh; rank 1
+    follows) at both hierarchies, rank 0 holding each against its
+    single-device frame; on both ranks the launch counters set to 0 just
+    before one sharded frame and read just after it, every kernel
+    launched."""
+    import dataclasses
+
+    import numpy as np
+
+    from sanerf_tpu_torch.apps.frame_pipeline import send_command
+    from sanerf_tpu_torch.apps.interactive import InteractiveSession
+    from sanerf_tpu_torch.data.rays import full_frame_rays
+    from sanerf_tpu_torch.models import fields, renderer
+    from sanerf_tpu_torch.models.asset import load_asset
+    from sanerf_tpu_torch.models.sam import predictor as sam_mod
+    from sanerf_tpu_torch.ops import fused_mlp_t as fm
+    from sanerf_tpu_torch.ops import ray_kernels as rk
+    from sanerf_tpu_torch.parallel import dp
+    from sanerf_tpu_torch.utils.camera import fov_to_focal
+
+    dev = dp.local_device("cuda")
+    torch.cuda.set_device(dev)
+    mesh = dp.make_mesh(2, dev)
+    counters = [rk.ray_level0, rk.ray_level, fm.run_tmlp,
+                fm.run_tmlp_composite]
+
+    def zero():
+        torch.cuda.synchronize()
+        for c in counters:
+            c.launches = 0
+
+    def counts():
+        torch.cuda.synchronize()
+        return dict(zip(KERNELS, [c.launches for c in counters]))
+
+    asset = os.path.join(ROOT, "assets", "serving_student")
+    pose = np.asarray(SERVE_POSE, np.float32)
+    focal = fov_to_focal(60.0, SIZE)
+    intr = np.asarray([focal, focal, SIZE / 2, SIZE / 2], np.float32)
+    mc, rc, p32 = load_asset(asset, device=dev)
+    ps = fields.cast_params(p32, torch.bfloat16)
+    ro, rd = full_frame_rays(pose, intr, SIZE, SIZE, device=dev)
+    rec = {"rank": rank, "dp_render_launches": {}, "dp_render_ms": {},
+           "single_render_ms": {}, "render_max_abs_err": {},
+           "render_bitwise": {}, "sharded_frame_ms": {},
+           "single_frame_ms": {}, "frame_u8_max_diff": {},
+           "frame_depth_max_err": {}, "interactive_launches": {}}
+
+    def timed(fn, n=DP_FRAMES):
+        ts = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(ts)
+
+    for h, steps in HIERARCHIES.items():
+        model = fields.make_model(mc, dataclasses.replace(
+            rc, num_steps=steps, max_ray_batch=SIZE * SIZE))
+        fn = dp.make_dp_render(model, mesh)
+        dp.render_frame_dp(model, mesh, fn, ps, ro, rd)  # warm-up
+        zero()
+        out = dp.render_frame_dp(model, mesh, fn, ps, ro, rd)
+        rec["dp_render_launches"][h] = counts()
+        check(all(v > 0 for v in rec["dp_render_launches"][h].values()),
+              f"E3 {h}: a kernel was not launched: "
+              f"{rec['dp_render_launches'][h]}")
+        rec["dp_render_ms"][h] = timed(
+            lambda: dp.render_frame_dp(model, mesh, fn, ps, ro, rd))
+        if rank == 0:
+            with torch.no_grad():
+                ref = renderer.render_staged(model, ps, ro, rd)
+            errs = {k: float((out[k].float() - ref[k].float()).abs().max())
+                    for k in ("image", "depth", "weights_sum")}
+            rec["render_max_abs_err"][h] = errs
+            rec["render_bitwise"][h] = all(
+                torch.equal(out[k], ref[k])
+                for k in ("image", "depth", "weights_sum"))
+            check(all(math.isfinite(v) and v <= PATH_TOL
+                      for v in errs.values()),
+                  f"E3 {h}: sharded frame against one rank's {errs}")
+            with torch.no_grad():
+                rec["single_render_ms"][h] = timed(
+                    lambda: renderer.render_staged(model, ps, ro, rd))
+        mesh.barrier()
+
+    # the interactive frame: the asset with a seeded SAM head and decoder
+    mcs, rcs, p32s = load_asset(asset, device=dev, with_sam=True, seed=0)
+    pss = fields.cast_params(p32s, torch.bfloat16)
+    sam_cfg = sam_mod.SamConfig()
+    sam_params = fields.cast_params(sam_mod.init_params(
+        sam_cfg, torch.Generator().manual_seed(1), dev))
+    for h, steps in HIERARCHIES.items():
+        model = fields.make_model(mcs, dataclasses.replace(
+            rcs, num_steps=steps, max_ray_batch=SIZE * SIZE))
+
+        def session(mesh_, sam=True):
+            return InteractiveSession(
+                None, model, pss, sam_mod.SamPredictor(
+                    sam_cfg, sam_params, device=dev) if sam else None,
+                H=SIZE, W=SIZE, device=dev, mesh=mesh_)
+
+        # rank 1 follows without a SAM decoder (as the CLI's followers);
+        # rank 0's E3_ZERO / E3_READ commands set its counts to 0 just
+        # before the measured sharded frame and read them just after it
+        sharded = session(mesh, sam=rank == 0)
+        if rank != 0:
+            got = {}
+
+            def on_command(head):
+                if head[0] == E3_ZERO:
+                    zero()
+                elif head[0] == E3_READ:
+                    got.update(counts())
+                else:
+                    raise RuntimeError(f"E3: unexpected command {head}")
+
+            sharded.follow(on_command)
+            rec["interactive_launches"][h] = got
+            check(got and all(v > 0 for v in got.values()),
+                  f"E3 {h}: rank 1's sharded interactive frame did not "
+                  f"launch every kernel: {got}")
+            continue
+        single = session(None)
+        for s in (single, sharded):
+            s.step(pose)
+            s.points_3d.append(np.zeros(3, np.float32))
+            s.step(pose)
+        r1 = single.step(pose, pipelined=False)
+        send_command(mesh, E3_ZERO)
+        zero()
+        r2 = sharded.step(pose, pipelined=False)
+        rec["interactive_launches"][h] = counts()
+        send_command(mesh, E3_READ)
+        check(all(v > 0 for v in rec["interactive_launches"][h].values()),
+              f"E3 {h}: rank 0's sharded interactive frame did not launch "
+              f"every kernel: {rec['interactive_launches'][h]}")
+        du8 = int(np.abs(r1.rgb_u8.astype(np.int32)
+                         - r2.rgb_u8.astype(np.int32)).max())
+        dd = float(((r1.depth - r2.depth).abs()
+                    / (1.0 + r1.depth.abs())).max())
+        rec["frame_u8_max_diff"][h], rec["frame_depth_max_err"][h] = du8, dd
+        check(du8 <= 1 and dd <= 1e-4,
+              f"E3 {h}: sharded interactive frame u8 {du8}, depth {dd}")
+        check(r2.mask is not None and bool(torch.isfinite(r2.depth).all()),
+              f"E3 {h}: sharded frame's mask or depth")
+        rec["single_frame_ms"][h] = timed(
+            lambda: single.step(pose, pipelined=False))
+        rec["sharded_frame_ms"][h] = timed(
+            lambda: sharded.step(pose, pipelined=False))
+        sharded.close()
     return rec
 
 

@@ -15,6 +15,16 @@ after the frame is enqueued, and a CUDA event marks the copy's end; a
 frame is fetched (its event waited on) only once `depth` newer frames are
 enqueued. On the CPU the copy is synchronous.
 
+With a `mesh` (parallel/dp.py; JAX: the frame program's shard_map, apps/
+frame_pipeline.py:158-183, 323-338) every rank renders its contiguous rows
+of the same frame, RGB and feature render alike, and the rows are gathered
+in rank order; rank 0 then runs the SAM decode, the overlays and the
+packing. Rank 0 broadcasts each frame's inputs (a command header and the
+packed vector); the other ranks run a follower loop (`follow`, or
+`InteractiveSession.follow`) until rank 0 sends CMD_STOP (`close`). The
+header says whether the frame renders features, so a follower needs no
+SAM decoder.
+
 The host-side I420 decode is numpy (no OpenCV).
 """
 
@@ -31,9 +41,29 @@ from sanerf_tpu_torch.models import renderer
 from sanerf_tpu_torch.models.fields import KernelNets, NerfModel
 from sanerf_tpu_torch.models.sam.common import const_row
 from sanerf_tpu_torch.models.sam.predictor import SamConfig, decode_fused
+from sanerf_tpu_torch.parallel import dp
+from sanerf_tpu_torch.parallel.collectives import all_gather, broadcast
 
 #: occlusion tolerance for reprojected 3D points
 OCCLUSION_EPS = 0.05
+#: the commands rank 0 sends its followers: a header of HEADER int64
+#: [cmd, H, W, mode (1: depth), perturb, use_aabb, seed, arg]; a frame's
+#: arg is 1 where it renders the SAM features
+CMD_STOP, CMD_FRAME, CMD_TRAIN, CMD_SAVE = 0, 1, 2, 3
+HEADER = 8
+
+
+def send_command(mesh, cmd: int, *fields: int) -> None:
+    """Rank 0: broadcast a command header to the followers."""
+    head = [cmd, *fields] + [0] * (HEADER - 1 - len(fields))
+    broadcast(mesh, torch.tensor(head, dtype=torch.int64,
+                                 device=mesh.device))
+
+
+def recv_command(mesh) -> list:
+    """A follower: the next command header from rank 0."""
+    head = torch.zeros(HEADER, dtype=torch.int64, device=mesh.device)
+    return [int(v) for v in broadcast(mesh, head).cpu()]
 
 
 def _rgb_to_yuv420(disp: torch.Tensor):
@@ -122,6 +152,30 @@ def _jitter(model: NerfModel, n: int, generator: torch.Generator, device):
             for T in model.render_cfg.num_steps]
 
 
+def _render_rows(model: NerfModel, params, rays_o, rays_d, generator,
+                 mesh, keys, **kw):
+    """run_rays on the frame's rays, or on a mesh on this rank's rows,
+    their `keys` outputs gathered in rank order into one [N, sum of
+    widths] tensor per call. -> {key: [N, width] or [N]}."""
+    if mesh is not None:
+        per = rays_o.shape[0] // mesh.size
+        sl = slice(mesh.rank * per, (mesh.rank + 1) * per)
+        rays_o, rays_d = rays_o[sl], rays_d[sl]
+    jit = (None if generator is None
+           else _jitter(model, rays_o.shape[0], generator, rays_o.device))
+    out = renderer.run_rays(model, params, rays_o, rays_d, jit, **kw)
+    if mesh is None:
+        return {k: out[k] for k in keys}
+    cols = [out[k].reshape(out[k].shape[0], -1).float() for k in keys]
+    got = all_gather(mesh, torch.cat(cols, dim=1))
+    res, head = {}, 0
+    for k, c in zip(keys, cols):
+        part = got[:, head:head + c.shape[1]].to(out[k].dtype)
+        res[k] = part.reshape((got.shape[0],) + tuple(out[k].shape[1:]))
+        head += c.shape[1]
+    return res
+
+
 def _frame_program(model: NerfModel, params, sam_cfg: Optional[SamConfig],
                    sam_params, packed: torch.Tensor, acc: torch.Tensor,
                    generator: Optional[torch.Generator], *,
@@ -129,14 +183,18 @@ def _frame_program(model: NerfModel, params, sam_cfg: Optional[SamConfig],
                    input_hw: Tuple[int, int], mode: str, perturb: bool,
                    with_overlay: bool, use_aabb: bool = False,
                    fetch_format: str = "rgb8",
-                   nets: Optional[KernelNets] = None):
+                   nets: Optional[KernelNets] = None, mesh=None,
+                   with_feats: Optional[bool] = None):
     """One interactive frame on packed's device.
 
     packed [28 + 4K] float32: pose (16) | intr (4) | points3d (3K) |
     active (K) | aabb (6) | bg (1) | spp (1). acc [H, W, 3]: running sum of
     raw frames (spp). With `perturb`, `generator` draws the stratified
-    jitter. -> (pix, depth [H, W], mask [H, W] bool or None, acc_new,
-    pts2d [K, 2], valid [K])."""
+    jitter (of this rank's rows on a mesh). The feature render runs where
+    `with_feats` (by default where there is a `sam_cfg`; a follower takes
+    rank 0's word and needs none). -> (pix, depth [H, W], mask [H, W] bool
+    or None, acc_new, pts2d [K, 2], valid [K]); on a mesh's ranks past 0,
+    None once the renders are gathered."""
     H, W = hw
     K = (packed.shape[0] - 28) // 4
     pose = packed[:16].reshape(4, 4)
@@ -148,9 +206,11 @@ def _frame_program(model: NerfModel, params, sam_cfg: Optional[SamConfig],
     spp = packed[27 + 4 * K]
     dev = packed.device
     rays_o, rays_d = full_frame_rays(pose, intr, H, W, device=dev)
-    jit = _jitter(model, H * W, generator, dev) if perturb else None
-    out = renderer.run_rays(model, params, rays_o, rays_d, jit,
-                            bg_color=bg_color, aabb=aabb, nets=nets)
+    out = _render_rows(model, params, rays_o, rays_d,
+                       generator if perturb else None, mesh,
+                       ("image", "depth"), bg_color=bg_color, aabb=aabb,
+                       nets=nets)
+    lead = mesh is None or mesh.rank == 0
     img = out["image"].reshape(H, W, 3)
     depth = out["depth"].reshape(H, W)
 
@@ -159,24 +219,32 @@ def _frame_program(model: NerfModel, params, sam_cfg: Optional[SamConfig],
     acc_new = acc * live + img
     disp = acc_new / (spp + 1)
 
-    pts2d, valid = project_points_device(points3d, points_active, pose, intr,
-                                         depth, H, W)
+    pts2d, valid = (project_points_device(points3d, points_active, pose,
+                                          intr, depth, H, W)
+                    if lead else (None, None))
 
     mask = None
-    if sam_cfg is not None:
+    if with_feats is None:
+        with_feats = sam_cfg is not None
+    if with_feats:
         h, w = feat_hw
         # feature intrinsics from the render intrinsics (downscale-invariant)
         intr_lr = torch.stack([intr[0] * h / H, intr[1] * w / W,
                                torch.full_like(intr[0], w / 2.0),
                                torch.full_like(intr[0], h / 2.0)])
         ro_lr, rd_lr = full_frame_rays(pose, intr_lr, h, w, device=dev)
-        feat = renderer.run_rays(model, params, ro_lr, rd_lr,
-                                 return_feats=True, aabb=aabb, nets=nets)
+        feat = _render_rows(model, params, ro_lr, rd_lr, None, mesh,
+                            ("samvit",), return_feats=True, aabb=aabb,
+                            nets=nets)
+        if not lead:
+            return None
         fv = feat["samvit"].reshape(h, w, -1)
         labels = torch.where(valid, 1, -1).to(torch.int64)[None]  # [1, K]
         masks, _ = decode_fused(sam_cfg, sam_params, fv, pts2d[None], labels,
                                 feat_hw=feat_hw, out_hw=hw, input_hw=input_hw)
         mask = masks[0, 0] & valid.any()
+    if not lead:
+        return None
 
     if mode == "depth":
         dnorm = depth / torch.clamp(depth.max(), min=1e-6)
@@ -215,11 +283,23 @@ class FramePipeline:
     `render_sync` returns the frame it enqueues. Both return
     (u8 [H, W, 3] numpy, depth [H, W] (device), mask [H, W] (device) or
     None, pts2d [K, 2], valid [K]). Runs on the CUDA card unless `device`
-    says otherwise."""
+    says otherwise. With a `mesh` the frame renders sharded over its ranks
+    (module docstring): rank 0 calls render / render_sync and, at the end,
+    `close`; the other ranks call `follow`. The frame's and the feature
+    map's ray counts must divide the mesh."""
 
     def __init__(self, model, params, sam_cfg, sam_params, H, W, h=32, w=32,
                  max_points: int = 8, overlay: bool = True,
-                 fetch_format: str = "rgb8", depth: int = 2, device=None):
+                 fetch_format: str = "rgb8", depth: int = 2, device=None,
+                 mesh=None):
+        if mesh is not None:
+            n = mesh.size
+            if H * W % n or h * w % n:
+                raise ValueError(
+                    f"frame {H}x{W} / feature {h}x{w} ray counts must "
+                    f"divide the {n}-rank mesh")
+            device = mesh.device
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.model = model
         self.params = params
@@ -267,6 +347,45 @@ class FramePipeline:
             a[:n] = 1
         return p, a
 
+    def _program(self, packed_dev, generator, mode, perturb, use_aabb,
+                 with_feats=None):
+        return _frame_program(
+            self.model, self.params, self.sam_cfg, self.sam_params,
+            packed_dev, self._acc, generator, hw=self.hw,
+            feat_hw=self.feat_hw, input_hw=self.input_hw, mode=mode,
+            perturb=perturb, with_overlay=self.overlay, use_aabb=use_aabb,
+            fetch_format=self.fetch_format, nets=self._kernel_nets(),
+            mesh=self.mesh, with_feats=with_feats)
+
+    def follow_frame(self, head) -> None:
+        """A follower's part of the frame whose header rank 0 sent."""
+        _, H, W, mode, perturb, use_aabb, seed, feats = head
+        if (H, W) != self.hw:
+            raise RuntimeError(f"a {H}x{W} frame for a {self.hw} pipeline")
+        packed = broadcast(self.mesh, torch.zeros(
+            28 + 4 * self.max_points, dtype=torch.float32,
+            device=self.device))
+        gen = (dp.rank_generator(seed, self.mesh, self.device) if perturb
+               else None)
+        self.dispatch_count += 1
+        self._program(packed, gen, ("image", "depth")[mode], bool(perturb),
+                      bool(use_aabb), bool(feats))
+
+    def follow(self) -> None:
+        """A follower's loop: this pipeline's frames until CMD_STOP."""
+        while True:
+            head = recv_command(self.mesh)
+            if head[0] == CMD_STOP:
+                return
+            if head[0] != CMD_FRAME:
+                raise RuntimeError(f"unexpected command {head}")
+            self.follow_frame(head)
+
+    def close(self) -> None:
+        """Rank 0: end the followers' loops."""
+        if self.mesh is not None and self.mesh.rank == 0:
+            send_command(self.mesh, CMD_STOP)
+
     def _dispatch(self, pose, intr, points3d, active, aabb, bg_color, spp,
                   generator, mode, perturb):
         self.dispatch_count += 1
@@ -284,13 +403,21 @@ class FramePipeline:
         packed[27 + 4 * K] = spp
         packed_dev = torch.from_numpy(packed).to(self.device,
                                                  non_blocking=True)
-        pix, depth, mask, self._acc, pts2d, valid = _frame_program(
-            self.model, self.params, self.sam_cfg, self.sam_params,
-            packed_dev, self._acc, generator, hw=self.hw,
-            feat_hw=self.feat_hw, input_hw=self.input_hw, mode=mode,
-            perturb=perturb, with_overlay=self.overlay,
-            use_aabb=aabb is not None, fetch_format=self.fetch_format,
-            nets=self._kernel_nets())
+        if self.mesh is not None:
+            # the followers' header and inputs; each rank's jitter from
+            # its own generator, seeded from the caller's
+            seed = (int(torch.randint(0, 2 ** 62, (1,), generator=generator,
+                                      device=generator.device))
+                    if perturb else 0)
+            send_command(self.mesh, CMD_FRAME, *self.hw,
+                         int(mode == "depth"), int(perturb),
+                         int(aabb is not None), seed,
+                         int(self.sam_cfg is not None))
+            broadcast(self.mesh, packed_dev)
+            if perturb:
+                generator = dp.rank_generator(seed, self.mesh, self.device)
+        pix, depth, mask, self._acc, pts2d, valid = self._program(
+            packed_dev, generator, mode, perturb, aabb is not None)
         return pix, depth, mask, pts2d, valid
 
     def _start_fetch(self, frame, pose):

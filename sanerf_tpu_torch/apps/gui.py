@@ -17,6 +17,13 @@ imports, else runs the headless loop for 10 orbiting 512^2 frames and
 writes them as PNGs under `<workspace>/gui_frames`. No machine this
 package is tested on has dearpygui, so `_run_dearpygui` is ported as it
 stands and has not run. The renders take the CUDA kernels on the card.
+
+On a data-parallel trainer (`--n_devices N`) the session takes its mesh
+(JAX apps/gui.py:165): frames render sharded over the ranks. Rank 0 runs
+the viewer and tells the other ranks, through the frame pipeline's
+command headers, each frame's inputs, how many training steps to take
+between frames (CMD_TRAIN) and when to save (CMD_SAVE); they follow
+(`follow_gui`) until it sends CMD_STOP.
 """
 
 from __future__ import annotations
@@ -27,6 +34,8 @@ import time
 import numpy as np
 import torch
 
+from sanerf_tpu_torch.apps.frame_pipeline import (CMD_SAVE, CMD_TRAIN,
+                                                  send_command)
 from sanerf_tpu_torch.apps.interactive import InteractiveSession
 from sanerf_tpu_torch.config import Config
 from sanerf_tpu_torch.train.trainer import save_png
@@ -96,6 +105,8 @@ class HeadlessViewer:
 
     def save_checkpoint(self):
         if self.trainer is not None:
+            if self.session.mesh is not None:
+                send_command(self.session.mesh, CMD_SAVE)
             self.trainer.save_checkpoint(full=True)
 
     def frame(self, click=None):
@@ -107,6 +118,9 @@ class HeadlessViewer:
             return self._last_result
         if self.training:
             tt0 = time.time()
+            if self.session.mesh is not None:
+                send_command(self.session.mesh, CMD_TRAIN, 0, 0, 0, 0, 0, 0,
+                             self.ctrl.train_steps)
             for _ in range(self.ctrl.train_steps):
                 self.trainer.train_step(self.train_dataset,
                                         self.cfg.train.num_rays)
@@ -156,9 +170,38 @@ class HeadlessViewer:
 def launch_gui(cfg: Config, trainer, sam_predictor=None, train_dataset=None):
     """The dearpygui window where dearpygui imports, else 10 headless
     frames orbiting 30 px apart, written as PNGs -> the viewer."""
+    mesh = getattr(trainer, "mesh", None)
     session = InteractiveSession(cfg, trainer.model, trainer.eval_params(),
                                  sam_predictor, H=512, W=512,
-                                 device=trainer.device)
+                                 device=trainer.device, mesh=mesh)
+    if mesh is not None and mesh.rank != 0:
+        return follow_gui(cfg, session, trainer, train_dataset)
+    try:
+        return _run_viewer(cfg, session, trainer, train_dataset)
+    finally:
+        session.close()
+
+
+def follow_gui(cfg: Config, session: InteractiveSession, trainer,
+               train_dataset=None):
+    """A rank past 0 of the viewer: its rows of every frame, the training
+    steps and saves rank 0 asks for, until rank 0 stops. -> the session."""
+    def on_command(head):
+        if head[0] == CMD_TRAIN:
+            for _ in range(head[7]):
+                trainer.train_step(train_dataset, cfg.train.num_rays)
+            session.params = trainer.eval_params()
+        elif head[0] == CMD_SAVE:
+            trainer.save_checkpoint(full=True)
+        else:
+            raise RuntimeError(f"unexpected command {head}")
+
+    session.follow(on_command)
+    return session
+
+
+def _run_viewer(cfg: Config, session: InteractiveSession, trainer,
+                train_dataset):
     try:
         import dearpygui.dearpygui as dpg  # noqa: F401
 

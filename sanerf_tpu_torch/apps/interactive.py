@@ -7,7 +7,11 @@ point markers overlay the RGB frame: all of it in
 `frame_pipeline._frame_program`, pipelined by `FramePipeline`. The host
 keeps the 3D point list: a click lifts its pixel to 3D through the
 displayed frame's depth (p = o + d * depth) and toggles it in the list.
-Runs on the CUDA card unless `device` says otherwise.
+Runs on the CUDA card unless `device` says otherwise. With a `mesh`
+(parallel/dp.py) every frame renders sharded over its ranks: rank 0 runs
+the session and ends with `close`, the other ranks run `follow`; a
+downscale whose frame's ray count does not divide the mesh is refused
+(FramePipeline), as in JAX.
 """
 
 from __future__ import annotations
@@ -19,7 +23,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from sanerf_tpu_torch.apps.frame_pipeline import FramePipeline
+from sanerf_tpu_torch.apps.frame_pipeline import (CMD_FRAME, CMD_STOP,
+                                                  FramePipeline, recv_command,
+                                                  send_command)
 from sanerf_tpu_torch.device import resolve_device
 from sanerf_tpu_torch.models.fields import NerfModel, Params
 from sanerf_tpu_torch.utils.camera import fov_to_focal
@@ -57,8 +63,10 @@ def _resize_u8(u8: np.ndarray, H: int, W: int, device) -> np.ndarray:
 class InteractiveSession:
     def __init__(self, cfg, model: NerfModel, params: Params,
                  sam_predictor=None, H: int = 512, W: int = 512,
-                 fetch_format: str = "yuv420", device=None):
-        self.device = resolve_device(device)
+                 fetch_format: str = "yuv420", device=None, mesh=None):
+        self.mesh = mesh  # frames render sharded over its ranks
+        self.device = resolve_device(mesh.device if mesh is not None
+                                     else device)
         self.cfg = cfg
         self.model = model
         self.params = params
@@ -87,10 +95,31 @@ class InteractiveSession:
             pipe = FramePipeline(self.model, self.params, sam_cfg, sam_params,
                                  Hs, Ws, self.h, self.w,
                                  fetch_format=self.fetch_format,
-                                 device=self.device)
+                                 device=self.device, mesh=self.mesh)
             self._pipes[(Hs, Ws)] = pipe
         pipe.params = self.params  # updated params flow through
         return pipe
+
+    # -- the followers (ranks past 0 of a mesh) -----------------------------
+
+    def follow(self, on_command=None) -> None:
+        """A follower's loop: its rows of every frame rank 0 renders, and
+        other commands passed to `on_command(header)`, until CMD_STOP."""
+        while True:
+            head = recv_command(self.mesh)
+            if head[0] == CMD_STOP:
+                return
+            if head[0] == CMD_FRAME:
+                self._pipe(head[1], head[2]).follow_frame(head)
+            elif on_command is not None:
+                on_command(head)
+            else:
+                raise RuntimeError(f"unexpected command {head}")
+
+    def close(self) -> None:
+        """Rank 0: end the followers' loops."""
+        if self.mesh is not None and self.mesh.rank == 0:
+            send_command(self.mesh, CMD_STOP)
 
     # -- 3D point memory ----------------------------------------------------
 

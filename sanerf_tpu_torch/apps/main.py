@@ -13,9 +13,18 @@ without `--test` trains as if it were not there, as in the JAX CLI.
 Stages 2 and 3 take the previous stage's weights through `--init_ckpt`,
 frozen (`checkpoints.load_partial_and_freeze`). Runs on the CUDA card;
 `main(argv, device="cpu")` and `run(cfg, device="cpu")` run the plain
-versions on the CPU (the JAX CLI has no device flag). Not in the port:
-`--n_devices > 1` (ROADMAP.md, A6) raises NotImplementedError;
-`--write_video` needs imageio, as in the JAX CLI.
+versions on the CPU (the JAX CLI has no device flag). `--write_video`
+needs imageio, as in the JAX CLI.
+
+`--n_devices N` (N > 1) runs N data-parallel ranks (parallel/dp.py), one
+process each: under `torchrun --nproc_per_node N` from its environment,
+otherwise spawned here (torch.multiprocessing, a FileStore in the
+workspace) with `main` in the parent returning None once every rank has
+ended. Each rank takes card LOCAL_RANK (or its rank) modulo the card
+count; the backend is NCCL on CUDA and gloo on the CPU, or what
+`--dist_backend` names (the port's one flag beyond the JAX CLI's): two
+ranks sharing one card need gloo, since NCCL refuses two ranks on one
+device. Stage 2 and stage 3 take the mesh as stage 1 does.
 """
 
 from __future__ import annotations
@@ -30,6 +39,9 @@ from sanerf_tpu_torch.config import (
     Config, DataConfig, MaskTrainConfig, ModelConfig, RenderConfig,
     SamTrainConfig, TrainConfig,
 )
+
+#: flags of the port that the JAX CLI does not have
+PORT_FLAGS = ("dist_backend",)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -82,8 +94,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--adaptive_num_rays", action=argparse.BooleanOptionalAction, default=True)
     p.add_argument("--num_points", type=int, default=2**18)
     p.add_argument("--n_devices", type=int, default=1,
-                   help="data-parallel devices (only 1 in the port: "
-                   "ROADMAP.md, A6)")
+                   help="data-parallel ranks, one process each (spawned "
+                   "here, or torchrun's); gradients averaged, eval "
+                   "renders sharded")
+    p.add_argument("--dist_backend", type=str, default=None,
+                   choices=["nccl", "gloo"],
+                   help="the ranks' torch.distributed backend (default: "
+                   "nccl on CUDA, gloo on the CPU; gloo for ranks that "
+                   "share one card)")
 
     p.add_argument("--lambda_entropy", type=float, default=0)
     p.add_argument("--lambda_tv", type=float, default=0)
@@ -320,12 +338,17 @@ def run(cfg: Config, write_video: bool = False, return_extra: bool = False,
                                                 PSNRMeter, SSIMMeter)
     from sanerf_tpu_torch.train.trainer import Trainer
 
-    if cfg.train.n_devices > 1:
-        raise NotImplementedError(
-            "--n_devices > 1: data-parallel training is not in the port "
-            "(ROADMAP.md, A6)")
-    dev = resolve_device(device)
     model = fields.make_model(cfg.model, cfg.render)
+    lead = True  # the rank that runs the SAM teacher
+    if cfg.train.n_devices > 1:
+        import torch.distributed as dist
+
+        from sanerf_tpu_torch.parallel import dp
+
+        dev = dp.local_device(device)
+        lead = dist.get_rank() == 0
+    else:
+        dev = resolve_device(device)
 
     # the cross-stage hand-off
     init_params, trainable = None, None
@@ -334,8 +357,10 @@ def run(cfg: Config, write_video: bool = False, return_extra: bool = False,
             cfg.init_ckpt, fields.init_params(
                 model, torch.Generator().manual_seed(cfg.seed), dev))
 
-    sam_predictor = (build_sam_predictor(cfg, dev) if cfg.model.with_sam
-                     else None)
+    # on a mesh rank 0 alone holds the teacher: stage 2 broadcasts its
+    # features, and the viewer's other ranks render without a decoder
+    sam_predictor = (build_sam_predictor(cfg, dev)
+                     if cfg.model.with_sam and lead else None)
     kw = dict(workspace=cfg.workspace, use_checkpoint=cfg.ckpt, device=dev)
 
     if cfg.test:
@@ -387,12 +412,74 @@ def run(cfg: Config, write_video: bool = False, return_extra: bool = False,
 
 def main(argv=None, device=None):
     """Parse `argv` (sys.argv by default) and run it on `device` (the CUDA
-    card by default) -> the trainer."""
+    card by default) -> the trainer; with `--n_devices N` outside torchrun,
+    None once the N spawned ranks have ended (module docstring)."""
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
+    n = cfg.train.n_devices
+    if n > 1:
+        import torch.distributed as dist
+
+        if not dist.is_initialized() and "WORLD_SIZE" not in os.environ:
+            return _spawn(argv, device, n, cfg.workspace, args.dist_backend)
+        _initialize(device, args.dist_backend)
     np.random.seed(cfg.seed)
     return run(cfg, write_video=args.write_video,
                return_extra=args.return_extra, device=device)
+
+
+def _initialize(device, backend, **kw):
+    """The default process group of this rank (torchrun's environment, or
+    the spawned ranks' FileStore in `kw`)."""
+    from sanerf_tpu_torch.parallel import dp, multihost
+
+    if backend is None:
+        backend = multihost.default_backend(dp.local_device(device))
+    multihost.initialize(backend=backend, **kw)
+    dev = dp.local_device(device)
+    if dev.type == "cuda":
+        import torch
+
+        torch.cuda.set_device(dev)
+
+
+def _rank_main(rank, argv, device, n, store_path, backend):
+    import torch.distributed as dist
+
+    os.environ["LOCAL_RANK"] = str(rank)
+    if "OMP_NUM_THREADS" not in os.environ:
+        # torchrun's default for several ranks a host: one CPU thread each
+        import torch
+
+        torch.set_num_threads(1)
+    _initialize(device, backend, world_size=n, rank=rank,
+                store=dist.FileStore(store_path, n))
+    try:
+        main(argv, device)
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn(argv, device, n, workspace, backend):
+    """N ranks of `main(argv, device)`, each in a process of its own, their
+    group's rendezvous a FileStore under the workspace."""
+    import sys
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    os.makedirs(workspace, exist_ok=True)
+    store_dir = tempfile.mkdtemp(prefix=".dist_", dir=workspace)
+    argv = sys.argv[1:] if argv is None else list(argv)
+    try:
+        mp.start_processes(_rank_main, nprocs=n, start_method="spawn",
+                           args=(argv, device, n,
+                                 os.path.join(store_dir, "store"), backend))
+    finally:
+        import shutil
+
+        shutil.rmtree(store_dir, ignore_errors=True)
+    return None
 
 
 if __name__ == "__main__":

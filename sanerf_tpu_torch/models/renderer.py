@@ -302,8 +302,11 @@ def run_rays(model: NerfModel, params: Params, rays_o: torch.Tensor,
         point_masks = _mask_head(model, params, m_feats, outputs["geo_feat"],
                                  outputs["color"], outputs=outputs,
                                  view_inter=view_inter, sam_inter=sam_inter)
+        # the weights, geometry and colours reach the mask loss detached
+        # (JAX renderer.py:385-386, 405-412): it trains the mask head only
         results["instance_mask_logits"] = (
-            weights[..., None] * point_masks.reshape(N, T, -1)).sum(dim=-2)
+            weights.detach()[..., None]
+            * point_masks.reshape(N, T, -1)).sum(dim=-2)
     return results
 
 
@@ -322,11 +325,12 @@ def _mask_head(model: NerfModel, params: Params,
     mc = model.cfg
     mm = params["mask_mlp"]
     if mc.mask_mlp_type == "lightweight_mask":
-        m = torch.cat([m_feats, colors.to(m_feats.dtype)], dim=-1)
+        m = torch.cat([m_feats, colors.detach().to(m_feats.dtype)], dim=-1)
         out, _ = fields.apply_mlp(mm, m)
         return out
     if mc.mask_mlp_type == "default":
-        m = torch.cat([m_feats, geo_feat.to(m_feats.dtype)], dim=-1)
+        m = torch.cat([m_feats, geo_feat.detach().to(m_feats.dtype)],
+                      dim=-1)
         out, _ = fields.apply_skip_mlp(mm, m, ())
         return out
     gi = outputs["grid_mlp_inter"]

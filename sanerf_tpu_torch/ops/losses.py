@@ -72,12 +72,15 @@ def entropy_loss(weights_sum: torch.Tensor) -> torch.Tensor:
 
 
 def label_regularization(depth: torch.Tensor, pred_masks: torch.Tensor,
-                         patch_size: int, n_inst: int) -> torch.Tensor:
+                         patch_size: int, n_inst: int,
+                         group=None) -> torch.Tensor:
     """Depth-weighted spatial smoothness of mask probabilities (JAX
     losses.py:85-126): depth [B*P*P] and pred_masks [..., n_inst] over
     the same pixels, cut into B patches of P x P; neighbour differences
     weighted by exp(-(depth difference)^2), normalised by the weights.
-    0 when patch_size < 2 (no neighbours in a patch)."""
+    0 when patch_size < 2 (no neighbours in a patch). With `group` (a
+    parallel.dp.Mesh) the four weighted sums are summed over its ranks,
+    so that the sharded loss is the single-device one."""
     pm = pred_masks.reshape(-1, patch_size, patch_size, n_inst)
     pm = pm.permute(0, 3, 1, 2)
     diff_x = pm[:, :, :, 1:] - pm[:, :, :, :-1]
@@ -89,6 +92,13 @@ def label_regularization(depth: torch.Tensor, pred_masks: torch.Tensor,
     wy = torch.exp(-(ddy * ddy))[:, None].expand_as(diff_y)
     nx, dx_ = (diff_x * diff_x * wx).sum(), wx.sum()
     ny, dy_ = (diff_y * diff_y * wy).sum(), wy.sum()
+    if group is not None:
+        # imported here: the parallel package imports train/state.py,
+        # which imports this module
+        from sanerf_tpu_torch.parallel.collectives import all_reduce_sum
+
+        nx, dx_, ny, dy_ = all_reduce_sum(
+            group, torch.stack([nx, dx_, ny, dy_])).unbind()
     return (nx / torch.clamp(dx_, min=1e-12)
             + ny / torch.clamp(dy_, min=1e-12))
 

@@ -26,6 +26,7 @@ from sanerf_tpu_torch.config import Config
 from sanerf_tpu_torch.models.fields import NerfModel, Params
 from sanerf_tpu_torch.models.renderer import run_rays
 from sanerf_tpu_torch.models.sam.predictor import resize_bilinear
+from sanerf_tpu_torch.parallel import collectives, dp
 from sanerf_tpu_torch.train import state as state_lib
 from sanerf_tpu_torch.train.state import Optimizer, TrainState
 from sanerf_tpu_torch.train.trainer import Trainer
@@ -66,25 +67,36 @@ def feature_mse(pred: torch.Tensor, gt: torch.Tensor, h: int, w: int
 
 def sam_loss_fn(model: NerfModel, params: Params,
                 batch: Dict[str, torch.Tensor], gt_samvit: torch.Tensor,
-                h: int, w: int):
-    """THE stage-2 loss (JAX distill.py:66-120) -> (loss, aux). The
-    student's rays are not jittered (the JAX step renders unperturbed)."""
+                h: int, w: int, mesh=None):
+    """THE stage-2 loss (JAX distill.py:63-96) -> (loss, aux). The
+    student's rays are not jittered (the JAX step renders unperturbed).
+    With a `mesh` the batch holds this rank's strip of the h x w feature
+    rays, and the strips are gathered in rank order before the resize and
+    the MSE (collectives.all_gather, differentiable)."""
     out = run_rays(model, params, batch["rays_o_lr"], batch["rays_d_lr"],
                    None, training=True, return_feats=True,
                    update_proposal=False,
                    cam_near_far=batch.get("cam_near_far"))
-    loss = feature_mse(out["samvit"], gt_samvit, h, w)
+    feats = out["samvit"]
+    if mesh is not None:
+        feats = collectives.all_gather(mesh, feats)
+    loss = feature_mse(feats, gt_samvit, h, w)
     return loss, {"loss": loss.detach()}
 
 
 def sam_step_body(model: NerfModel, cfg: Config, opt: Optimizer,
                   state: TrainState, batch: Dict[str, torch.Tensor],
-                  gt_samvit: torch.Tensor, h: int, w: int):
+                  gt_samvit: torch.Tensor, h: int, w: int, mesh=None):
     """One stage-2 step: gradients of sam_loss_fn, the optimizer, the EMA.
-    -> (new state, aux)."""
+    -> (new state, aux). With a `mesh` the gradients are averaged over the
+    ranks, not summed: every rank computes the global loss, so each
+    rank's backward through the gather already carries the mesh's size
+    (JAX distill.py:98-104)."""
     _, aux, grads = state_lib.value_and_grads(
-        lambda p: sam_loss_fn(model, p, batch, gt_samvit, h, w),
+        lambda p: sam_loss_fn(model, p, batch, gt_samvit, h, w, mesh),
         state.params, opt.trainable)
+    if mesh is not None:
+        grads = collectives.all_reduce_mean(mesh, grads)
     return state_lib.apply_update(cfg.train, opt, state, grads), aux
 
 
@@ -99,6 +111,27 @@ class SamDistillTrainer(Trainer):
         self.teacher = teacher
         self.cache = Cache(cfg.sam.cache_size)
         self._opt = state_lib.make_optimizer(cfg.train, self.trainable)
+        self._warned_dp = False
+
+    def _student_step(self, batch: Dict, gt: torch.Tensor):
+        """The student step, sharded over the mesh where there is one and
+        its h * w rays divide it; else the whole step on every rank."""
+        h, w = batch["h"], batch["w"]
+        mesh = self.mesh
+        if mesh is not None and (h * w) % mesh.size:
+            if not self._warned_dp:
+                self._warned_dp = True
+                self.log(f"[WARN] {h}x{w} feature rays do not divide the "
+                         f"{mesh.size}-rank mesh; stepping unsharded")
+            mesh = None
+        if mesh is None:
+            dev = self._batch(batch)
+        else:
+            keep = ("rays_o_lr", "rays_d_lr", "cam_near_far")
+            dev = dp.shard_batch({k: v for k, v in batch.items()
+                                  if k in keep}, mesh)
+        return sam_step_body(self.model, self.cfg, self._opt, self.state,
+                             dev, gt, h, w, mesh=mesh)
 
     def teacher_features(self, image_uint8: np.ndarray) -> torch.Tensor:
         """uint8 [H, W, 3] -> the teacher's [64, 64, 256] on the device."""
@@ -115,7 +148,15 @@ class SamDistillTrainer(Trainer):
         out = self._render(self.state.params, batch)
         rgb = out["image"].float().cpu().numpy().reshape(H, W, 3)
         image = (np.clip(rgb, 0, 1) * 255).astype(np.uint8)
-        return self.teacher_features(image)
+        if self.mesh is None:
+            return self.teacher_features(image)
+        # the teacher runs on rank 0; its features reach the other ranks
+        gt = self.teacher_features(image) if self.is_main else None
+        shape = collectives.broadcast_object(
+            self.mesh, tuple(gt.shape) if self.is_main else None)
+        if not self.is_main:
+            gt = torch.empty(shape, dtype=torch.float32, device=self.device)
+        return collectives.broadcast(self.mesh, gt.float().contiguous())
 
     def train(self, train_dataset, valid_dataset=None, max_epoch: int = 1,
               steps_per_epoch: Optional[int] = None):
@@ -136,9 +177,7 @@ class SamDistillTrainer(Trainer):
                     gt = self._fresh_teacher_target(batch)
                     if sc.cache_size > 0:
                         self.cache.insert((batch, gt))
-                self.state, aux = sam_step_body(
-                    self.model, self.cfg, self._opt, self.state,
-                    self._batch(batch), gt, batch["h"], batch["w"])
+                self.state, aux = self._student_step(batch, gt)
                 loss_sum = (aux["loss"] if loss_sum is None
                             else loss_sum + aux["loss"])
             if loss_sum is None:

@@ -27,6 +27,7 @@ from sanerf_tpu_torch.models.fields import NerfModel, Params
 from sanerf_tpu_torch.models.renderer import run_rays
 from sanerf_tpu_torch.ops.losses import (label_regularization,
                                          rgb_similarity_loss)
+from sanerf_tpu_torch.parallel import collectives, dp
 from sanerf_tpu_torch.train import state as state_lib
 from sanerf_tpu_torch.train.metrics import MeanIoUMeter
 from sanerf_tpu_torch.train.state import Optimizer, TrainState
@@ -35,11 +36,16 @@ from sanerf_tpu_torch.train.trainer import Trainer
 
 def mask_loss_fn(model: NerfModel, cfg: Config, params: Params,
                  batch: Dict[str, torch.Tensor], num_global: int,
-                 use_similarity: bool, gumbel: Optional[torch.Tensor]):
-    """THE stage-3 loss (JAX mask_trainer.py:56-140) -> (loss, aux: ce,
+                 use_similarity: bool, gumbel: Optional[torch.Tensor],
+                 mesh=None):
+    """THE stage-3 loss (JAX mask_trainer.py:40-135) -> (loss, aux: ce,
     loss, pred [num_global] argmax labels, error [num_global]). `gumbel`
     [S, P] is the similarity anchors' noise (S local patches of P
-    pixels)."""
+    pixels). With a `mesh` the batch is this rank's block of
+    `dp.shard_mask_batch` (num_global its own globals): the CE is
+    normalised by the labelled count summed over the ranks, the label
+    regularization sums its weighted sums over them, the similarity term
+    is averaged, so that every rank computes the global loss."""
     mc = cfg.mask
     n_inst = model.cfg.n_inst
     out = run_rays(model, params, batch["rays_o"], batch["rays_d"], None,
@@ -58,12 +64,16 @@ def mask_loss_fn(model: NerfModel, cfg: Config, params: Params,
     if mc.incoherent_uncertainty_weight < 1 and "incoherent_masks" in batch:
         inc = batch["incoherent_masks"][:num_global]
         nll = (1 - inc + mc.incoherent_uncertainty_weight * inc) * nll
-    loss = nll.sum() / torch.clamp(labeled.sum(), min=1)
+    nll_sum, n_labeled = nll.sum(), labeled.sum()
+    if mesh is not None:
+        nll_sum = collectives.all_reduce_sum(mesh, nll_sum)
+        n_labeled = collectives.all_reduce_sum(mesh, n_labeled)
+    loss = nll_sum / torch.clamp(n_labeled, min=1)
     aux = {"ce": loss.detach()}
     if mc.label_regularization_weight > 0:
         loss = loss + mc.label_regularization_weight * label_regularization(
             out["depth"][:num_global].detach(), g_probs, mc.patch_size,
-            n_inst)
+            n_inst, group=mesh)
     if use_similarity and mc.mixed_sampling:
         P = mc.local_sample_patch_size ** 2
         S = (gt.shape[0] - num_global) // P
@@ -77,6 +87,8 @@ def mask_loss_fn(model: NerfModel, cfg: Config, params: Params,
             num_sample=mc.rgb_similarity_num_sample,
             redundant_instance=model.cfg.redundant_instance,
             use_pred_logistics=mc.rgb_similarity_use_pred_logistics)
+        if mesh is not None:
+            sim = collectives.all_reduce_sum(mesh, sim) / mesh.size
         loss = loss + mc.rgb_similarity_loss_weight * sim
     with torch.no_grad():
         # the error signal of the error-map EMA (JAX :122-128)
@@ -95,13 +107,21 @@ def mask_loss_fn(model: NerfModel, cfg: Config, params: Params,
 def mask_step_body(model: NerfModel, cfg: Config, opt: Optimizer,
                    state: TrainState, batch: Dict[str, torch.Tensor],
                    num_global: int, use_similarity: bool,
-                   gumbel: Optional[torch.Tensor] = None):
+                   gumbel: Optional[torch.Tensor] = None, mesh=None):
     """One stage-3 step: gradients of mask_loss_fn, the optimizer, the
-    EMA. -> (new state, aux)."""
+    EMA. -> (new state, aux). With a `mesh` the gradients are averaged
+    over the ranks (not summed: each rank's backward through the summed
+    scalars already carries the mesh's size, as in JAX's note at
+    mask_trainer.py:130-134), and aux's pred and error are gathered back
+    into the global rays' order."""
     _, aux, grads = state_lib.value_and_grads(
         lambda p: mask_loss_fn(model, cfg, p, batch, num_global,
-                               use_similarity, gumbel),
+                               use_similarity, gumbel, mesh),
         state.params, opt.trainable)
+    if mesh is not None:
+        grads = collectives.all_reduce_mean(mesh, grads)
+        aux["pred"] = collectives.all_gather(mesh, aux["pred"])
+        aux["error"] = collectives.all_gather(mesh, aux["error"])
     return state_lib.apply_update(cfg.train, opt, state, grads), aux
 
 
@@ -122,6 +142,50 @@ class MaskTrainer(Trainer):
         kw.setdefault("metrics", [MeanIoUMeter()])
         super().__init__(name, cfg, model, **kw)
         self._opt = state_lib.make_optimizer(cfg.train, self.trainable)
+        self._warned_dp = False
+
+    def _mask_step(self, host: Dict, num_global: int, use_sim: bool):
+        """The step on a host batch, sharded over the mesh where there is
+        one and the batch divides it (its globals, and its patches whole);
+        else, logged once, the whole step on every rank, the similarity
+        anchors then drawn alike on every rank (JAX mask_trainer.py:
+        160-200)."""
+        mc = self.cfg.mask
+        mesh = self.mesh
+        sim = use_sim and mc.mixed_sampling
+        total = len(host["masks"])
+        patch_px = mc.local_sample_patch_size ** 2
+        if mesh is not None:
+            n, n_patch_px = mesh.size, total - num_global
+            if (num_global % n or (n_patch_px
+                                   and n_patch_px % (patch_px * n))):
+                if not self._warned_dp:
+                    self._warned_dp = True
+                    self.log(f"[WARN] mask batch (global={num_global}, "
+                             f"patch_px={n_patch_px}) does not divide the "
+                             f"{n}-rank mesh; stepping unsharded")
+                gumbel = (draw_gumbel(self.cfg, total, num_global,
+                                      self._shared_generator, self.device)
+                          if sim else None)
+                return mask_step_body(self.model, self.cfg, self._opt,
+                                      self.state, self._batch(host),
+                                      num_global, use_sim, gumbel)
+            keep = ("rays_o", "rays_d", "masks", "incoherent_masks",
+                    "error_maps", "cam_near_far")
+            local, gn = dp.shard_mask_batch(
+                {k: v for k, v in host.items() if k in keep}, mesh,
+                num_global, patch_px)
+            gumbel = (draw_gumbel(self.cfg, len(local["masks"]), gn,
+                                  self.generator, self.device)
+                      if sim else None)
+            return mask_step_body(self.model, self.cfg, self._opt,
+                                  self.state, local, gn, use_sim, gumbel,
+                                  mesh=mesh)
+        gumbel = (draw_gumbel(self.cfg, total, num_global, self.generator,
+                              self.device) if sim else None)
+        return mask_step_body(self.model, self.cfg, self._opt, self.state,
+                              self._batch(host), num_global, use_sim,
+                              gumbel)
 
     def _mask_frame(self, frame: Dict, params=None) -> np.ndarray:
         """Argmax labels [H * W] of a frame rendered with the mask head."""
@@ -154,12 +218,7 @@ class MaskTrainer(Trainer):
                 host = train_dataset.collate_mask(self.rng, num_rays)
                 use_sim = (mc.rgb_similarity_loss_weight > 0
                            and self.global_step > mc.rgb_similarity_iter >= 0)
-                gumbel = (draw_gumbel(self.cfg, len(host["masks"]), num_rays,
-                                      self.generator, self.device)
-                          if use_sim and mc.mixed_sampling else None)
-                self.state, aux = mask_step_body(
-                    self.model, self.cfg, self._opt, self.state,
-                    self._batch(host), num_rays, use_sim, gumbel)
+                self.state, aux = self._mask_step(host, num_rays, use_sim)
                 if train_dataset.error_map is not None:
                     train_dataset.update_error_map(
                         host["index"], host["inds_coarse"][:num_rays],

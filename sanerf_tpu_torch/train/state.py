@@ -320,13 +320,22 @@ def apply_update(cfg: TrainConfig, opt: Optimizer, state: TrainState,
 
 def rgb_step_body(model: NerfModel, cfg: TrainConfig, opt: Optimizer,
                   state: TrainState, batch: Dict[str, torch.Tensor],
-                  draws: StepDraws, update_proposal: bool = True
-                  ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-    """One stage-1 step (JAX state.py:172-212): gradients, regularizer
-    terms, the optimizer, the EMA. -> (new state, aux)."""
+                  draws: StepDraws, update_proposal: bool = True,
+                  mesh=None) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    """One stage-1 step (JAX state.py:205-248): gradients, regularizer
+    terms, the optimizer, the EMA. -> (new state, aux). With a `mesh`
+    (parallel/dp.py) `batch` and `draws` are this rank's shard and its own
+    draws; the gradients and aux are averaged over the ranks before the
+    regularizer terms, whose `draws.tv_points` every rank draws alike, so
+    that every rank applies the same update."""
     _, aux, grads = loss_and_grads(model, cfg, state.params, batch, draws,
                                    state.step, update_proposal,
                                    opt.trainable)
+    if mesh is not None:
+        # imported here: the parallel package imports this module
+        from sanerf_tpu_torch.parallel import collectives
+
+        grads, aux = collectives.all_reduce_mean(mesh, [grads, aux])
     grads = _apply_regularizer_grads(model, cfg, state.params, grads,
                                      draws.tv_points)
     aux["lr"] = lr_schedule(cfg, state.step)
@@ -347,13 +356,17 @@ def make_rgb_train_step(model: NerfModel, cfg: TrainConfig,
 
 
 def draw_step(model: NerfModel, cfg: TrainConfig, n_rays: int,
-              generator: torch.Generator, device=None) -> StepDraws:
-    """A step's StepDraws from `generator` (on `device`)."""
-    rand = lambda *shape: torch.rand(  # noqa: E731
-        shape, generator=generator, device=device)
+              generator: torch.Generator, device=None,
+              shared: Optional[torch.Generator] = None) -> StepDraws:
+    """A step's StepDraws from `generator` (on `device`); the TV points
+    from `shared` where given (a data-parallel step: alike on every
+    rank)."""
+    def rand(*shape, gen=generator):
+        return torch.rand(shape, generator=gen, device=device)
+
     jitter = [rand(n_rays, T + 1) for T in model.render_cfg.num_steps]
     bg = rand(n_rays, 3) if model.render_cfg.background == "random" else None
-    tv = (rand(TV_POINTS, 3)
+    tv = (rand(TV_POINTS, 3, gen=shared or generator)
           if cfg.lambda_tv > 0 and not model.is_mlp_field else None)
     return StepDraws(jitter, bg, tv)
 

@@ -13,8 +13,19 @@ mode (`latest | latest_model | best | scratch | <path>`). Training itself
 runs the plain path with autograd. A dataset of images without per-view
 near/far draws its batches from the native ray loader
 (data/native_loader.py), or, where it does not build, from its numpy
-collate (logged). Not in the port yet: `n_devices > 1` (data parallel,
-ROADMAP A6) raises.
+collate (logged).
+
+With `n_devices > 1` the trainer is one rank of a data-parallel group
+(parallel/dp.py; the default process group must be up: `apps/main.py`'s
+`--n_devices` launches the ranks): every rank collates the same global
+batch from the same seed and steps on its slice with its own draws, the
+gradients are averaged, evaluation and test frames render sharded, and
+rank 0 alone writes logs, metrics, checkpoints and images; the other ranks
+wait at a barrier before they read a checkpoint, and the replicas are
+checked equal at every save (their digests logged) and restore. The
+native loader draws the global batch as the collate does: the same seed
+on every rank, and one worker thread, so that its batches come in the
+seed's order.
 """
 
 from __future__ import annotations
@@ -35,6 +46,8 @@ from sanerf_tpu_torch.data.rays import full_frame_rays
 from sanerf_tpu_torch.device import resolve_device
 from sanerf_tpu_torch.models import fields, renderer
 from sanerf_tpu_torch.models.fields import NerfModel
+from sanerf_tpu_torch.parallel import dp
+from sanerf_tpu_torch.parallel.collectives import broadcast_object
 from sanerf_tpu_torch.train import checkpoints as ckpt_lib
 from sanerf_tpu_torch.train import state as state_lib
 from sanerf_tpu_torch.train.metrics import PSNRMeter
@@ -47,22 +60,29 @@ class Trainer:
                  metrics: Optional[List] = None,
                  use_checkpoint: str = "latest", trainable=None,
                  init_params=None, device=None):
-        if cfg.train.n_devices > 1:
-            raise NotImplementedError(
-                "n_devices > 1: data-parallel training is not in the port "
-                "(ROADMAP.md, A6)")
         self.name = name
         self.cfg = cfg
         self.model = model
-        self.device = resolve_device(device)
+        self.mesh = None  # the data-parallel group (n_devices > 1)
+        if cfg.train.n_devices > 1:
+            self.mesh = dp.make_mesh(cfg.train.n_devices, device)
+            self.device = self.mesh.device
+        else:
+            self.device = resolve_device(device)
+        self.is_main = self.mesh is None or self.mesh.rank == 0
         self.metrics = metrics or [PSNRMeter()]
         self.workspace = workspace or cfg.workspace
         self.global_step = 0
         self.epoch = 0
         self.stats = {"results": [], "best_result": None, "checkpoints": []}
         self.rng = np.random.default_rng(cfg.seed)
-        self.generator = torch.Generator(device=self.device).manual_seed(
-            cfg.seed)
+        # per rank: the jitter and background of its rays (the seed itself
+        # on one device and on rank 0); shared: the regularizer's points
+        self.generator = dp.rank_generator(cfg.seed, self.mesh, self.device)
+        self._shared_generator = None
+        if self.mesh is not None:
+            self._shared_generator = torch.Generator(
+                device=self.device).manual_seed(cfg.seed + 0x7FFFFFFF)
         os.makedirs(self.workspace, exist_ok=True)
         self.log_path = os.path.join(self.workspace, f"log_{name}.txt")
         self.metrics_path = os.path.join(self.workspace,
@@ -79,22 +99,34 @@ class Trainer:
         self.trainable = trainable
         self._train_step = state_lib.make_rgb_train_step(model, cfg.train,
                                                          trainable)
+        if self.mesh is not None:
+            self.state = dp.replicate_state(self.state, self.mesh)
+            self._train_step = dp.make_dp_train_step(model, cfg.train,
+                                                     self.mesh, trainable)
         if use_checkpoint != "scratch":
             self.load_checkpoint(use_checkpoint)
         n = sum(int(t.numel()) for _, t in
                 leaves_with_paths(self.state.params))
         self.log(f"[INFO] Trainer {name} | workspace {self.workspace} | "
-                 f"params {n:,} | {self.device}")
+                 f"params {n:,} | {self.device}"
+                 + ("" if self.mesh is None else
+                    f" | {self.mesh.size} ranks ({self.mesh.backend})"))
 
     # -- infrastructure -----------------------------------------------------
 
     def log(self, msg: str):
+        """Printed and appended to the log (rank 0 alone)."""
+        if not self.is_main:
+            return
         print(msg, flush=True)
         with open(self.log_path, "a") as f:
             f.write(msg + "\n")
 
     def log_metrics(self, scalars: Dict, prefix: str = "train"):
-        """One JSONL record, and the opt-in tensorboard / wandb sinks."""
+        """One JSONL record, and the opt-in tensorboard / wandb sinks
+        (rank 0 alone)."""
+        if not self.is_main:
+            return
         rec = {"step": self.global_step, "epoch": self.epoch,
                **{k: float(v) for k, v in scalars.items()}}
         with open(self.metrics_path, "a") as f:
@@ -109,6 +141,8 @@ class Trainer:
                             step=self.global_step)
 
     def enable_tensorboard(self):
+        if not self.is_main:
+            return None
         try:
             from tensorboardX import SummaryWriter
 
@@ -120,7 +154,10 @@ class Trainer:
     def enable_wandb(self, project: str = "sanerf_tpu",
                      name: Optional[str] = None):
         """wandb logging when the package, a login and the network are
-        there; otherwise a warning, and the JSONL log stays."""
+        there; otherwise a warning, and the JSONL log stays (rank 0
+        alone)."""
+        if not self.is_main:
+            return None
         try:
             import wandb
 
@@ -146,8 +183,8 @@ class Trainer:
         steps_per_epoch = steps_per_epoch or len(train_dataset)
         eval_interval = max(1, max_epoch // max(1, tc.eval_cnt))
         save_interval = max(1, max_epoch // max(1, tc.save_cnt))
-        num_rays = state_lib.adaptive_num_rays(
-            tc, self.cfg.render.num_steps[-1])
+        num_rays = self._global_rays(state_lib.adaptive_num_rays(
+            tc, self.cfg.render.num_steps[-1]))
         sampler, native = train_dataset, None
         if (tc.use_native_loader
                 and getattr(train_dataset, "images", None) is not None
@@ -156,7 +193,8 @@ class Trainer:
                 native = NativeRaySampler(
                     train_dataset.poses, train_dataset.intrinsics,
                     train_dataset.images, num_rays, seed=self.cfg.seed,
-                    prefetch_depth=6, n_threads=4)
+                    prefetch_depth=6,
+                    n_threads=4 if self.mesh is None else 1)
                 sampler = native
             except Exception as e:  # no toolchain: the numpy collate
                 self.log(f"[INFO] native loader unavailable ({e}); using "
@@ -195,13 +233,27 @@ class Trainer:
             native.close()
         self.save_checkpoint(full=True)
 
+    def _global_rays(self, num_rays: int) -> int:
+        """num_rays rounded up to a multiple of the mesh's size."""
+        if self.mesh is None:
+            return num_rays
+        n = self.mesh.size
+        return max(n, -(-num_rays // n) * n)
+
     def train_step(self, sampler, num_rays: int) -> Dict:
         """One step on a batch of `sampler.collate_train` and fresh draws
-        from `self.generator`, on the proposal schedule -> its aux."""
+        from `self.generator`, on the proposal schedule -> its aux. On a
+        mesh the batch is global (num_rays rounded up to the mesh) and this
+        rank steps on its slice."""
         self.global_step += 1
-        batch = self._batch(sampler.collate_train(self.rng, num_rays))
-        draws = state_lib.draw_step(self.model, self.cfg.train, num_rays,
-                                    self.generator, self.device)
+        if self.mesh is None:
+            batch = self._batch(sampler.collate_train(self.rng, num_rays))
+        else:
+            batch = dp.shard_batch(sampler.collate_train(
+                self.rng, self._global_rays(num_rays)), self.mesh)
+        draws = state_lib.draw_step(
+            self.model, self.cfg.train, batch["rays_o"].shape[0],
+            self.generator, self.device, shared=self._shared_generator)
         up = state_lib.update_proposal_now(self.cfg.train, self.global_step)
         self.state, aux = self._train_step(self.state, batch, draws,
                                            update_proposal=up)
@@ -232,15 +284,22 @@ class Trainer:
         return self.state.ema_params
 
     def _render(self, params, frame: Dict, **kw) -> Dict[str, torch.Tensor]:
+        """A whole frame with `render_staged`; on a mesh sharded over its
+        ranks (dp.render_frame_dp) unless the frame has a per-ray
+        near/far, which every rank then renders whole, as in JAX."""
         cnf = frame.get("cam_near_far")
+        ro = torch.as_tensor(frame["rays_o"], device=self.device)
+        rd = torch.as_tensor(frame["rays_d"], device=self.device)
+        cnf = None if cnf is None else torch.as_tensor(cnf,
+                                                       device=self.device)
+        if self.mesh is not None and (cnf is None or cnf.shape[0] == 1):
+            return dp.render_frame_dp(
+                self.model, self.mesh,
+                dp.make_dp_render(self.model, self.mesh, **kw), params, ro,
+                rd, cnf)
         with torch.no_grad():
-            return renderer.render_staged(
-                self.model, params,
-                torch.as_tensor(frame["rays_o"], device=self.device),
-                torch.as_tensor(frame["rays_d"], device=self.device),
-                cam_near_far=(None if cnf is None else
-                              torch.as_tensor(cnf, device=self.device)),
-                **kw)
+            return renderer.render_staged(self.model, params, ro, rd,
+                                          cam_near_far=cnf, **kw)
 
     def evaluate_one_epoch(self, dataset,
                            save_artifacts: bool = True) -> Dict:
@@ -261,7 +320,7 @@ class Trainer:
             gt = np.asarray(frame["images"]).reshape(H, W, -1)[..., :3]
             for m in self.metrics:
                 m.update(pred, gt)
-            if save_artifacts:
+            if save_artifacts and self.is_main:
                 stem = os.path.join(out_dir, f"ep{self.epoch:04d}_{idx:03d}")
                 save_png(stem + ".png", pred)
                 save_png(stem + "_gt.png", gt)
@@ -280,8 +339,9 @@ class Trainer:
         if (self.stats["best_result"] is None
                 or primary > self.stats["best_result"]):
             self.stats["best_result"] = primary
-            self.ckpt_mgr.save(self.global_step, self.eval_params(),
-                               stats=self.stats, best=True, full=False)
+            if self.is_main:
+                self.ckpt_mgr.save(self.global_step, self.eval_params(),
+                                   stats=self.stats, best=True, full=False)
         self.log(f"[eval epoch {self.epoch}] "
                  + " | ".join(m.report() for m in self.metrics))
         return results
@@ -291,7 +351,8 @@ class Trainer:
         """Offline renders: per frame an RGB png, the depth, with the mask
         head the logits and their visualization, with the SAM head and
         `return_extra` the features; a pose_dir.json manifest; an mp4 with
-        `write_video` (needs imageio)."""
+        `write_video` (needs imageio). On a mesh every rank renders its
+        share of each frame and rank 0 writes."""
         out_dir = out_dir or os.path.join(self.workspace, "results")
         os.makedirs(out_dir, exist_ok=True)
         params = self.eval_params()
@@ -301,6 +362,8 @@ class Trainer:
             frame = dataset.frame(idx)
             out = self._render(params, frame, return_mask=mc.with_mask,
                                return_feats=mc.with_sam and return_extra)
+            if not self.is_main:
+                continue
             H, W = frame["H"], frame["W"]
             name = frame.get("name", f"{idx:04d}")
             pred = out["image"].float().cpu().numpy().reshape(H, W, 3)
@@ -321,6 +384,8 @@ class Trainer:
             if "pose" in frame:
                 pose_dir[name] = np.asarray(frame["pose"]).tolist()
             frames_rgb.append((pred * 255).astype(np.uint8))
+        if not self.is_main:
+            return
         with open(os.path.join(out_dir, "pose_dir.json"), "w") as f:
             json.dump(pose_dir, f)
         if write_video and frames_rgb:
@@ -342,17 +407,32 @@ class Trainer:
     # -- checkpoints --------------------------------------------------------
 
     def save_checkpoint(self, full: bool = True):
-        path = self.ckpt_mgr.save(
-            self.global_step, self.state.params, self.state.ema_params,
-            self.state.opt_state if full else None,
-            stats={**self.stats, "epoch": self.epoch}, full=full)
-        self.log(f"[ckpt] saved {path}")
+        """Rank 0 writes. On a mesh the replicas are first checked equal
+        (their digests logged) and every rank meets at a barrier after."""
+        if self.mesh is not None:
+            digests = self._check_replicas("at the save")
+            self.log(f"[ckpt] replica digests ({self.mesh.size} ranks): "
+                     + " ".join(d.hex()[:16] for d in digests))
+        if self.is_main:
+            path = self.ckpt_mgr.save(
+                self.global_step, self.state.params, self.state.ema_params,
+                self.state.opt_state if full else None,
+                stats={**self.stats, "epoch": self.epoch}, full=full)
+            self.log(f"[ckpt] saved {path}")
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     def load_checkpoint(self, mode: str = "latest",
                         model_only: bool = False) -> bool:
         """Restore by mode. `latest_model` (or model_only) restores the
-        weights and EMA only: the optimizer, step and epoch start fresh."""
+        weights and EMA only: the optimizer, step and epoch start fresh.
+        On a mesh every rank reads the same file after a barrier (rank 0
+        has finished writing), and the replicas are checked equal."""
         model_only = model_only or mode == "latest_model"
+        if self.mesh is not None:
+            self.mesh.barrier()
+            # a rank's list of files is its own: take rank 0's choice
+            mode = self._rank0_path(mode)
         restored = self.ckpt_mgr.load(mode, self.state.params,
                                       self.state.opt_state,
                                       model_only=model_only)
@@ -365,6 +445,7 @@ class Trainer:
             self.state = state_lib.TrainState(params, ema,
                                               self.state.opt_state,
                                               self.state.step)
+            self._check_replicas(f"restored {mode}")
             self.log(f"[ckpt] restored model weights only (mode={mode})")
             return True
         self.global_step = int(meta.get("step", 0))
@@ -375,8 +456,19 @@ class Trainer:
         self.epoch = int(meta.get("stats", {}).get("epoch", 0))
         if meta.get("stats"):
             self.stats.update(meta["stats"])
+        self._check_replicas(f"restored {mode}")
         self.log(f"[ckpt] restored step {self.global_step} (mode={mode})")
         return True
+
+    def _rank0_path(self, mode: str) -> str:
+        """On a mesh: the file rank 0 resolves `mode` to, on every rank
+        (the mode itself where rank 0 finds none)."""
+        path = self.ckpt_mgr.resolve(mode) if self.is_main else None
+        return broadcast_object(self.mesh, path) or mode
+
+    def _check_replicas(self, what: str):
+        if self.mesh is not None:
+            return dp.check_replicas(self.state, self.mesh, what)
 
 
 def render_mask_visualization(rgb: np.ndarray, logits: np.ndarray,

@@ -7,6 +7,7 @@ of loaded leaves is exact: the npz carries the float32 bits."""
 import dataclasses
 import json
 import os
+import time
 
 import jax
 import numpy as np
@@ -206,12 +207,53 @@ def test_trainer_loop_and_checkpoint_resume(tmp_path):
     assert img["image"].shape == (64, 3) and np.isfinite(img["image"]).all()
 
 
+def _dp_trainer_rank(rank, store, cfg):
+    """A rank of test_trainer_refuses_what_the_port_lacks' 2-rank run."""
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
+                            rank=rank, world_size=2)
+    try:
+        model = fields.make_model(cfg.model, cfg.render)
+        tr = Trainer("t", cfg, model, use_checkpoint="scratch",
+                     device="cpu")
+        assert tr.mesh.size == 2 and tr.mesh.rank == rank
+        tr.train(SyntheticSphereDataset(H=16, W=16, n_views=4), max_epoch=1,
+                 steps_per_epoch=3)
+        tr2 = Trainer("t", cfg, model, use_checkpoint="latest",
+                      device="cpu")
+        assert tr2.global_step == 3
+    finally:
+        dist.destroy_process_group()
+
+
 def test_trainer_refuses_what_the_port_lacks(tmp_path):
+    """n_devices=2 needs a process group (no silent 1-rank mesh); with one
+    (2 gloo ranks on the CPU) it trains, saves on rank 0 and resumes on
+    both. A dataset of images without near/far trains on the native
+    loader."""
+    import torch.multiprocessing as mp
+
     cfg = _cfg(tmp_path)
     model = fields.make_model(cfg.model, cfg.render)
-    with pytest.raises(NotImplementedError, match="n_devices.*A6"):
-        Trainer("t", dataclasses.replace(cfg, train=dataclasses.replace(
-            cfg.train, n_devices=2)), model, device="cpu")
+    dp_cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, n_devices=2, use_native_loader=False))
+    with pytest.raises(RuntimeError, match="process group"):
+        Trainer("t", dp_cfg, model, device="cpu")
+    ctx = mp.start_processes(_dp_trainer_rank, nprocs=2, join=False,
+                             start_method="spawn",
+                             args=(str(tmp_path / "store"), dp_cfg))
+    deadline = time.time() + 180
+    try:
+        while not ctx.join(timeout=5):  # True once both ranks have ended
+            assert time.time() < deadline, "2 ranks did not end in 180 s"
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    with open(os.path.join(dp_cfg.workspace, "log_t.txt")) as f:
+        assert "2 ranks (gloo)" in f.read()
     tr = Trainer("t", cfg, model, use_checkpoint="scratch", device="cpu")
 
     class Images:  # images and no per-view near/far: the native loader's

@@ -12,8 +12,8 @@ surface, and end to end on the CPU (`main(argv, device="cpu")`).
   per-view masks, both from the stage-1 checkpoint, whose leaves stay
   frozen;
 - `--test --gui` writes the viewer's headless frames, `--gui` alone
-  trains (as in the JAX CLI); `--n_devices > 1` raises NotImplementedError
-  naming ROADMAP A6.
+  trains (as in the JAX CLI); `--n_devices 2` spawns two gloo ranks on the
+  CPU, which train, evaluate and save the stage-1 checkpoint once.
 """
 
 import dataclasses
@@ -46,13 +46,16 @@ def _actions(parser):
 
 
 def test_parser_has_the_jax_flags_and_defaults():
+    """Every JAX flag as it is; the port's own (tmain.PORT_FLAGS:
+    `--dist_backend`) beside them."""
     ref, got = _actions(jmain.build_parser()), _actions(tmain.build_parser())
-    assert sorted(got) == sorted(ref)
+    assert sorted(k for k in got if k not in tmain.PORT_FLAGS) == sorted(ref)
     for k in ref:
         assert got[k] == ref[k], k
     argv = ["scene"]
-    assert (vars(tmain.build_parser().parse_args(argv))
-            == vars(jmain.build_parser().parse_args(argv)))
+    args = vars(tmain.build_parser().parse_args(argv))
+    assert all(args.pop(k) is None for k in tmain.PORT_FLAGS)
+    assert args == vars(jmain.build_parser().parse_args(argv))
 
 
 @pytest.mark.parametrize("argv", [
@@ -174,8 +177,25 @@ def test_missing_sam_checkpoint_warns(tmp_path, capsys):
 
 
 def test_refuses_what_the_port_lacks(tmp_path):
-    with pytest.raises(NotImplementedError, match="A6"):
-        tmain.main([str(tmp_path), "--n_devices", "2"], device="cpu")
+    """`--n_devices 2` no longer refuses: main spawns two gloo ranks (a
+    FileStore in the workspace, removed after), rank 0 alone writes the
+    log and the checkpoints, and main returns None once both have ended."""
+    ds = SyntheticSphereDataset(H=16, W=16, n_views=4)
+    root = write_transforms_scene(ds, str(tmp_path / "scene"))
+    ws = str(tmp_path / "ws")
+    got = tmain.main([root, "--data_type", "llff", "--num_steps", "8", "4",
+                      "--num_rays", "128", "--no-adaptive_num_rays",
+                      "--bound", "4", "--mlp_width", "16", "--mlp_depth",
+                      "2", "--iters", "8", "--eval_cnt", "1", "--save_cnt",
+                      "1", "--workspace", ws, "--n_devices", "2",
+                      "--dist_backend", "gloo"], device="cpu")
+    assert got is None
+    with open(os.path.join(ws, "log_ngp.txt")) as f:
+        log = f.read()
+    assert "2 ranks (gloo)" in log and "[native loader]" in log
+    assert log.count("[INFO] Trainer ngp") == 1  # rank 0's lines only
+    assert os.listdir(os.path.join(ws, "checkpoints"))
+    assert not [f for f in os.listdir(ws) if f.startswith(".dist_")]
 
 
 GUI_ARGS = ["--data_type", "llff", "--bound", "4", "--num_steps", "8", "4",

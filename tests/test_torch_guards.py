@@ -154,3 +154,32 @@ def test_apps_entry_points_default_to_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         batch.main(["eval-rgb", "--scenes", "s", "--data_root",
                     str(tmp_path)])
+
+
+A6 = ("parallel/__init__.py", "parallel/collectives.py", "parallel/dp.py",
+      "parallel/multihost.py")
+
+
+@pytest.mark.parametrize("rel", A6)
+def test_parallel_modules_import_no_jax(rel):
+    """The data-parallel slice's modules import neither jax nor the JAX
+    package, and are walked with the rest of the port."""
+    path = os.path.join(ROOT, "sanerf_tpu_torch", rel)
+    assert path in _port_files()
+    assert not set(_imported_roots(path)) & set(FORBIDDEN)
+
+
+def test_parallel_entry_points_default_to_cuda():
+    """A rank's device is the card unless the caller asks for the CPU, and
+    a mesh needs a process group: no silent CPU, no silent 1-rank mesh."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is satisfiable")
+    from sanerf_tpu_torch.parallel import dp, multihost
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dp.local_device()
+    assert dp.local_device("cpu").type == "cpu"
+    assert multihost.default_backend("cpu") == "gloo"
+    assert multihost.default_backend("cuda") == "nccl"
+    with pytest.raises(RuntimeError, match="process group"):
+        dp.make_mesh(2, "cpu")
