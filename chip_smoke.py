@@ -190,7 +190,8 @@ Phases (any failure exits non-zero and prints no result line):
      (`set_image`): valid.json against the occlusion test recomputed on
      the NeRF's depth, the labels' shapes and values, the feature route's
      labels against a rerun on the plain path (use_fused_mlp=False) on
-     MASK_AGREE of the pixels, the masks' IoU with the spheres reported (a
+     MASK_AGREE of the pixels, both decoded in float32 (with the served
+     bf16 decoder reported), the masks' IoU with the spheres reported (a
      seeded decoder: not held until SAM's checkpoint ships); D2
      `evaluation.evaluate_scene` of stage 3's `--test` renders against
      D1's labels, equal to a numpy recomputation; D3
@@ -235,6 +236,31 @@ Phases (any failure exits non-zero and prints no result line):
      each kernel launched in a sharded frame on both ranks, frame times
      (gloo's gathers go through the host: not a claim), and which
      collectives gloo takes as CUDA tensors;
+ F.  the asset pipeline (sanerf_tpu_torch/tools), each tool through its
+     `main` on the card in build/chip_smoke_tools/ (deleted at the end),
+     every step with the counters set to 0 just before and read just
+     after, its seconds and peak memory: F1 `quality_gate` at its defaults
+     for QG_ITERS iterations a family, PSNR above the untrained model's on
+     the same ring, the MLP family's evaluation on the four kernels, the
+     hash grid's training on gather_rows and its backward; F2
+     `eval_student` on a workspace of the shipped asset's params, its
+     three PSNRs within PSNR_TOL_DB of the JAX package's, the four kernels
+     launched; F3 `hierarchy_gate` on F1's MLP checkpoint at three
+     hierarchies, and on a copy whose params/ are F1's EMA weights within
+     HGATE_TOL_DB of F1's PSNR; F4 `redistill_asset` from a copy of the
+     asset (the student of the asset's shape); F5 `finetune_student` on
+     it, then `eval_student`; F6 `pack_asset` (the npz's keys and shapes
+     the asset's, `load_asset` takes it) and a 512^2
+     `InteractiveSession.step` at (32, 16) on it, every kernel launched;
+     F7 `mask_asset` on the packed asset, its frozen leaves bit for bit,
+     `load_mask_asset` takes the output; F8 `serve_finetune --pack` on a
+     copy, repacked if and only if the target PSNR rose; F9
+     `import_checkpoint` of a full-width seeded reference-layout .pth,
+     `--keep_hashgrid` bit for bit and distilled (the teacher's targets on
+     gather_rows), and `distill_serving` of a seeded quality-recipe
+     workspace (port_tools/grid_params.py), each output rendered (the
+     students on the four kernels, the hash grid on gather_rows);
+     assets/ unchanged (sha256);
  and before phase 3, the asset's served bf16 launches of both 512^2 RGB
      frames digested (port_tools/served_digests.py) and held bit for bit
      to SERVED_DIGESTS;
@@ -243,8 +269,9 @@ Phases (any failure exits non-zero and prints no result line):
      {"grids": ...} line, one {"train": ...} line, one {"branches": ...}
      line, one {"limits": ...} line, one {"cli": ...} line and its summary
      lines, one {"apps": ...} line and its summary lines, one {"dp": ...}
-     line and its summary lines, the run's wall time {"wall_s": ...}, and
-     last {"ok": true, "device": {...}}.
+     line and its summary lines, one {"tools": ...} line and its summary
+     lines, the run's wall time {"wall_s": ...}, and last {"ok": true,
+     "device": {...}}.
 Kernel times are CUDA events around launches queued behind a sleep
 kernel (`backlog`), so they are the card's time even where the host's
 wrapper takes longer than the kernel. Needs no network; builds into
@@ -661,8 +688,9 @@ APPS_SPHERES = (((0.0, 0.0, 0.0), 0.5), ((0.55, -0.15, 0.35), 0.3),
                 ((-0.5, -0.25, -0.3), 0.35))
 APPS_TEACHER_VIEWS = 2
 #: D1: the share of label pixels on which the kernels' run of
-#: generate_masks must agree with the plain path's (tests/test_torch_apps.py
-#: holds the port against JAX at the same share)
+#: generate_masks must agree with the plain path's, both decoded by a
+#: float32 copy of the SAM predictor (tests/test_torch_apps.py holds the
+#: port against JAX at the same share)
 MASK_AGREE = 0.999
 #: D3: the rendered feature map's side, the frame it stands for
 AUTO_FEAT, AUTO_HW = 64, 256
@@ -1695,6 +1723,9 @@ def main():
         torch.cuda.empty_cache()
         dpr = dp_phase(torch, np, dev, card, cli_ctx)
     shutil.rmtree(cli_ctx["base"], ignore_errors=True)
+    torch.cuda.empty_cache()
+    with contextlib.redirect_stdout(sys.stderr):  # the tools' own lines
+        tools = tools_phase(torch, np, dev, card)
     e3 = dpr["e3"]
     for row in rows:
         # phase E: each kernel's launches in one sharded frame of each rank
@@ -1707,6 +1738,11 @@ def main():
             **{f"E3 interactive {h} rank {r}": n.get(name, 0)
                for r, rr in enumerate((e3, e3["follower"]))
                for h, n in rr["interactive_launches"].items()}}
+        # phase F: each kernel's launches in each tool's step
+        row["tools_launches"] = {
+            step: r["launches"].get(name.split("[")[0], 0)
+            for step, r in tools.items()
+            if isinstance(r, dict) and "launches" in r}
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({
@@ -1732,6 +1768,9 @@ def main():
         print(f"{line} ({card})", flush=True)
     print(json.dumps({"dp": dpr}), flush=True)
     for line in dpr["summary"]:
+        print(f"{line} ({card})", flush=True)
+    print(json.dumps({"tools": tools}), flush=True)
+    for line in tools["summary"]:
         print(f"{line} ({card})", flush=True)
     print(json.dumps({"wall_s": time.time() - t_wall}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -4310,28 +4349,54 @@ def apps_phase(torch, np, dev, card, ctx, rays_o, rays_d):
     # the feature route again on the plain path (use_fused_mlp=False: no
     # kernel renders its depths or features): the label maps must agree on
     # MASK_AGREE of the pixels, as tests/test_torch_apps.py holds the port
-    # against JAX
+    # against JAX. Both routes are held decoded by a float32 copy of the
+    # predictor; with the served bf16 one the agreement is reported only:
+    # its products round their inputs to bf16, so feature changes of 1e-6
+    # relative flip 0.08 % of the labels between two plain runs, and the
+    # routes' float32 features differ by up to 1.2e-4 relative
+    # (port_tools/d1_agreement.py on an NVIDIA H100 80GB HBM3 at 700 W:
+    # 99.967 % with bf16, 100 % with float32; D1 read 99.852 / 99.830 %
+    # with bf16 in two runs)
     tr2p = Trainer("ngp", cfg2, fields.make_model(
         cfg2.model, dataclasses.replace(cfg2.render, use_fused_mlp=False)),
         workspace=ctx["ws_sam"])
     check(tr2p.global_step == tr2.global_step,
           "D1: the plain trainer loaded another checkpoint")
-    out_p = os.path.join(base, "labels_plain")
+    sam32 = sam_pred.SamPredictor(sam.cfg, fields.cast_params(
+        {k: sam.params[k] for k in ("prompt_encoder", "mask_decoder")},
+        torch.float32), device=dev)
+    out_p, out_k32, out_p32 = (os.path.join(base, f"labels_{n}") for n in
+                               ("plain", "kernels_f32", "plain_f32"))
     valid_p = sam_project.generate_masks(cfg2, views, pts_w, sam, out_p,
                                          trainer=tr2p, use_nerf_feature=True)
-    del tr2p
-    same = total = fg = 0
-    for name in views.names:
-        a, b = (np.load(os.path.join(d, f"{name}_masks.npy"))
-                for d in (out_f, out_p))
-        same += int((a == b).sum())
-        total += a.size
-        fg += int((a == 1).sum())
-    r.update(plain_agreement=same / total, plain_valid=valid_p,
-             foreground_share=fg / total)
-    check(valid_p == valid and same >= MASK_AGREE * total,
-          f"D1: the kernels' labels against the plain path's: valid "
-          f"{valid} / {valid_p}, {same} of {total} pixels agree")
+    valid_k32 = sam_project.generate_masks(cfg2, views, pts_w, sam32,
+                                           out_k32, trainer=tr2,
+                                           use_nerf_feature=True)
+    valid_p32 = sam_project.generate_masks(cfg2, views, pts_w, sam32,
+                                           out_p32, trainer=tr2p,
+                                           use_nerf_feature=True)
+    del tr2p, sam32
+
+    def agreement(da, db):
+        same = total = 0
+        for name in views.names:
+            a, b = (np.load(os.path.join(d, f"{name}_masks.npy"))
+                    for d in (da, db))
+            same += int((a == b).sum())
+            total += a.size
+        return same, total
+
+    fg = sum(int((np.load(os.path.join(out_f, f"{n}_masks.npy")) == 1).sum())
+             for n in views.names)
+    same, total = agreement(out_k32, out_p32)
+    same16, _ = agreement(out_f, out_p)
+    r.update(plain_agreement=same / total, plain_agreement_bf16=same16 / total,
+             plain_valid=valid_p, foreground_share=fg / total)
+    check(valid_p == valid_k32 == valid_p32 == valid
+          and same >= MASK_AGREE * total,
+          f"D1: the kernels' labels against the plain path's (float32 "
+          f"decoder): valid {valid} / {valid_p} / {valid_k32} / {valid_p32}, "
+          f"{same} of {total} pixels agree (bf16 decoder: {same16})")
     ious_t = [evaluation.eval_iou(
         np.load(os.path.join(out_t, f"{n}_masks.npy")),
         spheres[i].astype(np.int64))
@@ -5181,6 +5246,411 @@ def e3_frames(torch, rank):
         rec["sharded_frame_ms"][h] = timed(
             lambda: sharded.step(pose, pipelined=False))
         sharded.close()
+    return rec
+
+
+# -- phase F: the asset pipeline (sanerf_tpu_torch/tools) ---------------------
+#: F1: quality_gate at its defaults (each family's ModelConfig() with
+#: prop_resolutions (128, 256), (128, 64, 32), 128^2, 24 views, 1,024 rays),
+#: its 20,000 iterations cut to QG_ITERS. The other tools run the shipped
+#: asset's shape (cp64@128, width 128, depth 3, sigma-cp32@128, proposal
+#: nets w32 d2) and full-width teachers; only their iterations are cut
+#: (TOOL_ITERS). Everything is written under build/chip_smoke_tools/, which
+#: the phase deletes at its end; assets/ is read, and held unchanged
+QG_ITERS = 300
+TOOL_ITERS = {"redistill": 300, "finetune": 200, "mask": 200,
+              "serve_finetune": 200, "import": 256, "distill_serving": 256}
+#: F2: the shipped asset's held-out PSNR at (24, 16), bf16, through the JAX
+#: package's XLA path on the CPU, bench.py:149-170 protocol
+#: (`JAX_PLATFORMS=cpu python port_tools/jax_psnr_reference.py 24,16`);
+#: eval_student's other two hierarchies are phase 4's and B1's constants
+JAX_PSNR_24_16_BF16 = 21.256810493932115
+#: F3: hierarchy_gate scores a checkpoint's params/ (as JAX's: ROADMAP C4),
+#: F1 its EMA; on a copy whose params/ are F1's EMA weights its (128, 64,
+#: 32) PSNR must be F1's within this
+HGATE_TOL_DB = 0.05
+#: F9: the reference-layout .pth's hash tables U(-2, 2)
+#: (port_tools/hashgrid_params.py), the grid teacher grid_params.py's
+#: quality recipe (94 MB of tables, over the grid budget: the plain path)
+TOOL_SEED = 0
+#: F9: the side of the frame each tool's output is rendered at
+TOOLS_FRAME = 128
+
+
+def tools_phase(torch, np, dev, card):
+    """Phase F: the asset pipeline of sanerf_tpu_torch/tools through each
+    tool's `main` on the card, each step with the launch counters set to 0
+    just before and read just after, its seconds and peak memory. -> the
+    {"tools": ...} record; its "summary" lines are printed beside the
+    card's name and power limit."""
+    import dataclasses
+    import hashlib
+
+    from sanerf_tpu_torch.apps.interactive import InteractiveSession
+    from sanerf_tpu_torch.config import (ModelConfig, RenderConfig,
+                                         config_from_dict)
+    from sanerf_tpu_torch.data.rays import full_frame_rays
+    from sanerf_tpu_torch.models import fields, import_distill, renderer
+    from sanerf_tpu_torch.models.asset import (expected_shapes, load_asset,
+                                               load_mask_asset,
+                                               params_from_jax)
+    from sanerf_tpu_torch.models.sam import predictor as sam_mod
+    from sanerf_tpu_torch.ops import fused_mlp_t as fm
+    from sanerf_tpu_torch.ops import gather as ga
+    from sanerf_tpu_torch.ops import ray_kernels as rk
+    from sanerf_tpu_torch.tools import (distill_serving, eval_student,
+                                        finetune_student, heldout_ring,
+                                        hierarchy_gate, import_checkpoint,
+                                        mask_asset, pack_asset, quality_gate,
+                                        redistill_asset, serve_finetune)
+    from sanerf_tpu_torch.train.checkpoints import CheckpointManager
+    from sanerf_tpu_torch.train.metrics import PSNRMeter, SSIMMeter
+    from sanerf_tpu_torch.train.trainer import Trainer
+    from sanerf_tpu_torch.utils.camera import fov_to_focal
+
+    sys.path.insert(0, os.path.join(ROOT, "port_tools"))
+    from grid_params import CONFIGS
+    from grid_params import make_flat as grid_flat
+    from hashgrid_params import make_flat as hash_flat
+    from hashgrid_params import reference_state_dict
+
+    t_phase = time.perf_counter()
+    base = os.path.join(ROOT, "build", "chip_smoke_tools")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    assets_dir = os.path.join(ROOT, "assets")
+
+    def digest(path):
+        with open(path, "rb") as f:
+            return hashlib.sha256(f.read()).hexdigest()
+
+    def read_json(path):
+        with open(path) as f:
+            return json.load(f)
+
+    shipped = {f: digest(os.path.join(assets_dir, f))
+               for f in sorted(os.listdir(assets_dir))}
+    # the tools' asset: a copy of the shipped one
+    asset = os.path.join(base, "asset", "serving_student")
+    os.makedirs(os.path.dirname(asset))
+    for f in shipped:
+        shutil.copy(os.path.join(assets_dir, f), os.path.dirname(asset))
+    counters = {"ray_level0": rk.ray_level0, "ray_level": rk.ray_level,
+                "run_tmlp": fm.run_tmlp,
+                "run_tmlp_composite": fm.run_tmlp_composite,
+                "flatten3_nt": rk.flatten3_nt,
+                "gather_rows": ga._GATHER_ROWS,
+                "gather_rows_backward": ga._GATHER_ROWS_BACKWARD}
+    rec = {"card": card, "qg_iters": QG_ITERS, "iters": TOOL_ITERS}
+
+    @contextlib.contextmanager
+    def step(name):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
+        r = rec.setdefault(name, {})
+        t = time.perf_counter()
+        yield r
+        torch.cuda.synchronize()
+        r["seconds"] = time.perf_counter() - t
+        r["peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        r["launches"] = {k: c.launches for k, c in counters.items()}
+        log(f"F {name}: {r}")
+
+    def served(name, kernels=KERNELS):
+        n = rec[name]["launches"]
+        check(all(n[k] > 0 for k in kernels),
+              f"F {name}: a served kernel was not launched: {n}")
+
+    def finite(name, *values):
+        check(all(math.isfinite(float(v)) for v in values),
+              f"F {name}: not finite: {values}")
+
+    # -- F1. quality_gate, both families -----------------------------------
+    qg = os.path.join(base, "qg")
+    for fam in ("mlp", "hashgrid"):
+        argv = ["--families", fam, "--iters", str(QG_ITERS), "--workspace",
+                qg]
+        args = quality_gate.build_parser().parse_args(argv)
+        cfg = quality_gate.family_config(fam, args)
+        init = Trainer(fam, cfg.replace(workspace=os.path.join(
+            base, "qg_init", fam)), fields.make_model(cfg.model, cfg.render),
+            use_checkpoint="scratch", metrics=[PSNRMeter(), SSIMMeter()],
+            device=dev)
+        psnr0 = init.evaluate_one_epoch(heldout_ring(args.H),
+                                        save_artifacts=False)["PSNRMeter"]
+        del init
+        with step(f"quality_gate {fam}") as r:
+            (res,) = quality_gate.main(argv, device=dev)
+        r.update(psnr=res["psnr"], ssim=res["ssim"], train_s=res["train_s"],
+                 it_per_s=QG_ITERS / res["train_s"], psnr_untrained=psnr0)
+        finite(f"quality_gate {fam}", res["psnr"], res["ssim"])
+        check(res["psnr"] > psnr0,
+              f"F1 {fam}: PSNR {res['psnr']} not above the untrained "
+              f"model's {psnr0}")
+        torch.cuda.empty_cache()
+    served("quality_gate mlp")
+    n = rec["quality_gate hashgrid"]["launches"]
+    check(n["gather_rows"] > 0 and n["gather_rows_backward"] > 0,
+          f"F1 hashgrid: gather / scatter not launched: {n}")
+
+    # -- F2. eval_student on the shipped asset's params --------------------
+    meta = read_json(asset + ".json")
+    ws_asset = os.path.join(base, "ws_asset")
+    _, _, p32 = load_asset(asset, device=dev)
+    CheckpointManager(ws_asset, name="ngp").save(0, p32, ema_params=p32,
+                                                 full=False)
+    with open(os.path.join(ws_asset, "serving_meta.json"), "w") as f:
+        json.dump({k: meta[k] for k in ("model_config", "render_config")}, f)
+    del p32
+    with step("eval_student asset") as r:
+        res = eval_student.main([ws_asset], device=dev)
+    jax_psnr = {(24, 16): JAX_PSNR_24_16_BF16,
+                (32, 24): JAX_PSNR_RAGGED_BF16["32,24"],
+                (128, 64, 32): JAX_PSNR_FULL_BF16}
+    r["psnr"] = {",".join(map(str, x["num_steps"])): x["psnr"] for x in res}
+    r["ssim"] = {",".join(map(str, x["num_steps"])): x["ssim"] for x in res}
+    r["jax_psnr_db_bf16_cpu"] = {",".join(map(str, k)): v
+                                 for k, v in jax_psnr.items()}
+    for x in res:
+        want = jax_psnr[tuple(x["num_steps"])]
+        check(abs(x["psnr"] - want) <= PSNR_TOL_DB,
+              f"F2 {x['num_steps']}: PSNR {x['psnr']} against JAX's {want}")
+    served("eval_student asset")
+
+    # -- F3. hierarchy_gate on F1's MLP checkpoint -------------------------
+    ck = CheckpointManager(os.path.join(qg, "mlp"), name="mlp").resolve(
+        "latest")
+    flat, ck_meta = CheckpointManager.load_file(ck)
+    ema_ck = os.path.join(base, "mlp_ema_as_params.npz")
+    np.savez(ema_ck, **{"params/" + k[4:]: v for k, v in flat.items()
+                        if k.startswith("ema/")})
+    hargs = ["--views", "8", "--hierarchies", "128,64,32"]
+    with step("hierarchy_gate") as r:
+        res = hierarchy_gate.main([ck, *hargs, "32,24", "32,16"], device=dev)
+    r["psnr"] = {",".join(map(str, x["num_steps"])): x["psnr"] for x in res}
+    finite("hierarchy_gate", *r["psnr"].values())
+    served("hierarchy_gate")
+    with step("hierarchy_gate ema") as r:
+        res = hierarchy_gate.main([ema_ck, *hargs], device=dev)
+    r["psnr"] = {"128,64,32": res[0]["psnr"]}
+    f1 = rec["quality_gate mlp"]["psnr"]
+    check(abs(res[0]["psnr"] - f1) <= HGATE_TOL_DB,
+          f"F3: hierarchy_gate on F1's EMA weights {res[0]['psnr']} "
+          f"against F1's {f1}")
+    del flat
+
+    # -- F4. redistill_asset from the asset --------------------------------
+    slim = os.path.join(base, "slim")
+    with step("redistill_asset") as r:
+        out = redistill_asset.main(
+            ["--out_workspace", slim, "--teacher", "asset", "--iters",
+             str(TOOL_ITERS["redistill"])], asset=asset, device=dev)
+    r.update(render_psnr_vs_teacher=out["render_psnr_vs_teacher"],
+             losses=out["losses"])
+    finite("redistill_asset", out["render_psnr_vs_teacher"],
+           *out["losses"].values())
+    served("redistill_asset")
+    smc = read_json(os.path.join(slim, "serving_meta.json"))["model_config"]
+    shape = ("field_type", "mlp_field_width", "mlp_field_depth",
+             "mlp_cp_rank", "mlp_cp_res", "mlp_sigma_cp_rank",
+             "mlp_sigma_cp_res", "mlp_prop_width", "mlp_prop_depth")
+    check(all(smc[k] == meta["model_config"][k] for k in shape),
+          "F4: the student is not of the asset's shape")
+
+    # -- F5. finetune_student, then eval_student ---------------------------
+    with step("finetune_student") as r:
+        out = finetune_student.main([slim, "--iters",
+                                     str(TOOL_ITERS["finetune"])],
+                                    device=dev)
+    r.update(psnr=out["psnr"], ssim=out["ssim"])
+    finite("finetune_student", out["psnr"], out["ssim"])
+    with step("eval_student slim") as r:
+        res = eval_student.main([slim], device=dev)
+    r["psnr"] = {",".join(map(str, x["num_steps"])): x["psnr"] for x in res}
+    finite("eval_student slim", *r["psnr"].values())
+    served("eval_student slim")
+
+    # -- F6. pack_asset, and the packed student served ---------------------
+    packed = os.path.join(base, "serving_student")
+    with step("pack_asset") as r:
+        pack_asset.main([slim, "--out", packed], device=dev)
+    with np.load(packed + ".npz") as a, np.load(asset + ".npz") as b:
+        check({k: a[k].shape for k in a.files}
+              == {k: b[k].shape for k in b.files},
+              "F6: the packed npz's keys or shapes are not the asset's")
+    mcs, rcs, ps32 = load_asset(packed, device=dev, with_sam=True, seed=0)
+    sam_cfg = sam_mod.SamConfig()
+    sess = InteractiveSession(
+        None, fields.make_model(mcs, dataclasses.replace(
+            rcs, num_steps=(32, 16), max_ray_batch=SIZE * SIZE)),
+        fields.cast_params(ps32, torch.bfloat16),
+        sam_mod.SamPredictor(sam_cfg, fields.cast_params(sam_mod.init_params(
+            sam_cfg, torch.Generator().manual_seed(1), dev)), device=dev),
+        H=SIZE, W=SIZE, device=dev)
+    pose = np.asarray(SERVE_POSE, np.float32)
+    sess.step(pose)
+    sess.points_3d.append(np.zeros(3, np.float32))
+    sess.step(pose)
+    with step("packed interactive frame") as r:
+        fr = sess.step(pose, pipelined=False)
+    check(fr.rgb_u8.shape == (SIZE, SIZE, 3)
+          and bool(torch.isfinite(fr.depth).all()) and fr.mask is not None,
+          "F6: the packed student's interactive frame")
+    served("packed interactive frame")
+    del sess, ps32, fr
+    torch.cuda.empty_cache()
+
+    # -- F7. mask_asset on the packed asset --------------------------------
+    with step("mask_asset") as r:
+        out = mask_asset.main(["--iters", str(TOOL_ITERS["mask"]),
+                               "--workspace", os.path.join(base, "mask_ws")],
+                              asset=packed, device=dev)
+    r.update(miou=out["held_out_miou"], miou_before=out["held_out_miou_before"])
+    # the mask frames composite on the plain path (JAX's fast_comp is off
+    # with return_mask, renderer.py:117): three of the four kernels
+    served("mask_asset", KERNELS[:3])
+    flat, _ = CheckpointManager.load_file(CheckpointManager(
+        os.path.join(base, "mask_ws"), name="mask_asset").resolve("latest"))
+    with np.load(packed + ".npz") as z:
+        check(sorted(out["frozen"]) == sorted(k[7:] for k in z.files)
+              and all(flat[k].tobytes() == z[k].tobytes() for k in z.files),
+              "F7: the frozen leaves moved")
+    mmc, _, mp = load_mask_asset(packed, device=dev)
+    check(mmc.with_mask and "m_field_mlp" in mp, "F7: load_mask_asset")
+    del flat, mp
+
+    # -- F8. serve_finetune --pack on a copy of the packed asset -----------
+    sf = os.path.join(base, "sf", "serving_student")
+    os.makedirs(os.path.dirname(sf))
+    for e in (".json", ".npz"):
+        shutil.copy(packed + e, sf + e)
+    before = digest(sf + ".npz")
+    with step("serve_finetune") as r:
+        out = serve_finetune.main(
+            ["--steps", "32,16", "--iters", str(TOOL_ITERS["serve_finetune"]),
+             "--pack", "--workspace", os.path.join(base, "sf_ws")],
+            asset=sf, device=dev)
+    rose = out["post"]["target"] > out["pre"]["target"]
+    r.update(pre=out["pre"], post=out["post"], packed=rose)
+    check((digest(sf + ".npz") != before) == rose,
+          f"F8: repacked {digest(sf + '.npz') != before}, target PSNR "
+          f"{out['pre']} -> {out['post']}")
+    served("serve_finetune")
+
+    # -- F9. import_checkpoint both ways; distill_serving ------------------
+    focal = fov_to_focal(60.0, TOOLS_FRAME)
+    ro, rd = full_frame_rays(pose, np.asarray(
+        [focal, focal, TOOLS_FRAME / 2, TOOLS_FRAME / 2], np.float32),
+        TOOLS_FRAME, TOOLS_FRAME, device=dev)
+
+    def renders(name, model, params):
+        """One TOOLS_FRAME^2 frame of a tool's output in its own counter
+        window."""
+        with step(name) as r:
+            with torch.no_grad():
+                img = renderer.render_staged(model, params, ro, rd)["image"]
+        check(bool(torch.isfinite(img).all()), f"F9 {name}: not finite")
+        r["image_min_mean_max"] = [float(img.min()), float(img.mean()),
+                                   float(img.max())]
+        return r
+
+    hmodel = fields.make_model(ModelConfig(field_type="hashgrid"),
+                               RenderConfig(bound=128.0, contract=True))
+    hflat = hash_flat(expected_shapes(hmodel), TOOL_SEED)
+    pth = os.path.join(base, "ngp_seeded.pth")
+    torch.save({"model": {k: torch.from_numpy(v) for k, v in
+                          reference_state_dict(hflat).items()}}, pth)
+    with step("import_checkpoint hashgrid") as r:
+        out = import_checkpoint.main([pth, "--workspace",
+                                      os.path.join(base, "imp_hg"),
+                                      "--keep_hashgrid"], device=dev)
+    got, _ = CheckpointManager.load_file(out["checkpoint"])
+    check(all(got[k].tobytes() == v.tobytes() for k, v in hflat.items()),
+          "F9: the hash-grid import is not the .pth bit for bit")
+    hp = params_from_jax(got, hmodel, dev)
+    n = renders("import_checkpoint hashgrid frame", hmodel, hp)["launches"]
+    check(n["gather_rows"] > 0, f"F9: the hash-grid frame's gathers: {n}")
+    del got, hp
+    with step("import_checkpoint mlp") as r:
+        out = import_checkpoint.main(
+            [pth, "--workspace", os.path.join(base, "imp_mlp"), "--iters",
+             str(TOOL_ITERS["import"])], device=dev)
+    r.update(render_psnr=out["render_psnr"], losses=out["losses"])
+    finite("import_checkpoint mlp", out["render_psnr"],
+           *out["losses"].values())
+    check(r["launches"]["gather_rows"] > 0,
+          "F9: the teacher's targets launched no gather_rows")
+    smodel = fields.make_model(import_distill.student_config(hmodel.cfg),
+                               hmodel.render_cfg)
+    sp = params_from_jax(CheckpointManager.load_file(out["checkpoint"])[0],
+                         smodel, dev)
+    renders("import_checkpoint mlp frame", smodel, sp)
+    served("import_checkpoint mlp frame")
+    del hmodel, hflat, sp
+    torch.cuda.empty_cache()
+
+    from sanerf_tpu_torch.apps import main as cli
+
+    recipe = CONFIGS["quality_recipe"]
+    flags = ["--mlp_depth", str(recipe["mlp_field_depth"])]
+    for k in ("cp_rank", "cp_res", "cp_levels", "vm_rank", "vm_res",
+              "vm_levels", "sigma_cp_rank", "sigma_cp_res", "sigma_vm_rank",
+              "sigma_vm_res"):
+        flags += [f"--{k}", str(recipe[f"mlp_{k}"])]
+    flags += ["--bound", "4", "--num_steps", "128", "64", "32"]
+    gws = os.path.join(base, "grid_ws")
+    gcfg = cli.config_from_args(cli.build_parser().parse_args(
+        [".", "--workspace", gws, *flags]))
+    gmodel = fields.make_model(gcfg.model, gcfg.render)
+    check(all(getattr(gcfg.model, k) == v for k, v in recipe.items()),
+          "F9: the CLI's flags do not build the quality recipe")
+    gp = params_from_jax(grid_flat(expected_shapes(gmodel), TOOL_SEED),
+                         gmodel, dev)
+    CheckpointManager(gws, name="ngp").save(0, gp, ema_params=gp, full=False)
+    del gp
+    with step("distill_serving") as r:
+        out = distill_serving.main(
+            [".", "--workspace", gws, *flags, "--out_workspace",
+             os.path.join(base, "grid_serving"), "--distill_iters",
+             str(TOOL_ITERS["distill_serving"])], device=dev)
+    r.update(render_psnr=out["render_psnr"], losses=out["losses"])
+    finite("distill_serving", out["render_psnr"], *out["losses"].values())
+    dmodel = fields.make_model(config_from_dict(
+        ModelConfig, read_json(out["meta"])["model_config"]), gcfg.render)
+    check(renderer.uses_kernels(dmodel), "F9: the served student is off "
+          "the kernels")
+    dp = params_from_jax(CheckpointManager.load_file(out["checkpoint"])[0],
+                         dmodel, dev)
+    renders("distill_serving frame", dmodel, dp)
+    served("distill_serving frame")
+    del dp, gmodel
+    torch.cuda.empty_cache()
+
+    after = {f: digest(os.path.join(assets_dir, f))
+             for f in sorted(os.listdir(assets_dir))}
+    check(after == shipped, "F: assets/ changed")
+    shutil.rmtree(base, ignore_errors=True)
+    rec["seconds"] = time.perf_counter() - t_phase
+    q = [rec[f"quality_gate {f}"] for f in ("mlp", "hashgrid")]
+    e2 = rec["eval_student asset"]["psnr"]
+    rec["summary"] = [
+        *(f"tools quality_gate {f}: {x['it_per_s']:.1f} it/s, "
+          f"{x['seconds']:.1f} s, {x['peak_gb']:.2f} GiB, PSNR "
+          f"{x['psnr_untrained']:.2f} -> {x['psnr']:.2f} dB, SSIM "
+          f"{x['ssim']:.4f} ({QG_ITERS} iters)"
+          for f, x in zip(("mlp", "hashgrid"), q)),
+        f"tools eval_student asset: PSNR {e2} (JAX "
+        f"{rec['eval_student asset']['jax_psnr_db_bf16_cpu']})",
+        f"tools redistill {rec['redistill_asset']['seconds']:.1f} s, "
+        f"render_psnr {rec['redistill_asset']['render_psnr_vs_teacher']:.2f}"
+        f"; finetune {rec['finetune_student']['seconds']:.1f} s, PSNR "
+        f"{rec['finetune_student']['psnr']}; mask mIoU "
+        f"{rec['mask_asset']['miou_before']:.4f} -> "
+        f"{rec['mask_asset']['miou']:.4f}; serve_finetune "
+        f"{rec['serve_finetune']['pre']} -> {rec['serve_finetune']['post']}",
+        f"tools phase F: {rec['seconds']:.1f} s"]
     return rec
 
 

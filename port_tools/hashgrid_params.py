@@ -17,7 +17,9 @@ flat image); linear weights and biases U(-1/sqrt(fan_in), 1/sqrt(fan_in))
 (nn.Linear's init); the LayerNorm scale 1 and shift 0. `frame_rays` gives
 the rays of a square frame seen from the serving pose (the camera at
 z = 2 looking down -z, 60 degree field of view), in the port's ray
-convention (sanerf_tpu_torch/data/rays.py).
+convention (sanerf_tpu_torch/data/rays.py). `reference_state_dict` lays
+such a dict out as the reference's `NeRFNetwork` state dict
+(nerf/network.py:102-219), the input of a reference `.pth`.
 """
 
 from __future__ import annotations
@@ -65,3 +67,26 @@ def frame_rays(size: int) -> Tuple[np.ndarray, np.ndarray]:
     rays_o = np.broadcast_to(SERVE_POSE[:3, 3], rays_d.shape).astype(
         np.float32)
     return rays_o, rays_d
+
+
+def reference_state_dict(flat: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """`params/<path>` arrays of a hash-grid model (RGB heads, SAM head,
+    default mask head) -> the reference's state-dict keys: tables as
+    `*.embeddings`, linears as `*.net.<l>.weight` [out, in] (the
+    transpose), the SAM head's LayerNorm as `samvit_mlp.1.*`."""
+    out = {}
+    for key, v in flat.items():
+        parts = key[len("params/"):].split("/")
+        head = parts[0]
+        if parts[-1] == "grid" or head in TABLES:
+            name = (f"prop_encoders.{parts[1]}" if head == "prop" else head)
+            out[name + ".embeddings"] = v
+        elif head == "samvit_norm":
+            out[f"samvit_mlp.1.{'weight' if parts[1] == 'w' else 'bias'}"] = v
+        else:
+            mlp = {"prop": f"prop_mlp.{parts[1]}", "samvit_mlp": "samvit_mlp.0",
+                   "mask_mlp": "mask_mlp.0"}.get(head, head)
+            layer, leaf = parts[-2], parts[-1]
+            out[f"{mlp}.net.{layer}.{'weight' if leaf == 'w' else 'bias'}"] = (
+                np.ascontiguousarray(v.T) if leaf == "w" else v)
+    return out

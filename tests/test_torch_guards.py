@@ -1,8 +1,10 @@
 """Guards of the port: it imports neither jax, nor the JAX package, nor
-OpenCV, and its entry points default to the CUDA card and raise without
-one."""
+OpenCV, nor the JAX package's bench.py or tools/, and its entry points
+default to the CUDA card and raise without one; the shipped assets/ stay as
+committed."""
 
 import ast
+import hashlib
 import os
 
 import numpy as np
@@ -21,7 +23,7 @@ from sanerf_tpu_torch.models.sam.predictor import SamConfig, SamPredictor
 
 torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "sanerf_tpu", "cv2")
+FORBIDDEN = ("jax", "jaxlib", "sanerf_tpu", "cv2", "bench", "tools")
 
 
 def _port_files():
@@ -183,3 +185,75 @@ def test_parallel_entry_points_default_to_cuda():
     assert multihost.default_backend("cuda") == "nccl"
     with pytest.raises(RuntimeError, match="process group"):
         dp.make_mesh(2, "cpu")
+
+
+TOOLS = ("__init__", "pack_asset", "eval_student", "hierarchy_gate",
+         "quality_gate", "redistill_asset", "finetune_student",
+         "serve_finetune", "mask_asset", "distill_serving",
+         "import_checkpoint")
+
+
+@pytest.mark.parametrize("name", TOOLS)
+def test_tools_modules_import_no_jax(name):
+    """The asset pipeline's modules import neither jax, the JAX package,
+    bench.py nor the JAX tools, and are walked with the rest of the
+    port."""
+    path = os.path.join(ROOT, "sanerf_tpu_torch", "tools", name + ".py")
+    assert path in _port_files()
+    assert not set(_imported_roots(path)) & set(FORBIDDEN)
+
+
+def _tool_argv(tmp_path):
+    ws, out = str(tmp_path / "ws"), str(tmp_path / "out")
+    return {
+        "pack_asset": [ws, "--out", out],
+        "eval_student": [ws],
+        "hierarchy_gate": [os.path.join(ws, "ckpt.npz")],
+        "quality_gate": ["--workspace", ws],
+        "redistill_asset": ["--out_workspace", out],
+        "finetune_student": [ws],
+        "serve_finetune": ["--workspace", ws],
+        "mask_asset": ["--workspace", ws, "--out", out],
+        "distill_serving": [".", "--workspace", ws, "--out_workspace", out],
+        "import_checkpoint": [os.path.join(ws, "ngp.pth"), "--workspace",
+                              out],
+    }
+
+
+@pytest.mark.parametrize("name", TOOLS[1:])
+def test_tools_entry_points_default_to_cuda(tmp_path, name):
+    """Every tool runs on the card unless given device="cpu"; without a
+    card it raises before it reads or writes anything."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is satisfiable")
+    import importlib
+
+    tool = importlib.import_module(f"sanerf_tpu_torch.tools.{name}")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tool.main(_tool_argv(tmp_path)[name])
+    assert not os.path.exists(tmp_path / "out.npz")
+    assert not os.path.exists(tmp_path / "out")
+
+
+#: sha256 of the shipped asset's files: no test and no tool run writes them
+ASSET_SHA256 = {
+    "serving_student.json":
+        "140ccd46df59a961fd0bf43abe9ac4c38b3b31f16b49e6918b8f2bc18f0796e7",
+    "serving_student.npz":
+        "a02a18b41829fdb5b50febdeed38b5403bd812dcd992eaff3f6d8520b75913aa",
+    "serving_student_mask.json":
+        "732c26e5b6bae137ba8f1b667ce54371593c8783fc80338c1b669dd8fde0ec2e",
+    "serving_student_mask.npz":
+        "2dd4419988e92865707f9b116248c4a82775ae85f974aa08531718ab26007f4a",
+}
+
+
+def test_assets_unchanged():
+    """The four files of assets/ are the committed ones, whatever order
+    the tools' tests (each of which also holds them before and after
+    itself, tests/test_torch_tools_*.py) ran in."""
+    got = {}
+    for name in ASSET_SHA256:
+        with open(os.path.join(ROOT, "assets", name), "rb") as f:
+            got[name] = hashlib.sha256(f.read()).hexdigest()
+    assert got == ASSET_SHA256
