@@ -4,7 +4,9 @@
 
 Phases (any failure exits non-zero and prints no result line):
   1. build the CUDA kernels from sanerf_tpu_torch/csrc (one nvcc per source,
-     all started together) and print the card's name and power limit;
+     all started together, and beside them fused_mlp_t.cu with prop_kernel's
+     planted fault PROP_FAULT into PLANTED_DIR) and print the card's name
+     and power limit;
   2. hold each kernel against its plain PyTorch version on the card, at
      every shape the main path gives it (captured from 512^2 frames of the
      shipped asset at the (32, 16) and (128, 64, 32) hierarchies; each
@@ -73,13 +75,16 @@ Phases (any failure exits non-zero and prints no result line):
      field's tables read back through run_tmlp's encode probes (PROBE_TOL);
      a 512^2 RGB frame of each through render_frame at (32, 16) and
      (128, 64, 32), the counters set to 0 just before and read just after
-     (GRID_LAUNCHES), every run_tmlp / run_tmlp_composite launch held
-     against its plain version (bf16 at GRID_TOL, float32 twins as in
-     phase 2 and at F32_FAITHFUL; the probes too) and timed against its
-     bound, frame times;
+     (GRID_LAUNCHES), each of the frame's run_tmlp launches (the default
+     w64 d4 proposal nets') on prop_kernel, every run_tmlp /
+     run_tmlp_composite launch held against its plain version (bf16 at
+     GRID_TOL, float32 twins as in phase 2 and at F32_FAITHFUL; the probes
+     too) and timed against its bound, frame times; grid_student's (32, 16)
+     proposal launch on prop_kernel built with PROP_FAULT fails that hold;
  15. grid_student with a seeded SAM head through InteractiveSession.step
-     at 512^2, (32, 16): launch counts, finite depth / samvit / mask
-     logits, every MLP launch held (bf16, GRID_TOL), frame times;
+     at 512^2, (32, 16): launch counts (its two proposal launches on
+     prop_kernel), finite depth / samvit / mask logits, every MLP launch
+     held (bf16, GRID_TOL), frame times;
  16. the sigma-VM model of port_tools/grid_params.py (sigma-CP and
      sigma-VM tables beside CP and VM features): its encode probes, its
      launches at SIGMA_RAYS ragged rays held against their plain versions,
@@ -152,7 +157,8 @@ Phases (any failure exits non-zero and prints no result line):
      quality recipe's tables with RenderConfig.grid_vmem_budget raised
      past them): on the kernels, float32 params against the JAX
      package's frame (port_tools/jax_limits.jsonl, JAX_GRID; JAX_WIDE_TOL)
-     and against the plain path, every bf16 launch held (GRID_TOL;
+     and against the plain path, the bf16 frame's proposal launches on
+     prop_kernel, every bf16 launch held (GRID_TOL;
      float32 twins at MLP_F32_TOL and F32_FAITHFUL) and timed; a 512^2
      frame of width 512
      at (32, 16) (held whole, the plain version on slices; timed); the
@@ -264,7 +270,9 @@ Phases (any failure exits non-zero and prints no result line):
  and before phase 3, the asset's served bf16 launches of both 512^2 RGB
      frames digested (port_tools/served_digests.py) and held bit for bit
      to SERVED_DIGESTS;
- 19. one {"kernels": [...]} line, one {"frames": ...} line, one
+ 19. one {"kernels": [...]} line (prop_kernel's row, run_tmlp[prop_kernel],
+     at the grid student's frames and the (512, 256) 64^2 launch, beside
+     the same launches' times on tmlp_kernel in this run), one {"frames": ...} line, one
      {"interactive": ...} line, one {"hashgrid": ...} line, one
      {"grids": ...} line, one {"train": ...} line, one {"branches": ...}
      line, one {"limits": ...} line, one {"cli": ...} line and its summary
@@ -737,9 +745,61 @@ DP_CHILD_TIMEOUT_S, DP_CLI_TIMEOUT_S = 400, 300
 #: package's XLA path on the CPU, bench.py:149-170 protocol; from
 #: `JAX_PLATFORMS=cpu python port_tools/jax_psnr_reference.py 128,256`
 JAX_PSNR_LONG_BF16 = {"128,256": 21.446619081724656}
+#: prop_kernel's planted fault (port_tools/field_branch_variants.py), built
+#: beside the kernels into PLANTED_DIR: its layers past the first drop their
+#: last k step of 16 inputs. The grid phase's hold of the proposal launch
+#: must fail on it
+PROP_FAULT = "prop_lost_k"
+PLANTED_DIR = os.path.join(ROOT, "build", "chip_smoke_planted")
+
+
 def fail(msg):
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def planted_tree(dest=PLANTED_DIR, faults=(PROP_FAULT,)):
+    """A copy of the kernels' sources under dest/csrc with the planted
+    faults of port_tools/field_branch_variants.py named in `faults` (text
+    substitutions of fused_mlp_t.cu) -> dest, a Path."""
+    from pathlib import Path
+
+    from sanerf_tpu_torch.ops import _build
+
+    sys.path.insert(0, os.path.join(ROOT, "port_tools"))
+    from field_branch_variants import VARIANTS
+
+    d = Path(dest)
+    shutil.rmtree(d / "csrc", ignore_errors=True)
+    shutil.copytree(_build.CSRC, d / "csrc")
+    p = d / "csrc" / "fused_mlp_t.cu"
+    text = p.read_text()
+    for old, new in (sub for f in faults for sub in VARIANTS[f]):
+        check(text.count(old) == 1, f"planted fault: {old!r} not in the source")
+        text = text.replace(old, new)
+    p.write_text(text)
+    return d
+
+
+@contextlib.contextmanager
+def kernels_from(tree):
+    """Inside the block, fused_mlp_t's launches go to the kernels built from
+    tree/csrc into tree/kernels."""
+    from sanerf_tpu_torch.ops import _build
+    from sanerf_tpu_torch.ops import fused_mlp_t as fm
+
+    saved = _build.CSRC, _build.BUILD_DIR, _build._libs.pop("fused_mlp_t",
+                                                           None)
+    _build.CSRC, _build.BUILD_DIR = tree / "csrc", tree / "kernels"
+    fm._lib.cache_clear()
+    try:
+        yield
+    finally:
+        _build.CSRC, _build.BUILD_DIR = saved[:2]
+        _build._libs.pop("fused_mlp_t", None)
+        if saved[2] is not None:
+            _build._libs["fused_mlp_t"] = saved[2]
+        fm._lib.cache_clear()
 
 
 _CYCLES_PER_MS = []
@@ -1125,6 +1185,21 @@ def field_of(name, a):
     return a[1] if name == "run_tmlp" else a[3]
 
 
+def tmlp_route_twin(fm, tm):
+    """A copy of tm (the same weights) planned with prop_kernel's route
+    taken away: run_tmlp launches it on tmlp_kernel, the route such nets
+    took before prop_kernel."""
+    twin = copy.copy(tm)
+    twin._plans, twin._parks = {}, {}
+    real = fm._prop_plan
+    fm._prop_plan = lambda *a, **k: None
+    try:
+        fm.kernel_plan(twin)
+    finally:
+        fm._prop_plan = real
+    return twin
+
+
 def field_op_ms(name, a, k):
     """(CUDA-core ms, tensor-core ms) of the operations of one field-kernel
     launch (run_tmlp or run_tmlp_composite with its arguments a, k): the
@@ -1283,8 +1358,15 @@ def main():
 
     # -- 1. build + card --------------------------------------------------
     t0 = time.time()
-    logs = _build.build_all()
-    log(f"build: {time.time() - t0:.1f} s")
+    planted = planted_tree()
+    # the planted copy's nvcc runs beside the kernels' own
+    planted_job = _build._start("fused_mlp_t", planted / "csrc",
+                                planted / "kernels")
+    try:
+        logs = _build.build_all()
+    finally:
+        _build._finish("fused_mlp_t", *planted_job)
+    log(f"build: {time.time() - t0:.1f} s (with {PROP_FAULT} planted)")
     for name, text in logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -1596,7 +1678,9 @@ def main():
         the plain version (with `in_slices`, on slices of the launch's
         rays: plain_in_slices) each as the mean of 10 launches queued behind
         a backlog. A field kernel with float32 weights also gets both of its
-        bounds (field_op_ms), bound_ms being the lower."""
+        bounds (field_op_ms), bound_ms being the lower; a run_tmlp launch
+        on prop_kernel also gets tmlp_kernel_ms, the same launch on
+        tmlp_kernel (tmlp_route_twin), timed alike."""
         out, done = [], {}
         for a, k in launches_:
             key = shape_key(a, k)
@@ -1610,6 +1694,14 @@ def main():
                         if in_slices else (lambda: plain_fn[name](*a, **k)),
                         reps=10) if plain else None),
                     "bound_ms": b_ms, "bound_by": b_by}
+                if (name == "run_tmlp"
+                        and fm.route(a[1]) == "prop_kernel"):
+                    # the earlier route of the same launch, timed alike
+                    twin = tmlp_route_twin(fm, a[1])
+                    done[key]["tmlp_kernel_ms"] = cuda_ms(
+                        lambda: kern_fn[name](a[0], twin, *a[2:], **k),
+                        reps=10)
+                    del twin
                 if (name.startswith("run_tmlp")
                         and field_of(name, a).dtype == torch.float32):
                     b_bytes = bound_parts(name, a, k)[0]
@@ -1685,7 +1777,8 @@ def main():
     hgrid = hashgrid_phases(torch, np, dev, card, cuda_ms)
     rows += hgrid.pop("rows")
     torch.cuda.empty_cache()
-    grids = grid_phases(torch, np, dev, card, compare, launch_times, kern_fn)
+    grids = grid_phases(torch, np, dev, card, compare, launch_times, kern_fn,
+                        planted)
     rows += grids.pop("rows")
     torch.cuda.empty_cache()
     with contextlib.redirect_stdout(sys.stderr):  # the Trainer's log lines
@@ -1715,6 +1808,10 @@ def main():
                           kern_fn, model_at, rays_o, rays_d, nets, params,
                           params32)
     rows += limits.pop("rows")
+    rows.append(prop_row(
+        grids.pop("prop"),
+        next(r for r in rows if r["name"] == "run_tmlp[L1 default (512, 256)]"),
+        {n: limits["max_abs_err"][n]["run_tmlp"] for n in limits["seeded_64"]}))
     torch.cuda.empty_cache()
     with contextlib.redirect_stdout(sys.stderr):  # the trainers' log lines
         cli, cli_ctx = cli_phase(torch, np, dev, card)
@@ -1776,6 +1873,47 @@ def main():
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def prop_row(prop, l1, limit_errs):
+    """The kernel row of prop_kernel, run_tmlp's route for the bf16
+    proposal nets past small_kernel: its launches, errors and times at the
+    grid student's 512^2 RGB frames (phase 14's record `prop`) and at
+    ModelConfig()'s (512, 256) 64^2 frame (`l1`, that launch's row of the
+    L phases; `limit_errs`, the L phases' bf16 proposal launches' errors),
+    beside the times of the same launches on tmlp_kernel, these nets' route
+    before prop_kernel, taken in this run (launch_times: tmlp_kernel_ms),
+    and the planted fault that failed the hold."""
+    keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+            "tmlp_kernel_ms")
+    by_shape = {k: [{kk: t[kk] for kk in keys} for t in v]
+                for k, v in prop["launch_times"].items()}
+    by_shape["L1 default (512, 256)"] = [
+        {kk: l1["launch_times"][0][kk] for kk in keys}]
+    first = by_shape["grid_student 32,16"][0]
+    errs = dict(prop["max_abs_err_by_frame"], **limit_errs)
+    return {"name": "run_tmlp[prop_kernel]", "route": "cuda",
+            "source": SOURCES["run_tmlp"][0],
+            "replaces": SOURCES["run_tmlp"][1], "kernel": "prop_kernel",
+            "launches": sum(n for v in prop["launches_per_frame"].values()
+                            for n in v.values()),
+            "launches_of": "the proposal launches of the 512^2 RGB frames of "
+                           "grid_student, cp_ladder and vm_ladder at (32, 16) "
+                           "and (128, 64, 32) (phase 14)",
+            "launches_per_frame": prop["launches_per_frame"]["grid_student"],
+            "max_abs_err": max(errs.values()), "max_abs_err_by_frame": errs,
+            "tol": GRID_TOL, "tol_kind": "elementwise",
+            "ms": first["ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+            "library_ms": None,
+            "library": "none: no single PyTorch call computes this function",
+            "shapes_of": "grid_student's 32,16 RGB frame, its proposal launch",
+            "by_shape": by_shape,
+            "earlier_ms": {k: [t["tmlp_kernel_ms"] for t in v]
+                           for k, v in by_shape.items()},
+            "earlier": "the same launches on tmlp_kernel, these nets' route "
+                       "before prop_kernel, timed in this run as ms is",
+            "planted_fault": prop["planted_fault"]}
 
 
 def level0_served(row, launches, kern, bound):
@@ -2516,10 +2654,14 @@ def hashgrid_phases(torch, np, dev, card, cuda_ms):
             "probes": probes, "card": card, "rows": rows}
 
 
-def grid_phases(torch, np, dev, card, compare, launch_times, kern_fn):
+def grid_phases(torch, np, dev, card, compare, launch_times, kern_fn,
+                planted):
     """Phases 14-18: the factorized-grid configurations of the MLP family.
     -> the {"grids": ...} record, with the kernel rows of the grid branches
-    of run_tmlp and run_tmlp_composite under "rows"."""
+    of run_tmlp and run_tmlp_composite under "rows" and what the proposal
+    launches on prop_kernel showed under "prop" (their route, errors and
+    times; PROP_FAULT planted in the kernel, built into `planted`, against
+    the same hold)."""
     import dataclasses
 
     from sanerf_tpu_torch.apps import frame_pipeline as fp
@@ -2564,6 +2706,7 @@ def grid_phases(torch, np, dev, card, compare, launch_times, kern_fn):
         torch.cuda.synchronize()
         for c in cs:
             c.launches = 0
+        fm.run_tmlp.prop_launches = 0
 
     def spied(fn):
         """fn() with every main-path kernel call recorded -> {name: [(args,
@@ -2629,7 +2772,7 @@ def grid_phases(torch, np, dev, card, compare, launch_times, kern_fn):
                   f"{what}: {k} not finite")
 
     # -- 14. the served configurations' RGB frames ----------------------------
-    per_frame, frame_ms, table_bytes = {}, {}, {}
+    per_frame, frame_ms, table_bytes, prop_per_frame = {}, {}, {}, {}
     launch_t = {n: {} for n in mlps}
     for name in GRID_SERVED:
         m0 = model_of(name)
@@ -2654,6 +2797,12 @@ def grid_phases(torch, np, dev, card, compare, launch_times, kern_fn):
             check(n == GRID_LAUNCHES[h],
                   f"{name} {h}: launches {n}, expected {GRID_LAUNCHES[h]} "
                   f"(ray_level0, ray_level, run_tmlp, run_tmlp_composite)")
+            # every run_tmlp launch of the RGB frame is a proposal net's,
+            # each on prop_kernel
+            prop_per_frame.setdefault(name, {})[h] = fm.run_tmlp.prop_launches
+            check(fm.run_tmlp.prop_launches == n[2],
+                  f"{name} {h}: {fm.run_tmlp.prop_launches} of {n[2]} "
+                  f"proposal launches on prop_kernel")
             finite(out, f"{name} {h}")
             check(float(out["weights_sum"].min()) > 0.5,
                   f"{name} {h}: weights_sum {float(out['weights_sum'].min())}")
@@ -2664,6 +2813,8 @@ def grid_phases(torch, np, dev, card, compare, launch_times, kern_fn):
                 for a, k in calls[kn]:
                     hold(kn, key, a, k, twin)
                 launch_t[kn][key] = launch_times(kn, calls[kn])
+            if key == "grid_student 32,16":
+                prop_launch = calls["run_tmlp"][0]
             del calls
             frame_ms[name][h] = host_ms(frame)
             torch.cuda.empty_cache()
@@ -2671,6 +2822,33 @@ def grid_phases(torch, np, dev, card, compare, launch_times, kern_fn):
         torch.cuda.empty_cache()
     log(f"grid frames: launches {per_frame}, ms {frame_ms}; vs plain bf16 "
         f"{errs} f32 {errs32} past {past}; encode probes {probe_err}")
+
+    # the planted fault: grid_student's (32, 16) proposal launch on
+    # prop_kernel built with PROP_FAULT must fail the hold that the kernel
+    # itself passed above (GRID_TOL, element by element)
+    a, k = prop_launch
+    ref = fm.run_tmlp_plain(a[0], a[1])
+
+    def past_tol(got):
+        d = (got - ref).abs()
+        return int((d > GRID_TOL + GRID_TOL * ref.abs()).sum()), float(d.max())
+
+    own = past_tol(fm.run_tmlp(*a, **k))
+    with kernels_from(planted):
+        before = fm.run_tmlp.prop_launches
+        bad = past_tol(fm.run_tmlp(*a, **k))
+        check(fm.run_tmlp.prop_launches == before + 1,
+              f"{PROP_FAULT}: the planted launch did not take prop_kernel")
+    check(own[0] == 0 and bad[0] > 0,
+          f"planted {PROP_FAULT}: {bad[0]} of {ref.numel()} outputs past "
+          f"GRID_TOL (the kernel's own: {own[0]})")
+    planted_rec = {"fault": PROP_FAULT, "outputs_past_tol": bad[0],
+                   "of": ref.numel(), "max_abs_err": bad[1],
+                   "kernel_outputs_past_tol": own[0],
+                   "kernel_max_abs_err": own[1], "tol": GRID_TOL}
+    del prop_launch, a, k, ref
+    torch.cuda.empty_cache()
+    log(f"planted fault in prop_kernel: {planted_rec}")
 
     # -- 15. grid_student's interactive frame ---------------------------------
     mi = model_of("grid_student", with_sam=True)
@@ -2701,11 +2879,17 @@ def grid_phases(torch, np, dev, card, compare, launch_times, kern_fn):
         r = sess.step(pose, pipelined=False)
         torch.cuda.synchronize()
         inter_n = [c.launches for c in counters + [rk.flatten3_nt]]
+        inter_prop = fm.run_tmlp.prop_launches
     finally:
         fp.decode_fused, sam_mod.decode = dfused, dec
     check(inter_n == INTERACTIVE_LAUNCHES["32,16"],
           f"grid_student interactive launches {inter_n}, expected "
           f"{INTERACTIVE_LAUNCHES['32,16']}")
+    # the RGB and the feature render's proposal launches; the field's
+    # density query of the feature render (with tables) on tmlp_kernel
+    check(inter_prop == inter_n[2] - 1,
+          f"grid interactive: {inter_prop} of {inter_n[2]} run_tmlp launches "
+          f"on prop_kernel, expected {inter_n[2] - 1}")
     check(r.rgb_u8.shape == (SIZE, SIZE, 3), "grid interactive frame shape")
     check(bool(torch.isfinite(r.depth).all()), "grid interactive depth")
     sv = got.get("samvit")
@@ -2743,6 +2927,7 @@ def grid_phases(torch, np, dev, card, compare, launch_times, kern_fn):
     drive(3, False)
     pipelined, sync = drive(7, False), drive(5, True)
     inter = {"launches_per_frame": inter_n,
+             "prop_kernel_launches_per_frame": inter_prop,
              "pipelined_ms": pipelined[0], "sync_ms": sync[0],
              "pipelined_runs": pipelined[1], "sync_runs": sync[1]}
     del sess, pi
@@ -2894,7 +3079,16 @@ def grid_phases(torch, np, dev, card, compare, launch_times, kern_fn):
         "launch_times": launch_t["run_tmlp"],
         "loss_ms_per_frame": {k: loss(v) for k, v in
                               launch_t["run_tmlp"].items()}}]
+    prop = {"launches_per_frame": prop_per_frame,
+            "max_abs_err_by_frame": {kk: v for kk, v in errs["run_tmlp"].items()
+                                     if not kk.startswith(("interactive",
+                                                           "sigma"))},
+            "launch_times": {kk: launch_t["run_tmlp"][kk]
+                             for kk in ("grid_student 32,16",
+                                        "grid_student 128,64,32")},
+            "planted_fault": planted_rec}
     return {"size": SIZE, "param_dtype": "bfloat16", "seed": GRID_SEED,
+            "prop": prop,
             "configs": {n: gp.CONFIGS[n] for n in gp.CONFIGS},
             "sources": gp.SOURCES, "grid_table_bytes": table_bytes,
             "launches_per_frame": per_frame, "frame_ms": frame_ms,
@@ -3811,14 +4005,23 @@ def limit_phases(torch, np, dev, card, compare, launch_times, kern_fn,
                   f"{n_over} rays past {PATH_TOL}")
             gap[kk] = {"max_abs_err": e, "rays_over": n_over}
         del out, slow
+        torch.cuda.synchronize()
+        fm.run_tmlp.prop_launches = 0
         calls = spied(lambda: renderer.run_rays(model, pbf, o64, d64,
                                                 nets=nbf))
+        # the bf16 frame's run_tmlp launches are ModelConfig()'s w64 d4
+        # proposal nets', each on prop_kernel
+        n_prop = fm.run_tmlp.prop_launches
+        check(n_prop == len(calls["run_tmlp"]),
+              f"{name}: {n_prop} of {len(calls['run_tmlp'])} proposal "
+              f"launches on prop_kernel")
         for kname in KERNELS:
             for a, k in calls.get(kname, []):
                 hold(name, kname, a, k, twin_of(nbf, n32), seeded=True)
         launch_t[name] = {kname: launch_times(kname, calls[kname])
                           for kname in calls}
-        seeded[name] = {"launches": n, "vs_jax_max_abs_err": jax_err,
+        seeded[name] = {"launches": n, "prop_kernel_launches": n_prop,
+                        "vs_jax_max_abs_err": jax_err,
                         "fast_vs_plain_f32": gap}
         del calls, nbf, n32, pbf, p32
         torch.cuda.empty_cache()

@@ -19,6 +19,9 @@ text substitutions in that source, for `port_tools/kernel_variants.py`
                  (a ray longer than a step keeps its last segment's alone);
   lost_park      planted fault: the V_WIDE kernels' parked chunks read back
                  as zeros (what a lost park slot gives);
+  prop_lost_k    planted fault: prop_kernel's layers past the first skip
+                 the last k step of 16 inputs that their code has (a 64-wide
+                 layer's last quarter);
   parent         the port of the commit before these branches, unpacked
                  under build/parent10 (`git archive d830384
                  sanerf_tpu_torch | tar -x -C build/parent10`).
@@ -37,5 +40,9 @@ VARIANTS = {
                     "        if (true) {"]],
     "lost_park": [["  for (int i = 0; i < NW; ++i) v[i] = p[i * 128];",
                    "  for (int i = 0; i < NW; ++i) v[i] = 0u * p[i * 128];"]],
+    "prop_lost_k": [["  for (int s = 0; s < KS; ++s) {\n"
+                     "    if (!EXACT && s >= ks) break;",
+                     "  for (int s = 0; s < KS - (BUF ? 0 : 1); ++s) {\n"
+                     "    if (!EXACT && s >= ks) break;"]],
     "parent": "build/parent10",
 }

@@ -121,7 +121,10 @@
 //   - the proposal nets (bf16, two layers no wider than 32, no CP tables,
 //     no bias, angle doubling) take small_kernel instead: a warp per
 //     16-point tile, mma.sync with the weights held in registers as B
-//     fragments.
+//     fragments; such nets with more layers or layers up to 64 wide
+//     (ModelConfig's default w64 d4) take prop_kernel: a warp per 32
+//     points carried through the chain alone, mma.sync with the weights in
+//     shared memory read by ldmatrix (see its note).
 // The host plans every launch (ops/fused_mlp_t.py:kernel_plan, which the
 // CPU tests read): the variant, the warpgroups and the shared-memory carve,
 // where the weights and the view head live, the composite's steps; the
@@ -918,8 +921,10 @@ struct Plan {
   // buffer (all but the first and the last of the widest layer's)
   int nseg, vld, unit_k, park_chunks;
   // the kernel: its variant (Variant), the proposal nets' small_kernel
-  // (run_tmlp), the general composite epilogue
-  int variant, small, general;
+  // (run_tmlp), the general composite epilogue, the wider proposal nets'
+  // prop_kernel (run_tmlp: w_bytes of staged weights, then per warp enc_b
+  // bytes of buffer, rows lde = ke + 8 wide)
+  int variant, small, general, prop;
 };
 
 // ---------------------------------------------------------------------------
@@ -1463,6 +1468,313 @@ small_kernel(Net net, const float* __restrict__ x3, long np,
   }
 }
 
+// ---------------------------------------------------------------------------
+// the proposal nets past small_kernel: bf16, ReLU, no tables, no bias,
+// angle doubling, an encoding of at most PROP_K and every layer at most
+// PROP_N wide, any depth whose weights fit in shared memory beside the
+// warps' buffers (ModelConfig's default w64 d4 over 33 Fourier features, which
+// every grid configuration and the students of distill_serving keep).
+// Replaces the same TPU kernel as tmlp_kernel for these nets
+// (sanerf_tpu/ops/fused_mlp_t.py:1077 _run_tmlp, body _encode_and_chain
+// :549), which ran them at 6 % of their bound on the card (PERF.md §6).
+// Bound: operations, 10,368 MAC a point (33 -> 64, 64 -> 64 twice, 64 -> 1)
+// at 989 TFLOP/s, 0.176 ms for the 8.39 M points of a 512^2 frame at
+// (32, 16); the bytes (12 B in, 4 B out a point) take 0.040 ms.
+// tmlp_kernel ran them at 2.85 ms there, 2.1 ms of it the chain: a row of
+// four m64n16 wgmmas a k step, each layer waited on, 3 warpgroups an SM
+// (PERF.md; port_tools/prop_variants.py).
+// Design: each warp carries PROP_PTS points (PROP_MT m16 tiles, a lane a
+// point) through the whole chain alone, with mma.sync.m16n8k16: no
+// block-wide sync after the weights are staged, and PROP_WARPS independent
+// warps an SM (one block: 161 registers a thread, no spill; 16 warps at 128
+// registers spill), so that one warp's encode (the SFU and the ALUs) runs
+// beside other warps' products (the tensor cores). The weights are staged
+// once a block with cp.async, in the core-matrix slabs the wgmma kernels
+// read (each 8 x 8 core matrix 128 contiguous bytes), and read as B
+// fragments by ldmatrix.x4 without bank conflicts, each fragment feeding
+// both m-tiles of the warp. Each lane encodes its point (the arithmetic of
+// encode_point, the frequencies a template argument so every column lands
+// in a register known at compile time) into the warp's buffer, 8 columns a
+// 16-byte store, rows ke + 8 wide (16 B times an odd number: no conflict
+// for the stores nor for ldmatrix's reads of layer 0's A fragments). The
+// default net's layers are straight-line code (a k step's B fragments all
+// loaded before its products, the first k step's products into zero
+// accumulators); layer l's accumulators, activated and rounded to bf16 in
+// one instruction a pair, are layer l + 1's A fragments in registers. The
+// last layer's rows go out from registers, the warp's points shuffled into
+// lane order, one coalesced store a row. K is padded to the instruction's
+// 16 (33 -> 48), the last layer's outputs to its n8 (1 -> 8). What binds
+// it now is the chain: at (32, 16) the kernel takes 0.57 ms, without its
+// encode 0.45, without its chain 0.12, with half its products 0.43, so
+// the products are about two thirds of the chain and the activations and
+// B loads between them the rest (PERF.md; port_tools/prop_variants.py).
+// ---------------------------------------------------------------------------
+
+constexpr int PROP_K = 64, PROP_N = 64;  // ops/fused_mlp_t.py: PROP_K, PROP_N
+constexpr int PROP_MT = 2, PROP_PTS = 16 * PROP_MT;
+// warps a block (ops/fused_mlp_t.py: PROP_WARPS) and blocks an SM
+constexpr int PROP_WARPS = 12, PROP_BLOCKS = 1;
+constexpr int PROP_MAXF = (PROP_K / 3 - 1) / 2;  // frequencies: F <= PROP_K
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a)
+      : "memory");
+}
+
+// Point x's Fourier features by angle doubling into its row of the tile
+// buffer in the tight column order (z_d; per frequency s_d, c_d), the
+// columns from F to the 16-padded width zero: the base frequency's sines
+// and cosines once, then the doubling recurrence with NF, the frequencies,
+// a template argument, so that every column lands in a register known at
+// compile time and 8 go out in one 16-byte store. The arithmetic of
+// encode_point.
+template <int NF>
+__device__ __forceinline__ void prop_encode(const float (&z)[3], float (&s)[3],
+                                            float (&c)[3], bf16* row) {
+  constexpr int F = 3 * (1 + 2 * NF), KE = (F + 15) / 16 * 16;
+  float v[KE];
+#pragma unroll
+  for (int d = 0; d < 3; ++d) v[d] = z[d];
+#pragma unroll
+  for (int f = 0; f < NF; ++f) {
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      if (f) {
+        const float s2 = 2.0f * s[d] * c[d];
+        const float c2 = c[d] * c[d] - s[d] * s[d];
+        s[d] = s2;
+        c[d] = c2;
+      }
+      v[3 + 6 * f + d] = s[d];
+      v[6 + 6 * f + d] = c[d];
+    }
+  }
+#pragma unroll
+  for (int k = F; k < KE; ++k) v[k] = 0.0f;
+  uint4* dst = reinterpret_cast<uint4*>(row);
+#pragma unroll
+  for (int k = 0; k < KE / 8; ++k)
+    dst[k] = make_uint4(pack_bf16(v[8 * k], v[8 * k + 1]),
+                        pack_bf16(v[8 * k + 2], v[8 * k + 3]),
+                        pack_bf16(v[8 * k + 4], v[8 * k + 5]),
+                        pack_bf16(v[8 * k + 6], v[8 * k + 7]));
+}
+
+template <int NF = 0>
+__device__ __forceinline__ void prop_encode_nf(int nf, const float (&z)[3],
+                                               float (&s)[3], float (&c)[3],
+                                               bf16* row) {
+  if constexpr (NF <= PROP_MAXF) {
+    if (nf == NF) {
+      prop_encode<NF>(z, s, c, row);
+      return;
+    }
+    prop_encode_nf<NF + 1>(nf, z, s, c, row);
+  }
+}
+
+__device__ __forceinline__ void prop_encode_of(int nf, float scale,
+                                               const float (&x)[3],
+                                               bf16* row) {
+  float z[3], s[3], c[3];
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    z[d] = x[d] * scale;
+    s[d] = sinf(z[d]);
+    c[d] = sinf(z[d] + HALF_PI);
+  }
+  prop_encode_nf(nf, z, s, c, row);
+}
+
+bool prop_net(const Net& net) {
+  if (net.g.n_cp || net.g.n_vm || net.g.n_cp_more || net.g.n_vm_more ||
+      has_sigma(net) || net.bias || !net.angle_double || net.leaky)
+    return false;
+  if (net.enc_freqs < 0 || net.enc_freqs > PROP_MAXF ||
+      net.F != 3 * (1 + 2 * net.enc_freqs) || net.ke != align16(net.F) ||
+      net.ke > PROP_K)
+    return false;
+  int kin = net.ke;
+  for (int l = 0; l < net.n_layers; ++l) {
+    const Layer& L = net.layer[l];
+    if (L.kin_h != kin || L.kin_e || L.kout > PROP_N || L.kout % 16 ||
+        L.kout_real < 1 || L.kout_real > L.kout)
+      return false;
+    kin = L.kout;
+  }
+  return true;
+}
+
+// c = A * B, the products of mma_bf16 into a zero accumulator (the first k
+// step of a layer: no instruction to zero it)
+__device__ __forceinline__ void mma_bf16_z(float (&c)[4], const uint32_t (&a)[4],
+                                           uint32_t b0, uint32_t b1) {
+  const float z = 0.0f;
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+      : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(z));
+}
+
+// The accumulators of a layer, activated and rounded to bf16
+// (fused_mlp_t.py:616), as the next layer's A fragments: n-tiles 2s and
+// 2s + 1 are its k step s. ReLU rounds and clamps in one instruction
+// (cvt.rn.relu: the rounding keeps the sign, so clamping after it is
+// clamping before).
+__device__ __forceinline__ uint32_t pack_relu_bf16(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.relu.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+__device__ __forceinline__ void prop_act(
+    const float (&acc)[PROP_MT][PROP_N / 8][4],
+    uint32_t (&hA)[PROP_MT][PROP_N / 16][4], int ks) {
+#pragma unroll
+  for (int i = 0; i < PROP_MT; ++i)
+#pragma unroll
+    for (int s = 0; s < PROP_N / 16; ++s)
+      if (s < ks)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float* c = acc[i][2 * s + (j >> 1)] + 2 * (j & 1);
+          hA[i][s][j] = pack_relu_bf16(c[0], c[1]);
+        }
+}
+
+// One layer of the warp's tile: acc[i][nt] = A (m-tile i) W^T over KS k
+// steps of 16 and NT n-tiles of 8, A from the tile buffer (BUF: ldmatrix.x4
+// of rows 16 i + (lane & 15), columns 16 s + 8 (lane >> 4), as mma's
+// fragment) or from hA, the B fragments of two n-tiles by one ldmatrix.x4
+// (core matrices (2s, n) and (2s + 1, n) of the pair), every B fragment of
+// a k step loaded before its products. EXACT: KS and NT are the layer's, so
+// the layer is one block of straight-line code that the compiler schedules
+// as a whole; else they are the most a layer has and ks, nt_n bound it.
+template <int KS, int NT, bool BUF, bool EXACT>
+__device__ __forceinline__ void prop_layer(
+    float (&acc)[PROP_MT][PROP_N / 8][4],
+    const uint32_t (&hA)[PROP_MT][PROP_N / 16][4], const bf16* buf, int lde,
+    const bf16* Wl, int kout, int ks, int nt_n, int lane) {
+  constexpr int NP = (NT + 1) / 2;
+  const int q = lane >> 3;
+  const bf16* w = Wl + ((q & 1) * (kout >> 3) + (q >> 1)) * 64 + (lane & 7) * 8;
+#pragma unroll
+  for (int s = 0; s < KS; ++s) {
+    if (!EXACT && s >= ks) break;
+    uint32_t a[PROP_MT][4];
+#pragma unroll
+    for (int i = 0; i < PROP_MT; ++i) {
+      if constexpr (BUF) {
+        ldsm_x4(a[i], buf + (16 * i + (lane & 15)) * lde + 16 * s +
+                          8 * (lane >> 4));
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) a[i][j] = hA[i][s][j];
+      }
+    }
+    uint32_t b[NP][4];
+#pragma unroll
+    for (int jp = 0; jp < NP; ++jp)
+      if (EXACT || 2 * jp < nt_n)
+        ldsm_x4(b[jp], w + (2 * s * (kout >> 3) + 2 * jp) * 64);
+#pragma unroll
+    for (int jp = 0; jp < NP; ++jp)
+#pragma unroll
+      for (int i = 0; i < PROP_MT; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int nt = 2 * jp + h;
+          if (nt >= NT || (!EXACT && nt >= nt_n)) continue;
+          if (s == 0)
+            mma_bf16_z(acc[i][nt], a[i], b[jp][2 * h], b[jp][2 * h + 1]);
+          else
+            mma_bf16(acc[i][nt], a[i], b[jp][2 * h], b[jp][2 * h + 1]);
+        }
+  }
+}
+
+__global__ void __launch_bounds__(PROP_WARPS * 32, PROP_BLOCKS)
+prop_kernel(Net net, Plan pl, const float* __restrict__ x3, long np,
+            float* __restrict__ out, int out_rows) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bf16* W = reinterpret_cast<const bf16*>(smem);
+  bf16* buf = reinterpret_cast<bf16*>(smem + pl.w_bytes + warp * pl.enc_b);
+  block_copy_async(smem, net.w, pl.w_bytes);
+  const int last = net.n_layers - 1;
+  const long n_tiles = (np + PROP_PTS - 1) / PROP_PTS;
+  const long step = (long)gridDim.x * PROP_WARPS;
+  long tile = (long)blockIdx.x * PROP_WARPS + warp;
+  float x[3];
+  load_point(x3, np, tile * PROP_PTS + lane, x);
+  for (; tile < n_tiles; tile += step) {
+    const long p0 = tile * PROP_PTS;
+    float xn[3];
+    load_point(x3, np, p0 + step * PROP_PTS + lane, xn);
+    __syncwarp();  // the last tile's layer 0 has read the buffer
+    prop_encode_of(net.enc_freqs, net.enc_scale, x, buf + lane * pl.lde);
+#pragma unroll
+    for (int a = 0; a < 3; ++a) x[a] = xn[a];
+    __syncwarp();
+    // a layer writes the n-tiles it computes (its first k step's products
+    // into zero accumulators), and reads no other
+    float acc[PROP_MT][PROP_N / 8][4];
+    uint32_t hA[PROP_MT][PROP_N / 16][4];
+    for (int l = 0; l <= last; ++l) {
+      const Layer L = net.layer[l];
+      const bf16* Wl = W + L.w_off;
+      const int ks = L.kin_h >> 4;
+      // the last layer: only the n8 tiles of its real outputs
+      const int nt_n = l == last ? (L.kout_real + 7) >> 3 : L.kout >> 3;
+      // straight-line code for the default net's layers (33 -> 64, 64 -> 64,
+      // 64 -> 1), a loop with bounds for any other
+      if (l == 0 && nt_n == PROP_N / 8 && ks == 3) {
+        prop_layer<3, PROP_N / 8, true, true>(acc, hA, buf, pl.lde, Wl,
+                                              L.kout, ks, nt_n, lane);
+      } else if (l == 0) {
+        prop_layer<PROP_K / 16, PROP_N / 8, true, false>(
+            acc, hA, buf, pl.lde, Wl, L.kout, ks, nt_n, lane);
+      } else if (ks == PROP_N / 16 && nt_n == PROP_N / 8) {
+        prop_layer<PROP_N / 16, PROP_N / 8, false, true>(
+            acc, hA, buf, pl.lde, Wl, L.kout, ks, nt_n, lane);
+      } else if (ks == PROP_N / 16 && nt_n == 1) {
+        prop_layer<PROP_N / 16, 1, false, true>(acc, hA, buf, pl.lde, Wl,
+                                                L.kout, ks, nt_n, lane);
+      } else {
+        prop_layer<PROP_N / 16, PROP_N / 8, false, false>(
+            acc, hA, buf, pl.lde, Wl, L.kout, ks, nt_n, lane);
+      }
+      if (l < last) prop_act(acc, hA, L.kout >> 4);
+    }
+    // output row r: point lane (m-tile lane >> 4, row lane & 15 = g + 8 h)
+    // sits in lane 4 g + (r & 7) / 2 of the fragment, acc[i][r / 8][2 h +
+    // r % 2]; every (i, h) shuffled in turn, the lane keeps its own
+    const int gl = lane & 7, hl = (lane >> 3) & 1, il = lane >> 4;
+    for (int r = 0; r < out_rows; ++r) {
+      const int nt = r >> 3, odd = r & 1, src = 4 * gl + ((r & 7) >> 1);
+      float v = 0.0f;
+#pragma unroll
+      for (int i = 0; i < PROP_MT; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float mine = 0.0f;
+#pragma unroll
+          for (int n = 0; n < PROP_N / 8; ++n)
+            if (n == nt) mine = odd ? acc[i][n][2 * h + 1] : acc[i][n][2 * h];
+          const float got = __shfl_sync(FULL, mine, src);
+          if (i == il && h == hl) v = got;
+        }
+      if (p0 + lane < np) out[(long)r * np + p0 + lane] = v;
+    }
+  }
+}
+
 __device__ __forceinline__ float sh_component(int k, float x, float y,
                                               float z) {
   const float xy = x * y, xz = x * z, yz = y * z;
@@ -1763,6 +2075,36 @@ int launch_small(const Net& net, const float* x3, long np, float* out,
   return (int)cudaGetLastError();
 }
 
+// the plan of prop_kernel: the weights whole, then each warp's buffer of
+// PROP_PTS rows of ke + 8 columns
+bool prop_plan_ok(const Net& net, const Plan& pl) {
+  return pl.lde == net.ke + 8 && pl.enc_b == PROP_PTS * pl.lde * 2 &&
+         pl.w_bytes == align16(net.w_elems * 2) &&
+         pl.total == pl.w_bytes + PROP_WARPS * pl.enc_b &&
+         pl.total <= SMEM_LIMIT;
+}
+
+int launch_prop(const Net& net, const Plan& pl, const float* x3, long np,
+                float* out, int out_rows, cudaStream_t stream) {
+  if (!prop_net(net) || !prop_plan_ok(net, pl) ||
+      out_rows != net.layer[net.n_layers - 1].kout_real)
+    return -1;
+  int dev = 0, n_sm = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  cudaFuncSetAttribute(prop_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       pl.total);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, prop_kernel,
+                                                PROP_WARPS * 32, pl.total);
+  const long want =
+      ((np + PROP_PTS - 1) / PROP_PTS + PROP_WARPS - 1) / PROP_WARPS;
+  const long cap = (long)n_sm * (per_sm > 0 ? per_sm : 1);
+  const int grid = (int)(want < cap ? (want > 0 ? want : 1) : cap);
+  prop_kernel<<<grid, PROP_WARPS * 32, pl.total, stream>>>(net, pl, x3, np,
+                                                           out, out_rows);
+  return (int)cudaGetLastError();
+}
+
 // the blocks of `kernel` resident on the card at the plan's block size and
 // shared memory: the persistent grid's size, and the slots of the park
 // buffer (park_blocks)
@@ -1942,6 +2284,10 @@ extern "C" int tmlp_launch(int use_bf16, const int* desc, const void* w,
     if (!use_bf16 || !small_net(net)) return -1;
     return launch_small(net, x3, np, out, out_rows, (cudaStream_t)stream);
   }
+  if (pl.prop) {
+    if (!use_bf16) return -1;
+    return launch_prop(net, pl, x3, np, out, out_rows, (cudaStream_t)stream);
+  }
   auto* fn = use_bf16 ? &launch_tmlp_of<bf16> : &launch_tmlp_of<float>;
   return fn(net, pl, x3, np, out, out_rows, static_cast<uint32_t*>(park),
             park_bytes, (cudaStream_t)stream);
@@ -1956,7 +2302,7 @@ extern "C" int tmlp_composite_launch(
     float* rgb, void* park, long park_bytes, void* stream) {
   const Grids& g = *static_cast<const Grids*>(grids);
   const Plan& pl = *static_cast<const Plan*>(plan);
-  if (desc[0] < 1 || desc[0] > MAX_LAYERS || pl.small) return -1;
+  if (desc[0] < 1 || desc[0] > MAX_LAYERS || pl.small || pl.prop) return -1;
   Net net = make_net(desc, w, w_elems, enc_scale, angle_double, bias, g);
   View view{vw, v_elems, 0, 0, 0, 0};
   if (vw && vdesc) {

@@ -41,22 +41,25 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def _lib_path(name: str) -> Path:
+def _lib_path(name: str, csrc: Path = None, build_dir: Path = None) -> Path:
+    csrc, build_dir = csrc or CSRC, build_dir or BUILD_DIR
     h = hashlib.sha256()
-    for p in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+    for p in sorted(csrc.glob("*.cuh")) + [csrc / f"{name}.cu"]:
         h.update(p.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    return build_dir / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def _start(name: str):
-    """-> (final path, Popen or None when already built)."""
-    out = _lib_path(name)
+def _start(name: str, csrc: Path = None, build_dir: Path = None):
+    """-> (final path, Popen or None when already built): csrc/<name>.cu
+    (CSRC by default) into build_dir (BUILD_DIR)."""
+    csrc, build_dir = csrc or CSRC, build_dir or BUILD_DIR
+    out = _lib_path(name, csrc, build_dir)
     if out.exists():
         return out, None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(csrc / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return out, (proc, tmp)
@@ -67,9 +70,9 @@ def _finish(name: str, out: Path, job) -> str:
         return ""
     proc, tmp = job
     log, _ = proc.communicate()
-    (BUILD_DIR / f"{name}.log").write_text(log)
+    (out.parent / f"{name}.log").write_text(log)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
     os.replace(tmp, out)
     return log
 

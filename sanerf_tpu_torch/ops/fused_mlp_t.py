@@ -85,6 +85,9 @@ UNIT_K = 64
 W_GLOBAL, W_ALL, W_STREAM = 0, 1, 2
 V_SERVED, V_BRANCHES, V_WIDE = 0, 1, 2
 SMALL_K, SMALL_N = 64, 32
+# prop_kernel (csrc/fused_mlp_t.cu): the widest encoding and layer it takes,
+# the points a warp carries, the warps a block
+PROP_K, PROP_N, PROP_PTS, PROP_WARPS = 64, 64, 32, 12
 
 
 def _round_up(x: int, m: int) -> int:
@@ -553,12 +556,13 @@ class KernelPlan(ctypes.Structure):
     bytes, warpgroups, where the weights and the view head live), the
     composite's steps (M points of R whole rays, or one ray in nseg
     segments of M), the V_WIDE weight unit and parked chunks, and the
-    kernel: its variant, small_kernel, the general composite epilogue."""
+    kernel: its variant, small_kernel, the general composite epilogue,
+    prop_kernel."""
     _fields_ = [(name, _I) for name in (
         "lde", "ldo", "M", "R", "ldh", "wgs", "w_mode", "w_bytes", "v_bytes",
         "enc_b", "h_b", "out_b", "sig_b", "wts_b", "ts_b", "vin_b", "per_wg",
         "total", "nseg", "vld", "unit_k", "park_chunks", "variant", "small",
-        "general")]
+        "general", "prop")]
 
     def as_dict(self) -> dict:
         return {name: getattr(self, name) for name, _ in self._fields_}
@@ -707,6 +711,33 @@ def _is_small(tm: "TransposedFieldMLP", layers) -> bool:
             and not layers[1][1] and layers[1][2] <= SMALL_N)
 
 
+def _prop_plan(tm: "TransposedFieldMLP", layers, ke: int,
+               w_elems: int) -> Optional[KernelPlan]:
+    """The plan of prop_kernel where it takes tm, else None: the
+    proposal nets past small_kernel (bf16, ReLU, no tables, no bias,
+    angle doubling, an encoding of at most PROP_K and every layer at most
+    PROP_N wide, no skip), whose weights fit in shared memory beside
+    PROP_WARPS buffers of PROP_PTS rows of ke + 8 bf16
+    (csrc/fused_mlp_t.cu: prop_plan_ok)."""
+    if (tm.dtype != torch.bfloat16 or tm.leaky or tm.tables
+            or tm.bs is not None or not tm.angle_double or ke > PROP_K
+            or any(L[1] or L[2] > PROP_N for L in layers)):
+        return None
+    p = KernelPlan(prop=1, M=PROP_PTS, nseg=1, lde=ke + 8,
+                   w_bytes=_align16(w_elems * 2), w_mode=W_ALL)
+    p.enc_b = PROP_PTS * p.lde * 2
+    p.total = p.w_bytes + PROP_WARPS * p.enc_b
+    return p if p.total <= SMEM_LIMIT else None
+
+
+def route(tm: "TransposedFieldMLP") -> str:
+    """The kernel run_tmlp launches for tm: small_kernel, prop_kernel or
+    tmlp_kernel (kernel_plan's choice)."""
+    plan = kernel_plan(tm)
+    return ("small_kernel" if plan.small else
+            "prop_kernel" if plan.prop else "tmlp_kernel")
+
+
 def _refuse(what: str):
     raise NotImplementedError(f"field kernels: {what} ({QUEUE_B})")
 
@@ -747,9 +778,11 @@ def kernel_plan(tm: "TransposedFieldMLP", T: Optional[int] = None,
         if _is_small(tm, layers):
             plan = KernelPlan(small=1, M=TILE, nseg=1)
         else:
-            plan = _fit(layers, ke, bf16, w_elems, 0,
-                        _max_wgs(bf16, False, variant), TILE, 0, kout + 1,
-                        False, wide)
+            plan = _prop_plan(tm, layers, ke, w_elems)
+            if plan is None:
+                plan = _fit(layers, ke, bf16, w_elems, 0,
+                            _max_wgs(bf16, False, variant), TILE, 0,
+                            kout + 1, False, wide)
     else:
         if T < 1:
             raise ValueError(f"composite: T={T}")
@@ -936,11 +969,15 @@ def run_tmlp(x: torch.Tensor, tm: TransposedFieldMLP,
             torch.cuda.current_stream().cuda_stream)
         _raise_on(code, "run_tmlp")
         run_tmlp.launches += 1
+        if plan.prop:
+            run_tmlp.prop_launches += 1
         del keep
     return out
 
 
 run_tmlp.launches = 0
+#: the launches of run_tmlp that took prop_kernel
+run_tmlp.prop_launches = 0
 
 
 def run_tmlp_composite(xT: torch.Tensor, dl: torch.Tensor, ts: torch.Tensor,

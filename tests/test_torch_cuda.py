@@ -25,16 +25,13 @@ sum_after_mlp) at the same bounds, and through run_rays against the plain
 path at chip_smoke.py's PATH_TOL.
 """
 
-import contextlib
 import importlib.util
-import shutil
 from pathlib import Path
 
 import pytest
 import torch
 
 from sanerf_tpu_torch.config import HashGridConfig
-from sanerf_tpu_torch.ops import _build
 from sanerf_tpu_torch.ops import fused_mlp_t as fm
 from sanerf_tpu_torch.ops import gather, hashgrid
 from sanerf_tpu_torch.ops import ray_kernels as rk
@@ -1013,54 +1010,27 @@ def test_run_tmlp_composite_long_rays(dev, T, dtype):
                     37, T, g, dev, dtype)
 
 
-def _branch_variant(name):
-    """The text substitutions of port_tools/field_branch_variants.py's
-    variant `name`."""
-    path = (Path(__file__).resolve().parents[1] / "port_tools"
-            / "field_branch_variants.py")
-    spec = importlib.util.spec_from_file_location("field_branch_variants",
-                                                  path)
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.VARIANTS[name]
-
-
-@contextlib.contextmanager
-def _field_kernels_from(tmp):
-    """fused_mlp_t's launches go to the kernels of tmp/csrc, built into
-    tmp/kernels (once: named by the sources' hash), inside the block."""
-    saved = _build.CSRC, _build.BUILD_DIR, _build._libs.pop("fused_mlp_t",
-                                                           None)
-    _build.CSRC, _build.BUILD_DIR = tmp / "csrc", tmp / "kernels"
-    fm._lib.cache_clear()
-    try:
-        yield
-    finally:
-        _build.CSRC, _build.BUILD_DIR = saved[:2]
-        _build._libs.pop("fused_mlp_t", None)
-        if saved[2] is not None:
-            _build._libs["fused_mlp_t"] = saved[2]
-        fm._lib.cache_clear()
+    return mod
 
 
 @pytest.fixture(scope="module")
 def planted(tmp_path_factory):
-    """-> a context in which the field kernels carry both planted faults of
-    port_tools/field_branch_variants.py, drop_carry and lost_park (each
-    fires on a path the other's test does not take): csrc/fused_mlp_t.cu
-    with their text substitutions."""
+    """-> a context in which the field kernels carry the planted faults of
+    port_tools/field_branch_variants.py, drop_carry, lost_park and
+    prop_lost_k (each fires on a path the others' tests do not take):
+    csrc/fused_mlp_t.cu with their text substitutions
+    (chip_smoke.planted_tree), built once."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
-    tmp = tmp_path_factory.mktemp("planted")
-    shutil.copytree(_build.CSRC, tmp / "csrc")
-    p = tmp / "csrc" / "fused_mlp_t.cu"
-    text = p.read_text()
-    for old, new in (_branch_variant("drop_carry")
-                     + _branch_variant("lost_park")):
-        assert old in text, old
-        text = text.replace(old, new)
-    p.write_text(text)
-    return lambda: _field_kernels_from(tmp)
+    cs = _chip_smoke()
+    tree = cs.planted_tree(tmp_path_factory.mktemp("planted"),
+                           ("drop_carry", "lost_park", "prop_lost_k"))
+    return lambda: cs.kernels_from(tree)
 
 
 def test_composite_long_rays_dropped_segment_fails(dev, planted):
@@ -1328,3 +1298,66 @@ def test_sum_after_mlp_runs_the_field_kernel(dev):
         torch.testing.assert_close(got[k], ref[k], rtol=PATH_TOL,
                                    atol=PATH_TOL)
     assert float((got["depth"] - ref["depth"]).abs().max()) <= DEPTH_MAX
+
+
+# -- prop_kernel: the bf16 proposal nets past small_kernel (layers up to 64
+# wide, any depth whose weights fit in shared memory), held element by
+# element at GRID_TOL (seeded weights), with a planted fault ---------------
+
+
+def _prop_net(g, dev, width, depth, nf=5):
+    F = 3 * (1 + 2 * nf)
+    sizes = [(F if l == 0 else width, 1 if l == depth - 1 else width)
+             for l in range(depth)]
+    return fm.TransposedFieldMLP(
+        [{"w": p["w"].to(torch.bfloat16)} for p in _layers(sizes, g, dev)],
+        nf, 2.0)
+
+
+def _prop_held(tm, n, g, dev):
+    x = torch.rand(3, n, generator=g, device=dev) * 4 - 2
+    assert fm.kernel_plan(tm).prop
+    before = (fm.run_tmlp.launches, fm.run_tmlp.prop_launches)
+    got = fm.run_tmlp(x, tm, transposed=True)
+    assert (fm.run_tmlp.launches, fm.run_tmlp.prop_launches) == (
+        before[0] + 1, before[1] + 1)
+    _held(got, fm.run_tmlp_plain(x, tm), torch.bfloat16, 3e-4, GRID_TOL)
+
+
+@pytest.mark.parametrize("n", [1001, 4099, 17, 1])
+@pytest.mark.parametrize("width,depth", [(64, 4), (16, 3), (32, 5), (40, 6),
+                                         (48, 8), (64, 3), (64, 8)])
+def test_prop_kernel(dev, width, depth, n):
+    """Widths 16 to 64 (40: hidden layers padded to 48), depths 3 to 8,
+    point counts that fill no whole 32-point warp tile."""
+    g = torch.Generator(device=dev).manual_seed(140 + width + depth + n)
+    _prop_held(_prop_net(g, dev, width, depth), n, g, dev)
+
+
+@pytest.mark.parametrize("nf", [2, 4, 10])
+def test_prop_kernel_frequencies(dev, nf):
+    """The encode's other frequency counts (15, 27 and 63 columns)."""
+    g = torch.Generator(device=dev).manual_seed(150 + nf)
+    _prop_held(_prop_net(g, dev, 64, 4, nf), 20011, g, dev)
+
+
+def test_prop_kernel_default_net_at_2_20_points(dev):
+    """ModelConfig()'s proposal net, w64 d4 over 33 columns, at 2^20
+    points (a persistent grid walking many tiles a warp)."""
+    g = torch.Generator(device=dev).manual_seed(160)
+    _prop_held(_prop_net(g, dev, 64, 4), 1 << 20, g, dev)
+
+
+def test_prop_kernel_lost_k_step_fails(dev, planted):
+    """Planted fault in the kernel: prop_kernel's layers past the first
+    without their last k step of 16 inputs (field_branch_variants.py:
+    prop_lost_k) must fail the hold that the kernel passes on the same
+    points."""
+    def held():
+        g = torch.Generator(device=dev).manual_seed(161)
+        _prop_held(_prop_net(g, dev, 64, 4), 20011, g, dev)
+
+    held()
+    with planted():
+        with pytest.raises(AssertionError):
+            held()
