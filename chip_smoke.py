@@ -4,9 +4,10 @@
 
 Phases (any failure exits non-zero and prints no result line):
   1. build the CUDA kernels from sanerf_tpu_torch/csrc (one nvcc per source,
-     all started together, and beside them fused_mlp_t.cu with prop_kernel's
-     planted fault PROP_FAULT into PLANTED_DIR) and print the card's name
-     and power limit;
+     all started together, and beside them fused_mlp_t.cu with the planted
+     faults PROP_FAULT, in prop_kernel, and RING_FAULT, in the bf16 V_WIDE
+     kernels' weight ring, into PLANTED_DIR) and print the card's name and
+     power limit;
   2. hold each kernel against its plain PyTorch version on the card, at
      every shape the main path gives it (captured from 512^2 frames of the
      shipped asset at the (32, 16) and (128, 64, 32) hierarchies; each
@@ -137,8 +138,9 @@ Phases (any failure exits non-zero and prints no result line):
      values (JAX_WIDE, 2e-3); the FEAT_HW^2-ray feature render of a 512^2
      interactive frame of that field with a seeded SAM head at both
      hierarchies, bf16 (its width-256 run_tmlp launch: counted, held,
-     timed); Trainer.train for 2 epochs of 4 steps, its float32
-     evaluation frame's launches counted and held;
+     timed), that launch at (32, 16) on the kernels built with RING_FAULT
+     failing the same hold; Trainer.train for 2 epochs of 4 steps, its
+     float32 evaluation frame's launches counted and held;
  B3. the asset's field with seeded biases, and its chain over the Fourier
      features with the dense-sin encode, through the (32, 16) frame's
      render_frame (counted) and at its level-0 points, bf16 and float32
@@ -750,6 +752,11 @@ JAX_PSNR_LONG_BF16 = {"128,256": 21.446619081724656}
 #: last k step of 16 inputs. The grid phase's hold of the proposal launch
 #: must fail on it
 PROP_FAULT = "prop_lost_k"
+#: the bf16 V_WIDE weight ring's planted fault (the same file), built into
+#: the same tree: its producer leaves out the last k block of every unit but
+#: a chunk's first. Phase B2's hold of the width-256 field's run_tmlp
+#: launch must fail on it
+RING_FAULT = "ring_lost_k"
 PLANTED_DIR = os.path.join(ROOT, "build", "chip_smoke_planted")
 
 
@@ -758,7 +765,7 @@ def fail(msg):
     sys.exit(1)
 
 
-def planted_tree(dest=PLANTED_DIR, faults=(PROP_FAULT,)):
+def planted_tree(dest=PLANTED_DIR, faults=(PROP_FAULT, RING_FAULT)):
     """A copy of the kernels' sources under dest/csrc with the planted
     faults of port_tools/field_branch_variants.py named in `faults` (text
     substitutions of fused_mlp_t.cu) -> dest, a Path."""
@@ -1366,7 +1373,8 @@ def main():
         logs = _build.build_all()
     finally:
         _build._finish("fused_mlp_t", *planted_job)
-    log(f"build: {time.time() - t0:.1f} s (with {PROP_FAULT} planted)")
+    log(f"build: {time.time() - t0:.1f} s (with {PROP_FAULT} and "
+        f"{RING_FAULT} planted)")
     for name, text in logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -1801,7 +1809,7 @@ def main():
     torch.cuda.empty_cache()
     branches = branch_phases(torch, np, dev, card, compare, launch_times,
                              kern_fn, model_at, rays_o, rays_d, nets, params,
-                             params32, mc, rc)
+                             params32, mc, rc, planted)
     rows += branches.pop("rows")
     torch.cuda.empty_cache()
     limits = limit_phases(torch, np, dev, card, compare, launch_times,
@@ -3364,9 +3372,11 @@ def train_phases(torch, np, dev, card, compare, launch_times, kern_fn):
 
 
 def branch_phases(torch, np, dev, card, compare, launch_times, kern_fn,
-                  model_at, rays_o, rays_d, nets, params, params32, mc, rc):
+                  model_at, rays_o, rays_d, nets, params, params32, mc, rc,
+                  planted):
     """Phases B1-B4: the field kernels' branches beyond the served (32, 16)
-    and (128, 64, 32) frames. -> the {"branches": ...} record, with the
+    and (128, 64, 32) frames; RING_FAULT planted in the kernels built into
+    `planted` fails B2's hold. -> the {"branches": ...} record, with the
     kernel rows of those launches under "rows"."""
     import dataclasses
     import shutil
@@ -3630,8 +3640,36 @@ def branch_phases(torch, np, dev, card, compare, launch_times, kern_fn,
             "rays": FEAT_HW * FEAT_HW, "launches": n,
             "run_tmlp_widths": widths,
             "run_tmlp_launches": launch_t[key]["run_tmlp"]}
+        if h == "32,16":
+            ring_launch = fcalls["run_tmlp"][widths.index(256)]
         del pf, fnets, fcalls
         torch.cuda.empty_cache()
+    # the planted ring fault: the width-256 field's run_tmlp launch of the
+    # (32, 16) feature render on the kernels built with RING_FAULT must fail
+    # the hold that the kernel itself passed above (GRID_TOL, element by
+    # element)
+    a, k = ring_launch
+    ref = fm.run_tmlp_plain(a[0], a[1])
+
+    def past_tol(got):
+        d = (got - ref).abs()
+        return int((d > GRID_TOL + GRID_TOL * ref.abs()).sum()), float(d.max())
+
+    check(fm.kernel_plan(a[1]).w_mode == fm.W_RING,
+          f"{RING_FAULT}: the width-256 launch does not take the ring")
+    own = past_tol(fm.run_tmlp(*a, **k))
+    with kernels_from(planted):
+        bad = past_tol(fm.run_tmlp(*a, **k))
+    check(own[0] == 0 and bad[0] > 0,
+          f"planted {RING_FAULT}: {bad[0]} of {ref.numel()} outputs past "
+          f"GRID_TOL (the kernel's own: {own[0]})")
+    wide["planted_fault"] = {"fault": RING_FAULT, "outputs_past_tol": bad[0],
+                             "of": ref.numel(), "max_abs_err": bad[1],
+                             "kernel_outputs_past_tol": own[0],
+                             "kernel_max_abs_err": own[1], "tol": GRID_TOL}
+    log(f"planted fault in the ring: {wide['planted_fault']}")
+    del ring_launch, a, k, ref
+    torch.cuda.empty_cache()
     # Trainer.train with a float32 evaluation through the kernels
     ws = os.path.join(ROOT, "build", "chip_smoke_wide")
     shutil.rmtree(ws, ignore_errors=True)

@@ -22,6 +22,10 @@ text substitutions in that source, for `port_tools/kernel_variants.py`
   prop_lost_k    planted fault: prop_kernel's layers past the first skip
                  the last k step of 16 inputs that their code has (a 64-wide
                  layer's last quarter);
+  ring_lost_k    planted fault: the bf16 V_WIDE ring's producer leaves out
+                 the last k block of every unit but a chunk's first (no
+                 copy, no bytes expected: the consumers' products read
+                 whatever that stage held before);
   parent         the port of the commit before these branches, unpacked
                  under build/parent10 (`git archive d830384
                  sanerf_tpu_torch | tar -x -C build/parent10`).
@@ -44,5 +48,8 @@ VARIANTS = {
                      "    if (!EXACT && s >= ks) break;",
                      "  for (int s = 0; s < KS - (BUF ? 0 : 1); ++s) {\n"
                      "    if (!EXACT && s >= ks) break;"]],
+    "ring_lost_k": [["        const int nkb = (min(k0 + UNIT_K, L.w_ld) - k0) / 8;",
+                     "        const int nkb = (min(k0 + UNIT_K, L.w_ld) - k0) / 8"
+                     " - (k0 > 0);"]],
     "parent": "build/parent10",
 }

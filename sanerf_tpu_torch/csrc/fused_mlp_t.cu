@@ -86,10 +86,14 @@
 //     warpgroup of the persistent grid, each thread its own words,
 //     coalesced), until the last chunk has read the previous activations,
 //     then all written back. bf16: A comes from shared memory for every
-//     layer (wgmma_ss), B from the weights in shared memory, all of them
-//     where they fit, else streamed one chunk (128 rows of W^T) at a time
-//     (80 KB for a 256-wide skip layer), else in units of one chunk's rows
-//     over 64 columns (16 KB: a 512-wide layer's chunk is 128 KB);
+//     layer (wgmma_ss), B from a ring of weight units in shared memory (a
+//     unit: one chunk's rows over 64 columns, 16 KB), which one warp of a
+//     producer warpgroup fills with bulk copies (cp.async.bulk on
+//     mbarriers) ahead of up to three consumer warpgroups: one copy serves
+//     three tiles (192 points), a unit's products run while the next units
+//     are copied, and a chunk's products are one wgmma pipeline of one
+//     shape with no branch in it (the earlier design waited for each copy,
+//     and ptxas serialized its wgmmas; PERF.md);
 //     float32: the A fragments read from the row-major activations as from
 //     the encoding, the weights in shared memory where they fit, else
 //     streamed in units of one chunk's rows over 64 columns (32 KB; a 256
@@ -177,13 +181,48 @@ constexpr int wgs_of(bool composite) {
 // dense-sin encode or longer ladders; V_WIDE, nets with a layer over 128
 // (each branch at run time).
 enum Variant { V_SERVED = 0, V_BRANCHES = 1, V_WIDE = 2 };
-// V_WIDE kernels: 2 warpgroups (plan_for takes fewer where the buffers do
-// not fit)
-constexpr int WIDE_WGS = 2;
+// V_WIDE kernels: 3 consumer warpgroups in bf16 (they share each weight
+// unit of the ring), 2 in float32 (the plan takes fewer where the buffers
+// do not fit)
+constexpr int WIDE_WGS = 3, WIDE_F32_WGS = 2;
 template <typename T>
 constexpr int wgs_of(bool composite, int v) {
-  return v == V_WIDE ? WIDE_WGS : wgs_of<T>(composite);
+  return v == V_WIDE ? (sizeof(T) == 2 ? WIDE_WGS : WIDE_F32_WGS)
+                     : wgs_of<T>(composite);
 }
+// The bf16 V_WIDE kernels stream the weights through a ring of units in
+// shared memory: a unit is one chunk's rows (<= CHUNK) over UNIT_K columns
+// of W^T (16 KB), the ring 2..MAX_STAGES of them, each with a full and an
+// empty mbarrier (RING_BAR_B bytes after the ring), filled with bulk
+// copies by one warp of a producer warpgroup (the block's last).
+template <typename T>
+__host__ __device__ constexpr bool ring_of(int v) {
+  return sizeof(T) == 2 && v == V_WIDE;
+}
+constexpr int UNIT_K = 64, UNIT_B = 128 * UNIT_K * 2;
+// after the barriers, ZERO_B bytes of zeros where a layer's last unit is
+// short of UNIT_K columns: one k16 step of B for 128 rows, which its k
+// steps past the layer's columns read
+constexpr int MAX_STAGES = 8, RING_BAR_B = 16 * MAX_STAGES, ZERO_B = 4096;
+constexpr int PRODUCER_THREADS = 128;
+template <typename T>
+constexpr int threads_of(bool composite, int v) {
+  return wgs_of<T>(composite, v) * 128 + (ring_of<T>(v) ? PRODUCER_THREADS : 0);
+}
+// Registers a thread of a ring kernel (setmaxnreg): it starts with
+// RING_ENTRY_REGS, as many as one block of WIDE_WGS + 1 warpgroups an SM
+// leaves (ptxas takes them all when the kernel sets its registers; the
+// launch checks it, or the increase below could wait for ever); the
+// producer warpgroup gives them back down to PRODUCER_REGS, and the
+// consumers take what that frees, RING_REGS each (128 -> 160 at three
+// consumers: the chain's accumulators, the held chunk and the composite's
+// state spilled at 128).
+constexpr int RING_ENTRY_REGS = (65536 / ((WIDE_WGS + 1) * 128)) & ~7;
+constexpr int PRODUCER_REGS = 32;
+constexpr int RING_REGS =
+    (RING_ENTRY_REGS + (RING_ENTRY_REGS - PRODUCER_REGS) / WIDE_WGS) & ~7;
+static_assert(RING_REGS <= 256 && PRODUCER_REGS >= 24,
+              "setmaxnreg takes 24..256 registers");
 // Layers of a net: the layer table is a kernel parameter (the parameter
 // space's budget sets this; ops/fused_mlp_t.py:MAX_LAYERS)
 constexpr int MAX_LAYERS = 32;
@@ -898,9 +937,9 @@ __device__ __forceinline__ void store_last(const float (&acc)[NA], int ncols,
 }
 
 // where a block's chains read the weights from: global memory (through
-// L2; float32 only), all of them staged in shared memory, or one layer
-// (one chunk of a V_WIDE layer, or one unit of a chunk) at a time
-enum WeightMode { W_GLOBAL = 0, W_ALL = 1, W_STREAM = 2 };
+// L2; float32 only), all of them staged in shared memory, one layer (one
+// float32 V_WIDE unit of a chunk) at a time, or (bf16 V_WIDE) the ring
+enum WeightMode { W_GLOBAL = 0, W_ALL = 1, W_STREAM = 2, W_RING = 3 };
 
 // ---------------------------------------------------------------------------
 // the launch plan: made on the host by ops/fused_mlp_t.py:kernel_plan (its
@@ -916,15 +955,19 @@ struct Plan {
   int per_wg, total;
   // segments of a composite step (a ray longer than a step runs as nseg
   // segments of M points, one ray a step; 1: whole rays), floats of a
-  // warp's view-head scratch, columns of a streamed V_WIDE weight unit (0:
-  // a whole chunk of rows), chunks of a V_WIDE layer parked in the park
-  // buffer (all but the first and the last of the widest layer's)
+  // warp's view-head scratch, columns of a streamed float32 V_WIDE weight
+  // unit, chunks of a V_WIDE layer parked in the park buffer (all but the
+  // first and the last of the widest layer's)
   int nseg, vld, unit_k, park_chunks;
   // the kernel: its variant (Variant), the proposal nets' small_kernel
   // (run_tmlp), the general composite epilogue, the wider proposal nets'
   // prop_kernel (run_tmlp: w_bytes of staged weights, then per warp enc_b
   // bytes of buffer, rows lde = ke + 8 wide)
   int variant, small, general, prop;
+  // W_RING: the ring's stages of unit_b bytes (w_bytes = stages unit_b +
+  // RING_BAR_B, + ZERO_B where a layer is not whole units: the barriers
+  // and the zero block after them)
+  int stages, unit_b;
 };
 
 // ---------------------------------------------------------------------------
@@ -936,23 +979,6 @@ struct Plan {
 // grid, each thread its own words, coalesced) until every chunk has read
 // the previous activations.
 // ---------------------------------------------------------------------------
-
-// Copies the core matrices of k blocks [kb0, kb1) and rows [n0, n0 + nw) of
-// a W^T slab (kout rows, core matrices) to dst as a slab nw rows wide, with
-// the whole block, visible to wgmma: for each k block, nw / 8 core
-// matrices, contiguous in both.
-__device__ void block_copy_chunk(bf16* dst, const bf16* slab, int kout,
-                                 int kb0, int kb1, int n0, int nw) {
-  const int per_k = nw;  // 16-byte pieces of one k column: nw rows of 16 B
-  for (int i = threadIdx.x; i < (kb1 - kb0) * per_k; i += blockDim.x) {
-    const int kb = i / per_k, j = i - kb * per_k;
-    reinterpret_cast<uint4*>(dst + kb * nw * 8)[j] =
-        reinterpret_cast<const uint4*>(
-            slab + ((kb0 + kb) * kout / 8 + n0 / 8) * 64)[j];
-  }
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  __syncthreads();
-}
 
 // a chunk's accumulators, activated, as bf16 pairs: v[2 nt] = row g,
 // v[2 nt + 1] = row g + 8, columns 8 nt + 2t, 8 nt + 2t + 1
@@ -1009,11 +1035,143 @@ __device__ __forceinline__ void park_get(const uint32_t* park, const Plan& pl,
   for (int i = 0; i < NW; ++i) v[i] = p[i * 128];
 }
 
+// The ring of a bf16 V_WIDE block (W_RING): pl.stages units of UNIT_B
+// bytes from the start of shared memory, then the stages' full barriers
+// (one arrival, the producer's, and the unit's bytes) and empty barriers
+// (one arrival a consumer warp), then the zero block. The producer and
+// every consumer warpgroup walk the same sequence of units, each with its
+// own stage and phase: for each tile the block's warpgroups take together,
+// layer by layer, chunk by chunk, UNIT_K columns at a time in ascending k.
+// A unit is a chunk's nw rows over its k blocks, as the slab keeps them:
+// for each k block nw / 8 contiguous core matrices, so it lands as a slab
+// nw rows wide (nw * 16 B from one k block to the next) with one bulk copy
+// a k block.
+struct Ring {
+  const bf16* w;     // stage 0
+  const bf16* zero;  // the zero block
+  uint32_t bars;     // the full barrier of stage 0; empty ones MAX_STAGES on
+  int stages, stage;
+  uint32_t phase;
+  __device__ __forceinline__ uint32_t full() const { return bars + 8 * stage; }
+  __device__ __forceinline__ uint32_t empty(int s) const {
+    return bars + 8 * (MAX_STAGES + s);
+  }
+  __device__ __forceinline__ const bf16* unit() const {
+    return w + stage * (UNIT_B / 2);
+  }
+  // the next stage, without a branch
+  __device__ __forceinline__ void next() {
+    const int s = stage + 1;
+    phase ^= (uint32_t)(s == stages);
+    stage = s == stages ? 0 : s;
+  }
+};
+
+__device__ __forceinline__ Ring ring_at(unsigned char* smem, const Plan& pl) {
+  unsigned char* bars = smem + pl.stages * UNIT_B;
+  return Ring{reinterpret_cast<const bf16*>(smem),
+              reinterpret_cast<const bf16*>(bars + RING_BAR_B),
+              wg::smem(bars), pl.stages, 0, 0u};
+}
+
+// The producer's part of one tile (one warp): every unit of the chain in
+// the consumers' order, each into the next stage once every consumer warp
+// has released it (the first round of stages is free), lane j copying k
+// block j of the unit. It runs on across chunks, layers and tiles: only a
+// full ring holds it.
+__device__ void ring_fill_tile(const Net& net, Ring& r, int lane) {
+  const bf16* w = reinterpret_cast<const bf16*>(net.w);
+  for (int l = 0; l < net.n_layers; ++l) {
+    const Layer L = net.layer[l];
+    for (int n0 = 0; n0 < L.kout; n0 += CHUNK) {
+      const int nw = min(CHUNK, L.kout - n0);
+      for (int k0 = 0; k0 < L.w_ld; k0 += UNIT_K) {
+        const int nkb = (min(k0 + UNIT_K, L.w_ld) - k0) / 8;
+        const uint32_t full = r.full(), bytes = nkb * nw * 16;
+        wg::mbar_wait(r.empty(r.stage), r.phase ^ 1u);
+        if (lane == 0) wg::mbar_expect_tx(full, bytes);
+        __syncwarp();
+        if (lane < nkb)
+          wg::bulk_copy(
+              wg::smem(r.unit()) + lane * nw * 16,
+              w + L.w_off + ((k0 / 8 + lane) * (L.kout / 8) + n0 / 8) * 64,
+              nw * 16, full);
+        r.next();
+      }
+    }
+  }
+}
+
+// The products of one unit of a chunk NW rows wide: its UNIT_K / 16 k
+// steps, one wgmma of one shape each and no branch between them, so that
+// ptxas keeps the pipeline asynchronous (a branch among a chunk's wgmmas,
+// or several shapes on its accumulators, and it waits for each). Step s
+// is W^T column kc = k0 + 16 s: A from the hidden activations (kc <
+// kin_h) or, past them, the encoding (the skip layer's columns); past the
+// layer's last column (a last unit short of UNIT_K) B is the zero block,
+// A any finite columns.
+template <int NW>
+__device__ __forceinline__ void unit_products(float (&acc)[NA], const Ring& r,
+                                              const bf16* A, const bf16* enc,
+                                              int k0, int kin_h, int w_ld,
+                                              int nw) {
+  const bf16* U = r.unit();
+#pragma unroll
+  for (int s = 0; s < UNIT_K / 16; ++s) {
+    const int kc = k0 + 16 * s;
+    const bf16* a = kc < kin_h ? A + kc * TILE
+                               : enc + (kc < w_ld ? kc - kin_h : 0) * TILE;
+    const bf16* b = kc < w_ld ? U + s * 2 * nw * 8 : r.zero;
+    const uint64_t da = wg::desc(a, TILE * 16, 128);
+    const uint64_t db = wg::desc(b, nw * 16, 128);
+    if constexpr (NW == 128)
+      wg::wgmma_ss_n128<0>(acc, da, db);
+    else if constexpr (NW == 64)
+      wg::wgmma_ss_n64<0>(acc, da, db);
+    else
+      wg::wgmma_ss_n16<0>(acc, da, db);
+  }
+}
+
+// One chunk's products, unit by unit in ascending k: each unit's wgmmas
+// are issued once it has arrived and committed as a group, and the unit
+// before is released when its group is done (wgmma.wait_group 1: a unit's
+// products run while the next units arrive); the accumulators stay in
+// registers across the units. A consumer warp releases a stage with one
+// arrival of its lane 0, predicated (no branch).
+template <int NW>
+__device__ __forceinline__ void chunk_units(float (&acc)[NA], Ring& r,
+                                            const Layer& L, const bf16* A,
+                                            const bf16* enc, int nw,
+                                            int lane) {
+  int prev = r.stage;
+  wg::mbar_wait(r.full(), r.phase);
+  wg::keep(acc);
+  wg::fence();
+  unit_products<NW>(acc, r, A, enc, 0, L.kin_h, L.w_ld, nw);
+  wg::commit();
+  r.next();
+  for (int k0 = UNIT_K; k0 < L.w_ld; k0 += UNIT_K) {
+    wg::mbar_wait(r.full(), r.phase);
+    wg::keep(acc);
+    wg::fence();
+    unit_products<NW>(acc, r, A, enc, k0, L.kin_h, L.w_ld, nw);
+    wg::commit();
+    wg::wait<1>();
+    wg::keep(acc);
+    wg::mbar_arrive_if(r.empty(prev), lane == 0);
+    prev = r.stage;
+    r.next();
+  }
+  wg::wait<0>();
+  wg::keep(acc);
+  wg::mbar_arrive_if(r.empty(prev), lane == 0);
+}
+
 // bf16: A from shared memory for every layer (the encoding, then hb), B
-// from W: every layer in shared memory, or (W_STREAM) the block's
-// one-chunk buffer, refilled per chunk, or with pl.unit_k its one-unit
-// buffer (a chunk's rows over unit_k columns), refilled per unit.
-__device__ void chain_wide(const Net& net, const bf16* W, const Plan& pl,
+// from the ring (chunk_units, one instance a chunk width); the sums in k
+// order.
+__device__ void chain_wide(const Net& net, Ring& r, const Plan& pl,
                            const bf16* enc, bf16* hb, float (&acc)[NA],
                            const float* sig, float* outb, int ldo, int warp,
                            int lane, uint32_t* park) {
@@ -1027,42 +1185,17 @@ __device__ void chain_wide(const Net& net, const bf16* W, const Plan& pl,
       const int n0 = CHUNK * c, nw = min(CHUNK, L.kout - n0);
 #pragma unroll
       for (int i = 0; i < NA; ++i) acc[i] = 0.0f;
-      if (pl.w_mode == W_STREAM && pl.unit_k) {
-        const bf16* slab = reinterpret_cast<const bf16*>(net.w) + L.w_off;
-        for (int k0 = 0; k0 < L.w_ld; k0 += pl.unit_k) {
-          const int k1 = min(k0 + pl.unit_k, L.w_ld);
-          const int h1 = min(k1, L.kin_h), e0 = max(k0, L.kin_h);
-          __syncthreads();  // the previous unit's products are done
-          block_copy_chunk(const_cast<bf16*>(W), slab, L.kout, k0 / 8,
-                           k1 / 8, n0, nw);
-          wg::keep(acc);
-          wg::fence();
-          if (k0 < h1) ss_part(acc, W, nw, nw, 0, A + k0 * TILE, h1 - k0);
-          if (e0 < k1)
-            ss_part(acc, W, nw, nw, e0 - k0, enc + (e0 - L.kin_h) * TILE,
-                    k1 - e0);
-          wg::commit();
-          wg::wait_all();
-          wg::keep(acc);
-        }
-      } else {
-        const bf16* Wc = W + L.w_off + n0 * 8;
-        int ldn = L.kout;
-        if (pl.w_mode == W_STREAM) {
-          __syncthreads();  // the previous chunk's products are done
-          block_copy_chunk(const_cast<bf16*>(W),
-                           reinterpret_cast<const bf16*>(net.w) + L.w_off,
-                           L.kout, 0, L.w_ld / 8, n0, nw);
-          Wc = W;
-          ldn = nw;
-        }
-        wg::keep(acc);
-        wg::fence();
-        ss_part(acc, Wc, ldn, nw, 0, A, L.kin_h);
-        if (L.kin_e) ss_part(acc, Wc, ldn, nw, L.kin_h, enc, L.kin_e);
-        wg::commit();
-        wg::wait_all();
-        wg::keep(acc);
+      // three shapes (more instances, and ptxas serialized the wgmmas of
+      // one kernel or another, PERF.md): a chunk of 80-112 rows on the
+      // 128-row one, of 32-48 on the 64-row one, its extra accumulators
+      // unused (its B rows past nw whatever the ring holds there)
+      switch (nw) {
+        case 128: chunk_units<128>(acc, r, L, A, enc, nw, lane); break;
+        case 112: case 96: case 80:
+          chunk_units<128>(acc, r, L, A, enc, nw, lane); break;
+        case 64: case 48: case 32:
+          chunk_units<64>(acc, r, L, A, enc, nw, lane); break;
+        default: chunk_units<16>(acc, r, L, A, enc, nw, lane);
       }
       if (net.bias) add_bias(acc, net.bias + l * BIAS_LD + n0, nw, lane);
       if (last) {
@@ -1077,7 +1210,7 @@ __device__ void chain_wide(const Net& net, const bf16* W, const Plan& pl,
       }
     }
     if (last) break;
-    // every wgmma that read hb is done (wait_all): the layer's
+    // every wgmma that read hb is done (wait_group 0): the layer's
     // activations replace the previous ones
     const int n_last = CHUNK * (nch - 1);
     if (nch > 1) put_hidden(hb, held, 0, CHUNK, warp, lane);
@@ -1221,8 +1354,16 @@ struct Bufs {
   float *outb, *sig, *wts, *tsb, *vin;
 };
 
+// The block's consumer warpgroups: the launch may take fewer than pl.wgs
+// (launch_size), and a ring's producer warpgroup comes after them
+__device__ __forceinline__ int block_wgs(const Plan& pl) {
+  return (blockDim.x >> 7) - (pl.w_mode == W_RING ? 1 : 0);
+}
+
 // Stages the weights (and the view head's) in shared memory as the plan
-// says and carves out this warpgroup's buffers; -> the chain's weights.
+// says, or sets up the ring's barriers (W_RING: an empty barrier takes an
+// arrival from each consumer warp, all but the producer's), and carves out
+// this warpgroup's buffers; -> the chain's weights.
 template <typename T>
 __device__ const T* block_setup(const Net& net, const View* view,
                                 const Plan& pl, unsigned char* smem,
@@ -1230,6 +1371,21 @@ __device__ const T* block_setup(const Net& net, const View* view,
   const T* W = reinterpret_cast<const T*>(net.w);
   if (pl.w_mode != W_GLOBAL) W = reinterpret_cast<const T*>(smem);
   if (pl.w_mode == W_ALL) block_copy(smem, net.w, pl.w_bytes);
+  if (pl.w_mode == W_RING) {
+    const Ring r = ring_at(smem, pl);
+    const bool zero = pl.w_bytes > pl.stages * UNIT_B + RING_BAR_B;
+    for (int i = threadIdx.x; zero && i < ZERO_B / 16; i += blockDim.x)
+      reinterpret_cast<uint4*>(const_cast<bf16*>(r.zero))[i] =
+          make_uint4(0u, 0u, 0u, 0u);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < pl.stages; ++s) {
+        wg::mbar_init(r.bars + 8 * s, 1);
+        wg::mbar_init(r.empty(s), block_wgs(pl) * 4);
+      }
+      wg::mbar_init_fence();
+    }
+  }
   unsigned char* base = smem + pl.w_bytes;
   if (view) {
     *vw = reinterpret_cast<const T*>(view->w);
@@ -1252,10 +1408,12 @@ __device__ const T* block_setup(const Net& net, const View* view,
   b.tsb = reinterpret_cast<float*>(base);
   base += pl.ts_b;
   b.vin = reinterpret_cast<float*>(base);
-  // zero the encoding buffer once: its padding columns stay zero
+  // zero the encoding buffer once: its padding columns stay zero (a
+  // warpgroup's; the ring's producer warp has none)
   T* enc = reinterpret_cast<T*>(b.enc);
-  for (int i = threadIdx.x & 127; i < TILE * pl.lde; i += 128)
-    enc[i] = fromf<T>(0.0f);
+  if ((threadIdx.x >> 7) < block_wgs(pl))
+    for (int i = threadIdx.x & 127; i < TILE * pl.lde; i += 128)
+      enc[i] = fromf<T>(0.0f);
   __syncthreads();
   return W;
 }
@@ -1266,7 +1424,7 @@ template <typename T, int V>
 __device__ __forceinline__ void tile(const Net& net, const Plan& pl,
                                      const T* W, const Bufs& b,
                                      const float (&x)[3], float* outb,
-                                     int ncols, uint32_t* park = nullptr) {
+                                     int ncols, uint32_t* park, Ring& ring) {
   const int lt = threadIdx.x & 127, warp = lt >> 5, lane = lt & 31;
   T* enc = reinterpret_cast<T*>(b.enc);
   const int row = lt >> 1;
@@ -1282,7 +1440,11 @@ __device__ __forceinline__ void tile(const Net& net, const Plan& pl,
     __syncwarp();
   }
   float acc[NA];
-  if constexpr (V == V_WIDE) {
+  if constexpr (ring_of<T>(V)) {
+    chain_wide(net, ring, pl, enc, reinterpret_cast<T*>(b.hb), acc,
+               has_sigma(net) ? b.sig : nullptr, outb, pl.ldo, warp, lane,
+               park);
+  } else if constexpr (V == V_WIDE) {
     chain_wide(net, W, pl, enc, reinterpret_cast<T*>(b.hb), acc,
                has_sigma(net) ? b.sig : nullptr, outb, pl.ldo, warp, lane,
                park);
@@ -1295,29 +1457,56 @@ __device__ __forceinline__ void tile(const Net& net, const Plan& pl,
   __syncwarp();
 }
 
-// The block's warpgroups walk the work items in step (so that a streamed
-// layer's __syncthreads meets every thread): items base + wg.
+// The ring's producer warpgroup (bf16 V_WIDE): it gives back registers
+// for the consumers, and its first warp fills the ring for `tiles` tile
+// calls of the block's warpgroups.
+__device__ __forceinline__ void produce(const Net& net, Ring& r, long tiles) {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+  if ((threadIdx.x & 127) >= 32) return;
+  for (long i = 0; i < tiles; ++i) ring_fill_tile(net, r, threadIdx.x & 31);
+}
+
+// a consumer warpgroup of a ring kernel takes the registers the producer
+// gave back
+__device__ __forceinline__ void consumer_regs() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(RING_REGS));
+}
+
+// The block's warpgroups walk the work items in step, items base + wg (so
+// that a streamed layer's __syncthreads meets every thread, and every
+// warpgroup consumes every unit of the ring, padding tiles included).
 template <typename T, int V>
-__global__ void __launch_bounds__(wgs_of<T>(false, V) * 128, 1)
+__global__ void __launch_bounds__(threads_of<T>(false, V), 1)
 tmlp_kernel(Net net, Plan pl, const float* __restrict__ x3, long np,
             float* __restrict__ out, int out_rows, uint32_t* park) {
   extern __shared__ __align__(128) unsigned char smem[];
   Bufs b;
   const T* W = block_setup<T>(net, nullptr, pl, smem, nullptr, b);
+  const int wgs = block_wgs(pl);
+  const long n_tiles = (np + TILE - 1) / TILE;
+  Ring ring = ring_at(smem, pl);
+  if constexpr (ring_of<T>(V)) {
+    if ((threadIdx.x >> 7) == wgs) {
+      const long apart = (long)gridDim.x * wgs, first = (long)blockIdx.x * wgs;
+      produce(net, ring, first < n_tiles ? (n_tiles - first + apart - 1) /
+                                               apart : 0);
+      return;
+    }
+    consumer_regs();
+  }
   const int warp = (threadIdx.x & 127) >> 5, lane = threadIdx.x & 31;
   const int kout = net.layer[net.n_layers - 1].kout;
-  const long n_tiles = (np + TILE - 1) / TILE;
-  const long stride = (long)gridDim.x * pl.wgs * TILE;
+  const long stride = (long)gridDim.x * wgs * TILE;
   const int row = (threadIdx.x & 127) >> 1;
   float x[3];
-  load_point(x3, np, ((long)blockIdx.x * pl.wgs + (threadIdx.x >> 7)) * TILE
+  load_point(x3, np, ((long)blockIdx.x * wgs + (threadIdx.x >> 7)) * TILE
                          + row, x);
-  for (long base = (long)blockIdx.x * pl.wgs; base < n_tiles;
-       base += (long)gridDim.x * pl.wgs) {
+  for (long base = (long)blockIdx.x * wgs; base < n_tiles;
+       base += (long)gridDim.x * wgs) {
     const long p0 = (base + (threadIdx.x >> 7)) * TILE;
     float xn[3];
     load_point(x3, np, p0 + stride + row, xn);
-    tile<T, V>(net, pl, W, b, x, b.outb, kout, park);
+    tile<T, V>(net, pl, W, b, x, b.outb, kout, park, ring);
 #pragma unroll
     for (int a = 0; a < 3; ++a) x[a] = xn[a];
     for (int i = lane; i < out_rows * 16; i += 32) {
@@ -1817,7 +2006,7 @@ __device__ __forceinline__ long ray_offset(long n, int Ts, int pack_q) {
 // group a lane), a view head of up to MAX_VIEW hidden units (each lane its
 // units lane + 32 q), and the V_WIDE nets' parked chunks.
 template <typename T, int V, bool GEN>
-__global__ void __launch_bounds__(wgs_of<T>(true, V) * 128, 1)
+__global__ void __launch_bounds__(threads_of<T>(true, V), 1)
 composite_kernel(Net net, View view, Plan pl, const float* __restrict__ x3,
                  const float* __restrict__ dl, const float* __restrict__ ts,
                  const float* __restrict__ rays8, int N, int Ts, int pack_q,
@@ -1829,13 +2018,28 @@ composite_kernel(Net net, View view, Plan pl, const float* __restrict__ x3,
   const T* VW = nullptr;
   const T* W = block_setup<T>(net, view.H ? &view : nullptr, pl, smem, &VW,
                               b);
+  const int wgs = block_wgs(pl);
   const int wg = threadIdx.x >> 7, warp = (threadIdx.x & 127) >> 5,
             lane = threadIdx.x & 31;
-  const int G = net.layer[net.n_layers - 1].kout_real;  // gsum columns
-  // the tiles' output columns, and the segments of a step
-  const int kout = GEN ? net.layer[net.n_layers - 1].kout : 16;
+  // the segments of a step
   const int nseg = GEN ? pl.nseg : 1;
   const int M = pl.M, rays_per_step = pl.R, RT = pl.R * Ts;
+  const long n_steps = ((long)N + rays_per_step - 1) / rays_per_step;
+  const long steps_apart = (long)gridDim.x * wgs;  // a warpgroup's steps
+  Ring ring = ring_at(smem, pl);
+  if constexpr (ring_of<T>(V)) {
+    if (wg == wgs) {  // a step's tiles: nseg segments of M / TILE
+      const long first = (long)blockIdx.x * wgs;
+      produce(net, ring, (first < n_steps ? (n_steps - first + steps_apart
+                                             - 1) / steps_apart : 0) *
+                             nseg * (M / TILE));
+      return;
+    }
+    consumer_regs();
+  }
+  const int G = net.layer[net.n_layers - 1].kout_real;  // gsum columns
+  // the tiles' output columns
+  const int kout = GEN ? net.layer[net.n_layers - 1].kout : 16;
   const long np = (long)N * Ts;
   // view weights: VG [G][H] (row 0 zero), VS [sh_dim][H], VR [n_rest][H][H]
   const int H = view.H;
@@ -1848,8 +2052,6 @@ composite_kernel(Net net, View view, Plan pl, const float* __restrict__ x3,
   float* vsh = vin + (GEN && G > 32 ? 64 : 32);
   float* vh = vsh + 32;
   float* misc = vh + (GEN && H > 48 ? H : 48);
-  const long n_steps = ((long)N + rays_per_step - 1) / rays_per_step;
-  const long steps_apart = (long)gridDim.x * pl.wgs;  // a warpgroup's steps
   const int row = (threadIdx.x & 127) >> 1;
   // point `local` of segment k of step s: np (zeros) past the step's rays
   auto point = [&](long s, int k, int local) {
@@ -1857,8 +2059,8 @@ composite_kernel(Net net, View view, Plan pl, const float* __restrict__ x3,
     return i < RT ? s * RT + i : np;
   };
   float x[3];
-  load_point(x3, np, point((long)blockIdx.x * pl.wgs + wg, 0, row), x);
-  for (long base = (long)blockIdx.x * pl.wgs; base < n_steps;
+  load_point(x3, np, point((long)blockIdx.x * wgs + wg, 0, row), x);
+  for (long base = (long)blockIdx.x * wgs; base < n_steps;
        base += steps_apart) {
     const long s = base + wg;
     // the running state of the ray a warp works on, carried across
@@ -1873,7 +2075,7 @@ composite_kernel(Net net, View view, Plan pl, const float* __restrict__ x3,
                                            : point(s + steps_apart, 0, row);
         load_point(x3, np, nxt, xn);
         tile<T, V>(net, pl, W, b, x, b.outb + tt * TILE * pl.ldo, kout,
-                   GEN ? park : nullptr);
+                   GEN ? park : nullptr, ring);
 #pragma unroll
         for (int a = 0; a < 3; ++a) x[a] = xn[a];
       }
@@ -2105,33 +2307,73 @@ int launch_prop(const Net& net, const Plan& pl, const float* x3, long np,
   return (int)cudaGetLastError();
 }
 
-// the blocks of `kernel` resident on the card at the plan's block size and
-// shared memory: the persistent grid's size, and the slots of the park
-// buffer (park_blocks)
+// the blocks of `kernel` resident on the card at the plan's block size
+// (pl.wgs warpgroups, and the producer warp with the ring) and shared
+// memory: the persistent grid's size, and the slots of the park buffer
+// (park_blocks)
 template <typename K>
-long resident_blocks(K kernel, const Plan& pl) {
+long resident_blocks(K kernel, const Plan& pl, bool ring) {
   int dev = 0, n_sm = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        pl.total);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                pl.wgs * 128, pl.total);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, kernel, pl.wgs * 128 + (ring ? PRODUCER_THREADS : 0),
+      pl.total);
   return (long)n_sm * (per_sm < 1 ? 1 : per_sm);
 }
 
-// the persistent grid: the resident blocks, at most one a work_items / wgs;
-// 0 where the park buffer (sized by park_blocks) has too few slots
+// a launch of a persistent kernel: its blocks, the warpgroups of a block
+// and its threads
+struct Launch {
+  int grid, wgs, threads;
+};
+
+// The persistent grid: the resident blocks, at most one a work_items /
+// wgs. With the ring, wgs is the fewest warpgroups a block that take as
+// few passes over the work items as pl.wgs would: a small launch is spread
+// over the resident blocks (one an SM), not packed into fewer full ones.
+// grid 0 where the park buffer (sized by park_blocks, slots for pl.wgs
+// warpgroups a block) has too few slots.
 template <typename K>
-int grid_size(K kernel, const Plan& pl, long work_items, int park_words,
-              long park_bytes) {
-  const long want = (work_items + pl.wgs - 1) / pl.wgs;
-  long grid = resident_blocks(kernel, pl);
-  if (want < grid) grid = want > 0 ? want : 1;
+Launch launch_size(K kernel, const Plan& pl, bool ring, long work_items,
+                   int park_words, long park_bytes) {
+  const long resident = resident_blocks(kernel, pl, ring);
+  auto passes = [&](int w) {
+    return (work_items + resident * w - 1) / (resident * w);
+  };
+  int wgs = pl.wgs;
+  while (ring && wgs > 1 && passes(wgs - 1) == passes(pl.wgs)) --wgs;
+  const long want = (work_items + wgs - 1) / wgs;
+  long grid = want < resident ? (want > 0 ? want : 1) : resident;
   if (pl.park_chunks &&
       park_bytes < grid * pl.wgs * pl.park_chunks * park_words * 128 * 4L)
-    return 0;
-  return (int)grid;
+    grid = 0;
+  return Launch{(int)grid, wgs, wgs * 128 + (ring ? PRODUCER_THREADS : 0)};
+}
+
+// The ring's plan (the bf16 V_WIDE kernels, which run on nothing else):
+// 2..MAX_STAGES stages of UNIT_B bytes, the barriers after them, and the
+// zero block where a layer's columns are not whole units. A bf16 V_WIDE
+// plan without it, or another plan with it, is refused.
+bool ring_plan_ok(const Net& net, const Plan& pl, bool ring) {
+  if (!ring) return pl.w_mode != W_RING;
+  bool zero = false;
+  for (int l = 0; l < net.n_layers; ++l) zero |= net.layer[l].w_ld % UNIT_K;
+  return pl.w_mode == W_RING && pl.unit_b == UNIT_B && pl.stages >= 2 &&
+         pl.stages <= MAX_STAGES &&
+         pl.w_bytes == pl.stages * UNIT_B + RING_BAR_B + (zero ? ZERO_B : 0);
+}
+
+// A ring kernel starts with the registers its setmaxnreg budget counts on
+// (RING_ENTRY_REGS), or it is refused (-2): its consumers' increase would
+// wait for registers the producer cannot give back.
+template <typename K>
+bool ring_regs_ok(K kernel) {
+  cudaFuncAttributes a;
+  return cudaFuncGetAttributes(&a, kernel) == cudaSuccess &&
+         a.numRegs == RING_ENTRY_REGS;
 }
 
 // the plan's own checks: the kernels trust it for every buffer they carve
@@ -2156,13 +2398,18 @@ template <typename T, int V>
 int launch_tmlp(const Net& net, const Plan& pl, const float* x3, long np,
                 float* out, int out_rows, uint32_t* park, long park_bytes,
                 cudaStream_t stream) {
-  if (!plan_ok(net, pl, wgs_of<T>(false, V)) || pl.M != TILE) return -1;
+  constexpr bool ring = ring_of<T>(V);
+  if (!plan_ok(net, pl, wgs_of<T>(false, V)) || pl.M != TILE ||
+      !ring_plan_ok(net, pl, ring))
+    return -1;
   if (V == V_WIDE && sizeof(T) == 4 && pl.w_mode == W_STREAM && !pl.unit_k)
     return -1;
-  const int grid = grid_size(tmlp_kernel<T, V>, pl, (np + TILE - 1) / TILE,
-                             sizeof(T) == 2 ? NA / 2 : NA, park_bytes);
-  if (grid < 1) return (int)cudaErrorInvalidValue;
-  tmlp_kernel<T, V><<<grid, pl.wgs * 128, pl.total, stream>>>(
+  if (ring && !ring_regs_ok(tmlp_kernel<T, V>)) return -2;
+  const Launch ln =
+      launch_size(tmlp_kernel<T, V>, pl, ring, (np + TILE - 1) / TILE,
+                  sizeof(T) == 2 ? NA / 2 : NA, park_bytes);
+  if (ln.grid < 1) return (int)cudaErrorInvalidValue;
+  tmlp_kernel<T, V><<<ln.grid, ln.threads, pl.total, stream>>>(
       net, pl, x3, np, out, out_rows, park);
   return (int)cudaGetLastError();
 }
@@ -2201,7 +2448,10 @@ template <typename T, int V>
 int launch_composite(const Net& net, View view, const Plan& pl,
                      const CompositeArgs& c, uint32_t* park, long park_bytes,
                      cudaStream_t stream) {
-  if (!plan_ok(net, pl, wgs_of<T>(true, V))) return -1;
+  constexpr bool ring = ring_of<T>(V);
+  if (!plan_ok(net, pl, wgs_of<T>(true, V)) ||
+      !ring_plan_ok(net, pl, ring))
+    return -1;
   if (c.Ts < 1 || c.pack_q < 1 || c.N % c.pack_q || pl.R < 1)
     return (int)cudaErrorInvalidValue;
   // the steps' buffers hold their rays: whole rays of R T <= M points, or
@@ -2219,10 +2469,11 @@ int launch_composite(const Net& net, View view, const Plan& pl,
     return -1;
   const long n_steps = ((long)c.N + pl.R - 1) / pl.R;
   auto* kernel = composite_of<T, V>(pl);
-  const int grid = grid_size(kernel, pl, n_steps,
-                             sizeof(T) == 2 ? NA / 2 : NA, park_bytes);
-  if (grid < 1) return (int)cudaErrorInvalidValue;
-  kernel<<<grid, pl.wgs * 128, pl.total, stream>>>(
+  if (ring && !ring_regs_ok(kernel)) return -2;
+  const Launch ln = launch_size(kernel, pl, ring, n_steps,
+                                sizeof(T) == 2 ? NA / 2 : NA, park_bytes);
+  if (ln.grid < 1) return (int)cudaErrorInvalidValue;
+  kernel<<<ln.grid, ln.threads, pl.total, stream>>>(
       net, view, pl, c.x3, c.dl, c.ts, c.rays8, c.N, c.Ts, c.pack_q, c.opaque,
       c.gsum, c.depth, c.wsum, c.rgb, park);
   return (int)cudaGetLastError();
@@ -2258,11 +2509,13 @@ extern "C" int plan_size() { return (int)sizeof(Plan); }
 extern "C" long park_blocks(int use_bf16, int composite, const void* plan) {
   const Plan& pl = *static_cast<const Plan*>(plan);
   if (!pl.park_chunks || pl.variant != V_WIDE) return 0;
+  const bool ring = use_bf16;  // ring_of<bf16>(V_WIDE)
   if (composite)
-    return use_bf16 ? resident_blocks(composite_of<bf16, V_WIDE>(pl), pl)
-                    : resident_blocks(composite_of<float, V_WIDE>(pl), pl);
-  return use_bf16 ? resident_blocks(tmlp_kernel<bf16, V_WIDE>, pl)
-                  : resident_blocks(tmlp_kernel<float, V_WIDE>, pl);
+    return use_bf16
+               ? resident_blocks(composite_of<bf16, V_WIDE>(pl), pl, ring)
+               : resident_blocks(composite_of<float, V_WIDE>(pl), pl, ring);
+  return use_bf16 ? resident_blocks(tmlp_kernel<bf16, V_WIDE>, pl, ring)
+                  : resident_blocks(tmlp_kernel<float, V_WIDE>, pl, ring);
 }
 
 // `grids` points to a Grids and `plan` to a Plan (void pointers: a type of

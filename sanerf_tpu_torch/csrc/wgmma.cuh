@@ -1,5 +1,6 @@
 // Hopper warpgroup MMA (wgmma, sm_90a) with A from registers, for the
-// fused field kernels (csrc/fused_mlp_t.cu).
+// fused field kernels (csrc/fused_mlp_t.cu), and the mbarriers and bulk
+// copies of their weight ring.
 //
 // Layouts, per warp w of the warpgroup (rows 16w .. 16w + 15), lane = 4g + t:
 //   A in registers, the fragment of one k16 step (as mma.sync m16n8k16):
@@ -34,6 +35,78 @@ __device__ __forceinline__ void commit() {
 }
 __device__ __forceinline__ void wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// waits until at most N of this warpgroup's committed groups are pending
+template <int N>
+__device__ __forceinline__ void wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// mbarriers and bulk copies (the weight ring of csrc/fused_mlp_t.cu):
+// barriers are addressed by their shared-memory address (smem())
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+// the inits visible to the other threads' barrier operations and to the
+// async proxy (the copies' complete_tx)
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// the arrival of the threads where `pred` holds, as one predicated
+// instruction (no branch the compiler must treat as divergent)
+__device__ __forceinline__ void mbar_arrive_if(uint32_t bar, bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(bar),
+      "r"((uint32_t)pred)
+      : "memory");
+}
+// this thread's arrival, and `bytes` more for the phase to wait for
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+// Waits for the completion of the barrier's phase of this parity. A wait
+// longer than 2^32 clocks (over 2 s; a ring whose producer and consumers
+// disagree on the units) traps: the launch fails with an error instead of
+// holding the card. The loop is inside the asm: no branch of the caller's
+// that the compiler would treat as divergent (which serializes the
+// consumers' wgmma pipeline).
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .u64 t0, t1;\n"
+      "mov.u64 t0, %%clock64;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "mov.u64 t1, %%clock64;\n"
+      "sub.u64 t1, t1, t0;\n"
+      "setp.gt.u64 p, t1, 4294967296;\n"
+      "@p trap;\n"
+      "bra WAIT;\n"
+      "DONE:\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+// bytes (a multiple of 16, both addresses 16-byte aligned) from global to
+// shared memory by the copy engine, completing as transactions on bar
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
 // The registers a wgmma reads or writes asynchronously are only tied to
@@ -150,6 +223,29 @@ __device__ __forceinline__ void wgmma_ss_n16(float (&d)[NA], uint64_t desc_a,
       "%8, %9, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[O + 0]), "+f"(d[O + 1]), "+f"(d[O + 2]), "+f"(d[O + 3]),
         "+f"(d[O + 4]), "+f"(d[O + 5]), "+f"(d[O + 6]), "+f"(d[O + 7])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// D[64 x 64] += A[64 x 16] * B[64 x 16]^T, both in shared memory (K-major,
+// no swizzle); d holds this thread's accumulators from O on.
+template <int O, int NA>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[NA], uint64_t desc_a,
+                                           uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[O + 0]), "+f"(d[O + 1]), "+f"(d[O + 2]), "+f"(d[O + 3]),
+        "+f"(d[O + 4]), "+f"(d[O + 5]), "+f"(d[O + 6]), "+f"(d[O + 7]),
+        "+f"(d[O + 8]), "+f"(d[O + 9]), "+f"(d[O + 10]), "+f"(d[O + 11]),
+        "+f"(d[O + 12]), "+f"(d[O + 13]), "+f"(d[O + 14]), "+f"(d[O + 15]),
+        "+f"(d[O + 16]), "+f"(d[O + 17]), "+f"(d[O + 18]), "+f"(d[O + 19]),
+        "+f"(d[O + 20]), "+f"(d[O + 21]), "+f"(d[O + 22]), "+f"(d[O + 23]),
+        "+f"(d[O + 24]), "+f"(d[O + 25]), "+f"(d[O + 26]), "+f"(d[O + 27]),
+        "+f"(d[O + 28]), "+f"(d[O + 29]), "+f"(d[O + 30]), "+f"(d[O + 31])
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 

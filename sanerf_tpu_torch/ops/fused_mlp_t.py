@@ -82,8 +82,17 @@ QUEUE_B = "still to port: ROADMAP.md, queue B"
 TILE, NA, CHUNK, PAD, MAX_STEP = 64, 64, 128, 8, 448
 SEGMENTS = (256, 128, 64)
 UNIT_K = 64
-W_GLOBAL, W_ALL, W_STREAM = 0, 1, 2
+W_GLOBAL, W_ALL, W_STREAM, W_RING = 0, 1, 2, 3
 V_SERVED, V_BRANCHES, V_WIDE = 0, 1, 2
+# the V_WIDE kernels' warpgroups a block: bf16 (consumers of the ring),
+# float32 (csrc/fused_mlp_t.cu: WIDE_WGS, WIDE_F32_WGS)
+WIDE_WGS, WIDE_F32_WGS = 3, 2
+# the bf16 V_WIDE weight ring (W_RING): units of UNIT_B bytes (a chunk's
+# 128 rows over UNIT_K columns), MIN_STAGES to MAX_STAGES of them, then
+# RING_BAR_B bytes of barriers and, where a layer's columns are not whole
+# units, ZERO_B of zeros (one k step of B)
+UNIT_B, MIN_STAGES, MAX_STAGES = CHUNK * UNIT_K * 2, 2, 8
+RING_BAR_B, ZERO_B = 16 * MAX_STAGES, 4096
 SMALL_K, SMALL_N = 64, 32
 # prop_kernel (csrc/fused_mlp_t.cu): the widest encoding and layer it takes,
 # the points a warp carries, the warps a block
@@ -190,12 +199,11 @@ class TransposedFieldMLP:
 
     # -- plain PyTorch version ------------------------------------------------
 
-    def forward_plain(self, xT: torch.Tensor,
-                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
-        """xT [3, P] -> last layer [P, kout] in `dtype`, the arithmetic
-        from the float32 coordinates on (float64: the reference that float32
-        chains are measured against); activations are rounded to the weight
-        type between layers in either."""
+    def encode_plain(self, xT: torch.Tensor,
+                     dtype: torch.dtype = torch.float32):
+        """xT [3, P] -> (the encoding [P, F + kc] rounded to the weight
+        type, in `dtype`; the sigma tables' sum [P] or None), as
+        forward_plain computes them."""
         rnd = lambda v: v.to(self.dtype).to(dtype)  # noqa: E731
         x = xT.float().T
         z = (x * self.scale).to(dtype)
@@ -217,6 +225,16 @@ class TransposedFieldMLP:
         if self.svm is not None:
             s_vm = _vm_plain(*self.svm, x, self.bound, dtype).sum(dim=1)
             sig = s_vm if sig is None else sig + s_vm
+        return enc, sig
+
+    def forward_plain(self, xT: torch.Tensor,
+                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """xT [3, P] -> last layer [P, kout] in `dtype`, the arithmetic
+        from the float32 coordinates on (float64: the reference that float32
+        chains are measured against); activations are rounded to the weight
+        type between layers in either."""
+        rnd = lambda v: v.to(self.dtype).to(dtype)  # noqa: E731
+        enc, sig = self.encode_plain(xT, dtype)
         h = enc
         for l, w in enumerate(self.ws):
             w = w.to(dtype)
@@ -555,14 +573,15 @@ class KernelPlan(ctypes.Structure):
     kernel_plan): the shared-memory carve of a block (row strides, buffer
     bytes, warpgroups, where the weights and the view head live), the
     composite's steps (M points of R whole rays, or one ray in nseg
-    segments of M), the V_WIDE weight unit and parked chunks, and the
-    kernel: its variant, small_kernel, the general composite epilogue,
-    prop_kernel."""
+    segments of M), the float32 V_WIDE weight unit and parked chunks, the
+    kernel (its variant, small_kernel, the general composite epilogue,
+    prop_kernel) and the bf16 V_WIDE weight ring (stages of unit_b
+    bytes)."""
     _fields_ = [(name, _I) for name in (
         "lde", "ldo", "M", "R", "ldh", "wgs", "w_mode", "w_bytes", "v_bytes",
         "enc_b", "h_b", "out_b", "sig_b", "wts_b", "ts_b", "vin_b", "per_wg",
         "total", "nseg", "vld", "unit_k", "park_chunks", "variant", "small",
-        "general", "prop")]
+        "general", "prop", "stages", "unit_b")]
 
     def as_dict(self) -> dict:
         return {name: getattr(self, name) for name, _ in self._fields_}
@@ -588,20 +607,21 @@ def _layer_rows(desc) -> list:
 def _max_wgs(bf16: bool, composite: bool, variant: int) -> int:
     """csrc/fused_mlp_t.cu:wgs_of: the warpgroups a block starts from."""
     if variant == V_WIDE:
-        return 2
+        return WIDE_WGS if bf16 else WIDE_F32_WGS
     if bf16:
         return 4 if composite else 3
     return 2 if composite else 3
 
 
 def _make_plan(layers, ke, es, w_elems, v_elems, wgs, M, R, ldo, composite,
-               wide, w_mode, v_smem, unit_k=0, nseg=1, vld=128):
+               wide, w_mode, v_smem, unit_k=0, nseg=1, vld=128, stages=0):
     """The shared-memory plan of one choice (csrc/fused_mlp_t.cu reads it as
-    it is): the weights (all, or the largest streamed unit: a layer, a
-    V_WIDE chunk of 128 rows, or unit_k columns of one), the view head,
-    and per warpgroup the encoding, the hidden activations (V_WIDE), the
-    last layer's outputs of a step, the sigma sums and the composite's
-    weights, midpoints and view scratch."""
+    it is): the weights (all, the largest streamed unit: a layer, a
+    V_WIDE chunk of 128 rows, or unit_k columns of one; or the ring's
+    stages and barriers), the view head, and per warpgroup the encoding,
+    the hidden activations (V_WIDE), the last layer's outputs of a step,
+    the sigma sums and the composite's weights, midpoints and view
+    scratch."""
     p = KernelPlan(wgs=wgs, M=M, R=R, ldo=ldo, w_mode=w_mode, unit_k=unit_k,
                    nseg=nseg, vld=vld)
     p.lde = ke if es == 2 else ke + PAD
@@ -613,6 +633,10 @@ def _make_plan(layers, ke, es, w_elems, v_elems, wgs, M, R, ldo, composite,
     elif w_mode == W_STREAM:
         p.w_bytes = max(_align16(min(L[2], rows_max) * min(L[5], cols_max)
                                  * es) for L in layers)
+    elif w_mode == W_RING:
+        p.stages, p.unit_b = stages, UNIT_B
+        p.w_bytes = stages * UNIT_B + RING_BAR_B + (
+            ZERO_B if any(L[5] % UNIT_K for L in layers) else 0)
     p.v_bytes = _align16(v_elems * es) if v_elems and v_smem else 0
     p.enc_b = _align16(TILE * p.lde * es)
     p.ldh = hw if es == 2 else hw + PAD
@@ -630,17 +654,20 @@ def _make_plan(layers, ke, es, w_elems, v_elems, wgs, M, R, ldo, composite,
 
 def _fit(layers, ke, bf16, w_elems, v_elems, max_wgs, M, R, ldo, composite,
          wide, **kw):
-    """The first plan that fits SMEM_LIMIT, or None. bf16 (wgmma reads B
-    from shared memory) and V_WIDE nets: all the weights, with fewer
-    warpgroups if need be, else streamed (bf16 V_WIDE: whole chunks, then
-    units of UNIT_K columns), else (float32 only) read through L2. float32
-    nets up to 128 wide: as many warpgroups as fit, with all the weights,
-    else one layer at a time, else the weights read through L2. The view
-    head in shared memory where it fits."""
+    """The first plan that fits SMEM_LIMIT, or None. bf16 V_WIDE nets: the
+    weight ring, with the most warpgroups, the view head in shared memory
+    where it fits, and the most stages. Other bf16 nets (wgmma reads B from
+    shared memory) and float32 V_WIDE nets: all the weights, with fewer
+    warpgroups if need be, else streamed (float32 V_WIDE: units of UNIT_K
+    columns), else (float32 only) read through L2. float32 nets up to 128
+    wide: as many warpgroups as fit, with all the weights, else one layer
+    at a time, else the weights read through L2. The view head in shared
+    memory where it fits."""
     es = 2 if bf16 else 4
+    v_choices = (True, False) if v_elems else (False,)
 
     def fits(w_mode, unit_k, wgs):
-        for v_smem in ((True, False) if v_elems else (False,)):
+        for v_smem in v_choices:
             p = _make_plan(layers, ke, es, w_elems, v_elems, wgs, M, R, ldo,
                            composite, wide, w_mode, v_smem, unit_k, **kw)
             if p.total <= SMEM_LIMIT:
@@ -648,10 +675,20 @@ def _fit(layers, ke, bf16, w_elems, v_elems, max_wgs, M, R, ldo, composite,
         return None
 
     wgs_down = range(max_wgs, 0, -1)
+    if bf16 and wide:
+        for w in wgs_down:
+            for v_smem in v_choices:
+                for stages in range(MAX_STAGES, MIN_STAGES - 1, -1):
+                    p = _make_plan(layers, ke, es, w_elems, v_elems, w, M, R,
+                                   ldo, composite, wide, W_RING, v_smem,
+                                   stages=stages, **kw)
+                    if p.total <= SMEM_LIMIT:
+                        return p
+        return None
     if bf16 or wide:
         modes = [(W_ALL, 0)]
         if bf16:
-            modes += [(W_STREAM, 0)] + ([(W_STREAM, UNIT_K)] if wide else [])
+            modes += [(W_STREAM, 0)]
         else:
             modes += [(W_STREAM, UNIT_K), (W_GLOBAL, 0)]
         tries = [(m, u, w) for m, u in modes for w in wgs_down]
@@ -944,6 +981,9 @@ def park_buffer(tm: TransposedFieldMLP, plan: KernelPlan, device,
 def _raise_on(code: int, fn: str) -> None:
     if code == -1:
         raise RuntimeError(f"{fn}: the kernel refused its plan")
+    if code == -2:
+        raise RuntimeError(f"{fn}: the ring kernel was built with other "
+                           f"registers than its setmaxnreg budget counts on")
     if code != 0:
         raise RuntimeError(f"{fn}: CUDA error {code} at launch")
 

@@ -1021,15 +1021,16 @@ def _chip_smoke():
 @pytest.fixture(scope="module")
 def planted(tmp_path_factory):
     """-> a context in which the field kernels carry the planted faults of
-    port_tools/field_branch_variants.py, drop_carry, lost_park and
-    prop_lost_k (each fires on a path the others' tests do not take):
+    port_tools/field_branch_variants.py, drop_carry, lost_park, prop_lost_k
+    and ring_lost_k (each fires on a path the others' tests do not take):
     csrc/fused_mlp_t.cu with their text substitutions
     (chip_smoke.planted_tree), built once."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     cs = _chip_smoke()
     tree = cs.planted_tree(tmp_path_factory.mktemp("planted"),
-                           ("drop_carry", "lost_park", "prop_lost_k"))
+                           ("drop_carry", "lost_park", "prop_lost_k",
+                            "ring_lost_k"))
     return lambda: cs.kernels_from(tree)
 
 
@@ -1118,6 +1119,99 @@ def test_wide_parked_chunk_lost_fails(dev, planted):
     with planted():
         with pytest.raises(AssertionError):
             held()
+
+
+# -- the bf16 V_WIDE kernels' weight ring -------------------------------------
+
+
+def _seeded_wide(g, dev, width, depth=8):
+    """_wide_field's shape in bf16 with weights U(+-1 / sqrt(fan_in)), as
+    chip_smoke.py's seeded configurations draw them (port_tools/
+    grid_params.py:make_flat), held like them at GRID_TOL."""
+    tm = _wide_field(g, dev, torch.bfloat16, width, depth)
+    ws = [((torch.rand(w.shape, generator=g, device=dev) * 2 - 1)
+           / w.shape[0] ** 0.5).to(torch.bfloat16) for w in tm.ws]
+    return fm.TransposedFieldMLP([{"w": w} for w in ws], tm.enc_freqs,
+                                 tm.bound, tm.skip, leaky=True,
+                                 cp_lines=tm.cp)
+
+
+def _ring_held(tm, g, dev, P=20011):
+    x = torch.rand(3, P, generator=g, device=dev) * 8 - 4
+    before = fm.run_tmlp.launches
+    got = fm.run_tmlp(x, tm, transposed=True)
+    assert fm.run_tmlp.launches == before + 1
+    _held(got, fm.run_tmlp_plain(x, tm), torch.bfloat16, None, GRID_TOL)
+
+
+@pytest.mark.parametrize("width", [144, 160, 192, 224, 256, 320, 512])
+def test_ring_kernels(dev, width):
+    """The ring at every chunk count (144-256: two chunks; 320: three, one
+    parked; 512: four) and every wgmma shape of a chunk (16, 64, 128 rows;
+    160's last chunk of 32 rows on the 64-row shape, 224's of 96 on the
+    128-row one): run_tmlp (20,011 points, a ragged last pass) and the
+    composite at T = 16 and 32 with the view head, each launch on the ring
+    (its plan) and held at GRID_TOL element by element."""
+    g = torch.Generator(device=dev).manual_seed(140 + width)
+    tm = _seeded_wide(g, dev, width)
+    assert fm.kernel_plan(tm).w_mode == fm.W_RING
+    _ring_held(tm, g, dev)
+    view = _asset_view(g, dev, torch.bfloat16)
+    for T in (16, 32):
+        assert fm.kernel_plan(tm, T, view).w_mode == fm.W_RING
+        x, dl, ts, r8 = _rays_of(701, T, g, dev)
+        kw = {"view": view, "rays8": r8}
+        before = fm.run_tmlp_composite.launches
+        got = fm.run_tmlp_composite(x, dl, ts, tm, True, **kw)
+        assert fm.run_tmlp_composite.launches == before + 1
+        _held(got, fm.run_tmlp_composite_plain(x, dl, ts, tm, True, **kw),
+              torch.bfloat16, None, GRID_TOL)
+
+
+def test_ring_small_launches(dev):
+    """Launches of 1, 64, 65 and 16,384 points (the feature render's, 256
+    tiles spread over the SMs at fewer warpgroups a block) on the ring."""
+    g = torch.Generator(device=dev).manual_seed(150)
+    tm = _seeded_wide(g, dev, 256)
+    for P in (1, 64, 65, 16384):
+        _ring_held(tm, g, dev, P)
+
+
+def test_ring_lost_unit_fails(dev, planted):
+    """Planted fault in the ring: its producer leaves out the last k block
+    of every unit but a chunk's first (field_branch_variants.py:
+    ring_lost_k), so the products read what the stage held before: the
+    hold that the kernel passes on the same points must fail."""
+
+    def held():
+        g = torch.Generator(device=dev).manual_seed(151)
+        _ring_held(_seeded_wide(g, dev, 256), g, dev, 4001)
+
+    held()
+    with planted():
+        with pytest.raises(AssertionError):
+            held()
+
+
+def test_ring_refused_plan_raises(dev):
+    """A bf16 V_WIDE launch without the ring (the streamed chunks of the
+    design before it) or with a ring past MAX_STAGES is refused by the C
+    side and raises: nothing falls back to another chain or to the plain
+    version."""
+    g = torch.Generator(device=dev).manual_seed(152)
+    tm = _seeded_wide(g, dev, 256)
+    x = torch.rand(3, 1000, generator=g, device=dev) * 8 - 4
+    good = fm.kernel_plan(tm)
+    for field, value in (("w_mode", fm.W_STREAM), ("stages", 9)):
+        bad = fm.KernelPlan.from_buffer_copy(good)
+        setattr(bad, field, value)
+        tm._plans[(None, None)] = bad
+        before = fm.run_tmlp.launches
+        with pytest.raises(RuntimeError, match="refused its plan"):
+            fm.run_tmlp(x, tm, transposed=True)
+        assert fm.run_tmlp.launches == before
+    tm._plans[(None, None)] = good
+    _ring_held(tm, g, dev, 1000)
 
 
 def _view_of(g, dev, dtype, geo, H):
