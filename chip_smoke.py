@@ -5,9 +5,10 @@
 Phases (any failure exits non-zero and prints no result line):
   1. build the CUDA kernels from sanerf_tpu_torch/csrc (one nvcc per source,
      all started together, and beside them fused_mlp_t.cu with the planted
-     faults PROP_FAULT, in prop_kernel, and RING_FAULT, in the bf16 V_WIDE
-     kernels' weight ring, into PLANTED_DIR) and print the card's name and
-     power limit;
+     faults PROP_FAULT, in prop_kernel, RING_FAULT, in the bf16 V_WIDE
+     kernels' weight ring, and GRID_FAULT, in the V_GRID kernels'
+     encoders, into PLANTED_DIR) and print the card's name and power
+     limit;
   2. hold each kernel against its plain PyTorch version on the card, at
      every shape the main path gives it (captured from 512^2 frames of the
      shipped asset at the (32, 16) and (128, 64, 32) hierarchies; each
@@ -73,23 +74,33 @@ Phases (any failure exits non-zero and prints no result line):
      serve (GRID_SERVED: VM planes, CP and VM ladders, sigma-CP; full
      width, numpy-seeded params of port_tools/grid_params.py, bf16 and
      float32 twins): every encoding column and the sigma sum of each
-     field's tables read back through run_tmlp's encode probes (PROBE_TOL);
-     a 512^2 RGB frame of each through render_frame at (32, 16) and
-     (128, 64, 32), the counters set to 0 just before and read just after
-     (GRID_LAUNCHES), each of the frame's run_tmlp launches (the default
-     w64 d4 proposal nets') on prop_kernel, every run_tmlp /
+     field's tables read back through run_tmlp's encode probes (PROBE_TOL;
+     the bf16 probes on their field's route); a 512^2 RGB frame of each
+     through render_frame at (32, 16) and (128, 64, 32), the counters set
+     to 0 just before and read just after (GRID_LAUNCHES), each of the
+     frame's run_tmlp launches (the default w64 d4 proposal nets') on
+     prop_kernel and its composite on the V_GRID kernels where the field
+     takes them (grid_student's; the ladders, whose weights stream, keep
+     V_SERVED), every run_tmlp /
      run_tmlp_composite launch held against its plain version (bf16 at
      GRID_TOL, float32 twins as in phase 2 and at F32_FAITHFUL; the probes
-     too) and timed against its bound, frame times; grid_student's (32, 16)
-     proposal launch on prop_kernel built with PROP_FAULT fails that hold;
+     too) and timed against its bound and against the same launch on the
+     route before V_GRID (route_twin), frame times, ptxas's registers
+     and spills of the V_GRID kernels (every instance found in the nvcc
+     log of the library loaded) and none of them serialized (C7511);
+     grid_student's (32, 16) proposal launch on prop_kernel built with
+     PROP_FAULT, and its composite on the V_GRID kernels built with
+     GRID_FAULT, fail that hold;
  15. grid_student with a seeded SAM head through InteractiveSession.step
      at 512^2, (32, 16): launch counts (its two proposal launches on
-     prop_kernel), finite depth / samvit / mask logits, every MLP launch
+     prop_kernel, the field's density query with tables and the composite
+     on V_GRID), finite depth / samvit / mask logits, every MLP launch
      held (bf16, GRID_TOL), frame times;
  16. the sigma-VM model of port_tools/grid_params.py (sigma-CP and
      sigma-VM tables beside CP and VM features): its encode probes, its
-     launches at SIGMA_RAYS ragged rays held against their plain versions,
-     and the fast path against the plain path;
+     launches at SIGMA_RAYS ragged rays (the field's on V_GRID) held
+     against their plain versions, and the fast path against the plain
+     path;
  17. quality_recipe, over RenderConfig.grid_vmem_budget: not on the fast
      path, a 512^2 frame with 0 kernel launches, its time;
  18. 64^2 frames of grid_student (fast path) and quality_recipe (plain
@@ -757,7 +768,16 @@ PROP_FAULT = "prop_lost_k"
 #: a chunk's first. Phase B2's hold of the width-256 field's run_tmlp
 #: launch must fail on it
 RING_FAULT = "ring_lost_k"
+#: the V_GRID kernels' planted fault (the same file), built into the same
+#: tree: the encoders mark a slot full without the last VM mode's columns,
+#: so the consumers read the previous tile's there. Phase 14's hold of
+#: grid_student's (32, 16) composite must fail on it
+GRID_FAULT = "grid_lost_vm"
 PLANTED_DIR = os.path.join(ROOT, "build", "chip_smoke_planted")
+#: the fields of a V_GRID launch's plan the grid rows of the kernels line
+#: carry
+PLAN_KEYS = ("variant", "wgs", "w_mode", "stages", "slots", "slot_b",
+             "w_bytes", "v_bytes", "per_wg", "total", "general")
 
 
 def fail(msg):
@@ -765,7 +785,8 @@ def fail(msg):
     sys.exit(1)
 
 
-def planted_tree(dest=PLANTED_DIR, faults=(PROP_FAULT, RING_FAULT)):
+def planted_tree(dest=PLANTED_DIR, faults=(PROP_FAULT, RING_FAULT,
+                                            GRID_FAULT)):
     """A copy of the kernels' sources under dest/csrc with the planted
     faults of port_tools/field_branch_variants.py named in `faults` (text
     substitutions of fused_mlp_t.cu) -> dest, a Path."""
@@ -1192,18 +1213,51 @@ def field_of(name, a):
     return a[1] if name == "run_tmlp" else a[3]
 
 
-def tmlp_route_twin(fm, tm):
-    """A copy of tm (the same weights) planned with prop_kernel's route
-    taken away: run_tmlp launches it on tmlp_kernel, the route such nets
-    took before prop_kernel."""
+def ptxas_of(log, tag):
+    """{kernel: {registers, spill_stores, spill_loads}} of the entries of
+    an nvcc -Xptxas -v log whose mangled names hold `tag`, and the entries
+    whose wgmma pipelines ptxas serialized (C7511 / C7520) under
+    "serialized"."""
+    import re
+
+    out, entry, serialized = {}, None, []
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)", line)
+        if m:
+            entry = m.group(1)
+        if ("C7511" in line or "C7520" in line) and tag in line:
+            serialized.append(line.strip()[:160])
+        if not entry or tag not in entry:
+            continue
+        rec = out.setdefault(entry, {})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            rec["spill_stores"], rec["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            rec["registers"] = int(m.group(1))
+    out["serialized"] = serialized
+    return out
+
+
+def route_twin(fm, tm, route, T=None, view=None):
+    """A copy of tm (the same weights) planned with a route taken away: the
+    route such nets took before it. "prop": run_tmlp launches it on
+    tmlp_kernel, not prop_kernel; "grid": run_tmlp (T None) or the
+    composite over rays of T samples with `view` on the V_SERVED /
+    V_BRANCHES kernels, not V_GRID's."""
+    attr, off = {"prop": ("_prop_plan", lambda *a, **k: None),
+                 "grid": ("_grid_net", lambda *a, **k: False)}[route]
     twin = copy.copy(tm)
     twin._plans, twin._parks = {}, {}
-    real = fm._prop_plan
-    fm._prop_plan = lambda *a, **k: None
+    real = getattr(fm, attr)
+    setattr(fm, attr, off)
     try:
-        fm.kernel_plan(twin)
+        fm.kernel_plan(twin, T, view)
     finally:
-        fm._prop_plan = real
+        setattr(fm, attr, real)
     return twin
 
 
@@ -1373,8 +1427,8 @@ def main():
         logs = _build.build_all()
     finally:
         _build._finish("fused_mlp_t", *planted_job)
-    log(f"build: {time.time() - t0:.1f} s (with {PROP_FAULT} and "
-        f"{RING_FAULT} planted)")
+    log(f"build: {time.time() - t0:.1f} s (with {PROP_FAULT}, {RING_FAULT} "
+        f"and {GRID_FAULT} planted)")
     for name, text in logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -1688,7 +1742,9 @@ def main():
         a backlog. A field kernel with float32 weights also gets both of its
         bounds (field_op_ms), bound_ms being the lower; a run_tmlp launch
         on prop_kernel also gets tmlp_kernel_ms, the same launch on
-        tmlp_kernel (tmlp_route_twin), timed alike."""
+        tmlp_kernel (route_twin), and a launch of a grid-family bf16 net
+        grid_old_ms, the same launch on the route before V_GRID, timed
+        alike."""
         out, done = [], {}
         for a, k in launches_:
             key = shape_key(a, k)
@@ -1702,10 +1758,24 @@ def main():
                         if in_slices else (lambda: plain_fn[name](*a, **k)),
                         reps=10) if plain else None),
                     "bound_ms": b_ms, "bound_by": b_by}
+                tm_ = field_of(name, a) if name.startswith("run_tmlp") \
+                    else None
+                if tm_ is not None and fm._grid_net(tm_):
+                    # the same launch on the route before V_GRID, timed
+                    # alike
+                    T_ = None if name == "run_tmlp" else (
+                        k.get("T") or a[1].shape[1])
+                    twin = route_twin(fm, tm_, "grid", T_, k.get("view"))
+                    ta = ((a[0], twin, *a[2:]) if name == "run_tmlp"
+                          else (*a[:3], twin, *a[4:]))
+                    done[key]["grid_old_ms"] = cuda_ms(
+                        lambda: kern_fn[name](*ta, **k), reps=10)
+                    done[key]["variant"] = "V_GRID"
+                    del twin, ta
                 if (name == "run_tmlp"
                         and fm.route(a[1]) == "prop_kernel"):
                     # the earlier route of the same launch, timed alike
-                    twin = tmlp_route_twin(fm, a[1])
+                    twin = route_twin(fm, a[1], "prop")
                     done[key]["tmlp_kernel_ms"] = cuda_ms(
                         lambda: kern_fn[name](a[0], twin, *a[2:], **k),
                         reps=10)
@@ -1786,7 +1856,7 @@ def main():
     rows += hgrid.pop("rows")
     torch.cuda.empty_cache()
     grids = grid_phases(torch, np, dev, card, compare, launch_times, kern_fn,
-                        planted)
+                        planted, logs.get("fused_mlp_t", ""))
     rows += grids.pop("rows")
     torch.cuda.empty_cache()
     with contextlib.redirect_stdout(sys.stderr):  # the Trainer's log lines
@@ -2663,13 +2733,16 @@ def hashgrid_phases(torch, np, dev, card, cuda_ms):
 
 
 def grid_phases(torch, np, dev, card, compare, launch_times, kern_fn,
-                planted):
+                planted, ptxas_log):
     """Phases 14-18: the factorized-grid configurations of the MLP family.
     -> the {"grids": ...} record, with the kernel rows of the grid branches
-    of run_tmlp and run_tmlp_composite under "rows" and what the proposal
-    launches on prop_kernel showed under "prop" (their route, errors and
-    times; PROP_FAULT planted in the kernel, built into `planted`, against
-    the same hold)."""
+    of run_tmlp and run_tmlp_composite (the V_GRID kernels: their plans,
+    and their registers and spills from ptxas_log, the nvcc log of
+    fused_mlp_t.cu) under "rows" and what the proposal launches on
+    prop_kernel showed under "prop" (their route, errors and times;
+    PROP_FAULT planted in the kernel, built into `planted`, against the
+    same hold; GRID_FAULT, in the same tree, against the hold of
+    grid_student's composite)."""
     import dataclasses
 
     from sanerf_tpu_torch.apps import frame_pipeline as fp
@@ -2715,6 +2788,7 @@ def grid_phases(torch, np, dev, card, compare, launch_times, kern_fn,
         for c in cs:
             c.launches = 0
         fm.run_tmlp.prop_launches = 0
+        fm.run_tmlp.grid_launches = fm.run_tmlp_composite.grid_launches = 0
 
     def spied(fn):
         """fn() with every main-path kernel call recorded -> {name: [(args,
@@ -2755,6 +2829,10 @@ def grid_phases(torch, np, dev, card, compare, launch_times, kern_fn,
         e16 = e32 = 0.0
         for p16, p32 in zip(fm.encode_probes(field),
                             fm.encode_probes(field32)):
+            # the bf16 probe on its field's route (V_GRID or not)
+            check((fm.kernel_plan(p16).variant == fm.V_GRID)
+                  == fm._grid_net(field),
+                  f"{key}: an encode probe not on its field's route")
             e16 = max(e16, compare("run_tmlp", (xp, p16), {"transposed": True},
                                    PROBE_TOL, flips=False)[0])
             e32 = max(e32, compare("run_tmlp", (xp, p32), {"transposed": True},
@@ -2781,6 +2859,7 @@ def grid_phases(torch, np, dev, card, compare, launch_times, kern_fn,
 
     # -- 14. the served configurations' RGB frames ----------------------------
     per_frame, frame_ms, table_bytes, prop_per_frame = {}, {}, {}, {}
+    grid_plans, grid_per_frame = {}, {}
     launch_t = {n: {} for n in mlps}
     for name in GRID_SERVED:
         m0 = model_of(name)
@@ -2811,6 +2890,18 @@ def grid_phases(torch, np, dev, card, compare, launch_times, kern_fn,
             check(fm.run_tmlp.prop_launches == n[2],
                   f"{name} {h}: {fm.run_tmlp.prop_launches} of {n[2]} "
                   f"proposal launches on prop_kernel")
+            # and its composite on the V_GRID kernels where the field
+            # takes them (grid_student), else on the route before them
+            want = n[3] if fm._grid_net(nets.field) else 0
+            grid_per_frame.setdefault(name, {})[h] = \
+                fm.run_tmlp_composite.grid_launches
+            check(fm.run_tmlp_composite.grid_launches == want,
+                  f"{name} {h}: {fm.run_tmlp_composite.grid_launches} "
+                  f"composite launches on V_GRID, expected {want} of {n[3]}")
+            grid_plans.setdefault(name, {})[h] = {
+                kk: v for kk, v in fm.kernel_plan(
+                    nets.field, steps[-1], nets.view).as_dict().items()
+                if kk in PLAN_KEYS}
             finite(out, f"{name} {h}")
             check(float(out["weights_sum"].min()) > 0.5,
                   f"{name} {h}: weights_sum {float(out['weights_sum'].min())}")
@@ -2823,6 +2914,7 @@ def grid_phases(torch, np, dev, card, compare, launch_times, kern_fn,
                 launch_t[kn][key] = launch_times(kn, calls[kn])
             if key == "grid_student 32,16":
                 prop_launch = calls["run_tmlp"][0]
+                comp_launch = calls["run_tmlp_composite"][0]
             del calls
             frame_ms[name][h] = host_ms(frame)
             torch.cuda.empty_cache()
@@ -2858,6 +2950,41 @@ def grid_phases(torch, np, dev, card, compare, launch_times, kern_fn,
     torch.cuda.empty_cache()
     log(f"planted fault in prop_kernel: {planted_rec}")
 
+    # the planted grid fault: grid_student's (32, 16) composite on the
+    # V_GRID kernels built with GRID_FAULT must fail the hold that the
+    # kernel itself passed above (GRID_TOL, element by element, over
+    # gsum, depth, weights_sum and rgb)
+    a, k = comp_launch
+    check(fm.kernel_plan(a[3], a[1].shape[1], k["view"]).variant == fm.V_GRID,
+          f"{GRID_FAULT}: grid_student's composite does not take V_GRID")
+    ref = fm.run_tmlp_composite_plain(*a, **k)
+
+    def past_grid(got):
+        n_, e_ = 0, 0.0
+        for g_, r_ in zip(got, ref):
+            d = (g_ - r_).abs()
+            n_ += int((d > GRID_TOL + GRID_TOL * r_.abs()).sum())
+            e_ = max(e_, float(d.max()))
+        return n_, e_
+
+    own = past_grid(fm.run_tmlp_composite(*a, **k))
+    with kernels_from(planted):
+        before = fm.run_tmlp_composite.grid_launches
+        bad = past_grid(fm.run_tmlp_composite(*a, **k))
+        check(fm.run_tmlp_composite.grid_launches == before + 1,
+              f"{GRID_FAULT}: the planted launch did not take V_GRID")
+    n_out = sum(r_.numel() for r_ in ref)
+    check(own[0] == 0 and bad[0] > 0,
+          f"planted {GRID_FAULT}: {bad[0]} of {n_out} outputs past GRID_TOL "
+          f"(the kernel's own: {own[0]})")
+    grid_planted = {"fault": GRID_FAULT, "outputs_past_tol": bad[0],
+                    "of": n_out, "max_abs_err": bad[1],
+                    "kernel_outputs_past_tol": own[0],
+                    "kernel_max_abs_err": own[1], "tol": GRID_TOL}
+    del comp_launch, a, k, ref
+    torch.cuda.empty_cache()
+    log(f"planted fault in V_GRID: {grid_planted}")
+
     # -- 15. grid_student's interactive frame ---------------------------------
     mi = model_of("grid_student", with_sam=True)
     pi = fields.cast_params(params_of(mi), torch.bfloat16)
@@ -2888,6 +3015,8 @@ def grid_phases(torch, np, dev, card, compare, launch_times, kern_fn,
         torch.cuda.synchronize()
         inter_n = [c.launches for c in counters + [rk.flatten3_nt]]
         inter_prop = fm.run_tmlp.prop_launches
+        inter_grid = [fm.run_tmlp.grid_launches,
+                      fm.run_tmlp_composite.grid_launches]
     finally:
         fp.decode_fused, sam_mod.decode = dfused, dec
     check(inter_n == INTERACTIVE_LAUNCHES["32,16"],
@@ -2898,6 +3027,10 @@ def grid_phases(torch, np, dev, card, compare, launch_times, kern_fn,
     check(inter_prop == inter_n[2] - 1,
           f"grid interactive: {inter_prop} of {inter_n[2]} run_tmlp launches "
           f"on prop_kernel, expected {inter_n[2] - 1}")
+    # ... and that density query and the RGB composite on V_GRID
+    check(inter_grid == [1, inter_n[3]],
+          f"grid interactive: launches on V_GRID {inter_grid} (run_tmlp, "
+          f"composite), expected [1, {inter_n[3]}]")
     check(r.rgb_u8.shape == (SIZE, SIZE, 3), "grid interactive frame shape")
     check(bool(torch.isfinite(r.depth).all()), "grid interactive depth")
     sv = got.get("samvit")
@@ -2922,6 +3055,7 @@ def grid_phases(torch, np, dev, card, compare, launch_times, kern_fn,
     check(len(grid_at) == 1, f"grid interactive: {len(grid_at)} run_tmlp "
                              f"launches with grid tables, expected 1")
     tmlp_grid = launch_times("run_tmlp", [icalls["run_tmlp"][grid_at[0]]])[0]
+    tmlp_args = icalls["run_tmlp"][grid_at[0]][0]
     del icalls
 
     def drive(n, sync):
@@ -2936,6 +3070,7 @@ def grid_phases(torch, np, dev, card, compare, launch_times, kern_fn,
     pipelined, sync = drive(7, False), drive(5, True)
     inter = {"launches_per_frame": inter_n,
              "prop_kernel_launches_per_frame": inter_prop,
+             "v_grid_launches_per_frame": inter_grid,
              "pipelined_ms": pipelined[0], "sync_ms": sync[0],
              "pipelined_runs": pipelined[1], "sync_runs": sync[1]}
     del sess, pi
@@ -2958,7 +3093,16 @@ def grid_phases(torch, np, dev, card, compare, launch_times, kern_fn,
     sd = rng.normal(0, 1, (SIGMA_RAYS, 3)) + [0.0, 0.0, -2.0]
     sd = torch.from_numpy((sd / np.linalg.norm(sd, axis=-1, keepdims=True))
                           .astype(np.float32)).to(dev)
+    zero(counters)
     scalls = spied(lambda: renderer.run_rays(ms_, pbf, so, sd, nets=nets))
+    # its field's launches, run_tmlp and the composite, on V_GRID
+    sigma_grid = [fm.run_tmlp.grid_launches,
+                  fm.run_tmlp_composite.grid_launches]
+    check(sigma_grid[1] == sum(fm._grid_net(a[3]) for a, _ in
+                               scalls["run_tmlp_composite"]) > 0
+          and sigma_grid[0] == sum(fm._grid_net(a[1])
+                                   for a, _ in scalls["run_tmlp"]),
+          f"sigma-VM: launches on V_GRID {sigma_grid}")
     for kn in mlps:
         for a, k in scalls[kn]:
             hold(kn, "sigma_vm", a, k, twin)
@@ -3046,7 +3190,18 @@ def grid_phases(torch, np, dev, card, compare, launch_times, kern_fn,
         return sum(t["ms"] - t["bound_ms"] for t in ts_)
 
     comp = launch_t["run_tmlp_composite"]["grid_student 32,16"][0]
+    v_grid = ptxas_of(ptxas_log, "13__nv_bfloat16Li3E")
+    # tmlp_kernel and both composite_kernel instances (GEN false, true)
+    found = [k for k, v in v_grid.items()
+             if k != "serialized" and "registers" in v]
+    check(len(found) == 3 and sum("composite" in k for k in found) == 2,
+          f"the nvcc log of fused_mlp_t holds {len(found)} of the 3 V_GRID "
+          f"kernels: {found}")
+    check(not v_grid["serialized"],
+          f"ptxas serialized the V_GRID kernels' wgmmas: "
+          f"{v_grid['serialized'][:2]}")
     common = {"route": "cuda", "source": SOURCES["run_tmlp"][0],
+              "variant": "V_GRID", "ptxas": v_grid,
               "library_ms": None,
               "library": "none: no single PyTorch call computes this function",
               "tol": GRID_TOL, "f32_tol": MLP_F32_TOL,
@@ -3057,31 +3212,41 @@ def grid_phases(torch, np, dev, card, compare, launch_times, kern_fn,
     rows = [{
         "name": "run_tmlp_composite[grids]", **common,
         "replaces": SOURCES["run_tmlp_composite"][1],
-        "launches": sum(v[h][3] for v in per_frame.values() for h in v),
+        "launches": sum(v[h] for v in grid_per_frame.values() for h in v),
         "launches_of": "the RGB frames of grid_student, cp_ladder and "
-                       "vm_ladder at (32, 16) and (128, 64, 32)",
+                       "vm_ladder at (32, 16) and (128, 64, 32): "
+                       "grid_student's composites (the ladders' take "
+                       "V_SERVED)",
+        "v_grid_launches_by_frame": grid_per_frame,
         "max_abs_err": max(errs["run_tmlp_composite"].values()),
         "max_abs_err_by_frame": errs["run_tmlp_composite"],
         "max_abs_err_f32_weights": max(errs32["run_tmlp_composite"].values()),
         "outputs_past_tol": past["run_tmlp_composite"],
         "ms": comp["ms"], "plain_ms": comp["plain_ms"],
         "bound_ms": comp["bound_ms"], "bound_by": comp["bound_by"],
+        "grid_old_ms": comp["grid_old_ms"],
+        "plans": grid_plans, "planted_fault": grid_planted,
         "shapes_of": "grid_student, 32,16 RGB frame",
         "launch_times": launch_t["run_tmlp_composite"],
         "loss_ms_per_frame": {k: loss(v) for k, v in
                               launch_t["run_tmlp_composite"].items()}}, {
         "name": "run_tmlp[grids]", **common,
         "replaces": SOURCES["run_tmlp"][1],
-        "launches": inter_n[2],
-        "launches_of": "run_tmlp in one 512^2 grid_student interactive "
-                       "frame at (32, 16): 2 proposal launches and the "
-                       "feature render's field launch, the one with tables",
+        "launches": inter_grid[0],
+        "launches_of": "run_tmlp on V_GRID in one 512^2 grid_student "
+                       "interactive frame at (32, 16): the feature render's "
+                       "field launch, the one with tables (its 2 proposal "
+                       "launches are prop_kernel's)",
         "max_abs_err": max(errs["run_tmlp"].values()),
         "max_abs_err_by_frame": errs["run_tmlp"],
         "max_abs_err_f32_weights": max(errs32["run_tmlp"].values()),
         "outputs_past_tol": past["run_tmlp"],
         "ms": tmlp_grid["ms"], "plain_ms": tmlp_grid["plain_ms"],
         "bound_ms": tmlp_grid["bound_ms"], "bound_by": tmlp_grid["bound_by"],
+        "grid_old_ms": tmlp_grid["grid_old_ms"],
+        "plan": {kk: v for kk, v in fm.kernel_plan(
+            field_of("run_tmlp", tmlp_args)).as_dict().items()
+            if kk in PLAN_KEYS},
         "shapes_of": "the field launch with tables of that frame",
         "shape": tmlp_grid["shape"],
         "launch_times": launch_t["run_tmlp"],

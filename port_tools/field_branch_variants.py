@@ -26,6 +26,11 @@ text substitutions in that source, for `port_tools/kernel_variants.py`
                  the last k block of every unit but a chunk's first (no
                  copy, no bytes expected: the consumers' products read
                  whatever that stage held before);
+  grid_lost_vm   planted fault: the V_GRID encoders mark a slot full
+                 without the last mode of the last VM level (its K
+                 columns, the encoding's last): the consumer's chain reads
+                 whatever the slot held there, the previous tile's
+                 columns (zeros at a slot's first use);
   parent         the port of the commit before these branches, unpacked
                  under build/parent10 (`git archive d830384
                  sanerf_tpu_torch | tar -x -C build/parent10`).
@@ -51,5 +56,16 @@ VARIANTS = {
     "ring_lost_k": [["        const int nkb = (min(k0 + UNIT_K, L.w_ld) - k0) / 8;",
                      "        const int nkb = (min(k0 + UNIT_K, L.w_ld) - k0) / 8"
                      " - (k0 > 0);"]],
+    "grid_lost_vm": [
+        ["    bf16* enc = sl.enc(s);\n",
+         "    bf16* enc = sl.enc(s);\n"
+         "    int lost = net.F;\n"
+         "    for (int i = 0; i < net.g.n_cp; ++i) lost += net.g.cp[i].K;\n"
+         "    for (int i = 0; i < net.g.n_vm; ++i) lost += 3 * net.g.vm[i].K;\n"
+         "    lost = net.g.n_vm ? lost - net.g.vm[net.g.n_vm - 1].K : 1 << 30;\n"],
+        ["        [&](int c, float v) { enc[enc_index<bf16>(row, c, 0)] = "
+         "fromf<bf16>(v); });",
+         "        [&](int c, float v) { if (c < lost) "
+         "enc[enc_index<bf16>(row, c, 0)] = fromf<bf16>(v); });"]],
     "parent": "build/parent10",
 }

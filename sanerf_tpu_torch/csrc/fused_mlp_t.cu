@@ -98,6 +98,25 @@
 //     the encoding, the weights in shared memory where they fit, else
 //     streamed in units of one chunk's rows over 64 columns (32 KB; a 256
 //     x 320 float32 skip layer is 320 KB), else read through L2;
+//   - the bf16 nets of the grid family (VM planes, CP ladders of two levels
+//     or more, sigma-VM; no layer over 128) whose weights fit shared
+//     memory whole (grid_student; the ladders' stream and keep V_SERVED:
+//     ops/fused_mlp_t.py:_grid_net) take the V_GRID variant of
+//     tmlp_kernel and the composites (the same TPU kernels and their grid
+//     branches _grid_blocks :323, _cp_level :235, _vm_block :263), which
+//     splits the encode from the chain: seven encoder warps write the tiles'
+//     encodings (a quarter tile a task, a thread pair a point, the
+//     arithmetic of encode_point) into a ring of encoding slots in shared
+//     memory, in the core-matrix layout wgmma reads A from, while two
+//     consumer warpgroups run the ring chain above (chain_wide: A from
+//     shared memory, the hidden activations there, each chunk's products
+//     one wgmma pipeline) on the slots filled and release them, and the
+//     eighth warp fills the weight ring; the table reads of later tiles
+//     run under the products of earlier ones (grid_encode). Bound: the
+//     operations (grid_student 71,680 MAC a point, 0.607 ms for the 4.19 M
+//     points of a 512^2 frame at (32, 16)) beside the table rows each
+//     point reads through L1 and L2 (2,112 B);
+//     what binds it is in PERF.md (section 6, V_GRID);
 //   - optional biases (float32, as the JAX package packs them) are added
 //     to the layer's float32 sum before the activation; the dense-sin
 //     encode (angle_double = 0) takes one sinf pair per coordinate and
@@ -179,25 +198,36 @@ constexpr int wgs_of(bool composite) {
 // branches below (a run-time test of either cost the asset's float32
 // launches 3-7 %, PERF.md); V_BRANCHES, such nets with biases, the
 // dense-sin encode or longer ladders; V_WIDE, nets with a layer over 128
-// (each branch at run time).
-enum Variant { V_SERVED = 0, V_BRANCHES = 1, V_WIDE = 2 };
+// (each branch at run time); V_GRID (bf16 only), the nets of the grid
+// family, no layer over 128 and the factorized grids past the asset's one
+// CP line table: VM planes, CP ladders of two levels or more, sigma-VM,
+// whose weights fit shared memory whole (their encode in warps of its own
+// beside the chain, see grid_encode).
+enum Variant { V_SERVED = 0, V_BRANCHES = 1, V_WIDE = 2, V_GRID = 3 };
 // V_WIDE kernels: 3 consumer warpgroups in bf16 (they share each weight
 // unit of the ring), 2 in float32 (the plan takes fewer where the buffers
 // do not fit)
 constexpr int WIDE_WGS = 3, WIDE_F32_WGS = 2;
+// V_GRID kernels: GRID_WGS consumer warpgroups (the chain and the
+// epilogue), then GRID_ENC_WGS encoder warpgroups, whose warps encode the
+// tiles but the last one, which fills the weight ring
+// (ops/fused_mlp_t.py: GRID_WGS, GRID_ENC_WGS)
+constexpr int GRID_WGS = 2, GRID_ENC_WGS = 2;
 template <typename T>
 constexpr int wgs_of(bool composite, int v) {
   return v == V_WIDE ? (sizeof(T) == 2 ? WIDE_WGS : WIDE_F32_WGS)
-                     : wgs_of<T>(composite);
+         : v == V_GRID ? GRID_WGS
+                       : wgs_of<T>(composite);
 }
-// The bf16 V_WIDE kernels stream the weights through a ring of units in
-// shared memory: a unit is one chunk's rows (<= CHUNK) over UNIT_K columns
-// of W^T (16 KB), the ring 2..MAX_STAGES of them, each with a full and an
-// empty mbarrier (RING_BAR_B bytes after the ring), filled with bulk
-// copies by one warp of a producer warpgroup (the block's last).
+// The bf16 V_WIDE and V_GRID kernels stream the weights through a ring of
+// units in shared memory: a unit is one chunk's rows (<= CHUNK) over
+// UNIT_K columns of W^T (16 KB), the ring 2..MAX_STAGES of them, each with
+// a full and an empty mbarrier (RING_BAR_B bytes after the ring), filled
+// with bulk copies by one warp (V_WIDE: of a producer warpgroup, the
+// block's last; V_GRID: the last warp of the encoder warpgroups).
 template <typename T>
 __host__ __device__ constexpr bool ring_of(int v) {
-  return sizeof(T) == 2 && v == V_WIDE;
+  return sizeof(T) == 2 && (v == V_WIDE || v == V_GRID);
 }
 constexpr int UNIT_K = 64, UNIT_B = 128 * UNIT_K * 2;
 // after the barriers, ZERO_B bytes of zeros where a layer's last unit is
@@ -207,7 +237,9 @@ constexpr int MAX_STAGES = 8, RING_BAR_B = 16 * MAX_STAGES, ZERO_B = 4096;
 constexpr int PRODUCER_THREADS = 128;
 template <typename T>
 constexpr int threads_of(bool composite, int v) {
-  return wgs_of<T>(composite, v) * 128 + (ring_of<T>(v) ? PRODUCER_THREADS : 0);
+  return wgs_of<T>(composite, v) * 128 +
+         (v == V_GRID ? GRID_ENC_WGS * 128
+                      : ring_of<T>(v) ? PRODUCER_THREADS : 0);
 }
 // Registers a thread of a ring kernel (setmaxnreg): it starts with
 // RING_ENTRY_REGS, as many as one block of WIDE_WGS + 1 warpgroups an SM
@@ -223,6 +255,32 @@ constexpr int RING_REGS =
     (RING_ENTRY_REGS + (RING_ENTRY_REGS - PRODUCER_REGS) / WIDE_WGS) & ~7;
 static_assert(RING_REGS <= 256 && PRODUCER_REGS >= 24,
               "setmaxnreg takes 24..256 registers");
+// The same budget for V_GRID: GRID_ENTRY_REGS at entry (one block of
+// GRID_WGS + GRID_ENC_WGS warpgroups an SM), the encoder warpgroups give
+// theirs down to GRID_ENC_REGS and the consumers take what that frees,
+// GRID_REGS each (128 -> 104 / 152 at two and two; 96 / 160 measured
+// slower, the encoders' spills, PERF.md); the general composite, whose
+// consumers carry a ray's sums across segments, at GRID_GEN_ENC_REGS /
+// GRID_GEN_REGS (88 / 168: at 152 and 160 ptxas serialized its wgmmas,
+// C7511).
+constexpr int GRID_ENTRY_REGS =
+    (65536 / ((GRID_WGS + GRID_ENC_WGS) * 128)) & ~7;
+constexpr int GRID_ENC_REGS = 104, GRID_GEN_ENC_REGS = GRID_ENC_REGS - 16;
+constexpr int grid_regs(int enc) {
+  return (GRID_ENTRY_REGS + (GRID_ENTRY_REGS - enc) * GRID_ENC_WGS / GRID_WGS)
+         & ~7;
+}
+constexpr int GRID_REGS = grid_regs(GRID_ENC_REGS);
+constexpr int GRID_GEN_REGS = grid_regs(GRID_GEN_ENC_REGS);
+static_assert(GRID_GEN_REGS <= 256 && GRID_GEN_ENC_REGS >= 24 &&
+                  GRID_ENC_REGS <= GRID_ENTRY_REGS,
+              "setmaxnreg takes 24..256 registers");
+// V_GRID's ring of encoding slots: 1..MAX_SLOTS tiles' encodings (and
+// their sigma sums), a multiple of the block's consumers, each with a full
+// barrier (ENC_ARRIVALS arrivals: every lane of the four encoder warps that
+// write its quarters) and a release count (one a warp of the consumer that
+// read it), SLOT_BAR_B bytes after the slots
+constexpr int MAX_SLOTS = 8, SLOT_BAR_B = 16 * MAX_SLOTS, ENC_ARRIVALS = 128;
 // Layers of a net: the layer table is a kernel parameter (the parameter
 // space's budget sets this; ops/fused_mlp_t.py:MAX_LAYERS)
 constexpr int MAX_LAYERS = 32;
@@ -968,6 +1026,11 @@ struct Plan {
   // RING_BAR_B, + ZERO_B where a layer is not whole units: the barriers
   // and the zero block after them)
   int stages, unit_b;
+  // V_GRID: the encoding slots of slot_b bytes each (a tile's encoding,
+  // enc_b, then its sigma sums, sig_b), after the view head, then
+  // SLOT_BAR_B of their barriers; the warpgroups' buffers then hold no
+  // encoding nor sigma sums of their own
+  int slots, slot_b;
 };
 
 // ---------------------------------------------------------------------------
@@ -1354,17 +1417,75 @@ struct Bufs {
   float *outb, *sig, *wts, *tsb, *vin;
 };
 
+// The warpgroups of a block after its consumers in a kernel of variant V:
+// V_GRID's encoders, a V_WIDE ring's producer
+template <int V>
+__host__ __device__ __forceinline__ int aux_wgs(const Plan& pl) {
+  return V == V_GRID ? GRID_ENC_WGS : pl.w_mode == W_RING ? 1 : 0;
+}
+
 // The block's consumer warpgroups: the launch may take fewer than pl.wgs
-// (launch_size), and a ring's producer warpgroup comes after them
+// (launch_size), and the aux warpgroups come after them. V_GRID reads its
+// aux warpgroups from the plan's variant, and its composite computes np
+// before the ring: so ptxas does not serialize the V_GRID composites'
+// wgmmas; with np where the other variants compute it, it did (C7511),
+// whether the count here was read from the plan or a constant (PERF.md).
+template <int V>
 __device__ __forceinline__ int block_wgs(const Plan& pl) {
-  return (blockDim.x >> 7) - (pl.w_mode == W_RING ? 1 : 0);
+  return (blockDim.x >> 7) -
+         (V == V_GRID ? (pl.variant == V_GRID ? GRID_ENC_WGS
+                         : pl.w_mode == W_RING ? 1 : 0)
+                      : aux_wgs<V>(pl));
+}
+
+// The encoding slots of a V_GRID block (Plan.slots): consumer c of the
+// block's C takes the tiles its tile calls encode, call n the block's
+// (n C + c)-th, in slot (n C + c) % slots, its use (n C + c) / slots; the
+// encoder warps fill the same sequence. With slots a multiple of C every
+// use of a slot is one consumer's, which so waits on every phase of the
+// slot's full barrier in turn (a parity wait is then exact); an encoder
+// warp writes a use of a slot whose previous uses other warps wrote, so it
+// waits on the slot's release count instead (4 a use: the consumer's
+// warps), not on a parity (one that ran two uses ahead would pass it).
+struct Slots {
+  unsigned char* base;  // slot 0
+  uint32_t bars;        // the full barrier of slot 0; release counts after
+  int n, slot_b, sig_off, step;  // slots, bytes a slot, consumers a block
+  int slot;             // a consumer's next slot, and its parity
+  uint32_t phase;
+  __device__ __forceinline__ uint32_t full(int s) const { return bars + 8 * s; }
+  __device__ __forceinline__ uint32_t released(int s) const {
+    return bars + 8 * MAX_SLOTS + 4 * s;
+  }
+  __device__ __forceinline__ bf16* enc(int s) const {
+    return reinterpret_cast<bf16*>(base + (long)s * slot_b);
+  }
+  __device__ __forceinline__ float* sig(int s) const {
+    return reinterpret_cast<float*>(base + (long)s * slot_b + sig_off);
+  }
+  // the consumer's next slot (step <= n: at most one wrap), no branch
+  __device__ __forceinline__ void next() {
+    const int s = slot + step, wrap = s >= n;
+    phase ^= (uint32_t)wrap;
+    slot = wrap ? s - n : s;
+  }
+};
+
+// the slots of a V_GRID block, after its weights and view head
+__device__ __forceinline__ Slots slots_at(unsigned char* smem, const Plan& pl,
+                                          int consumers, int c) {
+  unsigned char* base = smem + pl.w_bytes + pl.v_bytes;
+  return Slots{base, wg::smem(base + (long)pl.slots * pl.slot_b), pl.slots,
+               pl.slot_b, pl.enc_b, consumers, pl.slots ? c % pl.slots : 0,
+               0u};
 }
 
 // Stages the weights (and the view head's) in shared memory as the plan
 // says, or sets up the ring's barriers (W_RING: an empty barrier takes an
-// arrival from each consumer warp, all but the producer's), and carves out
-// this warpgroup's buffers; -> the chain's weights.
-template <typename T>
+// arrival from each consumer warp, all but the producer's) and V_GRID's
+// encoding slots, and carves out this warpgroup's buffers; -> the chain's
+// weights.
+template <typename T, int V>
 __device__ const T* block_setup(const Net& net, const View* view,
                                 const Plan& pl, unsigned char* smem,
                                 const T** vw, Bufs& b) {
@@ -1381,7 +1502,7 @@ __device__ const T* block_setup(const Net& net, const View* view,
     if (threadIdx.x == 0) {
       for (int s = 0; s < pl.stages; ++s) {
         wg::mbar_init(r.bars + 8 * s, 1);
-        wg::mbar_init(r.empty(s), block_wgs(pl) * 4);
+        wg::mbar_init(r.empty(s), block_wgs<V>(pl) * 4);
       }
       wg::mbar_init_fence();
     }
@@ -1394,15 +1515,35 @@ __device__ const T* block_setup(const Net& net, const View* view,
       *vw = reinterpret_cast<const T*>(base);
     }
   }
-  base += pl.v_bytes + (threadIdx.x >> 7) * pl.per_wg;
+  constexpr bool grid = V == V_GRID;
+  if constexpr (grid) {
+    // the slots zeroed once (the encoding's padding columns stay zero, and
+    // visible to wgmma), their barriers set up
+    const Slots sl = slots_at(smem, pl, 1, 0);
+    for (int i = threadIdx.x; i < pl.slots * pl.slot_b / 16; i += blockDim.x)
+      reinterpret_cast<uint4*>(sl.base)[i] = make_uint4(0u, 0u, 0u, 0u);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < pl.slots; ++s) {
+        wg::mbar_init(sl.full(s), ENC_ARRIVALS);
+        *reinterpret_cast<uint32_t*>(sl.base + (long)pl.slots * pl.slot_b +
+                                     8 * MAX_SLOTS + 4 * s) = 0u;
+      }
+      wg::mbar_init_fence();
+    }
+  }
+  // V_GRID: the slots and their barriers after the view head, and no
+  // encoding nor sigma sums of a warpgroup's own (the slots')
+  const int slots_b = grid ? pl.slots * pl.slot_b + SLOT_BAR_B : 0;
+  base += pl.v_bytes + slots_b + (threadIdx.x >> 7) * pl.per_wg;
   b.enc = base;
-  base += pl.enc_b;
+  base += grid ? 0 : pl.enc_b;
   b.hb = base;
   base += pl.h_b;
   b.outb = reinterpret_cast<float*>(base);
   base += pl.out_b;
   b.sig = reinterpret_cast<float*>(base);
-  base += pl.sig_b;
+  base += grid ? 0 : pl.sig_b;
   b.wts = reinterpret_cast<float*>(base);
   base += pl.wts_b;
   b.tsb = reinterpret_cast<float*>(base);
@@ -1411,7 +1552,7 @@ __device__ const T* block_setup(const Net& net, const View* view,
   // zero the encoding buffer once: its padding columns stay zero (a
   // warpgroup's; the ring's producer warp has none)
   T* enc = reinterpret_cast<T*>(b.enc);
-  if ((threadIdx.x >> 7) < block_wgs(pl))
+  if (!grid && (threadIdx.x >> 7) < block_wgs<V>(pl))
     for (int i = threadIdx.x & 127; i < TILE * pl.lde; i += 128)
       enc[i] = fromf<T>(0.0f);
   __syncthreads();
@@ -1420,12 +1561,27 @@ __device__ const T* block_setup(const Net& net, const View* view,
 
 // Encode + chain of a 64-point tile, this thread's point (row lt / 2)
 // at x; the last layer lands in outb rows [0, 64) (each warp its 16).
+// V_GRID: the chain of the consumer's next slot, which the encoder warps
+// fill (x unused), released once its products and sigma sums are read.
 template <typename T, int V>
 __device__ __forceinline__ void tile(const Net& net, const Plan& pl,
                                      const T* W, const Bufs& b,
                                      const float (&x)[3], float* outb,
-                                     int ncols, uint32_t* park, Ring& ring) {
+                                     int ncols, uint32_t* park, Ring& ring,
+                                     Slots& sl) {
   const int lt = threadIdx.x & 127, warp = lt >> 5, lane = lt & 31;
+  if constexpr (V == V_GRID) {
+    float acc[NA];
+    wg::mbar_wait(sl.full(sl.slot), sl.phase);
+    chain_wide(net, ring, pl, sl.enc(sl.slot), reinterpret_cast<bf16*>(b.hb),
+               acc, has_sigma(net) ? sl.sig(sl.slot) : nullptr, outb, pl.ldo,
+               warp, lane, park);
+    __syncwarp();
+    wg::count_add_if(sl.released(sl.slot), lane == 0);
+    sl.next();
+    __syncwarp();
+    return;
+  }
   T* enc = reinterpret_cast<T*>(b.enc);
   const int row = lt >> 1;
   const float sg = encode_point<T, V != V_SERVED>(
@@ -1467,9 +1623,85 @@ __device__ __forceinline__ void produce(const Net& net, Ring& r, long tiles) {
 }
 
 // a consumer warpgroup of a ring kernel takes the registers the producer
-// gave back
+// (V_GRID: the encoders) gave back
+template <int V, bool GEN = false>
 __device__ __forceinline__ void consumer_regs() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(RING_REGS));
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+      V != V_GRID ? RING_REGS : GEN ? GRID_GEN_REGS : GRID_REGS));
+}
+
+// The tile calls of a block's consumers (V_GRID), as the kernels' loops
+// make them: work items (run_tmlp's tiles, the composite's steps) first,
+// first + apart, ... below `items`, consumer c taking item + c of each;
+// `calls` tile calls an item (the composite's nseg segments of mt tiles of
+// a step's M points, of which the first RT are its rays'); past them the
+// points are np (zeros).
+struct Walk {
+  long first, apart, items, np;
+  int calls, mt, M, RT;
+  __device__ __forceinline__ long passes() const {
+    return first < items ? (items - first + apart - 1) / apart : 0;
+  }
+  // the point of row `row` of consumer c's tile call n
+  __device__ __forceinline__ long point(int c, long n, int row) const {
+    const long item = first + (n / calls) * apart + c;
+    const int rem = (int)(n % calls), k = rem / mt;
+    const int i = k * M + (rem - k * mt) * TILE + row;
+    return i < RT ? item * RT + i : np;
+  }
+};
+
+// The encoder warpgroups of a V_GRID block. They give registers back for
+// the consumers; their last warp fills the weight ring for every tile call
+// of the block's consumers (as V_WIDE's producer); the others encode the
+// tiles those calls take, in their order (Slots): task t is rows [16 r,
+// 16 r + 16) of tile q = t / 4, r = t % 4 (a thread pair a point, as
+// encode_point splits it), warp w taking tasks w, w + NE, ...; each waits
+// until the slot's previous uses are released (its release count), writes
+// the rows' encoding in the core-matrix layout wgmma reads A from and
+// their sigma sums, makes them visible to the async proxy and arrives (all
+// 32 lanes) on the slot's full barrier. Each lane loads the point of its
+// next task while it encodes this one. No deadlock with slots >= the
+// block's consumers: a task waits only on tiles before its own, which
+// earlier tasks encode.
+template <int REGS>
+__device__ void grid_encode(const Net& net, const Slots& sl, Ring& ring,
+                            const Walk& wk, const float* __restrict__ x3,
+                            int consumers) {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(REGS));
+  constexpr int NE = 4 * GRID_ENC_WGS - 1;  // encoder warps
+  const int ew = (threadIdx.x >> 5) - 4 * consumers, lane = threadIdx.x & 31;
+  const long calls = wk.passes() * wk.calls;
+  if (ew == NE) {
+    for (long i = 0; i < calls; ++i) ring_fill_tile(net, ring, lane);
+    return;
+  }
+  const long tasks = calls * consumers * 4;
+  const int half = lane & 1, hrow = lane >> 1;
+  auto point = [&](long t) {
+    const long q = t >> 2;
+    return t < tasks ? wk.point((int)(q % consumers), q / consumers,
+                                16 * (int)(t & 3) + hrow)
+                     : wk.np;
+  };
+  float x[3];
+  load_point(x3, wk.np, point(ew), x);
+  for (long t = ew; t < tasks; t += NE) {
+    float xn[3];
+    load_point(x3, wk.np, point(t + NE), xn);
+    const long q = t >> 2;
+    const int s = (int)(q % sl.n), row = 16 * (int)(t & 3) + hrow;
+    wg::count_wait(sl.released(s), 4u * (uint32_t)(q / sl.n));
+    bf16* enc = sl.enc(s);
+    const float sg = encode_point<bf16, true>(
+        net, x, half,
+        [&](int c, float v) { enc[enc_index<bf16>(row, c, 0)] = fromf<bf16>(v); });
+    if (!half) sl.sig(s)[row] = sg;
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    wg::mbar_arrive_if(sl.full(s), true);
+#pragma unroll
+    for (int a = 0; a < 3; ++a) x[a] = xn[a];
+  }
 }
 
 // The block's warpgroups walk the work items in step, items base + wg (so
@@ -1481,18 +1713,30 @@ tmlp_kernel(Net net, Plan pl, const float* __restrict__ x3, long np,
             float* __restrict__ out, int out_rows, uint32_t* park) {
   extern __shared__ __align__(128) unsigned char smem[];
   Bufs b;
-  const T* W = block_setup<T>(net, nullptr, pl, smem, nullptr, b);
-  const int wgs = block_wgs(pl);
+  const T* W = block_setup<T, V>(net, nullptr, pl, smem, nullptr, b);
+  const int wgs = block_wgs<V>(pl);
   const long n_tiles = (np + TILE - 1) / TILE;
   Ring ring = ring_at(smem, pl);
-  if constexpr (ring_of<T>(V)) {
+  // V_GRID: the slot sequence (a consumer's; the encoders' walk it whole)
+  Slots sl =
+      V == V_GRID ? slots_at(smem, pl, wgs, threadIdx.x >> 7) : Slots{};
+  if constexpr (V == V_GRID) {
+    if ((threadIdx.x >> 7) >= wgs) {
+      grid_encode<GRID_ENC_REGS>(net, sl, ring,
+                  Walk{(long)blockIdx.x * wgs, (long)gridDim.x * wgs, n_tiles,
+                       np, 1, 1, TILE, TILE},
+                  x3, wgs);
+      return;
+    }
+    consumer_regs<V>();
+  } else if constexpr (ring_of<T>(V)) {
     if ((threadIdx.x >> 7) == wgs) {
       const long apart = (long)gridDim.x * wgs, first = (long)blockIdx.x * wgs;
       produce(net, ring, first < n_tiles ? (n_tiles - first + apart - 1) /
                                                apart : 0);
       return;
     }
-    consumer_regs();
+    consumer_regs<V>();
   }
   const int warp = (threadIdx.x & 127) >> 5, lane = threadIdx.x & 31;
   const int kout = net.layer[net.n_layers - 1].kout;
@@ -1506,7 +1750,7 @@ tmlp_kernel(Net net, Plan pl, const float* __restrict__ x3, long np,
     const long p0 = (base + (threadIdx.x >> 7)) * TILE;
     float xn[3];
     load_point(x3, np, p0 + stride + row, xn);
-    tile<T, V>(net, pl, W, b, x, b.outb, kout, park, ring);
+    tile<T, V>(net, pl, W, b, x, b.outb, kout, park, ring, sl);
 #pragma unroll
     for (int a = 0; a < 3; ++a) x[a] = xn[a];
     for (int i = lane; i < out_rows * 16; i += 32) {
@@ -1964,29 +2208,34 @@ prop_kernel(Net net, Plan pl, const float* __restrict__ x3, long np,
   }
 }
 
+// SH component k (0-15) of the unit direction (x, y, z), without a
+// branch: every component computed and k's selected, so that a warp's
+// lanes 0-15 take no divergent paths (a switch over k cost the asset's
+// composite 3 %; in V_GRID's general composite, with the direction loaded
+// where it is used, ptxas serialized the wgmmas, C7511; PERF.md)
 __device__ __forceinline__ float sh_component(int k, float x, float y,
                                               float z) {
   const float xy = x * y, xz = x * z, yz = y * z;
   const float x2 = x * x, y2 = y * y, z2 = z * z;
-  switch (k) {
-    case 0: return 0.28209479177387814f;
-    case 1: return -0.48860251190291987f * y;
-    case 2: return 0.48860251190291987f * z;
-    case 3: return -0.48860251190291987f * x;
-    case 4: return 1.0925484305920792f * xy;
-    case 5: return -1.0925484305920792f * yz;
-    case 6: return 0.94617469575755997f * z2 - 0.31539156525251999f;
-    case 7: return -1.0925484305920792f * xz;
-    case 8: return 0.54627421529603959f * x2 - 0.54627421529603959f * y2;
-    case 9: return 0.59004358992664352f * y * (-3.0f * x2 + y2);
-    case 10: return 2.8906114426405538f * xy * z;
-    case 11: return 0.45704579946446572f * y * (1.0f - 5.0f * z2);
-    case 12: return 0.3731763325901154f * z * (5.0f * z2 - 3.0f);
-    case 13: return 0.45704579946446572f * x * (1.0f - 5.0f * z2);
-    case 14: return 1.4453057213202769f * z * (x2 - y2);
-    default: return 0.59004358992664352f * x * (-x2 + 3.0f * y2);
-  }
+  float v = 0.59004358992664352f * x * (-x2 + 3.0f * y2);
+  v = k == 0 ? 0.28209479177387814f : v;
+  v = k == 1 ? -0.48860251190291987f * y : v;
+  v = k == 2 ? 0.48860251190291987f * z : v;
+  v = k == 3 ? -0.48860251190291987f * x : v;
+  v = k == 4 ? 1.0925484305920792f * xy : v;
+  v = k == 5 ? -1.0925484305920792f * yz : v;
+  v = k == 6 ? 0.94617469575755997f * z2 - 0.31539156525251999f : v;
+  v = k == 7 ? -1.0925484305920792f * xz : v;
+  v = k == 8 ? 0.54627421529603959f * x2 - 0.54627421529603959f * y2 : v;
+  v = k == 9 ? 0.59004358992664352f * y * (-3.0f * x2 + y2) : v;
+  v = k == 10 ? 2.8906114426405538f * xy * z : v;
+  v = k == 11 ? 0.45704579946446572f * y * (1.0f - 5.0f * z2) : v;
+  v = k == 12 ? 0.3731763325901154f * z * (5.0f * z2 - 3.0f) : v;
+  v = k == 13 ? 0.45704579946446572f * x * (1.0f - 5.0f * z2) : v;
+  v = k == 14 ? 1.4453057213202769f * z * (x2 - y2) : v;
+  return v;
 }
+
 // offset of ray n's first sample in dl / ts: rows of Ts, or with pack_q > 1
 // the packed rows of q * Ts (slot n % q of row n / q)
 __device__ __forceinline__ long ray_offset(long n, int Ts, int pack_q) {
@@ -2016,9 +2265,9 @@ composite_kernel(Net net, View view, Plan pl, const float* __restrict__ x3,
   extern __shared__ __align__(128) unsigned char smem[];
   Bufs b;
   const T* VW = nullptr;
-  const T* W = block_setup<T>(net, view.H ? &view : nullptr, pl, smem, &VW,
-                              b);
-  const int wgs = block_wgs(pl);
+  const T* W = block_setup<T, V>(net, view.H ? &view : nullptr, pl, smem,
+                                 &VW, b);
+  const int wgs = block_wgs<V>(pl);
   const int wg = threadIdx.x >> 7, warp = (threadIdx.x & 127) >> 5,
             lane = threadIdx.x & 31;
   // the segments of a step
@@ -2026,8 +2275,20 @@ composite_kernel(Net net, View view, Plan pl, const float* __restrict__ x3,
   const int M = pl.M, rays_per_step = pl.R, RT = pl.R * Ts;
   const long n_steps = ((long)N + rays_per_step - 1) / rays_per_step;
   const long steps_apart = (long)gridDim.x * wgs;  // a warpgroup's steps
+  const long np_grid = (long)N * Ts;  // V_GRID's np (see block_wgs)
   Ring ring = ring_at(smem, pl);
-  if constexpr (ring_of<T>(V)) {
+  Slots sl = V == V_GRID ? slots_at(smem, pl, wgs, wg) : Slots{};
+  if constexpr (V == V_GRID) {
+    if (wg >= wgs) {
+      grid_encode<GEN ? GRID_GEN_ENC_REGS : GRID_ENC_REGS>(
+          net, sl, ring,
+          Walk{(long)blockIdx.x * wgs, steps_apart, n_steps, np_grid,
+               nseg * (M / TILE), M / TILE, M, RT},
+          x3, wgs);
+      return;
+    }
+    consumer_regs<V, GEN>();
+  } else if constexpr (ring_of<T>(V)) {
     if (wg == wgs) {  // a step's tiles: nseg segments of M / TILE
       const long first = (long)blockIdx.x * wgs;
       produce(net, ring, (first < n_steps ? (n_steps - first + steps_apart
@@ -2035,12 +2296,12 @@ composite_kernel(Net net, View view, Plan pl, const float* __restrict__ x3,
                              nseg * (M / TILE));
       return;
     }
-    consumer_regs();
+    consumer_regs<V>();
   }
   const int G = net.layer[net.n_layers - 1].kout_real;  // gsum columns
   // the tiles' output columns
   const int kout = GEN ? net.layer[net.n_layers - 1].kout : 16;
-  const long np = (long)N * Ts;
+  const long np = V == V_GRID ? np_grid : (long)N * Ts;
   // view weights: VG [G][H] (row 0 zero), VS [sh_dim][H], VR [n_rest][H][H]
   const int H = view.H;
   const T* VG = VW;
@@ -2075,7 +2336,7 @@ composite_kernel(Net net, View view, Plan pl, const float* __restrict__ x3,
                                            : point(s + steps_apart, 0, row);
         load_point(x3, np, nxt, xn);
         tile<T, V>(net, pl, W, b, x, b.outb + tt * TILE * pl.ldo, kout,
-                   GEN ? park : nullptr, ring);
+                   GEN ? park : nullptr, ring, sl);
 #pragma unroll
         for (int a = 0; a < 3; ++a) x[a] = xn[a];
       }
@@ -2093,6 +2354,11 @@ composite_kernel(Net net, View view, Plan pl, const float* __restrict__ x3,
         float* wts = b.wts + row0;
         float* tsb = b.tsb + row0;
         const long roff = ray_offset(n, Ts, pack_q);
+        // the ray's direction, loaded first (see sh_component)
+        float pdir[3] = {0.0f, 0.0f, 0.0f};
+        if (H)
+#pragma unroll
+          for (int c = 0; c < 3; ++c) pdir[c] = rays8[n * 8 + 3 + c];
         if (t_lo == 0) {  // the ray's first segment
           carry = 0.0f;
 #pragma unroll
@@ -2186,8 +2452,7 @@ composite_kernel(Net net, View view, Plan pl, const float* __restrict__ x3,
         }
         __syncwarp();
         if (H) {
-          const float* rr = rays8 + n * 8;
-          const float dx = rr[3], dy = rr[4], dz = rr[5];
+          const float dx = pdir[0], dy = pdir[1], dz = pdir[2];
           const float inv = rsqrtf(dx * dx + dy * dy + dz * dz + 1e-20f);
           if (lane < view.sh_dim)
             vsh[lane] = rnd<T>(misc[0] * sh_component(lane, dx * inv,
@@ -2308,19 +2573,17 @@ int launch_prop(const Net& net, const Plan& pl, const float* x3, long np,
 }
 
 // the blocks of `kernel` resident on the card at the plan's block size
-// (pl.wgs warpgroups, and the producer warp with the ring) and shared
-// memory: the persistent grid's size, and the slots of the park buffer
-// (park_blocks)
-template <typename K>
-long resident_blocks(K kernel, const Plan& pl, bool ring) {
+// (pl.wgs warpgroups and the aux ones) and shared memory: the persistent
+// grid's size, and the slots of the park buffer (park_blocks)
+template <int V, typename K>
+long resident_blocks(K kernel, const Plan& pl) {
   int dev = 0, n_sm = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        pl.total);
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, kernel, pl.wgs * 128 + (ring ? PRODUCER_THREADS : 0),
-      pl.total);
+      &per_sm, kernel, (pl.wgs + aux_wgs<V>(pl)) * 128, pl.total);
   return (long)n_sm * (per_sm < 1 ? 1 : per_sm);
 }
 
@@ -2336,10 +2599,10 @@ struct Launch {
 // over the resident blocks (one an SM), not packed into fewer full ones.
 // grid 0 where the park buffer (sized by park_blocks, slots for pl.wgs
 // warpgroups a block) has too few slots.
-template <typename K>
+template <int V, typename K>
 Launch launch_size(K kernel, const Plan& pl, bool ring, long work_items,
                    int park_words, long park_bytes) {
-  const long resident = resident_blocks(kernel, pl, ring);
+  const long resident = resident_blocks<V>(kernel, pl);
   auto passes = [&](int w) {
     return (work_items + resident * w - 1) / (resident * w);
   };
@@ -2350,14 +2613,26 @@ Launch launch_size(K kernel, const Plan& pl, bool ring, long work_items,
   if (pl.park_chunks &&
       park_bytes < grid * pl.wgs * pl.park_chunks * park_words * 128 * 4L)
     grid = 0;
-  return Launch{(int)grid, wgs, wgs * 128 + (ring ? PRODUCER_THREADS : 0)};
+  return Launch{(int)grid, wgs, (wgs + aux_wgs<V>(pl)) * 128};
 }
 
-// The ring's plan (the bf16 V_WIDE kernels, which run on nothing else):
-// 2..MAX_STAGES stages of UNIT_B bytes, the barriers after them, and the
-// zero block where a layer's columns are not whole units. A bf16 V_WIDE
-// plan without it, or another plan with it, is refused.
+// The ring's plan (the bf16 V_WIDE and V_GRID kernels, which run on
+// nothing else): 2..MAX_STAGES stages of UNIT_B bytes, the barriers after
+// them, and the zero block where a layer's columns are not whole units. A
+// bf16 V_WIDE or V_GRID plan without it, or another plan with it, is
+// refused; so is a V_GRID plan without its encoding slots (a multiple of
+// its consumers, each a tile's encoding and sigma sums), or another plan
+// with them.
 bool ring_plan_ok(const Net& net, const Plan& pl, bool ring) {
+  if (pl.variant != V_GRID) {
+    if (pl.slots || pl.slot_b) return false;
+  } else if (pl.slots < pl.wgs || pl.slots > MAX_SLOTS ||
+             pl.slots % pl.wgs ||
+             pl.enc_b != align16(TILE * pl.lde * 2) ||
+             pl.sig_b != align16(TILE * 4) ||
+             pl.slot_b != pl.enc_b + pl.sig_b || pl.lde != net.ke) {
+    return false;
+  }
   if (!ring) return pl.w_mode != W_RING;
   bool zero = false;
   for (int l = 0; l < net.n_layers; ++l) zero |= net.layer[l].w_ld % UNIT_K;
@@ -2367,13 +2642,14 @@ bool ring_plan_ok(const Net& net, const Plan& pl, bool ring) {
 }
 
 // A ring kernel starts with the registers its setmaxnreg budget counts on
-// (RING_ENTRY_REGS), or it is refused (-2): its consumers' increase would
-// wait for registers the producer cannot give back.
-template <typename K>
+// (RING_ENTRY_REGS; V_GRID: GRID_ENTRY_REGS), or it is refused (-2): its
+// consumers' increase would wait for registers the producer (the
+// encoders) cannot give back.
+template <int V, typename K>
 bool ring_regs_ok(K kernel) {
   cudaFuncAttributes a;
   return cudaFuncGetAttributes(&a, kernel) == cudaSuccess &&
-         a.numRegs == RING_ENTRY_REGS;
+         a.numRegs == (V == V_GRID ? GRID_ENTRY_REGS : RING_ENTRY_REGS);
 }
 
 // the plan's own checks: the kernels trust it for every buffer they carve
@@ -2404,11 +2680,12 @@ int launch_tmlp(const Net& net, const Plan& pl, const float* x3, long np,
     return -1;
   if (V == V_WIDE && sizeof(T) == 4 && pl.w_mode == W_STREAM && !pl.unit_k)
     return -1;
-  if (ring && !ring_regs_ok(tmlp_kernel<T, V>)) return -2;
+  if (ring && !ring_regs_ok<V>(tmlp_kernel<T, V>)) return -2;
   const Launch ln =
-      launch_size(tmlp_kernel<T, V>, pl, ring, (np + TILE - 1) / TILE,
+      launch_size<V>(tmlp_kernel<T, V>, pl, ring, (np + TILE - 1) / TILE,
                   sizeof(T) == 2 ? NA / 2 : NA, park_bytes);
   if (ln.grid < 1) return (int)cudaErrorInvalidValue;
+  if (V == V_GRID && pl.slots % ln.wgs) return -1;
   tmlp_kernel<T, V><<<ln.grid, ln.threads, pl.total, stream>>>(
       net, pl, x3, np, out, out_rows, park);
   return (int)cudaGetLastError();
@@ -2425,6 +2702,11 @@ int launch_tmlp_of(const Net& net, const Plan& pl, const float* x3, long np,
     case V_BRANCHES:
       return launch_tmlp<T, V_BRANCHES>(net, pl, x3, np, out, out_rows, park,
                                         park_bytes, stream);
+    case V_GRID:  // bf16 only
+      if constexpr (sizeof(T) == 2)
+        return launch_tmlp<T, V_GRID>(net, pl, x3, np, out, out_rows, park,
+                                      park_bytes, stream);
+      return -1;
     default:
       return launch_tmlp<T, V_WIDE>(net, pl, x3, np, out, out_rows, park,
                                     park_bytes, stream);
@@ -2469,10 +2751,11 @@ int launch_composite(const Net& net, View view, const Plan& pl,
     return -1;
   const long n_steps = ((long)c.N + pl.R - 1) / pl.R;
   auto* kernel = composite_of<T, V>(pl);
-  if (ring && !ring_regs_ok(kernel)) return -2;
-  const Launch ln = launch_size(kernel, pl, ring, n_steps,
+  if (ring && !ring_regs_ok<V>(kernel)) return -2;
+  const Launch ln = launch_size<V>(kernel, pl, ring, n_steps,
                                 sizeof(T) == 2 ? NA / 2 : NA, park_bytes);
   if (ln.grid < 1) return (int)cudaErrorInvalidValue;
+  if (V == V_GRID && pl.slots % ln.wgs) return -1;
   kernel<<<ln.grid, ln.threads, pl.total, stream>>>(
       net, view, pl, c.x3, c.dl, c.ts, c.rays8, c.N, c.Ts, c.pack_q, c.opaque,
       c.gsum, c.depth, c.wsum, c.rgb, park);
@@ -2490,6 +2773,11 @@ int launch_composite_of(const Net& net, View view, const Plan& pl,
     case V_BRANCHES:
       return launch_composite<T, V_BRANCHES>(net, view, pl, c, park,
                                              park_bytes, stream);
+    case V_GRID:  // bf16 only
+      if constexpr (sizeof(T) == 2)
+        return launch_composite<T, V_GRID>(net, view, pl, c, park,
+                                           park_bytes, stream);
+      return -1;
     default:
       return launch_composite<T, V_WIDE>(net, view, pl, c, park, park_bytes,
                                          stream);
@@ -2509,13 +2797,12 @@ extern "C" int plan_size() { return (int)sizeof(Plan); }
 extern "C" long park_blocks(int use_bf16, int composite, const void* plan) {
   const Plan& pl = *static_cast<const Plan*>(plan);
   if (!pl.park_chunks || pl.variant != V_WIDE) return 0;
-  const bool ring = use_bf16;  // ring_of<bf16>(V_WIDE)
   if (composite)
     return use_bf16
-               ? resident_blocks(composite_of<bf16, V_WIDE>(pl), pl, ring)
-               : resident_blocks(composite_of<float, V_WIDE>(pl), pl, ring);
-  return use_bf16 ? resident_blocks(tmlp_kernel<bf16, V_WIDE>, pl, ring)
-                  : resident_blocks(tmlp_kernel<float, V_WIDE>, pl, ring);
+               ? resident_blocks<V_WIDE>(composite_of<bf16, V_WIDE>(pl), pl)
+               : resident_blocks<V_WIDE>(composite_of<float, V_WIDE>(pl), pl);
+  return use_bf16 ? resident_blocks<V_WIDE>(tmlp_kernel<bf16, V_WIDE>, pl)
+                  : resident_blocks<V_WIDE>(tmlp_kernel<float, V_WIDE>, pl);
 }
 
 // `grids` points to a Grids and `plan` to a Plan (void pointers: a type of

@@ -98,6 +98,36 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
       "r"(parity)
       : "memory");
 }
+// A monotonic count in shared memory (the V_GRID encoding slots' releases):
+// `pred` threads add 1 with release semantics, as one predicated
+// instruction; a waiter loads it with acquire semantics until it reaches
+// `target` (a count has no phase that a waiter two uses behind could
+// mistake for its own, as an mbarrier's parity does), trapping after 2^32
+// clocks as mbar_wait does, the loop inside the asm.
+__device__ __forceinline__ void count_add_if(uint32_t addr, bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n"
+      "@p red.release.cta.shared::cta.add.u32 [%0], 1;\n}\n" ::"r"(addr),
+      "r"((uint32_t)pred)
+      : "memory");
+}
+__device__ __forceinline__ void count_wait(uint32_t addr, uint32_t target) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .u32 v;\n.reg .u64 t0, t1;\n"
+      "mov.u64 t0, %%clock64;\n"
+      "WAITC:\n"
+      "ld.acquire.cta.shared::cta.u32 v, [%0];\n"
+      "setp.ge.u32 p, v, %1;\n"
+      "@p bra DONEC;\n"
+      "mov.u64 t1, %%clock64;\n"
+      "sub.u64 t1, t1, t0;\n"
+      "setp.gt.u64 p, t1, 4294967296;\n"
+      "@p trap;\n"
+      "bra WAITC;\n"
+      "DONEC:\n}\n" ::"r"(addr),
+      "r"(target)
+      : "memory");
+}
 // bytes (a multiple of 16, both addresses 16-byte aligned) from global to
 // shared memory by the copy engine, completing as transactions on bar
 __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,

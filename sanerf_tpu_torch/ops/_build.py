@@ -66,11 +66,16 @@ def _start(name: str, csrc: Path = None, build_dir: Path = None):
 
 
 def _finish(name: str, out: Path, job) -> str:
+    """-> nvcc's log of the library at `out`, kept beside it (the same name,
+    .log; and as <name>.log, the last build's): a library built before
+    gives the log of its own build."""
     if job is None:
-        return ""
+        log = out.with_suffix(".log")
+        return log.read_text() if log.exists() else ""
     proc, tmp = job
     log, _ = proc.communicate()
     (out.parent / f"{name}.log").write_text(log)
+    out.with_suffix(".log").write_text(log)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
     os.replace(tmp, out)
@@ -78,7 +83,8 @@ def _finish(name: str, out: Path, job) -> str:
 
 
 def build_all() -> Dict[str, str]:
-    """Compile every kernel source in parallel; -> {name: nvcc log}."""
+    """Compile every kernel source in parallel; -> {name: nvcc log} (of
+    the build before, where the library was built already)."""
     with _lock:
         jobs = {n: _start(n) for n in SOURCES}
         return {n: _finish(n, *jobs[n]) for n in SOURCES}

@@ -83,10 +83,17 @@ TILE, NA, CHUNK, PAD, MAX_STEP = 64, 64, 128, 8, 448
 SEGMENTS = (256, 128, 64)
 UNIT_K = 64
 W_GLOBAL, W_ALL, W_STREAM, W_RING = 0, 1, 2, 3
-V_SERVED, V_BRANCHES, V_WIDE = 0, 1, 2
+V_SERVED, V_BRANCHES, V_WIDE, V_GRID = 0, 1, 2, 3
 # the V_WIDE kernels' warpgroups a block: bf16 (consumers of the ring),
 # float32 (csrc/fused_mlp_t.cu: WIDE_WGS, WIDE_F32_WGS)
 WIDE_WGS, WIDE_F32_WGS = 3, 2
+# the V_GRID kernels (bf16 nets of the grid family, _grid_net): consumer
+# warpgroups and encoder warpgroups a block (csrc/fused_mlp_t.cu: GRID_WGS,
+# GRID_ENC_WGS); the most encoding slots (MAX_SLOTS) and ring stages the
+# plan takes; SLOT_BAR_B bytes of the slots' barriers
+GRID_WGS, GRID_ENC_WGS = 2, 2
+GRID_SLOTS, GRID_STAGES = 4, 8
+MAX_SLOTS, SLOT_BAR_B = 8, 16 * 8
 # the bf16 V_WIDE weight ring (W_RING): units of UNIT_B bytes (a chunk's
 # 128 rows over UNIT_K columns), MIN_STAGES to MAX_STAGES of them, then
 # RING_BAR_B bytes of barriers and, where a layer's columns are not whole
@@ -182,6 +189,7 @@ class TransposedFieldMLP:
         self._packed = self._bias = self._layout = self._levels = None
         self._plans = {}
         self._parks = {}
+        self._grid = None  # _grid_net's answer
 
     @property
     def tables(self):
@@ -360,6 +368,8 @@ def encode_probes(tm: TransposedFieldMLP) -> list:
         probes.append(TransposedFieldMLP(
             [{"w": w.to(tm.dtype).to(tm.ws[0].device)}], tm.enc_freqs,
             tm.bound, angle_double=tm.angle_double, **grids))
+        # on tm's route (V_GRID or not), whose encode it reads back
+        probes[-1]._grid = _grid_net(tm)
     return probes
 
 
@@ -575,13 +585,13 @@ class KernelPlan(ctypes.Structure):
     composite's steps (M points of R whole rays, or one ray in nseg
     segments of M), the float32 V_WIDE weight unit and parked chunks, the
     kernel (its variant, small_kernel, the general composite epilogue,
-    prop_kernel) and the bf16 V_WIDE weight ring (stages of unit_b
-    bytes)."""
+    prop_kernel), the bf16 V_WIDE and V_GRID weight ring (stages of unit_b
+    bytes) and V_GRID's encoding slots (slots of slot_b bytes)."""
     _fields_ = [(name, _I) for name in (
         "lde", "ldo", "M", "R", "ldh", "wgs", "w_mode", "w_bytes", "v_bytes",
         "enc_b", "h_b", "out_b", "sig_b", "wts_b", "ts_b", "vin_b", "per_wg",
         "total", "nseg", "vld", "unit_k", "park_chunks", "variant", "small",
-        "general", "prop", "stages", "unit_b")]
+        "general", "prop", "stages", "unit_b", "slots", "slot_b")]
 
     def as_dict(self) -> dict:
         return {name: getattr(self, name) for name, _ in self._fields_}
@@ -608,20 +618,24 @@ def _max_wgs(bf16: bool, composite: bool, variant: int) -> int:
     """csrc/fused_mlp_t.cu:wgs_of: the warpgroups a block starts from."""
     if variant == V_WIDE:
         return WIDE_WGS if bf16 else WIDE_F32_WGS
+    if variant == V_GRID:
+        return GRID_WGS
     if bf16:
         return 4 if composite else 3
     return 2 if composite else 3
 
 
 def _make_plan(layers, ke, es, w_elems, v_elems, wgs, M, R, ldo, composite,
-               wide, w_mode, v_smem, unit_k=0, nseg=1, vld=128, stages=0):
+               wide, w_mode, v_smem, unit_k=0, nseg=1, vld=128, stages=0,
+               slots=0):
     """The shared-memory plan of one choice (csrc/fused_mlp_t.cu reads it as
     it is): the weights (all, the largest streamed unit: a layer, a
     V_WIDE chunk of 128 rows, or unit_k columns of one; or the ring's
-    stages and barriers), the view head, and per warpgroup the encoding,
-    the hidden activations (V_WIDE), the last layer's outputs of a step,
-    the sigma sums and the composite's weights, midpoints and view
-    scratch."""
+    stages and barriers), the view head, V_GRID's `slots` encoding slots
+    (a tile's encoding and sigma sums each) and their barriers, and per
+    warpgroup the encoding and the sigma sums (not V_GRID's), the hidden
+    activations (V_WIDE, V_GRID), the last layer's outputs of a step and
+    the composite's weights, midpoints and view scratch."""
     p = KernelPlan(wgs=wgs, M=M, R=R, ldo=ldo, w_mode=w_mode, unit_k=unit_k,
                    nseg=nseg, vld=vld)
     p.lde = ke if es == 2 else ke + PAD
@@ -640,14 +654,17 @@ def _make_plan(layers, ke, es, w_elems, v_elems, wgs, M, R, ldo, composite,
     p.v_bytes = _align16(v_elems * es) if v_elems and v_smem else 0
     p.enc_b = _align16(TILE * p.lde * es)
     p.ldh = hw if es == 2 else hw + PAD
-    p.h_b = _align16(TILE * p.ldh * es) if wide else 0
+    p.h_b = _align16(TILE * p.ldh * es) if wide or slots else 0
     p.out_b = _align16(M * ldo * 4)
     p.sig_b = _align16(TILE * 4)
     p.wts_b = p.ts_b = _align16(M * 4) if composite else 0
     p.vin_b = 4 * vld * 4 if composite else 0
-    p.per_wg = (p.enc_b + p.h_b + p.out_b + p.sig_b + p.wts_b + p.ts_b
-                + p.vin_b)
-    p.total = p.w_bytes + p.v_bytes + wgs * p.per_wg
+    own = 0 if slots else p.enc_b + p.sig_b
+    p.per_wg = own + p.h_b + p.out_b + p.wts_b + p.ts_b + p.vin_b
+    if slots:
+        p.slots, p.slot_b = slots, p.enc_b + p.sig_b
+    p.total = (p.w_bytes + p.v_bytes + wgs * p.per_wg
+               + (slots * p.slot_b + SLOT_BAR_B if slots else 0))
     p.park_chunks = max(0, -(-hw // CHUNK) - 2) if wide else 0
     return p
 
@@ -665,6 +682,22 @@ def _fit(layers, ke, bf16, w_elems, v_elems, max_wgs, M, R, ldo, composite,
     memory where it fits."""
     es = 2 if bf16 else 4
     v_choices = (True, False) if v_elems else (False,)
+    if kw.pop("grid", False):
+        # V_GRID: the weight ring and the encoding slots, the most
+        # consumers, the view head in shared memory where it fits, the
+        # most slots (a multiple of the consumers: each slot then one
+        # consumer's), then the most stages
+        for w in range(max_wgs, 0, -1):
+            for v_smem in v_choices:
+                for slots in range(GRID_SLOTS // w * w, w - 1, -w):
+                    for stages in range(GRID_STAGES, MIN_STAGES - 1, -1):
+                        p = _make_plan(layers, ke, es, w_elems, v_elems, w, M,
+                                       R, ldo, composite, wide, W_RING,
+                                       v_smem, stages=stages, slots=slots,
+                                       **kw)
+                        if p.total <= SMEM_LIMIT:
+                            return p
+        return None
 
     def fits(w_mode, unit_k, wgs):
         for v_smem in v_choices:
@@ -767,6 +800,31 @@ def _prop_plan(tm: "TransposedFieldMLP", layers, ke: int,
     return p if p.total <= SMEM_LIMIT else None
 
 
+def _grid_net(tm: "TransposedFieldMLP") -> bool:
+    """Whether tm takes the V_GRID kernels: a bf16 net of the grid family
+    (VM planes and lines, CP ladders of two levels or more, a sigma-VM
+    table; the asset's one CP line table and sigma-CP table keep V_SERVED)
+    with no layer over 128, whose weights the kernels before V_GRID held
+    whole in shared memory (run_tmlp's plan without V_GRID is W_ALL:
+    grid_student, the sigma-VM model, the quality recipe). Where they
+    stream (W_STREAM: the ladders' 160 -> 128 x 7 nets, 283 KB), four
+    warpgroups a block that each encode and run their own chain beat
+    V_GRID's two consumers (PERF.md section 6, PR 18), and the nets keep
+    V_SERVED / V_BRANCHES. An encode probe takes its field's route (set by
+    encode_probes). Cached per net."""
+    if tm._grid is None:
+        desc, w_elems = tm.layout()
+        layers = _layer_rows(desc)
+        plan = None
+        if (tm.dtype == torch.bfloat16 and int(desc[5]) <= CHUNK
+                and (tm.vm or len(tm.cp) > 1 or tm.svm is not None)):
+            plan = _fit(layers, int(desc[4]), True, w_elems, 0,
+                        _max_wgs(True, False, V_SERVED), TILE, 0,
+                        layers[-1][2] + 1, False, False)
+        tm._grid = plan is not None and plan.w_mode == W_ALL
+    return tm._grid
+
+
 def route(tm: "TransposedFieldMLP") -> str:
     """The kernel run_tmlp launches for tm: small_kernel, prop_kernel or
     tmlp_kernel (kernel_plan's choice)."""
@@ -806,8 +864,10 @@ def kernel_plan(tm: "TransposedFieldMLP", T: Optional[int] = None,
     # descriptor's slots (csrc/fused_mlp_t.cu: Variant)
     long_ladder = max(len(tm.cp), len(tm.vm)) > INLINE_LEVELS
     variant = (V_WIDE if hmax > CHUNK else
+               V_GRID if _grid_net(tm) else
                V_BRANCHES if (tm.bs is not None or not tm.angle_double
                               or long_ladder) else V_SERVED)
+    grid = variant == V_GRID
     wide, ke = variant == V_WIDE, int(desc[4])
     kout, G = layers[-1][2], layers[-1][3]
     plan = None
@@ -819,7 +879,7 @@ def kernel_plan(tm: "TransposedFieldMLP", T: Optional[int] = None,
             if plan is None:
                 plan = _fit(layers, ke, bf16, w_elems, 0,
                             _max_wgs(bf16, False, variant), TILE, 0,
-                            kout + 1, False, wide)
+                            kout + 1, False, wide, grid=grid)
     else:
         if T < 1:
             raise ValueError(f"composite: T={T}")
@@ -846,7 +906,8 @@ def kernel_plan(tm: "TransposedFieldMLP", T: Optional[int] = None,
                 plan = _fit(layers, ke, bf16, w_elems, v_elems,
                             _max_wgs(bf16, True, variant), M, R, kout + 1,
                             True, wide, nseg=nseg,
-                            vld=_view_scratch(G, H) if general else 128)
+                            vld=_view_scratch(G, H) if general else 128,
+                            grid=grid)
                 if plan is not None:
                     plan.general = int(general)
                     break
@@ -1011,6 +1072,8 @@ def run_tmlp(x: torch.Tensor, tm: TransposedFieldMLP,
         run_tmlp.launches += 1
         if plan.prop:
             run_tmlp.prop_launches += 1
+        if plan.variant == V_GRID:
+            run_tmlp.grid_launches += 1
         del keep
     return out
 
@@ -1018,6 +1081,9 @@ def run_tmlp(x: torch.Tensor, tm: TransposedFieldMLP,
 run_tmlp.launches = 0
 #: the launches of run_tmlp that took prop_kernel
 run_tmlp.prop_launches = 0
+#: the launches of run_tmlp (and below, of run_tmlp_composite) that took
+#: the V_GRID kernels
+run_tmlp.grid_launches = 0
 
 
 def run_tmlp_composite(xT: torch.Tensor, dl: torch.Tensor, ts: torch.Tensor,
@@ -1067,6 +1133,8 @@ def run_tmlp_composite(xT: torch.Tensor, dl: torch.Tensor, ts: torch.Tensor,
             torch.cuda.current_stream().cuda_stream)
         _raise_on(code, "run_tmlp_composite")
         run_tmlp_composite.launches += 1
+        if plan.variant == V_GRID:
+            run_tmlp_composite.grid_launches += 1
         if pack_q > 1:
             run_tmlp_composite.packed_launches += 1
         del keep
@@ -1077,3 +1145,4 @@ def run_tmlp_composite(xT: torch.Tensor, dl: torch.Tensor, ts: torch.Tensor,
 
 run_tmlp_composite.launches = 0
 run_tmlp_composite.packed_launches = 0
+run_tmlp_composite.grid_launches = 0

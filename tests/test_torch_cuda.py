@@ -1021,8 +1021,9 @@ def _chip_smoke():
 @pytest.fixture(scope="module")
 def planted(tmp_path_factory):
     """-> a context in which the field kernels carry the planted faults of
-    port_tools/field_branch_variants.py, drop_carry, lost_park, prop_lost_k
-    and ring_lost_k (each fires on a path the others' tests do not take):
+    port_tools/field_branch_variants.py, drop_carry, lost_park, prop_lost_k,
+    ring_lost_k and grid_lost_vm (each fires on a path the others' tests do
+    not take):
     csrc/fused_mlp_t.cu with their text substitutions
     (chip_smoke.planted_tree), built once."""
     if not torch.cuda.is_available():
@@ -1030,7 +1031,7 @@ def planted(tmp_path_factory):
     cs = _chip_smoke()
     tree = cs.planted_tree(tmp_path_factory.mktemp("planted"),
                            ("drop_carry", "lost_park", "prop_lost_k",
-                            "ring_lost_k"))
+                            "ring_lost_k", "grid_lost_vm"))
     return lambda: cs.kernels_from(tree)
 
 
@@ -1203,6 +1204,77 @@ def test_ring_refused_plan_raises(dev):
     x = torch.rand(3, 1000, generator=g, device=dev) * 8 - 4
     good = fm.kernel_plan(tm)
     for field, value in (("w_mode", fm.W_STREAM), ("stages", 9)):
+        bad = fm.KernelPlan.from_buffer_copy(good)
+        setattr(bad, field, value)
+        tm._plans[(None, None)] = bad
+        before = fm.run_tmlp.launches
+        with pytest.raises(RuntimeError, match="refused its plan"):
+            fm.run_tmlp(x, tm, transposed=True)
+        assert fm.run_tmlp.launches == before
+    tm._plans[(None, None)] = good
+    _ring_held(tm, g, dev, 1000)
+
+
+# the V_GRID kernels (the bf16 nets of the grid family whose weights fit
+# shared memory whole): those GRID_NETS nets on them, small launches, the
+# planted fault, a refused plan ----------------------------------------------
+
+
+def test_grid_kernels_take_v_grid(dev):
+    """Every bf16 net of GRID_NETS but the ladders launches on V_GRID (its
+    counters) in run_tmlp and the composite; the ladders (their 283 KB of
+    weights stream) and the float32 twins do not."""
+    g = torch.Generator(device=dev).manual_seed(160)
+    for name in sorted(GRID_NETS):
+        for dtype in (torch.bfloat16, torch.float32):
+            tm = _grid_net(name, g, dev, dtype)
+            x, dl, ts, r8 = _rays_of(33, 16, g, dev)
+            before = (fm.run_tmlp.grid_launches,
+                      fm.run_tmlp_composite.grid_launches)
+            fm.run_tmlp(x, tm, transposed=True)
+            fm.run_tmlp_composite(x, dl, ts, tm, True)
+            on = dtype == torch.bfloat16 and "ladder" not in name
+            assert fm._grid_net(tm) == on, (name, dtype)
+            assert (fm.run_tmlp.grid_launches,
+                    fm.run_tmlp_composite.grid_launches) == (
+                before[0] + on, before[1] + on), (name, dtype)
+
+
+def test_grid_small_launches(dev):
+    """Launches of 1, 64, 65, 16,384 and 1,000,003 points on V_GRID (fewer
+    consumers a block for the small ones, ragged last passes)."""
+    g = torch.Generator(device=dev).manual_seed(161)
+    tm = _grid_net("grid_student", g, dev, torch.bfloat16)
+    for P in (1, 64, 65, 16384, 1000003):
+        _ring_held(tm, g, dev, P)
+
+
+def test_grid_lost_vm_mode_fails(dev, planted):
+    """Planted fault in the encoders: a slot marked full without the last
+    VM mode's columns (field_branch_variants.py: grid_lost_vm), so the
+    chain reads the previous tile's there: the hold that the kernel passes
+    on the same points must fail."""
+
+    def held():
+        g = torch.Generator(device=dev).manual_seed(162)
+        _ring_held(_grid_net("grid_student", g, dev, torch.bfloat16), g, dev,
+                   20011)
+
+    held()
+    with planted():
+        with pytest.raises(AssertionError):
+            held()
+
+
+def test_grid_refused_plan_raises(dev):
+    """A V_GRID launch with fewer slots than consumers, or without the
+    ring, is refused by the C side and raises."""
+    g = torch.Generator(device=dev).manual_seed(163)
+    tm = _grid_net("sigma_vm", g, dev, torch.bfloat16)
+    assert fm.kernel_plan(tm).variant == fm.V_GRID
+    x = torch.rand(3, 1000, generator=g, device=dev) * 4 - 2
+    good = fm.kernel_plan(tm)
+    for field, value in (("slots", 1), ("w_mode", fm.W_STREAM)):
         bad = fm.KernelPlan.from_buffer_copy(good)
         setattr(bad, field, value)
         tm._plans[(None, None)] = bad
