@@ -119,15 +119,23 @@ Phases (any failure exits non-zero and prints no result line):
      each as the mean of 10 queued launches, against its bounds (the
      field kernels' CUDA-core and 3xTF32 ones); a resume in a fresh
      Trainer identical; step ms, peak memory, evaluation frame ms;
- T3. one full-width hash-grid step (8,192 rays) as shipped and with the
-     plain gather and index_add_ swapped in: table gradients within
-     SCATTER_TOL and SCATTER_MAG (a floor scaled by the adds'
-     magnitudes), the rest within GRAD_TOL x max|ref|; a planted fault in
-     any one backward launch (left unapplied, or half its adds dropped)
-     fails that hold; every gather_rows_backward launch of the step held
-     alone against index_add_, with max|ref| and the median |ref|, and
-     timed (medians of PROBE_REPS interleaved queued launches) with its
-     byte bound;
+ T3. one full-width hash-grid step (8,192 rays) as shipped (HASH_GRIDS
+     hash_grid_backward launches, none of gather_rows_backward) and with
+     the plain gather and hash_grid_backward_plain swapped in: table
+     gradients within SCATTER_TOL and SCATTER_MAG (a floor scaled by the
+     adds' magnitudes), the rest within GRAD_TOL x max|ref|; a fault
+     planted in the kernel's inputs (a level's output gradient zeroed, or
+     every other point's) at the first, the first hashed and the last
+     level of each grid fails that hold; every hash_grid_backward
+     launch, and one of ModelConfig()'s s_grid (C = 8), held alone against
+     its plain version and timed (medians of PROBE_REPS interleaved queued
+     launches) against it, one `index_add_` of the same adds and the
+     parent's route (one gather_rows_backward launch a level on the rows
+     its glue made, each of those launches also held and timed against
+     index_add_), with its byte bound and the adds at the card's rate of
+     vector atomics (port_tools/red_probe.cu); the full step with both
+     routes (ms, peak memory); one step with the TV term, whose
+     gather_rows_backward launches are that kernel's count;
  T4. the recipe of scripts/train_rgb_grids.sh (RECIPE_TRAIN: its first
      upsampling milestone moved to step 2) through Trainer.train for
      quality_recipe (over the budget: plain-path evaluation, 0 launches)
@@ -261,7 +269,7 @@ Phases (any failure exits non-zero and prints no result line):
      after, its seconds and peak memory: F1 `quality_gate` at its defaults
      for QG_ITERS iterations a family, PSNR above the untrained model's on
      the same ring, the MLP family's evaluation on the four kernels, the
-     hash grid's training on gather_rows and its backward; F2
+     hash grid's training on gather_rows and hash_grid_backward; F2
      `eval_student` on a workspace of the shipped asset's params, its
      three PSNRs within PSNR_TOL_DB of the JAX package's, the four kernels
      launched; F3 `hierarchy_gate` on F1's MLP checkpoint at three
@@ -624,8 +632,20 @@ CONVERGE_STEPS, CONVERGE_GAIN_DB, CONVERGE_MIN_DB = 400, 5.0, 15.0
 TRAIN_EPOCHS, TRAIN_STEPS, EVAL_SIZE = 2, 4, 64
 #: the hash grid's gathers per ray batch: 16 levels + 2 proposal grids of 5
 HASH_GATHERS = 16 + 2 * 5
-#: gather_rows_backward against index_add_: the atomics sum in another
-#: order. Element i is held at |d| <= SCATTER_TOL[0] + SCATTER_TOL[1] |ref|
+#: its table-gradient launches per step with proposal updates: one a grid
+#: (hash_grid_backward), the field's and the two proposal grids'
+HASH_GRIDS = 3
+#: T3's planted faults in hash_grid_backward's inputs at a level: its
+#: output gradient zeroed, every other point's zeroed
+HASH_FAULTS = ("zero", "half")
+#: T3's C = 8 launch: ModelConfig()'s s_grid at this many of the field's
+#: points; the rounds of its step timing (parent, change, change, parent)
+S_GRID_POINTS, STEP_ROUNDS = 262144, 3
+#: T3's TV step: the hash grid's TV term adds one gather_rows_backward
+#: launch a level of the field's grid
+TV_LAMBDA = 1e-3
+#: gather_rows_backward against index_add_, hash_grid_backward against
+#: its plain version: the atomics sum in another order. Element i is held at |d| <= SCATTER_TOL[0] + SCATTER_TOL[1] |ref|
 #: and at |d| <= SCATTER_MAG S_i + SCATTER_TOL[1] |ref|, S_i the sum of
 #: |grad_out| over the adds into i (index_add_ of the magnitudes). A float32
 #: sum of n terms in another order moves by ~2^-24 sqrt(n) S_i a side:
@@ -927,28 +947,137 @@ def scatter_floor(got, ref, mag):
     return float(c.max())
 
 
-def record_backward(ga, step, fault=None):
-    """Runs step() with every gather_rows_backward launch recorded. ->
-    (step's result, [(table rows, idx, grad_out)] in launch order).
-    fault = (j, kind) plants a fault in launch j: "skip" leaves it
-    unapplied, "half" drops the adds of every other index."""
-    real, seen = ga.gather_rows_backward, []
+def record_fused(hg, step, fault=None):
+    """Runs step() with every hash_grid_backward launch recorded. ->
+    (step's result, [(x01, g, spec, n_active)] in launch order). fault =
+    (j, level, kind) plants a fault in launch j's inputs: "zero" zeroes
+    that level's output gradient, "half" every other point's."""
+    real, seen = hg.hash_grid_backward, []
 
-    def recording(gt, idx, go):
+    def recording(x01, g, spec, n=None):
         j = len(seen)
-        seen.append((gt.shape[0], idx, go))
+        seen.append((x01, g, spec, n))
         if fault is not None and fault[0] == j:
-            if fault[1] == "skip":
-                return gt
-            idx = idx.clone()
-            idx.view(-1)[1::2] = -1
-        return real(gt, idx, go)
+            _, level, kind = fault
+            C = spec.level_dim
+            g = g.clone()
+            cols = g[:, level * C:(level + 1) * C]
+            if kind == "zero":
+                cols.zero_()
+            else:
+                cols[::2] = 0
+        return real(x01, g, spec, n)
 
-    ga.gather_rows_backward = recording
+    hg.hash_grid_backward = recording
     try:
         return step(), seen
     finally:
-        ga.gather_rows_backward = real
+        hg.hash_grid_backward = real
+
+
+def parent_launches(hg, x01, g, spec, n=None):
+    """The route hash_grid_backward replaced, on the same inputs: each
+    active level's taps and gradient rows as the parent's glue made them
+    (`_level_taps`' [K, B] int32 indices, the rows w g [K, B, C] float32,
+    zeros outside the cube). -> [(level rows, idx, rows, level offset)],
+    one gather_rows_backward launch each."""
+    B, L, C = x01.shape[0], spec.num_levels, spec.level_dim
+    oob = ((x01 < 0.0) | (x01 > 1.0)).any(dim=-1)
+    gl = g.reshape(B, L, C).masked_fill(oob[:, None, None], 0.0)
+    out = []
+    for level in range(L if n is None else n):
+        w, idx = hg._level_taps(x01, spec, level)
+        out.append((spec.sizes[level], idx,
+                    (w[..., None] * gl[None, :, level]).contiguous(),
+                    spec.offsets[level]))
+    return out
+
+
+def hold_fused(hg, ga, recs, dev, red):
+    """Every recorded hash_grid_backward launch run alone, held against
+    its plain version (scatter_floor, with the plain version of |g| as its
+    scale) and timed against the plain version, one `index_add_` of the
+    same adds (the rows of parent_launches, offsets added) and the parent's
+    route on the same inputs (a zero gradient and one gather_rows_backward
+    launch a level): medians and 10th / 90th percentiles of PROBE_REPS
+    interleaved launches queued behind a backlog. Bounds: the bytes
+    (points and output gradient read once, each touched row read and
+    written, the others written) and the adds at the card's rate for the
+    row's piece width (`red`, port_tools/red_probe.py's 4 MB table). ->
+    (sums over the launches, one record a launch)."""
+    import torch
+
+    kern = hg.hash_grid_backward
+    keys = ("ms", "plain_ms", "library_ms", "parent_route_ms")
+    tot = {**{k: 0.0 for k in keys}, **{k + "_p10_p90": [0.0, 0.0]
+                                         for k in keys},
+           "bound_ms": 0.0, "red_bound_ms": 0.0, "max_abs_err": 0.0,
+           "floor": 0.0, "adds": 0, "parent_launches": 0,
+           "timed_as": f"sums of medians of {PROBE_REPS} interleaved "
+                       f"launches queued behind a backlog"}
+    out = []
+    for x01, g, spec, n in recs:
+        D, L, C = spec.input_dim, spec.num_levels, spec.level_dim
+        n = L if n is None else n
+        B, R = x01.shape[0], spec.total_params
+        got = kern(x01, g, spec, n)
+        ref = hg.hash_grid_backward_plain(x01, g, spec, n)
+        mag = hg.hash_grid_backward_plain(x01, g.abs(), spec, n)
+        floor = scatter_floor(got, ref, mag)
+        parents = parent_launches(hg, x01, g, spec, n)
+        inb = ((x01 >= 0.0) & (x01 <= 1.0)).all(dim=-1)
+        U = sum(int(torch.unique(i[:, inb]).numel())
+                for _, i, _, _ in parents)
+        adds = int(inb.sum()) * (1 << D) * n
+        width = 4 if C % 4 == 0 else (2 if C % 2 == 0 else 1)
+        rate = red["4 MB"][{1: "f32", 2: "f32x2", 4: "f32x4"}[width]]
+        rec = {"spec": f"D {D}, C {C}, {n} of {L} levels, {R} rows, "
+                       f"{spec.interpolation}, {spec.gridtype}",
+               "points": B,
+               "hashed_levels": [lv for lv in range(n) if spec.hashed[lv]],
+               "adds": adds, "touched_rows": U,
+               "max_abs_ref": float(ref.abs().max()),
+               "max_abs_err": float((got - ref).abs().max()),
+               "floor": floor}
+        check(floor <= SCATTER_MAG, f"hash_grid_backward {rec['spec']}: "
+                                    f"{rec}")
+        flat_i = torch.cat([i.reshape(-1).long() + o
+                            for _, i, _, o in parents])
+        flat_r = torch.cat([r.reshape(-1, C) for _, _, r, _ in parents])
+        buf = torch.zeros(R, C, device=dev)
+
+        def parent_route():
+            gt = torch.zeros(R, C, device=dev)
+            for s_, i, r, o in parents:
+                ga.gather_rows_backward(gt[o:o + s_], i, r)
+
+        del got, ref, mag
+        times = interleaved_ms([
+            lambda: kern(x01, g, spec, n),
+            lambda: hg.hash_grid_backward_plain(x01, g, spec, n),
+            lambda: buf.index_add_(0, flat_i, flat_r),
+            parent_route])
+        bound = (4 * D * B + 4 * L * C * B + 4 * C * (R + U)) / HBM_BPS * 1e3
+        red_ms = adds * (C // width) / (rate * 1e9) * 1e3
+        for k, t in zip(keys, times):
+            rec[k] = list(t)
+            tot[k] += t[0]
+            tot[k + "_p10_p90"] = [tot[k + "_p10_p90"][0] + t[1],
+                                   tot[k + "_p10_p90"][1] + t[2]]
+        rec.update(bound_ms=bound, red_bound_ms=red_ms,
+                   share_bytes=bound / times[0][0],
+                   share_red=red_ms / times[0][0],
+                   parent_launches=len(parents))
+        tot["bound_ms"] += bound
+        tot["red_bound_ms"] += red_ms
+        tot["adds"] += adds
+        tot["parent_launches"] += len(parents)
+        tot["max_abs_err"] = max(tot["max_abs_err"], rec["max_abs_err"])
+        tot["floor"] = max(tot["floor"], floor)
+        out.append(rec)
+        del parents, flat_i, flat_r, buf
+        torch.cuda.empty_cache()
+    return tot, out
 
 
 def hold_backward(ga, seen, dev):
@@ -1010,6 +1139,27 @@ def hold_backward(ga, seen, dev):
     return tot, launches
 
 
+def s_grid_launch(model, seen, dev):
+    """T3's C = 8 launch: ModelConfig()'s s_grid at S_GRID_POINTS of the
+    recorded step's field points, its output gradient drawn at the scale
+    of the field's (a step's gradients are 1e-6 and below, the scale
+    SCATTER_TOL's absolute floor holds). -> (x01, g, spec, None)."""
+    import torch
+
+    from sanerf_tpu_torch.config import ModelConfig, RenderConfig
+    from sanerf_tpu_torch.models import fields
+
+    s_spec = fields.make_model(ModelConfig(field_type="hashgrid",
+                                           with_sam=True),
+                               RenderConfig()).s_grid_spec
+    x_f, g_f = next((x, g) for x, g, sp, _ in seen if sp == model.grid_spec)
+    x8 = x_f[:S_GRID_POINTS].contiguous()
+    g8 = torch.randn(x8.shape[0], s_spec.output_dim,
+                     generator=torch.Generator(device=dev).manual_seed(8),
+                     device=dev) * float(g_f.std())
+    return x8, g8, s_spec, None
+
+
 def hash_step(model, tc, params, batch, draws):
     """One rgb_loss_fn gradient of the hash-grid step (state.loss_and_grads
     with proposal updates) -> (loss, {leaf path: gradient})."""
@@ -1023,12 +1173,23 @@ def hash_step(model, tc, params, batch, draws):
 
 def hash_step_phase(dev, textured):
     """Phase T3: one full-width hash-grid step (RenderConfig(),
-    TrainConfig(), 8,192 rays) as shipped and with the plain gather and
-    index_add_ swapped in; each table gradient held at scatter_floor, the
-    rest at GRAD_TOL x max|ref|; a planted fault in each backward launch
-    (left unapplied; half its adds dropped) must fail that hold; every
-    launch held alone and timed (hold_backward). -> (T3's record,
-    hold_backward's sums and launches)."""
+    TrainConfig(), 8,192 rays) as shipped (HASH_GRIDS hash_grid_backward
+    launches, no gather_rows_backward) and with the plain gather and
+    hash_grid_backward_plain swapped in; each table gradient held at
+    scatter_floor, the rest at GRAD_TOL x max|ref|; planted faults in the
+    kernel's inputs (a level's output gradient zeroed, or every other
+    point's) at the first, the first shared-memory and the last level of
+    each grid must fail that hold; every launch held alone and timed
+    (hold_fused), and ModelConfig()'s s_grid (C = 8) at S_GRID_POINTS of
+    the step's points; the parent's route (one gather_rows_backward a
+    level, on the rows its glue made) held and timed launch by launch
+    (hold_backward); the full step (optimizer and EMA too) timed with
+    both routes, and its peak memory; one step with the TV term
+    (TV_LAMBDA), which adds one gather_rows_backward launch a level of
+    the field's grid. -> (T3's record, hold_fused's sums, the parent
+    route's sums and launches, the TV step's launches)."""
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -1037,6 +1198,9 @@ def hash_step_phase(dev, textured):
     from sanerf_tpu_torch.ops import gather as ga
     from sanerf_tpu_torch.ops import hashgrid as hg
     from sanerf_tpu_torch.train import state as st_lib
+
+    sys.path.insert(0, os.path.join(ROOT, "port_tools"))
+    import red_probe
 
     model = fields.make_model(ModelConfig(field_type="hashgrid"),
                               RenderConfig())
@@ -1054,27 +1218,34 @@ def hash_step_phase(dev, textured):
         torch.cuda.synchronize()
         return out
 
-    bwd_fn = ga.gather_rows_backward
-    bwd_fn.launches = 0
-    (loss_k, g_k), seen = record_backward(ga, step)
-    check(bwd_fn.launches == len(seen) == HASH_GATHERS,
-          f"T3: {bwd_fn.launches} gather_rows_backward launches, "
-          f"{len(seen)} recorded")
-    real_fwd = ga.gather_rows
+    fused_n, level_n = hg._HASH_GRID_BACKWARD, ga._GATHER_ROWS_BACKWARD
+    fused_n.launches = level_n.launches = 0
+    (loss_k, g_k), seen = record_fused(hg, step)
+    check(fused_n.launches == len(seen) == HASH_GRIDS
+          and level_n.launches == 0,
+          f"T3: {fused_n.launches} hash_grid_backward launches, "
+          f"{len(seen)} recorded, {level_n.launches} gather_rows_backward")
+    grids = [next(name for name, sp in (("grid", model.grid_spec),
+                                        *((f"prop/{i}/grid", sp) for i, sp
+                                          in enumerate(model.prop_specs)))
+                  if sp == spec) for _, _, spec, _ in seen]
+    check(sorted(grids) == sorted(HASH_TABLES), f"T3: launches of {grids}")
+    real_fwd = hg.gather_rows
 
     def plain_step(bwd):
-        ga.gather_rows = hg.gather_rows = ga.gather_rows_plain
-        ga.gather_rows_backward = hg.gather_rows_backward = bwd
+        hg.gather_rows = ga.gather_rows_plain
+        hg.hash_grid_backward = bwd
         try:
             return step()
         finally:
-            ga.gather_rows = hg.gather_rows = real_fwd
-            ga.gather_rows_backward = hg.gather_rows_backward = bwd_fn
+            hg.gather_rows = real_fwd
+            hg.hash_grid_backward = fused_n
 
-    loss_p, g_p = plain_step(ga.gather_rows_backward_plain)
+    loss_p, g_p = plain_step(hg.hash_grid_backward_plain)
     # each table's S: the step's table gradient with every add's magnitude
-    _, g_m = plain_step(lambda gt, idx, go: ga.gather_rows_backward_plain(
-        gt, idx, go.abs()))
+    # (the weights are >= 0)
+    _, g_m = plain_step(lambda x01, g, spec, k: hg.hash_grid_backward_plain(
+        x01, g.abs(), spec, k))
     mag = {k: g_m[k] for k in HASH_TABLES}
     del g_m
     check(loss_k == loss_p, f"T3: loss {loss_k} vs plain {loss_p}")
@@ -1105,29 +1276,91 @@ def hash_step_phase(dev, textured):
     for k, (ok, d, f) in step_held.items():
         check(ok, f"T3: gradient {k} off the plain step: {d} (floor {f})")
     del g_k
-    # the hold must see a planted fault in any one launch
-    caught, least = 0, math.inf
-    for j in range(HASH_GATHERS):
-        for kind in ("skip", "half"):
-            (_, g_f), _ = record_backward(ga, step, (j, kind))
-            worst = max(f for ok, d, f in held(g_f).values()
-                        if f is not None)
-            check(worst > SCATTER_MAG,
-                  f"T3: a planted fault ({kind}) in backward launch {j} "
-                  f"passed the hold: floor {worst}")
-            caught += 1
-            least = min(least, worst)
-            del g_f
+    # the hold must see a fault planted in the kernel's inputs at the
+    # first, the first hashed and the last level of each grid
+    caught, least, faults = 0, math.inf, []
+    for j, (x01, _, spec, k) in enumerate(seen):
+        k = spec.num_levels if k is None else k
+        hashed = [lv for lv in range(k) if spec.hashed[lv]]
+        for level in sorted({0, k - 1, *hashed[:1]}):
+            for kind in HASH_FAULTS:
+                (_, g_f), _ = record_fused(hg, step, (j, level, kind))
+                worst = max(f for ok, d, f in held(g_f).values()
+                            if f is not None)
+                check(worst > SCATTER_MAG,
+                      f"T3: a planted fault ({kind}) at level {level} of "
+                      f"{grids[j]} passed the hold: floor {worst}")
+                caught += 1
+                least = min(least, worst)
+                faults.append([grids[j], level, kind, worst])
+                del g_f
     del g_p, ref, mag
-    bwd, per_launch = hold_backward(ga, seen, dev)
-    del seen, params, batch, draws
+    red = red_probe.rates(dev)
+    log(f"T3: red_probe {red}")
+    fused, per_launch = hold_fused(hg, ga, seen, dev, red)
+    log(f"T3: hash_grid_backward launches {per_launch}")
+    _, c8 = hold_fused(hg, ga, [s_grid_launch(model, seen, dev)], dev, red)
+    # the parent's route, launch by launch
+    level_seen = [(s_, i, r) for x01, g, spec, k in seen
+                  for s_, i, r, _ in parent_launches(hg, x01, g, spec, k)]
+    bwd, level_launches = hold_backward(ga, level_seen, dev)
+    del level_seen
+    log(f"T3: the parent's route, launch by launch {level_launches}")
+    # the full step with both routes: host clock around a synchronised
+    # step, its peak memory; the parent's route by the encode's own test
+    state = st_lib.create_train_state(model, tc, params=params)
+    train_step = st_lib.make_rgb_train_step(model, tc)
+    real_takes = hg.backward_takes
+    steps = {"fused": [], "parent_route": []}
+    peaks = {"fused": 0, "parent_route": 0}
+    for rnd in range(STEP_ROUNDS + 1):
+        for name in ("fused", "parent_route", "parent_route", "fused"):
+            if name == "parent_route":
+                hg.backward_takes = lambda spec, k: False
+            try:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t = time.perf_counter()
+                state, _ = train_step(state, batch, draws, True)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t) * 1e3
+            finally:
+                hg.backward_takes = real_takes
+            if rnd:  # the first round warms up
+                steps[name].append(ms)
+                peaks[name] = max(peaks[name],
+                                  torch.cuda.max_memory_allocated())
+    step_cmp = {k: {"step_ms_median": statistics.median(v),
+                    "step_ms_runs": v, "max_memory_allocated": peaks[k]}
+                for k, v in steps.items()}
+    log(f"T3: steps {step_cmp}")
+    # the TV term: gather_rows_backward's launches on the training path
+    tc_tv = dataclasses.replace(tc, lambda_tv=TV_LAMBDA)
+    tv_step = st_lib.make_rgb_train_step(model, tc_tv)
+    draws_tv = st_lib.draw_step(model, tc_tv, n,
+                                torch.Generator(device=dev).manual_seed(1),
+                                dev)
+    torch.cuda.synchronize()
+    fused_n.launches = level_n.launches = 0
+    tv_step(state, batch, draws_tv, True)
+    torch.cuda.synchronize()
+    tv = {"hash_grid_backward": fused_n.launches,
+          "gather_rows_backward": level_n.launches}
+    check(tv == {"hash_grid_backward": HASH_GRIDS,
+                 "gather_rows_backward": model.grid_spec.num_levels},
+          f"T3: the TV step's launches {tv}")
+    del seen, params, batch, draws, draws_tv, state
     torch.cuda.empty_cache()
-    log(f"T3: backward launches {per_launch}")
     return {"rays": n, "tables": tables,
             "grad_max_abs_err": {k: v[1] for k, v in step_held.items()},
+            "launches_of": dict(zip(grids, (r["points"]
+                                            for r in per_launch))),
             "planted_faults_caught": caught,
-            "least_planted_fault_floor": least,
-            "backward": bwd}, bwd, per_launch
+            "least_planted_fault_floor": least, "planted_faults": faults,
+            "red_probe_gadds_per_s": red, "fused": fused,
+            "fused_launches": per_launch, "s_grid_c8": c8[0],
+            "parent_route": bwd, "parent_route_launches": level_launches,
+            "steps": step_cmp, "tv_step_launches": tv}, fused, bwd, tv
 
 
 def path_gap(renderer, fast_model, slow_model, params, rays_o, rays_d, what,
@@ -3275,8 +3508,9 @@ def grid_phases(torch, np, dev, card, compare, launch_times, kern_fn,
 
 def train_phases(torch, np, dev, card, compare, launch_times, kern_fn):
     """Phases T1-T4, stage-1 training. -> the {"train": ...} record, with
-    gather_rows_backward's kernel row under "rows" and the float32 launches
-    of T2's evaluation frame per kernel under "eval_launches"."""
+    the kernel rows of hash_grid_backward and gather_rows_backward under
+    "rows" and the float32 launches of T2's evaluation frame per kernel
+    under "eval_launches"."""
     import shutil
 
     from sanerf_tpu_torch.config import (Config, ModelConfig, RenderConfig,
@@ -3285,6 +3519,7 @@ def train_phases(torch, np, dev, card, compare, launch_times, kern_fn):
     from sanerf_tpu_torch.models import fields, renderer
     from sanerf_tpu_torch.ops import fused_mlp_t as fm
     from sanerf_tpu_torch.ops import gather as ga
+    from sanerf_tpu_torch.ops import hashgrid as hg
     from sanerf_tpu_torch.ops import ray_kernels as rk
     from sanerf_tpu_torch.train import state as st_lib
     from sanerf_tpu_torch.train.checkpoints import flatten_tree
@@ -3381,7 +3616,8 @@ def train_phases(torch, np, dev, card, compare, launch_times, kern_fn):
 
         tr._train_step = timed
         torch.cuda.reset_peak_memory_stats()
-        counters = ray_mlp + [ga.gather_rows, ga.gather_rows_backward]
+        counters = ray_mlp + [ga.gather_rows, ga.gather_rows_backward,
+                              hg.hash_grid_backward]
         zero(counters)
         tr.train(textured, valid_dataset=valid, max_epoch=TRAIN_EPOCHS,
                  steps_per_epoch=TRAIN_STEPS)
@@ -3400,9 +3636,11 @@ def train_phases(torch, np, dev, card, compare, launch_times, kern_fn):
             check(all(path_launches[fam][c.__name__] > 0 for c in ray_mlp),
                   f"T2 {fam}: a kernel never ran: {path_launches[fam]}")
         else:
-            check(path_launches[fam]["gather_rows_backward"]
-                  == TRAIN_EPOCHS * TRAIN_STEPS * HASH_GATHERS,
-                  f"T2 {fam}: gather_rows_backward launches "
+            # every step updates the proposal nets (prop_warmup_steps)
+            check(path_launches[fam]["hash_grid_backward"]
+                  == TRAIN_EPOCHS * TRAIN_STEPS * HASH_GRIDS
+                  and path_launches[fam]["gather_rows_backward"] == 0,
+                  f"T2 {fam}: table-gradient launches "
                   f"{path_launches[fam]}")
         # one evaluation frame, its launches counted and recorded
         frame = valid.frame(0)
@@ -3469,11 +3707,13 @@ def train_phases(torch, np, dev, card, compare, launch_times, kern_fn):
         del tr, tr2, params
         torch.cuda.empty_cache()
 
-    # -- T3. the hash grid's step: kernels against the plain gather ------------
-    hstep, bwd, per_launch = hash_step_phase(dev, textured)
+    # -- T3. the hash grid's step: kernels against the plain versions --------
+    hstep, fused, bwd, tv = hash_step_phase(dev, textured)
     shapes = {}
-    for rec in per_launch:
+    for rec in hstep["parent_route_launches"]:
         shapes[rec["shape"]] = shapes.get(rec["shape"], 0) + 1
+    hstep["t2_step"] = {k: defaults["hashgrid"][k] for k in (
+        "step_ms_median", "max_memory_allocated")}
     log(f"T3: {hstep}")
 
     # -- T4. the grid recipe: ladders, sigma grids, TV, annealing, upsampling --
@@ -3508,31 +3748,69 @@ def train_phases(torch, np, dev, card, compare, launch_times, kern_fn):
         torch.cuda.empty_cache()
     shutil.rmtree(ws, ignore_errors=True)
 
-    row = {"name": "gather_rows_backward", "route": "cuda",
-           "source": "sanerf_tpu_torch/csrc/gather.cu",
-           "replaces": "none: no Pallas kernel; the gradient of "
-                       "sanerf_tpu/ops/hashgrid.py:229 (jnp.take), XLA's "
-                       "scatter-add",
-           "launches": path_launches["hashgrid"]["gather_rows_backward"],
-           "launches_of": f"Trainer.train of ModelConfig(field_type="
-                          f"'hashgrid'): {TRAIN_EPOCHS * TRAIN_STEPS} steps",
-           "max_abs_err": bwd["max_abs_err"],
-           "tol": list(SCATTER_TOL) + [SCATTER_MAG],
-           "tol_kind": "|d| <= tol[0] + tol[1] |ref| and |d| <= tol[2] S "
-                       "+ tol[1] |ref|, S the sum of |grad_out| over the "
-                       "adds into the element (atomics sum in another "
-                       "order)",
-           "floor": bwd["floor"],
-           "ms": bwd["ms"], "ms_p10_p90": bwd["ms_p10_p90"],
-           "plain_ms": bwd["plain_ms"], "bound_ms": bwd["bound_ms"],
-           "bound_by": "bytes", "library_ms": bwd["library_ms"],
-           "library_ms_p10_p90": bwd["library_ms_p10_p90"],
-           "library": "torch.Tensor.index_add_", "dtype": "float32",
-           "sum_of": f"the {HASH_GATHERS} launches of one step",
-           "timed_as": bwd["timed_as"], "shapes": shapes}
+    hash_rows = [{
+        "name": "hash_grid_backward", "route": "cuda",
+        "source": "sanerf_tpu_torch/csrc/hashgrid.cu",
+        "replaces": "none: no Pallas kernel; the gradient of "
+                    "sanerf_tpu/ops/hashgrid.py:170-239 hash_encode_01 in "
+                    "the table (the jnp.take at :229), XLA's scatter-add; "
+                    "on the training step it replaces gather_rows_backward's "
+                    "one launch a level",
+        "launches": path_launches["hashgrid"]["hash_grid_backward"],
+        "launches_of": f"Trainer.train of ModelConfig(field_type="
+                       f"'hashgrid'): {TRAIN_EPOCHS * TRAIN_STEPS} steps",
+        "max_abs_err": fused["max_abs_err"],
+        "tol": list(SCATTER_TOL) + [SCATTER_MAG],
+        "tol_kind": "as gather_rows_backward's, S from the plain version "
+                    "with |g| (the weights are >= 0)",
+        "floor": fused["floor"],
+        "ms": fused["ms"], "ms_p10_p90": fused["ms_p10_p90"],
+        "plain_ms": fused["plain_ms"], "bound_ms": fused["bound_ms"],
+        "bound_by": "bytes",
+        "bound_kind": "points and output gradient read once, each touched "
+                      "row read and written, the other rows written",
+        "red_bound_ms": fused["red_bound_ms"],
+        "red_bound_kind": "the step's adds at port_tools/red_probe.cu's "
+                          "rate for the row's piece width",
+        "library_ms": fused["library_ms"],
+        "library_ms_p10_p90": fused["library_ms_p10_p90"],
+        "library": "torch.Tensor.index_add_ of the same adds (the rows "
+                   "the parent's glue made)",
+        "parent_route_ms": fused["parent_route_ms"],
+        "parent_route_ms_p10_p90": fused["parent_route_ms_p10_p90"],
+        "parent_route": f"a zero gradient and the "
+                        f"{fused['parent_launches']} gather_rows_backward "
+                        f"launches of the same adds",
+        "dtype": "float32", "sum_of": f"the {HASH_GRIDS} launches of one "
+                                      f"step",
+        "timed_as": fused["timed_as"], "s_grid_c8": hstep["s_grid_c8"]}, {
+        "name": "gather_rows_backward", "route": "cuda",
+        "source": "sanerf_tpu_torch/csrc/gather.cu",
+        "replaces": "none: no Pallas kernel; the gradient of "
+                    "sanerf_tpu/ops/hashgrid.py:229 (jnp.take), XLA's "
+                    "scatter-add",
+        "launches": tv["gather_rows_backward"],
+        "launches_of": f"one hash-grid training step with lambda_tv "
+                       f"{TV_LAMBDA} (the TV term; the default step makes "
+                       f"none since hash_grid_backward)",
+        "max_abs_err": bwd["max_abs_err"],
+        "tol": list(SCATTER_TOL) + [SCATTER_MAG],
+        "tol_kind": "|d| <= tol[0] + tol[1] |ref| and |d| <= tol[2] S "
+                    "+ tol[1] |ref|, S the sum of |grad_out| over the "
+                    "adds into the element (atomics sum in another "
+                    "order)",
+        "floor": bwd["floor"],
+        "ms": bwd["ms"], "ms_p10_p90": bwd["ms_p10_p90"],
+        "plain_ms": bwd["plain_ms"], "bound_ms": bwd["bound_ms"],
+        "bound_by": "bytes", "library_ms": bwd["library_ms"],
+        "library_ms_p10_p90": bwd["library_ms_p10_p90"],
+        "library": "torch.Tensor.index_add_", "dtype": "float32",
+        "sum_of": f"the {HASH_GATHERS} launches of the parent's route on "
+                  f"T3's step",
+        "timed_as": bwd["timed_as"], "shapes": shapes}]
     return {"convergence": converge, "defaults": defaults,
             "hashgrid_step": hstep,
-            "grid_recipe": recipe, "card": card, "rows": [row],
+            "grid_recipe": recipe, "card": card, "rows": hash_rows,
             "eval_launches": eval_launches}
 
 
@@ -5703,6 +5981,7 @@ def tools_phase(torch, np, dev, card):
     from sanerf_tpu_torch.models.sam import predictor as sam_mod
     from sanerf_tpu_torch.ops import fused_mlp_t as fm
     from sanerf_tpu_torch.ops import gather as ga
+    from sanerf_tpu_torch.ops import hashgrid as hg
     from sanerf_tpu_torch.ops import ray_kernels as rk
     from sanerf_tpu_torch.tools import (distill_serving, eval_student,
                                         finetune_student, heldout_ring,
@@ -5746,7 +6025,8 @@ def tools_phase(torch, np, dev, card):
                 "run_tmlp_composite": fm.run_tmlp_composite,
                 "flatten3_nt": rk.flatten3_nt,
                 "gather_rows": ga._GATHER_ROWS,
-                "gather_rows_backward": ga._GATHER_ROWS_BACKWARD}
+                "gather_rows_backward": ga._GATHER_ROWS_BACKWARD,
+                "hash_grid_backward": hg._HASH_GRID_BACKWARD}
     rec = {"card": card, "qg_iters": QG_ITERS, "iters": TOOL_ITERS}
 
     @contextlib.contextmanager
@@ -5798,8 +6078,8 @@ def tools_phase(torch, np, dev, card):
         torch.cuda.empty_cache()
     served("quality_gate mlp")
     n = rec["quality_gate hashgrid"]["launches"]
-    check(n["gather_rows"] > 0 and n["gather_rows_backward"] > 0,
-          f"F1 hashgrid: gather / scatter not launched: {n}")
+    check(n["gather_rows"] > 0 and n["hash_grid_backward"] > 0,
+          f"F1 hashgrid: gather / table gradient not launched: {n}")
 
     # -- F2. eval_student on the shipped asset's params --------------------
     meta = read_json(asset + ".json")

@@ -1,5 +1,7 @@
 """Times `gather_rows_backward` built from a variant of csrc/gather.cu at
-the launch shapes of one full-width hash-grid training step.
+the launch shapes the hash grid's table gradient had on one full-width
+training step before `hash_grid_backward` (one launch a level, on the rows
+the parent's glue made; chip_smoke's `parent_launches`).
 
     python3 port_tools/scatter_variants.py NAME   (needs a CUDA card)
 
@@ -8,8 +10,9 @@ NAME is a key of VARIANTS below (text substitutions in csrc/gather.cu), or
 Compare variants within one call on one card, one process each, with
 `orig` at both ends. The step is `ModelConfig(field_type="hashgrid")`,
 `RenderConfig()`, `TrainConfig()` (8,192 rays) on the textured fixture, as
-chip_smoke's phase T3 drives it; each launch is recorded, held and timed
-by chip_smoke's `record_backward` / `hold_backward`. Prints one JSON line:
+chip_smoke's phase T3 drives it; its hash_grid_backward launches are
+recorded (`record_fused`), each level's launch rebuilt from them, held and
+timed by chip_smoke's `hold_backward`. Prints one JSON line:
 the step's sums (kernel, `index_add_` and plain ms, byte bound) and, per
 launch, its shape, the median / 10th / 90th percentile ms of PROBE_REPS
 interleaved launches queued behind a backlog, max|ref|, the median |ref|
@@ -28,7 +31,7 @@ sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "port_tools"))
 
 from chip_smoke import (PROBE_REPS, hash_step, hold_backward,  # noqa: E402
-                        record_backward)
+                        parent_launches, record_fused)
 from kernel_variants import use_variant  # noqa: E402
 
 VARIANTS = {
@@ -51,6 +54,7 @@ def main():
     from sanerf_tpu_torch.models import fields
     from sanerf_tpu_torch.ops import _build
     from sanerf_tpu_torch.ops import gather as ga
+    from sanerf_tpu_torch.ops import hashgrid as hg
     from sanerf_tpu_torch.train import state as st
 
     ga._lib()
@@ -69,8 +73,10 @@ def main():
              if isinstance(v, np.ndarray)}
     draws = st.draw_step(model, tc, n,
                          torch.Generator(device=dev).manual_seed(0), dev)
-    _, seen = record_backward(
-        ga, lambda: hash_step(model, tc, params, batch, draws))
+    _, fused = record_fused(
+        hg, lambda: hash_step(model, tc, params, batch, draws))
+    seen = [(s_, i, r) for x01, g, spec, k in fused
+            for s_, i, r, _ in parent_launches(hg, x01, g, spec, k)]
     torch.cuda.synchronize()
     step, launches = hold_backward(ga, seen, dev)
     print(json.dumps({"variant": name, "card": torch.cuda.get_device_name(0),

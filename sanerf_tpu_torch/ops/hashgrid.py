@@ -12,15 +12,22 @@ package's, operation by operation:
     number picks the cell's upper face in dim d) and the corner sum runs
     sequentially in that order;
   - each level's 2^D corner rows are one `gather_rows` launch (the CUDA
-    kernel of ops/gather.py) on that level's slice of the table; in
-    training, the table's gradient is one `gather_rows_backward` launch a
-    level (ops/gather.py:gather_row_ranges).
+    kernel of ops/gather.py) on that level's slice of the table;
+  - in training (the table needs a gradient, the points do not), the
+    table's gradient is one `hash_grid_backward` launch a grid
+    (csrc/hashgrid.cu), which recomputes the corners from the points; the
+    forward saves the points only. Where the points need a gradient too,
+    every level's taps are kept and the table's gradient is one
+    `gather_rows_backward` launch a level (ops/gather.py:
+    gather_row_ranges).
 The TV and weight-decay gradient terms (JAX :255-327) are gradient
 contributions the train step adds to autograd's (train/state.py).
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple
 
@@ -28,6 +35,7 @@ import numpy as np
 import torch
 
 from sanerf_tpu_torch.config import HashGridConfig
+from sanerf_tpu_torch.ops import _build
 from sanerf_tpu_torch.ops.gather import (gather_row_ranges, gather_rows,
                                          gather_rows_backward)
 
@@ -206,6 +214,54 @@ def _corner_sum(w: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def _encode(x: torch.Tensor, table: torch.Tensor, spec: HashGridSpec,
+            n_active: int) -> torch.Tensor:
+    """[B, D] float32 points -> [B, L*C] float32, without a gradient:
+    each level's taps made, gathered and summed before the next level's
+    (peak memory: one level's)."""
+    level_feats = []
+    for level in range(n_active):
+        o, s = spec.offsets[level], spec.sizes[level]
+        w, idx = _level_taps(x, spec, level)
+        level_feats.append(_corner_sum(w, gather_rows(table[o:o + s], idx)))
+    return _assemble(level_feats, x, spec)
+
+
+def _assemble(level_feats, x: torch.Tensor, spec: HashGridSpec
+              ) -> torch.Tensor:
+    """The active levels' [B, C] features at points x [B, D] -> [B, L*C],
+    zeros outside the cube and past the active levels."""
+    B, L, C = x.shape[0], spec.num_levels, spec.level_dim
+    n_active = len(level_feats)
+    oob = ((x < 0.0) | (x > 1.0)).any(dim=-1)
+    out = torch.stack(level_feats, dim=1) if level_feats else x.new_zeros(
+        (B, 0, C))
+    out = out.masked_fill(oob[:, None, None], 0.0)
+    if n_active < L:
+        out = torch.cat([out, out.new_zeros((B, L - n_active, C))], dim=1)
+    return out.reshape(B, L * C)
+
+
+class _HashEncode(torch.autograd.Function):
+    """The encode differentiable in the table alone: the forward is
+    `_encode` (bit for bit the encode without a gradient) and saves the
+    points; the backward is one `hash_grid_backward` launch."""
+
+    @staticmethod
+    def forward(ctx, x, table, spec, n_active):
+        ctx.save_for_backward(x)
+        ctx.spec, ctx.n_active = spec, n_active
+        return _encode(x, table, spec, n_active)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        grad = None
+        if ctx.needs_input_grad[1]:
+            grad = hash_grid_backward(x, g, ctx.spec, ctx.n_active)
+        return None, grad, None, None
+
+
 def hash_encode_01(x: torch.Tensor, table: torch.Tensor, spec: HashGridSpec,
                    max_level: Optional[int] = None) -> torch.Tensor:
     """Encode unit-cube coordinates.
@@ -215,34 +271,158 @@ def hash_encode_01(x: torch.Tensor, table: torch.Tensor, spec: HashGridSpec,
     levels only, the rest are zero. -> [..., L*C] float32, level-major per
     point (grid.py:63). Without a gradient to take, each level's taps are
     made, gathered and summed before the next level's (peak memory: one
-    level's); with one, every level's taps first and then one
+    level's). With a float32 table that needs a gradient and points that
+    do not (training), the same forward, and the backward one
+    `hash_grid_backward` launch (_HashEncode). With points that need a
+    gradient too, every level's taps first and then one
     `gather_row_ranges` call, whose backward fills one gradient of the
-    whole table."""
+    whole table, and autograd takes the points' gradient through the
+    weights."""
     prefix = x.shape[:-1]
     D, L, C = spec.input_dim, spec.num_levels, spec.level_dim
     x = x.reshape(-1, D).float()
-    B = x.shape[0]
     n_active = L if max_level is None else min(max_level, L)
-    oob = ((x < 0.0) | (x > 1.0)).any(dim=-1)
-    ranges = [(spec.offsets[l], spec.sizes[l]) for l in range(n_active)]
 
-    if torch.is_grad_enabled() and table.requires_grad:
+    if not (torch.is_grad_enabled() and table.requires_grad):
+        out = _encode(x, table, spec, n_active)
+    elif not x.requires_grad and table.dtype == torch.float32 and \
+            backward_takes(spec, n_active):
+        out = _HashEncode.apply(x.contiguous(), table, spec, n_active)
+    else:
+        ranges = [(spec.offsets[l], spec.sizes[l]) for l in range(n_active)]
         taps = [_level_taps(x, spec, level) for level in range(n_active)]
         rows = gather_row_ranges(table, ranges, [i for _, i in taps])
-        level_feats = [_corner_sum(w, r) for (w, _), r in zip(taps, rows)]
-    else:
-        level_feats = []
-        for level, (o, s) in enumerate(ranges):
-            w, idx = _level_taps(x, spec, level)
-            level_feats.append(_corner_sum(w, gather_rows(table[o:o + s],
-                                                          idx)))
-
-    out = torch.stack(level_feats, dim=1) if level_feats else x.new_zeros(
-        (B, 0, C))
-    out = out.masked_fill(oob[:, None, None], 0.0)
-    if n_active < L:
-        out = torch.cat([out, out.new_zeros((B, L - n_active, C))], dim=1)
+        out = _assemble([_corner_sum(w, r) for (w, _), r in zip(taps, rows)],
+                        x, spec)
     return out.reshape(*prefix, L * C)
+
+
+# ---------------------------------------------------------------------------
+# the table's gradient in one launch a grid (csrc/hashgrid.cu)
+# ---------------------------------------------------------------------------
+
+#: the kernel's limits (csrc/hashgrid.cu): input dims, row widths, levels
+BACKWARD_DIMS, BACKWARD_MAX_C, BACKWARD_MAX_LEVELS = (2, 3), 8, 32
+
+
+def backward_takes(spec: HashGridSpec, n_active: int) -> bool:
+    """Whether hash_grid_backward takes this grid's first n_active
+    levels."""
+    return (spec.input_dim in BACKWARD_DIMS
+            and 1 <= spec.level_dim <= BACKWARD_MAX_C
+            and n_active <= BACKWARD_MAX_LEVELS
+            and max(spec.sizes) < 2 ** 32)
+
+
+def hash_grid_backward_plain(x01: torch.Tensor, g: torch.Tensor,
+                             spec: HashGridSpec,
+                             n_active: Optional[int] = None) -> torch.Tensor:
+    """The table's gradient of the encode: for every active level and
+    every corner of each in-cube point's cell, grad[offset + idx] += w *
+    g[point, level]; the same taps as the forward's (`_level_taps`), one
+    `index_add_` a level into a zero gradient. x01 [B, D] float32, g
+    [B, L*C] float32 -> [total_params, C] float32."""
+    L, C = spec.num_levels, spec.level_dim
+    n_active = L if n_active is None else n_active
+    B = x01.shape[0]
+    oob = ((x01 < 0.0) | (x01 > 1.0)).any(dim=-1)
+    gl = g.reshape(B, L, C).masked_fill(oob[:, None, None], 0.0)
+    grad = torch.zeros((spec.total_params, C), dtype=torch.float32,
+                       device=g.device)
+    for level in range(n_active):
+        o, s = spec.offsets[level], spec.sizes[level]
+        w, idx = _level_taps(x01, spec, level)
+        grad[o:o + s].index_add_(0, idx.reshape(-1).long(),
+                                 (w[..., None] * gl[None, :, level])
+                                 .reshape(-1, C))
+    return grad
+
+
+_P = ctypes.c_void_p
+
+
+@functools.cache
+def _lib():
+    lib = _build.load("hashgrid")
+    _build.declare(lib, "hash_grid_backward_launch",
+                   [_P, ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_long,
+                    ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, ctypes.c_int,
+                    ctypes.c_int, _P])
+    _build.declare(lib, "hash_backward_max_levels", [])
+    if lib.hash_backward_max_levels() != BACKWARD_MAX_LEVELS:
+        raise RuntimeError("hashgrid.cu: MAX_LEVELS differs from "
+                           "BACKWARD_MAX_LEVELS")
+    return lib
+
+
+def _level_arrays(spec: HashGridSpec, n: int):
+    """The first n levels' metadata as the C arrays the launch reads."""
+    return ((ctypes.c_longlong * n)(*spec.offsets[:n]),
+            (ctypes.c_uint * n)(*spec.sizes[:n]),
+            (ctypes.c_int * n)(*spec.resolutions[:n]),
+            (ctypes.c_int * n)(*(int(h) for h in spec.hashed[:n])))
+
+
+def _refusal(spec: HashGridSpec, n: int) -> str:
+    return (f"hash_grid_backward: D={spec.input_dim}, C={spec.level_dim}, "
+            f"{n} levels: past the kernel's limits (D in {BACKWARD_DIMS}, "
+            f"C <= {BACKWARD_MAX_C}, <= {BACKWARD_MAX_LEVELS} levels, levels "
+            f"under 2^32 rows; ROADMAP.md queue B)")
+
+
+def hash_grid_backward(x01: torch.Tensor, g: torch.Tensor,
+                       spec: HashGridSpec,
+                       n_active: Optional[int] = None) -> torch.Tensor:
+    """The table's gradient of `hash_encode_01` (see
+    hash_grid_backward_plain), one launch of csrc/hashgrid.cu on a CUDA
+    tensor, the plain version on a CPU one. x01 [B, D] float32 contiguous,
+    g [B, L*C] float32 -> [total_params, C] float32; the sums run in the
+    order the atomics land, so the result differs from the plain version's
+    by rounding. Raises NotImplementedError past the kernel's limits (D 2-3,
+    C <= 8, 32 levels), ValueError on other operands."""
+    D, L, C = spec.input_dim, spec.num_levels, spec.level_dim
+    n = L if n_active is None else n_active
+    if not backward_takes(spec, n):
+        raise NotImplementedError(_refusal(spec, n))
+    if x01.dim() != 2 or x01.shape[1] != D or x01.dtype != torch.float32:
+        raise ValueError(f"hash_grid_backward: x01 must be [B, {D}] float32, "
+                         f"got {tuple(x01.shape)} {x01.dtype}")
+    B = x01.shape[0]
+    if tuple(g.shape) != (B, L * C) or g.dtype != torch.float32:
+        raise ValueError(f"hash_grid_backward: g must be [{B}, {L * C}] "
+                         f"float32, got {tuple(g.shape)} {g.dtype}")
+    if x01.device != g.device:
+        raise ValueError(f"hash_grid_backward: x01 on {x01.device}, g on "
+                         f"{g.device}")
+    if not g.is_cuda:
+        return hash_grid_backward_plain(x01, g, spec, n)
+    if g.device != torch.device("cuda", torch.cuda.current_device()):
+        raise ValueError(f"hash_grid_backward: on {g.device}, not the "
+                         f"current device")
+    x01 = x01.contiguous()
+    g = g.contiguous()
+    if g.data_ptr() % 16:
+        g = g.clone()
+    grad = torch.zeros((spec.total_params, C), dtype=torch.float32,
+                       device=g.device)
+    if B and n:
+        arrays = _level_arrays(spec, n)  # alive through the call
+        code = _lib().hash_grid_backward_launch(
+            grad.data_ptr(), C, x01.data_ptr(), D, g.data_ptr(), B, L * C, n,
+            *(ctypes.addressof(a) for a in arrays),
+            int(spec.align_corners), int(spec.interpolation == "smoothstep"),
+            torch.cuda.current_stream().cuda_stream)
+        if code != 0:
+            raise RuntimeError(f"hash_grid_backward: CUDA error {code} at "
+                               f"launch")
+        _HASH_GRID_BACKWARD.launches += 1
+    return grad
+
+
+hash_grid_backward.launches = 0
+#: the function that holds hash_grid_backward's count, bound once here (as
+#: ops/gather.py's _GATHER_ROWS)
+_HASH_GRID_BACKWARD = hash_grid_backward
 
 
 def hash_encode(x: torch.Tensor, table: torch.Tensor, spec: HashGridSpec,

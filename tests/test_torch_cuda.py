@@ -14,11 +14,10 @@ the grid branches in bf16 at 5e-3 and their encode probes at 1e-2, element
 by element; ray_level0 (both of its kernels at every T, N, jitter and
 pack_q), flatten3_nt, the packed ts/dl rows and gather_rows bit for bit;
 the packed composite within 1e-6 of the unpacked one on the same operands;
-gather_rows_backward against index_add_ at |d| <= 1e-6 + 1e-5 |ref| (its
-atomics sum in another order), through the hash encoder at |d| <= 1e-6
-max(1, S) + 1e-5 |ref|, and at a step's gradient size at |d| <= 1e-5 S +
-1e-5 |ref| (chip_smoke.py's SCATTER_MAG), S the sum of the magnitudes of
-the adds into an element. The configurations past the kernels' former
+gather_rows_backward against index_add_ and hash_grid_backward against
+its plain version at |d| <= 1e-5 S + 1e-5 |ref| (chip_smoke.py's
+SCATTER_MAG; their atomics sum in another order), S the sum of the
+magnitudes of the adds into an element. The configurations past the kernels' former
 limits (rays past 128 samples, 12 to 32 layers, widths to 512, view heads
 to 128, 20 to 64 composite outputs, ladders of 16 levels, 94 MB of tables,
 sum_after_mlp) at the same bounds, and through run_rays against the plain
@@ -641,9 +640,13 @@ def test_run_tmlp_composite_grid_branches(dev, name, T, dtype):
 
 
 # gather_rows_backward against index_add_ on the same views: the atomics sum
-# in another order than index_add_, so |d| <= 1e-6 + 1e-5 |ref|. Ragged
-# index counts, rows of 1-8 floats (float4 / float2 / scalar pieces), an
-# unaligned gradient view, out-of-range indices (they add nothing).
+# in another order than index_add_, so a float32 sum of n terms moves by
+# ~2^-24 sqrt(n) S: held at |d| <= 1e-5 S + 1e-5 |ref| (_scatter_held, as
+# chip_smoke.py holds the same kernel), S the sum of the magnitudes of the
+# adds into an element (an element no add reaches must keep its value).
+# Ragged index counts, rows of 1-8 floats (float4 / float2 / scalar
+# pieces), an unaligned gradient view, out-of-range indices (they add
+# nothing).
 @pytest.mark.parametrize("R,C,M,offset", [(2 ** 19, 2, 2 ** 20 + 7, 0),
                                           (4096, 2, 8 * 997, 1),
                                           (1000, 4, 12345, 0),
@@ -663,7 +666,7 @@ def test_gather_rows_backward_kernel(dev, R, C, M, offset):
     assert out is got and gather.gather_rows_backward.launches == before + 1
     gather.gather_rows_backward_plain(ref, idx, go)
     torch.cuda.synchronize()
-    assert bool(((got - ref).abs() <= 1e-6 + 1e-5 * ref.abs()).all())
+    assert _scatter_held(got, ref, _magnitudes(R, C, idx, go))
 
 
 def _scatter_held(got, ref, mag):
@@ -721,13 +724,11 @@ def test_gather_rows_backward_counts_on_itself(dev, monkeypatch):
 
 
 def test_hash_encode_table_grad_kernel_matches_plain(dev, monkeypatch):
-    """The encoder's table gradient through gather_row_ranges: the kernels
-    against the plain gather and index_add_, at |d| <= 1e-6 max(1, S) +
-    1e-5 |ref|, S the sum of the magnitudes of the adds into an element:
-    the coarse levels add ~80 unit-size terms into a row (S of 8-13 where
-    the differences peak), where index_add_ against itself already
-    differs by up to 5.7e-7, so the floor of one unit add, 1e-6, grows
-    with S."""
+    """The encoder's table gradient in training (the points need no
+    gradient): one hash_grid_backward launch and no gather_rows_backward
+    launch, against the plain gather and hash_grid_backward_plain at
+    |d| <= 1e-5 S + 1e-5 |ref| (_scatter_held), S the sum of the
+    magnitudes of the adds into an element."""
     spec = hashgrid.build_spec(HashGridConfig(num_levels=6, level_dim=2,
                                               log2_hashmap_size=14,
                                               desired_resolution=256))
@@ -741,20 +742,144 @@ def test_hash_encode_table_grad_kernel_matches_plain(dev, monkeypatch):
         (hashgrid.hash_encode_01(x, t, spec) * r).sum().backward()
         return t.grad
 
-    before = gather.gather_rows_backward.launches
+    before = (hashgrid.hash_grid_backward.launches,
+              gather.gather_rows_backward.launches)
     got = grad()
-    assert gather.gather_rows_backward.launches == before + 6
-    monkeypatch.setattr(gather, "gather_rows", gather.gather_rows_plain)
-    monkeypatch.setattr(gather, "gather_rows_backward",
-                        gather.gather_rows_backward_plain)
+    assert (hashgrid.hash_grid_backward.launches,
+            gather.gather_rows_backward.launches) == (before[0] + 1,
+                                                      before[1])
+    monkeypatch.setattr(hashgrid, "gather_rows", gather.gather_rows_plain)
+    monkeypatch.setattr(hashgrid, "hash_grid_backward",
+                        hashgrid.hash_grid_backward_plain)
     ref = grad()
-    monkeypatch.setattr(gather, "gather_rows_backward",
-                        lambda gt, i, go: gather.gather_rows_backward_plain(
-                            gt, i, go.abs()))
+    monkeypatch.setattr(hashgrid, "hash_grid_backward",
+                        lambda x01, go, sp, n: hashgrid.hash_grid_backward_plain(
+                            x01, go.abs(), sp, n))
     mag = grad()
     torch.cuda.synchronize()
-    floor = 1e-6 * mag.clamp(min=1.0)
-    assert bool(((got - ref).abs() <= floor + 1e-5 * ref.abs()).all())
+    assert _scatter_held(got, ref, mag)
+
+
+def test_hash_encode_point_grad_keeps_the_level_route(dev):
+    """Points that need a gradient keep the route of one gather_rows_backward
+    launch a level; its table gradient is the fused kernel's."""
+    spec = hashgrid.build_spec(HashGridConfig(num_levels=6, level_dim=2,
+                                              log2_hashmap_size=14,
+                                              desired_resolution=256))
+    g = torch.Generator(device=dev).manual_seed(10)
+    table = torch.rand(spec.total_params, 2, generator=g, device=dev) - 0.5
+    x = torch.rand(20_000, 3, generator=g, device=dev)
+    r = torch.randn(20_000, spec.output_dim, generator=g, device=dev)
+    t = table.clone().requires_grad_(True)
+    xg = x.clone().requires_grad_(True)
+    before = (hashgrid.hash_grid_backward.launches,
+              gather.gather_rows_backward.launches)
+    (hashgrid.hash_encode_01(xg, t, spec) * r).sum().backward()
+    assert (hashgrid.hash_grid_backward.launches,
+            gather.gather_rows_backward.launches) == (before[0],
+                                                      before[1] + 6)
+    assert xg.grad is not None and bool(torch.isfinite(xg.grad).all())
+    fused = hashgrid.hash_grid_backward(x, r, spec)
+    mag = hashgrid.hash_grid_backward_plain(x, r.abs(), spec)
+    torch.cuda.synchronize()
+    assert _scatter_held(t.grad, fused, 2 * mag)
+
+
+def _ray_points(n_rays, T, D, g, dev):
+    """Points along n_rays rays of T samples, consecutive samples of a ray
+    next to each other (the training step's layout), some outside the
+    unit cube."""
+    o = torch.rand(n_rays, 1, D, generator=g, device=dev) * 0.6 + 0.2
+    d = torch.randn(n_rays, 1, D, generator=g, device=dev)
+    d = d / d.norm(dim=-1, keepdim=True)
+    t = torch.linspace(-0.45, 0.45, T, device=dev)[None, :, None]
+    return (o + d * t).reshape(-1, D).contiguous()
+
+
+# hash_grid_backward against hash_grid_backward_plain over the encoder's
+# options, ragged point counts (rays of 37 samples): C = 1 and 2 with their
+# corner pairs added as one piece at hashed and dense levels, C = 3, 4 and
+# 8 a row at a time: |d| <= 1e-5 S + 1e-5 |ref| (_scatter_held).
+HASH_BACKWARD_SPECS = {
+    "hash_c2": dict(num_levels=8, level_dim=2, log2_hashmap_size=15,
+                    desired_resolution=512),
+    "hash_c2_smooth_max5": dict(num_levels=8, level_dim=2,
+                                log2_hashmap_size=15, desired_resolution=512,
+                                interpolation="smoothstep"),
+    "tiled_c4_align": dict(num_levels=6, level_dim=4, log2_hashmap_size=14,
+                           desired_resolution=128, gridtype="tiled",
+                           align_corners=True),
+    "hash_c8": dict(num_levels=6, level_dim=8, log2_hashmap_size=12,
+                    desired_resolution=256),
+    "hash_c1_d2": dict(input_dim=2, num_levels=8, level_dim=1,
+                       log2_hashmap_size=12, desired_resolution=1024),
+    "hash_c3_d2_smooth": dict(input_dim=2, num_levels=5, level_dim=3,
+                              log2_hashmap_size=10, desired_resolution=256,
+                              interpolation="smoothstep", align_corners=True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(HASH_BACKWARD_SPECS))
+@pytest.mark.parametrize("n_rays", [1, 3001])
+def test_hash_grid_backward_kernel(dev, name, n_rays):
+    spec = hashgrid.build_spec(HashGridConfig(**HASH_BACKWARD_SPECS[name]))
+    g = torch.Generator(device=dev).manual_seed(n_rays + len(name))
+    x = _ray_points(n_rays, 37, spec.input_dim, g, dev)
+    go = torch.randn(x.shape[0], spec.output_dim, generator=g, device=dev)
+    n = 5 if name.endswith("max5") else None
+    before = hashgrid.hash_grid_backward.launches
+    got = hashgrid.hash_grid_backward(x, go, spec, n)
+    assert hashgrid.hash_grid_backward.launches == before + 1
+    ref = hashgrid.hash_grid_backward_plain(x, go, spec, n)
+    mag = hashgrid.hash_grid_backward_plain(x, go.abs(), spec, n)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape and bool((mag > 0).any())
+    assert _scatter_held(got, ref, mag)
+    if n_rays == 1:
+        return
+    # a planted fault: every other point's gradient at one level dropped
+    C = spec.level_dim
+    for level in (0, (n or spec.num_levels) - 1):
+        bad = go.clone()
+        bad[::2, level * C:(level + 1) * C] = 0
+        assert not _scatter_held(hashgrid.hash_grid_backward(x, bad, spec, n),
+                                 ref, mag)
+
+
+def test_hash_grid_backward_refuses(dev):
+    spec = hashgrid.build_spec(HashGridConfig(num_levels=4, level_dim=2,
+                                              log2_hashmap_size=10))
+    x = torch.rand(100, 3, device=dev)
+    go = torch.randn(100, spec.output_dim, device=dev)
+    with pytest.raises(ValueError):
+        hashgrid.hash_grid_backward(x, go.bfloat16(), spec)
+    with pytest.raises(ValueError):
+        hashgrid.hash_grid_backward(x[:, :2].contiguous(), go, spec)
+    wide = hashgrid.build_spec(HashGridConfig(num_levels=4, level_dim=16,
+                                              log2_hashmap_size=10))
+    with pytest.raises(NotImplementedError, match="queue B"):
+        hashgrid.hash_grid_backward(
+            x, torch.randn(100, wide.output_dim, device=dev), wide)
+
+
+def test_hash_grid_backward_counts_on_itself(dev, monkeypatch):
+    """A recorder patched in under the module's name neither moves the
+    kernel's count nor breaks it."""
+    real, seen = hashgrid.hash_grid_backward, []
+
+    def recording(x01, go, spec, n=None):
+        seen.append(x01)
+        return real(x01, go, spec, n)
+
+    monkeypatch.setattr(hashgrid, "hash_grid_backward", recording)
+    spec = hashgrid.build_spec(HashGridConfig(num_levels=4, level_dim=2,
+                                              log2_hashmap_size=10))
+    before = real.launches
+    hashgrid.hash_grid_backward(torch.rand(64, 3, device=dev),
+                                torch.ones(64, spec.output_dim, device=dev),
+                                spec)
+    assert len(seen) == 1 and real.launches == before + 1
+    assert not hasattr(recording, "launches")
 
 
 @pytest.mark.parametrize("T", [32, 64])

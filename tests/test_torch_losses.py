@@ -156,8 +156,8 @@ def _specs(name):
 @pytest.mark.parametrize("name", sorted(SPECS))
 def test_hash_encode_table_grad_matches_jax(name):
     """The gradient of sum(encode * r) in the table, through
-    gather_row_ranges' backward (index_add_ on the CPU), against
-    jax.grad through jnp.take."""
+    hash_grid_backward (its plain version, index_add_, on the CPU),
+    against jax.grad through jnp.take."""
     spec, jspec = _specs(name)
     rng = np.random.default_rng(5)
     table = rng.uniform(-1, 1, (spec.total_params, spec.level_dim))
