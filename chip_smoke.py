@@ -6,9 +6,9 @@ Phases (any failure exits non-zero and prints no result line):
   1. build the CUDA kernels from sanerf_tpu_torch/csrc (one nvcc per source,
      all started together, and beside them fused_mlp_t.cu with the planted
      faults PROP_FAULT, in prop_kernel, RING_FAULT, in the bf16 V_WIDE
-     kernels' weight ring, and GRID_FAULT, in the V_GRID kernels'
-     encoders, into PLANTED_DIR) and print the card's name and power
-     limit;
+     kernels' weight ring, GRID_FAULT, in the V_GRID kernels' encoders,
+     and F32_RING_FAULT, in the float32 V_WIDE32 kernels' ring, into
+     PLANTED_DIR) and print the card's name and power limit;
   2. hold each kernel against its plain PyTorch version on the card, at
      every shape the main path gives it (captured from 512^2 frames of the
      shipped asset at the (32, 16) and (128, 64, 32) hierarchies; each
@@ -153,13 +153,18 @@ Phases (any failure exits non-zero and prints no result line):
  B2. ModelConfig(mlp_field_width=256) with numpy-seeded params (WIDE_MC):
      512^2 RGB frames at (32, 16) and (128, 64, 32) in bf16 and float32,
      counted, every launch held (bf16 at GRID_TOL, float32 at MLP_F32_TOL
-     and F32_FAITHFUL) and timed; a 64^2 frame against the JAX package's
-     values (JAX_WIDE, 2e-3); the FEAT_HW^2-ray feature render of a 512^2
-     interactive frame of that field with a seeded SAM head at both
-     hierarchies, bf16 (its width-256 run_tmlp launch: counted, held,
-     timed), that launch at (32, 16) on the kernels built with RING_FAULT
-     failing the same hold; Trainer.train for 2 epochs of 4 steps, its
-     float32 evaluation frame's launches counted and held;
+     and F32_FAITHFUL) and timed, every float32 launch on the V_WIDE32
+     ring (3xTF32 on wgmma; port_tools/wide_variants.py --f32 times the
+     design before it from the parent's source); the float32 (32, 16)
+     composite against the float64 plain version beside cuBLAS float32,
+     and on the kernels built with F32_RING_FAULT failing its F32_FAITHFUL
+     hold; a 64^2 frame against the JAX package's values (JAX_WIDE, 2e-3); the FEAT_HW^2-ray
+     feature render of a 512^2 interactive frame of that field with a
+     seeded SAM head at both hierarchies, bf16 and float32 (its width-256
+     run_tmlp launch: counted, held, timed), the bf16 launch at (32, 16)
+     on the kernels built with RING_FAULT failing the same hold;
+     Trainer.train for 2 epochs of 4 steps, its float32 evaluation frame's
+     launches counted, held and on the ring;
  B3. the asset's field with seeded biases, and its chain over the Fourier
      features with the dense-sin encode, through the (32, 16) frame's
      render_frame (counted) and at its level-0 points, bf16 and float32
@@ -793,6 +798,12 @@ RING_FAULT = "ring_lost_k"
 #: so the consumers read the previous tile's there. Phase 14's hold of
 #: grid_student's (32, 16) composite must fail on it
 GRID_FAULT = "grid_lost_vm"
+#: the float32 V_WIDE32 ring's planted fault (the same file), built into the
+#: same tree: its producer leaves out the copies of every other unit past a
+#: chunk's first group, so the products read what those stages held.
+#: Phase B2's F32_FAITHFUL hold of the width-256 float32 (32, 16)
+#: composite must fail on it
+F32_RING_FAULT = "f32_ring_lost_k"
 PLANTED_DIR = os.path.join(ROOT, "build", "chip_smoke_planted")
 #: the fields of a V_GRID launch's plan the grid rows of the kernels line
 #: carry
@@ -806,7 +817,7 @@ def fail(msg):
 
 
 def planted_tree(dest=PLANTED_DIR, faults=(PROP_FAULT, RING_FAULT,
-                                            GRID_FAULT)):
+                                            GRID_FAULT, F32_RING_FAULT)):
     """A copy of the kernels' sources under dest/csrc with the planted
     faults of port_tools/field_branch_variants.py named in `faults` (text
     substitutions of fused_mlp_t.cu) -> dest, a Path."""
@@ -1660,8 +1671,8 @@ def main():
         logs = _build.build_all()
     finally:
         _build._finish("fused_mlp_t", *planted_job)
-    log(f"build: {time.time() - t0:.1f} s (with {PROP_FAULT}, {RING_FAULT} "
-        f"and {GRID_FAULT} planted)")
+    log(f"build: {time.time() - t0:.1f} s (with {PROP_FAULT}, {RING_FAULT}, "
+        f"{GRID_FAULT} and {F32_RING_FAULT} planted)")
     for name, text in logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -1975,9 +1986,10 @@ def main():
         a backlog. A field kernel with float32 weights also gets both of its
         bounds (field_op_ms), bound_ms being the lower; a run_tmlp launch
         on prop_kernel also gets tmlp_kernel_ms, the same launch on
-        tmlp_kernel (route_twin), and a launch of a grid-family bf16 net
+        tmlp_kernel (route_twin), a launch of a grid-family bf16 net
         grid_old_ms, the same launch on the route before V_GRID, timed
-        alike."""
+        alike; a float32 launch on the V_WIDE32 ring is marked so
+        (variant)."""
         out, done = [], {}
         for a, k in launches_:
             key = shape_key(a, k)
@@ -1993,11 +2005,11 @@ def main():
                     "bound_ms": b_ms, "bound_by": b_by}
                 tm_ = field_of(name, a) if name.startswith("run_tmlp") \
                     else None
+                T_ = None if name != "run_tmlp_composite" else (
+                    k.get("T") or a[1].shape[1])
                 if tm_ is not None and fm._grid_net(tm_):
                     # the same launch on the route before V_GRID, timed
                     # alike
-                    T_ = None if name == "run_tmlp" else (
-                        k.get("T") or a[1].shape[1])
                     twin = route_twin(fm, tm_, "grid", T_, k.get("view"))
                     ta = ((a[0], twin, *a[2:]) if name == "run_tmlp"
                           else (*a[:3], twin, *a[4:]))
@@ -2005,6 +2017,9 @@ def main():
                         lambda: kern_fn[name](*ta, **k), reps=10)
                     done[key]["variant"] = "V_GRID"
                     del twin, ta
+                if (tm_ is not None and fm.kernel_plan(
+                        tm_, T_, k.get("view")).variant == fm.V_WIDE32):
+                    done[key]["variant"] = "V_WIDE32"
                 if (name == "run_tmlp"
                         and fm.route(a[1]) == "prop_kernel"):
                     # the earlier route of the same launch, timed alike
@@ -2112,7 +2127,8 @@ def main():
     torch.cuda.empty_cache()
     branches = branch_phases(torch, np, dev, card, compare, launch_times,
                              kern_fn, model_at, rays_o, rays_d, nets, params,
-                             params32, mc, rc, planted)
+                             params32, mc, rc, planted,
+                             logs.get("fused_mlp_t", ""))
     rows += branches.pop("rows")
     torch.cuda.empty_cache()
     limits = limit_phases(torch, np, dev, card, compare, launch_times,
@@ -3816,11 +3832,13 @@ def train_phases(torch, np, dev, card, compare, launch_times, kern_fn):
 
 def branch_phases(torch, np, dev, card, compare, launch_times, kern_fn,
                   model_at, rays_o, rays_d, nets, params, params32, mc, rc,
-                  planted):
+                  planted, ptxas_log):
     """Phases B1-B4: the field kernels' branches beyond the served (32, 16)
-    and (128, 64, 32) frames; RING_FAULT planted in the kernels built into
-    `planted` fails B2's hold. -> the {"branches": ...} record, with the
-    kernel rows of those launches under "rows"."""
+    and (128, 64, 32) frames; RING_FAULT and F32_RING_FAULT planted in the
+    kernels built into `planted` fail B2's holds; ptxas_log, the nvcc log
+    of fused_mlp_t (the V_WIDE32 kernels' registers, spills and serialized
+    wgmma pipelines, recorded). -> the {"branches": ...}
+    record, with the kernel rows of those launches under "rows"."""
     import dataclasses
     import shutil
 
@@ -3846,6 +3864,9 @@ def branch_phases(torch, np, dev, card, compare, launch_times, kern_fn,
     mlps = ("run_tmlp", "run_tmlp_composite")
     pose = np.asarray(SERVE_POSE, np.float32)
     errs, errs32, past, launch_t = {}, {}, {}, {}
+    # the float32 launches of nets wider than 128 held in B1-B3, each of
+    # which must take the V_WIDE32 ring
+    f32_ring = {}
 
     def zero(cs=counters):
         torch.cuda.synchronize()
@@ -3873,6 +3894,15 @@ def branch_phases(torch, np, dev, card, compare, launch_times, kern_fn,
         if name.startswith("ray"):
             e, n = compare(name, a, k, RAY_TOL, flips=False)
         elif field_of(name, a).dtype == torch.float32:
+            tm_ = field_of(name, a)
+            if max(w.shape[1] for w in tm_.ws) > fm.CHUNK:
+                T_ = None if name == "run_tmlp" else (
+                    k.get("T") or a[1].shape[1])
+                v_ = fm.kernel_plan(tm_, T_, k.get("view")).variant
+                check(v_ == fm.V_WIDE32,
+                      f"{key}: a float32 {name} launch wider than 128 on "
+                      f"variant {v_}, not the V_WIDE32 ring")
+                f32_ring[key] = f32_ring.get(key, 0) + 1
             e, n = compare(name, a, k, MLP_F32_TOL[name], flips=False,
                            faithful_hold=seeded)
         elif seeded:
@@ -4026,6 +4056,50 @@ def branch_phases(torch, np, dev, card, compare, launch_times, kern_fn,
             n, ms = frame_path(key, model, p, nn, GRID_LAUNCHES[h], None,
                                seeded=True)
             wide["frames"][key] = {"launches_per_frame": n, "frame_ms": ms}
+    # the float32 ring (V_WIDE32): the (32, 16) float32 frame's composite
+    # against the float64 plain version beside cuBLAS float32 (the error of
+    # its order of products and sums), and on the kernels built with
+    # F32_RING_FAULT, where it must fail the F32_FAITHFUL hold that the
+    # kernel itself passed above
+    m16w = fields.make_model(ModelConfig(**WIDE_MC), RenderConfig(
+        num_steps=HIERARCHIES["32,16"], max_ray_batch=SIZE * SIZE))
+    a, k = spied(lambda: renderer.render_frame(
+        m16w, pw32, rays_o, rays_d, chunk=SIZE * SIZE,
+        nets=wn32))["run_tmlp_composite"][0]
+    check(fm.kernel_plan(a[3], a[1].shape[1], k.get("view")).variant
+          == fm.V_WIDE32, f"{F32_RING_FAULT}: the float32 composite is not "
+                          f"on the V_WIDE32 ring")
+    ref = fm.run_tmlp_composite_plain(*a, **k)
+
+    def past_faithful(got):
+        n_, worst = 0, 0.0
+        for g_, r_ in zip(got, ref):
+            q = (g_ - r_).abs() / (1.0 + r_.abs())
+            n_ += int((q > F32_FAITHFUL).sum())
+            worst = max(worst, float(q.max()))
+        return n_, worst
+
+    got = fm.run_tmlp_composite(*a, **k)
+    own = past_faithful(got)
+    e_k, e_p = f64_errors(got, ref, plain_f64("run_tmlp_composite", a, k))
+    del got
+    with kernels_from(planted):
+        bad = past_faithful(fm.run_tmlp_composite(*a, **k))
+    check(own[0] == 0 and bad[0] > 0,
+          f"planted {F32_RING_FAULT}: {bad[0]} outputs past F32_FAITHFUL "
+          f"(the kernel's own: {own[0]})")
+    wide["f32_ring"] = {
+        "launch": "the (32, 16) float32 frame's composite",
+        "vs_float64_of_1_plus_ref": {"kernel": e_k, "cublas_float32": e_p},
+        "planted_fault": {"fault": F32_RING_FAULT,
+                          "outputs_past_faithful": bad[0],
+                          "max_ratio": bad[1],
+                          "kernel_outputs_past_faithful": own[0],
+                          "kernel_max_ratio": own[1],
+                          "tol": F32_FAITHFUL}}
+    log(f"B2 float32 ring: {wide['f32_ring']}")
+    del a, k, ref
+    torch.cuda.empty_cache()
     o64, d64 = (torch.from_numpy(a).to(dev) for a in gp.frame_rays(64))
     out = renderer.run_rays(fields.make_model(ModelConfig(**WIDE_MC),
                                               RenderConfig()), pw32, o64, d64)
@@ -4057,36 +4131,41 @@ def branch_phases(torch, np, dev, card, compare, launch_times, kern_fn,
     for h, steps in HIERARCHIES.items():
         mf = fields.make_model(ModelConfig(**WIDE_MC, with_sam=True),
                                RenderConfig(num_steps=steps))
-        pf = fields.cast_params(params_from_jax(gp.make_flat(
-            expected_shapes(mf), GRID_SEED), mf, dev), torch.bfloat16)
-        fnets = fields.KernelNets(mf, pf)
-        key = f"w256 feature {h} bf16"
-        zero()
-        fcalls = spied(lambda: renderer.run_rays(
-            mf, pf, ro_lr, rd_lr, return_feats=True, nets=fnets))
-        n = [c.launches for c in counters]
-        zero()
-        renderer.run_rays(mf, pf, ro_lr, rd_lr, return_feats=True,
-                          nets=fnets)
-        torch.cuda.synchronize()
-        check([c.launches for c in counters] == n and n[2] > 0,
-              f"{key}: launches {n}")
-        widths = [max(w.shape[1] for w in field_of("run_tmlp", a).ws)
-                  for a, _ in fcalls["run_tmlp"]]
-        check(max(widths) == 256, f"{key}: no width-256 run_tmlp {widths}")
-        for name, ls in fcalls.items():
-            for a, k in ls:
-                hold(key, name, a, k, None, seeded=True)
-        launch_t[key] = {"run_tmlp": launch_times("run_tmlp",
-                                                  fcalls["run_tmlp"])}
-        wide["feature_render"][h] = {
-            "rays": FEAT_HW * FEAT_HW, "launches": n,
-            "run_tmlp_widths": widths,
-            "run_tmlp_launches": launch_t[key]["run_tmlp"]}
-        if h == "32,16":
-            ring_launch = fcalls["run_tmlp"][widths.index(256)]
-        del pf, fnets, fcalls
-        torch.cuda.empty_cache()
+        pf32 = params_from_jax(gp.make_flat(expected_shapes(mf), GRID_SEED),
+                               mf, dev)
+        for dt in ("bf16", "f32"):
+            pf = (fields.cast_params(pf32, torch.bfloat16) if dt == "bf16"
+                  else pf32)
+            fnets = fields.KernelNets(mf, pf)
+            key = f"w256 feature {h} {dt}"
+            zero()
+            fcalls = spied(lambda: renderer.run_rays(
+                mf, pf, ro_lr, rd_lr, return_feats=True, nets=fnets))
+            n = [c.launches for c in counters]
+            zero()
+            renderer.run_rays(mf, pf, ro_lr, rd_lr, return_feats=True,
+                              nets=fnets)
+            torch.cuda.synchronize()
+            check([c.launches for c in counters] == n and n[2] > 0,
+                  f"{key}: launches {n}")
+            widths = [max(w.shape[1] for w in field_of("run_tmlp", a).ws)
+                      for a, _ in fcalls["run_tmlp"]]
+            check(max(widths) == 256,
+                  f"{key}: no width-256 run_tmlp {widths}")
+            for name, ls in fcalls.items():
+                for a, k in ls:
+                    hold(key, name, a, k, None, seeded=True)
+            launch_t[key] = {"run_tmlp": launch_times("run_tmlp",
+                                                      fcalls["run_tmlp"])}
+            wide["feature_render"][f"{h} {dt}"] = {
+                "rays": FEAT_HW * FEAT_HW, "launches": n,
+                "run_tmlp_widths": widths,
+                "run_tmlp_launches": launch_t[key]["run_tmlp"]}
+            if h == "32,16" and dt == "bf16":
+                ring_launch = fcalls["run_tmlp"][widths.index(256)]
+            del pf, fnets, fcalls
+            torch.cuda.empty_cache()
+        del pf32
     # the planted ring fault: the width-256 field's run_tmlp launch of the
     # (32, 16) feature render on the kernels built with RING_FAULT must fail
     # the hold that the kernel itself passed above (GRID_TOL, element by
@@ -4151,6 +4230,23 @@ def branch_phases(torch, np, dev, card, compare, launch_times, kern_fn,
     del tr, eparams, ecalls
     shutil.rmtree(ws, ignore_errors=True)
     torch.cuda.empty_cache()
+    for key in ("w256 32,16 f32", "w256 128,64,32 f32",
+                "w256 feature 32,16 f32", "w256 feature 128,64,32 f32",
+                "w256 train eval f32"):
+        check(f32_ring.get(key, 0) > 0,
+              f"{key}: no float32 launch wider than 128 held on the ring")
+    wide["f32_ring_launches_held"] = {k: v for k, v in f32_ring.items()
+                                      if k.startswith("w256")}
+    # the V_WIDE32 kernels: tmlp_kernel and both composite_kernel instances
+    v32 = ptxas_of(ptxas_log, "IfLi4E")
+    found = [k for k, v in v32.items()
+             if k != "serialized" and "registers" in v]
+    check(len(found) == 3 and sum("composite" in k for k in found) == 2,
+          f"the nvcc log of fused_mlp_t holds {len(found)} of the 3 "
+          f"V_WIDE32 kernels: {found}")
+    # recorded, not held: ptxas serializes the served composite's wgmmas
+    # with a fresh accumulator a group of 32-128 columns (C7511; PERF.md)
+    wide["v_wide32_ptxas"] = v32
     log(f"B2 width 256: {wide}")
     rec["w256"] = wide
 
@@ -4220,17 +4316,20 @@ def branch_phases(torch, np, dev, card, compare, launch_times, kern_fn,
 
     def row(name, kernel, key, launches, launches_of):
         lt = launch_t[key][kernel][0]
-        return {"name": name, "route": "cuda", "source": SOURCES[kernel][0],
-                "replaces": SOURCES[kernel][1], "launches": launches,
-                "launches_of": launches_of,
-                "max_abs_err": errs[key][kernel],
-                "max_abs_err_f32_weights": errs32.get(key, {}).get(kernel),
-                "ms": lt["ms"], "plain_ms": lt["plain_ms"],
-                "bound_ms": lt["bound_ms"], "bound_by": lt["bound_by"],
-                "library_ms": None,
-                "library": "none: no single PyTorch call computes this "
-                           "function",
-                "shape": lt["shape"], "launch_times": launch_t[key][kernel]}
+        rec = {"name": name, "route": "cuda", "source": SOURCES[kernel][0],
+               "replaces": SOURCES[kernel][1], "launches": launches,
+               "launches_of": launches_of,
+               "max_abs_err": errs[key][kernel],
+               "max_abs_err_f32_weights": errs32.get(key, {}).get(kernel),
+               "ms": lt["ms"], "plain_ms": lt["plain_ms"],
+               "bound_ms": lt["bound_ms"], "bound_by": lt["bound_by"],
+               "library_ms": None,
+               "library": "none: no single PyTorch call computes this "
+                          "function",
+               "shape": lt["shape"], "launch_times": launch_t[key][kernel]}
+        if "variant" in lt:
+            rec["variant"] = lt["variant"]
+        return rec
 
     rows = [
         row("run_tmlp_composite[T=24]", "run_tmlp_composite", "asset 32,24",
@@ -4258,17 +4357,22 @@ def branch_phases(torch, np, dev, card, compare, launch_times, kern_fn,
                         "frame"))
         if kern == "run_tmlp":
             for h in HIERARCHIES:
-                fr = wide["feature_render"][h]
-                r = row(f"run_tmlp[w256 feature {h}]", kern,
-                        f"w256 feature {h} bf16", fr["launches"][2],
-                        f"the {FEAT_HW} x {FEAT_HW}-ray feature render of a "
-                        f"512^2 interactive frame of the width-256 field "
-                        f"with a SAM head at {h}, bf16; times of its "
-                        f"width-256 (field) launch")
-                lt = fr["run_tmlp_launches"][fr["run_tmlp_widths"].index(256)]
-                r.update({kk: lt[kk] for kk in ("ms", "plain_ms", "bound_ms",
-                                                "bound_by", "shape")})
-                rows.append(r)
+                for dt in ("bf16", "f32"):
+                    fr = wide["feature_render"][f"{h} {dt}"]
+                    r = row(f"run_tmlp[w256 feature {h}"
+                            f"{' f32' if dt == 'f32' else ''}]", kern,
+                            f"w256 feature {h} {dt}", fr["launches"][2],
+                            f"the {FEAT_HW} x {FEAT_HW}-ray feature render "
+                            f"of a 512^2 interactive frame of the width-256 "
+                            f"field with a SAM head at {h}, {dt}; times of "
+                            f"its width-256 (field) launch")
+                    lt = fr["run_tmlp_launches"][
+                        fr["run_tmlp_widths"].index(256)]
+                    r.update({kk: lt[kk] for kk in (
+                        "ms", "plain_ms", "bound_ms", "bound_by", "shape")})
+                    r.update({kk: lt[kk] for kk in (
+                        "variant", "bound_3xtf32_ms") if kk in lt})
+                    rows.append(r)
         for kind in ("bias", "dense_sin"):
             rows.append(row(
                 f"{kern}[{kind}]", kern, f"asset 32,16 {kind}",
@@ -4278,7 +4382,8 @@ def branch_phases(torch, np, dev, card, compare, launch_times, kern_fn,
                 f"{kind} field's run_tmlp is held at the frame's level-0 "
                 f"points"))
     rec.update(max_abs_err=errs, max_abs_err_f32_weights=errs32,
-               outputs_past_tol=past, rows=rows)
+               outputs_past_tol=past, rows=rows,
+               f32_ring_launches_held=f32_ring)
     return rec
 
 

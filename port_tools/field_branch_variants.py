@@ -31,6 +31,11 @@ text substitutions in that source, for `port_tools/kernel_variants.py`
                  columns, the encoding's last): the consumer's chain reads
                  whatever the slot held there, the previous tile's
                  columns (zeros at a slot's first use);
+  f32_ring_lost_k planted fault: the float32 V_WIDE32 ring's producer
+                 leaves out the copy of every unit at an odd multiple of
+                 8 columns past a chunk's first 16 (it arrives on the full
+                 barrier with no bytes: the consumers' products read
+                 whatever that stage held before);
   parent         the port of the commit before these branches, unpacked
                  under build/parent10 (`git archive d830384
                  sanerf_tpu_torch | tar -x -C build/parent10`).
@@ -67,5 +72,16 @@ VARIANTS = {
          "fromf<bf16>(v); });",
          "        [&](int c, float v) { if (c < lost) "
          "enc[enc_index<bf16>(row, c, 0)] = fromf<bf16>(v); });"]],
+    "f32_ring_lost_k": [[
+        "        if (lane == 0) {\n"
+        "          wg::mbar_expect_tx(full, bytes);\n"
+        "          wg::bulk_copy(wg::smem(f32_unit(r)), src, bytes, full);\n"
+        "        }\n",
+        "        const bool lost = k0 >= 16 && (k0 / 8) % 2;\n"
+        "        wg::mbar_arrive_if(full, lane == 0 && lost);\n"
+        "        if (lane == 0 && !lost) {\n"
+        "          wg::mbar_expect_tx(full, bytes);\n"
+        "          wg::bulk_copy(wg::smem(f32_unit(r)), src, bytes, full);\n"
+        "        }\n"]],
     "parent": "build/parent10",
 }

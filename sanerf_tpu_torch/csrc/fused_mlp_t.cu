@@ -15,7 +15,9 @@
 // tensor cores at 989 TFLOP/s. The proposal chain (33->32->1) is ~1.1 k
 // MAC per point and bound by its 12 B in + 4 B out per point. In float32
 // (the trainer's evaluation) the default field is 116,480 MAC a sample:
-// 131,072 samples of a 64^2 frame take 0.185 ms as 3xTF32 at 495 TFLOP/s.
+// 131,072 samples of a 64^2 frame take 0.185 ms as 3xTF32 at 495 TFLOP/s;
+// at width 256 (429,568 MAC a point) a 512^2 frame at (32, 16) takes
+// 21.86 ms so (the V_WIDE32 composite's bound, with its view head).
 //
 // Design (bound by the tensor cores for the field, by bytes for the
 // proposal nets; what holds each back is in PERF.md):
@@ -77,11 +79,11 @@
 //     are tensor-core instructions and the adds plain adds, which
 //     -fmad=false does not touch;
 //   - nets wider than 128 (up to MAX_WIDTH = 512; the V_WIDE variant of
-//     tmlp_kernel and the composites) keep the hidden activations of a
+//     tmlp_kernel and the composites in bf16, V_WIDE32 in float32) keep the hidden activations of a
 //     tile in shared memory, since a 64 x 256 accumulator and the next
 //     layer's A fragments would not fit in a thread's registers: each
 //     layer runs as chunks of at most 128 outputs (one 64-register
-//     accumulator), chunk 0 held in registers, activated, the chunks
+//     accumulator), chunk 0 held in registers (bf16), activated, the chunks
 //     between the first and the last parked in device memory (a slot per
 //     warpgroup of the persistent grid, each thread its own words,
 //     coalesced), until the last chunk has read the previous activations,
@@ -94,10 +96,15 @@
 //     are copied, and a chunk's products are one wgmma pipeline of one
 //     shape with no branch in it (the earlier design waited for each copy,
 //     and ptxas serialized its wgmmas; PERF.md);
-//     float32: the A fragments read from the row-major activations as from
-//     the encoding, the weights in shared memory where they fit, else
-//     streamed in units of one chunk's rows over 64 columns (32 KB; a 256
-//     x 320 float32 skip layer is 320 KB), else read through L2;
+//     float32 (V_WIDE32, the Trainer's evaluation of such nets): 3xTF32 on
+//     wgmma, B from a ring as in bf16 (units of a chunk's rows over 8
+//     columns, the weights split on the host into tf32 hi and lo slabs, 8
+//     KB, up to two consumer warpgroups), A the float32 activations of the
+//     warp's rows (row-major, as the encoding) split in registers, each
+//     group of 64 columns into a fresh accumulator added in float32, every
+//     chunk of a layer but the last parked (chain_wide's float32
+//     overload; it replaced a chain of mma.sync whose block copied each
+//     unit and waited, PERF.md);
 //   - the bf16 nets of the grid family (VM planes, CP ladders of two levels
 //     or more, sigma-VM; no layer over 128) whose weights fit shared
 //     memory whole (grid_student; the ladders' stream and keep V_SERVED:
@@ -191,22 +198,26 @@ constexpr int wgs_of(bool composite) {
   return sizeof(T) == 2 ? (composite ? 4 : 3)
                         : (composite ? F32_COMPOSITE_WGS : F32_WGS);
 }
-// Each kernel comes in three variants, picked per net by the host's plan
+// Each kernel comes in five variants, picked per net by the host's plan
 // (ops/fused_mlp_t.py:kernel_plan): V_SERVED, the nets every served
 // configuration has (no bias, angle doubling, no layer over 128, ladders
 // of at most INLINE_LEVELS levels), whose code holds no test for the
 // branches below (a run-time test of either cost the asset's float32
 // launches 3-7 %, PERF.md); V_BRANCHES, such nets with biases, the
-// dense-sin encode or longer ladders; V_WIDE, nets with a layer over 128
-// (each branch at run time); V_GRID (bf16 only), the nets of the grid
+// dense-sin encode or longer ladders; V_WIDE (bf16 only), nets with a
+// layer over 128 (each branch at run time); V_GRID (bf16 only), the nets of the grid
 // family, no layer over 128 and the factorized grids past the asset's one
 // CP line table: VM planes, CP ladders of two levels or more, sigma-VM,
 // whose weights fit shared memory whole (their encode in warps of its own
-// beside the chain, see grid_encode).
-enum Variant { V_SERVED = 0, V_BRANCHES = 1, V_WIDE = 2, V_GRID = 3 };
-// V_WIDE kernels: 3 consumer warpgroups in bf16 (they share each weight
-// unit of the ring), 2 in float32 (the plan takes fewer where the buffers
-// do not fit)
+// beside the chain, see grid_encode); V_WIDE32 (float32 only), the float32
+// nets with a layer over 128, on the weight ring with 3xTF32 on wgmma
+// (chain_wide's float32 overload).
+enum Variant {
+  V_SERVED = 0, V_BRANCHES = 1, V_WIDE = 2, V_GRID = 3, V_WIDE32 = 4
+};
+// consumer warpgroups a block, which share each weight unit of the ring:
+// 3 in V_WIDE, 2 in V_WIDE32 (the plan takes fewer where the buffers do
+// not fit)
 constexpr int WIDE_WGS = 3, WIDE_F32_WGS = 2;
 // V_GRID kernels: GRID_WGS consumer warpgroups (the chain and the
 // epilogue), then GRID_ENC_WGS encoder warpgroups, whose warps encode the
@@ -215,21 +226,43 @@ constexpr int WIDE_WGS = 3, WIDE_F32_WGS = 2;
 constexpr int GRID_WGS = 2, GRID_ENC_WGS = 2;
 template <typename T>
 constexpr int wgs_of(bool composite, int v) {
-  return v == V_WIDE ? (sizeof(T) == 2 ? WIDE_WGS : WIDE_F32_WGS)
-         : v == V_GRID ? GRID_WGS
-                       : wgs_of<T>(composite);
+  return v == V_WIDE     ? WIDE_WGS
+         : v == V_WIDE32 ? WIDE_F32_WGS
+         : v == V_GRID   ? GRID_WGS
+                         : wgs_of<T>(composite);
 }
-// The bf16 V_WIDE and V_GRID kernels stream the weights through a ring of
-// units in shared memory: a unit is one chunk's rows (<= CHUNK) over
-// UNIT_K columns of W^T (16 KB), the ring 2..MAX_STAGES of them, each with
-// a full and an empty mbarrier (RING_BAR_B bytes after the ring), filled
-// with bulk copies by one warp (V_WIDE: of a producer warpgroup, the
-// block's last; V_GRID: the last warp of the encoder warpgroups).
+// The bf16 V_WIDE and V_GRID kernels and the V_WIDE32 ones stream the
+// weights through a ring of units in shared memory: a unit is one chunk's
+// rows (<= CHUNK) over UNIT_K columns of W^T (16 KB; V_WIDE32: over
+// F32_UNIT_K columns as tf32 hi and lo slabs, 8 KB), the ring
+// 2..MAX_STAGES of them, each with a full and an empty mbarrier (RING_BAR_B
+// bytes after the ring), filled with bulk copies by one warp (V_WIDE,
+// V_WIDE32: of a producer warpgroup, the block's last; V_GRID: the last
+// warp of the encoder warpgroups).
 template <typename T>
 __host__ __device__ constexpr bool ring_of(int v) {
-  return sizeof(T) == 2 && (v == V_WIDE || v == V_GRID);
+  return (sizeof(T) == 2 && (v == V_WIDE || v == V_GRID)) || v == V_WIDE32;
 }
 constexpr int UNIT_K = 64, UNIT_B = 128 * UNIT_K * 2;
+// A V_WIDE32 unit: one chunk's nw rows over F32_UNIT_K columns (one k8
+// step of tf32 wgmma), split on the host (TransposedFieldMLP.packed with
+// `split`) into hi, the tf32 rounding of each weight (tf32_rna), and lo =
+// w - hi: [hi][lo], each two core-matrix k blocks of nw / 8 core matrices
+// of 8 rows x 4 floats (128 B), the W^T columns of each 8-column step in
+// the order 0, 2, 4, 6, 1, 3, 5, 7 (k slot j <- column 2j, slot j + 4 <-
+// column 2j + 1), so that a lane's A fragment of slots t and t + 4 is its
+// float2 at columns 2t and 2t + 1 of the row-major activations, and the
+// accumulators of a layer are the next layer's A in the same order; nw *
+// 64 B, a stage F32_UNIT_B; a layer's units contiguous, chunk by chunk, in
+// ascending k (one bulk copy a unit). The products of F32_GROUP units (64
+// columns; a chunk's last group may be shorter, an even number of units)
+// go into one fresh accumulator, then one float32 add into the chunk's.
+constexpr int F32_UNIT_K = 8, F32_UNIT_B = 128 * F32_UNIT_K * 4 * 2;
+constexpr int F32_GROUP = 8;
+template <int V>
+__host__ __device__ constexpr int unit_bytes() {
+  return V == V_WIDE32 ? F32_UNIT_B : UNIT_B;
+}
 // after the barriers, ZERO_B bytes of zeros where a layer's last unit is
 // short of UNIT_K columns: one k16 step of B for 128 rows, which its k
 // steps past the layer's columns read
@@ -255,6 +288,18 @@ constexpr int RING_REGS =
     (RING_ENTRY_REGS + (RING_ENTRY_REGS - PRODUCER_REGS) / WIDE_WGS) & ~7;
 static_assert(RING_REGS <= 256 && PRODUCER_REGS >= 24,
               "setmaxnreg takes 24..256 registers");
+// The same budget for V_WIDE32: one block of WIDE_F32_WGS + 1 warpgroups
+// an SM starts with F32_RING_ENTRY_REGS (168), the consumers take what the
+// producer gives back, F32_RING_REGS (232: a chunk's accumulators, a
+// group's fresh ones and two units' A). A producer warp in its place (288
+// threads) left every thread 168 registers, not 224 (nine warps: three on
+// one of the SM's four register files), and the chain spilled (PERF.md).
+constexpr int F32_RING_ENTRY_REGS =
+    (65536 / ((WIDE_F32_WGS + 1) * 128)) & ~7;
+constexpr int F32_RING_REGS =
+    (F32_RING_ENTRY_REGS + (F32_RING_ENTRY_REGS - PRODUCER_REGS) /
+                               WIDE_F32_WGS) & ~7;
+static_assert(F32_RING_REGS <= 256, "setmaxnreg takes 24..256 registers");
 // The same budget for V_GRID: GRID_ENTRY_REGS at entry (one block of
 // GRID_WGS + GRID_ENC_WGS warpgroups an SM), the encoder warpgroups give
 // theirs down to GRID_ENC_REGS and the consumers take what that frees,
@@ -995,8 +1040,8 @@ __device__ __forceinline__ void store_last(const float (&acc)[NA], int ncols,
 }
 
 // where a block's chains read the weights from: global memory (through
-// L2; float32 only), all of them staged in shared memory, one layer (one
-// float32 V_WIDE unit of a chunk) at a time, or (bf16 V_WIDE) the ring
+// L2; float32 only), all of them staged in shared memory, one layer at a
+// time, or (V_WIDE, V_WIDE32, V_GRID) the ring
 enum WeightMode { W_GLOBAL = 0, W_ALL = 1, W_STREAM = 2, W_RING = 3 };
 
 // ---------------------------------------------------------------------------
@@ -1007,15 +1052,16 @@ enum WeightMode { W_GLOBAL = 0, W_ALL = 1, W_STREAM = 2, W_RING = 3 };
 
 struct Plan {
   int lde, ldo, M, R;  // M: points per warpgroup step, R of them rays'
-  int ldh;             // hb row stride (V_WIDE)
+  int ldh;             // hb row stride (V_WIDE, V_WIDE32, V_GRID)
   int wgs, w_mode, w_bytes, v_bytes;
   int enc_b, h_b, out_b, sig_b, wts_b, ts_b, vin_b;
   int per_wg, total;
   // segments of a composite step (a ray longer than a step runs as nseg
   // segments of M points, one ray a step; 1: whole rays), floats of a
-  // warp's view-head scratch, columns of a streamed float32 V_WIDE weight
-  // unit, chunks of a V_WIDE layer parked in the park buffer (all but the
-  // first and the last of the widest layer's)
+  // warp's view-head scratch, columns of a V_WIDE32 ring unit
+  // (F32_UNIT_K; 0 in every other plan), chunks of a V_WIDE layer parked
+  // in the park buffer (all but the first and the last of the widest
+  // layer's; V_WIDE32: all but the last)
   int nseg, vld, unit_k, park_chunks;
   // the kernel: its variant (Variant), the proposal nets' small_kernel
   // (run_tmlp), the general composite epilogue, the wider proposal nets'
@@ -1108,7 +1154,9 @@ __device__ __forceinline__ void park_get(const uint32_t* park, const Plan& pl,
 // A unit is a chunk's nw rows over its k blocks, as the slab keeps them:
 // for each k block nw / 8 contiguous core matrices, so it lands as a slab
 // nw rows wide (nw * 16 B from one k block to the next) with one bulk copy
-// a k block.
+// a k block. A V_WIDE32 block's ring alike, its stages F32_UNIT_B bytes
+// (unit_bytes), each unit one bulk copy of the split slab (f32_unit,
+// ring_fill_tile_f32), no zero block.
 struct Ring {
   const bf16* w;     // stage 0
   const bf16* zero;  // the zero block
@@ -1130,8 +1178,9 @@ struct Ring {
   }
 };
 
+template <int V>
 __device__ __forceinline__ Ring ring_at(unsigned char* smem, const Plan& pl) {
-  unsigned char* bars = smem + pl.stages * UNIT_B;
+  unsigned char* bars = smem + pl.stages * unit_bytes<V>();
   return Ring{reinterpret_cast<const bf16*>(smem),
               reinterpret_cast<const bf16*>(bars + RING_BAR_B),
               wg::smem(bars), pl.stages, 0, 0u};
@@ -1288,31 +1337,6 @@ __device__ void chain_wide(const Net& net, Ring& r, const Plan& pl,
   }
 }
 
-// Copies the W^T blocks of k steps [s0, s1) and n-tiles [nt0, nt0 + nt_n)
-// of a layer slab (kout / 8 n-tiles a k step) to dst, nt_n blocks a k step,
-// with the whole block (cp.async). The float32 V_WIDE weights stream in
-// such units of one chunk's rows over pl.unit_k columns (32 KB at 128 x
-// 64), as a 256 x 320 float32 skip layer (320 KB) does not fit; 64 columns
-// leave room for 2 warpgroups beside a unit at an encoding of 64 (each
-// 67.6 KB of hidden activations at width 256; read through L2, or streamed
-// in units of 128 columns beside one warpgroup, the weights left the
-// composite slower than cuBLAS, PERF.md).
-__device__ void block_copy_unit(float* dst, const float* slab, int kout,
-                                int s0, int s1, int nt0, int nt_n) {
-  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
-  const int per_s = nt_n * 16;  // 16-byte pieces of one k step's blocks
-  for (int i = threadIdx.x; i < (s1 - s0) * per_s; i += blockDim.x) {
-    const int s = i / per_s, j = i - s * per_s;
-    const float* src = slab + ((s0 + s) * (kout / 8) + nt0) * 64 + 4 * j;
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                     d + 16 * i),
-                 "l"(src)
-                 : "memory");
-  }
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-  __syncthreads();
-}
-
 // the activated accumulators of a chunk (or their parked bits) into this
 // warp's rows of hb, columns [8 nt0, 8 nt0 + 8 nt_n)
 __device__ __forceinline__ void put_rows_f32(float* h, int ldh,
@@ -1329,10 +1353,173 @@ __device__ __forceinline__ void put_rows_f32(float* h, int ldh,
   }
 }
 
-// float32: each warp its 16 rows of hb, row-major [64][ldh] as the
-// encoding; B from W: every layer in shared memory, global memory, or
-// (W_STREAM) the block's one-unit buffer, refilled per unit.
-__device__ void chain_wide(const Net& net, const float* W, const Plan& pl,
+// ---------------------------------------------------------------------------
+// the float32 chain of a net wider than 128 on the ring (V_WIDE32): 3xTF32
+// on wgmma. Each k8 step of a chunk is three m64nNk8 tf32 products with A
+// from registers, a_lo b_hi + a_hi b_lo + a_hi b_hi (the small terms first;
+// the lo lo term dropped, as mma.sync's chain did): A, this warp's rows of
+// the float32 activations (the encoding, or hb: row-major, each warp its
+// 16 rows, as the chain before it kept them), read as float2 at columns 2t
+// and 2t + 1 of the step (the unit's permuted k slots t and t + 4) and split
+// in registers (split_tf32); B, the unit's hi and lo slabs from the ring.
+// A group of F32_GROUP units (64 columns) goes into a fresh accumulator
+// (its first product with D zeroed), then one float32 add into the
+// chunk's (the tensor core truncates the sums it writes: summed into the
+// chunk's accumulator itself, that error would be of its size at every
+// product). Measured (PERF.md): 0.96-1.03x cuBLAS float32's error against
+// float64; summed into the chunk's accumulator, 0.79x the time and up to
+// 1.35x the error; a group of 16 columns 0.90-1.54x the time (ptxas
+// serializes one kernel or the other). Each unit's products are one commit
+// group, its stage released once they are done, by one predicated arrival
+// a consumer warp.
+// ---------------------------------------------------------------------------
+
+// the stage of the ring r is at, as bytes
+__device__ __forceinline__ const unsigned char* f32_unit(const Ring& r) {
+  return reinterpret_cast<const unsigned char*>(r.w) + r.stage * F32_UNIT_B;
+}
+
+// The producer's part of one tile (V_WIDE32; one warp): every unit of the
+// chain in the consumers' order, one bulk copy each (lane 0) from the split
+// slab (net.w: two floats a weight, a layer's units from twice its w_off),
+// into the next stage once every consumer warp has released it.
+__device__ void ring_fill_tile_f32(const Net& net, Ring& r, int lane) {
+  const unsigned char* w = reinterpret_cast<const unsigned char*>(net.w);
+  for (int l = 0; l < net.n_layers; ++l) {
+    const Layer L = net.layer[l];
+    const unsigned char* src = w + 8L * L.w_off;
+    for (int n0 = 0; n0 < L.kout; n0 += CHUNK) {
+      const uint32_t bytes = min(CHUNK, L.kout - n0) * F32_UNIT_K * 8;
+      for (int k0 = 0; k0 < L.w_ld; k0 += F32_UNIT_K, src += bytes) {
+        const uint32_t full = r.full();
+        wg::mbar_wait(r.empty(r.stage), r.phase ^ 1u);
+        if (lane == 0) {
+          wg::mbar_expect_tx(full, bytes);
+          wg::bulk_copy(wg::smem(f32_unit(r)), src, bytes, full);
+        }
+        __syncwarp();
+        r.next();
+      }
+    }
+  }
+}
+
+// The three products of one unit (a k8 step) of a chunk NW rows wide into
+// f: B's hi slab at u, its lo slab nw * 32 B further; core matrices SBO =
+// 128 B apart along N, the two k blocks LBO = nw * 16 B apart. FIRST: the
+// group's first unit, whose first product zeroes f.
+template <int NW, int FIRST>
+__device__ __forceinline__ void unit_tf32(float (&f)[NA], const unsigned char* u,
+                                          const uint32_t (&ah)[4],
+                                          const uint32_t (&al)[4], int nw) {
+  const uint32_t lbo = (uint32_t)nw * 16;
+  const uint64_t hi = wg::desc(u, lbo, 128);
+  const uint64_t lo = wg::desc(u + nw * 32, lbo, 128);
+  if constexpr (NW == 128) {
+    wg::wgmma_tf32_n128<1 - FIRST>(f, al, hi);
+    wg::wgmma_tf32_n128<1>(f, ah, lo);
+    wg::wgmma_tf32_n128<1>(f, ah, hi);
+  } else if constexpr (NW == 64) {
+    wg::wgmma_tf32_n64<1 - FIRST>(f, al, hi);
+    wg::wgmma_tf32_n64<1>(f, ah, lo);
+    wg::wgmma_tf32_n64<1>(f, ah, hi);
+  } else {
+    wg::wgmma_tf32_n16<1 - FIRST>(f, al, hi);
+    wg::wgmma_tf32_n16<1>(f, ah, lo);
+    wg::wgmma_tf32_n16<1>(f, ah, hi);
+  }
+}
+
+// This lane's A of a unit: rows g and g + 8 of the warp's 16, columns 2t
+// and 2t + 1 of the unit's 8 (its k slots t and t + 4) at src, rows ld
+// apart; a[0] its tf32 hi, a[1] the rest (split_tf32).
+__device__ __forceinline__ void unit_a(const float* src, int ld,
+                                       uint32_t (&a)[2][4]) {
+  const float2 r0 = *reinterpret_cast<const float2*>(src);
+  const float2 r1 = *reinterpret_cast<const float2*>(src + 8 * ld);
+  split_tf32(r0.x, a[0][0], a[1][0]);
+  split_tf32(r1.x, a[0][1], a[1][1]);
+  split_tf32(r0.y, a[0][2], a[1][2]);
+  split_tf32(r1.y, a[0][3], a[1][3]);
+}
+
+// Waits for the ring's next unit, issues its three products into f (FIRST:
+// f zeroed) and commits them as a group; -> the empty barrier of its stage,
+// to release once they are done.
+template <int NW, int FIRST>
+__device__ __forceinline__ uint32_t unit_issue(float (&f)[NA], Ring& r,
+                                               const uint32_t (&a)[2][4],
+                                               int nw) {
+  const uint32_t empty = r.empty(r.stage);
+  const unsigned char* u = f32_unit(r);
+  wg::mbar_wait(r.full(), r.phase);
+  r.next();
+  wg::fence();
+  unit_tf32<NW, FIRST>(f, u, a[0], a[1], nw);
+  wg::commit();
+  return empty;
+}
+
+// One chunk's products, group by group in ascending k, into acc (zeroed by
+// the caller): A of column k from the hidden activations (this lane's row
+// g, column 2t of them at A, rows lda apart) below kin_h, from the encoding
+// (e, lde) past it (the skip layer's columns). The units of a group are
+// issued two by two, their A in two sets of registers x and y that
+// alternate: a unit's products wait for its stage (A loaded before the
+// wait), and once the next unit's are issued, wgmma.wait_group 1 says they
+// are done: the stage is released and its A registers are free for the
+// unit after next. The group's last products are waited on whole
+// (wait_group 0), then f goes into acc. One wgmma shape and no branch among
+// a chunk's products (a loop of the same shape, as the bf16 ring's).
+template <int NW>
+__device__ __forceinline__ void chunk_units_f32(float (&acc)[NA], Ring& r,
+                                                const Layer& L, const float* A,
+                                                int lda, const float* e,
+                                                int lde, int nw, int lane) {
+  float f[NA];
+  uint32_t x[2][4], y[2][4];
+  const int kin_h = L.kin_h;
+  auto src = [&](int k) { return k < kin_h ? A + k : e + (k - kin_h); };
+  auto ld = [&](int k) { return k < kin_h ? lda : lde; };
+  for (int g0 = 0; g0 < L.w_ld; g0 += F32_GROUP * F32_UNIT_K) {
+    const int g1 = min(g0 + F32_GROUP * F32_UNIT_K, L.w_ld);
+    unit_a(src(g0), ld(g0), x);
+    uint32_t ex = unit_issue<NW, 1>(f, r, x, nw);
+    unit_a(src(g0 + F32_UNIT_K), ld(g0 + F32_UNIT_K), y);
+    uint32_t ey = unit_issue<NW, 0>(f, r, y, nw);
+    wg::wait<1>();
+    wg::keep(x);
+    wg::mbar_arrive_if(ex, lane == 0);
+    for (int k = g0 + 2 * F32_UNIT_K; k < g1; k += 2 * F32_UNIT_K) {
+      unit_a(src(k), ld(k), x);
+      ex = unit_issue<NW, 0>(f, r, x, nw);
+      wg::wait<1>();
+      wg::keep(y);
+      wg::mbar_arrive_if(ey, lane == 0);
+      unit_a(src(k + F32_UNIT_K), ld(k + F32_UNIT_K), y);
+      ey = unit_issue<NW, 0>(f, r, y, nw);
+      wg::wait<1>();
+      wg::keep(x);
+      wg::mbar_arrive_if(ex, lane == 0);
+    }
+    wg::wait<0>();
+    wg::keep(f);
+    wg::keep(y);
+    wg::mbar_arrive_if(ey, lane == 0);
+#pragma unroll
+    for (int i = 0; i < NW / 2; ++i) acc[i] += f[i];
+  }
+}
+
+// float32 on the ring: each warp its 16 rows of hb, row-major [64][ldh] as
+// the float32 encoding; each layer in chunks of at most CHUNK outputs, each
+// chunk's products chunk_units_f32 (one instance a wgmma shape, the bf16
+// ring's shapes). Every chunk of a layer but the
+// last is parked in device memory (slot c of the warpgroup's park slot,
+// Plan.park_chunks = chunks - 1), not held in registers: beside a chunk's
+// accumulators and the group's fresh ones, 64 more held ones spilled in
+// the group loop (PERF.md).
+__device__ void chain_wide(const Net& net, Ring& r, const Plan& pl,
                            const float* enc, float* hb, float (&acc)[NA],
                            const float* sig, float* outb, int ldo, int warp,
                            int lane, uint32_t* park) {
@@ -1340,74 +1527,48 @@ __device__ void chain_wide(const Net& net, const float* W, const Plan& pl,
   const int g = lane >> 2, t = lane & 3;
   const float* e = enc + (16 * warp + g) * lde + 2 * t;
   float* h = hb + (16 * warp + g) * ldh + 2 * t;
-  float held[NA];  // chunk 0 of a layer of two chunks or more, activated
   for (int l = 0; l < net.n_layers; ++l) {
     const Layer L = net.layer[l];
-    const float* Wl = W + L.w_off;
     const bool last = l == net.n_layers - 1;
     const int nch = (L.kout + CHUNK - 1) / CHUNK;
-    const int kst = L.kout / 8 * 64;  // one k step's blocks of W^T
-    // A of the columns before kin_h: the encoding (layer 0) or hb
     const float* A = l == 0 ? e : h;
     const int lda = l == 0 ? lde : ldh;
     for (int c = 0; c < nch; ++c) {
-      const int nt0 = MAX_NT * c, nt_n = min(MAX_NT, L.kout / 8 - nt0);
-      const float* Wc = Wl + nt0 * 64;
+      const int n0 = CHUNK * c, nw = min(CHUNK, L.kout - n0);
 #pragma unroll
       for (int i = 0; i < NA; ++i) acc[i] = 0.0f;
-      if (pl.w_mode != W_STREAM) {
-        enc_steps<MAX_NT>(acc, A, lda, Wc, L.kin_h, lane, nt_n, kst);
-        if (L.kin_e)
-          enc_steps<MAX_NT>(acc, e, lde, Wc + L.kin_h / 8 * kst, L.kin_e,
-                            lane, nt_n, kst);
+      switch (nw) {
+        case 128: case 112: case 96: case 80:
+          chunk_units_f32<128>(acc, r, L, A, lda, e, lde, nw, lane); break;
+        case 64: case 48: case 32:
+          chunk_units_f32<64>(acc, r, L, A, lda, e, lde, nw, lane); break;
+        default: chunk_units_f32<16>(acc, r, L, A, lda, e, lde, nw, lane);
       }
-      for (int k0 = 0; pl.w_mode == W_STREAM && k0 < L.w_ld;
-           k0 += pl.unit_k) {
-        const int k1 = min(k0 + pl.unit_k, L.w_ld), ust = nt_n * 64;
-        __syncthreads();  // the previous unit's products are done
-        block_copy_unit(const_cast<float*>(W),
-                        reinterpret_cast<const float*>(net.w) + L.w_off,
-                        L.kout, k0 / 8, k1 / 8, nt0, nt_n);
-        const int h1 = min(k1, L.kin_h), e0 = max(k0, L.kin_h);
-        if (k0 < h1)
-          enc_steps<MAX_NT>(acc, A + k0, lda, W, h1 - k0, lane, nt_n, ust);
-        if (e0 < k1)
-          enc_steps<MAX_NT>(acc, e + (e0 - L.kin_h), lde,
-                            W + (e0 - k0) / 8 * ust, k1 - e0, lane, nt_n,
-                            ust);
-      }
-      if (net.bias) add_bias(acc, net.bias + l * BIAS_LD + 8 * nt0, 8 * nt_n,
-                             lane);
+      if (net.bias) add_bias(acc, net.bias + l * BIAS_LD + n0, nw, lane);
       if (last) {
-        store_last(acc, 8 * nt_n, c == 0 ? sig : nullptr, outb + 8 * nt0,
-                   ldo, warp, lane);
-      } else if (c == 0) {
-        if (nch > 1) {
-#pragma unroll
-          for (int i = 0; i < NA; ++i) held[i] = act(acc[i], net.leaky);
-        }
+        store_last(acc, nw, c == 0 ? sig : nullptr, outb + n0, ldo, warp,
+                   lane);
       } else if (c + 1 < nch) {
         uint32_t v[NA];
 #pragma unroll
         for (int i = 0; i < NA; ++i)
           v[i] = __float_as_uint(act(acc[i], net.leaky));
-        park_put<NA>(park, pl, c - 1, v);
+        park_put<NA>(park, pl, c, v);
       }
     }
     if (last) break;
     __syncwarp();  // the warp's reads of its rows of hb are done
     const int nt_last = MAX_NT * (nch - 1);
-    if (nch > 1) put_rows_f32(h, ldh, held, 0, MAX_NT);
-    for (int c = 1; c + 1 < nch; ++c) {
-      uint32_t v[NA];
-      park_get<NA>(park, pl, c - 1, v);
-#pragma unroll
-      for (int i = 0; i < NA; ++i) held[i] = __uint_as_float(v[i]);
-      put_rows_f32(h, ldh, held, MAX_NT * c, MAX_NT);
-    }
 #pragma unroll
     for (int i = 0; i < NA; ++i) acc[i] = act(acc[i], net.leaky);
     put_rows_f32(h, ldh, acc, nt_last, L.kout / 8 - nt_last);
+    for (int c = 0; c + 1 < nch; ++c) {
+      uint32_t v[NA];
+      park_get<NA>(park, pl, c, v);
+#pragma unroll
+      for (int i = 0; i < NA; ++i) acc[i] = __uint_as_float(v[i]);
+      put_rows_f32(h, ldh, acc, MAX_NT * c, MAX_NT);
+    }
     __syncwarp();
   }
 }
@@ -1418,7 +1579,7 @@ struct Bufs {
 };
 
 // The warpgroups of a block after its consumers in a kernel of variant V:
-// V_GRID's encoders, a V_WIDE ring's producer
+// V_GRID's encoders, a V_WIDE or V_WIDE32 ring's producer
 template <int V>
 __host__ __device__ __forceinline__ int aux_wgs(const Plan& pl) {
   return V == V_GRID ? GRID_ENC_WGS : pl.w_mode == W_RING ? 1 : 0;
@@ -1493,8 +1654,8 @@ __device__ const T* block_setup(const Net& net, const View* view,
   if (pl.w_mode != W_GLOBAL) W = reinterpret_cast<const T*>(smem);
   if (pl.w_mode == W_ALL) block_copy(smem, net.w, pl.w_bytes);
   if (pl.w_mode == W_RING) {
-    const Ring r = ring_at(smem, pl);
-    const bool zero = pl.w_bytes > pl.stages * UNIT_B + RING_BAR_B;
+    const Ring r = ring_at<V>(smem, pl);
+    const bool zero = pl.w_bytes > pl.stages * unit_bytes<V>() + RING_BAR_B;
     for (int i = threadIdx.x; zero && i < ZERO_B / 16; i += blockDim.x)
       reinterpret_cast<uint4*>(const_cast<bf16*>(r.zero))[i] =
           make_uint4(0u, 0u, 0u, 0u);
@@ -1570,6 +1731,8 @@ __device__ __forceinline__ void tile(const Net& net, const Plan& pl,
                                      int ncols, uint32_t* park, Ring& ring,
                                      Slots& sl) {
   const int lt = threadIdx.x & 127, warp = lt >> 5, lane = lt & 31;
+  static_assert(V != V_WIDE || sizeof(T) == 2,
+                "V_WIDE is bf16 only; float32 nets that wide are V_WIDE32");
   if constexpr (V == V_GRID) {
     float acc[NA];
     wg::mbar_wait(sl.full(sl.slot), sl.phase);
@@ -1600,10 +1763,6 @@ __device__ __forceinline__ void tile(const Net& net, const Plan& pl,
     chain_wide(net, ring, pl, enc, reinterpret_cast<T*>(b.hb), acc,
                has_sigma(net) ? b.sig : nullptr, outb, pl.ldo, warp, lane,
                park);
-  } else if constexpr (V == V_WIDE) {
-    chain_wide(net, W, pl, enc, reinterpret_cast<T*>(b.hb), acc,
-               has_sigma(net) ? b.sig : nullptr, outb, pl.ldo, warp, lane,
-               park);
   } else {
     chain<V == V_BRANCHES>(net, W, pl.w_mode == W_STREAM, enc, pl.lde, acc,
                            warp, lane);
@@ -1613,13 +1772,19 @@ __device__ __forceinline__ void tile(const Net& net, const Plan& pl,
   __syncwarp();
 }
 
-// The ring's producer warpgroup (bf16 V_WIDE): it gives back registers
-// for the consumers, and its first warp fills the ring for `tiles` tile
-// calls of the block's warpgroups.
+// The ring's producer warpgroup (bf16 V_WIDE, V_WIDE32): it gives back
+// registers for the consumers, and its first warp fills the ring for
+// `tiles` tile calls of the block's warpgroups.
+template <int V>
 __device__ __forceinline__ void produce(const Net& net, Ring& r, long tiles) {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
   if ((threadIdx.x & 127) >= 32) return;
-  for (long i = 0; i < tiles; ++i) ring_fill_tile(net, r, threadIdx.x & 31);
+  for (long i = 0; i < tiles; ++i) {
+    if constexpr (V == V_WIDE32)
+      ring_fill_tile_f32(net, r, threadIdx.x & 31);
+    else
+      ring_fill_tile(net, r, threadIdx.x & 31);
+  }
 }
 
 // a consumer warpgroup of a ring kernel takes the registers the producer
@@ -1627,7 +1792,10 @@ __device__ __forceinline__ void produce(const Net& net, Ring& r, long tiles) {
 template <int V, bool GEN = false>
 __device__ __forceinline__ void consumer_regs() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
-      V != V_GRID ? RING_REGS : GEN ? GRID_GEN_REGS : GRID_REGS));
+      V == V_WIDE32 ? F32_RING_REGS
+      : V != V_GRID ? RING_REGS
+      : GEN         ? GRID_GEN_REGS
+                    : GRID_REGS));
 }
 
 // The tile calls of a block's consumers (V_GRID), as the kernels' loops
@@ -1716,7 +1884,7 @@ tmlp_kernel(Net net, Plan pl, const float* __restrict__ x3, long np,
   const T* W = block_setup<T, V>(net, nullptr, pl, smem, nullptr, b);
   const int wgs = block_wgs<V>(pl);
   const long n_tiles = (np + TILE - 1) / TILE;
-  Ring ring = ring_at(smem, pl);
+  Ring ring = ring_at<V>(smem, pl);
   // V_GRID: the slot sequence (a consumer's; the encoders' walk it whole)
   Slots sl =
       V == V_GRID ? slots_at(smem, pl, wgs, threadIdx.x >> 7) : Slots{};
@@ -1732,8 +1900,8 @@ tmlp_kernel(Net net, Plan pl, const float* __restrict__ x3, long np,
   } else if constexpr (ring_of<T>(V)) {
     if ((threadIdx.x >> 7) == wgs) {
       const long apart = (long)gridDim.x * wgs, first = (long)blockIdx.x * wgs;
-      produce(net, ring, first < n_tiles ? (n_tiles - first + apart - 1) /
-                                               apart : 0);
+      produce<V>(net, ring, first < n_tiles ? (n_tiles - first + apart - 1) /
+                                                  apart : 0);
       return;
     }
     consumer_regs<V>();
@@ -2253,7 +2421,8 @@ __device__ __forceinline__ long ray_offset(long n, int Ts, int pack_q) {
 // sums from segment to segment, so every sum runs in index order as in one
 // pass), up to MAX_GSUM outputs (16 lanes, one column of each 16-column
 // group a lane), a view head of up to MAX_VIEW hidden units (each lane its
-// units lane + 32 q), and the V_WIDE nets' parked chunks.
+// units lane + 32 q), and the V_WIDE nets' parked chunks (V_WIDE32 parks
+// in both).
 template <typename T, int V, bool GEN>
 __global__ void __launch_bounds__(threads_of<T>(true, V), 1)
 composite_kernel(Net net, View view, Plan pl, const float* __restrict__ x3,
@@ -2276,7 +2445,7 @@ composite_kernel(Net net, View view, Plan pl, const float* __restrict__ x3,
   const long n_steps = ((long)N + rays_per_step - 1) / rays_per_step;
   const long steps_apart = (long)gridDim.x * wgs;  // a warpgroup's steps
   const long np_grid = (long)N * Ts;  // V_GRID's np (see block_wgs)
-  Ring ring = ring_at(smem, pl);
+  Ring ring = ring_at<V>(smem, pl);
   Slots sl = V == V_GRID ? slots_at(smem, pl, wgs, wg) : Slots{};
   if constexpr (V == V_GRID) {
     if (wg >= wgs) {
@@ -2291,9 +2460,9 @@ composite_kernel(Net net, View view, Plan pl, const float* __restrict__ x3,
   } else if constexpr (ring_of<T>(V)) {
     if (wg == wgs) {  // a step's tiles: nseg segments of M / TILE
       const long first = (long)blockIdx.x * wgs;
-      produce(net, ring, (first < n_steps ? (n_steps - first + steps_apart
-                                             - 1) / steps_apart : 0) *
-                             nseg * (M / TILE));
+      produce<V>(net, ring, (first < n_steps ? (n_steps - first + steps_apart
+                                                - 1) / steps_apart : 0) *
+                                nseg * (M / TILE));
       return;
     }
     consumer_regs<V>();
@@ -2336,7 +2505,7 @@ composite_kernel(Net net, View view, Plan pl, const float* __restrict__ x3,
                                            : point(s + steps_apart, 0, row);
         load_point(x3, np, nxt, xn);
         tile<T, V>(net, pl, W, b, x, b.outb + tt * TILE * pl.ldo, kout,
-                   GEN ? park : nullptr, ring, sl);
+                   GEN || V == V_WIDE32 ? park : nullptr, ring, sl);
 #pragma unroll
         for (int a = 0; a < 3; ++a) x[a] = xn[a];
       }
@@ -2618,11 +2787,12 @@ Launch launch_size(K kernel, const Plan& pl, bool ring, long work_items,
 
 // The ring's plan (the bf16 V_WIDE and V_GRID kernels, which run on
 // nothing else): 2..MAX_STAGES stages of UNIT_B bytes, the barriers after
-// them, and the zero block where a layer's columns are not whole units. A
-// bf16 V_WIDE or V_GRID plan without it, or another plan with it, is
-// refused; so is a V_GRID plan without its encoding slots (a multiple of
-// its consumers, each a tile's encoding and sigma sums), or another plan
-// with them.
+// them, and the zero block where a layer's columns are not whole units;
+// V_WIDE32's: stages of F32_UNIT_B bytes, unit_k F32_UNIT_K, no zero block
+// (a layer's columns are a multiple of 16: whole groups of units). A ring
+// kernel's plan without it, or another plan with it, is refused; so is a
+// V_GRID plan without its encoding slots (a multiple of its consumers,
+// each a tile's encoding and sigma sums), or another plan with them.
 bool ring_plan_ok(const Net& net, const Plan& pl, bool ring) {
   if (pl.variant != V_GRID) {
     if (pl.slots || pl.slot_b) return false;
@@ -2633,6 +2803,11 @@ bool ring_plan_ok(const Net& net, const Plan& pl, bool ring) {
              pl.slot_b != pl.enc_b + pl.sig_b || pl.lde != net.ke) {
     return false;
   }
+  if (pl.variant == V_WIDE32)
+    return ring && pl.w_mode == W_RING && pl.unit_b == F32_UNIT_B &&
+           pl.unit_k == F32_UNIT_K && pl.stages >= 2 &&
+           pl.stages <= MAX_STAGES &&
+           pl.w_bytes == pl.stages * F32_UNIT_B + RING_BAR_B;
   if (!ring) return pl.w_mode != W_RING;
   bool zero = false;
   for (int l = 0; l < net.n_layers; ++l) zero |= net.layer[l].w_ld % UNIT_K;
@@ -2642,23 +2817,29 @@ bool ring_plan_ok(const Net& net, const Plan& pl, bool ring) {
 }
 
 // A ring kernel starts with the registers its setmaxnreg budget counts on
-// (RING_ENTRY_REGS; V_GRID: GRID_ENTRY_REGS), or it is refused (-2): its
+// (RING_ENTRY_REGS; V_GRID: GRID_ENTRY_REGS; V_WIDE32:
+// F32_RING_ENTRY_REGS), or it is refused (-2): its
 // consumers' increase would wait for registers the producer (the
 // encoders) cannot give back.
 template <int V, typename K>
 bool ring_regs_ok(K kernel) {
   cudaFuncAttributes a;
   return cudaFuncGetAttributes(&a, kernel) == cudaSuccess &&
-         a.numRegs == (V == V_GRID ? GRID_ENTRY_REGS : RING_ENTRY_REGS);
+         a.numRegs == (V == V_GRID     ? GRID_ENTRY_REGS
+                       : V == V_WIDE32 ? F32_RING_ENTRY_REGS
+                                       : RING_ENTRY_REGS);
 }
 
 // the plan's own checks: the kernels trust it for every buffer they carve
 bool plan_ok(const Net& net, const Plan& pl, int max_wgs) {
   if (pl.total > SMEM_LIMIT || pl.wgs < 1 || pl.wgs > max_wgs) return false;
   if (pl.M < TILE || pl.M % TILE || pl.nseg < 1) return false;
-  if (pl.unit_k < 0 || pl.unit_k % 16 || pl.park_chunks < 0) return false;
+  if (pl.unit_k != (pl.variant == V_WIDE32 ? F32_UNIT_K : 0) ||
+      pl.park_chunks < 0)
+    return false;
   if (net.ke % 16 || net.hmax > MAX_WIDTH) return false;
-  if (pl.variant != V_WIDE && net.hmax > CHUNK) return false;
+  if (pl.variant != V_WIDE && pl.variant != V_WIDE32 && net.hmax > CHUNK)
+    return false;
   // the served variant has no loop over a ladder's levels past the slots
   if (pl.variant == V_SERVED && (net.g.n_cp_more || net.g.n_vm_more))
     return false;
@@ -2677,8 +2858,6 @@ int launch_tmlp(const Net& net, const Plan& pl, const float* x3, long np,
   constexpr bool ring = ring_of<T>(V);
   if (!plan_ok(net, pl, wgs_of<T>(false, V)) || pl.M != TILE ||
       !ring_plan_ok(net, pl, ring))
-    return -1;
-  if (V == V_WIDE && sizeof(T) == 4 && pl.w_mode == W_STREAM && !pl.unit_k)
     return -1;
   if (ring && !ring_regs_ok<V>(tmlp_kernel<T, V>)) return -2;
   const Launch ln =
@@ -2707,9 +2886,18 @@ int launch_tmlp_of(const Net& net, const Plan& pl, const float* x3, long np,
         return launch_tmlp<T, V_GRID>(net, pl, x3, np, out, out_rows, park,
                                       park_bytes, stream);
       return -1;
+    case V_WIDE32:  // float32 only
+      if constexpr (sizeof(T) == 4)
+        return launch_tmlp<T, V_WIDE32>(net, pl, x3, np, out, out_rows, park,
+                                        park_bytes, stream);
+      return -1;
+    case V_WIDE:  // bf16 only
+      if constexpr (sizeof(T) == 2)
+        return launch_tmlp<T, V_WIDE>(net, pl, x3, np, out, out_rows, park,
+                                      park_bytes, stream);
+      return -1;
     default:
-      return launch_tmlp<T, V_WIDE>(net, pl, x3, np, out, out_rows, park,
-                                    park_bytes, stream);
+      return -1;
   }
 }
 
@@ -2745,10 +2933,8 @@ int launch_composite(const Net& net, View view, const Plan& pl,
   if (view.sh_dim > 16) return (int)cudaErrorInvalidValue;
   if (pl.general ? (last.kout_real > MAX_GSUM || view.H > MAX_VIEW)
                  : (last.kout != 16 || view.H > 32 || pl.nseg != 1 ||
-                    c.Ts > 128 || pl.park_chunks))
+                    c.Ts > 128 || (pl.park_chunks && V != V_WIDE32)))
     return (int)cudaErrorInvalidValue;
-  if (V == V_WIDE && sizeof(T) == 4 && pl.w_mode == W_STREAM && !pl.unit_k)
-    return -1;
   const long n_steps = ((long)c.N + pl.R - 1) / pl.R;
   auto* kernel = composite_of<T, V>(pl);
   if (ring && !ring_regs_ok<V>(kernel)) return -2;
@@ -2778,9 +2964,18 @@ int launch_composite_of(const Net& net, View view, const Plan& pl,
         return launch_composite<T, V_GRID>(net, view, pl, c, park,
                                            park_bytes, stream);
       return -1;
+    case V_WIDE32:  // float32 only
+      if constexpr (sizeof(T) == 4)
+        return launch_composite<T, V_WIDE32>(net, view, pl, c, park,
+                                             park_bytes, stream);
+      return -1;
+    case V_WIDE:  // bf16 only
+      if constexpr (sizeof(T) == 2)
+        return launch_composite<T, V_WIDE>(net, view, pl, c, park,
+                                           park_bytes, stream);
+      return -1;
     default:
-      return launch_composite<T, V_WIDE>(net, view, pl, c, park, park_bytes,
-                                         stream);
+      return -1;
   }
 }
 
@@ -2796,13 +2991,17 @@ extern "C" int plan_size() { return (int)sizeof(Plan); }
 // plan.park_chunks chunks a warpgroup (0 when the plan parks none)
 extern "C" long park_blocks(int use_bf16, int composite, const void* plan) {
   const Plan& pl = *static_cast<const Plan*>(plan);
-  if (!pl.park_chunks || pl.variant != V_WIDE) return 0;
-  if (composite)
-    return use_bf16
-               ? resident_blocks<V_WIDE>(composite_of<bf16, V_WIDE>(pl), pl)
-               : resident_blocks<V_WIDE>(composite_of<float, V_WIDE>(pl), pl);
-  return use_bf16 ? resident_blocks<V_WIDE>(tmlp_kernel<bf16, V_WIDE>, pl)
-                  : resident_blocks<V_WIDE>(tmlp_kernel<float, V_WIDE>, pl);
+  if (!pl.park_chunks || (pl.variant != V_WIDE && pl.variant != V_WIDE32))
+    return 0;
+  if (use_bf16 != (pl.variant == V_WIDE)) return 0;
+  if (pl.variant == V_WIDE32)
+    return composite
+               ? resident_blocks<V_WIDE32>(composite_of<float, V_WIDE32>(pl),
+                                           pl)
+               : resident_blocks<V_WIDE32>(tmlp_kernel<float, V_WIDE32>, pl);
+  return composite
+             ? resident_blocks<V_WIDE>(composite_of<bf16, V_WIDE>(pl), pl)
+             : resident_blocks<V_WIDE>(tmlp_kernel<bf16, V_WIDE>, pl);
 }
 
 // `grids` points to a Grids and `plan` to a Plan (void pointers: a type of

@@ -77,15 +77,17 @@ QUEUE_B = "still to port: ROADMAP.md, queue B"
 # accumulators a thread, outputs a chunk of a wide layer, the float32
 # encoding's row padding; the composite's whole-ray steps take at most
 # MAX_STEP points, longer rays run in segments of SEGMENTS points (the
-# largest whose buffers fit); a streamed V_WIDE weight unit is UNIT_K
-# columns of a chunk
+# largest whose buffers fit); a bf16 V_WIDE weight unit is UNIT_K columns
+# of a chunk
 TILE, NA, CHUNK, PAD, MAX_STEP = 64, 64, 128, 8, 448
 SEGMENTS = (256, 128, 64)
 UNIT_K = 64
 W_GLOBAL, W_ALL, W_STREAM, W_RING = 0, 1, 2, 3
-V_SERVED, V_BRANCHES, V_WIDE, V_GRID = 0, 1, 2, 3
-# the V_WIDE kernels' warpgroups a block: bf16 (consumers of the ring),
-# float32 (csrc/fused_mlp_t.cu: WIDE_WGS, WIDE_F32_WGS)
+# V_WIDE: the bf16 nets with a layer over 128; V_WIDE32: the float32 ones
+# (3xTF32 on wgmma), both on a weight ring (csrc/fused_mlp_t.cu: Variant)
+V_SERVED, V_BRANCHES, V_WIDE, V_GRID, V_WIDE32 = 0, 1, 2, 3, 4
+# consumer warpgroups a block of the V_WIDE and the V_WIDE32 kernels
+# (csrc/fused_mlp_t.cu: WIDE_WGS, WIDE_F32_WGS)
 WIDE_WGS, WIDE_F32_WGS = 3, 2
 # the V_GRID kernels (bf16 nets of the grid family, _grid_net): consumer
 # warpgroups and encoder warpgroups a block (csrc/fused_mlp_t.cu: GRID_WGS,
@@ -100,6 +102,16 @@ MAX_SLOTS, SLOT_BAR_B = 8, 16 * 8
 # units, ZERO_B of zeros (one k step of B)
 UNIT_B, MIN_STAGES, MAX_STAGES = CHUNK * UNIT_K * 2, 2, 8
 RING_BAR_B, ZERO_B = 16 * MAX_STAGES, 4096
+# the V_WIDE32 ring: a unit is a chunk's rows over F32_UNIT_K columns as
+# tf32 hi and lo slabs (TransposedFieldMLP.packed with `split`), a stage
+# F32_UNIT_B bytes; F32_GROUP units (64 columns) into one fresh accumulator
+# (csrc/fused_mlp_t.cu: F32_UNIT_K, F32_UNIT_B, F32_GROUP)
+F32_UNIT_K, F32_GROUP = 8, 8
+F32_UNIT_B = CHUNK * F32_UNIT_K * 4 * 2
+#: k slot j of a split unit's 8-column step holds W^T column F32_SLOTS[j]
+#: (csrc/fused_mlp_t.cu: a lane's A fragment of slots t and t + 4 is its
+#: float2 at columns 2t and 2t + 1)
+F32_SLOTS = (0, 2, 4, 6, 1, 3, 5, 7)
 SMALL_K, SMALL_N = 64, 32
 # prop_kernel (csrc/fused_mlp_t.cu): the widest encoding and layer it takes,
 # the points a warp carries, the warps a block
@@ -186,7 +198,8 @@ class TransposedFieldMLP:
             raise ValueError(f"layer 0 takes {self.ws[0].shape[0]} inputs, "
                              f"the encoding has {self.F + self.kc}")
         self.kout = int(self.ws[-1].shape[1])
-        self._packed = self._bias = self._layout = self._levels = None
+        self._packed = self._split = None
+        self._bias = self._layout = self._levels = None
         self._plans = {}
         self._parks = {}
         self._grid = None  # _grid_net's answer
@@ -292,37 +305,55 @@ class TransposedFieldMLP:
         self._layout = (np.asarray(head + desc, np.int32), off)
         return self._layout
 
-    def packed(self, device: torch.device):
+    def transposed(self, l: int) -> torch.Tensor:
+        """Layer l as the kernels take it, W^T [kout_pad][kin_h + kin_e]
+        float32 zero-padded, the skip layer's encoding block from column
+        kin_h (layout())."""
+        desc, _ = self.layout()
+        kin_h, kin_e, kout, fout, _, ld = (
+            int(v) for v in desc[6 + 6 * l:12 + 6 * l])
+        w = self.ws[l]
+        fin = int(w.shape[0])
+        wt = torch.zeros(kout, ld, dtype=torch.float32)
+        wf = w.detach().float().cpu()
+        if kin_e:
+            hid = int(desc[6 + 6 * (l - 1) + 3])
+            wt[:fout, :hid] = wf[:hid].T
+            wt[:fout, kin_h:kin_h + fin - hid] = wf[hid:].T
+        else:
+            wt[:fout, :fin] = wf.T
+        return wt
+
+    def packed(self, device: torch.device, split: bool = False):
         """(flat weights, int32 descriptor) for csrc/fused_mlp_t.cu, built
         once per device. Each layer is its transpose W^T [kout_pad][kin_h +
-        kin_e], the skip layer's encoding block from column kin_h; the
-        encoding width is padded to ke = 16k. Every slab is `core_matrices`
-        (w_ld = kin_h + kin_e), 128-byte aligned: what wgmma reads B from in
-        bfloat16, and in float32 what the 3xTF32 chain's lanes read their
-        mma.sync B fragments from (lane 4g + t the float2 at 2 lane of a
-        block: W^T row 8 nt + g, columns 8 s + 2t and 8 s + 2t + 1)."""
-        if self._packed is not None and self._packed[0].device == device:
-            return self._packed
+        kin_e] (transposed()); the encoding width is padded to ke = 16k.
+        Every slab is `core_matrices` (w_ld = kin_h + kin_e), 128-byte
+        aligned: what wgmma reads B from in bfloat16, and in float32 what
+        the mma.sync 3xTF32 chain's lanes read their B fragments from (lane
+        4g + t the float2 at 2 lane of a block: W^T row 8 nt + g, columns
+        8 s + 2t and 8 s + 2t + 1). With `split` (float32 weights, the
+        V_WIDE32 kernels' ring): each layer at twice its w_off, as
+        `split_units`, twice as many elements."""
+        cached = self._split if split else self._packed
+        if cached is not None and cached[0].device == device:
+            return cached
         desc, w_elems = self.layout()
         slabs = []
-        for l, w in enumerate(self.ws):
-            kin_h, kin_e, kout, fout, _, ld = (
-                int(v) for v in desc[6 + 6 * l:12 + 6 * l])
-            fin = int(w.shape[0])
-            wt = torch.zeros(kout, ld, dtype=torch.float32)
-            wf = w.detach().float().cpu()
-            if kin_e:
-                hid = int(desc[6 + 6 * (l - 1) + 3])
-                wt[:fout, :hid] = wf[:hid].T
-                wt[:fout, kin_h:kin_h + fin - hid] = wf[hid:].T
+        for l in range(len(self.ws)):
+            wt = self.transposed(l)
+            pad = _round_up(wt.numel(), 64) - wt.numel()
+            if split:
+                slabs += [split_units(wt), torch.zeros(2 * pad)]
             else:
-                wt[:fout, :fin] = wf.T
-            slabs.append(core_matrices(wt))
-            slabs.append(torch.zeros(_round_up(kout * ld, 64) - kout * ld))
+                slabs += [core_matrices(wt), torch.zeros(pad)]
         flat = torch.cat(slabs).to(self.dtype).to(device)
-        assert flat.numel() == w_elems
-        self._packed = (flat, desc)
-        return self._packed
+        assert flat.numel() == (2 if split else 1) * w_elems
+        if split:
+            self._split = (flat, desc)
+        else:
+            self._packed = (flat, desc)
+        return flat, desc
 
     def grid_levels(self, device: torch.device) -> torch.Tensor:
         """The ladders' levels past the descriptor's slots, CP then VM, as
@@ -381,6 +412,35 @@ def core_matrices(wt: torch.Tensor) -> torch.Tensor:
     (k * N/8 + n) * 64."""
     N, K = wt.shape
     return wt.reshape(N // 8, 8, K // 8, 8).permute(2, 0, 1, 3).reshape(-1)
+
+
+def tf32_split(v: torch.Tensor):
+    """float32 v -> (hi, lo): hi the tf32 rounding of v to nearest, ties
+    away from zero (csrc/fused_mlp_t.cu:tf32_rna, cvt.rna.tf32.f32 for a
+    finite v: the low 13 bits zero), lo = v - hi (exact), as float32."""
+    b = v.float().contiguous().view(torch.int32)
+    hi = ((b + 0x1000) & -0x2000).view(torch.float32)
+    return hi, v.float() - hi
+
+
+def split_units(wt: torch.Tensor) -> torch.Tensor:
+    """float32 W^T [N, K] (multiples of 16) -> flat, as the V_WIDE32
+    kernels' ring copies it (csrc/fused_mlp_t.cu: F32_UNIT_K): chunk by
+    chunk of CHUNK rows, unit by unit of F32_UNIT_K columns in ascending k,
+    each unit the tf32 hi slab then the lo slab (tf32_split) of its nw rows,
+    each slab two k blocks of nw / 8 core matrices of 8 rows x 4 floats
+    (row-major, 128 B), the columns of the unit in the order F32_SLOTS;
+    2 N K floats."""
+    N, K = wt.shape
+    hi, lo = tf32_split(wt)
+    perm = (torch.arange(K).reshape(-1, 8)[:, list(F32_SLOTS)]).reshape(-1)
+    out = []
+    for n0 in range(0, N, CHUNK):
+        nw = min(CHUNK, N - n0)
+        parts = [x[n0:n0 + nw, perm].reshape(nw // 8, 8, K // 8, 2, 4)
+                 .permute(2, 3, 0, 1, 4) for x in (hi, lo)]
+        out.append(torch.stack(parts, 1).reshape(-1))
+    return torch.cat(out)
 
 
 def _grid_coords(x: torch.Tensor, R: int, bound: float):
@@ -583,10 +643,11 @@ class KernelPlan(ctypes.Structure):
     kernel_plan): the shared-memory carve of a block (row strides, buffer
     bytes, warpgroups, where the weights and the view head live), the
     composite's steps (M points of R whole rays, or one ray in nseg
-    segments of M), the float32 V_WIDE weight unit and parked chunks, the
-    kernel (its variant, small_kernel, the general composite epilogue,
-    prop_kernel), the bf16 V_WIDE and V_GRID weight ring (stages of unit_b
-    bytes) and V_GRID's encoding slots (slots of slot_b bytes)."""
+    segments of M), the V_WIDE32 ring unit's columns and the wide
+    kernels' parked chunks, the kernel (its variant, small_kernel, the
+    general composite epilogue, prop_kernel), the weight ring of the
+    V_WIDE, V_WIDE32 and V_GRID kernels (stages of unit_b bytes) and
+    V_GRID's encoding slots (slots of slot_b bytes)."""
     _fields_ = [(name, _I) for name in (
         "lde", "ldo", "M", "R", "ldh", "wgs", "w_mode", "w_bytes", "v_bytes",
         "enc_b", "h_b", "out_b", "sig_b", "wts_b", "ts_b", "vin_b", "per_wg",
@@ -617,7 +678,9 @@ def _layer_rows(desc) -> list:
 def _max_wgs(bf16: bool, composite: bool, variant: int) -> int:
     """csrc/fused_mlp_t.cu:wgs_of: the warpgroups a block starts from."""
     if variant == V_WIDE:
-        return WIDE_WGS if bf16 else WIDE_F32_WGS
+        return WIDE_WGS
+    if variant == V_WIDE32:
+        return WIDE_F32_WGS
     if variant == V_GRID:
         return GRID_WGS
     if bf16:
@@ -626,27 +689,26 @@ def _max_wgs(bf16: bool, composite: bool, variant: int) -> int:
 
 
 def _make_plan(layers, ke, es, w_elems, v_elems, wgs, M, R, ldo, composite,
-               wide, w_mode, v_smem, unit_k=0, nseg=1, vld=128, stages=0,
-               slots=0):
+               wide, w_mode, v_smem, nseg=1, vld=128, stages=0, slots=0):
     """The shared-memory plan of one choice (csrc/fused_mlp_t.cu reads it as
-    it is): the weights (all, the largest streamed unit: a layer, a
-    V_WIDE chunk of 128 rows, or unit_k columns of one; or the ring's
-    stages and barriers), the view head, V_GRID's `slots` encoding slots
+    it is): the weights (all, the largest layer where they stream, or the
+    ring's stages of UNIT_B bytes (float32: F32_UNIT_B, unit_k F32_UNIT_K)
+    and barriers), the view head, V_GRID's `slots` encoding slots
     (a tile's encoding and sigma sums each) and their barriers, and per
     warpgroup the encoding and the sigma sums (not V_GRID's), the hidden
-    activations (V_WIDE, V_GRID), the last layer's outputs of a step and
-    the composite's weights, midpoints and view scratch."""
-    p = KernelPlan(wgs=wgs, M=M, R=R, ldo=ldo, w_mode=w_mode, unit_k=unit_k,
-                   nseg=nseg, vld=vld)
+    activations (V_WIDE, V_WIDE32, V_GRID), the last layer's outputs of a
+    step and the composite's weights, midpoints and view scratch."""
+    p = KernelPlan(wgs=wgs, M=M, R=R, ldo=ldo, w_mode=w_mode, nseg=nseg,
+                   vld=vld)
     p.lde = ke if es == 2 else ke + PAD
-    rows_max = CHUNK if wide else MAX_WIDTH
-    cols_max = unit_k if wide and unit_k else 1 << 30
     hw = max([L[2] for L in layers[:-1]], default=0)
     if w_mode == W_ALL:
         p.w_bytes = _align16(w_elems * es)
     elif w_mode == W_STREAM:
-        p.w_bytes = max(_align16(min(L[2], rows_max) * min(L[5], cols_max)
-                                 * es) for L in layers)
+        p.w_bytes = max(_align16(L[2] * L[5] * es) for L in layers)
+    elif w_mode == W_RING and es == 4:
+        p.stages, p.unit_b, p.unit_k = stages, F32_UNIT_B, F32_UNIT_K
+        p.w_bytes = stages * F32_UNIT_B + RING_BAR_B
     elif w_mode == W_RING:
         p.stages, p.unit_b = stages, UNIT_B
         p.w_bytes = stages * UNIT_B + RING_BAR_B + (
@@ -665,21 +727,23 @@ def _make_plan(layers, ke, es, w_elems, v_elems, wgs, M, R, ldo, composite,
         p.slots, p.slot_b = slots, p.enc_b + p.sig_b
     p.total = (p.w_bytes + p.v_bytes + wgs * p.per_wg
                + (slots * p.slot_b + SLOT_BAR_B if slots else 0))
-    p.park_chunks = max(0, -(-hw // CHUNK) - 2) if wide else 0
+    # chunks a wide layer parks: the middle ones (V_WIDE32: all but the
+    # last, csrc/fused_mlp_t.cu: chain_wide)
+    p.park_chunks = (max(0, -(-hw // CHUNK) - (1 if es == 4 else 2))
+                     if wide else 0)
     return p
 
 
 def _fit(layers, ke, bf16, w_elems, v_elems, max_wgs, M, R, ldo, composite,
          wide, **kw):
-    """The first plan that fits SMEM_LIMIT, or None. bf16 V_WIDE nets: the
-    weight ring, with the most warpgroups, the view head in shared memory
-    where it fits, and the most stages. Other bf16 nets (wgmma reads B from
-    shared memory) and float32 V_WIDE nets: all the weights, with fewer
-    warpgroups if need be, else streamed (float32 V_WIDE: units of UNIT_K
-    columns), else (float32 only) read through L2. float32 nets up to 128
-    wide: as many warpgroups as fit, with all the weights, else one layer
-    at a time, else the weights read through L2. The view head in shared
-    memory where it fits."""
+    """The first plan that fits SMEM_LIMIT, or None. Nets with a layer over
+    128 (`wide`): the weight ring (V_WIDE, float32 V_WIDE32), with the most
+    warpgroups, the view head in shared memory where it fits, and the most
+    stages. Other bf16 nets (wgmma reads B from shared memory): all the
+    weights, with fewer warpgroups if need be, else one layer at a time.
+    float32 nets up to 128 wide: as many warpgroups as fit, with all the
+    weights, else one layer at a time, else the weights read through L2.
+    The view head in shared memory where it fits."""
     es = 2 if bf16 else 4
     v_choices = (True, False) if v_elems else (False,)
     if kw.pop("grid", False):
@@ -699,16 +763,16 @@ def _fit(layers, ke, bf16, w_elems, v_elems, max_wgs, M, R, ldo, composite,
                             return p
         return None
 
-    def fits(w_mode, unit_k, wgs):
+    def fits(w_mode, wgs):
         for v_smem in v_choices:
             p = _make_plan(layers, ke, es, w_elems, v_elems, wgs, M, R, ldo,
-                           composite, wide, w_mode, v_smem, unit_k, **kw)
+                           composite, wide, w_mode, v_smem, **kw)
             if p.total <= SMEM_LIMIT:
                 return p
         return None
 
     wgs_down = range(max_wgs, 0, -1)
-    if bf16 and wide:
+    if wide:
         for w in wgs_down:
             for v_smem in v_choices:
                 for stages in range(MAX_STAGES, MIN_STAGES - 1, -1):
@@ -718,18 +782,13 @@ def _fit(layers, ke, bf16, w_elems, v_elems, max_wgs, M, R, ldo, composite,
                     if p.total <= SMEM_LIMIT:
                         return p
         return None
-    if bf16 or wide:
-        modes = [(W_ALL, 0)]
-        if bf16:
-            modes += [(W_STREAM, 0)]
-        else:
-            modes += [(W_STREAM, UNIT_K), (W_GLOBAL, 0)]
-        tries = [(m, u, w) for m, u in modes for w in wgs_down]
+    if bf16:
+        tries = [(m, w) for m in (W_ALL, W_STREAM) for w in wgs_down]
     else:
-        tries = [(m, 0, w) for w in wgs_down
+        tries = [(m, w) for w in wgs_down
                  for m in (W_ALL, W_STREAM, W_GLOBAL)]
-    for m, u, w in tries:
-        p = fits(m, u, w)
+    for m, w in tries:
+        p = fits(m, w)
         if p is not None:
             return p
     return None
@@ -863,12 +922,12 @@ def kernel_plan(tm: "TransposedFieldMLP", T: Optional[int] = None,
     # the served variant: no bias, angle doubling, ladders within the
     # descriptor's slots (csrc/fused_mlp_t.cu: Variant)
     long_ladder = max(len(tm.cp), len(tm.vm)) > INLINE_LEVELS
-    variant = (V_WIDE if hmax > CHUNK else
+    variant = ((V_WIDE if bf16 else V_WIDE32) if hmax > CHUNK else
                V_GRID if _grid_net(tm) else
                V_BRANCHES if (tm.bs is not None or not tm.angle_double
                               or long_ladder) else V_SERVED)
     grid = variant == V_GRID
-    wide, ke = variant == V_WIDE, int(desc[4])
+    wide, ke = variant in (V_WIDE, V_WIDE32), int(desc[4])
     kout, G = layers[-1][2], layers[-1][3]
     plan = None
     if T is None:
@@ -1006,7 +1065,7 @@ def grids_of(tm: TransposedFieldMLP, device=None) -> Grids:
 def _net_args(tm: TransposedFieldMLP, plan: KernelPlan, device):
     for t in tm.tables:
         _check(t, "grid table", t.shape, tm.dtype)
-    flat, desc = tm.packed(device)
+    flat, desc = tm.packed(device, split=plan.variant == V_WIDE32)
     bias = tm.bias_rows(device)
     grids = grids_of(tm, device)
     args = [int(tm.dtype == torch.bfloat16), desc.ctypes.data,

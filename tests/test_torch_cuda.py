@@ -1147,8 +1147,8 @@ def _chip_smoke():
 def planted(tmp_path_factory):
     """-> a context in which the field kernels carry the planted faults of
     port_tools/field_branch_variants.py, drop_carry, lost_park, prop_lost_k,
-    ring_lost_k and grid_lost_vm (each fires on a path the others' tests do
-    not take):
+    ring_lost_k, grid_lost_vm and f32_ring_lost_k (each fires on a path the
+    others' tests do not take):
     csrc/fused_mlp_t.cu with their text substitutions
     (chip_smoke.planted_tree), built once."""
     if not torch.cuda.is_available():
@@ -1156,7 +1156,8 @@ def planted(tmp_path_factory):
     cs = _chip_smoke()
     tree = cs.planted_tree(tmp_path_factory.mktemp("planted"),
                            ("drop_carry", "lost_park", "prop_lost_k",
-                            "ring_lost_k", "grid_lost_vm"))
+                            "ring_lost_k", "grid_lost_vm",
+                            "f32_ring_lost_k"))
     return lambda: cs.kernels_from(tree)
 
 
@@ -1215,7 +1216,9 @@ def test_field_kernels_wider_layers(dev, width, dtype):
     g = torch.Generator(device=dev).manual_seed(120 + width)
     tm = _wide_field(g, dev, dtype, width)
     plan = fm.kernel_plan(tm)
-    assert plan.park_chunks == -(-width // 128) - 2
+    # the middle chunks (float32, on the V_WIDE32 ring: all but the last)
+    assert plan.park_chunks == -(-width // 128) - (
+        1 if dtype == torch.float32 else 2)
     x = torch.rand(3, 20011, generator=g, device=dev) * 8 - 4
     before = fm.run_tmlp.launches
     got = fm.run_tmlp(x, tm, transposed=True)
@@ -1227,8 +1230,8 @@ def test_field_kernels_wider_layers(dev, width, dtype):
 
 
 def test_wide_parked_chunk_lost_fails(dev, planted):
-    """Planted fault in the kernel: a 512-wide net's parked middle chunks
-    read back as zeros (field_branch_variants.py: lost_park, what a lost
+    """Planted fault in the kernel: a 512-wide float32 net's parked chunks
+    (on the V_WIDE32 ring every chunk but the last) read back as zeros (field_branch_variants.py: lost_park, what a lost
     park slot gives) must fail the hold that the kernel passes on the same
     points."""
     dtype = torch.float32
@@ -1236,7 +1239,7 @@ def test_wide_parked_chunk_lost_fails(dev, planted):
     def held():
         g = torch.Generator(device=dev).manual_seed(129)
         tm = _wide_field(g, dev, dtype, 512)
-        assert fm.kernel_plan(tm).park_chunks == 2
+        assert fm.kernel_plan(tm).park_chunks == 3  # all but the last
         x = torch.rand(3, 4001, generator=g, device=dev) * 8 - 4
         _held(fm.run_tmlp(x, tm, transposed=True), fm.run_tmlp_plain(x, tm),
               dtype, 3e-4)
@@ -1338,6 +1341,86 @@ def test_ring_refused_plan_raises(dev):
         assert fm.run_tmlp.launches == before
     tm._plans[(None, None)] = good
     _ring_held(tm, g, dev, 1000)
+
+
+# -- the float32 nets wider than 128 on the ring (V_WIDE32: 3xTF32 on wgmma,
+# the weights split into tf32 hi and lo slabs on the host) ------------------
+
+
+def _f32_ring_held(tm, g, dev, P):
+    assert fm.kernel_plan(tm).variant == fm.V_WIDE32
+    x = torch.rand(3, P, generator=g, device=dev) * 8 - 4
+    before = fm.run_tmlp.launches
+    got = fm.run_tmlp(x, tm, transposed=True)
+    assert fm.run_tmlp.launches == before + 1
+    _held(got, fm.run_tmlp_plain(x, tm), torch.float32, 3e-4)
+
+
+@pytest.mark.parametrize("width", [144, 256, 320, 512])
+def test_f32_ring_kernels(dev, width):
+    """The float32 ring at two chunks (144: 128 + 16 rows; 256), three (320,
+    one parked) and four (512): run_tmlp at 1, 17, 1,001 and 4,099 points,
+    and the composite at T = 16, 32 and 128 with view heads 32 (the served
+    epilogue up to 256) and 48 (the general one), every launch on V_WIDE32
+    and held at the JAX suite's float32 bounds and F32_FAITHFUL."""
+    g = torch.Generator(device=dev).manual_seed(200 + width)
+    tm = _wide_field(g, dev, torch.float32, width)
+    for P in (1, 17, 1001, 4099):
+        _f32_ring_held(tm, g, dev, P)
+    for H in (32, 48):
+        view = _view_of(g, dev, torch.float32, 15, H)
+        for T in (16, 32, 128):
+            assert fm.kernel_plan(tm, T, view).variant == fm.V_WIDE32
+            _composite_held(tm, view, 301, T, g, dev, torch.float32)
+
+
+def test_f32_ring_biases_and_runtime_shapes(dev):
+    """Biased layers (added before the activation) and the general
+    composite of rays past 128 samples (segments of 256) on the float32
+    ring, and T = None without the view head."""
+    g = torch.Generator(device=dev).manual_seed(210)
+    tm = _wide_field(g, dev, torch.float32, 256, bias=True)
+    _f32_ring_held(tm, g, dev, 4099)
+    view = _asset_view(g, dev, torch.float32)
+    for T in (24, 200):
+        assert fm.kernel_plan(tm, T, view).variant == fm.V_WIDE32
+        _composite_held(tm, view, 101, T, g, dev, torch.float32)
+
+
+def test_f32_ring_lost_unit_fails(dev, planted):
+    """Planted fault in the float32 ring: its producer leaves out every
+    other unit's copy past a chunk's first group (field_branch_variants.py:
+    f32_ring_lost_k; no bytes expected, the products read what the stage
+    held before): the hold that the kernel passes must fail."""
+
+    def held():
+        g = torch.Generator(device=dev).manual_seed(212)
+        _f32_ring_held(_wide_field(g, dev, torch.float32, 256), g, dev, 4001)
+
+    held()
+    with planted():
+        with pytest.raises(AssertionError):
+            held()
+
+
+def test_f32_ring_refused_plan_raises(dev):
+    """A V_WIDE32 launch without the ring, with the bf16 ring's unit or
+    past MAX_STAGES is refused by the C side and raises."""
+    g = torch.Generator(device=dev).manual_seed(213)
+    tm = _wide_field(g, dev, torch.float32, 256)
+    x = torch.rand(3, 1000, generator=g, device=dev) * 8 - 4
+    good = fm.kernel_plan(tm)
+    for field, value in (("w_mode", fm.W_STREAM), ("unit_b", fm.UNIT_B),
+                         ("stages", 9)):
+        bad = fm.KernelPlan.from_buffer_copy(good)
+        setattr(bad, field, value)
+        tm._plans[(None, None)] = bad
+        before = fm.run_tmlp.launches
+        with pytest.raises(RuntimeError, match="refused its plan"):
+            fm.run_tmlp(x, tm, transposed=True)
+        assert fm.run_tmlp.launches == before
+    tm._plans[(None, None)] = good
+    _f32_ring_held(tm, g, dev, 1000)
 
 
 # the V_GRID kernels (the bf16 nets of the grid family whose weights fit
