@@ -57,19 +57,28 @@ Phases (any failure exits non-zero and prints no result line):
  10. the hash-grid family's interactive frame: `ModelConfig(field_type=
      "hashgrid", with_sam=True)` at full width, tables redrawn
      U(-TABLE_STD, TABLE_STD), bf16, 512^2 through `InteractiveSession.step`
-     at (128, 64, 32) with SAM's seeded decoder, the gather's counter set to
-     0 just before a frame and read just after (HASHGRID_LAUNCHES), finite
-     depth / samvit [32, 32, 256] / mask logits, every gather of that frame
-     bit for bit against the plain version and timed against
-     `torch.index_select` (medians of HASHGRID_REPS interleaved launches,
-     summed), frame times;
- 11. the same RGB frame with float32 params, with the gather swapped for
-     its plain version inside this script: identical to the kernel's frame;
+     at (128, 64, 32) with SAM's seeded decoder, the counters of
+     hash_grid_forward and gather_rows set to 0 just before a frame and
+     read just after (HASHGRID_LAUNCHES and 0), finite depth / samvit
+     [32, 32, 256] / mask logits, every hash_grid_forward launch of that
+     frame bit for bit (torch.equal) against its plain version and timed
+     against it and the parent's route, the level route on the gather_rows
+     kernel (medians of HASHGRID_REPS interleaved launches, summed; byte
+     bound from the rows the points touch), FORWARD_FAULTS planted in the
+     kernel's level inputs at the first, the first hashed and the last
+     level of each grid and its smoothstep flag flipped, each caught by
+     that hold; frame times and the 512^2 RGB render, this route and the
+     parent's in turns;
+ 11. the same RGB frame with float32 params, on the plain route (the level
+     route on the plain gather) inside this script: identical to the
+     kernel's frame;
  12. a 64^2 frame of the same model with the numpy-seeded params of
      port_tools/hashgrid_params.py against the JAX package's values
      (JAX_HASHGRID, 2e-3);
  13. `run_rays(return_mask=True)` at 512^2 with the default mask head
-     (MASK_LAUNCHES gathers, finite logits);
+     (MASK_LAUNCHES hash_grid_forward launches and no gather, each held
+     and timed as in 10, the faults planted in the m_grid's; finite
+     logits);
  14. the MLP family's factorized-grid configurations that the kernels
      serve (GRID_SERVED: VM planes, CP and VM ladders, sigma-CP; full
      width, numpy-seeded params of port_tools/grid_params.py, bf16 and
@@ -120,22 +129,28 @@ Phases (any failure exits non-zero and prints no result line):
      field kernels' CUDA-core and 3xTF32 ones); a resume in a fresh
      Trainer identical; step ms, peak memory, evaluation frame ms;
  T3. one full-width hash-grid step (8,192 rays) as shipped (HASH_GRIDS
-     hash_grid_backward launches, none of gather_rows_backward) and with
-     the plain gather and hash_grid_backward_plain swapped in: table
+     hash_grid_forward and hash_grid_backward launches, none of gather_rows
+     or gather_rows_backward) and with the plain versions swapped in (the
+     level route on the plain gather, hash_grid_backward_plain): table
      gradients within SCATTER_TOL and SCATTER_MAG (a floor scaled by the
      adds' magnitudes), the rest within GRAD_TOL x max|ref|; a fault
      planted in the kernel's inputs (a level's output gradient zeroed, or
      every other point's) at the first, the first hashed and the last
-     level of each grid fails that hold; every hash_grid_backward
+     level of each grid fails that hold; every hash_grid_forward launch
+     held bit for bit and timed as in 10, with its faults; the s_grid's
+     whole training encode (forward and table gradient) on the kernels
+     against the level route; every hash_grid_backward
      launch, and one of ModelConfig()'s s_grid (C = 8), held alone against
      its plain version and timed (medians of PROBE_REPS interleaved queued
      launches) against it, one `index_add_` of the same adds and the
      parent's route (one gather_rows_backward launch a level on the rows
      its glue made, each of those launches also held and timed against
      index_add_), with its byte bound and the adds at the card's rate of
-     vector atomics (port_tools/red_probe.cu); the full step with both
-     routes (ms, peak memory); one step with the TV term, whose
-     gather_rows_backward launches are that kernel's count;
+     vector atomics (port_tools/red_probe.cu); the full step on this
+     tree's route, the parent's (the level route forward) and the level
+     route both ways (ms, peak memory); one step with the TV term, whose
+     gather_rows_backward and gather_rows launches are those kernels'
+     counts;
  T4. the recipe of scripts/train_rgb_grids.sh (RECIPE_TRAIN: its first
      upsampling milestone moved to step 2) through Trainer.train for
      quality_recipe (over the budget: plain-path evaluation, 0 launches)
@@ -244,7 +259,8 @@ Phases (any failure exits non-zero and prints no result line):
      `distill_to_mlp` (DISTILL, DISTILL_STUDENT) with finite, falling
      losses, the student's frames against the teacher's on the scene's
      views past the untrained student's by DISTILL_MARGIN_DB, render_psnr
-     past the untrained student's, the teacher's encode on gather_rows,
+     past the untrained student's, the teacher's encode on
+     hash_grid_forward,
      and the
      student's 512^2 RGB frame at (32, 16) on the four kernels once each,
      within PATH_TOL of the plain path;
@@ -274,7 +290,7 @@ Phases (any failure exits non-zero and prints no result line):
      after, its seconds and peak memory: F1 `quality_gate` at its defaults
      for QG_ITERS iterations a family, PSNR above the untrained model's on
      the same ring, the MLP family's evaluation on the four kernels, the
-     hash grid's training on gather_rows and hash_grid_backward; F2
+     hash grid's training on hash_grid_forward and hash_grid_backward; F2
      `eval_student` on a workspace of the shipped asset's params, its
      three PSNRs within PSNR_TOL_DB of the JAX package's, the four kernels
      launched; F3 `hierarchy_gate` on F1's MLP checkpoint at three
@@ -289,9 +305,9 @@ Phases (any failure exits non-zero and prints no result line):
      copy, repacked if and only if the target PSNR rose; F9
      `import_checkpoint` of a full-width seeded reference-layout .pth,
      `--keep_hashgrid` bit for bit and distilled (the teacher's targets on
-     gather_rows), and `distill_serving` of a seeded quality-recipe
+     hash_grid_forward), and `distill_serving` of a seeded quality-recipe
      workspace (port_tools/grid_params.py), each output rendered (the
-     students on the four kernels, the hash grid on gather_rows);
+     students on the four kernels, the hash grid on hash_grid_forward);
      assets/ unchanged (sha256);
  and before phase 3, the asset's served bf16 launches of both 512^2 RGB
      frames digested (port_tools/served_digests.py) and held bit for bit
@@ -452,12 +468,18 @@ INTERACTIVE_LAUNCHES = {"32,16": [2, 2, 3, 1, 0],
                         "128,64,32": [2, 4, 5, 1, 0]}
 #: flatten3_nt launches per interactive frame under flatten_kernel
 FLATTEN_LAUNCHES = {"32,16": 4, "128,64,32": 6}
-#: gathers per 512^2 hash-grid interactive frame at (128, 64, 32), one
-#: launch per grid level: the RGB render (5 + 5 proposal levels + 16 field
-#: levels) and the 32^2 feature render (the same 26 + 16 s_grid levels)
-HASHGRID_LAUNCHES = 26 + 42
-#: gathers of one return_mask frame: the RGB render's 26 + 16 m_grid levels
-MASK_LAUNCHES = 26 + 16
+#: hash_grid_forward launches per 512^2 hash-grid interactive frame at
+#: (128, 64, 32), one a grid: the RGB render (2 proposal grids + the field)
+#: and the 32^2 feature render (the same 3 + the s_grid); none of
+#: gather_rows (the parent's route made one gather a level, 26 + 42)
+HASHGRID_LAUNCHES = 3 + 4
+#: hash_grid_forward launches of one return_mask frame: the RGB render's 3
+#: + the m_grid (the parent's route: 26 + 16 gathers)
+MASK_LAUNCHES = 3 + 1
+#: the faults planted in hash_grid_forward's level inputs at the first, the
+#: first hashed and the last level of each grid (forward_fault); the
+#: smoothstep flag is flipped once a launch
+FORWARD_FAULTS = ("offset", "multiplier")
 #: The 64^2 frame of ModelConfig(field_type="hashgrid", with_sam=True),
 #: RenderConfig() defaults, float32 params of
 #: port_tools/hashgrid_params.py:make_flat(shapes, 0) (TABLE_STD 2.0),
@@ -512,7 +534,8 @@ PROBE_ROWS, PROBE_IDX = 2 ** 19, 2 ** 21
 #: median times each probe (a launch of ~20-40 us moves with L2 state and
 #: clocks from one to the next)
 PROBE_REPS = 101
-#: the same for each gather of the hash-grid frame (68 launches)
+#: the same for each hash_grid_forward launch of the hash-grid frames (11
+#: launches, each beside its plain version and the parent's route)
 HASHGRID_REPS = 11
 PROBES = (
     ("pallas_dynloop", 90, 2, None, "blocks", 1),
@@ -635,10 +658,12 @@ CONVERGE_STEPS, CONVERGE_GAIN_DB, CONVERGE_MIN_DB = 400, 5.0, 15.0
 #: T2: the defaults through Trainer.train on the textured fixture, two
 #: epochs of TRAIN_STEPS steps, evaluation at EVAL_SIZE^2
 TRAIN_EPOCHS, TRAIN_STEPS, EVAL_SIZE = 2, 4, 64
-#: the hash grid's gathers per ray batch: 16 levels + 2 proposal grids of 5
+#: the hash grid's gathers per ray batch on the parent's level route: 16
+#: levels + 2 proposal grids of 5
 HASH_GATHERS = 16 + 2 * 5
-#: its table-gradient launches per step with proposal updates: one a grid
-#: (hash_grid_backward), the field's and the two proposal grids'
+#: its encode and table-gradient launches per step with proposal updates
+#: and per evaluation render: one a grid (hash_grid_forward,
+#: hash_grid_backward), the field's and the two proposal grids'
 HASH_GRIDS = 3
 #: T3's planted faults in hash_grid_backward's inputs at a level: its
 #: output gradient zeroed, every other point's zeroed
@@ -958,6 +983,166 @@ def scatter_floor(got, ref, mag):
     return float(c.max())
 
 
+def record_forward(hg, run):
+    """Runs run() with every hash_grid_forward call recorded. -> (run's
+    result, [(x01, table, spec, n_active)] in call order)."""
+    real, seen = hg.hash_grid_forward, []
+
+    def recording(x01, table, spec, n=None):
+        seen.append((x01, table, spec, n))
+        return real(x01, table, spec, n)
+
+    hg.hash_grid_forward = recording
+    try:
+        return run(), seen
+    finally:
+        hg.hash_grid_forward = real
+
+
+def level_route(hg, gather):
+    """The encode on the level route (hash_grid_forward_plain) with `gather`
+    for its row reads: ga.gather_rows_plain, the plain version; the
+    gather_rows kernel, the parent's route."""
+    def run(x01, table, spec, n=None):
+        real = hg.gather_rows
+        hg.gather_rows = gather
+        try:
+            return hg.hash_grid_forward_plain(x01, table, spec, n)
+        finally:
+            hg.gather_rows = real
+    return run
+
+
+def forward_fault(hg, x01, table, spec, n, level, kind):
+    """One hash_grid_forward launch with a fault planted in its level
+    inputs: "offset" moves the level's first row by 8 rows, "multiplier"
+    swaps its multipliers (the hash primes for the dense strides, or back),
+    "smooth" flips the launch's smoothstep flag. -> its output."""
+    import ctypes
+
+    import torch
+
+    D, L, C = spec.input_dim, spec.num_levels, spec.level_dim
+    n = L if n is None else n
+    arrays = hg._level_arrays(spec, n)
+    offsets, _, _, hashed = arrays
+    smooth = int(spec.interpolation == "smoothstep")
+    if kind == "offset":
+        offsets[level] += 8 if level == 0 else -8
+    elif kind == "multiplier":
+        hashed[level] = 1 - hashed[level]
+    else:
+        smooth = 1 - smooth
+    out = torch.empty((x01.shape[0], L * C), device=table.device)
+    code = hg._lib().hash_grid_forward_launch(
+        out.data_ptr(), table.data_ptr(), table.element_size(), C,
+        x01.data_ptr(), D, x01.shape[0], L, n,
+        *(ctypes.addressof(a) for a in arrays), int(spec.align_corners),
+        smooth, torch.cuda.current_stream().cuda_stream)
+    check(code == 0, f"forward_fault {kind}: CUDA error {code}")
+    return out
+
+
+def forward_faults(hg, ga, recs, names):
+    """FORWARD_FAULTS planted at the first, the first hashed and the last
+    active level of each recorded launch's grid (names[j]: its grid), and
+    the smoothstep flag once a launch; each output must differ from the
+    plain version's. -> [[grid, level, kind, elements that differ]]."""
+    import torch
+
+    out = []
+    for j, (x01, table, spec, n) in enumerate(recs):
+        table = table.detach()
+        k = spec.num_levels if n is None else n
+        ref = level_route(hg, ga.gather_rows_plain)(x01, table, spec, n)
+        hashed = [lv for lv in range(k) if spec.hashed[lv]]
+        plants = [(lv, kind) for lv in sorted({0, k - 1, *hashed[:1]})
+                  for kind in FORWARD_FAULTS] + [(None, "smooth")]
+        for level, kind in plants:
+            got = forward_fault(hg, x01, table, spec, n, level or 0, kind)
+            torch.cuda.synchronize()
+            diff = int((got != ref).sum())
+            check(diff > 0, f"a planted fault ({kind}) at level {level} of "
+                            f"{names[j]} passed the hold")
+            out.append([names[j], level, kind, diff])
+            del got
+        del ref
+    return out
+
+
+def hold_forward(hg, ga, recs, reps=None, compare=True):
+    """Every recorded hash_grid_forward launch run alone, held bit for bit
+    (torch.equal) against its plain version (the level route on the plain
+    gather) and timed against it and the parent's route (the level route
+    on the gather_rows kernel) on the same inputs: medians and 10th / 90th
+    percentiles of `reps` (PROBE_REPS) interleaved launches queued behind a
+    backlog. The byte bound: the points read once, the features written
+    once, each table row the in-cube points touch read once (counted from
+    their taps). compare=False times the kernel alone. -> (sums over the
+    launches, one record a launch)."""
+    import torch
+
+    kern = hg._HASH_GRID_FORWARD
+    plain = level_route(hg, ga.gather_rows_plain)
+    parent = level_route(hg, ga.gather_rows)
+    keys = ("ms", "plain_ms", "parent_route_ms")
+    tot = {**{k: 0.0 for k in keys}, **{k + "_p10_p90": [0.0, 0.0]
+                                         for k in keys},
+           "bound_ms": 0.0, "bytes": 0, "launches": 0, "equal": True,
+           "max_abs_err": 0.0,
+           "timed_as": f"sums of medians of {reps or PROBE_REPS} "
+                       f"interleaved launches queued behind a backlog"}
+    out = []
+    for x01, table, spec, n in recs:
+        table = table.detach()
+        D, L, C = spec.input_dim, spec.num_levels, spec.level_dim
+        n = L if n is None else n
+        B = x01.shape[0]
+        got = kern(x01, table, spec, n)
+        ref = plain(x01, table, spec, n)
+        torch.cuda.synchronize()
+        equal = torch.equal(got, ref)
+        err = float((got - ref).abs().max()) if got.numel() else 0.0
+        check(equal, f"hash_grid_forward D {D} C {C} {n} levels "
+                     f"{table.dtype}: differs from its plain version by "
+                     f"{err:.3g}")
+        del got, ref
+        inb = ((x01 >= 0.0) & (x01 <= 1.0)).all(dim=-1)
+        rows = 0
+        for level in range(n):
+            _, idx = hg._level_taps(x01[inb], spec, level)
+            seen = torch.zeros(spec.sizes[level], dtype=torch.bool,
+                               device=x01.device)
+            seen[idx.reshape(-1).long()] = True
+            rows += int(seen.sum())
+            del idx, seen
+        nbytes = 4 * D * B + 4 * L * C * B + rows * C * table.element_size()
+        times = interleaved_ms([lambda: kern(x01, table, spec, n),
+                                lambda: plain(x01, table, spec, n),
+                                lambda: parent(x01, table, spec, n)
+                                ][:3 if compare else 1], n=reps)
+        bound = nbytes / HBM_BPS * 1e3
+        rec = {"spec": f"D {D}, C {C}, {n} of {L} levels, "
+                       f"{spec.total_params} rows, {spec.interpolation}, "
+                       f"{spec.gridtype}, {str(table.dtype)[6:]}",
+               "points": B, "touched_rows": rows, "bytes": nbytes,
+               "bound_ms": bound, "share": bound / times[0][0],
+               "equal": equal, "max_abs_err": err}
+        for k, t in zip(keys, times):
+            rec[k] = list(t)
+            tot[k] += t[0]
+            tot[k + "_p10_p90"] = [tot[k + "_p10_p90"][0] + t[1],
+                                   tot[k + "_p10_p90"][1] + t[2]]
+        tot["bound_ms"] += bound
+        tot["bytes"] += nbytes
+        tot["launches"] += 1
+        tot["equal"] = tot["equal"] and equal
+        tot["max_abs_err"] = max(tot["max_abs_err"], err)
+        out.append(rec)
+        torch.cuda.empty_cache()
+    return tot, out
+
+
 def record_fused(hg, step, fault=None):
     """Runs step() with every hash_grid_backward launch recorded. ->
     (step's result, [(x01, g, spec, n_active)] in launch order). fault =
@@ -1171,6 +1356,41 @@ def s_grid_launch(model, seen, dev):
     return x8, g8, s_spec, None
 
 
+def s_grid_encode(hg, s8, dev):
+    """The SAM grid's whole encode in training (hash_encode_01 of a float32
+    table that needs its gradient, then the gradient g of the output) at
+    s_grid_launch's points: on the kernels (hash_grid_forward +
+    hash_grid_backward) and on the level route (_level_taps, one
+    gather_rows a level through gather_row_ranges, one
+    gather_rows_backward a level); medians and 10th / 90th percentiles of
+    HASHGRID_REPS interleaved runs queued behind a backlog."""
+    import torch
+
+    x8, g8, spec, _ = s8
+    gen = torch.Generator(device=dev).manual_seed(9)
+    t8 = (torch.rand(spec.total_params, spec.level_dim, generator=gen,
+                     device=dev) * 2 - 1).requires_grad_(True)
+    real = hg.forward_takes, hg.backward_takes
+
+    def run(kernels):
+        def go():
+            if not kernels:
+                hg.forward_takes = hg.backward_takes = lambda s, k: False
+            try:
+                t8.grad = None
+                hg.hash_encode_01(x8, t8, spec).backward(g8)
+            finally:
+                hg.forward_takes, hg.backward_takes = real
+        return go
+
+    kern, level = interleaved_ms([run(True), run(False)], n=HASHGRID_REPS)
+    del t8
+    return {"points": x8.shape[0], "kernels_ms": list(kern),
+            "level_route_ms": list(level),
+            "timed_as": f"medians and 10th / 90th percentiles of "
+                        f"{HASHGRID_REPS} interleaved runs"}
+
+
 def hash_step(model, tc, params, batch, draws):
     """One rgb_loss_fn gradient of the hash-grid step (state.loss_and_grads
     with proposal updates) -> (loss, {leaf path: gradient})."""
@@ -1184,20 +1404,26 @@ def hash_step(model, tc, params, batch, draws):
 
 def hash_step_phase(dev, textured):
     """Phase T3: one full-width hash-grid step (RenderConfig(),
-    TrainConfig(), 8,192 rays) as shipped (HASH_GRIDS hash_grid_backward
-    launches, no gather_rows_backward) and with the plain gather and
-    hash_grid_backward_plain swapped in; each table gradient held at
-    scatter_floor, the rest at GRAD_TOL x max|ref|; planted faults in the
-    kernel's inputs (a level's output gradient zeroed, or every other
-    point's) at the first, the first shared-memory and the last level of
-    each grid must fail that hold; every launch held alone and timed
-    (hold_fused), and ModelConfig()'s s_grid (C = 8) at S_GRID_POINTS of
-    the step's points; the parent's route (one gather_rows_backward a
-    level, on the rows its glue made) held and timed launch by launch
-    (hold_backward); the full step (optimizer and EMA too) timed with
-    both routes, and its peak memory; one step with the TV term
-    (TV_LAMBDA), which adds one gather_rows_backward launch a level of
-    the field's grid. -> (T3's record, hold_fused's sums, the parent
+    TrainConfig(), 8,192 rays) as shipped (HASH_GRIDS hash_grid_forward and
+    HASH_GRIDS hash_grid_backward launches, no gather_rows or
+    gather_rows_backward) and with the plain versions swapped in (the level
+    route on the plain gather, hash_grid_backward_plain); each table
+    gradient held at scatter_floor, the rest at GRAD_TOL x max|ref|;
+    planted faults in hash_grid_backward's inputs (a level's output
+    gradient zeroed, or every other point's) at the first, the first
+    hashed and the last level of each grid must fail that hold, and
+    FORWARD_FAULTS in hash_grid_forward's level inputs its bit-for-bit
+    hold; every launch of both kernels held alone and timed (hold_forward,
+    hold_fused), and ModelConfig()'s s_grid (C = 8) at S_GRID_POINTS of
+    the step's points, also its whole training encode (forward and table
+    gradient) on the kernels against the level route; the level route's
+    gradient (one gather_rows_backward a level, on the rows its glue
+    made) held and timed launch by launch (hold_backward); the full step
+    (optimizer and EMA too) timed on this tree's route, the parent's (the
+    level route forward) and the level route both ways, and its peak
+    memory; one step with the TV term (TV_LAMBDA), which adds one
+    gather_rows_backward launch and 1 + 2 D gather_rows launches a level
+    of the field's grid. -> (T3's record, hold_fused's sums, the level
     route's sums and launches, the TV step's launches)."""
     import dataclasses
 
@@ -1230,26 +1456,39 @@ def hash_step_phase(dev, textured):
         return out
 
     fused_n, level_n = hg._HASH_GRID_BACKWARD, ga._GATHER_ROWS_BACKWARD
-    fused_n.launches = level_n.launches = 0
-    (loss_k, g_k), seen = record_fused(hg, step)
-    check(fused_n.launches == len(seen) == HASH_GRIDS
-          and level_n.launches == 0,
-          f"T3: {fused_n.launches} hash_grid_backward launches, "
-          f"{len(seen)} recorded, {level_n.launches} gather_rows_backward")
-    grids = [next(name for name, sp in (("grid", model.grid_spec),
-                                        *((f"prop/{i}/grid", sp) for i, sp
-                                          in enumerate(model.prop_specs)))
-                  if sp == spec) for _, _, spec, _ in seen]
-    check(sorted(grids) == sorted(HASH_TABLES), f"T3: launches of {grids}")
-    real_fwd = hg.gather_rows
+    fwd_n, gat_n = hg._HASH_GRID_FORWARD, ga._GATHER_ROWS
+    counts = (fused_n, level_n, fwd_n, gat_n)
+    for c in counts:
+        c.launches = 0
+    ((loss_k, g_k), seen), fseen = record_forward(
+        hg, lambda: record_fused(hg, step))
+    launched = {c.__name__: c.launches for c in counts}
+    check(launched == {"hash_grid_backward": HASH_GRIDS,
+                       "gather_rows_backward": 0,
+                       "hash_grid_forward": HASH_GRIDS, "gather_rows": 0}
+          and len(seen) == len(fseen) == HASH_GRIDS,
+          f"T3: launches {launched}, {len(seen)} / {len(fseen)} recorded")
+
+    def grid_names(recs):
+        return [next(name for name, sp in (
+            ("grid", model.grid_spec),
+            *((f"prop/{i}/grid", sp) for i, sp in
+              enumerate(model.prop_specs))) if sp == spec)
+                for _, _, spec, _ in recs]
+
+    grids, fgrids = grid_names(seen), grid_names(fseen)
+    check(sorted(grids) == sorted(fgrids) == sorted(HASH_TABLES),
+          f"T3: launches of {grids}, {fgrids}")
+    real_fwd, real_takes = hg.gather_rows, hg.forward_takes
 
     def plain_step(bwd):
         hg.gather_rows = ga.gather_rows_plain
+        hg.forward_takes = lambda spec, k: False
         hg.hash_grid_backward = bwd
         try:
             return step()
         finally:
-            hg.gather_rows = real_fwd
+            hg.gather_rows, hg.forward_takes = real_fwd, real_takes
             hg.hash_grid_backward = fused_n
 
     loss_p, g_p = plain_step(hg.hash_grid_backward_plain)
@@ -1306,27 +1545,44 @@ def hash_step_phase(dev, textured):
                 faults.append([grids[j], level, kind, worst])
                 del g_f
     del g_p, ref, mag
+    # the encode: every launch of the step held bit for bit and timed, and
+    # the faults planted in its level inputs caught
+    ffwd, fwd_launches = hold_forward(hg, ga, fseen)
+    for rec, name in zip(fwd_launches, fgrids):
+        rec["grid"] = name
+    fwd_faults = forward_faults(hg, ga, fseen, fgrids)
+    log(f"T3: hash_grid_forward launches {fwd_launches}, faults "
+        f"{fwd_faults}")
+    del fseen
     red = red_probe.rates(dev)
     log(f"T3: red_probe {red}")
     fused, per_launch = hold_fused(hg, ga, seen, dev, red)
     log(f"T3: hash_grid_backward launches {per_launch}")
-    _, c8 = hold_fused(hg, ga, [s_grid_launch(model, seen, dev)], dev, red)
+    s8 = s_grid_launch(model, seen, dev)
+    _, c8 = hold_fused(hg, ga, [s8], dev, red)
+    s8_encode = s_grid_encode(hg, s8, dev)
+    log(f"T3: the s_grid's training encode {s8_encode}")
+    del s8
     # the parent's route, launch by launch
     level_seen = [(s_, i, r) for x01, g, spec, k in seen
                   for s_, i, r, _ in parent_launches(hg, x01, g, spec, k)]
     bwd, level_launches = hold_backward(ga, level_seen, dev)
     del level_seen
     log(f"T3: the parent's route, launch by launch {level_launches}")
-    # the full step with both routes: host clock around a synchronised
-    # step, its peak memory; the parent's route by the encode's own test
+    # the full step on each route: host clock around a synchronised step,
+    # its peak memory; the parent's route (the level route forward) and the
+    # level route both ways by the encode's own tests
     state = st_lib.create_train_state(model, tc, params=params)
     train_step = st_lib.make_rgb_train_step(model, tc)
-    real_takes = hg.backward_takes
-    steps = {"fused": [], "parent_route": []}
-    peaks = {"fused": 0, "parent_route": 0}
+    real_bwd_takes = hg.backward_takes
+    routes = ("fused", "parent_route", "level_route")
+    steps = {k: [] for k in routes}
+    peaks = {k: 0 for k in routes}
     for rnd in range(STEP_ROUNDS + 1):
-        for name in ("fused", "parent_route", "parent_route", "fused"):
-            if name == "parent_route":
+        for name in routes + routes[::-1]:
+            if name != "fused":
+                hg.forward_takes = lambda spec, k: False
+            if name == "level_route":
                 hg.backward_takes = lambda spec, k: False
             try:
                 torch.cuda.synchronize()
@@ -1336,7 +1592,8 @@ def hash_step_phase(dev, textured):
                 torch.cuda.synchronize()
                 ms = (time.perf_counter() - t) * 1e3
             finally:
-                hg.backward_takes = real_takes
+                hg.backward_takes = real_bwd_takes
+                hg.forward_takes = real_takes
             if rnd:  # the first round warms up
                 steps[name].append(ms)
                 peaks[name] = max(peaks[name],
@@ -1352,13 +1609,15 @@ def hash_step_phase(dev, textured):
                                 torch.Generator(device=dev).manual_seed(1),
                                 dev)
     torch.cuda.synchronize()
-    fused_n.launches = level_n.launches = 0
+    for c in counts:
+        c.launches = 0
     tv_step(state, batch, draws_tv, True)
     torch.cuda.synchronize()
-    tv = {"hash_grid_backward": fused_n.launches,
-          "gather_rows_backward": level_n.launches}
+    tv = {c.__name__: c.launches for c in counts}
+    L, D = model.grid_spec.num_levels, model.grid_spec.input_dim
     check(tv == {"hash_grid_backward": HASH_GRIDS,
-                 "gather_rows_backward": model.grid_spec.num_levels},
+                 "gather_rows_backward": L, "hash_grid_forward": HASH_GRIDS,
+                 "gather_rows": (1 + 2 * D) * L},
           f"T3: the TV step's launches {tv}")
     del seen, params, batch, draws, draws_tv, state
     torch.cuda.empty_cache()
@@ -1370,6 +1629,9 @@ def hash_step_phase(dev, textured):
             "least_planted_fault_floor": least, "planted_faults": faults,
             "red_probe_gadds_per_s": red, "fused": fused,
             "fused_launches": per_launch, "s_grid_c8": c8[0],
+            "s_grid_encode_train": s8_encode,
+            "forward": ffwd, "forward_launches": fwd_launches,
+            "forward_planted_faults": fwd_faults,
             "parent_route": bwd, "parent_route_launches": level_launches,
             "steps": step_cmp, "tv_step_launches": tv}, fused, bwd, tv
 
@@ -2124,6 +2386,20 @@ def main():
                 "asset_f64_err": e_k, "asset_cublas_f64_err": e_p}
     del train["eval_launches"]
     rows += train.pop("rows")
+    hstep = train["hashgrid_step"]
+    for row in rows:
+        # gather_rows left the hash-grid frames: its launches are now those
+        # of T3's step with the TV term
+        if row["name"].startswith("gather_rows["):
+            row["launches"] = hstep["tv_step_launches"]["gather_rows"]
+        if row["name"] == "hash_grid_forward":
+            row["train_step"] = {
+                **hstep["forward"], "launches_rec": hstep["forward_launches"],
+                "planted_faults": hstep["forward_planted_faults"],
+                "steps": hstep["steps"]}
+    check(all(r["launches"] > 0 for r in rows
+              if r["name"].startswith("gather_rows[")),
+          "gather_rows: no launch in T3's TV step")
     torch.cuda.empty_cache()
     branches = branch_phases(torch, np, dev, card, compare, launch_times,
                              kern_fn, model_at, rays_o, rays_d, nets, params,
@@ -2782,13 +3058,13 @@ def hashgrid_phases(torch, np, dev, card, cuda_ms):
     check(sess._pipe(SIZE, SIZE)._kernel_nets() is None,
           "hash-grid: the frame packed MLP kernel weights")
 
-    calls, got = [], {}
-    real_gather = hg.gather_rows
+    got = {}
+    real_gather, real_takes = hg.gather_rows, hg.forward_takes
     dfused, dec = fp.decode_fused, sam_mod.decode
-
-    def spy_gather(table, i, block_rows=1):
-        calls.append((table, i))
-        return real_gather(table, i, block_rows)
+    fwd_n, gat_n = hg._HASH_GRID_FORWARD, ga._GATHER_ROWS
+    grid_of = {id(model.grid_spec): "grid", id(model.s_grid_spec): "s_grid",
+               **{id(sp): f"prop{i}" for i, sp in
+                  enumerate(model.prop_specs)}}
 
     def spy_fused(cfg, p, feats, *a, **k):
         got.setdefault("samvit", feats)
@@ -2799,19 +3075,24 @@ def hashgrid_phases(torch, np, dev, card, cuda_ms):
         got.setdefault("logits", out[0])
         return out
 
-    hg.gather_rows, fp.decode_fused, sam_mod.decode = (spy_gather, spy_fused,
-                                                       spy_dec)
+    fp.decode_fused, sam_mod.decode = spy_fused, spy_dec
     try:
         torch.cuda.synchronize()
-        ga.gather_rows.launches = 0
-        r = sess.step(pose, pipelined=False)
+        fwd_n.launches = gat_n.launches = 0
+        r, calls = record_forward(hg, lambda: sess.step(pose,
+                                                        pipelined=False))
         torch.cuda.synchronize()
-        launches = ga.gather_rows.launches
+        launches, gathers = fwd_n.launches, gat_n.launches
     finally:
-        hg.gather_rows, fp.decode_fused, sam_mod.decode = (real_gather,
-                                                           dfused, dec)
-    check(launches == HASHGRID_LAUNCHES,
-          f"hash-grid frame: {launches} gathers, expected {HASHGRID_LAUNCHES}")
+        fp.decode_fused, sam_mod.decode = dfused, dec
+    check(launches == len(calls) == HASHGRID_LAUNCHES and gathers == 0,
+          f"hash-grid frame: {launches} hash_grid_forward launches "
+          f"({len(calls)} recorded), {gathers} gathers; expected "
+          f"{HASHGRID_LAUNCHES} and 0")
+    names = [grid_of.get(id(c[2]), "?") for c in calls]
+    check(sorted(names) == sorted(["prop0", "prop1", "grid"] * 2
+                                  + ["s_grid"]),
+          f"hash-grid frame: launches of {names}")
     check(r.rgb_u8.shape == (SIZE, SIZE, 3), "hash-grid frame shape")
     check(bool(torch.isfinite(r.depth).all()), "hash-grid depth not finite")
     sv = got.get("samvit")
@@ -2823,37 +3104,27 @@ def hashgrid_phases(torch, np, dev, card, cuda_ms):
           "hash-grid mask logits not finite")
     check(r.mask is not None and tuple(r.mask.shape) == (SIZE, SIZE),
           "hash-grid mask missing")
-    # every gather of that frame against its plain version, and its times:
-    # kernel and index_select as medians (10th, 90th percentiles) of
-    # HASHGRID_REPS interleaved launches, summed over the frame
-    fr = {"ms": 0.0, "ms_p10_p90": [0.0, 0.0], "plain_ms": 0.0,
-          "library_ms": 0.0, "library_ms_p10_p90": [0.0, 0.0],
-          "bound_ms": 0.0,
-          "timed_as": f"sums of medians of {HASHGRID_REPS} interleaved "
-                      f"launches queued behind a backlog"}
-    shapes = {}
-    for table, i in calls:
-        ref = ga.gather_rows_plain(table, i)
-        check(held(real_gather(table, i), ref),
-              f"hash-grid gather {tuple(i.shape)}: kernel differs")
-        del ref
-        flat_i = i.reshape(-1)
-        kern, lib = interleaved_ms(
-            [lambda: real_gather(table, i),
-             lambda: torch.index_select(table, 0, flat_i)], n=HASHGRID_REPS)
-        for key, t in (("ms", kern), ("library_ms", lib)):
-            fr[key] += t[0]
-            fr[key + "_p10_p90"] = [fr[key + "_p10_p90"][0] + t[1],
-                                    fr[key + "_p10_p90"][1] + t[2]]
-        fr["plain_ms"] += cuda_ms(lambda: ga.gather_rows_plain(table, i),
-                                  reps=1)
-        fr["bound_ms"] += gather_bytes(table, i, 1) / HBM_BPS * 1e3
-        k = f"{list(i.shape)} x {table.shape[1]} {str(table.dtype)[6:]}"
-        shapes[k] = shapes.get(k, 0) + 1
-        torch.cuda.empty_cache()
-    del calls, r
+    del r, got
+    # every launch of that frame against its plain version, timed beside it
+    # and the parent's route; the RGB render's (its launches of SIZE^2
+    # rays' samples) summed apart
+    fr, per_launch = hold_forward(hg, ga, calls, HASHGRID_REPS)
+    for rec, name in zip(per_launch, names):
+        rec["grid"] = name
+        rec["render"] = "rgb" if rec["points"] >= SIZE * SIZE else "feature"
+    rgb_encode = {k: sum(rec[k][0] for rec in per_launch
+                         if rec["render"] == "rgb")
+                  for k in ("ms", "plain_ms", "parent_route_ms")}
+    rgb_encode["bound_ms"] = sum(rec["bound_ms"] for rec in per_launch
+                                 if rec["render"] == "rgb")
+    firsts = {}
+    for c, name in zip(calls, names):
+        firsts.setdefault(name, c)
+    faults = forward_faults(hg, ga, list(firsts.values()), list(firsts))
+    del calls
     torch.cuda.empty_cache()
-    log(f"hash-grid frame gathers: {launches} launches, {fr}, {shapes}")
+    log(f"hash-grid frame: {launches} hash_grid_forward launches, {fr}, "
+        f"{per_launch}, RGB encode {rgb_encode}, faults {faults}")
 
     def drive(n, sync):
         ts_ = []
@@ -2863,38 +3134,63 @@ def hashgrid_phases(torch, np, dev, card, cuda_ms):
             ts_.append((time.perf_counter() - t) * 1e3)
         return statistics.median(ts_), ts_
 
-    drive(2, False)
-    pipelined = drive(5, False)
-    sync = drive(3, True)
-    sess.step(pose, pipelined=False)
+    def parent_route(fn):
+        """fn() on the parent's route: the level route on the gather_rows
+        kernel."""
+        hg.forward_takes = lambda spec, n: False
+        try:
+            return fn()
+        finally:
+            hg.forward_takes = real_takes
+
     rays_o, rays_d = (torch.from_numpy(a).to(dev)
                       for a in hp.frame_rays(SIZE))
-    ts_ = []
-    for _ in range(3):
+
+    def rgb_render():
         torch.cuda.synchronize()
         t = time.perf_counter()
         renderer.run_rays(model, params, rays_o, rays_d)
         torch.cuda.synchronize()
-        ts_.append((time.perf_counter() - t) * 1e3)
-    times = {"pipelined_ms": pipelined[0], "sync_ms": sync[0],
-             "pipelined_runs": pipelined[1], "sync_runs": sync[1],
-             "rgb_render_ms": statistics.median(ts_), "rgb_render_runs": ts_}
+        return (time.perf_counter() - t) * 1e3
+
+    drive(2, False)
+    parent_route(lambda: drive(1, False))
+    times = {}
+    # this tree's route and the parent's in turns: change, parent, parent,
+    # change
+    for route in ("change", "parent", "parent", "change"):
+        def run():
+            return (drive(5, False), drive(3, True),
+                    [rgb_render() for _ in range(3)])
+        pl, sy, rgb = run() if route == "change" else parent_route(run)
+        t = times.setdefault(route, {"pipelined_runs": [], "sync_runs": [],
+                                     "rgb_render_runs": []})
+        t["pipelined_runs"] += pl[1]
+        t["sync_runs"] += sy[1]
+        t["rgb_render_runs"] += rgb
+    for t in times.values():
+        for k in ("pipelined", "sync", "rgb_render"):
+            t[k + "_ms"] = statistics.median(t[k + "_runs"])
+    times.update({k + "_ms": times["change"][k + "_ms"]
+                  for k in ("pipelined", "sync", "rgb_render")})
     del sess
     torch.cuda.empty_cache()
     log(f"hash-grid frame times {times}")
 
-    # -- 11. the kernel frame against the plain-gather frame --------------------
+    # -- 11. the kernel frame against the plain route's frame -----------------
     kern = renderer.run_rays(model, p32, rays_o, rays_d)
     hg.gather_rows = ga.gather_rows_plain
     try:
-        plain = renderer.run_rays(model, p32, rays_o, rays_d)
+        plain = parent_route(lambda: renderer.run_rays(model, p32, rays_o,
+                                                       rays_d))
     finally:
         hg.gather_rows = real_gather
     torch.cuda.synchronize()
     for k in ("image", "depth", "weights_sum"):
         check(torch.equal(kern[k], plain[k]),
-              f"hash-grid {k}: the kernel frame differs from the plain-gather "
-              f"frame by {float((kern[k] - plain[k]).abs().max()):.3g}")
+              f"hash-grid {k}: the kernel frame differs from the plain "
+              f"route's frame by "
+              f"{float((kern[k] - plain[k]).abs().max()):.3g}")
     depth_std = float(kern["depth"].std())
     del kern, plain
     torch.cuda.empty_cache()
@@ -2935,22 +3231,40 @@ def hashgrid_phases(torch, np, dev, card, cuda_ms):
         fields.init_linear(mgen, a, b, False, dev)
         for a, b in fields.mask_mlp_shapes(mmodel)])
     torch.cuda.synchronize()
-    ga.gather_rows.launches = 0
-    mout = renderer.run_rays(mmodel, pm, rays_o, rays_d, return_mask=True)
+    fwd_n.launches = gat_n.launches = 0
+    mout, mcalls = record_forward(hg, lambda: renderer.run_rays(
+        mmodel, pm, rays_o, rays_d, return_mask=True))
     torch.cuda.synchronize()
-    mask_launches = ga.gather_rows.launches
+    mask_launches, mask_gathers = fwd_n.launches, gat_n.launches
     logits = mout["instance_mask_logits"]
-    check(mask_launches == MASK_LAUNCHES,
-          f"mask frame: {mask_launches} gathers, expected {MASK_LAUNCHES}")
+    check(mask_launches == len(mcalls) == MASK_LAUNCHES and mask_gathers == 0,
+          f"mask frame: {mask_launches} hash_grid_forward launches, "
+          f"{mask_gathers} gathers; expected {MASK_LAUNCHES} and 0")
     check(tuple(logits.shape) == (SIZE * SIZE, mmodel.mask_out_dim())
           and bool(torch.isfinite(logits).all()), "mask frame logits")
-    del mout, logits, pm
+    del mout, logits
+    mnames = [{id(mmodel.m_grid_spec): "m_grid", id(mmodel.grid_spec): "grid",
+               **{id(sp): f"prop{i}" for i, sp in
+                  enumerate(mmodel.prop_specs)}}.get(id(c[2]), "?")
+              for c in mcalls]
+    check(sorted(mnames) == ["grid", "m_grid", "prop0", "prop1"],
+          f"mask frame: launches of {mnames}")
+    mfr, mper = hold_forward(hg, ga, mcalls, HASHGRID_REPS)
+    for rec, name in zip(mper, mnames):
+        rec["grid"] = name
+    m_i = mnames.index("m_grid")
+    faults += forward_faults(hg, ga, [mcalls[m_i]], ["m_grid"])
+    del mcalls, pm
     torch.cuda.empty_cache()
+    log(f"mask frame: {mfr}, {mper}")
 
     common = {"route": "cuda", "source": "sanerf_tpu_torch/csrc/gather.cu",
-              "launches": launches,
-              "launches_of": "gather_rows in one 512^2 hash-grid interactive "
-                             "frame (the same kernel serves every row)",
+              "launches": 0,
+              "launches_of": "gather_rows in T3's hash-grid training step "
+                             "with the TV term (set after phase T3); the "
+                             "hash-grid frames launch none since "
+                             "hash_grid_forward",
+              "frame_launches": gathers,
               "max_abs_err": gather_err[0], "tol": 0.0,
               "tol_kind": "bit for bit",
               "bound_by": "bytes"}
@@ -2964,19 +3278,46 @@ def hashgrid_phases(torch, np, dev, card, cuda_ms):
              "bf16": rec["bf16"], "shape": rec["shape"]}
             for name, rec in probes.items()]
     rows.append({
-        "name": "gather_rows[hashgrid frame]", **common,
+        "name": "hash_grid_forward", "route": "cuda",
+        "source": "sanerf_tpu_torch/csrc/hashgrid.cu",
         "replaces": "tools/probe_gather.py:90",
-        "also_replaces": "sanerf_tpu/ops/hashgrid.py:229 (jnp.take)",
-        "ms": fr["ms"], "plain_ms": fr["plain_ms"],
-        "bound_ms": fr["bound_ms"], "library_ms": fr["library_ms"],
-        "library": "torch.index_select", "dtype": "bfloat16",
-        "sum_of": f"{launches} launches of one frame", "shapes": shapes})
+        "also_replaces": "the lookups of tools/probe_gather.py:90-247 and "
+                         "the encode around them, sanerf_tpu/ops/"
+                         "hashgrid.py:170-239 hash_encode_01 (XLA; its "
+                         "jnp.take at :229)",
+        "launches": launches,
+        "launches_of": "hash_grid_forward in one 512^2 hash-grid "
+                       "interactive frame at (128, 64, 32)",
+        "max_abs_err": max(fr["max_abs_err"], mfr["max_abs_err"]),
+        "tol": 0.0, "tol_kind": "bit for bit (torch.equal) against "
+                                "hash_grid_forward_plain",
+        "ms": fr["ms"], "ms_p10_p90": fr["ms_p10_p90"],
+        "plain_ms": fr["plain_ms"], "bound_ms": fr["bound_ms"],
+        "bound_by": "bytes",
+        "bound_kind": "points read once, features written once, each "
+                      "touched table row read once",
+        "library_ms": None,
+        "library": "none: no single PyTorch call computes the encode",
+        "parent_route_ms": fr["parent_route_ms"],
+        "parent_route_ms_p10_p90": fr["parent_route_ms_p10_p90"],
+        "parent_route": "the level route on the gather_rows kernel "
+                        "(one gather a level and the index math in "
+                        "PyTorch)",
+        "dtype": "bfloat16 tables", "sum_of": f"the {launches} launches of "
+                                             f"one frame",
+        "timed_as": fr["timed_as"], "rgb_render_encode": rgb_encode,
+        "frame_launches": per_launch, "mask_frame": {**mfr,
+                                                     "launches": mper},
+        "planted_faults": faults})
     return {"size": SIZE, "param_dtype": "bfloat16",
             "model": "ModelConfig(field_type='hashgrid', with_sam=True), "
                      "RenderConfig() (128, 64, 32)",
             "table_std": hp.TABLE_STD, "launches_per_frame": launches,
+            "gathers_per_frame": gathers,
             "mask_frame_launches": mask_launches, "frame_ms": times,
-            "gathers_per_frame": fr, "depth_std_f32": depth_std,
+            "forward_per_frame": fr, "rgb_render_encode": rgb_encode,
+            "planted_faults_caught": len(faults),
+            "depth_std_f32": depth_std,
             "vs_jax_max_abs_err": jax_err, "jax_tol": JAX_HASHGRID_TOL,
             "probes": probes, "card": card, "rows": rows}
 
@@ -3633,7 +3974,7 @@ def train_phases(torch, np, dev, card, compare, launch_times, kern_fn):
         tr._train_step = timed
         torch.cuda.reset_peak_memory_stats()
         counters = ray_mlp + [ga.gather_rows, ga.gather_rows_backward,
-                              hg.hash_grid_backward]
+                              hg.hash_grid_backward, hg.hash_grid_forward]
         zero(counters)
         tr.train(textured, valid_dataset=valid, max_epoch=TRAIN_EPOCHS,
                  steps_per_epoch=TRAIN_STEPS)
@@ -3652,11 +3993,14 @@ def train_phases(torch, np, dev, card, compare, launch_times, kern_fn):
             check(all(path_launches[fam][c.__name__] > 0 for c in ray_mlp),
                   f"T2 {fam}: a kernel never ran: {path_launches[fam]}")
         else:
-            # every step updates the proposal nets (prop_warmup_steps)
-            check(path_launches[fam]["hash_grid_backward"]
-                  == TRAIN_EPOCHS * TRAIN_STEPS * HASH_GRIDS
-                  and path_launches[fam]["gather_rows_backward"] == 0,
-                  f"T2 {fam}: table-gradient launches "
+            # every step updates the proposal nets (prop_warmup_steps);
+            # the evaluation renders encode too
+            steps = TRAIN_EPOCHS * TRAIN_STEPS * HASH_GRIDS
+            check(path_launches[fam]["hash_grid_backward"] == steps
+                  and path_launches[fam]["hash_grid_forward"] >= steps
+                  and path_launches[fam]["gather_rows_backward"] == 0
+                  and path_launches[fam]["gather_rows"] == 0,
+                  f"T2 {fam}: encode and table-gradient launches "
                   f"{path_launches[fam]}")
         # one evaluation frame, its launches counted and recorded
         frame = valid.frame(0)
@@ -3684,7 +4028,8 @@ def train_phases(torch, np, dev, card, compare, launch_times, kern_fn):
                     errs32[name] = max(errs32.get(name, 0.0), e)
                 eval_launches[name] = launch_times(name, ls)
         else:
-            check(frame_launches["gather_rows"] == HASH_GATHERS
+            check(frame_launches["hash_grid_forward"] == HASH_GRIDS
+                  and frame_launches["gather_rows"] == 0
                   and not any(frame_launches[c.__name__] for c in ray_mlp),
                   f"T2 {fam}: evaluation frame launches {frame_launches}")
             errs32 = None
@@ -3821,7 +4166,7 @@ def train_phases(torch, np, dev, card, compare, launch_times, kern_fn):
         "bound_by": "bytes", "library_ms": bwd["library_ms"],
         "library_ms_p10_p90": bwd["library_ms_p10_p90"],
         "library": "torch.Tensor.index_add_", "dtype": "float32",
-        "sum_of": f"the {HASH_GATHERS} launches of the parent's route on "
+        "sum_of": f"the {HASH_GATHERS} launches of the level route on "
                   f"T3's step",
         "timed_as": bwd["timed_as"], "shapes": shapes}]
     return {"convergence": converge, "defaults": defaults,
@@ -5011,6 +5356,7 @@ def apps_phase(torch, np, dev, card, ctx, rays_o, rays_d):
     from sanerf_tpu_torch.models.sam import predictor as sam_pred
     from sanerf_tpu_torch.ops import fused_mlp_t as fm
     from sanerf_tpu_torch.ops import gather as ga
+    from sanerf_tpu_torch.ops import hashgrid as hg
     from sanerf_tpu_torch.ops import ray_kernels as rk
     from sanerf_tpu_torch.train import checkpoints as ckpt_lib
     from sanerf_tpu_torch.train.trainer import Trainer
@@ -5027,7 +5373,7 @@ def apps_phase(torch, np, dev, card, ctx, rays_o, rays_d):
         torch.cuda.reset_peak_memory_stats()
         for c in counters:
             c.launches = 0
-        ga.gather_rows.launches = 0
+        ga.gather_rows.launches = hg._HASH_GRID_FORWARD.launches = 0
         r = rec.setdefault(name, {})
         t = time.perf_counter()
         yield r
@@ -5036,6 +5382,7 @@ def apps_phase(torch, np, dev, card, ctx, rays_o, rays_d):
         r["peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
         r["launches"] = dict(zip(KERNELS, [c.launches for c in counters]))
         r["launches"]["gather_rows"] = ga.gather_rows.launches
+        r["launches"]["hash_grid_forward"] = hg._HASH_GRID_FORWARD.launches
         log(f"D {name}: {r}")
 
     def all_four(name):
@@ -5423,8 +5770,8 @@ def apps_phase(torch, np, dev, card, ctx, rays_o, rays_d):
                         "--iters", str(HASH_TEACHER_ITERS), "--eval_cnt",
                         "1"])
         r["val_psnr"] = trh.stats["results"][-1]["PSNRMeter"]
-    check(rec["hash_teacher"]["launches"]["gather_rows"] > 0,
-          "D7: the hash-grid teacher launched no gather_rows")
+    check(rec["hash_teacher"]["launches"]["hash_grid_forward"] > 0,
+          "D7: the hash-grid teacher launched no hash_grid_forward")
     tm, tp = trh.model, trh.eval_params()
     with part("distill") as r:
         sm = fields.make_model(import_distill.student_config(
@@ -5433,8 +5780,8 @@ def apps_phase(torch, np, dev, card, ctx, rays_o, rays_d):
         sm, sp, report = import_distill.distill_to_mlp(
             tm, tp, gen, student_model=sm, render_check=2, render_hw=128,
             **DISTILL)
-    check(r["launches"]["gather_rows"] > 0,
-          "D7: the teacher's encode launched no gather_rows")
+    check(r["launches"]["hash_grid_forward"] > 0,
+          "D7: the teacher's encode launched no hash_grid_forward")
     hist = report["loss_history"]
     check(all(math.isfinite(v) for v in hist) and hist[-1] < hist[0],
           f"D7: losses {hist[0]} -> {hist[-1]}")
@@ -5467,7 +5814,8 @@ def apps_phase(torch, np, dev, card, ctx, rays_o, rays_d):
             out = renderer.render_frame(fast, sp, rays_o, rays_d,
                                         chunk=SIZE * SIZE,
                                         nets=fields.KernelNets(fast, sp))
-    check(r["launches"] == {**{k: 1 for k in KERNELS}, "gather_rows": 0},
+    check(r["launches"] == {**{k: 1 for k in KERNELS}, "gather_rows": 0,
+                            "hash_grid_forward": 0},
           f"D7: the student's frame launched {r['launches']}")
     check(bool(torch.isfinite(out["image"]).all()), "D7: student frame")
     with torch.no_grad():
@@ -6131,7 +6479,8 @@ def tools_phase(torch, np, dev, card):
                 "flatten3_nt": rk.flatten3_nt,
                 "gather_rows": ga._GATHER_ROWS,
                 "gather_rows_backward": ga._GATHER_ROWS_BACKWARD,
-                "hash_grid_backward": hg._HASH_GRID_BACKWARD}
+                "hash_grid_backward": hg._HASH_GRID_BACKWARD,
+                "hash_grid_forward": hg._HASH_GRID_FORWARD}
     rec = {"card": card, "qg_iters": QG_ITERS, "iters": TOOL_ITERS}
 
     @contextlib.contextmanager
@@ -6183,8 +6532,8 @@ def tools_phase(torch, np, dev, card):
         torch.cuda.empty_cache()
     served("quality_gate mlp")
     n = rec["quality_gate hashgrid"]["launches"]
-    check(n["gather_rows"] > 0 and n["hash_grid_backward"] > 0,
-          f"F1 hashgrid: gather / table gradient not launched: {n}")
+    check(n["hash_grid_forward"] > 0 and n["hash_grid_backward"] > 0,
+          f"F1 hashgrid: encode / table gradient not launched: {n}")
 
     # -- F2. eval_student on the shipped asset's params --------------------
     meta = read_json(asset + ".json")
@@ -6362,7 +6711,8 @@ def tools_phase(torch, np, dev, card):
           "F9: the hash-grid import is not the .pth bit for bit")
     hp = params_from_jax(got, hmodel, dev)
     n = renders("import_checkpoint hashgrid frame", hmodel, hp)["launches"]
-    check(n["gather_rows"] > 0, f"F9: the hash-grid frame's gathers: {n}")
+    check(n["hash_grid_forward"] > 0 and n["gather_rows"] == 0,
+          f"F9: the hash-grid frame's encode: {n}")
     del got, hp
     with step("import_checkpoint mlp") as r:
         out = import_checkpoint.main(
@@ -6371,8 +6721,8 @@ def tools_phase(torch, np, dev, card):
     r.update(render_psnr=out["render_psnr"], losses=out["losses"])
     finite("import_checkpoint mlp", out["render_psnr"],
            *out["losses"].values())
-    check(r["launches"]["gather_rows"] > 0,
-          "F9: the teacher's targets launched no gather_rows")
+    check(r["launches"]["hash_grid_forward"] > 0,
+          "F9: the teacher's targets launched no hash_grid_forward")
     smodel = fields.make_model(import_distill.student_config(hmodel.cfg),
                                hmodel.render_cfg)
     sp = params_from_jax(CheckpointManager.load_file(out["checkpoint"])[0],

@@ -6,12 +6,17 @@ split into their parts.
 
     python3 port_tools/hashgrid_breakdown.py    (needs a CUDA card)
 
+A parent commit's port is measured by its own copy of this script (`git
+archive <commit> sanerf_tpu_torch port_tools | tar -x -C build/parent`,
+then `python3 build/parent/port_tools/hashgrid_breakdown.py`).
+
 Prints the card and JSON lines:
   stages   one RGB render and one feature render, each stage bracketed by
            CUDA events (device time, synchronised once at the end):
-           hash_encode per grid (of which gather_rows), sample_pdf, the
-           MLPs, contract, weights, composite; "other" is the frame less
-           the stages;
+           hash_encode per grid (of which hash_grid_forward per grid, one
+           launch a grid; on a tree before it, gather_rows, one launch a
+           level), sample_pdf, the MLPs, contract, weights, composite;
+           "other" is the frame less the stages;
   profile  a torch.profiler trace of one RGB render: device time, the
            card's busy share, the kernels with the most device time.
 """
@@ -86,10 +91,15 @@ def main():
         setattr(mod, attr, wrapped)
         return mod, attr, fn
 
+    def grid(a):
+        return grid_of.get(id(a[2]), "?")
+
     patches = [
-        timed(hg, "hash_encode",
-              lambda a: f"hash_encode/{grid_of.get(id(a[2]), '?')}"),
+        timed(hg, "hash_encode", lambda a: f"hash_encode/{grid(a)}"),
         timed(hg, "gather_rows", "gather_rows"),
+        *([timed(hg, "hash_grid_forward",
+                 lambda a: f"hash_grid_forward/{grid(a)}")]
+          if hasattr(hg, "hash_grid_forward") else []),
         timed(renderer, "sample_pdf", "sample_pdf"),
         timed(renderer, "contract", "contract"),
         timed(renderer, "compute_weights", "compute_weights"),
@@ -115,7 +125,9 @@ def main():
                 ms[label] += a.elapsed_time(b)
                 calls[label] += 1
             total = s.elapsed_time(e)
-            top = sum(v for k, v in ms.items() if k != "gather_rows")
+            # the gathers and the forward's launches are inside hash_encode
+            top = sum(v for k, v in ms.items() if k != "gather_rows"
+                      and not k.startswith("hash_grid_forward/"))
             stages[name] = {"device_ms": total, "wall_ms": wall,
                             "stages_ms": dict(ms), "calls": dict(calls),
                             "other_ms": total - top}

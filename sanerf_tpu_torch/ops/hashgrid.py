@@ -11,8 +11,11 @@ package's, operation by operation:
   - the corner order is the reference's bit order (bit d of the corner
     number picks the cell's upper face in dim d) and the corner sum runs
     sequentially in that order;
-  - each level's 2^D corner rows are one `gather_rows` launch (the CUDA
-    kernel of ops/gather.py) on that level's slice of the table;
+  - the encode is one `hash_grid_forward` launch a grid (csrc/hashgrid.cu),
+    which computes every level's corners, reads their rows and sums them;
+    its plain version, the level route, makes each level's taps and reads
+    its 2^D corner rows with one `gather_rows` launch (the CUDA kernel of
+    ops/gather.py) on that level's slice of the table;
   - in training (the table needs a gradient, the points do not), the
     table's gradient is one `hash_grid_backward` launch a grid
     (csrc/hashgrid.cu), which recomputes the corners from the points; the
@@ -20,6 +23,8 @@ package's, operation by operation:
     every level's taps are kept and the table's gradient is one
     `gather_rows_backward` launch a level (ops/gather.py:
     gather_row_ranges).
+Past the kernels' limits (D 2-3, C 1-8, 32 levels) the encode takes the
+level route.
 The TV and weight-decay gradient terms (JAX :255-327) are gradient
 contributions the train step adds to autograd's (train/state.py).
 """
@@ -214,19 +219,6 @@ def _corner_sum(w: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def _encode(x: torch.Tensor, table: torch.Tensor, spec: HashGridSpec,
-            n_active: int) -> torch.Tensor:
-    """[B, D] float32 points -> [B, L*C] float32, without a gradient:
-    each level's taps made, gathered and summed before the next level's
-    (peak memory: one level's)."""
-    level_feats = []
-    for level in range(n_active):
-        o, s = spec.offsets[level], spec.sizes[level]
-        w, idx = _level_taps(x, spec, level)
-        level_feats.append(_corner_sum(w, gather_rows(table[o:o + s], idx)))
-    return _assemble(level_feats, x, spec)
-
-
 def _assemble(level_feats, x: torch.Tensor, spec: HashGridSpec
               ) -> torch.Tensor:
     """The active levels' [B, C] features at points x [B, D] -> [B, L*C],
@@ -242,16 +234,26 @@ def _assemble(level_feats, x: torch.Tensor, spec: HashGridSpec
     return out.reshape(B, L * C)
 
 
+def _forward(x: torch.Tensor, table: torch.Tensor, spec: HashGridSpec,
+             n_active: int) -> torch.Tensor:
+    """The encode without a gradient, [B, D] float32 points -> [B, L*C]
+    float32: one hash_grid_forward launch where the kernel takes the grid,
+    else the level route (bit for bit the same function)."""
+    if forward_takes(spec, n_active):
+        return hash_grid_forward(x, table, spec, n_active)
+    return hash_grid_forward_plain(x, table, spec, n_active)
+
+
 class _HashEncode(torch.autograd.Function):
     """The encode differentiable in the table alone: the forward is
-    `_encode` (bit for bit the encode without a gradient) and saves the
+    `_forward` (bit for bit the encode without a gradient) and saves the
     points; the backward is one `hash_grid_backward` launch."""
 
     @staticmethod
     def forward(ctx, x, table, spec, n_active):
         ctx.save_for_backward(x)
         ctx.spec, ctx.n_active = spec, n_active
-        return _encode(x, table, spec, n_active)
+        return _forward(x, table, spec, n_active)
 
     @staticmethod
     def backward(ctx, g):
@@ -269,8 +271,9 @@ def hash_encode_01(x: torch.Tensor, table: torch.Tensor, spec: HashGridSpec,
     x [..., D] float (a point outside [0, 1]^D gives zeros); table
     [total_params, C] float32 or bfloat16; `max_level` encodes the first
     levels only, the rest are zero. -> [..., L*C] float32, level-major per
-    point (grid.py:63). Without a gradient to take, each level's taps are
-    made, gathered and summed before the next level's (peak memory: one
+    point (grid.py:63). Without a gradient to take, one hash_grid_forward
+    launch (past its limits the level route: each level's taps made,
+    gathered and summed before the next level's, peak memory one
     level's). With a float32 table that needs a gradient and points that
     do not (training), the same forward, and the backward one
     `hash_grid_backward` launch (_HashEncode). With points that need a
@@ -284,7 +287,7 @@ def hash_encode_01(x: torch.Tensor, table: torch.Tensor, spec: HashGridSpec,
     n_active = L if max_level is None else min(max_level, L)
 
     if not (torch.is_grad_enabled() and table.requires_grad):
-        out = _encode(x, table, spec, n_active)
+        out = _forward(x, table, spec, n_active)
     elif not x.requires_grad and table.dtype == torch.float32 and \
             backward_takes(spec, n_active):
         out = _HashEncode.apply(x.contiguous(), table, spec, n_active)
@@ -298,20 +301,49 @@ def hash_encode_01(x: torch.Tensor, table: torch.Tensor, spec: HashGridSpec,
 
 
 # ---------------------------------------------------------------------------
-# the table's gradient in one launch a grid (csrc/hashgrid.cu)
+# the encode and the table's gradient in one launch a grid (csrc/hashgrid.cu)
 # ---------------------------------------------------------------------------
 
-#: the kernel's limits (csrc/hashgrid.cu): input dims, row widths, levels
+#: the kernels' limits (csrc/hashgrid.cu): input dims, row widths, levels
 BACKWARD_DIMS, BACKWARD_MAX_C, BACKWARD_MAX_LEVELS = (2, 3), 8, 32
+
+
+def _kernel_takes(spec: HashGridSpec, n_active: int) -> bool:
+    return (spec.input_dim in BACKWARD_DIMS
+            and 1 <= spec.level_dim <= BACKWARD_MAX_C
+            and n_active <= BACKWARD_MAX_LEVELS
+            and max(spec.sizes) < 2 ** 32)
 
 
 def backward_takes(spec: HashGridSpec, n_active: int) -> bool:
     """Whether hash_grid_backward takes this grid's first n_active
     levels."""
-    return (spec.input_dim in BACKWARD_DIMS
-            and 1 <= spec.level_dim <= BACKWARD_MAX_C
-            and n_active <= BACKWARD_MAX_LEVELS
-            and max(spec.sizes) < 2 ** 32)
+    return _kernel_takes(spec, n_active)
+
+
+def forward_takes(spec: HashGridSpec, n_active: int) -> bool:
+    """Whether hash_grid_forward takes this grid's first n_active levels
+    (the backward's limits)."""
+    return _kernel_takes(spec, n_active)
+
+
+def hash_grid_forward_plain(x01: torch.Tensor, table: torch.Tensor,
+                            spec: HashGridSpec,
+                            n_active: Optional[int] = None) -> torch.Tensor:
+    """The encode at unit-cube points, the level route: each active level's
+    taps made (`_level_taps`), its corner rows read with one `gather_rows`
+    call on its slice of the table and summed in corner order
+    (`_corner_sum`) before the next level's (peak memory: one level's);
+    zeros outside the cube and past the active levels (`_assemble`). x01
+    [B, D] float32, table [total_params, C] float32 | bfloat16 -> [B, L*C]
+    float32."""
+    n_active = spec.num_levels if n_active is None else n_active
+    level_feats = []
+    for level in range(n_active):
+        o, s = spec.offsets[level], spec.sizes[level]
+        w, idx = _level_taps(x01, spec, level)
+        level_feats.append(_corner_sum(w, gather_rows(table[o:o + s], idx)))
+    return _assemble(level_feats, x01, spec)
 
 
 def hash_grid_backward_plain(x01: torch.Tensor, g: torch.Tensor,
@@ -348,6 +380,10 @@ def _lib():
                    [_P, ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_long,
                     ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, ctypes.c_int,
                     ctypes.c_int, _P])
+    _build.declare(lib, "hash_grid_forward_launch",
+                   [_P, _P, ctypes.c_int, ctypes.c_int, _P, ctypes.c_int,
+                    ctypes.c_long, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P,
+                    ctypes.c_int, ctypes.c_int, _P])
     _build.declare(lib, "hash_backward_max_levels", [])
     if lib.hash_backward_max_levels() != BACKWARD_MAX_LEVELS:
         raise RuntimeError("hashgrid.cu: MAX_LEVELS differs from "
@@ -363,11 +399,67 @@ def _level_arrays(spec: HashGridSpec, n: int):
             (ctypes.c_int * n)(*(int(h) for h in spec.hashed[:n])))
 
 
-def _refusal(spec: HashGridSpec, n: int) -> str:
-    return (f"hash_grid_backward: D={spec.input_dim}, C={spec.level_dim}, "
+def _refusal(name: str, spec: HashGridSpec, n: int) -> str:
+    return (f"{name}: D={spec.input_dim}, C={spec.level_dim}, "
             f"{n} levels: past the kernel's limits (D in {BACKWARD_DIMS}, "
             f"C <= {BACKWARD_MAX_C}, <= {BACKWARD_MAX_LEVELS} levels, levels "
             f"under 2^32 rows; ROADMAP.md queue B)")
+
+
+def hash_grid_forward(x01: torch.Tensor, table: torch.Tensor,
+                      spec: HashGridSpec,
+                      n_active: Optional[int] = None) -> torch.Tensor:
+    """The encode (see hash_grid_forward_plain), one launch of
+    csrc/hashgrid.cu on a CUDA tensor, the plain version on a CPU one.
+    x01 [B, D] float32, table [total_params, C] float32 | bfloat16
+    contiguous -> [B, L*C] float32, bit for bit the plain version's.
+    Raises NotImplementedError past the kernel's limits (D 2-3, C <= 8, 32
+    levels), ValueError on other operands."""
+    D, L, C = spec.input_dim, spec.num_levels, spec.level_dim
+    n = L if n_active is None else n_active
+    if not forward_takes(spec, n):
+        raise NotImplementedError(_refusal("hash_grid_forward", spec, n))
+    if x01.dim() != 2 or x01.shape[1] != D or x01.dtype != torch.float32:
+        raise ValueError(f"hash_grid_forward: x01 must be [B, {D}] float32, "
+                         f"got {tuple(x01.shape)} {x01.dtype}")
+    if (tuple(table.shape) != (spec.total_params, C)
+            or table.dtype not in (torch.float32, torch.bfloat16)
+            or not table.is_contiguous()):
+        raise ValueError(f"hash_grid_forward: table must be contiguous "
+                         f"[{spec.total_params}, {C}] float32 or bfloat16, "
+                         f"got {tuple(table.shape)} {table.dtype}")
+    if x01.device != table.device:
+        raise ValueError(f"hash_grid_forward: x01 on {x01.device}, table on "
+                         f"{table.device}")
+    if not table.is_cuda:
+        return hash_grid_forward_plain(x01, table, spec, n)
+    if table.device != torch.device("cuda", torch.cuda.current_device()):
+        raise ValueError(f"hash_grid_forward: on {table.device}, not the "
+                         f"current device")
+    B = x01.shape[0]
+    if not (B and n):
+        return torch.zeros((B, L * C), dtype=torch.float32,
+                           device=table.device)
+    x01 = x01.contiguous()
+    if table.data_ptr() % 16:
+        table = table.clone()
+    out = torch.empty((B, L * C), dtype=torch.float32, device=table.device)
+    arrays = _level_arrays(spec, n)  # alive through the call
+    code = _lib().hash_grid_forward_launch(
+        out.data_ptr(), table.data_ptr(), table.element_size(), C,
+        x01.data_ptr(), D, B, L, n, *(ctypes.addressof(a) for a in arrays),
+        int(spec.align_corners), int(spec.interpolation == "smoothstep"),
+        torch.cuda.current_stream().cuda_stream)
+    if code != 0:
+        raise RuntimeError(f"hash_grid_forward: CUDA error {code} at launch")
+    _HASH_GRID_FORWARD.launches += 1
+    return out
+
+
+hash_grid_forward.launches = 0
+#: the function that holds hash_grid_forward's count, bound once here (as
+#: ops/gather.py's _GATHER_ROWS)
+_HASH_GRID_FORWARD = hash_grid_forward
 
 
 def hash_grid_backward(x01: torch.Tensor, g: torch.Tensor,
@@ -383,7 +475,8 @@ def hash_grid_backward(x01: torch.Tensor, g: torch.Tensor,
     D, L, C = spec.input_dim, spec.num_levels, spec.level_dim
     n = L if n_active is None else n_active
     if not backward_takes(spec, n):
-        raise NotImplementedError(_refusal(spec, n))
+        raise NotImplementedError(
+            _refusal("hash_grid_backward", spec, n))
     if x01.dim() != 2 or x01.shape[1] != D or x01.dtype != torch.float32:
         raise ValueError(f"hash_grid_backward: x01 must be [B, {D}] float32, "
                          f"got {tuple(x01.shape)} {x01.dtype}")

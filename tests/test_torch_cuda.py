@@ -12,7 +12,8 @@ float32 bounds for the MLP kernels with float32 weights (3e-4 and 1e-3),
 and at the full widths also F32_FAITHFUL (1e-5 + 1e-5 |ref|);
 the grid branches in bf16 at 5e-3 and their encode probes at 1e-2, element
 by element; ray_level0 (both of its kernels at every T, N, jitter and
-pack_q), flatten3_nt, the packed ts/dl rows and gather_rows bit for bit;
+pack_q), flatten3_nt, the packed ts/dl rows, gather_rows and
+hash_grid_forward (against the level route on the plain gather) bit for bit;
 the packed composite within 1e-6 of the unpacked one on the same operands;
 gather_rows_backward against index_add_ and hash_grid_backward against
 its plain version at |d| <= 1e-5 S + 1e-5 |ref| (chip_smoke.py's
@@ -390,6 +391,8 @@ def test_gather_rows_refuses_on_the_card(dev):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_hash_encode_kernel_matches_plain_gather(dev, dtype, monkeypatch):
+    """The encode is one hash_grid_forward launch and no gather_rows
+    launch, bit for bit the level route on the plain gather."""
     spec = hashgrid.build_spec(HashGridConfig(
         num_levels=6, level_dim=4, base_resolution=8, log2_hashmap_size=12,
         desired_resolution=256))
@@ -397,11 +400,14 @@ def test_hash_encode_kernel_matches_plain_gather(dev, dtype, monkeypatch):
     table = torch.randn(spec.total_params, 4, generator=g, device=dev
                         ).to(dtype)
     x = torch.rand(5000, 3, generator=g, device=dev) * 4.4 - 2.2
-    before = gather.gather_rows.launches
+    before = (hashgrid.hash_grid_forward.launches,
+              gather.gather_rows.launches)
     got = hashgrid.hash_encode(x, table, spec, bound=2.0)
     torch.cuda.synchronize()
-    assert gather.gather_rows.launches == before + spec.num_levels
+    assert (hashgrid.hash_grid_forward.launches,
+            gather.gather_rows.launches) == (before[0] + 1, before[1])
     monkeypatch.setattr(hashgrid, "gather_rows", gather.gather_rows_plain)
+    monkeypatch.setattr(hashgrid, "forward_takes", lambda spec, n: False)
     ref = hashgrid.hash_encode(x, table, spec, bound=2.0)
     assert torch.equal(got, ref)
 
@@ -880,6 +886,113 @@ def test_hash_grid_backward_counts_on_itself(dev, monkeypatch):
                                 spec)
     assert len(seen) == 1 and real.launches == before + 1
     assert not hasattr(recording, "launches")
+
+
+# hash_grid_forward against hash_grid_forward_plain over the encoder's
+# options, point counts that leave a ragged last tile (rays of 37 samples),
+# float32 and bf16 tables, in both of the kernel's orders where the table's
+# bytes pick them: bit for bit (the same products and sums in the same
+# order)
+HASH_FORWARD_SPECS = {
+    **HASH_BACKWARD_SPECS,
+    "hash_c8_d3_smooth_align": dict(num_levels=16, level_dim=8,
+                                    log2_hashmap_size=12,
+                                    desired_resolution=512,
+                                    interpolation="smoothstep",
+                                    align_corners=True),
+    "tiled_c6_d2": dict(input_dim=2, num_levels=7, level_dim=6,
+                        log2_hashmap_size=11, desired_resolution=300,
+                        gridtype="tiled"),
+    "hash_c5_d3_max3": dict(num_levels=9, level_dim=5, log2_hashmap_size=11,
+                            desired_resolution=256),
+    "hash_c7_d2": dict(input_dim=2, num_levels=6, level_dim=7,
+                       log2_hashmap_size=10, desired_resolution=128),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(HASH_FORWARD_SPECS))
+@pytest.mark.parametrize("n_rays", [1, 3001])
+def test_hash_grid_forward_kernel(dev, name, n_rays, dtype, monkeypatch):
+    spec = hashgrid.build_spec(HashGridConfig(**HASH_FORWARD_SPECS[name]))
+    g = torch.Generator(device=dev).manual_seed(n_rays + len(name))
+    x = _ray_points(n_rays, 37, spec.input_dim, g, dev)
+    table = (torch.rand(spec.total_params, spec.level_dim, generator=g,
+                        device=dev) * 2 - 1).to(dtype)
+    n = 5 if name.endswith("max5") else (3 if name.endswith("max3")
+                                         else None)
+    before = hashgrid.hash_grid_forward.launches
+    got = hashgrid.hash_grid_forward(x, table, spec, n)
+    assert hashgrid.hash_grid_forward.launches == before + 1
+    monkeypatch.setattr(hashgrid, "gather_rows", gather.gather_rows_plain)
+    ref = hashgrid.hash_grid_forward_plain(x, table, spec, n)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape == (x.shape[0], spec.output_dim)
+    assert torch.equal(got, ref)
+    assert bool(got.abs().sum() > 0)
+
+
+def test_hash_grid_forward_at_full_width(dev, monkeypatch):
+    """The grids of ModelConfig(field_type="hashgrid", with_sam=True) at
+    their full tables (the field's 2^19-row levels; the SAM grid at C = 8),
+    bf16 and float32, on 2^18 points: bit for bit."""
+    from sanerf_tpu_torch.config import ModelConfig, RenderConfig
+    from sanerf_tpu_torch.models import fields
+
+    model = fields.make_model(ModelConfig(field_type="hashgrid",
+                                          with_sam=True), RenderConfig())
+    g = torch.Generator(device=dev).manual_seed(11)
+    x = _ray_points(1 << 12, 64, 3, g, dev)
+    monkeypatch.setattr(hashgrid, "gather_rows", gather.gather_rows_plain)
+    for spec in (model.grid_spec, model.s_grid_spec, *model.prop_specs):
+        table = torch.rand(spec.total_params, spec.level_dim, generator=g,
+                           device=dev) * 4 - 2
+        for t in (table, table.bfloat16()):
+            got = hashgrid.hash_grid_forward(x, t, spec)
+            ref = hashgrid.hash_grid_forward_plain(x, t, spec)
+            torch.cuda.synchronize()
+            assert torch.equal(got, ref), (spec.level_dim, t.dtype)
+
+
+def test_hash_grid_forward_refuses(dev):
+    spec = hashgrid.build_spec(HashGridConfig(num_levels=4, level_dim=2,
+                                              log2_hashmap_size=10))
+    x = torch.rand(100, 3, device=dev)
+    table = torch.rand(spec.total_params, 2, device=dev)
+    with pytest.raises(ValueError):
+        hashgrid.hash_grid_forward(x, table.half(), spec)
+    with pytest.raises(ValueError):
+        hashgrid.hash_grid_forward(x[:, :2].contiguous(), table, spec)
+    with pytest.raises(ValueError):
+        hashgrid.hash_grid_forward(x.cpu(), table, spec)
+    with pytest.raises(ValueError):
+        hashgrid.hash_grid_forward(x, table[:-8], spec)
+    wide = hashgrid.build_spec(HashGridConfig(num_levels=4, level_dim=16,
+                                              log2_hashmap_size=10))
+    with pytest.raises(NotImplementedError, match="queue B"):
+        hashgrid.hash_grid_forward(
+            x, torch.rand(wide.total_params, 16, device=dev), wide)
+
+
+def test_hash_grid_forward_counts_on_itself(dev, monkeypatch):
+    """A recorder patched in under the module's name neither moves the
+    kernel's count nor breaks it."""
+    real, seen = hashgrid.hash_grid_forward, []
+
+    def recording(x01, table, spec, n=None):
+        seen.append(x01)
+        return real(x01, table, spec, n)
+
+    monkeypatch.setattr(hashgrid, "hash_grid_forward", recording)
+    spec = hashgrid.build_spec(HashGridConfig(num_levels=4, level_dim=2,
+                                              log2_hashmap_size=10))
+    before = real.launches
+    hashgrid.hash_encode_01(torch.rand(64, 3, device=dev),
+                            torch.ones(spec.total_params, 2, device=dev),
+                            spec)
+    torch.cuda.synchronize()
+    assert len(seen) == 1 and real.launches == before + 1
+    assert hashgrid._HASH_GRID_FORWARD is real
 
 
 @pytest.mark.parametrize("T", [32, 64])
