@@ -309,6 +309,18 @@ Phases (any failure exits non-zero and prints no result line):
      workspace (port_tools/grid_params.py), each output rendered (the
      students on the four kernels, the hash grid on hash_grid_forward);
      assets/ unchanged (sha256);
+ G.  the probes and the pipeline's wall clock (sanerf_tpu_torch/tools),
+     each through its `main` on the card, every step with the counters
+     set to 0 just before and read just after, its seconds and peak
+     memory: G1 `hw_parity` at HW_PARITY_ARGV, plain and with `--packed
+     --flatten`, exit code 0 on all four shapes, every kernel counter of
+     each run above 0 (the packed composite in the second); G2
+     `probe_gather` at its defaults, every kernel probe bit for bit
+     against its plain version; G3 `kbench` at its defaults, every row a
+     finite time; G4 `two_stage_wall` at TSW_ITERS in build/ (deleted at
+     the end), the ViT-H teacher at 1024^2, the JAX tool's JSON keys, then
+     again with `--resume`, which reuses stage 1 (its stamped seconds) and
+     the finished stage 2;
  and before phase 3, the asset's served bf16 launches of both 512^2 RGB
      frames digested (port_tools/served_digests.py) and held bit for bit
      to SERVED_DIGESTS;
@@ -2426,6 +2438,8 @@ def main():
     torch.cuda.empty_cache()
     with contextlib.redirect_stdout(sys.stderr):  # the tools' own lines
         tools = tools_phase(torch, np, dev, card)
+        torch.cuda.empty_cache()
+        probes = probes_phase(torch, np, dev, card)
     e3 = dpr["e3"]
     for row in rows:
         # phase E: each kernel's launches in one sharded frame of each rank
@@ -2442,6 +2456,12 @@ def main():
         row["tools_launches"] = {
             step: r["launches"].get(name.split("[")[0], 0)
             for step, r in tools.items()
+            if isinstance(r, dict) and "launches" in r}
+        # phase G: each kernel's launches in each probe's and
+        # two_stage_wall's step
+        row["probes_launches"] = {
+            step: r["launches"].get(name.split("[")[0], 0)
+            for step, r in probes.items()
             if isinstance(r, dict) and "launches" in r}
 
     print(json.dumps({"kernels": rows}), flush=True)
@@ -2471,6 +2491,9 @@ def main():
         print(f"{line} ({card})", flush=True)
     print(json.dumps({"tools": tools}), flush=True)
     for line in tools["summary"]:
+        print(f"{line} ({card})", flush=True)
+    print(json.dumps({"probes": probes}), flush=True)
+    for line in probes["summary"]:
         print(f"{line} ({card})", flush=True)
     print(json.dumps({"wall_s": time.time() - t_wall}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -5155,6 +5178,21 @@ def cli_phase(torch, np, dev, card):
            "setup_s": time.perf_counter() - t0}
     check(native_loader.available(),
           f"native loader does not build: {native_loader.build_error()}")
+    # stage 1's batches are a function of the seed and their number: the
+    # Trainer's 4 threads give the batches of 1
+    firsts = []
+    for n_threads in (4, 1):
+        sampler = native_loader.NativeRaySampler(
+            ds.poses, ds.intrinsics, ds.images, 4096, seed=1,
+            prefetch_depth=6, n_threads=n_threads)
+        firsts.append([sampler.next_batch() for _ in range(12)])
+        sampler.close()
+    check(all(a["index"] == b["index"]
+              and all(np.array_equal(a[k], b[k])
+                      for k in ("rays_o", "rays_d", "images"))
+              for a, b in zip(*firsts)),
+          "native loader: 4 threads drew other batches than 1")
+    rec["loader_batches_equal"] = len(firsts[0])
     common = list(CLI_ARGS)
     seen = {"mask_eval": [], "feat_mse": []}
 
@@ -6412,6 +6450,11 @@ HGATE_TOL_DB = 0.05
 TOOL_SEED = 0
 #: F9: the side of the frame each tool's output is rendered at
 TOOLS_FRAME = 128
+#: phase G: hw_parity at the JAX tool's defaults (4,096 rays, (32, 24));
+#: two_stage_wall at its configurations and the ViT-H teacher at 1024^2,
+#: its 20,000 / 5,000 iterations cut to TSW_ITERS
+HW_PARITY_ARGV = ["--rays", "4096", "--steps", "32,24"]
+TSW_ITERS = (100, 20)
 
 
 def tools_phase(torch, np, dev, card):
@@ -6792,6 +6835,132 @@ def tools_phase(torch, np, dev, card):
         f"{rec['mask_asset']['miou']:.4f}; serve_finetune "
         f"{rec['serve_finetune']['pre']} -> {rec['serve_finetune']['post']}",
         f"tools phase F: {rec['seconds']:.1f} s"]
+    return rec
+
+
+# -- phase G: the probes and the pipeline's wall clock (sanerf_tpu_torch/tools)
+
+def probes_phase(torch, np, dev, card):
+    """Phase G: hw_parity, probe_gather, kbench and two_stage_wall through
+    each tool's `main` on the card, each step with the launch counters set
+    to 0 just before and read just after, its seconds and peak memory. ->
+    the {"probes": ...} record; its "summary" lines are printed beside the
+    card's name and power limit."""
+    from sanerf_tpu_torch.ops import fused_mlp_t as fm
+    from sanerf_tpu_torch.ops import gather as ga
+    from sanerf_tpu_torch.ops import hashgrid as hg
+    from sanerf_tpu_torch.ops import ray_kernels as rk
+    from sanerf_tpu_torch.tools import (hw_parity, kbench, probe_gather,
+                                        two_stage_wall)
+
+    t_phase = time.perf_counter()
+    counters = {"ray_level0": rk.ray_level0, "ray_level": rk.ray_level,
+                "run_tmlp": fm.run_tmlp,
+                "run_tmlp_composite": fm.run_tmlp_composite,
+                "flatten3_nt": rk.flatten3_nt,
+                "gather_rows": ga._GATHER_ROWS,
+                "gather_rows_backward": ga._GATHER_ROWS_BACKWARD,
+                "hash_grid_backward": hg._HASH_GRID_BACKWARD,
+                "hash_grid_forward": hg._HASH_GRID_FORWARD}
+    rec = {"card": card, "hw_parity_argv": HW_PARITY_ARGV,
+           "tsw_iters": TSW_ITERS}
+
+    @contextlib.contextmanager
+    def step(name):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
+        fm.run_tmlp_composite.packed_launches = 0
+        r = rec.setdefault(name, {})
+        t = time.perf_counter()
+        yield r
+        torch.cuda.synchronize()
+        r["seconds"] = time.perf_counter() - t
+        r["peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        r["launches"] = {k: c.launches for k, c in counters.items()}
+        r["launches"]["run_tmlp_composite packed"] = (
+            fm.run_tmlp_composite.packed_launches)
+        log(f"G {name}: {r}")
+
+    # -- G1. hw_parity, plain and with every option --------------------------
+    for name, extra, need in (
+            ("hw_parity", [], KERNELS),
+            ("hw_parity packed flatten", ["--packed", "--flatten"],
+             KERNELS + ("flatten3_nt", "run_tmlp_composite packed"))):
+        with step(name) as r:
+            r["rc"] = hw_parity.main(HW_PARITY_ARGV + extra)
+            r["shapes"] = hw_parity.main.results
+        check(r["rc"] == 0 and all(x["ok"] for x in r["shapes"].values()),
+              f"G {name}: a shape is off: {r['shapes']}")
+        # each kernel in every shape's fast render
+        check(all(r["launches"][k] > 0 for k in need)
+              and all(x["launches"][k] > 0 for x in r["shapes"].values()
+                      for k in need if k in x["launches"]),
+              f"G {name}: a kernel was not launched: {r['launches']}, "
+              f"{r['shapes']}")
+
+    # -- G2. probe_gather ----------------------------------------------------
+    with step("probe_gather") as r:
+        r["probes"] = probe_gather.main([])
+    check(all(p["bit_exact"] for p in r["probes"] if p["kernel"])
+          and sum(p["kernel"] for p in r["probes"]) == 8,
+          "G probe_gather: a kernel probe is not bit for bit")
+    check(r["launches"]["gather_rows"] > 0, "G probe_gather: no launch")
+
+    # -- G3. kbench -----------------------------------------------------------
+    with step("kbench") as r:
+        r["rows"] = kbench.main([])
+        r["variant_launches"] = kbench.main.launches
+    check(all(isinstance(v, float) and math.isfinite(v)
+              for k, v in r["rows"].items() if k not in ("rays", "T")),
+          f"G kbench: a variant failed: {r['rows']}")
+
+    # -- G4. two_stage_wall, then --resume -------------------------------------
+    ws = os.path.join(ROOT, "build", "chip_smoke_two_stage")
+    shutil.rmtree(ws, ignore_errors=True)
+    argv = ["--iters1", str(TSW_ITERS[0]), "--iters2", str(TSW_ITERS[1]),
+            "--workspace", ws]
+    with step("two_stage_wall") as r:
+        r["json"] = two_stage_wall.main(argv)
+    first = r["json"]
+    check(list(first) == ["stage1_s", "stage1_iters", "stage2_s",
+                          "stage2_iters", "stage2_it_s",
+                          "teacher_ms_per_frame", "total_min",
+                          "vs_v100_hours", "device"]
+          and first["stage1_iters"] == TSW_ITERS[0]
+          and first["stage2_iters"] == TSW_ITERS[1]
+          and all(math.isfinite(first[k]) and first[k] > 0
+                  for k in ("stage1_s", "stage2_s",
+                            "teacher_ms_per_frame")),
+          f"G two_stage_wall: {first}")
+    with step("two_stage_wall resume") as r:
+        r["json"] = two_stage_wall.main(argv + ["--resume"])
+    check(r["json"]["stage1_s"] == first["stage1_s"]
+          and r["json"]["stage2_s"] == first["stage2_s"],
+          f"G two_stage_wall --resume did not reuse the stages: "
+          f"{r['json']} after {first}")
+    shutil.rmtree(ws, ignore_errors=True)
+
+    rec["seconds"] = time.perf_counter() - t_phase
+    kb = rec["kbench"]["rows"]
+    pg = {p["name"]: p for p in rec["probe_gather"]["probes"]}
+    rec["summary"] = [
+        *(f"probes {n}: exit {rec[n]['rc']}, worst image / depth / "
+          f"weights_sum errors "
+          + " / ".join(f"{max(x['errors'][k] for x in rec[n]['shapes'].values()):.2e}"  # noqa: E501
+                       for k in ("image", "depth", "weights_sum"))
+          + f", {rec[n]['seconds']:.1f} s"
+          for n in ("hw_parity", "hw_parity packed flatten")),
+        "probes probe_gather: " + ", ".join(
+            f"{n} {pg[n].get('m_rows_per_s', math.nan):.0f}" for n in
+            ("xla_take", "pallas_dynloop", "pallas_take_small", "p_blk"))
+        + " M rows/s",
+        "probes kbench (ms): " + ", ".join(
+            f"{k} {v if v is not None else math.nan:.3f}"
+            for k, v in kb.items() if k not in ("rays", "T")),
+        f"probes two_stage_wall {TSW_ITERS}: {first}",
+        f"probes phase G: {rec['seconds']:.1f} s"]
     return rec
 
 

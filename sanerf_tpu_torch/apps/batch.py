@@ -110,7 +110,8 @@ def cmd_eval(args, scenes, kind: str, device=None):
         _run_for_scene(scene, args.data_root, flags, device)
 
 
-def main(argv=None, device=None):
+def build_batch_parser() -> argparse.ArgumentParser:
+    """The batch runner's own flags (`build_parser` is the CLI's)."""
     p = argparse.ArgumentParser()
     p.add_argument("command", choices=["train-rgb", "train-sam", "train-mask",
                                        "eval-rgb", "eval-feat", "eval-mask",
@@ -123,7 +124,11 @@ def main(argv=None, device=None):
     p.add_argument("--iters", type=int, default=20000)
     p.add_argument("--object_name", default="table_whole")
     p.add_argument("--scenes", nargs="*", default=None)
-    args = p.parse_args(argv)
+    return p
+
+
+def main(argv=None, device=None):
+    args = build_batch_parser().parse_args(argv)
 
     scenes = args.scenes or load_scene_list(args.scene_list, args.data_type)
     if args.command == "train-rgb":

@@ -100,11 +100,7 @@ def evaluate_scene(gt_dir: str, result_dir: str, view_names: List[str],
     }
 
 
-def main(argv=None):
-    """python -m sanerf_tpu_torch.apps.evaluation --gt_dir D --result_dir R
-    [--method ours|sa3d|isrf] [--test_view_json J --scene_name S]: the
-    views J names for S, else every `*_masks.npy` of D; prints one JSON
-    line."""
+def build_parser():
     import argparse
 
     p = argparse.ArgumentParser()
@@ -113,7 +109,15 @@ def main(argv=None):
     p.add_argument("--method", default="ours", choices=list(ADAPTERS))
     p.add_argument("--test_view_json", default="scenes_test_view.json")
     p.add_argument("--scene_name", default=None)
-    args = p.parse_args(argv)
+    return p
+
+
+def main(argv=None):
+    """python -m sanerf_tpu_torch.apps.evaluation --gt_dir D --result_dir R
+    [--method ours|sa3d|isrf] [--test_view_json J --scene_name S]: the
+    views J names for S, else every `*_masks.npy` of D; prints one JSON
+    line."""
+    args = build_parser().parse_args(argv)
 
     if os.path.exists(args.test_view_json) and args.scene_name:
         with open(args.test_view_json) as f:

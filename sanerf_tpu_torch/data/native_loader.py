@@ -6,9 +6,11 @@ into build/native/ (listed in .gitignore), named by a hash of the source,
 the flags and the host's CPU model, so an edited source, or another
 host's -march=native, rebuilds. `NativeRaySampler` is a drop-in
 for a dataset's `collate_train`: worker threads draw (image, pixel)
-samples with their own xorshift RNGs, compute the rays with data/rays.py's
-conventions and keep a ring of ready batches. `available()` is False when
-no compiler or no build is there.
+samples, compute the rays with data/rays.py's conventions and keep a ring
+of ready batches. Batch k is drawn from a xorshift RNG seeded from (seed,
+k) alone and the batches come out in their order, so one seed gives the
+same batches with any number of threads. `available()` is False when no
+compiler or no build is there.
 """
 
 from __future__ import annotations

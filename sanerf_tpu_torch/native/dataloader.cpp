@@ -10,11 +10,15 @@
 // Design:
 //  - images preloaded as uint8 planes in host memory; batches are copied
 //    to the device each step.
-//  - worker threads draw (image, pixel) samples with a per-thread xorshift
-//    RNG, compute OpenGL-convention rays (matching data/rays.py exactly:
-//    +0.5 pixel centers, x=(i-cx)/fx, y=-(j-cy)/fy, z=-1, rotate by c2w),
-//    gather rgb, and publish into a bounded ring buffer.
-//  - the consumer (`snl_next`) pops a ready batch or blocks briefly.
+//  - worker threads claim batch numbers in order (0, 1, 2, ...) and draw
+//    batch k's (image, pixel) samples with a xorshift RNG seeded from
+//    (seed, k) alone, so every batch is a function of the seed and its
+//    number, whichever thread draws it; they compute OpenGL-convention
+//    rays (matching data/rays.py exactly: +0.5 pixel centers,
+//    x=(i-cx)/fx, y=-(j-cy)/fy, z=-1, rotate by c2w), gather rgb, and
+//    publish batch k into a bounded ring of prefetch_depth slots.
+//  - the consumer (`snl_next`) takes the batches in their order: it pops
+//    batch k, blocking until that one is ready.
 //
 // C ABI only (ctypes-friendly); no Python.h dependency.
 
@@ -22,8 +26,8 @@
 #include <condition_variable>
 #include <cstdint>
 #include <cstring>
+#include <map>
 #include <mutex>
-#include <queue>
 #include <thread>
 #include <vector>
 
@@ -43,17 +47,24 @@ struct Sampler {
 
   // pipeline
   std::vector<std::thread> workers;
-  std::queue<Batch> ready;
+  std::map<uint64_t, Batch> ready;  // finished batches by their number
+  uint64_t next_claim = 0;           // the number the next worker draws
+  uint64_t next_pop = 0;             // the number the consumer takes next
   std::mutex mu;
   std::condition_variable cv_ready, cv_space;
-  size_t prefetch_depth = 4;
+  uint64_t prefetch_depth = 4;
   std::atomic<bool> stop{false};
-  std::atomic<uint64_t> seed{0};
+  uint64_t seed = 0;
 
   ~Sampler() { shutdown(); }
 
   void shutdown() {
-    stop.store(true);
+    {
+      // under the lock: a worker between its predicate and its wait
+      // cannot miss the wake-up
+      std::lock_guard<std::mutex> lk(mu);
+      stop.store(true);
+    }
     cv_space.notify_all();
     cv_ready.notify_all();
     for (auto& t : workers)
@@ -102,16 +113,36 @@ struct Sampler {
     }
   }
 
-  void worker_loop(uint64_t rng) {
-    if (rng == 0) rng = 0x9E3779B97F4A7C15ull;
-    while (!stop.load()) {
+  static inline uint64_t splitmix64(uint64_t x) {
+    x += 0x9E3779B97F4A7C15ull;
+    x = (x ^ (x >> 30)) * 0xBF58476D1CE4E5B9ull;
+    x = (x ^ (x >> 27)) * 0x94D049BB133111EBull;
+    return x ^ (x >> 31);
+  }
+
+  // batch k's xorshift state: a function of (seed, k) only, never 0
+  uint64_t batch_rng(uint64_t k) const {
+    const uint64_t s = splitmix64(seed ^ splitmix64(k));
+    return s ? s : 0x9E3779B97F4A7C15ull;
+  }
+
+  void worker_loop() {
+    while (true) {
+      uint64_t k;
+      {
+        std::unique_lock<std::mutex> lk(mu);
+        cv_space.wait(lk, [&] {
+          return stop.load() || next_claim < next_pop + prefetch_depth;
+        });
+        if (stop.load()) return;
+        k = next_claim++;
+      }
       Batch b;
+      uint64_t rng = batch_rng(k);
       make_batch(b, rng);
-      std::unique_lock<std::mutex> lk(mu);
-      cv_space.wait(lk, [&] { return stop.load() || ready.size() < prefetch_depth; });
-      if (stop.load()) return;
-      ready.push(std::move(b));
-      cv_ready.notify_one();
+      std::lock_guard<std::mutex> lk(mu);
+      ready.emplace(k, std::move(b));
+      cv_ready.notify_all();
     }
   }
 };
@@ -129,29 +160,33 @@ void* snl_create(const float* poses, const float* intrinsics,
   s->W = W;
   s->num_rays = num_rays;
   s->prefetch_depth = prefetch_depth > 0 ? prefetch_depth : 4;
+  s->seed = seed;
   s->poses.assign(poses, poses + static_cast<size_t>(M) * 16);
   s->intrinsics.assign(intrinsics, intrinsics + static_cast<size_t>(M) * 4);
   s->images.assign(images, images + static_cast<size_t>(M) * H * W * 3);
   if (n_threads <= 0) n_threads = 2;
-  for (int t = 0; t < n_threads; ++t) {
-    uint64_t rng = seed * 0x9E3779B97F4A7C15ull + 0xBF58476D1CE4E5B9ull * (t + 1);
-    s->workers.emplace_back([s, rng] { const_cast<Sampler*>(s)->worker_loop(rng); });
-  }
+  for (int t = 0; t < n_threads; ++t)
+    s->workers.emplace_back([s] { s->worker_loop(); });
   return s;
 }
 
-// Pops one ready batch (blocking). Buffers must hold num_rays*3 floats.
+// Pops the next batch in order (blocking until it is ready). Buffers must
+// hold num_rays*3 floats.
 void snl_next(void* handle, float* rays_o, float* rays_d, float* rgb,
               int* image_index) {
   auto* s = static_cast<Sampler*>(handle);
   Batch b;
   {
     std::unique_lock<std::mutex> lk(s->mu);
-    s->cv_ready.wait(lk, [&] { return s->stop.load() || !s->ready.empty(); });
-    if (s->ready.empty()) return;  // shutting down
-    b = std::move(s->ready.front());
-    s->ready.pop();
-    s->cv_space.notify_one();
+    s->cv_ready.wait(lk, [&] {
+      return s->stop.load() || s->ready.count(s->next_pop) != 0;
+    });
+    auto it = s->ready.find(s->next_pop);
+    if (it == s->ready.end()) return;  // shutting down
+    b = std::move(it->second);
+    s->ready.erase(it);
+    ++s->next_pop;
+    s->cv_space.notify_all();
   }
   std::memcpy(rays_o, b.rays_o.data(), b.rays_o.size() * sizeof(float));
   std::memcpy(rays_d, b.rays_d.data(), b.rays_d.size() * sizeof(float));

@@ -20,8 +20,26 @@ JSON lines, run as `python -m sanerf_tpu_torch.tools.<name>`:
   - serve_finetune:   finetunes the asset at its serving hierarchy;
   - mask_asset:       trains the stage-3 mask head on the frozen asset.
 
+and the probes and the pipeline's wall clock:
+
+  - hw_parity:        `run_rays` on the kernels against the plain path at
+                      four model shapes, with every kernel counter;
+  - probe_gather:     the table-gather probes (the TPU tool's XLA and
+                      Pallas formulations) on `gather_rows` and PyTorch's
+                      own calls, rows/s each;
+  - kbench:           the composite kernel's ablations at the asset's
+                      shape (field chain, grid block, view epilogue);
+  - two_stage_wall:   stage 1 (20k iterations) and stage 2 (5k, the
+                      ViT-H teacher at 1024^2) end to end, one JSON line;
+                      `--resume` across calls;
+  - colmap2nerf:      images or a video -> COLMAP -> transforms.json.
+
+The run recipes of the JAX package's `scripts/*.sh` have their twins in
+`sanerf_tpu_torch/scripts/`.
+
 Every `main(argv=None, *, device=None)` runs on the CUDA card unless the
-caller asks for the CPU (`device="cpu"`, the plain versions). The three
+caller asks for the CPU (`device="cpu"`, the plain versions; colmap2nerf
+runs no model, and takes `--device cpu` from the shell too). The three
 that write the shipped asset by default (pack_asset's `--out`, mask_asset's
 `--out`, serve_finetune's `--pack`) also take `asset=`, the path they read
 and write in place of `assets/serving_student`; nothing here writes
@@ -32,7 +50,8 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Dict, Iterator, Tuple
+import statistics
+from typing import Callable, Dict, Iterator, Tuple
 
 import numpy as np
 import torch
@@ -86,6 +105,31 @@ def epochs(iters: int, per: int = 500) -> Tuple[int, int]:
     """(max_epoch, steps_per_epoch) of the tools' training loops."""
     steps = min(per, iters)
     return max(1, iters // steps), steps
+
+
+def queued_ms(fn: Callable[[], object], reps: int = 21) -> float:
+    """The median CUDA-event time (ms) of `reps` calls of fn, each timed
+    alone, enqueued behind a sleep kernel so that they run back to back:
+    the card's time, not the host's (a wrapper's Python can take as long
+    as a small kernel). One call before, unmeasured."""
+    fn()
+    torch.cuda.synchronize()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    a, b = ev[0]
+    a.record()
+    torch.cuda._sleep(1_000_000)
+    b.record()
+    torch.cuda.synchronize()
+    per_ms = 1_000_000 / max(a.elapsed_time(b), 1e-3)
+    # about 0.3 ms of backlog a call, enough for the host to keep ahead
+    torch.cuda._sleep(int(0.3 * reps * per_ms))
+    for a, b in ev:
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in ev)
 
 
 def jax_report(report: Dict) -> Dict:

@@ -24,8 +24,8 @@ rank 0 alone writes logs, metrics, checkpoints and images; the other ranks
 wait at a barrier before they read a checkpoint, and the replicas are
 checked equal at every save (their digests logged) and restore. The
 native loader draws the global batch as the collate does: the same seed
-on every rank, and one worker thread, so that its batches come in the
-seed's order.
+on every rank, and its batches are a function of the seed and their
+number, whichever of its threads draws them.
 """
 
 from __future__ import annotations
@@ -193,8 +193,7 @@ class Trainer:
                 native = NativeRaySampler(
                     train_dataset.poses, train_dataset.intrinsics,
                     train_dataset.images, num_rays, seed=self.cfg.seed,
-                    prefetch_depth=6,
-                    n_threads=4 if self.mesh is None else 1)
+                    prefetch_depth=6, n_threads=4)
                 sampler = native
             except Exception as e:  # no toolchain: the numpy collate
                 self.log(f"[INFO] native loader unavailable ({e}); using "

@@ -190,7 +190,8 @@ def test_parallel_entry_points_default_to_cuda():
 TOOLS = ("__init__", "pack_asset", "eval_student", "hierarchy_gate",
          "quality_gate", "redistill_asset", "finetune_student",
          "serve_finetune", "mask_asset", "distill_serving",
-         "import_checkpoint")
+         "import_checkpoint", "hw_parity", "probe_gather", "kbench",
+         "two_stage_wall", "colmap2nerf")
 
 
 @pytest.mark.parametrize("name", TOOLS)
@@ -217,6 +218,11 @@ def _tool_argv(tmp_path):
         "distill_serving": [".", "--workspace", ws, "--out_workspace", out],
         "import_checkpoint": [os.path.join(ws, "ngp.pth"), "--workspace",
                               out],
+        "hw_parity": ["--rays", "8"],
+        "probe_gather": [],
+        "kbench": ["--rays", "8", "--t", "4"],
+        "two_stage_wall": ["--quick", "--workspace", out],
+        "colmap2nerf": ["--images", ws, "--out", out],
     }
 
 

@@ -157,3 +157,50 @@ def test_trainer_logs_the_numpy_collate_without_the_loader(tmp_path,
     tr2.train(_Images(), max_epoch=1, steps_per_epoch=1)
     with open(tr2.log_path) as f:
         assert "native loader" not in f.read()
+
+
+@pytest.mark.parametrize("threads", [(1, 1), (2, 2), (1, 2), (4, 1)])
+def test_batches_are_a_function_of_the_seed(scene, threads):
+    """Batch k is a function of (seed, k) whatever thread draws it: two
+    samplers of one seed give the same first batches bit for bit with 1,
+    2 or 4 worker threads (the Trainer runs 4), and another seed other
+    batches."""
+    def first(n_threads, seed=5, n=8):
+        s = native_loader.NativeRaySampler(
+            scene.poses, scene.intrinsics, scene.images, num_rays=96,
+            seed=seed, prefetch_depth=3, n_threads=n_threads)
+        try:
+            return [s.next_batch() for _ in range(n)]
+        finally:
+            s.close()
+
+    a, b = (first(t) for t in threads)
+    for x, y in zip(a, b):
+        assert x["index"] == y["index"]
+        for k in ("rays_o", "rays_d", "images"):
+            np.testing.assert_array_equal(x[k], y[k])
+    other = first(threads[0], seed=6)
+    assert any(not np.array_equal(x["rays_d"], y["rays_d"])
+               for x, y in zip(a, other))
+
+
+def test_draws_stay_uniform(scene):
+    """Over many batches every image is drawn, and the pixels of the
+    batches cover the image evenly (a chi-square over 4 x 4 cells)."""
+    s = native_loader.NativeRaySampler(scene.poses, scene.intrinsics,
+                                       scene.images, num_rays=512, seed=11,
+                                       n_threads=3)
+    try:
+        counts = np.zeros((4, 4))
+        images = set()
+        for _ in range(60):
+            b = s.next_batch()
+            images.add(b["index"])
+            px, py = _pixels(scene, b)
+            np.add.at(counts, (py // 12, px // 12), 1)
+    finally:
+        s.close()
+    assert images == set(range(6))
+    expect = counts.sum() / 16
+    chi2 = float(((counts - expect) ** 2 / expect).sum())
+    assert chi2 < 45.0  # 15 degrees of freedom: p < 1e-4 past 45
